@@ -1,0 +1,89 @@
+"""Python-file config loader with ``_base_`` inheritance.
+
+The port's copy of ``occformer_tpu/config.py`` (without the CLI overrides).
+
+Replaces ``mmcv.Config.fromfile`` used throughout the reference (reference:
+tools/train.py:104-136, projects/configs/_base_/*).  Configs are plain python
+files whose module-level names become config keys; ``_base_`` is a list of
+relative paths merged depth-first (later files and the child override).
+"""
+from __future__ import annotations
+
+import ast
+import copy
+import os
+import types
+from typing import Any, Dict
+
+
+class ConfigDict(dict):
+    """dict with attribute access, recursively wrapping nested dicts."""
+
+    def __getattr__(self, name):
+        try:
+            v = self[name]
+        except KeyError as e:
+            raise AttributeError(name) from e
+        return v
+
+    def __setattr__(self, name, value):
+        self[name] = value
+
+    @staticmethod
+    def wrap(obj):
+        if isinstance(obj, dict) and not isinstance(obj, ConfigDict):
+            return ConfigDict({k: ConfigDict.wrap(v) for k, v in obj.items()})
+        if isinstance(obj, ConfigDict):
+            return ConfigDict({k: ConfigDict.wrap(v) for k, v in obj.items()})
+        if isinstance(obj, (list, tuple)):
+            return type(obj)(ConfigDict.wrap(v) for v in obj)
+        return obj
+
+
+def _exec_pyfile(path: str) -> Dict[str, Any]:
+    with open(path) as f:
+        src = f.read()
+    # validate it parses before exec'ing
+    ast.parse(src, filename=path)
+    mod = types.ModuleType("_occ_cfg")
+    mod.__file__ = path
+    exec(compile(src, path, "exec"), mod.__dict__)
+    return {
+        k: v
+        for k, v in mod.__dict__.items()
+        if not k.startswith("__") and not isinstance(v, types.ModuleType)
+    }
+
+
+def merge_dict(base: Dict, child: Dict) -> Dict:
+    """Recursively merge ``child`` into ``base`` (child wins).
+
+    A child dict with ``_delete_=True`` replaces the base value wholesale,
+    mirroring mmcv semantics.
+    """
+    out = copy.deepcopy(base)
+    for k, v in child.items():
+        if (
+            isinstance(v, dict)
+            and isinstance(out.get(k), dict)
+            and not v.pop("_delete_", False)
+        ):
+            out[k] = merge_dict(out[k], v)
+        else:
+            out[k] = copy.deepcopy(v)
+    return out
+
+
+def load_config(path: str) -> ConfigDict:
+    """Load a python config file, resolving ``_base_`` inheritance."""
+    path = os.path.abspath(path)
+    cfg = _exec_pyfile(path)
+    bases = cfg.pop("_base_", [])
+    if isinstance(bases, str):
+        bases = [bases]
+    merged: Dict[str, Any] = {}
+    for rel in bases:
+        base_cfg = load_config(os.path.join(os.path.dirname(path), rel))
+        merged = merge_dict(merged, base_cfg)
+    merged = merge_dict(merged, cfg)
+    return ConfigDict.wrap(merged)

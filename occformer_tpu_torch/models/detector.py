@@ -1,0 +1,203 @@
+"""OccupancyFormer: the full model, config-driven.
+
+Port of ``occformer_tpu/models/detector.py`` (reference
+detectors/occupancyformer.py:14-237): multi-camera images + geometry ->
+ResNet + SECONDFPN -> LSS lift/splat -> dual-path 3D encoder -> deformable
+pixel decoder -> Mask2Former head.  Inference forward.
+
+``translate_cfg`` maps a component's ``type`` straight to its class and
+picks the keys the port uses.  The shared configs also carry TPU-only knobs
+(``gather_impl``, ``gather_window``, ``gather_s_block``, ``gather_fused``,
+``query_chunks``, ``mxu_readout``, ``gt_label_kernel``, ``pack_windows``,
+``scan_layers``, ``spatial_shard_axis``) and loss settings; it ignores them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+import torch.nn as nn
+from torch.profiler import record_function
+
+from .dcn import DeformConv2d
+from .deform_attn import MultiScaleDeformableAttention3D
+from .layers import MultiheadAttention
+from .lss import ViewTransformerLiftSplatShootVoxel
+from .mask2former_head import Mask2FormerNuscOccHead
+from .occnet import OccupancyEncoder
+from .pixel_decoder import MSDeformAttnPixelDecoder3D
+from .resnet import ResNet
+from .second_fpn import SECONDFPN
+from .swin import WindowMSA
+
+def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
+    """Map an mmdet-style component config onto a port class + kwargs."""
+    t = cfg["type"]
+    if t == "ResNet":
+        if cfg.get("dcn") or cfg.get("style", "pytorch") != "pytorch":
+            raise NotImplementedError("deformable or caffe-style ResNets are not ported yet")
+        return ResNet, dict(depth=cfg.get("depth", 50),
+                            out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))))
+    if t == "SECONDFPN":
+        return SECONDFPN, dict(in_channels=tuple(cfg["in_channels"]),
+                               out_channels=tuple(cfg["out_channels"]),
+                               upsample_strides=tuple(cfg["upsample_strides"]))
+    if t == "ViewTransformerLiftSplatShootVoxel":
+        if cfg.get("use_voxel_net"):
+            raise NotImplementedError("use_voxel_net is not ported yet")
+        return ViewTransformerLiftSplatShootVoxel, dict(
+            grid_config=dict(cfg["grid_config"]), data_config=dict(cfg["data_config"]),
+            numC_input=cfg.get("numC_input", 512), numC_Trans=cfg.get("numC_Trans", 128),
+            downsample=cfg.get("downsample", 16), cam_channels=cfg.get("cam_channels", 27))
+    if t == "OccupancyEncoder":
+        norm = cfg.get("norm_cfg")
+        return OccupancyEncoder, dict(
+            in_channels=cfg.get("in_channels", 128), num_stage=cfg.get("num_stage", 4),
+            block_numbers=tuple(cfg.get("block_numbers", (2, 2, 2, 2))),
+            block_inplanes=tuple(cfg.get("block_inplanes", (128, 256, 512, 1024))),
+            block_strides=tuple(cfg.get("block_strides", (1, 2, 2, 2))),
+            out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
+            num_groups=norm.get("num_groups", 32) if isinstance(norm, dict) else 32)
+    if t == "MSDeformAttnPixelDecoder3D":
+        enc = cfg.get("encoder", {}) or {}
+        layers = enc.get("transformerlayers", {}) or {}
+        attn = layers.get("attn_cfgs", {}) or {}
+        return MSDeformAttnPixelDecoder3D, dict(
+            in_channels=tuple(cfg["in_channels"]),
+            feat_channels=cfg.get("feat_channels", 256),
+            out_channels=cfg.get("out_channels", 256),
+            num_encoder_levels=attn.get("num_levels", 3),
+            num_encoder_layers=enc.get("num_layers", 6),
+            num_heads=attn.get("num_heads", 8), num_points=attn.get("num_points", 4),
+            feedforward_channels=layers.get("feedforward_channels"),
+            pos_num_feats=int(cfg.get("positional_encoding", {}).get("num_feats", 0)) or None,
+            num_groups=(cfg.get("norm_cfg") or {}).get("num_groups", 32))
+    if t in ("Mask2FormerOccHead", "Mask2FormerNuscOccHead"):
+        if not cfg.get("pooling_attn_mask", True):
+            raise NotImplementedError("trilinear attention masks are not ported yet")
+        dec = cfg.get("transformer_decoder", {}) or {}
+        layers = dec.get("transformerlayers", {}) or {}
+        attn = layers.get("attn_cfgs", {}) or {}
+        return Mask2FormerNuscOccHead, dict(
+            feat_channels=cfg["feat_channels"], out_channels=cfg["out_channels"],
+            num_occupancy_classes=cfg.get("num_occupancy_classes", 20),
+            num_queries=cfg.get("num_queries", 100), num_heads=attn.get("num_heads", 8),
+            num_decoder_layers=dec.get("num_layers", 9),
+            feedforward_channels=layers.get("feedforward_channels"),
+            pos_num_feats=int(cfg.get("positional_encoding", {}).get("num_feats", 0)) or None)
+    raise KeyError(f"no translation for component type {t}")
+
+
+class OccupancyFormer(nn.Module):
+    """``forward(batch)`` -> dict of outputs.
+
+    batch: imgs [B, N, H, W, 3], rots/trans/intrins/post_rots/post_trans,
+    bda.  Output: cls_preds [L+1, B, Q, C+1], mask_embeds [L+1, B, Q, Cout],
+    mask_feature [B, X, Y, Z, Cout], depth_prob [B*N, fH, fW, D].
+    """
+
+    def __init__(self, img_backbone: Dict, img_neck: Dict, img_view_transformer: Dict,
+                 img_bev_encoder_backbone: Dict, img_bev_encoder_neck: Dict,
+                 pts_bbox_head: Dict, train_cfg: Optional[Dict] = None,
+                 test_cfg: Optional[Dict] = None, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+
+        def build(cfg):
+            cls, kwargs = translate_cfg(cfg)
+            return cls(dtype=dtype, **kwargs)
+
+        self.img_backbone = build(img_backbone)
+        self.img_neck = build(img_neck)
+        self.img_view_transformer = build(img_view_transformer)
+        self.img_bev_encoder_backbone = build(img_bev_encoder_backbone)
+        self.img_bev_encoder_neck = build(img_bev_encoder_neck)
+        self.pts_bbox_head = build(pts_bbox_head)
+
+    def image_encoder(self, imgs):
+        """[B, N, H, W, 3] -> [B, N, C, fH, fW]."""
+        B, N, H, W, _ = imgs.shape
+        x = imgs.reshape(B * N, H, W, 3).permute(0, 3, 1, 2).to(self.dtype)
+        x = self.img_neck(list(self.img_backbone(x)))
+        return x.reshape(B, N, *x.shape[1:])
+
+    def forward(self, batch):
+        # each stage is a named range for torch.profiler (chip_smoke.py reads them)
+        with record_function("stage:image_encoder"):
+            x = self.image_encoder(batch["imgs"])
+        with record_function("stage:view_transformer"):
+            volume, depth_prob = self.img_view_transformer(
+                x, batch["rots"], batch["trans"], batch["intrins"],
+                batch["post_rots"], batch["post_trans"], batch["bda"])
+        with record_function("stage:occupancy_encoder"):
+            scales = self.img_bev_encoder_backbone(volume.permute(0, 4, 1, 2, 3))
+        with record_function("stage:pixel_decoder"):
+            voxel_feats = self.img_bev_encoder_neck(list(scales))
+        with record_function("stage:head"):
+            cls_preds, mask_embeds, mask_feature = self.pts_bbox_head(voxel_feats)
+        return {"cls_preds": cls_preds, "mask_embeds": mask_embeds,
+                "mask_feature": mask_feature, "depth_prob": depth_prob}
+
+
+@torch.no_grad()
+def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Random init from ``generator``: torch's default uniform bounds for
+    convs, linears and packed projections (+-1/sqrt(fan_in)), unit norms,
+    N(0, 1) embeddings, N(0, 0.02) relative-position tables clipped at 2
+    sigma, zero DCN offset convs (mmcv) and the deformable attention's
+    reference init (zero offset and weight kernels, radial offset bias)."""
+
+    def uniform(w, fan_in):
+        bound = 1.0 / math.sqrt(fan_in)
+        w.uniform_(-bound, bound, generator=generator)
+
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d, nn.Linear)):
+            uniform(m.weight, m.weight[0].numel())
+            if m.bias is not None:
+                uniform(m.bias, m.weight[0].numel())
+        elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            m.reset_parameters()
+        elif isinstance(m, (nn.GroupNorm, nn.LayerNorm)):
+            m.weight.fill_(1.0)
+            m.bias.fill_(0.0)
+        elif isinstance(m, nn.Embedding):
+            m.weight.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, WindowMSA):
+            m.relative_position_bias_table.normal_(0.0, 0.02, generator=generator)
+            m.relative_position_bias_table.clamp_(-0.04, 0.04)
+        elif isinstance(m, MultiheadAttention):
+            uniform(m.in_proj_weight, m.in_proj_weight.shape[1])
+            m.in_proj_bias.zero_()
+    # after the loop, which has given these modules' children generic values
+    for m in model.modules():
+        if isinstance(m, DeformConv2d):
+            uniform(m.weight, m.weight[0].numel())
+            m.conv_offset.weight.zero_()
+            m.conv_offset.bias.zero_()
+        elif isinstance(m, MultiScaleDeformableAttention3D):
+            m.reset_offsets()
+    return model
+
+
+def build_model(model_cfg: Dict, device: Union[str, torch.device, None] = None,
+                dtype: torch.dtype = torch.float32, seed: int = 0) -> OccupancyFormer:
+    """The port model of a config's ``model`` dict, in eval mode, on ``device``.
+
+    ``device`` is ``cuda`` by default, and a CUDA device without a card
+    raises: nothing falls back to the CPU unless the caller passes
+    ``device="cpu"``.  Weights are random, from a ``torch.Generator`` seeded
+    with ``seed``; ``device="meta"`` builds shapes only.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the port's plain PyTorch path on the CPU")
+    cfg = {k: v for k, v in model_cfg.items() if k != "type"}
+    with dev:
+        model = OccupancyFormer(**cfg, dtype=dtype)
+    model = model.to(dev)  # buffers made from numpy constants start on the host
+    if dev.type != "meta":
+        init_weights(model, torch.Generator(device=dev).manual_seed(seed))
+    return model.eval()

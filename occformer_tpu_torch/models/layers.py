@@ -1,0 +1,132 @@
+"""Common building blocks of the port.
+
+Port of ``occformer_tpu/models/layers.py``.  Convolutions, norms and linear
+layers are torch's own (``nn.Conv2d``, ``nn.BatchNorm2d``, ...), created with
+the reference's eps values: BatchNorm 1e-5 (flax ``momentum=0.9`` is torch
+``momentum=0.1``), GroupNorm and LayerNorm 1e-5.  What is left here are the
+composite bricks, named as the reference's checkpoints name them:
+
+* ``FFN``: mmcv's ``layers.0.0`` (fc1) / ``layers.1`` (fc2);
+* ``MultiheadAttention``: torch's packed ``in_proj_weight`` / ``in_proj_bias``
+  and ``out_proj``, computed as plain matmuls and a float32 softmax;
+* ``Mlp``, ``SELayer`` and ``BasicBlock2D`` of the DepthNet.
+
+Every module takes a ``dtype`` for its parameters, as the flax modules take a
+compute dtype; float32 islands cast back to it.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+
+def activation(name: str) -> nn.Module:
+    # the JAX package's FFN default is flax ``nn.gelu``, the tanh approximation
+    if name == "gelu":
+        return nn.GELU(approximate="tanh")
+    if name == "relu":
+        return nn.ReLU()
+    raise ValueError(f"unknown activation {name}")
+
+
+class FFN(nn.Module):
+    """fc1 -> act -> fc2, with an optional identity add (mmcv FFN)."""
+
+    def __init__(self, embed_dims: int, feedforward_channels: int, act: str = "gelu",
+                 add_identity: bool = True, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.layers = nn.Sequential(
+            nn.Sequential(nn.Linear(embed_dims, feedforward_channels, dtype=dtype),
+                          activation(act)),
+            nn.Linear(feedforward_channels, embed_dims, dtype=dtype),
+        )
+        self.add_identity = add_identity
+
+    def forward(self, x, identity: Optional[torch.Tensor] = None):
+        y = self.layers(x)
+        if not self.add_identity:
+            return y
+        return y + (x if identity is None else identity)
+
+
+class MultiheadAttention(nn.Module):
+    """Batch-first dot-product MHA with torch's packed in-projection.
+
+    ``attn_mask`` [B, 1 or H, Q, K] bool, True = masked out (torch
+    convention).  The softmax runs in float32.
+    """
+
+    def __init__(self, embed_dims: int, num_heads: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.embed_dims = embed_dims
+        self.num_heads = num_heads
+        self.in_proj_weight = nn.Parameter(torch.empty(3 * embed_dims, embed_dims, dtype=dtype))
+        self.in_proj_bias = nn.Parameter(torch.zeros(3 * embed_dims, dtype=dtype))
+        self.out_proj = nn.Linear(embed_dims, embed_dims, dtype=dtype)
+        nn.init.xavier_uniform_(self.in_proj_weight)
+
+    def forward(self, query, key, value, attn_mask=None):
+        B, Q, C = query.shape
+        H = self.num_heads
+        hd = C // H
+        wq, wk, wv = self.in_proj_weight.chunk(3)
+        bq, bk, bv = self.in_proj_bias.chunk(3)
+        q = F.linear(query, wq, bq).view(B, Q, H, hd).transpose(1, 2)
+        k = F.linear(key, wk, bk).view(B, -1, H, hd).transpose(1, 2)
+        v = F.linear(value, wv, bv).view(B, -1, H, hd).transpose(1, 2)
+        logits = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(hd)
+        logits = logits.float()
+        if attn_mask is not None:
+            logits = logits.masked_fill(attn_mask, torch.finfo(torch.float32).min)
+        attn = torch.softmax(logits, dim=-1).to(v.dtype)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(B, Q, C)
+        return self.out_proj(out)
+
+
+class Mlp(nn.Module):
+    """fc -> relu -> fc (reference ViewTransformerLSSBEVDepth.py:410-432)."""
+
+    def __init__(self, in_features: int, hidden_features: int, out_features: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = nn.Linear(in_features, hidden_features, dtype=dtype)
+        self.fc2 = nn.Linear(hidden_features, out_features, dtype=dtype)
+
+    def forward(self, x):
+        return self.fc2(F.relu(self.fc1(x)))
+
+
+class SELayer(nn.Module):
+    """``x * sigmoid(expand(relu(reduce(x_se))))`` with 1x1 convs
+    (reference ViewTransformerLSSBEVDepth.py:435-447).  x [B, C, H, W],
+    x_se [B, C]."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv_reduce = nn.Conv2d(channels, channels, 1, bias=True, dtype=dtype)
+        self.conv_expand = nn.Conv2d(channels, channels, 1, bias=True, dtype=dtype)
+
+    def forward(self, x, x_se):
+        g = self.conv_expand(F.relu(self.conv_reduce(x_se[:, :, None, None])))
+        return x * torch.sigmoid(g)
+
+
+class BasicBlock2D(nn.Module):
+    """conv3x3-BN-relu x 2 + skip (the DepthNet's mmdet BasicBlock)."""
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.conv1 = nn.Conv2d(channels, channels, 3, padding=1, bias=False, dtype=dtype)
+        self.bn1 = nn.BatchNorm2d(channels, dtype=dtype)
+        self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False, dtype=dtype)
+        self.bn2 = nn.BatchNorm2d(channels, dtype=dtype)
+
+    def forward(self, x):
+        y = F.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return F.relu(y + x)

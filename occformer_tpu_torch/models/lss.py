@@ -1,0 +1,59 @@
+"""Lift-Splat-Shoot voxel view transformer (inference forward).
+
+Port of ``occformer_tpu/models/lss.py:ViewTransformerLiftSplatShootVoxel``
+(reference ViewTransformerLSSVoxel.py:12-121): DepthNet -> float32 depth
+softmax -> frustum geometry -> fused depth x context scatter into a
+``[B, X, Y, Z, C]`` volume.  The reference's ``dx/bx/nx`` grid constants are
+registered as buffers so its checkpoints load unchanged; the forward reads
+float32 copies of them, whatever dtype the module was cast to.
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from ..ops.geometry import compute_voxel_coords, create_frustum, gen_dx_bx, get_geometry
+from ..ops.scatter import voxel_scatter_lifted
+from .depthnet import DepthNet, get_mlp_input
+
+
+class ViewTransformerLiftSplatShootVoxel(nn.Module):
+    """forward(x [B, N, Cin, fH, fW], rots, trans, intrins, post_rots,
+    post_trans, bda) -> (volume [B, X, Y, Z, C], depth_prob [B*N, fH, fW, D])."""
+
+    def __init__(self, grid_config: Dict, data_config: Dict, numC_input: int = 512,
+                 numC_Trans: int = 128, downsample: int = 16, cam_channels: int = 27,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.grid_config = dict(grid_config)
+        self.numC_Trans = numC_Trans
+        self._dx, self._bx, self._nx = gen_dx_bx(
+            grid_config["xbound"], grid_config["ybound"], grid_config["zbound"])
+        self.register_buffer("dx", torch.from_numpy(self._dx.copy()))
+        self.register_buffer("bx", torch.from_numpy(self._bx.copy()))
+        self.register_buffer("nx", torch.from_numpy(self._nx.astype(np.float32)))
+        self._frustum = create_frustum(grid_config, tuple(data_config["input_size"]),
+                                       downsample)
+        self.D = self._frustum.shape[0]
+        self.depth_net = DepthNet(numC_input, numC_Trans, self.D,
+                                  cam_channels=cam_channels, dtype=dtype)
+
+    def forward(self, x, rots, trans, intrins, post_rots, post_trans, bda):
+        B, N, Cin, fH, fW = x.shape
+        mlp_input = get_mlp_input(rots, trans, intrins, post_rots, post_trans, bda)
+        depth_digit, ctx = self.depth_net(x.reshape(B * N, Cin, fH, fW),
+                                          mlp_input.reshape(B * N, -1))
+        # float32 island for the depth softmax (reference @force_fp32)
+        depth_prob = torch.softmax(depth_digit.float(), dim=1)  # [B*N, D, fH, fW]
+
+        frustum = torch.from_numpy(self._frustum).to(x.device)
+        geom = get_geometry(frustum, rots, trans, intrins, post_rots, post_trans, bda)
+        coords, valid = compute_voxel_coords(geom, self._dx, self._bx, self._nx)
+
+        depth_bn = depth_prob.reshape(B, N, self.D, fH, fW).to(x.dtype)
+        ctx = ctx.reshape(B, N, self.numC_Trans, fH, fW).permute(0, 1, 3, 4, 2)
+        volume = voxel_scatter_lifted(depth_bn, ctx, coords, valid, self._nx)
+        return volume, depth_prob.permute(0, 2, 3, 1)

@@ -1,0 +1,77 @@
+"""The port stands alone: it imports nothing of JAX or of the JAX package,
+and its entry points do not fall back to the CPU on their own."""
+import ast
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "occformer_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "occformer_tpu")
+
+
+def _port_sources():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(PKG):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    return sorted(paths)
+
+
+def _forbidden(module: str) -> bool:
+    top = module.split(".")[0]
+    return top in FORBIDDEN
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    offenders = []
+    sources = _port_sources()
+    assert len(sources) > 20
+    for path in sources:
+        with open(path) as f:
+            tree = ast.parse(f.read(), filename=path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module or ""]
+            else:
+                continue
+            offenders += [f"{os.path.relpath(path, REPO)}: {n}" for n in names
+                          if _forbidden(n)]
+    assert not offenders, offenders
+
+
+def test_package_and_tiny_model_load_without_jax():
+    code = (
+        "import sys, numpy as np, torch\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import tiny_cfg\n"
+        "import occformer_tpu_torch.engine.eval, occformer_tpu_torch.engine.convert_weights\n"
+        "import occformer_tpu_torch.data.synthetic, occformer_tpu_torch.config\n"
+        "from occformer_tpu_torch.models.detector import build_model\n"
+        "torch.set_num_threads(1)\n"
+        "m = build_model(tiny_cfg.model_cfg(), device='cpu')\n"
+        "b = {k: torch.from_numpy(v) for k, v in tiny_cfg.make_batch(np.random.RandomState(0)).items()}\n"
+        "with torch.no_grad():\n"
+        "    m(b)\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in %r)\n"
+        "print('LOADED', bad)\n" % (FORBIDDEN,)
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert "LOADED []" in out.stdout, out.stdout[-2000:]
+
+
+def test_build_model_without_device_needs_a_gpu():
+    import tiny_cfg
+
+    from occformer_tpu_torch.models.detector import build_model
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(tiny_cfg.model_cfg())

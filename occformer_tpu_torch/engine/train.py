@@ -1,0 +1,158 @@
+"""Training step of the flagship.
+
+Port of ``occformer_tpu/engine/train.py`` (``build_loss_cfg``,
+``build_train_step`` with ``accum_steps=1``, the train-time point mIoU).  One
+step: forward (BatchNorm batch statistics, drop-path and gradient
+checkpointing when the model is in train mode; under ``torch.autocast`` when
+a compute dtype is given, with float32 parameters), the deep-supervision
+Mask2Former loss with Hungarian matching plus the LSS depth loss, backward,
+and the optimizer (``engine/optim.py``).  Every random draw of the step, the
+drop-path masks and the loss's point draws, comes from the ``torch.Generator``
+the caller passes, so the same generator state gives the same step.  Each
+phase is a ``torch.profiler`` range (``stage:forward``, ``stage:loss``,
+``stage:backward``, ``stage:optimizer``).
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Callable, Dict, Optional, Union
+
+import torch
+from torch.profiler import record_function
+
+from ..losses.mask2former_loss import MaskLossConfig, make_loss_draws, mask2former_loss
+from ..models.layers import drop_path_generator
+from ..models.lss import depth_bce_loss
+from ..models.mask2former_head import format_results, mask_logits_from_embeds
+from ..ops.sampling import grid_sample_3d
+from .eval import to_device_batch
+from .optim import TrainOptimizer
+
+
+def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
+    """The loss config of a head config and its ``train_cfg.pts`` (JAX
+    ``build_loss_cfg``).  nuScenes heads keep the config's class weights and
+    sample at LiDAR points with ``align_corners=False``; the JAX package's
+    TPU knobs (``gt_chunks``, ``point_chunks``, ``feature_readout``,
+    ``shared_candidate_readout``, ``mxu_readout``, ``gt_label_kernel``) are
+    not read: the port always runs the feature readout with shared
+    candidates, which they do not change numerically.  The KITTI branch
+    (frequency sampling and class weights) is not ported yet."""
+    head_cfg = dict(head_cfg)
+    train_cfg = dict(train_cfg or {})
+    num_classes = head_cfg.get("num_occupancy_classes", 20)
+    if not head_cfg.get("type", "").startswith("Mask2FormerNusc"):
+        raise NotImplementedError("only the nuScenes (LiDAR-point) heads are ported")
+    if head_cfg.get("type") == "Mask2FormerNuscPanopticOccHead":
+        raise NotImplementedError("the panoptic loss is not ported yet")
+    loss_cls = dict(head_cfg.get("loss_cls") or {})
+    assigner = dict(train_cfg.get("assigner") or {})
+    return MaskLossConfig(
+        num_classes=num_classes,
+        num_points=train_cfg.get("num_points", 12544),
+        oversample_ratio=train_cfg.get("oversample_ratio", 3.0),
+        importance_sample_ratio=train_cfg.get("importance_sample_ratio", 0.75),
+        cls_loss_weight=loss_cls.get("loss_weight", 2.0),
+        mask_loss_weight=(head_cfg.get("loss_mask") or {}).get("loss_weight", 5.0),
+        dice_loss_weight=(head_cfg.get("loss_dice") or {}).get("loss_weight", 5.0),
+        cls_cost_weight=(assigner.get("cls_cost") or {}).get("weight", 2.0),
+        mask_cost_weight=(assigner.get("mask_cost") or {}).get("weight", 5.0),
+        dice_cost_weight=(assigner.get("dice_cost") or {}).get("weight", 5.0),
+        dice_eps=(head_cfg.get("loss_dice") or {}).get("eps", 1.0),
+        class_weight=tuple(loss_cls.get("class_weight", (1.0,) * num_classes + (0.1,))),
+        match_num_points=train_cfg.get("match_num_points"),
+    )
+
+
+@torch.no_grad()
+def train_point_miou(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
+                     num_classes: int) -> torch.Tensor:
+    """Train-time LiDAR-seg mean IoU on the batch (reference
+    mask2former_nusc_occ.py:524-540, JAX ``_train_point_miou_device``):
+    final-layer voxel scores read out at the LiDAR points (align_corners,
+    border), argmax over the foreground classes, IoU of classes 1..n-1,
+    NaN-mean.  A metric only: it is not summed into the loss."""
+    voxels = format_results(out["cls_preds"][-1],
+                            mask_logits_from_embeds(out["mask_embeds"][-1],
+                                                    out["mask_feature"]))
+    logits = grid_sample_3d(voxels, batch["lidar_xyz"].float() * 2.0 - 1.0,
+                            align_corners=True, padding_mode="border")
+    pred = logits[..., 1:].argmax(dim=-1) + 1
+    label = batch["lidar_label"].long()
+    n = num_classes
+    ok = batch["lidar_valid"].bool() & (label > 0) & (label < n)
+    idx = torch.where(ok, label * n + pred, torch.full_like(label, n * n))
+    cm = torch.bincount(idx.reshape(-1), minlength=n * n + 1)[:-1]
+    cm = cm.reshape(n, n)[1:, 1:].float()
+    tp = cm.diagonal()
+    denom = cm.sum(0) + cm.sum(1) - tp
+    iou = torch.where(denom > 0, tp / denom.clamp(min=1), torch.full_like(tp, float("nan")))
+    return torch.nanmean(iou)
+
+
+def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
+                     loss_cfg: MaskLossConfig,
+                     device: Union[str, torch.device, None] = None,
+                     compute_dtype: Optional[torch.dtype] = None) -> Callable:
+    """Returns ``train_step(batch, generator, draws=None) -> metrics``.
+
+    ``batch``: numpy arrays or tensors, the model's inputs plus ``gt_occ``
+    [B, X, Y, Z], ``gt_depth`` [B, N, H, W], ``lidar_xyz`` [B, P, 3] in
+    [0, 1], ``lidar_valid`` [B, P] and, for the point mIoU, ``lidar_label``.
+    ``metrics``: every loss (``d{i}.loss_*``, ``loss_*``, ``loss_depth``),
+    ``total_loss`` (the sum of the keys holding ``loss``), ``grad_norm``,
+    ``unassigned_gt`` and ``point_mean_iou``, as device scalars.  ``draws``
+    replaces the loss's draws (``make_loss_draws``) with given ones, e.g.
+    the JAX package's in a parity test.
+
+    The step runs on ``cuda`` unless the caller passes ``device="cpu"``; the
+    model must already be there.  It does not change the model's mode: call
+    ``model.train()`` first for the train-mode forward.  ``compute_dtype``
+    (e.g. ``torch.bfloat16``) runs the forward under ``torch.autocast``; the
+    losses always run in float32.
+    """
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
+                           "the train step's plain PyTorch path on the CPU")
+    params = list(model.parameters())
+    if any(p.device.type != dev.type for p in params):
+        raise ValueError(f"the model's parameters must lie on {dev}")
+    vt = model.img_view_transformer
+
+    def autocast():
+        if compute_dtype is None:
+            return contextlib.nullcontext()
+        return torch.autocast(dev.type, dtype=compute_dtype)
+
+    def train_step(batch: Dict, generator: torch.Generator,
+                   draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
+        batch = to_device_batch(batch, dev)
+        with record_function("stage:forward"), autocast(), drop_path_generator(generator):
+            out = model(batch)
+        with record_function("stage:loss"):
+            L = out["cls_preds"].shape[0]
+            if draws is None:
+                draws = make_loss_draws(generator, loss_cfg, batch["lidar_valid"], L)
+            losses = mask2former_loss(
+                out["cls_preds"], out["mask_embeds"], out["mask_feature"],
+                batch["gt_occ"], loss_cfg, batch["lidar_xyz"], batch["lidar_valid"],
+                draws)
+            losses["loss_depth"] = depth_bce_loss(
+                batch["gt_depth"], out["depth_prob"], vt.grid_config, vt.downsample,
+                vt.loss_depth_weight)
+            total = sum(v for k, v in losses.items() if "loss" in k)
+        with record_function("stage:backward"):
+            optimizer.zero_grad()
+            total.backward()
+        with record_function("stage:optimizer"):
+            grad_norm = optimizer.step()
+        metrics = {k: v.detach() for k, v in losses.items()}
+        metrics["total_loss"] = total.detach()
+        metrics["grad_norm"] = grad_norm
+        if "lidar_label" in batch:
+            metrics["point_mean_iou"] = train_point_miou(
+                {k: v.detach() for k, v in out.items()}, batch, loss_cfg.num_classes)
+        return metrics
+
+    return train_step

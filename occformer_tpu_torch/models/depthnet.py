@@ -14,7 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .dcn import DeformConv2d
-from .layers import BasicBlock2D, Mlp, SELayer
+from .layers import BasicBlock2D, BatchNorm1d, BatchNorm2d, Mlp, SELayer
 
 
 class _ASPPModule(nn.Module):
@@ -69,8 +69,8 @@ class DepthNet(nn.Module):
         super().__init__()
         self.reduce_conv = nn.Sequential(
             nn.Conv2d(mid_channels, mid_channels, 3, padding=1, bias=True, dtype=dtype),
-            nn.BatchNorm2d(mid_channels, dtype=dtype), nn.ReLU())
-        self.bn = nn.BatchNorm1d(cam_channels, dtype=dtype)
+            BatchNorm2d(mid_channels, dtype=dtype), nn.ReLU())
+        self.bn = BatchNorm1d(cam_channels, dtype=dtype)
         self.depth_mlp = Mlp(cam_channels, mid_channels, mid_channels, dtype=dtype)
         self.depth_se = SELayer(mid_channels, dtype=dtype)
         self.context_mlp = Mlp(cam_channels, mid_channels, mid_channels, dtype=dtype)
@@ -78,17 +78,21 @@ class DepthNet(nn.Module):
         self.context_conv = nn.Conv2d(mid_channels, context_channels, 1, dtype=dtype)
         self.depth_conv = nn.Sequential(
             *(BasicBlock2D(mid_channels, dtype=dtype) for _ in range(3)),
-            ASPP2D(mid_channels, lambda c: nn.BatchNorm2d(c, dtype=dtype), dtype=dtype),
+            ASPP2D(mid_channels, lambda c: BatchNorm2d(c, dtype=dtype), dtype=dtype),
             # mmcv DeformConv2d (v1, type='DCN', groups=4) has no bias
             DeformConv2d(mid_channels, mid_channels, 3, padding=1, groups=4, dtype=dtype),
             nn.Conv2d(mid_channels, depth_channels, 1, dtype=dtype))
 
     def forward(self, x, mlp_input):
-        # BatchNorm1d over the camera embedding, kept in float32 (reference :469)
+        # BatchNorm1d over the camera embedding, kept in float32 (reference
+        # :469); in train mode over the batch's B * N cameras
         bn = self.bn
-        mlp_input = F.batch_norm(
-            mlp_input.float(), bn.running_mean.float(), bn.running_var.float(),
-            bn.weight.float(), bn.bias.float(), False, 0.0, bn.eps)
+        if bn.training:
+            mlp_input = bn(mlp_input.float())
+        else:
+            mlp_input = F.batch_norm(
+                mlp_input.float(), bn.running_mean.float(), bn.running_var.float(),
+                bn.weight.float(), bn.bias.float(), False, 0.0, bn.eps)
         mlp_input = mlp_input.to(x.dtype)
         y = self.reduce_conv(x)
         ctx = self.context_conv(self.context_se(y, self.context_mlp(mlp_input)))

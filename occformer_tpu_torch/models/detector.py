@@ -3,7 +3,10 @@
 Port of ``occformer_tpu/models/detector.py`` (reference
 detectors/occupancyformer.py:14-237): multi-camera images + geometry ->
 ResNet + SECONDFPN -> LSS lift/splat -> dual-path 3D encoder -> deformable
-pixel decoder -> Mask2Former head.  Inference forward.
+pixel decoder -> Mask2Former head.  ``model.eval()`` is the serving forward;
+``model.train()`` turns on BatchNorm batch statistics, drop-path in the 3D
+encoder, gradient checkpointing (``with_cp``) and the frozen image stem
+(``frozen_stages``), as the JAX package's ``train=True`` does.
 
 ``translate_cfg`` maps a component's ``type`` straight to its class and
 picks the keys the port uses.  The shared configs also carry TPU-only knobs
@@ -38,7 +41,9 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
         if cfg.get("dcn") or cfg.get("style", "pytorch") != "pytorch":
             raise NotImplementedError("deformable or caffe-style ResNets are not ported yet")
         return ResNet, dict(depth=cfg.get("depth", 50),
-                            out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))))
+                            out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
+                            frozen_stages=cfg.get("frozen_stages", -1),
+                            norm_eval=cfg.get("norm_eval", False))
     if t == "SECONDFPN":
         return SECONDFPN, dict(in_channels=tuple(cfg["in_channels"]),
                                out_channels=tuple(cfg["out_channels"]),
@@ -49,7 +54,8 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
         return ViewTransformerLiftSplatShootVoxel, dict(
             grid_config=dict(cfg["grid_config"]), data_config=dict(cfg["data_config"]),
             numC_input=cfg.get("numC_input", 512), numC_Trans=cfg.get("numC_Trans", 128),
-            downsample=cfg.get("downsample", 16), cam_channels=cfg.get("cam_channels", 27))
+            downsample=cfg.get("downsample", 16), cam_channels=cfg.get("cam_channels", 27),
+            loss_depth_weight=cfg.get("loss_depth_weight", 1.0))
     if t == "OccupancyEncoder":
         norm = cfg.get("norm_cfg")
         return OccupancyEncoder, dict(
@@ -58,7 +64,8 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
             block_inplanes=tuple(cfg.get("block_inplanes", (128, 256, 512, 1024))),
             block_strides=tuple(cfg.get("block_strides", (1, 2, 2, 2))),
             out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
-            num_groups=norm.get("num_groups", 32) if isinstance(norm, dict) else 32)
+            num_groups=norm.get("num_groups", 32) if isinstance(norm, dict) else 32,
+            with_cp=cfg.get("with_cp", True))
     if t == "MSDeformAttnPixelDecoder3D":
         enc = cfg.get("encoder", {}) or {}
         layers = enc.get("transformerlayers", {}) or {}
@@ -188,7 +195,11 @@ def build_model(model_cfg: Dict, device: Union[str, torch.device, None] = None,
     ``device`` is ``cuda`` by default, and a CUDA device without a card
     raises: nothing falls back to the CPU unless the caller passes
     ``device="cpu"``.  Weights are random, from a ``torch.Generator`` seeded
-    with ``seed``; ``device="meta"`` builds shapes only.
+    with ``seed``; ``device="meta"`` builds shapes only.  Serving builds the
+    parameters in the compute dtype (bfloat16); training builds them in
+    float32 and runs the forward under ``torch.autocast`` (flax's
+    ``param_dtype`` float32 with a bfloat16 ``dtype``), see
+    ``engine/train.py``.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -9,19 +9,113 @@ composite bricks, named as the reference's checkpoints name them:
 * ``FFN``: mmcv's ``layers.0.0`` (fc1) / ``layers.1`` (fc2);
 * ``MultiheadAttention``: torch's packed ``in_proj_weight`` / ``in_proj_bias``
   and ``out_proj``, computed as plain matmuls and a float32 softmax;
-* ``Mlp``, ``SELayer`` and ``BasicBlock2D`` of the DepthNet.
+* ``Mlp``, ``SELayer`` and ``BasicBlock2D`` of the DepthNet;
+* the train-mode pieces: ``BatchNorm1d`` / ``BatchNorm2d`` with flax's
+  running-statistics update, ``DropPath`` drawing from an explicit
+  generator (``drop_path_generator``), and ``checkpoint``, gradient
+  checkpointing that replays those draws when it recomputes.
 
 Every module takes a ``dtype`` for its parameters, as the flax modules take a
 compute dtype; float32 islands cast back to it.
 """
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import Optional
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+import torch.utils.checkpoint
+
+
+class _FlaxBatchNorm:
+    """Train mode as flax ``nn.BatchNorm``: normalize with the batch's biased
+    statistics and move the running mean and variance toward them by
+    ``momentum`` (flax ``momentum=0.9`` is torch 0.1).  Torch's own update
+    uses the unbiased variance, n / (n - 1) times larger: over the DepthNet's
+    camera batch of 6 rows that is 20%.  Eval mode is torch's."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
+            self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+
+class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+_DROP_PATH_GENERATOR: Optional[torch.Generator] = None
+
+
+@contextlib.contextmanager
+def drop_path_generator(generator: Optional[torch.Generator]):
+    """Within this context every ``DropPath`` in train mode draws its keep
+    masks from ``generator`` (outside it, from torch's default generator)."""
+    global _DROP_PATH_GENERATOR
+    prev, _DROP_PATH_GENERATOR = _DROP_PATH_GENERATOR, generator
+    try:
+        yield
+    finally:
+        _DROP_PATH_GENERATOR = prev
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth (timm; JAX ``layers.py:216-231``): in
+    train mode each entry of the leading axis is kept with probability
+    1 - rate and scaled by 1 / (1 - rate), else zeroed."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        g = _DROP_PATH_GENERATOR
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        u = torch.rand(shape, generator=g, device=g.device if g is not None else x.device)
+        mask = u.to(x.device) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def checkpoint(fn, *args):
+    """``torch.utils.checkpoint`` (non-reentrant) of ``fn(*args)`` that
+    replays the ``drop_path_generator`` draws when the backward recomputes
+    ``fn``: the recomputation starts from the generator state the first run
+    started from, and the generator is put back afterwards, so the masks and
+    the rest of the step's draws are those of a run without checkpointing."""
+    g = _DROP_PATH_GENERATOR
+    if g is None:
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+    start = g.get_state()
+    first = [True]
+
+    def run(*a):
+        if first[0]:
+            first[0] = False
+            return fn(*a)
+        live = g.get_state()
+        g.set_state(start)
+        with drop_path_generator(g):
+            out = fn(*a)
+        g.set_state(live)
+        return out
+
+    return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 
 
 def activation(name: str) -> nn.Module:
@@ -122,9 +216,9 @@ class BasicBlock2D(nn.Module):
     def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.conv1 = nn.Conv2d(channels, channels, 3, padding=1, bias=False, dtype=dtype)
-        self.bn1 = nn.BatchNorm2d(channels, dtype=dtype)
+        self.bn1 = BatchNorm2d(channels, dtype=dtype)
         self.conv2 = nn.Conv2d(channels, channels, 3, padding=1, bias=False, dtype=dtype)
-        self.bn2 = nn.BatchNorm2d(channels, dtype=dtype)
+        self.bn2 = BatchNorm2d(channels, dtype=dtype)
 
     def forward(self, x):
         y = F.relu(self.bn1(self.conv1(x)))

@@ -1,9 +1,10 @@
-"""Lift-Splat-Shoot voxel view transformer (inference forward).
+"""Lift-Splat-Shoot voxel view transformer and its depth loss.
 
 Port of ``occformer_tpu/models/lss.py:ViewTransformerLiftSplatShootVoxel``
 (reference ViewTransformerLSSVoxel.py:12-121): DepthNet -> float32 depth
 softmax -> frustum geometry -> fused depth x context scatter into a
-``[B, X, Y, Z, C]`` volume.  The reference's ``dx/bx/nx`` grid constants are
+``[B, X, Y, Z, C]`` volume; and the depth supervision
+(``downsampled_gt_depth``, ``depth_bce_loss``, JAX ``:91-123``).  The reference's ``dx/bx/nx`` grid constants are
 registered as buffers so its checkpoints load unchanged; the forward reads
 float32 copies of them, whatever dtype the module was cast to.
 """
@@ -14,10 +15,43 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.geometry import compute_voxel_coords, create_frustum, gen_dx_bx, get_geometry
 from ..ops.scatter import voxel_scatter_lifted
 from .depthnet import DepthNet, get_mlp_input
+
+
+def downsampled_gt_depth(gt_depths: torch.Tensor, grid_config: Dict, downsample: int,
+                         D: int) -> torch.Tensor:
+    """[B, N, H, W] sparse depth -> one-hot [B*N*fH*fW, D] float32: the
+    nearest non-zero return of each downsample cell (zeros are no return),
+    binned by ``dbound``; cells with no return or outside the bins get an
+    all-zero row (reference ViewTransformerLSSVoxel.py:27-52)."""
+    B, N, H, W = gt_depths.shape
+    ds = downsample
+    g = gt_depths.float().reshape(B * N, H // ds, ds, W // ds, ds)
+    g = g.permute(0, 1, 3, 2, 4).reshape(-1, ds * ds)
+    g = torch.where(g == 0.0, torch.full_like(g, 1e5), g).min(dim=-1).values
+    d0, _, dstep = grid_config["dbound"]
+    g = (g - (d0 - dstep / 2.0)) / dstep
+    g = torch.where((g < D + 1) & (g >= 0.0), g, torch.zeros_like(g))
+    return F.one_hot(g.long(), D + 1)[:, 1:].float()
+
+
+def depth_bce_loss(gt_depths: torch.Tensor, depth_prob: torch.Tensor, grid_config: Dict,
+                   downsample: int, weight: float = 1.0) -> torch.Tensor:
+    """BCE depth loss over the cells with a target, float32 (reference
+    ViewTransformerLSSVoxel.py:54-75); ``depth_prob`` [..., D]."""
+    D = depth_prob.shape[-1]
+    labels = downsampled_gt_depth(gt_depths, grid_config, downsample, D)
+    preds = depth_prob.reshape(-1, D).float()
+    fg = (labels.max(dim=1).values > 0.0).float()
+    eps = 1e-12
+    bce = -(labels * torch.log(preds.clamp(min=eps))
+            + (1.0 - labels) * torch.log((1.0 - preds).clamp(min=eps)))
+    per_cell = bce.clamp(0.0, 100.0).sum(dim=1) * fg
+    return weight * per_cell.sum() / fg.sum().clamp(min=1.0)
 
 
 class ViewTransformerLiftSplatShootVoxel(nn.Module):
@@ -26,9 +60,11 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
 
     def __init__(self, grid_config: Dict, data_config: Dict, numC_input: int = 512,
                  numC_Trans: int = 128, downsample: int = 16, cam_channels: int = 27,
-                 dtype: torch.dtype = torch.float32):
+                 loss_depth_weight: float = 1.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.grid_config = dict(grid_config)
+        self.downsample = downsample
+        self.loss_depth_weight = loss_depth_weight
         self.numC_Trans = numC_Trans
         self._dx, self._bx, self._nx = gen_dx_bx(
             grid_config["xbound"], grid_config["ybound"], grid_config["zbound"])

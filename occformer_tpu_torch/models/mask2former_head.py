@@ -68,12 +68,19 @@ def mask_logits_from_embeds(mask_embeds: torch.Tensor,
     return torch.einsum("lbqc,bxyzc->lbqxyz", mask_embeds, mask_feature)
 
 
+def _no_autocast(t: torch.Tensor):
+    """Turns autocast off on the tensor's device: a float32 island stays
+    float32 under the train step's ``torch.autocast``."""
+    return torch.autocast(t.device.type, enabled=False)
+
+
 def format_results(cls_logits: torch.Tensor, mask_logits: torch.Tensor) -> torch.Tensor:
     """softmax(cls)[:-1] . sigmoid(mask) -> per-class voxel scores
     [B, X, Y, Z, num_classes], in float32 (reference mask2former_occ.py:673-678)."""
-    cls_prob = torch.softmax(cls_logits.float(), dim=-1)[..., :-1]
-    mask_prob = torch.sigmoid(mask_logits.float())
-    return torch.einsum("bqc,bqxyz->bxyzc", cls_prob, mask_prob)
+    with _no_autocast(cls_logits):
+        cls_prob = torch.softmax(cls_logits.float(), dim=-1)[..., :-1]
+        mask_prob = torch.sigmoid(mask_logits.float())
+        return torch.einsum("bqc,bqxyz->bxyzc", cls_prob, mask_prob)
 
 
 class Mask2FormerNuscOccHead(nn.Module):
@@ -119,8 +126,12 @@ class Mask2FormerNuscOccHead(nn.Module):
         d = self.transformer_decoder.post_norm(q)
         cls_pred = self.cls_embed(d)
         emb = self.mask_embed(d)
-        # float32 attention-mask logits, max-pooled per query
-        mask = torch.einsum("bqc,bcxyz->bqxyz", emb, mask_feature).float()
+        # attention-mask logits in the embeddings' dtype (as the JAX head's
+        # compute dtype), pooled in float32; autocast off so that training
+        # rounds them as serving does
+        with _no_autocast(emb):
+            mask = torch.einsum("bqc,bcxyz->bqxyz", emb,
+                                mask_feature.to(emb.dtype)).float()
         pooled = F.adaptive_max_pool3d(mask, tuple(target_size))
         attn_mask = torch.sigmoid(pooled.flatten(2)) < 0.5  # [B, Q, K], True = masked
         return cls_pred, emb, attn_mask

@@ -6,7 +6,10 @@ z-mean to the BEV plane -> the BEV plane and every z-slice go through ONE
 shared SwinBlock as one batch (global and local paths) -> ASPP on the BEV
 output -> sigmoid-gated fusion -> residual.  Volumes are channels-first
 ``[B, C, X, Y, Z]``; stage ``i``, block ``j`` is ``layers.{i}.{j}``.
-Inference only: no gradient checkpointing (``with_cp`` is a training knob).
+In train mode the shared SwinBlock drops paths at rate 0.2 (hard-coded, as
+in the JAX package, ``occnet.py:63``), and ``with_cp`` recomputes each block
+in the backward instead of keeping its activations (reference occnet.py:67-68
+``cp.checkpoint``; JAX ``nn.remat``).
 """
 from __future__ import annotations
 
@@ -16,6 +19,7 @@ import torch
 import torch.nn as nn
 
 from .aspp import BottleNeckASPP
+from .layers import checkpoint
 from .swin import SwinBlock
 
 
@@ -29,7 +33,8 @@ class DualpathTransformerBlock(nn.Module):
                       dtype=dtype),
             nn.GroupNorm(num_groups, channels, dtype=dtype), nn.ReLU())
         self.bev_encoder = SwinBlock(channels, channels // 32, channels, window_size=7,
-                                     shift=(layer_index % 2) == 1, dtype=dtype)
+                                     shift=(layer_index % 2) == 1, drop_path_rate=0.2,
+                                     dtype=dtype)
         self.aspp = BottleNeckASPP(channels, num_groups=num_groups, dtype=dtype)
         self.combine_coeff = nn.Conv3d(channels, 1, 1, bias=True, dtype=dtype)
         self.downsample = None
@@ -64,9 +69,10 @@ class OccupancyEncoder(nn.Module):
                  block_inplanes: Sequence[int] = (128, 256, 512, 1024),
                  block_strides: Sequence[int] = (1, 2, 2, 2),
                  out_indices: Sequence[int] = (0, 1, 2, 3), num_groups: int = 32,
-                 dtype: torch.dtype = torch.float32):
+                 with_cp: bool = False, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_indices = tuple(out_indices)
+        self.with_cp = bool(with_cp)
         self.layers = nn.ModuleList()
         cin, layer_index = in_channels, 0
         for i in range(num_stage):
@@ -83,7 +89,10 @@ class OccupancyEncoder(nn.Module):
         outs = []
         for i, blocks in enumerate(self.layers):
             for block in blocks:
-                x = block(x)
+                if self.with_cp and self.training and torch.is_grad_enabled():
+                    x = checkpoint(block, x)
+                else:
+                    x = block(x)
             if i in self.out_indices:
                 outs.append(x)
         return tuple(outs)

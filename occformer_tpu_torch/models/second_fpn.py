@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from .layers import BatchNorm2d
+
 
 class SECONDFPN(nn.Module):
     def __init__(self, in_channels: Sequence[int] = (128, 128, 256),
@@ -29,7 +31,7 @@ class SECONDFPN(nn.Module):
                 k = int(np.round(1 / s))
                 up = nn.Conv2d(cin, cout, k, stride=k, bias=False, dtype=dtype)
             self.deblocks.append(nn.Sequential(
-                up, nn.BatchNorm2d(cout, eps=1e-3, momentum=0.01, dtype=dtype),
+                up, BatchNorm2d(cout, eps=1e-3, momentum=0.01, dtype=dtype),
                 nn.ReLU()))
 
     def forward(self, feats):

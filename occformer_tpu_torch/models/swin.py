@@ -5,8 +5,9 @@ backbones/modules/window_attention.py) with the checkpoint's names:
 ``norm1``, ``attn.w_msa.{qkv, proj, relative_position_bias_table}`` plus the
 ``relative_position_index`` buffer, ``norm2``, ``ffn``.  Windows are
 reshape/transpose, the cyclic shift is ``torch.roll`` and the shifted-window
-region mask is a numpy constant per padded size.  Inference only: drop-path
-is identity.  Tensors are channels-last ``[B, H, W, C]``.
+region mask is a numpy constant per padded size.  Drop-path (``drop_path1``
+after the attention, ``drop_path2`` after the FFN) acts in train mode only.
+Tensors are channels-last ``[B, H, W, C]``.
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from .layers import FFN
+from .layers import FFN, DropPath
 
 
 @lru_cache(maxsize=None)
@@ -125,10 +126,11 @@ class ShiftWindowMSA(nn.Module):
 
 
 class SwinBlock(nn.Module):
-    """LN -> (S)W-MSA -> +id -> LN -> FFN -> +id (window_attention.py:276-373)."""
+    """LN -> (S)W-MSA -> drop-path -> +id -> LN -> FFN -> drop-path -> +id
+    (window_attention.py:276-373)."""
 
     def __init__(self, embed_dims: int, num_heads: int, feedforward_channels: int,
-                 window_size: int = 7, shift: bool = False,
+                 window_size: int = 7, shift: bool = False, drop_path_rate: float = 0.0,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = nn.LayerNorm(embed_dims, dtype=dtype)
@@ -137,7 +139,9 @@ class SwinBlock(nn.Module):
                                    dtype=dtype)
         self.norm2 = nn.LayerNorm(embed_dims, dtype=dtype)
         self.ffn = FFN(embed_dims, feedforward_channels, add_identity=False, dtype=dtype)
+        self.drop_path1 = DropPath(drop_path_rate)
+        self.drop_path2 = DropPath(drop_path_rate)
 
     def forward(self, x):
-        x = x + self.attn(self.norm1(x))
-        return x + self.ffn(self.norm2(x))
+        x = x + self.drop_path1(self.attn(self.norm1(x)))
+        return x + self.drop_path2(self.ffn(self.norm2(x)))

@@ -7,7 +7,8 @@ public functions: volumes are channels-last ``[B, X, Y, Z, C]``, images
 normalized to [-1, 1] with torch's ``align_corners`` mapping.  Torch grids
 run in the reverse order (the last grid component indexes the last spatial
 axis), so each call flips the coordinate triple or pair.  The lerp runs in
-float32 and the result comes back in the input's dtype.
+float32 and the result comes back in the input's dtype.  ``point_sample_3d``,
+the loss's point readout, goes through K2 (``ops/trilerp.py``).
 """
 from __future__ import annotations
 
@@ -15,6 +16,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+
+from .trilerp import trilerp_sample
 
 
 def grid_sample_3d(
@@ -34,6 +37,20 @@ def grid_sample_3d(
     out = out[..., 0, 0].transpose(1, 2)
     out_dtype = vol.dtype if vol.is_floating_point() else torch.float32
     return out.to(out_dtype).reshape(B, *batch_shape, C)
+
+
+def point_sample_3d(
+    vol: torch.Tensor,
+    points: torch.Tensor,
+    align_corners: bool = False,
+    padding_mode: str = "zeros",
+) -> torch.Tensor:
+    """Sample ``vol [B, X, Y, Z, C]`` at [0, 1]-normalized ``points [B, P, 3]``
+    (x, y, z) -> ``[B, P, C]`` (reference mmdet_utils.py:21-47 maps [0, 1] to
+    [-1, 1]).  Through K2 for CUDA tensors; a bool volume reads as 0/1 and
+    gives float32."""
+    coords = (points.float() * 2.0 - 1.0).contiguous()
+    return trilerp_sample(vol, coords, align_corners, padding_mode)
 
 
 def grid_sample_2d(

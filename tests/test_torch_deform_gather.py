@@ -8,7 +8,10 @@ Pallas interpret mode and summed over levels, and the port's
 ``gather_impl="mxu_interpret"``, so the real Pallas body runs.  Levels have
 power-of-two sides (the JAX escape pass can read past the padded table on
 other sizes, trilerp_fused.py:323).  Tolerance atol 1e-5: float32 on both
-sides, different summation order.
+sides, different summation order.  The backward (autograd through the plain
+version) is held against ``jax.vjp`` of the Pallas gather (K1-bwd,
+``_wfold_bwd_body``), and the module's VJP against ``jax.vjp`` of the flax
+module; their tolerances are stated where they are used.
 
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_gpu.py (skipped without a GPU) and by chip_smoke.py.
@@ -51,21 +54,22 @@ def _inputs(P, seed=0, B=2, H=2, hd=8, Nq=12, spill=0.2):
 
 
 def _jax_k1(value, locs, w):
-    """The Pallas weighted gather in the layout deform_attn.py gives it."""
+    """The Pallas weighted gather in the layout deform_attn.py gives it
+    (jnp throughout, so that ``jax.vjp`` reaches the kernel's VJP)."""
     B, Nv, H, hd = value.shape
     Nq, P = locs.shape[1], locs.shape[4]
     tables, coords, weights, start = [], [], [], 0
     for l, (X, Y, Z) in enumerate(SHAPES):
         n = X * Y * Z
         v = value[:, start:start + n].reshape(B, X, Y, Z, H, hd)
-        tables.append(jnp.asarray(v.transpose(0, 4, 1, 2, 3, 5).reshape(B * H, X * Y, Z * hd)))
+        tables.append(v.transpose(0, 4, 1, 2, 3, 5).reshape(B * H, X * Y, Z * hd))
         g = locs[:, :, :, l] * 2.0 - 1.0
-        coords.append(jnp.asarray(g.transpose(0, 2, 1, 3, 4).reshape(B * H, Nq * P, 3)))
-        weights.append(jnp.asarray(w[:, :, :, l].transpose(0, 2, 1, 3).reshape(B * H, Nq * P)))
+        coords.append(g.transpose(0, 2, 1, 3, 4).reshape(B * H, Nq * P, 3))
+        weights.append(w[:, :, :, l].transpose(0, 2, 1, 3).reshape(B * H, Nq * P))
         start += n
     outs = fused_multilevel_weighted_gather(tables, SHAPES, hd, coords, weights, P,
                                             s_block=P * 8, interpret=True)
-    out = np.asarray(sum(outs[1:], outs[0]))  # [B*H, hd, Nq]
+    out = sum(outs[1:], outs[0])  # [B*H, hd, Nq]
     return out.reshape(B, H, hd, Nq).transpose(0, 3, 1, 2)
 
 
@@ -76,7 +80,28 @@ def test_plain_version_matches_pallas_kernel(P):
     assert 0.2 < outside < 0.9  # some samples reach past the volume
     got = k1.ms_deform_gather_3d_plain(torch.from_numpy(value), SHAPES,
                                        torch.from_numpy(locs), torch.from_numpy(w))
-    np.testing.assert_allclose(got.numpy(), _jax_k1(value, locs, w), atol=ATOL)
+    ref = _jax_k1(*(jnp.asarray(a) for a in (value, locs, w)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("P", [2, 4])
+def test_plain_version_backward_matches_pallas_vjp(P):
+    """d_value, d_locs and d_weights: autograd through the plain version
+    against the Pallas kernel's VJP.  atol 1e-5 for d_value and d_weights;
+    d_locs scales the trilinear slope by the level size (up to 4 here), so
+    1e-4."""
+    value, locs, w = _inputs(P, seed=5)
+    gout = np.random.RandomState(6).randn(*value.shape[:1], locs.shape[1],
+                                          *value.shape[2:]).astype(np.float32)
+    _, vjp = jax.vjp(_jax_k1, *(jnp.asarray(a) for a in (value, locs, w)))
+    refs = vjp(jnp.asarray(gout))
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (value, locs, w)]
+    k1.ms_deform_gather_3d(leaves[0], SHAPES, leaves[1], leaves[2]).backward(
+        torch.from_numpy(gout))
+    for name, got, ref, atol in zip(("d_value", "d_locs", "d_weights"), leaves, refs,
+                                    (ATOL, 1e-4, ATOL)):
+        np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), atol=atol,
+                                   err_msg=name)
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
@@ -139,3 +164,66 @@ def test_radial_offset_init_matches_jax():
     b = m.sampling_offsets.bias.detach().numpy().reshape(-1, 3)[:, ::-1].reshape(-1)
     np.testing.assert_array_equal(b, j_init(4, 3, 2))
     assert not m.sampling_offsets.weight.any() and not m.attention_weights.weight.any()
+
+
+def test_module_vjp_matches_jax():
+    """The deformable-attention layer's backward (through K1's plain
+    version) against ``jax.vjp`` of the flax module with the Pallas gather:
+    gradients of the query, the value and every parameter, the port's
+    parameter gradients carried into the flax layout by the same converter
+    as the weights.  Tolerance 1e-4 * max|ref| + 1e-6: float32 both sides,
+    the offset gradients sum many samples' location slopes."""
+    C, H, L, P = 16, 2, len(SHAPES), 2
+    B = 1
+    Nq = sum(x * y * z for x, y, z in SHAPES)
+    torch.manual_seed(1)
+    tm = MultiScaleDeformableAttention3D(C, H, L, P)
+    with torch.no_grad():
+        tm.sampling_offsets.weight.uniform_(-0.05, 0.05)
+        tm.sampling_offsets.bias.uniform_(-1.5, 1.5)
+        tm.attention_weights.weight.uniform_(-0.1, 0.1)
+
+    def to_flax(sd):
+        tb = TreeBuilder()
+        convert_deform_attn(tb, {"m." + k: v for k, v in sd.items()}, "m", "m")
+        return tb.params["m"]
+
+    rng = np.random.RandomState(7)
+    q = rng.randn(B, Nq, C).astype(np.float32)
+    pos = rng.randn(B, Nq, C).astype(np.float32)
+    ref_pts = rng.uniform(0, 1, (B, Nq, L, 3)).astype(np.float32)
+    gout = rng.randn(B, Nq, C).astype(np.float32)
+    jm = JaxMSDA(embed_dims=C, num_heads=H, num_levels=L, num_points=P,
+                 gather_impl="mxu_interpret", gather_s_block=P * 8)
+    kw = dict(spatial_shapes=SHAPES, query_pos=jnp.asarray(pos))
+    init = jax.eval_shape(partial(jm.init, **kw), jax.random.PRNGKey(0),
+                          jnp.asarray(q), jnp.asarray(q), jnp.asarray(ref_pts))
+    sd = {k: v.detach().numpy() for k, v in tm.state_dict().items()}
+    variables, missing = match_to_tree({"params": to_flax(sd)}, {"params": init["params"]})
+    assert not missing, missing
+
+    def f(params, query, value):
+        return jm.apply({"params": params}, query, value, jnp.asarray(ref_pts), **kw)
+
+    _, vjp = jax.vjp(f, variables["params"], jnp.asarray(q), jnp.asarray(q))
+    d_params, d_query, d_value = vjp(jnp.asarray(gout))
+
+    query = torch.from_numpy(q).requires_grad_(True)
+    value = torch.from_numpy(q.copy()).requires_grad_(True)
+    tm(query, value, torch.from_numpy(ref_pts), SHAPES,
+       query_pos=torch.from_numpy(pos)).backward(torch.from_numpy(gout))
+    grads = to_flax({k: p.grad.numpy() for k, p in tm.named_parameters()})
+    got_params, _ = match_to_tree({"params": grads}, {"params": init["params"]})
+
+    def close(got, ref, name):
+        ref = np.asarray(ref)
+        tol = 1e-4 * np.abs(ref).max() + 1e-6
+        assert np.abs(np.asarray(got) - ref).max() <= tol, name
+
+    close(query.grad.numpy(), d_query, "d_query")
+    close(value.grad.numpy(), d_value, "d_value")
+    flat_ref = jax.tree_util.tree_flatten_with_path(d_params)[0]
+    flat_got = dict(jax.tree_util.tree_flatten_with_path(got_params["params"])[0])
+    assert len(flat_ref) == len(flat_got) == 8
+    for path, ref in flat_ref:
+        close(flat_got[path], ref, jax.tree_util.keystr(path))

@@ -51,6 +51,8 @@ def test_package_and_tiny_model_load_without_jax():
         "import tiny_cfg\n"
         "import occformer_tpu_torch.engine.eval, occformer_tpu_torch.engine.convert_weights\n"
         "import occformer_tpu_torch.data.synthetic, occformer_tpu_torch.config\n"
+        "import occformer_tpu_torch.engine.train, occformer_tpu_torch.engine.optim\n"
+        "import occformer_tpu_torch.losses.mask2former_loss, occformer_tpu_torch.ops.trilerp\n"
         "from occformer_tpu_torch.models.detector import build_model\n"
         "torch.set_num_threads(1)\n"
         "m = build_model(tiny_cfg.model_cfg(), device='cpu')\n"
@@ -75,3 +77,21 @@ def test_build_model_without_device_needs_a_gpu():
         pytest.skip("a GPU is present: the default device is valid here")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(tiny_cfg.model_cfg())
+
+
+def test_train_step_without_device_needs_a_gpu():
+    import tiny_cfg
+
+    from occformer_tpu_torch.engine.optim import build_optimizer
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    cfg = tiny_cfg.model_cfg()
+    model = build_model(cfg, device="cpu")
+    loss_cfg = build_loss_cfg(cfg["pts_bbox_head"], dict(num_points=64))
+    opt = build_optimizer(model)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_step(model, opt, loss_cfg)
+    assert callable(build_train_step(model, opt, loss_cfg, device="cpu"))

@@ -23,20 +23,30 @@ Phases, each printing one JSON line:
                  train step runs, timed at its launch alone):
                  K1 (ms_deform_gather_3d) and K1-bwd at the pixel decoder's
                  shapes in float32 and bfloat16; K2 (trilerp_sample) and
-                 K2-bwd at the loss's candidate readout (bf16 feature table,
-                 border, align_corners=False), plus K2 on the per-slot GT
-                 masks and a zeros / align_corners=True case.
+                 K2-bwd at the per-layer loss's candidate readout (bf16
+                 feature table, border, align_corners=False), plus K2 on the
+                 per-slot GT masks and a zeros / align_corners=True case, and
+                 K2 / K2-bwd at the batched loss's three readouts; K3
+                 (sample_id_masks) at the batched loss's three GT reads and
+                 a zeros / align_corners=True case on a 40x24x12 grid.
   4. tiny:       the tiny test model's forward on the card (kernels) against
                  the same model on the CPU (plain versions), float32.
   5. tiny_train: the tiny model's train step on the card against the same
                  step on the CPU, from the same state with the same draws:
-                 losses, every gradient and every updated parameter.
+                 losses, every gradient and every updated parameter; on the
+                 per-layer loss route, on the batched route, and with
+                 accum_steps=2 on a 2-sample batch (batched route).
   6. train:      the flagship's train step at full width and depth, float32
                  parameters under bfloat16 autocast, batch 1, through
-                 build_train_step: 1 warm-up step, then 3 timed steps, and a
-                 torch.profiler summary of one more step.
-In phases 2 and 6 every kernel's launch count is set to 0 just before the
-path is driven and read just after; each must match its per-frame or
+                 build_train_step on the per-layer loss route: 1 warm-up
+                 step, then 3 timed steps, and a torch.profiler summary of
+                 one more step.
+  7. train_batched: the same on the all-layer batched loss route
+                 (mxu_readout="on"), plus both routes' losses and Hungarian
+                 assignments on one float32 copy of a step's model outputs
+                 with one set of draws.
+In phases 2, 6 and 7 every kernel's launch count is set to 0 just before
+the path is driven and read just after; each must match its per-frame or
 per-step count.  Then the card's name and power limit (nvidia-smi), one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
@@ -58,10 +68,14 @@ H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
 
 # kernel launches per serving frame and per train step of the flagship
-# (6 deformable encoder layers; 10 supervised decoder outputs x 6 K2 readouts
-# and x 2 differentiated ones); PERF.md states the same counts
-SERVE_LAUNCHES = {"K1": 6, "K1-bwd": 0, "K2": 0, "K2-bwd": 0}
-TRAIN_LAUNCHES = {"K1": 6, "K1-bwd": 6, "K2": 60, "K2-bwd": 20}
+# (6 deformable encoder layers; the per-layer loss route reads 10 supervised
+# decoder outputs with 6 K2 launches each, 2 of them differentiated; the
+# batched route reads all 10 at once: K2 at the matching points, the
+# candidates and the random fill, the last two differentiated, and K3 at the
+# same three point sets); PERF.md states the same counts
+SERVE_LAUNCHES = {"K1": 6, "K1-bwd": 0, "K2": 0, "K2-bwd": 0, "K3": 0}
+TRAIN_LAUNCHES = {"off": {"K1": 6, "K1-bwd": 6, "K2": 60, "K2-bwd": 20, "K3": 0},
+                  "on": {"K1": 6, "K1-bwd": 6, "K2": 3, "K2-bwd": 2, "K3": 3}}
 # the outermost torch.profiler ranges of a frame and of a train step
 SERVE_STAGES = ("upload", "image_encoder", "view_transformer", "occupancy_encoder",
                 "pixel_decoder", "head", "readout")
@@ -110,18 +124,20 @@ def bound(n_bytes, flops):
 
 
 def launches():
+    from occformer_tpu_torch.ops import loss_gather as k3
     from occformer_tpu_torch.ops import trilerp as k2
     from occformer_tpu_torch.ops import trilerp_fused as k1
 
     return {"K1": k1.LAUNCHES, "K1-bwd": k1.BWD_LAUNCHES,
-            "K2": k2.LAUNCHES, "K2-bwd": k2.BWD_LAUNCHES}
+            "K2": k2.LAUNCHES, "K2-bwd": k2.BWD_LAUNCHES, "K3": k3.LAUNCHES}
 
 
 def reset_launches():
+    from occformer_tpu_torch.ops import loss_gather as k3
     from occformer_tpu_torch.ops import trilerp as k2
     from occformer_tpu_torch.ops import trilerp_fused as k1
 
-    k1.LAUNCHES = k1.BWD_LAUNCHES = k2.LAUNCHES = k2.BWD_LAUNCHES = 0
+    k1.LAUNCHES = k1.BWD_LAUNCHES = k2.LAUNCHES = k2.BWD_LAUNCHES = k3.LAUNCHES = 0
 
 
 def free_memory():
@@ -325,11 +341,137 @@ def phase_k2():
     return fwd, bwd
 
 
+def phase_k2_batched():
+    """K2 and K2-bwd at the batched loss route's readouts of the flagship (10
+    layers x 1 sample, mask volumes 128x128x16, border, align_corners=False):
+    the per-query match volumes [10, 128, 128, 16, 100] bf16 at 50176 points
+    each (forward only, detached), and the float32 per-slot volumes at the
+    150528 candidates ([10, ..., 17]) and at the 12544 random-fill points of
+    each slot ([170, ..., 1]).  Tolerances as in phase_k2."""
+    import torch
+
+    from occformer_tpu_torch.ops import trilerp as k2
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    cases = (("matching", (10, 128, 128, 16, 100), torch.bfloat16, (10, 50176), False),
+             ("candidates", (10, 128, 128, 16, 17), torch.float32, (10, 150528), True),
+             ("random_fill", (170, 128, 128, 16, 1), torch.float32, (170, 12544), True))
+    fwd, bwd = {}, {}
+    for name, tshape, dtype, cshape, grad in cases:
+        table = torch.randn(tshape, device=dev, generator=g).to(dtype)
+        coords = torch.rand((*cshape, 3), device=dev, generator=g) * 2 - 1
+        got = k2.trilerp_sample(table, coords, False, "border")
+        torch.cuda.synchronize()
+        rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
+        r = compare(got, k2.trilerp_sample_plain(table, coords, False, "border"), rel,
+                    f"K2 batched {name}")
+        r["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(table, coords, False, "border"))
+        r["plain_ms"] = time_cuda(
+            lambda: k2.trilerp_sample_plain(table, coords, False, "border"), iters=10)
+        S, C = cshape[0] * cshape[1], tshape[-1]
+        r.update(bound(nbytes(table, coords, got), S * C * 8 * 2))
+        fwd[name] = r
+        if not grad:
+            continue
+        gout = torch.randn(got.shape, device=dev, generator=g)
+        leaf = table.detach().clone().requires_grad_(True)
+        k2.trilerp_sample(leaf, coords, False, "border").backward(gout)
+        torch.cuda.synchronize()
+        ref_leaf = table.detach().clone().requires_grad_(True)
+        k2.trilerp_sample_plain(ref_leaf, coords, False, "border").backward(gout)
+        rb = compare(leaf.grad, ref_leaf.grad, 1e-4, f"K2-bwd batched {name} d_table")
+        del leaf, ref_leaf
+        rb["kernel_ms"] = time_cuda(lambda: k2._launch_bwd(
+            table, coords, gout, False, "border", want_coords=False))
+        rb.update(bound(nbytes(gout, coords, table), S * C * 8 * 2))
+        bwd[name] = rb
+        del gout
+    return fwd, bwd
+
+
+def phase_k3():
+    """K3 (sample_id_masks) against its plain version at the batched loss
+    route's three GT reads of the flagship (N = 10 layers x 1 sample, int32
+    label grid [1, 256, 256, 32] with 10% of voxels 255, G = 17 class slots,
+    border, align_corners=False): the 150528 candidates and the 50176
+    matching points (shared points, [10, 17, S] out) and the 12544
+    random-fill points of each slot ([10, 17, 12544, 3] per-slot points);
+    and zeros / align_corners=True on a 40x24x12 grid (B = 2, N = 4) with
+    points in [-0.15, 1.15].  Tolerance 1e-6 absolute: the kernel adds the
+    plain version's float32 terms in its order.  The library call that
+    computes the same function is ``F.grid_sample`` over a float one-hot
+    volume [1, 17, 256, 256, 32] (built beforehand, its build timed apart),
+    with every layer's points in one grid (per slot for the random fill)."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import loss_gather as k3
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    G, N = 17, 10
+    grid = torch.randint(0, G, (1, 256, 256, 32), device=dev, generator=g, dtype=torch.int32)
+    grid[torch.rand(grid.shape, device=dev, generator=g) < 0.1] = 255
+    ids = torch.arange(G, device=dev, dtype=torch.int32)[None]
+    onehot_ms = time_cuda(lambda: (grid[:, None] == ids[0].view(1, G, 1, 1, 1)).float(),
+                          iters=10)
+    onehot = (grid[:, None] == ids[0].view(1, G, 1, 1, 1)).float()  # [1, G, X, Y, Z]
+    recs = {}
+    for name, shape in (("candidates", (N, 150528, 3)), ("matching", (N, 50176, 3)),
+                        ("random_fill", (N, G, 12544, 3))):
+        pts = torch.rand(shape, device=dev, generator=g)
+        got = k3.sample_id_masks(grid, ids, pts, False, "border")
+        torch.cuda.synchronize()
+        ref = k3.sample_id_masks_plain(grid, ids, pts, False, "border")
+        r = compare(got, ref, 1e-6, f"K3 {name}")
+        del ref
+        r["kernel_ms"] = time_cuda(lambda: k3.sample_id_masks(grid, ids, pts, False, "border"))
+        r["plain_ms"] = time_cuda(
+            lambda: k3.sample_id_masks_plain(grid, ids, pts, False, "border"), iters=10)
+        if pts.dim() == 3:  # every layer's points in one grid
+            lib_in = onehot
+            lib_grid = (pts.reshape(1, -1, 1, 1, 3) * 2 - 1).flip(-1)
+        else:               # slot g's volume at slot g's points of every layer
+            lib_in = onehot.transpose(0, 1)
+            lib_grid = (pts.transpose(0, 1).reshape(G, -1, 1, 1, 3) * 2 - 1).flip(-1)
+        lib_grid = lib_grid.contiguous()
+
+        def library():
+            return F.grid_sample(lib_in, lib_grid, mode="bilinear", padding_mode="border",
+                                 align_corners=False)
+
+        r["library_ms"] = time_cuda(library)
+        r["library_onehot_build_ms"] = onehot_ms
+        lib = library().reshape(G, N, -1).transpose(0, 1)  # [N, G, S]
+        r["library_max_abs_diff"] = (lib - got.reshape(N, G, -1)).abs().max().item()
+        del lib
+        # points and the grid read once, the output written once; per point
+        # and slot 8 compares and 8 adds
+        r.update(bound(nbytes(pts, grid, ids, got), got.numel() * 16))
+        r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
+        recs[name] = r
+    # zeros padding, align_corners=True, sides not powers of two, labels 255
+    g2 = torch.Generator(device=dev).manual_seed(5)
+    small = torch.randint(0, G + 2, (2, 40, 24, 12), device=dev, generator=g2,
+                          dtype=torch.int32)
+    small[:, :3] = 255
+    sids = torch.stack([torch.arange(G), torch.arange(G).flip(0)]).to(dev, torch.int32)
+    for mode, shape in (("shared", (4, 20000, 3)), ("per_slot", (4, G, 1000, 3))):
+        pts = torch.rand(shape, device=dev, generator=g2) * 1.3 - 0.15
+        recs[f"zeros_align_{mode}"] = compare(
+            k3.sample_id_masks(small, sids, pts, True, "zeros"),
+            k3.sample_id_masks_plain(small, sids, pts, True, "zeros"), 1e-6,
+            f"K3 zeros/align_corners {mode}")
+    return recs
+
+
 def phase_kernels():
     k1_fwd, k1_bwd = phase_k1()
     k2_fwd, k2_bwd = phase_k2()
+    k2_fwd["batched"], k2_bwd["batched"] = phase_k2_batched()
     rec = {"phase": "kernels", "K1": k1_fwd, "K1-bwd": k1_bwd, "K2": k2_fwd,
-           "K2-bwd": k2_bwd}
+           "K2-bwd": k2_bwd, "K3": phase_k3()}
     emit(rec)
     return rec
 
@@ -364,32 +506,34 @@ def phase_tiny():
     emit(rec)
 
 
-def tiny_train_batch(rng):
-    """The tiny train batch of tests/test_torch_train.py."""
+def tiny_train_batch(rng, B=1):
+    """The tiny train batch of tests/test_torch_train.py, with B samples."""
     import numpy as np
 
     import tiny_cfg
 
-    batch = tiny_cfg.make_batch(rng)
+    batch = tiny_cfg.make_batch(rng, B=B)
     N, (H, W) = tiny_cfg.NUM_CAMS, tiny_cfg.INPUT_SIZE
     X, Y, Z = tiny_cfg.OCC_SIZE
-    gt_occ = rng.randint(0, tiny_cfg.NUM_CLASSES, size=(1, X, Y, Z)).astype(np.int32)
-    gt_occ[0, :2] = 255
-    depth = rng.uniform(0, 10, size=(1, N, H, W)).astype(np.float32)
+    gt_occ = rng.randint(0, tiny_cfg.NUM_CLASSES, size=(B, X, Y, Z)).astype(np.int32)
+    gt_occ[:, :2] = 255
+    depth = rng.uniform(0, 10, size=(B, N, H, W)).astype(np.float32)
     depth[depth < 3] = 0.0
     P = 128
     batch.update(gt_occ=gt_occ, gt_depth=depth,
-                 lidar_xyz=rng.uniform(0, 1, size=(1, P, 3)).astype(np.float32),
-                 lidar_valid=np.arange(P)[None] < 100,
-                 lidar_label=rng.randint(0, tiny_cfg.NUM_CLASSES, (1, P)).astype(np.int32))
+                 lidar_xyz=rng.uniform(0, 1, size=(B, P, 3)).astype(np.float32),
+                 lidar_valid=np.arange(P)[None].repeat(B, 0) < 100,
+                 lidar_label=rng.randint(0, tiny_cfg.NUM_CLASSES, (B, P)).astype(np.int32))
     return batch
 
 
-def phase_tiny_train():
+def phase_tiny_train(mxu_readout="off", accum_steps=1):
     """One tiny train step in train mode (BatchNorm batch statistics,
     drop-path) on the card with the kernels and on the CPU with the plain
     versions, float32, from the same state with the same draws (drop-path
-    from identically seeded CPU generators, the loss draws made once).
+    from identically seeded CPU generators, the loss draws made once), on
+    the loss route ``mxu_readout`` with ``accum_steps`` micro-batches of one
+    sample each.
 
     Tolerances.  The tiny step is ill-conditioned in places: train-mode
     BatchNorm over 4 values per channel (ResNet layer4 is 1x2 on 2 cameras)
@@ -420,18 +564,19 @@ def phase_tiny_train():
     from occformer_tpu_torch.models.detector import build_model
 
     cfg = tiny_cfg.model_cfg()
-    loss_cfg = build_loss_cfg(cfg["pts_bbox_head"], dict(
+    loss_cfg = build_loss_cfg(dict(cfg["pts_bbox_head"], mxu_readout=mxu_readout), dict(
         num_points=64, oversample_ratio=2.0, importance_sample_ratio=0.75))
-    batch = tiny_train_batch(np.random.RandomState(0))
+    batch = tiny_train_batch(np.random.RandomState(0), B=accum_steps)
     L = cfg["pts_bbox_head"]["transformer_decoder"]["num_layers"] + 1
-    draws = make_loss_draws(torch.Generator().manual_seed(4), loss_cfg,
-                            torch.from_numpy(batch["lidar_valid"]), L)
+    gen = torch.Generator().manual_seed(4)
+    draws = [make_loss_draws(gen, loss_cfg, torch.from_numpy(batch["lidar_valid"][m:m + 1]), L)
+             for m in range(accum_steps)]
     lr = 1e-4
 
     def run(dev, scale=1.0):
         model = build_model(cfg, device="cpu", seed=0).to(dev).train()
         opt = build_optimizer(model, lr=lr, grad_clip=5.0)
-        step = build_train_step(model, opt, loss_cfg, device=dev)
+        step = build_train_step(model, opt, loss_cfg, device=dev, accum_steps=accum_steps)
         before = launches()
         b = dict(batch, imgs=(batch["imgs"] * scale).astype(np.float32))
         metrics = step(b, torch.Generator().manual_seed(3), draws=draws)
@@ -461,11 +606,15 @@ def phase_tiny_train():
         moves[f"{1 + e * 1e-6:.6f}"] = {
             "grad_norm": abs(m_sc["grad_norm"] / m_ref["grad_norm"] - 1),
             "grads_moved_over_1e-2_of_max": moved}
-    rec = {"phase": "tiny_train", "launches": n_got, "metrics_cuda": m_got,
-           "metrics_cpu": m_ref, "metrics_cpu_spread": spread_m,
-           "cpu_moves_by_image_scale": moves}
+    rec = {"phase": "tiny_train", "mxu_readout": mxu_readout, "accum_steps": accum_steps,
+           "launches": n_got, "metrics_cuda": m_got, "metrics_cpu": m_ref,
+           "metrics_cpu_spread": spread_m, "cpu_moves_by_image_scale": moves}
     failed = []
-    if n_got != {"K1": 2, "K1-bwd": 2, "K2": 24, "K2-bwd": 8}:
+    # 2 deformable encoder layers, 4 supervised decoder outputs
+    per_micro = ({"K1": 2, "K1-bwd": 2, "K2": 3, "K2-bwd": 2, "K3": 3}
+                 if loss_cfg.batched_readout else
+                 {"K1": 2, "K1-bwd": 2, "K2": 24, "K2-bwd": 8, "K3": 0})
+    if n_got != {k: v * accum_steps for k, v in per_micro.items()}:
         failed.append(f"launches {n_got}")
     for k, r in m_ref.items():
         if k != "point_mean_iou" and \
@@ -497,7 +646,7 @@ def phase_tiny_train():
                        "max_abs_err": top[2], "over_plain_tol": over}
     rec["compare"] = worst
     emit(rec)
-    check(not failed, "tiny_train: " + "; ".join(failed[:10]))
+    check(not failed, f"tiny_train {mxu_readout} x{accum_steps}: " + "; ".join(failed[:10]))
 
 
 def phase_serve():
@@ -560,9 +709,11 @@ def phase_serve():
     return n
 
 
-def phase_train():
+def phase_train(mxu_readout="off"):
     """The flagship's train step: float32 parameters, bfloat16 autocast,
-    batch 1, random weights, ``make_train_batch(cfg, seed=0)``."""
+    batch 1, random weights, ``make_train_batch(cfg, seed=0)``, on the loss
+    route ``mxu_readout`` ("off" the per-layer route, "on" the batched
+    one)."""
     import torch
 
     from occformer_tpu_torch.config import load_config
@@ -579,7 +730,8 @@ def phase_train():
     m = cfg["model"]
     t0 = time.perf_counter()
     model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
-    loss_cfg = build_loss_cfg(m["pts_bbox_head"], m["train_cfg"]["pts"])
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout=mxu_readout),
+                              m["train_cfg"]["pts"])
     opt_cfg = cfg["optimizer"]
     opt = build_optimizer(
         model, lr=step_lr_schedule(opt_cfg["lr"], 28130, cfg["lr_config"]["step"]),
@@ -610,8 +762,9 @@ def phase_train():
     n = launches()  # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
-    want = {k: v * len(steps_s) for k, v in TRAIN_LAUNCHES.items()}
-    check(n == want, f"train launches {n} in {len(steps_s)} steps, want {want}")
+    name = "train" if mxu_readout == "off" else "train_batched"
+    want = {k: v * len(steps_s) for k, v in TRAIN_LAUNCHES[mxu_readout].items()}
+    check(n == want, f"{name} launches {n} in {len(steps_s)} steps, want {want}")
     for h in history:
         check(all(v == v and abs(v) != float("inf") for k, v in h.items()
                   if k != "point_mean_iou"), f"non-finite train metrics {h}")
@@ -620,7 +773,8 @@ def phase_train():
     check(moved["img_backbone.conv1.weight"] == 0.0, "the frozen stem moved")
     check(all(v > 0 for k, v in moved.items() if k != "img_backbone.conv1.weight"),
           f"parameters did not move: {moved}")
-    rec = {"phase": "train", "config": "occformer_nusc_r50_256x704",
+    rec = {"phase": name, "mxu_readout": mxu_readout,
+           "config": "occformer_nusc_r50_256x704",
            "param_dtype": "float32", "autocast": cfg["compute_dtype"],
            "params": sum(p.numel() for p in model.parameters()),
            "setup_s": build_s, "warmup_step_s": steps_s[0], "step_s": steps_s[1:],
@@ -631,8 +785,64 @@ def phase_train():
                            "candidates": loss_cfg.num_candidates,
                            "supervised": loss_cfg.num_points}}
     rec["profile"] = profile(lambda: step(batch, g), TRAIN_STAGES)
+    if loss_cfg.batched_readout:
+        rec["routes"] = compare_routes(model, batch, loss_cfg)
     emit(rec)
     return n
+
+
+def compare_routes(model, batch, loss_cfg):
+    """Both loss routes on one float32 copy of a step's model outputs (the
+    train-mode forward under bf16 autocast, no grad) with one set of draws:
+    every loss, and the Hungarian assignments.  A layer whose assignments
+    agree must agree in its losses within 1e-4 relative (+1e-6): the two
+    routes contract the volume and the feature sides in another order, and
+    a candidate whose |logit| sits at the uncertainty top-k's boundary may
+    swap in or out.  A layer whose assignments differ (near-tied costs can
+    flip one) is reported, not held to that."""
+    import dataclasses
+
+    import torch
+
+    from occformer_tpu_torch.engine.eval import to_device_batch
+    from occformer_tpu_torch.losses.mask2former_loss import (
+        make_loss_draws,
+        mask2former_loss,
+        match_assignments,
+    )
+    from occformer_tpu_torch.models.layers import drop_path_generator
+
+    b = to_device_batch(batch, torch.device("cuda"))
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16), \
+            drop_path_generator(torch.Generator(device="cuda").manual_seed(6)):
+        out = model(b)
+    out = {k: out[k].float() for k in ("cls_preds", "mask_embeds", "mask_feature")}
+    L = out["cls_preds"].shape[0]
+    draws = make_loss_draws(torch.Generator(device="cuda").manual_seed(7), loss_cfg,
+                            b["lidar_valid"], L)
+    args = (out["cls_preds"], out["mask_embeds"], out["mask_feature"], b["gt_occ"])
+    res = {}
+    for route in ("off", "on"):
+        cfg = dataclasses.replace(loss_cfg, mxu_readout=route)
+        rest = (cfg, b["lidar_xyz"], b["lidar_valid"], draws)
+        with torch.no_grad():
+            losses = {k: float(v) for k, v in mask2former_loss(*args, *rest).items()}
+            res[route] = (losses, match_assignments(*args, *rest).cpu())
+    (ref, a_ref), (got, a_got) = res["off"], res["on"]
+    differ = (a_ref != a_got).nonzero().tolist()  # [layer, sample, slot]
+    layers_differ = sorted({d[0] for d in differ})
+    rel = {k: abs(got[k] - r) / max(abs(r), 1e-12) for k, r in ref.items()}
+    rec = {"losses_per_layer_route": ref, "losses_batched_route": got, "rel_diff": rel,
+           "max_rel_diff": max(rel.values()), "assignments_differ": differ,
+           "layers_with_differing_assignments": layers_differ}
+    for k, r in ref.items():
+        layer = L - 1 if not k.startswith("d") else int(k[1:k.index(".")])
+        if k != "unassigned_gt" and layer not in layers_differ:
+            check(abs(got[k] - r) <= 1e-4 * abs(r) + 1e-6,
+                  f"routes: {k} {got[k]} (batched) vs {r} (per layer)")
+    check(got["unassigned_gt"] == ref["unassigned_gt"] == 0.0, "routes: unassigned GT")
+    return rec
+
 
 
 def profile(run, outer, top=12):
@@ -684,7 +894,7 @@ def profile(run, outer, top=12):
                         for e in ops[:top]]}
 
 
-def kernel_records(kern, serve_n, train_n):
+def kernel_records(kern, serve_n, train_n, train_batched_n):
     src = "occformer_tpu_torch/csrc/"
     rows = [
         ("ms_deform_gather_3d", "K1", src + "ms_deform_gather3d.cu",
@@ -695,10 +905,13 @@ def kernel_records(kern, serve_n, train_n):
          "occformer_tpu/ops/trilerp.py:476", kern["K2"]),
         ("trilerp_sample_bwd", "K2-bwd", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]),
+        ("sample_id_masks", "K3", src + "label_gather3d.cu",
+         "occformer_tpu/ops/loss_gather.py:127", kern["K3"]["candidates"]),
     ]
     return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": serve_n[key] + train_n[key], "launches_serve": serve_n[key],
-             "launches_train": train_n[key], "max_abs_err": r["max_abs_err"],
+             "launches": serve_n[key] + train_n[key] + train_batched_n[key],
+             "launches_serve": serve_n[key], "launches_train": train_n[key],
+             "launches_train_batched": train_batched_n[key], "max_abs_err": r["max_abs_err"],
              "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
              "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
             for name, key, source, replaces, r in rows]
@@ -729,15 +942,19 @@ def main():
     serve_n = phase_serve()
     kern = phase_kernels()
     phase_tiny()
-    phase_tiny_train()
+    phase_tiny_train("off")
+    phase_tiny_train("on")
+    phase_tiny_train("on", accum_steps=2)
     free_memory()
-    train_n = phase_train()
+    train_n = phase_train("off")
+    free_memory()
+    train_batched_n = phase_train("on")
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
-    emit({"kernels": kernel_records(kern, serve_n, train_n)})
+    emit({"kernels": kernel_records(kern, serve_n, train_n, train_batched_n)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,8 +1,8 @@
 """Training step of the flagship.
 
 Port of ``occformer_tpu/engine/train.py`` (``build_loss_cfg``,
-``build_train_step`` with ``accum_steps=1``, the train-time point mIoU).  One
-step: forward (BatchNorm batch statistics, drop-path and gradient
+``build_train_step`` with gradient accumulation, the train-time point mIoU).
+One step: forward (BatchNorm batch statistics, drop-path and gradient
 checkpointing when the model is in train mode; under ``torch.autocast`` when
 a compute dtype is given, with float32 parameters), the deep-supervision
 Mask2Former loss with Hungarian matching plus the LSS depth loss, backward,
@@ -15,7 +15,7 @@ phase is a ``torch.profiler`` range (``stage:forward``, ``stage:loss``,
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, Optional, Union
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 from torch.profiler import record_function
@@ -32,12 +32,14 @@ from .optim import TrainOptimizer
 def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
     """The loss config of a head config and its ``train_cfg.pts`` (JAX
     ``build_loss_cfg``).  nuScenes heads keep the config's class weights and
-    sample at LiDAR points with ``align_corners=False``; the JAX package's
-    TPU knobs (``gt_chunks``, ``point_chunks``, ``feature_readout``,
-    ``shared_candidate_readout``, ``mxu_readout``, ``gt_label_kernel``) are
-    not read: the port always runs the feature readout with shared
-    candidates, which they do not change numerically.  The KITTI branch
-    (frequency sampling and class weights) is not ported yet."""
+    sample at LiDAR points with ``align_corners=False``.  ``mxu_readout``
+    picks the loss route as in JAX (default ``"auto"``, the per-layer route;
+    ``"on"`` the all-layer batched one).  The JAX package's other TPU knobs
+    (``gt_chunks``, ``point_chunks``, ``feature_readout``,
+    ``shared_candidate_readout``, ``gt_label_kernel``) are not read: the port
+    always reads features with shared candidates, and its batched route
+    always reads the GT with K3; none of them changes the function.  The
+    KITTI branch (frequency sampling and class weights) is not ported yet."""
     head_cfg = dict(head_cfg)
     train_cfg = dict(train_cfg or {})
     num_classes = head_cfg.get("num_occupancy_classes", 20)
@@ -61,6 +63,7 @@ def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
         dice_eps=(head_cfg.get("loss_dice") or {}).get("eps", 1.0),
         class_weight=tuple(loss_cls.get("class_weight", (1.0,) * num_classes + (0.1,))),
         match_num_points=train_cfg.get("match_num_points"),
+        mxu_readout=str(head_cfg.get("mxu_readout", "auto")),
     )
 
 
@@ -93,7 +96,8 @@ def train_point_miou(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor
 def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                      loss_cfg: MaskLossConfig,
                      device: Union[str, torch.device, None] = None,
-                     compute_dtype: Optional[torch.dtype] = None) -> Callable:
+                     compute_dtype: Optional[torch.dtype] = None,
+                     accum_steps: int = 1) -> Callable:
     """Returns ``train_step(batch, generator, draws=None) -> metrics``.
 
     ``batch``: numpy arrays or tensors, the model's inputs plus ``gt_occ``
@@ -103,7 +107,15 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
     ``total_loss`` (the sum of the keys holding ``loss``), ``grad_norm``,
     ``unassigned_gt`` and ``point_mean_iou``, as device scalars.  ``draws``
     replaces the loss's draws (``make_loss_draws``) with given ones, e.g.
-    the JAX package's in a parity test.
+    the JAX package's in a parity test: one dict, or a list with one dict
+    per micro-batch.
+
+    ``accum_steps > 1`` accumulates gradients as JAX's step does: the
+    batch's leading axis (``accum_steps * micro_B``) splits into micro-batches
+    that run forward, loss and backward in turn, so BatchNorm statistics
+    update as ``accum_steps`` sequential steps would, each drawing its
+    drop-path masks and then its loss draws from ``generator``; gradients
+    and metrics are averaged over them, and the optimizer updates once.
 
     The step runs on ``cuda`` unless the caller passes ``device="cpu"``; the
     model must already be there.  It does not change the model's mode: call
@@ -115,6 +127,8 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
                            "the train step's plain PyTorch path on the CPU")
+    if accum_steps < 1:
+        raise ValueError(f"accum_steps must be at least 1; got {accum_steps}")
     params = list(model.parameters())
     if any(p.device.type != dev.type for p in params):
         raise ValueError(f"the model's parameters must lie on {dev}")
@@ -125,9 +139,8 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
             return contextlib.nullcontext()
         return torch.autocast(dev.type, dtype=compute_dtype)
 
-    def train_step(batch: Dict, generator: torch.Generator,
-                   draws: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, torch.Tensor]:
-        batch = to_device_batch(batch, dev)
+    def micro_step(batch, generator, draws):
+        """Forward, losses and backward of one micro-batch; its metrics."""
         with record_function("stage:forward"), autocast(), drop_path_generator(generator):
             out = model(batch)
         with record_function("stage:loss"):
@@ -143,16 +156,39 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                 vt.loss_depth_weight)
             total = sum(v for k, v in losses.items() if "loss" in k)
         with record_function("stage:backward"):
-            optimizer.zero_grad()
             total.backward()
-        with record_function("stage:optimizer"):
-            grad_norm = optimizer.step()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
-        metrics["grad_norm"] = grad_norm
         if "lidar_label" in batch:
             metrics["point_mean_iou"] = train_point_miou(
                 {k: v.detach() for k, v in out.items()}, batch, loss_cfg.num_classes)
+        return metrics
+
+    def train_step(batch: Dict, generator: torch.Generator,
+                   draws: Union[Dict[str, torch.Tensor], List[Dict[str, torch.Tensor]],
+                                None] = None) -> Dict[str, torch.Tensor]:
+        batch = to_device_batch(batch, dev)
+        B = batch["gt_occ"].shape[0]
+        if B % accum_steps:
+            raise ValueError(f"batch {B} is not divisible by accum_steps {accum_steps}")
+        if draws is None or isinstance(draws, dict):
+            if draws is not None and accum_steps > 1:
+                raise ValueError("pass one set of loss draws per micro-batch")
+            draws = [draws] * accum_steps
+        if len(draws) != accum_steps:
+            raise ValueError(f"{len(draws)} sets of loss draws for {accum_steps} micro-batches")
+        mb = B // accum_steps
+        micro = [batch] if accum_steps == 1 else [
+            {k: v[m * mb:(m + 1) * mb] for k, v in batch.items()} for m in range(accum_steps)]
+        optimizer.zero_grad()
+        per_micro = [micro_step(b, generator, d) for b, d in zip(micro, draws)]
+        metrics = per_micro[0]
+        if accum_steps > 1:
+            inv = 1.0 / accum_steps
+            torch._foreach_mul_([p.grad for p in params if p.grad is not None], inv)
+            metrics = {k: sum(m[k] for m in per_micro) * inv for k in metrics}
+        with record_function("stage:optimizer"):
+            metrics["grad_norm"] = optimizer.step()
         return metrics
 
     return train_step

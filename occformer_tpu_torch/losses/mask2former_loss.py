@@ -4,29 +4,43 @@ Port of ``occformer_tpu/losses/mask2former_loss.py`` (reference
 mask2former/mask2former_occ.py:224-444 and mask2former_nusc_occ.py:196-455),
 the branch the flagship trains with: LiDAR-point supervision
 (``use_lidar_points``) with the feature-space point readout and the shared
-candidate readout (``feature_readout=True``, ``shared_candidate_readout=True``,
-``mxu_readout="off"``, JAX ``:723-906`` and ``:1032-1141``).  That is the path
-the JAX package itself runs on every backend but the TPU; its TPU-only
-batched volume readout (``_mxu_batched_loss``) exists for the TPU's matrix
-unit.  Every point readout goes through ``ops.sampling.point_sample_3d``,
-i.e. through K2 on the card.
+candidate readout (``feature_readout=True``, ``shared_candidate_readout=True``).
+Two routes compute the same function; ``MaskLossConfig.mxu_readout`` picks
+one, with the JAX package's values:
+
+* ``"off"`` and ``"auto"``: the per-layer route (JAX ``:723-906`` and
+  ``:1032-1141``), a loop over (layer, sample) that reads the feature volume
+  at the loss points and contracts with the embeddings.  ``"auto"`` takes it
+  as JAX does off the TPU.
+* ``"on"`` and ``"interpret"``: the all-layer batched route
+  (``_batched_loss``, JAX ``_mxu_batched_loss`` :372-680), which the JAX
+  package runs on its TPU: per-query and per-slot mask VOLUMES (``emb .
+  feature``) read at row-sorted points, each readout one call over every
+  (layer, sample), and the GT read from the label grid by the corner-label
+  gather (K3, ``ops/loss_gather.py:sample_id_masks``).  By linearity
+  ``point_sample(emb . feature, p) == emb . point_sample(feature, p)``, so
+  the two routes agree to float32 rounding.
+
+Every point readout goes through K2 (``ops/trilerp.py``) on the card.  On
+the CPU both routes run the plain versions.
 
 * GT is one mask slot per class (``preprocess_gt``), a validity bit per slot.
 * Matching is detached: per (layer, sample) the cost at the matching points,
   then scipy's ``linear_sum_assignment`` on the host for all layers at once.
 * The loss's random draws come in as an argument (``make_loss_draws`` makes
   them from a ``torch.Generator``): torch cannot reproduce ``jax.random``, so
-  the parity tests build the same arrays from the JAX key tree.
-* The GT tables are layer-invariant and are built once per call (bool masks
-  read as 0/1 by K2); the mask feature is made contiguous once.
+  the parity tests build the same arrays from the JAX key tree.  Both routes
+  take the same draws.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..ops.loss_gather import sample_id_masks, sort_points_by_row
 from ..ops.sampling import point_sample_3d
 from .matching import hungarian_match, mask_matching_cost
 from .point_sampling import gumbel_noise, gumbel_topk_sample, uncertainty_topk
@@ -37,6 +51,8 @@ from .seg_losses import bce_elem
 # KITTI's grid branch, which reads with align_corners=True, is not ported
 ALIGN_CORNERS = False
 PADDING = "border"
+
+MXU_READOUT = ("auto", "on", "off", "interpret")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,6 +72,13 @@ class MaskLossConfig:
     class_weight: Tuple[float, ...] = ()
     # matching-point count (None = num_points, the reference semantics)
     match_num_points: Optional[int] = None
+    # the loss route: "on" / "interpret" batched, "off" / "auto" per layer
+    mxu_readout: str = "auto"
+
+    def __post_init__(self):
+        if self.mxu_readout not in MXU_READOUT:
+            raise ValueError(f"mxu_readout must be one of {MXU_READOUT}; "
+                             f"got {self.mxu_readout!r}")
 
     @property
     def num_match_points(self) -> int:
@@ -68,6 +91,11 @@ class MaskLossConfig:
     @property
     def num_uncertain(self) -> int:
         return int(self.importance_sample_ratio * self.num_points)
+
+    @property
+    def batched_readout(self) -> bool:
+        """Whether the loss takes the all-layer batched route."""
+        return self.mxu_readout in ("on", "interpret")
 
 
 def preprocess_gt(gt_occ: torch.Tensor, num_classes: int):
@@ -118,39 +146,59 @@ def make_loss_draws(generator: torch.Generator, cfg: MaskLossConfig,
     }
 
 
-def _fill_invalid(xyz, valid, perm, fill):
-    """LiDAR points ``perm`` of ``xyz [P, 3]``, with ``fill`` where invalid."""
-    return torch.where(valid[perm][:, None], xyz[perm], fill)
+def _loss_points(d, lidar_xyz, lidar_valid):
+    """The matching points [L, B, Pm, 3] (JAX ``_matching_points_nusc``: half
+    drawn LiDAR points, half uniform) and the candidates [L, B, S, 3] (JAX
+    ``_loss_single_sample`` :726-737: drawn LiDAR points plus uniform extras
+    up to the oversampled count) of every (layer, sample); a drawn point
+    takes its uniform fill where it is invalid."""
+    L = d["match_perm"].shape[0]
+    xyz = lidar_xyz[None].expand(L, -1, -1, -1)
+    valid = lidar_valid[None].expand(L, -1, -1)
 
+    def drawn(perm, fill):
+        pts = torch.gather(xyz, 2, perm[..., None].expand(*perm.shape, 3))
+        return torch.where(torch.gather(valid, 2, perm)[..., None], pts, fill)
 
-def _match_points(d, l, b, lidar_xyz, lidar_valid):
-    """JAX ``_matching_points_nusc``: half drawn LiDAR points, half uniform."""
-    pts = _fill_invalid(lidar_xyz[b], lidar_valid[b], d["match_perm"][l, b],
-                        d["match_rand1"][l, b])
-    return torch.cat([pts, d["match_rand2"][l, b]], dim=0)
-
-
-def _candidates(d, l, b, lidar_xyz, lidar_valid):
-    """JAX ``_loss_single_sample`` :726-737: drawn LiDAR points (uniform fill
-    where invalid) plus uniform extras up to the oversampled count."""
-    cand = _fill_invalid(lidar_xyz[b], lidar_valid[b], d["cand_perm"][l, b],
-                         d["cand_rand"][l, b])
-    return torch.cat([cand, d["cand_extra"][l, b]], dim=0)
+    match = torch.cat([drawn(d["match_perm"], d["match_rand1"]), d["match_rand2"]], dim=2)
+    cand = torch.cat([drawn(d["cand_perm"], d["cand_rand"]), d["cand_extra"]], dim=2)
+    return match, cand
 
 
 def _cls_terms(cls_score, assign, gt_labels, gt_valid, class_weight, num_classes):
-    """Weighted softmax CE numerator / avg factor and the per-slot weights."""
-    Q = cls_score.shape[0]
+    """Weighted softmax CE numerator and avg factor, and the per-slot weights
+    (0 for invalid or unassigned slots).  cls_score [..., Q, C+1], assign,
+    gt_labels and gt_valid [..., G] -> [...], [...], [..., G]."""
+    Q = cls_score.shape[-2]
     safe_q = torch.where(assign >= 0, assign, torch.full_like(assign, Q))
-    labels = torch.full((Q + 1,), num_classes, dtype=torch.long, device=cls_score.device)
-    labels[safe_q] = torch.where(gt_valid, gt_labels, torch.full_like(gt_labels, num_classes))
-    labels = labels[:Q]
+    labels = torch.full((*assign.shape[:-1], Q + 1), num_classes, dtype=torch.long,
+                        device=cls_score.device)
+    labels.scatter_(-1, safe_q, torch.where(gt_valid, gt_labels,
+                                            torch.full_like(gt_labels, num_classes)))
+    labels = labels[..., :Q]
     cw = class_weight[labels]
     logp = torch.log_softmax(cls_score.float(), dim=-1)
-    cls_num = -(logp.gather(1, labels[:, None])[:, 0] * cw).sum()
+    cls_num = -(logp.gather(-1, labels[..., None])[..., 0] * cw).sum(-1)
     gt_w = torch.where(gt_valid & (assign >= 0), class_weight[gt_labels],
                        torch.zeros((), device=cls_score.device))
-    return cls_num, cw.sum(), gt_w
+    return cls_num, cw.sum(-1), gt_w
+
+
+def _layer_losses(cfg, s, assigns, gt_valid):
+    """The loss dict from per-layer partial sums ``s`` ([L] each)."""
+    eps = torch.finfo(torch.float32).eps
+    lc = cfg.cls_loss_weight * s["cls_num"] / s["cls_avg"].clamp(min=eps)
+    lm = cfg.mask_loss_weight * s["mask_num"] / s["mask_avg"].clamp(min=eps)
+    ld = cfg.dice_loss_weight * s["dice_num"] / s["dice_avg"].clamp(min=eps)
+    L = lc.shape[0]
+    losses: Dict[str, torch.Tensor] = {}
+    for l in range(L):
+        prefix = "" if l == L - 1 else f"d{l}."
+        losses[prefix + "loss_cls"] = lc[l]
+        losses[prefix + "loss_mask"] = lm[l]
+        losses[prefix + "loss_dice"] = ld[l]
+    losses["unassigned_gt"] = ((assigns < 0) & gt_valid[None]).sum().float()
+    return losses
 
 
 def _loss_single_sample(cfg, cls_score, emb, feature, gt_table, gt_slots, gt_labels,
@@ -193,6 +241,223 @@ def _loss_single_sample(cfg, cls_score, emb, feature, gt_table, gt_slots, gt_lab
                 dice_num=(dice_rows * gt_w).sum(), dice_avg=gt_w.sum())
 
 
+def _per_layer_assign(cfg, cls_preds, mask_embeds, feature, gt_table, gt_labels,
+                      gt_valid, match_pts):
+    """The per-layer route's matching, detached (the reference's assigner
+    runs on detached predictions); one host transfer for every (layer,
+    sample).  -> [L, B, G]"""
+    L, B, Q = cls_preds.shape[:3]
+    with torch.no_grad():
+        costs = []
+        for l in range(L):
+            for b in range(B):
+                pts = match_pts[l, b][None]
+                feat_pts = point_sample_3d(feature[b:b + 1], pts, ALIGN_CORNERS, PADDING)[0]
+                mask_pts = mask_embeds[l, b].float() @ feat_pts.float().T  # [Q, P]
+                gt_pts = point_sample_3d(gt_table[b:b + 1], pts, ALIGN_CORNERS,
+                                         PADDING)[0].T  # [G, P]
+                costs.append(mask_matching_cost(
+                    cls_preds[l, b], mask_pts, gt_labels[b], gt_pts, gt_valid[b],
+                    cls_weight=cfg.cls_cost_weight, mask_weight=cfg.mask_cost_weight,
+                    dice_weight=cfg.dice_cost_weight, dice_eps=cfg.dice_eps))
+        cost = torch.stack(costs).reshape(L, B, Q, -1)
+        return hungarian_match(cost, gt_valid.expand(L, B, -1))
+
+
+def _per_layer_loss(cfg, cls_preds, mask_embeds, feature, gt_table, gt_masks, gt_labels,
+                    gt_valid, assigns, cand_pts, rand_fill, class_weight):
+    """The per-layer route's differentiated losses given the assignments: a
+    loop over (layer, sample)."""
+    L, B = cls_preds.shape[:2]
+    gt_slots = gt_masks.unsqueeze(-1)                         # [B, G, X, Y, Z, 1]
+    sums = []
+    for l in range(L):
+        parts = [_loss_single_sample(
+            cfg, cls_preds[l, b], mask_embeds[l, b], feature[b:b + 1],
+            gt_table[b:b + 1], gt_slots[b], gt_labels[b], gt_valid[b], assigns[l, b],
+            cand_pts[l, b], rand_fill[l, b], class_weight) for b in range(B)]
+        sums.append({k: sum(p[k] for p in parts) for k in parts[0]})
+    s = {k: torch.stack([x[k] for x in sums]) for k in sums[0]}
+    return _layer_losses(cfg, s, assigns, gt_valid)
+
+
+@contextlib.contextmanager
+def _full_float32(device_type: str):
+    """float32 matmuls in full float32 within the block: no autocast, and no
+    TF32 on the card even where the caller allows it (JAX's
+    ``Precision.HIGHEST``; a reduced-precision volume puts about 1e-3
+    relative noise into every sampled logit, JAX :549-550).  The backward's
+    matmuls run later and follow the caller's setting, full float32 by
+    PyTorch's default."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.autocast(device_type, enabled=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _slot_volumes(emb, feature, dtype):
+    """Channels-last mask volumes ``emb . feature`` of every (layer, sample):
+    emb [L, B, K, C], feature [B, X, Y, Z, C] -> [L * B, X, Y, Z, K] in
+    ``dtype`` (K2's table layout: one readout covers every slot)."""
+    L, B, K, C = emb.shape
+    X, Y, Z = feature.shape[1:4]
+    vol = torch.einsum("bvc,lbkc->lbvk", feature.to(dtype).reshape(B, X * Y * Z, C),
+                       emb.to(dtype))
+    return vol.reshape(L * B, X, Y, Z, K).contiguous()
+
+
+def _gt_reader(gt_occ, gt_masks, gt_labels, num_classes, L):
+    """``read_gt(points)``: [L, B, S, 3] shared or [L, B, G, P, 3] per-slot
+    points -> [L, B, G, S] or [L, B, G, P] soft GT masks, detached.  While
+    the slots are class ids (``num_classes < 256``, JAX's gate :1018) the
+    label gather (K3) reads the label grid; else trilinear reads (K2) of the
+    one-hot masks, one per layer or (layer, sample)."""
+    B = gt_occ.shape[0]
+    if num_classes < 256:
+        id_grid = gt_occ.to(torch.int32).contiguous()
+        slot_ids = gt_labels.to(torch.int32).contiguous()
+
+        def read_gt(points):
+            out = sample_id_masks(id_grid, slot_ids, points.reshape(L * B, *points.shape[2:]),
+                                  ALIGN_CORNERS, PADDING)
+            return out.reshape(L, B, *out.shape[1:])
+        return read_gt
+
+    table = gt_masks.permute(0, 2, 3, 4, 1).contiguous()  # [B, Xg, Yg, Zg, G]
+
+    def read_gt(points):
+        if points.dim() == 4:
+            return torch.stack([point_sample_3d(table, points[l], ALIGN_CORNERS, PADDING)
+                                for l in range(L)]).transpose(2, 3)
+        return torch.stack([torch.stack([
+            point_sample_3d(gt_masks[b, ..., None], points[l, b], ALIGN_CORNERS,
+                            PADDING)[..., 0] for b in range(B)]) for l in range(L)])
+    return read_gt
+
+
+def _batched_assign(cfg, cls_preds, mask_embeds, feature, read_gt, gt_labels, gt_valid,
+                    match_pts):
+    """The batched route's matching, detached: per-query mask volumes read
+    at the row-sorted matching points of every (layer, sample) in one K2
+    launch, the GT in one K3 launch.  -> [L, B, G]"""
+    L, B, Q = cls_preds.shape[:3]
+    G = gt_labels.shape[1]
+    with torch.no_grad():
+        pts = sort_points_by_row(match_pts, tuple(feature.shape[1:4]))  # [L, B, Pm, 3]
+        Pm = pts.shape[2]
+        # match volumes in the feature's dtype (bf16 under autocast on the
+        # card, as the reference computes the cost under fp16 AMP)
+        q_vol = _slot_volumes(mask_embeds.detach(), feature.detach(), feature.dtype)
+        mask_pts = point_sample_3d(
+            q_vol, pts.reshape(L * B, Pm, 3), ALIGN_CORNERS, PADDING)  # [NB, Pm, Q]
+        del q_vol
+        mask_pts = mask_pts.float().transpose(1, 2).reshape(L, B, Q, Pm)
+        cost = mask_matching_cost(
+            cls_preds.detach(), mask_pts, gt_labels.expand(L, B, G), read_gt(pts),
+            gt_valid.expand(L, B, G), cls_weight=cfg.cls_cost_weight,
+            mask_weight=cfg.mask_cost_weight, dice_weight=cfg.dice_cost_weight,
+            dice_eps=cfg.dice_eps)
+        return hungarian_match(cost, gt_valid.expand(L, B, G))
+
+
+def _batched_loss(cfg, cls_preds, mask_embeds, feature, read_gt, gt_labels, gt_valid,
+                  assigns, cand_pts, rand_fill, class_weight):
+    """The batched route's differentiated losses given the assignments (JAX
+    ``_mxu_batched_loss`` :506-680): per-slot volumes read at the row-sorted
+    candidates and random-fill points of every (layer, sample) in one K2
+    launch each (K2-bwd in the backward), the GT in one K3 launch each."""
+    L, B, Q = cls_preds.shape[:3]
+    G = gt_labels.shape[1]
+    X, Y, Z, C = feature.shape[1:]
+    spatial = (X, Y, Z)
+    NB = L * B
+    n_unc = cfg.num_uncertain
+    n_rand = rand_fill.shape[3]
+    cand_s = sort_points_by_row(cand_pts, spatial)               # [L, B, S, 3]
+    S = cand_s.shape[2]
+    emb_g = torch.gather(mask_embeds, 2,
+                         assigns.clamp(0, Q - 1)[..., None].expand(L, B, G, C))
+    with _full_float32(feature.device.type):
+        vol = _slot_volumes(emb_g, feature, torch.float32)       # [NB, X, Y, Z, G]
+    cand_logits = point_sample_3d(
+        vol, cand_s.reshape(NB, S, 3), ALIGN_CORNERS, PADDING)   # [NB, S, G]
+    cand_logits = cand_logits.transpose(1, 2).reshape(L, B, G, S)
+    gt_cand = read_gt(cand_s)                                    # [L, B, G, S]
+
+    # the uncertainty selection as a 0/1 weight over the candidates: the set
+    # of top-k of -|logit| (all above the k-th value, then ties in index
+    # order up to k, top-k's tie rule), JAX :587-594
+    score = -cand_logits.detach().abs()
+    kth = torch.topk(score, n_unc, dim=-1).values[..., -1:]
+    above = score > kth
+    ties = score == kth
+    tie_rank = ties.int().cumsum(-1)
+    sel = (above | (ties & (tie_rank <= n_unc - above.sum(-1, keepdim=True)))).float()
+
+    bce = (bce_elem(cand_logits, gt_cand) * sel).sum(-1)         # [L, B, G]
+    sig = torch.sigmoid(cand_logits)
+    da = (sig * gt_cand * sel).sum(-1)
+    db = ((sig + gt_cand) * sel).sum(-1)
+    if n_rand > 0:
+        # the random fill reads slot g's volume only: slot-major volumes
+        # [NB * G, X, Y, Z, 1], one copy of the channels-last ones
+        rand_s = sort_points_by_row(rand_fill, spatial)          # [L, B, G, n_rand, 3]
+        vol_slots = vol.permute(0, 4, 1, 2, 3).reshape(NB * G, X, Y, Z, 1)
+        pred_rand = point_sample_3d(vol_slots, rand_s.reshape(NB * G, n_rand, 3),
+                                    ALIGN_CORNERS, PADDING).reshape(L, B, G, n_rand)
+        tgt_rand = read_gt(rand_s)                               # [L, B, G, n_rand]
+        bce = bce + bce_elem(pred_rand, tgt_rand).sum(-1)
+        sig_r = torch.sigmoid(pred_rand)
+        da = da + (sig_r * tgt_rand).sum(-1)
+        db = db + sig_r.sum(-1) + tgt_rand.sum(-1)
+
+    cls_num, cls_avg, gt_w = _cls_terms(cls_preds, assigns, gt_labels.expand(L, B, G),
+                                        gt_valid.expand(L, B, G), class_weight,
+                                        cfg.num_classes)
+    dice_rows = 1.0 - (2 * da + cfg.dice_eps) / (db + cfg.dice_eps)
+    s = dict(cls_num=cls_num.sum(1), cls_avg=cls_avg.sum(1),
+             mask_num=(bce * (gt_w > 0)).sum((1, 2)),
+             mask_avg=gt_w.sum((1, 2)) * cfg.num_points,
+             dice_num=(dice_rows * gt_w).sum((1, 2)), dice_avg=gt_w.sum((1, 2)))
+    return _layer_losses(cfg, s, assigns, gt_valid)
+
+
+def _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws):
+    """What both routes and both phases read: the GT slots, the feature,
+    the draws on the loss's device and the loss points."""
+    dev = cls_preds.device
+    draws = {k: v.to(dev) for k, v in draws.items()}
+    gt_masks, gt_labels, gt_valid = preprocess_gt(gt_occ, cfg.num_classes)
+    match_pts, cand_pts = _loss_points(draws, lidar_xyz, lidar_valid.bool())
+    return dict(gt_masks=gt_masks, gt_labels=gt_labels, gt_valid=gt_valid,
+                feature=mask_feature.contiguous(), match_pts=match_pts, cand_pts=cand_pts,
+                rand_fill=draws["rand_fill"])
+
+
+def _assign(cfg, p, cls_preds, mask_embeds, gt_occ):
+    """(assignments [L, B, G], the route's GT reader or table)."""
+    if cfg.batched_readout:
+        read_gt = _gt_reader(gt_occ, p["gt_masks"], p["gt_labels"], cfg.num_classes,
+                             cls_preds.shape[0])
+        return _batched_assign(cfg, cls_preds, mask_embeds, p["feature"], read_gt,
+                               p["gt_labels"], p["gt_valid"], p["match_pts"]), read_gt
+    gt_table = p["gt_masks"].permute(0, 2, 3, 4, 1).contiguous()  # [B, X, Y, Z, G]
+    return _per_layer_assign(cfg, cls_preds, mask_embeds, p["feature"], gt_table,
+                             p["gt_labels"], p["gt_valid"], p["match_pts"]), gt_table
+
+
+def match_assignments(cls_preds, mask_embeds, mask_feature, gt_occ, cfg: MaskLossConfig,
+                      lidar_xyz, lidar_valid, draws) -> torch.Tensor:
+    """The Hungarian assignment [L, B, G] (query per GT slot, -1 for invalid
+    slots) that ``mask2former_loss`` computes on ``cfg``'s route from the same
+    arguments."""
+    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws)
+    return _assign(cfg, p, cls_preds, mask_embeds, gt_occ)[0]
+
+
 def mask2former_loss(
     cls_preds: torch.Tensor,     # [L, B, Q, C+1]
     mask_embeds: torch.Tensor,   # [L, B, Q, Cout]
@@ -206,48 +471,15 @@ def mask2former_loss(
     """Deep-supervision loss over all decoder layers: ``d{i}.loss_*`` for the
     intermediate layers, ``loss_*`` for the last, and the metric
     ``unassigned_gt`` (valid GT slots left unassigned over all layers; always
-    0 with scipy's assignment)."""
-    L, B, Q = cls_preds.shape[:3]
-    dev = cls_preds.device
-    draws = {k: v.to(dev) for k, v in draws.items()}
-    lidar_valid = lidar_valid.bool()
-    gt_masks, gt_labels, gt_valid = preprocess_gt(gt_occ, cfg.num_classes)
-    gt_table = gt_masks.permute(0, 2, 3, 4, 1).contiguous()  # [B, X, Y, Z, G]
-    gt_slots = gt_masks.unsqueeze(-1)                         # [B, G, X, Y, Z, 1]
-    feature = mask_feature.contiguous()
-    class_weight = torch.tensor(cfg.class_weight, dtype=torch.float32, device=dev)
-
-    # phase A: matching, detached (the reference's assigner runs on detached
-    # predictions); one host transfer for every (layer, sample)
-    with torch.no_grad():
-        costs = []
-        for l in range(L):
-            for b in range(B):
-                pts = _match_points(draws, l, b, lidar_xyz, lidar_valid)[None]
-                feat_pts = point_sample_3d(feature[b:b + 1], pts, ALIGN_CORNERS, PADDING)[0]
-                mask_pts = mask_embeds[l, b].float() @ feat_pts.float().T  # [Q, P]
-                gt_pts = point_sample_3d(gt_table[b:b + 1], pts, ALIGN_CORNERS,
-                                         PADDING)[0].T  # [G, P]
-                costs.append(mask_matching_cost(
-                    cls_preds[l, b], mask_pts, gt_labels[b], gt_pts, gt_valid[b],
-                    cls_weight=cfg.cls_cost_weight, mask_weight=cfg.mask_cost_weight,
-                    dice_weight=cfg.dice_cost_weight, dice_eps=cfg.dice_eps))
-        cost = torch.stack(costs).reshape(L, B, Q, -1)
-        assigns = hungarian_match(cost, gt_valid.expand(L, B, -1))  # [L, B, G]
-
-    # phase B: the differentiated losses given the assignments
-    eps = torch.finfo(torch.float32).eps
-    losses: Dict[str, torch.Tensor] = {}
-    for l in range(L):
-        parts = [_loss_single_sample(
-            cfg, cls_preds[l, b], mask_embeds[l, b], feature[b:b + 1],
-            gt_table[b:b + 1], gt_slots[b], gt_labels[b], gt_valid[b], assigns[l, b],
-            _candidates(draws, l, b, lidar_xyz, lidar_valid), draws["rand_fill"][l, b],
-            class_weight) for b in range(B)]
-        s = {k: sum(p[k] for p in parts) for k in parts[0]}
-        prefix = "" if l == L - 1 else f"d{l}."
-        losses[prefix + "loss_cls"] = cfg.cls_loss_weight * s["cls_num"] / s["cls_avg"].clamp(min=eps)
-        losses[prefix + "loss_mask"] = cfg.mask_loss_weight * s["mask_num"] / s["mask_avg"].clamp(min=eps)
-        losses[prefix + "loss_dice"] = cfg.dice_loss_weight * s["dice_num"] / s["dice_avg"].clamp(min=eps)
-    losses["unassigned_gt"] = ((assigns < 0) & gt_valid[None]).sum().float()
-    return losses
+    0 with scipy's assignment).  ``cfg.mxu_readout`` picks the route."""
+    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws)
+    assigns, gt = _assign(cfg, p, cls_preds, mask_embeds, gt_occ)
+    class_weight = torch.tensor(cfg.class_weight, dtype=torch.float32,
+                                device=cls_preds.device)
+    if cfg.batched_readout:
+        return _batched_loss(cfg, cls_preds, mask_embeds, p["feature"], gt, p["gt_labels"],
+                             p["gt_valid"], assigns, p["cand_pts"], p["rand_fill"],
+                             class_weight)
+    return _per_layer_loss(cfg, cls_preds, mask_embeds, p["feature"], gt, p["gt_masks"],
+                           p["gt_labels"], p["gt_valid"], assigns, p["cand_pts"],
+                           p["rand_fill"], class_weight)

@@ -21,27 +21,30 @@ def mask_matching_cost(cls_score: torch.Tensor, mask_points_pred: torch.Tensor,
                        gt_valid: torch.Tensor, cls_weight: float = 2.0,
                        mask_weight: float = 5.0, dice_weight: float = 5.0,
                        dice_eps: float = 1.0) -> torch.Tensor:
-    """cls_score [Q, C+1] logits, mask_points_pred [Q, P] logits, gt_labels
-    [G], gt_points [G, P] (soft 0..1), gt_valid [G] -> [Q, G] float32 cost;
-    invalid GT columns get BIG_COST."""
+    """cls_score [..., Q, C+1] logits, mask_points_pred [..., Q, P] logits,
+    gt_labels [..., G], gt_points [..., G, P] (soft 0..1), gt_valid [..., G]
+    -> [..., Q, G] float32 cost; invalid GT columns get BIG_COST.  Leading
+    dimensions, if any, are batch dimensions shared by all five."""
     cls_score = cls_score.float()
     x = mask_points_pred.float()
     gt = gt_points.float()
+    gt_t = gt.transpose(-1, -2)
     P = x.shape[-1]
     # ClassificationCost: minus the softmax probability of the GT class
-    cls_cost = -torch.softmax(cls_score, dim=-1)[:, gt_labels.long()]
+    labels = gt_labels.long().unsqueeze(-2).expand(*cls_score.shape[:-1], -1)
+    cls_cost = -torch.softmax(cls_score, dim=-1).gather(-1, labels)
     # CrossEntropyLossCost (use_sigmoid): point-mean BCE against 1 and 0
     soft = torch.log1p(torch.exp(-x.abs()))
     pos = x.clamp(min=0) - x + soft
     neg = x.clamp(min=0) + soft
-    mask_cost = (pos @ gt.T + neg @ (1.0 - gt).T) / P
+    mask_cost = (pos @ gt_t + neg @ (1.0 - gt_t)) / P
     # DiceCost, pred_act=True, naive denominator
     pred = torch.sigmoid(x)
-    num = 2.0 * (pred @ gt.T)
-    den = pred.sum(-1)[:, None] + gt.sum(-1)[None, :]
+    num = 2.0 * (pred @ gt_t)
+    den = pred.sum(-1).unsqueeze(-1) + gt.sum(-1).unsqueeze(-2)
     dice_cost = 1.0 - (num + dice_eps) / (den + dice_eps)
     cost = cls_weight * cls_cost + mask_weight * mask_cost + dice_weight * dice_cost
-    return torch.where(gt_valid[None, :].bool(), cost, torch.full_like(cost, BIG_COST))
+    return torch.where(gt_valid.unsqueeze(-2).bool(), cost, torch.full_like(cost, BIG_COST))
 
 
 def linear_sum_assignment_valid(cost: np.ndarray, valid: np.ndarray) -> np.ndarray:

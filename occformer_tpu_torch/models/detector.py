@@ -11,8 +11,9 @@ encoder, gradient checkpointing (``with_cp``) and the frozen image stem
 ``translate_cfg`` maps a component's ``type`` straight to its class and
 picks the keys the port uses.  The shared configs also carry TPU-only knobs
 (``gather_impl``, ``gather_window``, ``gather_s_block``, ``gather_fused``,
-``query_chunks``, ``mxu_readout``, ``gt_label_kernel``, ``pack_windows``,
-``scan_layers``, ``spatial_shard_axis``) and loss settings; it ignores them.
+``query_chunks``, ``gt_label_kernel``, ``pack_windows``, ``scan_layers``,
+``spatial_shard_axis``) and loss settings (among them ``mxu_readout``, which
+``engine/train.py:build_loss_cfg`` reads); the model ignores them.
 """
 from __future__ import annotations
 

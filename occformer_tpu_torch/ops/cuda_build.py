@@ -23,7 +23,8 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel library name -> source file under csrc/
 SOURCES = {"ms_deform_gather3d": "ms_deform_gather3d.cu",
-           "trilerp_sample3d": "trilerp_sample3d.cu"}
+           "trilerp_sample3d": "trilerp_sample3d.cu",
+           "label_gather3d": "label_gather3d.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

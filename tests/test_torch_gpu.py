@@ -1,9 +1,10 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-K1 (``ms_deform_gather_3d``) and its backward K1-bwd, and K2
-(``trilerp_sample``) and its backward K2-bwd.  These tests need a CUDA device
-and skip without one; the kernels have no CPU mode.  The file imports no
-JAX, so it also runs where JAX is absent:
+K1 (``ms_deform_gather_3d``) and its backward K1-bwd, K2 (``trilerp_sample``)
+and its backward K2-bwd, K3 (``sample_id_masks``), and the all-layer batched
+loss on the card (K2, K2-bwd, K3) against the same loss on the CPU.  These
+tests need a CUDA device and skip without one; the kernels have no CPU mode.
+The file imports no JAX, so it also runs where JAX is absent:
 
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
@@ -11,12 +12,19 @@ Tolerances, relative to max |plain|: float32 1e-5 for the forwards and 1e-4
 for the gradients (the same float32 sums in another order; the gradients
 add up to 8 * hd atomics per element in an order that changes from run to
 run); bfloat16 1e-2 (the kernels round their outputs to bf16; the plain
-versions run in float32 on the same bf16-rounded inputs).
+versions run in float32 on the same bf16-rounded inputs).  K3 1e-6
+absolute: it adds the plain version's float32 terms in its order.
 """
 import numpy as np
 import pytest
 import torch
 
+from occformer_tpu_torch.losses.mask2former_loss import (
+    MaskLossConfig,
+    make_loss_draws,
+    mask2former_loss,
+)
+from occformer_tpu_torch.ops import loss_gather as k3
 from occformer_tpu_torch.ops import trilerp as k2
 from occformer_tpu_torch.ops import trilerp_fused as k1
 
@@ -179,3 +187,84 @@ def test_k2_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         k2.trilerp_sample(table, coords, padding_mode="reflection")
     assert k2.LAUNCHES == before
+
+
+def _k3_inputs(dev, spatial, B=2, N=4, G=17, S=3000, P=200, seed=0):
+    rng = np.random.RandomState(seed)
+    grid = rng.randint(0, G + 2, (B, *spatial)).astype(np.int32)
+    grid[:, :2] = 255
+    ids = np.stack([np.arange(G), np.arange(G)[::-1]]).astype(np.int32)
+    shared = rng.uniform(-0.15, 1.15, (N, S, 3)).astype(np.float32)
+    per_slot = rng.uniform(-0.15, 1.15, (N, G, P, 3)).astype(np.float32)
+    return [torch.from_numpy(a).to(dev) for a in (grid, ids, shared, per_slot)]
+
+
+@pytest.mark.parametrize("spatial", [(16, 8, 4), (40, 24, 12)])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_k3_matches_plain(cuda, spatial, align_corners, padding_mode):
+    grid, ids, shared, per_slot = _k3_inputs(cuda, spatial)
+    for pts in (shared, per_slot):
+        before = k3.LAUNCHES
+        got = k3.sample_id_masks(grid, ids, pts, align_corners, padding_mode)
+        torch.cuda.synchronize()
+        assert k3.LAUNCHES == before + 1
+        ref = k3.sample_id_masks_plain(grid.cpu(), ids.cpu(), pts.cpu(), align_corners,
+                                       padding_mode)
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        assert (got.cpu() - ref).abs().max().item() <= 1e-6
+
+
+def test_k3_rejects_what_it_does_not_take(cuda):
+    grid, ids, shared, _ = _k3_inputs(cuda, (8, 8, 4))
+    before = k3.LAUNCHES
+    with pytest.raises(TypeError):
+        k3.sample_id_masks(grid.long(), ids, shared)
+    with pytest.raises(TypeError):
+        k3.sample_id_masks(grid, ids, shared.double())
+    with pytest.raises(ValueError):
+        k3.sample_id_masks(grid, ids.cpu(), shared)
+    with pytest.raises(ValueError):
+        k3.sample_id_masks(grid, ids, shared.transpose(0, 1).contiguous().transpose(0, 1))
+    assert k3.LAUNCHES == before
+
+
+@pytest.mark.parametrize("B", [1, 2])
+def test_batched_loss_on_the_card_matches_the_cpu(cuda, B):
+    """The all-layer batched loss at a small size, float32: the card (K2,
+    K2-bwd, K3) against the CPU (plain versions) on the same inputs and
+    draws.  Losses to 1e-4 relative, gradients (through K2-bwd) to 1e-3 of
+    their max: the same float32 sums in another order."""
+    rng = np.random.RandomState(0)
+    L, Q, nc, C, P = 3, 8, 5, 24, 100
+    X, Y, Z = 16, 16, 8
+    gt = rng.randint(0, nc, (B, 32, 32, 16)).astype(np.int32)
+    gt[:, :3] = 255
+    x = dict(cls_preds=rng.randn(L, B, Q, nc + 1), mask_embeds=0.4 * rng.randn(L, B, Q, C),
+             mask_feature=0.4 * rng.randn(B, X, Y, Z, C))
+    lidar_xyz = torch.from_numpy(rng.uniform(-0.1, 1.1, (B, P, 3)).astype(np.float32))
+    lidar_valid = torch.from_numpy(np.arange(P)[None].repeat(B, 0) < 80)
+    cfg = MaskLossConfig(num_classes=nc, num_points=64, oversample_ratio=2.0,
+                         class_weight=(1.0,) * nc + (0.1,), mxu_readout="on")
+    draws = make_loss_draws(torch.Generator().manual_seed(1), cfg, lidar_valid, L)
+
+    def run(dev):
+        leaves = {k: torch.from_numpy(v.astype(np.float32)).to(dev).requires_grad_(True)
+                  for k, v in x.items()}
+        losses = mask2former_loss(leaves["cls_preds"], leaves["mask_embeds"],
+                                  leaves["mask_feature"], torch.from_numpy(gt).to(dev), cfg,
+                                  lidar_xyz.to(dev), lidar_valid.to(dev), draws)
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {k: t.grad.cpu() for k, t in leaves.items()})
+
+    before = (k2.LAUNCHES, k2.BWD_LAUNCHES, k3.LAUNCHES)
+    got, got_g = run(cuda)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES - before[0], k2.BWD_LAUNCHES - before[1],
+            k3.LAUNCHES - before[2]) == (3, 2, 3)
+    ref, ref_g = run("cpu")
+    for k, r in ref.items():
+        assert abs(got[k] - r) <= 1e-4 * abs(r) + 1e-6, (k, got[k], r)
+    for k, r in ref_g.items():
+        _close(got_g[k], r, 1e-3, f"batched loss d_{k}")

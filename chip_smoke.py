@@ -4,8 +4,13 @@
     python3 chip_smoke.py
 
 Phases, each printing one JSON line:
-  1. build:      compile every CUDA kernel of the package from its sources,
-                 one nvcc per source, all started together.
+  0. probe:      the backend viability probe
+                 (occformer_tpu_torch.tools.probe_viability): builds only
+                 csrc/probe.cu and holds P1 (add_one) and P2 (row_gather)
+                 exactly against their plain versions, then times them and
+                 torch.gather; a broken toolchain fails here in seconds.
+  1. build:      compile every other CUDA kernel of the package from its
+                 sources, one nvcc per source, all started together.
   2. serve:      the flagship config (occformer_nusc_r50_256x704) at full
                  width and depth, random weights from a seeded
                  torch.Generator, bfloat16, through build_eval_step on a
@@ -45,9 +50,16 @@ Phases, each printing one JSON line:
                  (mxu_readout="on"), plus both routes' losses and Hungarian
                  assignments on one float32 copy of a step's model outputs
                  with one set of draws.
-In phases 2, 6 and 7 every kernel's launch count is set to 0 just before
-the path is driven and read just after; each must match its per-frame or
-per-step count.  Then the card's name and power limit (nvidia-smi), one JSON
+  8. cli:        the train and test CLIs at the flagship's full width on
+                 SyntheticOccDataset (--cfg-options), as subprocesses in a
+                 temporary work directory outside the repo: 2 steps, then a
+                 resume at step 2 to step 4, then tools.test on step_4 over 2
+                 samples; in process, step_2 loaded into a fresh model and
+                 optimizer and held bit-equal to the saved file.
+In phases 0, 2, 6 and 7 and in the K4 parity gate every kernel's launch
+count is set to 0 just before the path is driven and read just after; each
+must match its per-frame, per-step or per-run count.  The CLIs report their
+own counts, which must show their kernels.  Then the card's name and power limit (nvidia-smi), one JSON
 line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
@@ -57,15 +69,14 @@ from __future__ import annotations
 import gc
 import json
 import os
-import statistics
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r50_256x704.py")
-H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
-H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
 
 # kernel launches per serving frame and per train step of the flagship
 # (6 deformable encoder layers; the per-layer loss route reads 10 supervised
@@ -73,9 +84,17 @@ H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
 # batched route reads all 10 at once: K2 at the matching points, the
 # candidates and the random fill, the last two differentiated, and K3 at the
 # same three point sets); PERF.md states the same counts
-SERVE_LAUNCHES = {"K1": 6, "K1-bwd": 0, "K2": 0, "K2-bwd": 0, "K3": 0}
-TRAIN_LAUNCHES = {"off": {"K1": 6, "K1-bwd": 6, "K2": 60, "K2-bwd": 20, "K3": 0},
-                  "on": {"K1": 6, "K1-bwd": 6, "K2": 3, "K2-bwd": 2, "K3": 3}}
+_NONE = {"K1": 0, "K1-bwd": 0, "K2": 0, "K2-bwd": 0, "K3": 0, "K4": 0, "K4-bwd": 0,
+         "P1": 0, "P2": 0}
+SERVE_LAUNCHES = dict(_NONE, K1=6)
+TRAIN_LAUNCHES = {"off": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 60, "K2-bwd": 20}),
+                  "on": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 3, "K2-bwd": 2, "K3": 3})}
+# the K4 parity gate: bench.py's shapes at both align_corners and the
+# flagship shapes, one forward and one backward each; the probe: P1 and P2 once
+K4_GATE_LAUNCHES = dict(_NONE, **{"K4": 3, "K4-bwd": 3})
+PROBE_LAUNCHES = dict(_NONE, P1=1, P2=1)
+# the pyramid of the deformable attention, largest level first, as bench.py
+K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
 # the outermost torch.profiler ranges of a frame and of a train step
 SERVE_STAGES = ("upload", "image_encoder", "view_transformer", "occupancy_encoder",
                 "pixel_decoder", "head", "readout")
@@ -93,51 +112,36 @@ def check(cond, msg):
 
 
 def time_cuda(fn, iters=30, warmup=5):
-    """Median milliseconds of ``fn()`` over ``iters`` CUDA-event timed calls."""
-    import torch
+    """Median ms of ``fn()`` over CUDA-event timed calls (the port's
+    ``utils/timing.py``)."""
+    from occformer_tpu_torch.utils.timing import time_cuda as timed
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(iters):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    return timed(fn, iters, warmup)
 
 
 def nbytes(*tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
+    from occformer_tpu_torch.utils.timing import nbytes as total
+
+    return total(*tensors)
 
 
 def bound(n_bytes, flops):
-    """The least time the card could take: bytes over HBM bandwidth or float32
-    operations over the float32 peak, whichever is larger."""
-    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / H100_F32_FLOP_PER_S
-    return {"bytes": n_bytes, "flops": flops, "bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    """The least time the card could take (``utils/timing.py:bound``)."""
+    from occformer_tpu_torch.utils.timing import bound as least
+
+    return least(n_bytes, flops)
 
 
 def launches():
-    from occformer_tpu_torch.ops import loss_gather as k3
-    from occformer_tpu_torch.ops import trilerp as k2
-    from occformer_tpu_torch.ops import trilerp_fused as k1
+    from occformer_tpu_torch.ops import launch_counts
 
-    return {"K1": k1.LAUNCHES, "K1-bwd": k1.BWD_LAUNCHES,
-            "K2": k2.LAUNCHES, "K2-bwd": k2.BWD_LAUNCHES, "K3": k3.LAUNCHES}
+    return launch_counts()
 
 
 def reset_launches():
-    from occformer_tpu_torch.ops import loss_gather as k3
-    from occformer_tpu_torch.ops import trilerp as k2
-    from occformer_tpu_torch.ops import trilerp_fused as k1
+    from occformer_tpu_torch.ops import reset_launch_counts
 
-    k1.LAUNCHES = k1.BWD_LAUNCHES = k2.LAUNCHES = k2.BWD_LAUNCHES = k3.LAUNCHES = 0
+    reset_launch_counts()
 
 
 def free_memory():
@@ -466,12 +470,182 @@ def phase_k3():
     return recs
 
 
+def phase_probe():
+    """The viability probe (P1, P2) as its CLI runs it: build csrc/probe.cu
+    alone, hold both kernels exactly against their plain versions, then
+    time them and torch.gather."""
+    import torch
+
+    from occformer_tpu_torch.tools.probe_viability import probe_check, probe_time
+
+    dev = torch.device("cuda")
+    reset_launches()  # the probe's path starts here
+    rec = {"phase": "probe", **probe_check(dev)}
+    rec["launches"] = launches()  # ... and ends here
+    emit(rec)
+    check(rec["add_one"] == "ok" and rec["row_gather"] == "ok",
+          f"probe: add_one {rec['add_one']}, row_gather {rec['row_gather']}")
+    check(rec["launches"] == PROBE_LAUNCHES, f"probe launches {rec['launches']}")
+    rec["timing"] = probe_time(dev)
+    emit({"phase": "probe_timing", **rec["timing"]})
+    return rec
+
+
+def k4_inputs(case, seed=6):
+    """K4's inputs: (a) "gate", bench.py's _kernel_parity shapes: G = 8, C = 24,
+    S = 512 per level, coords uniform in [-1.1, 1.1], float32; (b) "flagship",
+    the deformable attention's: G = B * H = 8, C = hd = 24, S_l = Nq * P =
+    37376 * 4, bf16 tables, locations uniform over [-0.018, 1.018] as
+    flagship_gather_inputs draws them (2 * loc - 1 in [-1, 1] terms)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    G, C = 8, 24
+    if case == "gate":
+        S, dtype = 512, torch.float32
+        draw = [rng.uniform(-1.1, 1.1, (G, S, 3)) for _ in K4_PYRAMID]
+    else:
+        S, dtype = 37376 * 4, torch.bfloat16
+        draw = [2.0 * rng.uniform(-0.018, 1.018, (G, S, 3)) - 1.0 for _ in K4_PYRAMID]
+    dev = torch.device("cuda")
+    tables = [torch.from_numpy(rng.randn(G, X * Y, Z * C).astype(np.float32)).to(dev, dtype)
+              for X, Y, Z in K4_PYRAMID]
+    coords = [torch.from_numpy(c.astype(np.float32)).to(dev) for c in draw]
+    return tables, coords, C
+
+
+def k4_check(tables, coords, C, align_corners, name):
+    """K4 and K4-bwd through the autograd Function against the plain
+    version's autograd: values, d_tables and d_coords of a random linear
+    probe.  Tolerances relative to max |plain|: float32 1e-5 values and 1e-4
+    gradients (d_table adds up to 8 * C float32 atomics per element in an
+    order that changes from run to run), bf16 1e-2 (outputs and d_tables
+    rounded to bf16; the plain version runs in float32 on the same
+    bf16-rounded inputs)."""
+    import torch
+
+    from occformer_tpu_torch.ops import trilerp_fused as k4
+
+    dtype = tables[0].dtype
+    tl = [t.detach().clone().requires_grad_(True) for t in tables]
+    cl = [c.detach().clone().requires_grad_(True) for c in coords]
+    got = k4.fused_multilevel_gather(tl, K4_PYRAMID, C, cl, align_corners)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    gouts = [torch.randn(o.shape, device="cuda", generator=g).to(dtype) for o in got]
+    torch.autograd.backward(got, gouts)
+    torch.cuda.synchronize()
+    pl = [t.detach().float().requires_grad_(True) for t in tables]
+    pc = [c.detach().clone().requires_grad_(True) for c in coords]
+    ref = k4.fused_multilevel_gather_plain(pl, K4_PYRAMID, C, pc, align_corners)
+    torch.autograd.backward(ref, [x.float() for x in gouts])
+    f32 = dtype == torch.float32
+    rec = {"values": [compare(a, b, 1e-5 if f32 else 1e-2, f"K4 {name} level {l}")
+                      for l, (a, b) in enumerate(zip(got, ref))],
+           "d_tables": [compare(a.grad, b.grad, 1e-4 if f32 else 1e-2,
+                                f"K4-bwd {name} level {l} d_table")
+                        for l, (a, b) in enumerate(zip(tl, pl))],
+           "d_coords": [compare(a.grad, b.grad, 1e-4 if f32 else 1e-2,
+                                f"K4-bwd {name} level {l} d_coords")
+                        for l, (a, b) in enumerate(zip(cl, pc))]}
+    check(all(o.dtype == dtype for o in got) and all(a.grad.dtype == dtype for a in tl)
+          and all(a.grad.dtype == torch.float32 for a in cl),
+          f"K4 {name}: dtypes {[o.dtype for o in got]}, {[a.grad.dtype for a in tl]}")
+    return rec
+
+
+def phase_k4():
+    """The K4 parity gate (bench.py:_kernel_parity's counterpart): K4 and
+    K4-bwd at (a) bench.py's shapes in float32 at both align_corners and (b)
+    the deformable attention's flagship shapes in bf16, each held against
+    the plain version (k4_check); then the times at (b) of K4, K4-bwd, the
+    plain version and its autograd, and of the library reference, which
+    takes three calls: one F.grid_sample per level on a channels-first copy
+    of the level (bf16 grid), and their backward."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import trilerp_fused as k4
+
+    gate = k4_inputs("gate")
+    flag = k4_inputs("flagship")
+    reset_launches()  # the parity gate's path starts here
+    rec = {"gate_f32": {f"align_corners={a}": k4_check(*gate, a, f"gate align_corners={a}")
+                        for a in (False, True)},
+           "flagship_bf16": k4_check(*flag, False, "flagship bf16")}
+    rec["launches"] = launches()  # ... and ends here
+    check(rec["launches"] == K4_GATE_LAUNCHES, f"K4 gate launches {rec['launches']}")
+
+    tables, coords, C = flag
+    G = tables[0].shape[0]
+    S_tot = sum(c.shape[1] for c in coords)
+    outs = k4.fused_multilevel_gather(tables, K4_PYRAMID, C, coords)
+    fwd = {"max_abs_err": max(r["max_abs_err"] for r in rec["flagship_bf16"]["values"])}
+    fwd["kernel_ms"] = time_cuda(lambda: k4._launch_multi_fwd(tables, K4_PYRAMID, C, coords,
+                                                              False))
+    fwd["kernel_ms_gate_f32"] = time_cuda(lambda: k4._launch_multi_fwd(
+        gate[0], K4_PYRAMID, C, gate[1], False))
+    fwd["plain_ms"] = time_cuda(lambda: k4.fused_multilevel_gather_plain(
+        tables, K4_PYRAMID, C, coords), iters=10)
+    vols = [t.reshape(G, X, Y, Z, C).permute(0, 4, 1, 2, 3).contiguous()
+            for t, (X, Y, Z) in zip(tables, K4_PYRAMID)]
+    grids = [c.flip(-1).reshape(G, -1, 1, 1, 3).to(torch.bfloat16).contiguous() for c in coords]
+
+    def library():
+        return [F.grid_sample(v, gr, mode="bilinear", padding_mode="zeros", align_corners=False)
+                for v, gr in zip(vols, grids)]
+
+    fwd["library_ms"] = time_cuda(library)
+    fwd["library_calls"] = len(K4_PYRAMID)
+    # every input read once, every output written once; 8 corner FMAs per
+    # (sample, channel)
+    fwd.update(bound(nbytes(*tables, *coords, *outs), G * S_tot * C * 8 * 2))
+    fwd["roofline_share"] = fwd["bound_ms"] / fwd["kernel_ms"]
+
+    g = torch.Generator(device="cuda").manual_seed(8)
+    gouts = [torch.randn(o.shape, device="cuda", generator=g).to(o.dtype) for o in outs]
+    d_tables, d_coords = k4._launch_multi_bwd(tables, K4_PYRAMID, C, coords, gouts, False, True)
+    bwd = {"max_abs_err": max(r["max_abs_err"] for k in ("d_tables", "d_coords")
+                              for r in rec["flagship_bf16"][k])}
+    bwd["kernel_ms"] = time_cuda(lambda: k4._launch_multi_bwd(
+        tables, K4_PYRAMID, C, coords, gouts, False, True))
+    bwd["kernel_ms_without_d_coords"] = time_cuda(lambda: k4._launch_multi_bwd(
+        tables, K4_PYRAMID, C, coords, gouts, False, False))
+    pl = [t.detach().clone().requires_grad_(True) for t in tables]
+    pc = [c.detach().clone().requires_grad_(True) for c in coords]
+    p_out = k4.fused_multilevel_gather_plain(pl, K4_PYRAMID, C, pc)
+    bwd["plain_ms"] = time_cuda(lambda: torch.autograd.grad(
+        p_out, pl + pc, gouts, retain_graph=True), iters=10)
+    del p_out
+    lv = [v.detach().clone().requires_grad_(True) for v in vols]
+    lg = [x.detach().clone().requires_grad_(True) for x in grids]
+    l_out = [F.grid_sample(v, x, mode="bilinear", padding_mode="zeros", align_corners=False)
+             for v, x in zip(lv, lg)]
+    l_gout = [go.reshape(o.shape) for go, o in zip(gouts, l_out)]
+    bwd["library_ms"] = time_cuda(lambda: torch.autograd.grad(
+        l_out, lv + lg, l_gout, retain_graph=True), iters=10)
+    bwd["library_calls"] = len(K4_PYRAMID)
+    del l_out
+    # tables, coords and gout read once; d_tables (the tables' dtype) and
+    # d_coords (float32) written once.  Per corner and channel the d_table
+    # product and add and one FMA of the dot that d_coords needs: 8 x 4
+    # operations per (sample, channel)
+    bwd.update(bound(nbytes(*tables, *coords, *gouts, *tables, *d_coords),
+                     G * S_tot * C * 8 * 4))
+    bwd["roofline_share"] = bwd["bound_ms"] / bwd["kernel_ms"]
+    rec["K4"], rec["K4-bwd"] = fwd, bwd
+    return rec
+
+
 def phase_kernels():
     k1_fwd, k1_bwd = phase_k1()
     k2_fwd, k2_bwd = phase_k2()
     k2_fwd["batched"], k2_bwd["batched"] = phase_k2_batched()
     rec = {"phase": "kernels", "K1": k1_fwd, "K1-bwd": k1_bwd, "K2": k2_fwd,
            "K2-bwd": k2_bwd, "K3": phase_k3()}
+    free_memory()
+    rec["K4_gate"] = phase_k4()
+    rec["K4"], rec["K4-bwd"] = rec["K4_gate"].pop("K4"), rec["K4_gate"].pop("K4-bwd")
     emit(rec)
     return rec
 
@@ -611,9 +785,9 @@ def phase_tiny_train(mxu_readout="off", accum_steps=1):
            "metrics_cpu_spread": spread_m, "cpu_moves_by_image_scale": moves}
     failed = []
     # 2 deformable encoder layers, 4 supervised decoder outputs
-    per_micro = ({"K1": 2, "K1-bwd": 2, "K2": 3, "K2-bwd": 2, "K3": 3}
+    per_micro = (dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 3, "K2-bwd": 2, "K3": 3})
                  if loss_cfg.batched_readout else
-                 {"K1": 2, "K1-bwd": 2, "K2": 24, "K2-bwd": 8, "K3": 0})
+                 dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 24, "K2-bwd": 8}))
     if n_got != {k: v * accum_steps for k, v in per_micro.items()}:
         failed.append(f"launches {n_got}")
     for k, r in m_ref.items():
@@ -718,11 +892,7 @@ def phase_train(mxu_readout="off"):
 
     from occformer_tpu_torch.config import load_config
     from occformer_tpu_torch.data.synthetic import make_train_batch
-    from occformer_tpu_torch.engine.optim import (
-        backbone_freeze_mask,
-        build_optimizer,
-        step_lr_schedule,
-    )
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
     from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
     from occformer_tpu_torch.models.detector import build_model
 
@@ -732,12 +902,7 @@ def phase_train(mxu_readout="off"):
     model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
     loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout=mxu_readout),
                               m["train_cfg"]["pts"])
-    opt_cfg = cfg["optimizer"]
-    opt = build_optimizer(
-        model, lr=step_lr_schedule(opt_cfg["lr"], 28130, cfg["lr_config"]["step"]),
-        weight_decay=opt_cfg["weight_decay"], betas=opt_cfg["betas"], eps=opt_cfg["eps"],
-        grad_clip=cfg["optimizer_config"]["grad_clip"]["max_norm"],
-        freeze_mask=backbone_freeze_mask(model, m["img_backbone"]))
+    opt = build_optimizer_from_config(model, cfg, 28130)  # nuScenes' train samples
     step = build_train_step(model, opt, loss_cfg, device="cuda",
                             compute_dtype=getattr(torch, cfg["compute_dtype"]))
     batch = make_train_batch(cfg, seed=0)
@@ -845,6 +1010,112 @@ def compare_routes(model, batch, loss_cfg):
 
 
 
+def phase_cli():
+    """The train and test CLIs at the flagship's full width and depth on
+    SyntheticOccDataset (6 cameras at 256x704, 17 classes, 35000 LiDAR
+    points, 4 samples), as subprocesses in a temporary work directory that
+    is deleted afterwards: tools.train to step 2, the same command resumed
+    to step 4, and tools.test on step_4 over 2 samples.  Between the two
+    train runs, step_2 is loaded in process into a fresh model and
+    optimizer on the card and every tensor held bit-equal to the saved
+    file; the load and a save of that state are timed."""
+    import torch
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.engine.checkpoint import (
+        load_checkpoint,
+        read_checkpoint,
+        save_checkpoint,
+    )
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.models.detector import build_model
+
+    data = dict(type="SyntheticOccDataset", num_samples=4, num_cams=6, input_size=[256, 704],
+                num_classes=17, num_lidar_points=35000)
+    opts = [f"data.{split}.{k}={v!r}".replace(" ", "") for split in ("train", "val", "test")
+            for k, v in data.items()] + ["log_config.interval=1"]
+    work = tempfile.mkdtemp(prefix="occformer_cli_")
+    rec = {"phase": "cli", "config": "occformer_nusc_r50_256x704", "cfg_options": opts}
+
+    def run(module, *args):
+        t = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}",
+                            CONFIG, *args, "--cfg-options", *opts],
+                           cwd=REPO, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t
+        check(r.returncode == 0, f"tools.{module} {' '.join(args)} exited {r.returncode}:\n"
+              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+        lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+        return r.stdout, lines, seconds
+
+    try:
+        ckpts = os.path.join(work, "ckpts")
+        out1, logs1, rec["train_to_2_s"] = run("train", "--work-dir", work, "--max-steps", "2")
+        check("training done at step 2" in out1, f"train to step 2:\n{out1[-2000:]}")
+        step2 = os.path.join(ckpts, "step_2")
+        rec["checkpoint_bytes"] = os.path.getsize(os.path.join(step2, "state.pt"))
+
+        saved = read_checkpoint(step2)
+        cfg = load_config(CONFIG)
+        model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=1)
+        opt = build_optimizer_from_config(model, cfg, 4)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        step = load_checkpoint(step2, model, opt)
+        torch.cuda.synchronize()
+        rec["load_s"] = time.perf_counter() - t
+        check(step == 2, f"step_2 holds step {step}")
+        differ = [k for k, v in saved["model"].items()
+                  if not torch.equal(model.state_dict()[k].cpu(), v)]
+        o_saved, o_got = saved["optimizer"], opt.state_dict()
+        n_opt = 0
+        for i, st in o_saved["adamw"]["state"].items():
+            for k, v in st.items():
+                n_opt += 1
+                if not torch.equal(o_got["adamw"]["state"][i][k].cpu(), v):
+                    differ.append(f"optimizer {i}.{k}")
+        check(not differ and o_got["step_count"] == o_saved["step_count"] == 2,
+              f"step_2 reload differs: {differ[:10]}")
+        rec["reload_bit_equal"] = {"model_tensors": len(saved["model"]),
+                                   "optimizer_tensors": n_opt,
+                                   "params": sum(p.numel() for p in model.parameters())}
+        t = time.perf_counter()
+        save_checkpoint(os.path.join(work, "save_timing"), model, opt, 2)
+        rec["save_s"] = time.perf_counter() - t
+        del saved, model, opt, o_got
+        free_memory()
+
+        out2, logs2, rec["train_2_to_4_s"] = run("train", "--work-dir", work, "--max-steps", "4")
+        check(f"resumed from {step2} at step 2" in out2 and "training done at step 4" in out2,
+              f"resume:\n{out2[-2000:]}")
+        steps = [ln for ln in logs1 + logs2 if "step" in ln]
+        check([ln["step"] for ln in steps] == [1, 2, 3, 4], f"steps {[ln['step'] for ln in steps]}")
+        for ln in steps:
+            check(all(v == v and abs(v) != float("inf") for k, v in ln.items()
+                      if k not in ("point_mean_iou", "epoch")), f"non-finite train log {ln}")
+        rec["sec_per_iter"] = [ln["sec/iter"] for ln in steps]
+        rec["total_loss"] = [ln["total_loss"] for ln in steps]
+        rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 + logs2
+                                 if "kernel_launches" in ln]
+        check(all(n[k] > 0 for n in rec["train_launches"] for k in ("K1", "K1-bwd", "K2", "K2-bwd")),
+              f"train CLI launches {rec['train_launches']}")
+
+        out3, logs3, rec["test_s"] = run("test", "--checkpoint", os.path.join(ckpts, "step_4"),
+                                         "--max-samples", "2")
+        timing, results = logs3[0], logs3[-1]
+        rec["test_sec_per_sample"] = timing["sec/sample"]
+        rec["test_launches"] = timing["kernel_launches"]
+        rec["test_results"] = results
+        check(timing["samples"] == 2 and timing["kernel_launches"]["K1"] == 2 * 6,
+              f"test CLI: {timing}")
+        mean = results.get("nuScenes_lidarseg_mean")
+        check(mean is not None and 0.0 <= mean <= 1.0, f"test CLI results {results}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(rec)
+    return rec
+
+
 def profile(run, outer, top=12):
     """torch.profiler over one more call of ``run``: host and device time of
     each ``stage:*`` range (``outer`` names the outermost ones, which must
@@ -894,8 +1165,12 @@ def profile(run, outer, top=12):
                         for e in ops[:top]]}
 
 
-def kernel_records(kern, serve_n, train_n, train_batched_n):
+def kernel_records(kern, probe, paths):
+    """One record per kernel; ``paths`` maps each driven path (serve, train,
+    train_batched, the K4 gate, the probe) to its launch counts, and a
+    kernel's ``launches`` sums them."""
     src = "occformer_tpu_torch/csrc/"
+    timing = probe["timing"]
     rows = [
         ("ms_deform_gather_3d", "K1", src + "ms_deform_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:284", kern["K1"]["bf16"]),
@@ -907,13 +1182,23 @@ def kernel_records(kern, serve_n, train_n, train_batched_n):
          "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]),
         ("sample_id_masks", "K3", src + "label_gather3d.cu",
          "occformer_tpu/ops/loss_gather.py:127", kern["K3"]["candidates"]),
+        ("fused_multilevel_gather", "K4", src + "multilevel_gather3d.cu",
+         "occformer_tpu/ops/trilerp_fused.py:495", kern["K4"]),
+        ("fused_multilevel_gather_bwd", "K4-bwd", src + "multilevel_gather3d.cu",
+         "occformer_tpu/ops/trilerp_fused.py:511", kern["K4-bwd"]),
+        ("add_one", "P1", src + "probe.cu", "tools/probe_pallas_viability.py:41",
+         dict(timing["add_one"], kernel_ms=timing["add_one"]["ms"],
+              max_abs_err=probe["add_one_max_abs_err"])),
+        ("row_gather", "P2", src + "probe.cu", "tools/probe_pallas_viability.py:67",
+         dict(timing["row_gather"], kernel_ms=timing["row_gather"]["ms"],
+              max_abs_err=probe["row_gather_max_abs_err"])),
     ]
     return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
-             "launches": serve_n[key] + train_n[key] + train_batched_n[key],
-             "launches_serve": serve_n[key], "launches_train": train_n[key],
-             "launches_train_batched": train_batched_n[key], "max_abs_err": r["max_abs_err"],
-             "ms": r["kernel_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-             "bound_by": r["bound_by"], "library_ms": r.get("library_ms")}
+             "launches": sum(n[key] for n in paths.values()),
+             **{f"launches_{p}": n[key] for p, n in paths.items()},
+             "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r.get("library_ms")}
             for name, key, source, replaces, r in rows]
 
 
@@ -933,6 +1218,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    probe = phase_probe()  # before any other build: a broken toolchain fails here
     t0 = time.perf_counter()
     report = cuda_build.build()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
@@ -949,12 +1235,16 @@ def main():
     train_n = phase_train("off")
     free_memory()
     train_batched_n = phase_train("on")
+    free_memory()
+    phase_cli()
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
-    emit({"kernels": kernel_records(kern, serve_n, train_n, train_batched_n)})
+    emit({"kernels": kernel_records(kern, probe, {
+        "serve": serve_n, "train": train_n, "train_batched": train_batched_n,
+        "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"]})})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -1,6 +1,7 @@
 """Python-file config loader with ``_base_`` inheritance.
 
-The port's copy of ``occformer_tpu/config.py`` (without the CLI overrides).
+The port's copy of ``occformer_tpu/config.py``, with its ``a.b.c=value``
+overrides for the CLIs' ``--cfg-options``.
 
 Replaces ``mmcv.Config.fromfile`` used throughout the reference (reference:
 tools/train.py:104-136, projects/configs/_base_/*).  Configs are plain python
@@ -13,7 +14,7 @@ import ast
 import copy
 import os
 import types
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 
 class ConfigDict(dict):
@@ -74,8 +75,9 @@ def merge_dict(base: Dict, child: Dict) -> Dict:
     return out
 
 
-def load_config(path: str) -> ConfigDict:
-    """Load a python config file, resolving ``_base_`` inheritance."""
+def load_config(path: str, overrides: Optional[Dict[str, Any]] = None) -> ConfigDict:
+    """Load a python config file, resolving ``_base_`` inheritance, then
+    apply dot-path ``overrides``."""
     path = os.path.abspath(path)
     cfg = _exec_pyfile(path)
     bases = cfg.pop("_base_", [])
@@ -86,4 +88,42 @@ def load_config(path: str) -> ConfigDict:
         base_cfg = load_config(os.path.join(os.path.dirname(path), rel))
         merged = merge_dict(merged, base_cfg)
     merged = merge_dict(merged, cfg)
+    if overrides:
+        merged = apply_overrides(merged, overrides)
     return ConfigDict.wrap(merged)
+
+
+def apply_overrides(cfg: Dict[str, Any], overrides: Dict[str, Any]) -> Dict[str, Any]:
+    """Apply ``a.b.c=value`` dot-path overrides (reference: tools/train.py:66-75)."""
+    cfg = copy.deepcopy(cfg)
+    for dotted, value in overrides.items():
+        keys = dotted.split(".")
+        node = cfg
+        for k in keys[:-1]:
+            if isinstance(node, (list, tuple)):
+                node = node[int(k)]
+            else:
+                node = node.setdefault(k, {})
+        last = keys[-1]
+        if isinstance(node, (list, tuple)):
+            node[int(last)] = value
+        else:
+            node[last] = value
+    return cfg
+
+
+def parse_override_value(s: str) -> Any:
+    """Parse a CLI override string into a python value."""
+    try:
+        return ast.literal_eval(s)
+    except (ValueError, SyntaxError):
+        return s
+
+
+def parse_cfg_options(options) -> Dict[str, Any]:
+    """``["a.b=1", "c=x"]`` (the CLIs' ``--cfg-options``) -> overrides."""
+    overrides = {}
+    for kv in options:
+        k, v = kv.split("=", 1)
+        overrides[k] = parse_override_value(v)
+    return overrides

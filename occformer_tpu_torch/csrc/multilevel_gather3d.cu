@@ -1,0 +1,315 @@
+// Unweighted multi-level trilinear gather over 3D pyramids (K4) and its
+// backward (K4-bwd).
+//
+// Replaces the TPU kernels occformer_tpu/ops/trilerp_fused.py:_build_op.
+// call_fwd (:492, body _fwd_kernel :126) and call_bwd (:508, body
+// _bwd_kernel :172), public fused_multilevel_gather (:553): every pyramid
+// level's trilinear samples in one launch,
+//
+//   out_l[g, c, s] = sum over the 8 corners of corner_weight *
+//                    table_l[g, corner, c]
+//
+// with table_l the channels-last [G, X_l, Y_l, Z_l, C] (the same memory as
+// the JAX slab [G, X_l*Y_l, Z_l*C]), coords_l [G, S_l, 3] in [-1, 1] as
+// (x, y, z), and out_l channels-first [G, C, S_l] in the table's type.
+// Unnormalization follows ops/sampling.py:_unnormalize for both
+// align_corners; padding is zeros (a corner outside the level carries
+// weight 0, make_meta_rows :70-81).  The sum is kept in float32 and rounded
+// once to the table's type.
+//
+// One launch covers all levels, as the TPU kernel's one call does: the
+// threads walk the levels' (g, s) ranges back to back, and a per-level
+// descriptor (table, coords, output pointers, X, Y, Z, S and the level's
+// first thread) is passed by value; each thread picks its level with an
+// unrolled compare over the descriptors, so no level field is indexed
+// dynamically.  The TPU kernel's row concatenation, lane padding to Zmax*C,
+// one-hot matmuls, windows and escape passes exist because the TPU gathers
+// badly; here each thread gathers directly.
+//
+// Thread mapping: one thread per (g, sample), looping over C.  Writes of the
+// channels-first output are then coalesced along s, and each of the 8
+// corner reads takes C contiguous channels.  The backward keeps the
+// mapping: d_table gets float32 atomics into zeroed [G, X, Y, Z, C] buffers
+// (what the Pallas VJP returns before its cast to the table's type), and,
+// when the caller asks for it, each thread writes its own sample's d_coords
+// (float32 [G, S, 3]) with a plain store: one thread owns a sample, so no
+// atomic is needed.  As in _bwd_kernel (:214-216), d_coords carries the
+// derivative through the corner weights only; floor and the validity masks
+// carry none.
+//
+// Bounds on an H100 SXM at the deformable attention's shapes (levels
+// (64,64,8), (32,32,4), (16,16,2), G = 8, C = 24, S_l = 149504, bf16
+// tables): both are memory-bound.  Forward: tables 14.35 MB + coords
+// 43.06 MB read, out 172.23 MB written, about 230 MB, about 69 us at
+// 3.35 TB/s; the corner reads mostly hit L2 (the tables are 14 MB).
+// Backward: the same reads with gout in place of out, d_tables in the
+// table's type and d_coords written, about 287 MB, about 86 us; this
+// simple form adds a float32 d_table (28.7 MB of atomics, L2-resident) and
+// casts it afterwards.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#define MAX_LEVELS 8
+
+__device__ __forceinline__ float load_f(const float* p) { return *p; }
+__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16(v);
+}
+
+struct Level {
+  const void* table;   // [G, X, Y, Z, C]
+  const float* coords; // [G, S, 3]
+  void* out;           // forward: [G, C, S]; backward: gout [G, C, S]
+  float* d_table;      // backward: float32 [G, X, Y, Z, C], zeroed
+  float* d_coords;     // backward: float32 [G, S, 3], or NULL
+  int64_t start;       // first thread of the level: G * sum of earlier S
+  int X, Y, Z, S;
+};
+
+struct Levels {
+  Level l[MAX_LEVELS];
+  int n;
+};
+
+__device__ __forceinline__ Level pick(const Levels& lv, int64_t i) {
+  Level L = lv.l[0];
+#pragma unroll
+  for (int k = 1; k < MAX_LEVELS; ++k)
+    if (k < lv.n && i >= lv.l[k].start) L = lv.l[k];
+  return L;
+}
+
+struct Axis {
+  int i0;      // lower corner index (may lie outside [0, size))
+  float w[2];  // lerp weights of the lower and upper corner
+  bool ok[2];  // the corner lies inside [0, size)
+  float dpix;  // d pix / d coord
+};
+
+__device__ __forceinline__ Axis make_axis(float coord, int size, int align) {
+  float pix, dpix;
+  if (align) {
+    pix = (coord + 1.f) * 0.5f * (float)(size - 1);
+    dpix = 0.5f * (float)(size - 1);
+  } else {
+    pix = ((coord + 1.f) * (float)size - 1.f) * 0.5f;
+    dpix = 0.5f * (float)size;
+  }
+  // keeps the float-to-int conversion defined; a clamped position has
+  // every corner outside the level, as the unclamped one has
+  pix = fminf(fmaxf(pix, -2.f), (float)size + 1.f);
+  Axis a;
+  const float f = floorf(pix);
+  a.i0 = (int)f;
+  a.w[1] = pix - f;
+  a.w[0] = 1.f - a.w[1];
+  a.ok[0] = a.i0 >= 0 && a.i0 < size;
+  a.ok[1] = a.i0 + 1 >= 0 && a.i0 + 1 < size;
+  a.dpix = dpix;
+  return a;
+}
+
+// The 8 corners of one sample: element offsets into the level's [X, Y, Z, C]
+// table of one g (channel 0), weights, and whether each lies inside.
+struct Corners {
+  int64_t off[8];
+  float w[8];
+  bool ok[8];
+};
+
+__device__ __forceinline__ Corners make_corners(const Axis& ax, const Axis& ay,
+                                                const Axis& az, int Y, int Z,
+                                                int C) {
+  Corners k;
+#pragma unroll
+  for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+    for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+      for (int dz = 0; dz < 2; ++dz) {
+        const int j = dx * 4 + dy * 2 + dz;
+        k.ok[j] = ax.ok[dx] && ay.ok[dy] && az.ok[dz];
+        k.w[j] = k.ok[j] ? ax.w[dx] * ay.w[dy] * az.w[dz] : 0.f;
+        k.off[j] = k.ok[j] ? (((int64_t)(ax.i0 + dx) * Y + (ay.i0 + dy)) * Z +
+                              (az.i0 + dz)) * C
+                           : 0;
+      }
+  return k;
+}
+
+template <typename T>
+__global__ void multilevel_fwd_kernel(const Levels lv, int64_t n, int C,
+                                      int align) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const Level L = pick(lv, i);
+    const int64_t j = i - L.start;  // g * S + s
+    const int64_t g = j / L.S;
+    const int64_t s = j - g * L.S;
+    const Axis ax = make_axis(L.coords[j * 3 + 0], L.X, align);
+    const Axis ay = make_axis(L.coords[j * 3 + 1], L.Y, align);
+    const Axis az = make_axis(L.coords[j * 3 + 2], L.Z, align);
+    const Corners k = make_corners(ax, ay, az, L.Y, L.Z, C);
+    const T* tb = (const T*)L.table + g * ((int64_t)L.X * L.Y * L.Z * C);
+    T* out = (T*)L.out + g * C * (int64_t)L.S + s;
+    for (int c = 0; c < C; ++c) {
+      float acc = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc += k.w[q] * load_f(tb + k.off[q] + c);
+      store_f(out + (int64_t)c * L.S, acc);
+    }
+  }
+}
+
+template <typename T>
+__global__ void multilevel_bwd_kernel(const Levels lv, int64_t n, int C,
+                                      int align) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const Level L = pick(lv, i);
+    const int64_t j = i - L.start;
+    const int64_t g = j / L.S;
+    const int64_t s = j - g * L.S;
+    const Axis ax = make_axis(L.coords[j * 3 + 0], L.X, align);
+    const Axis ay = make_axis(L.coords[j * 3 + 1], L.Y, align);
+    const Axis az = make_axis(L.coords[j * 3 + 2], L.Z, align);
+    const Corners k = make_corners(ax, ay, az, L.Y, L.Z, C);
+    const int64_t vol = (int64_t)L.X * L.Y * L.Z * C;
+    const T* tb = (const T*)L.table + g * vol;
+    const T* go_p = (const T*)L.out + g * C * (int64_t)L.S + s;
+    float* dt = L.d_table + g * vol;
+    const bool want_coords = L.d_coords != nullptr;
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+    for (int c = 0; c < C; ++c) {
+      const float go = load_f(go_p + (int64_t)c * L.S);
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (k.ok[q]) atomicAdd(dt + k.off[q] + c, go * k.w[q]);
+      if (want_coords) {
+#pragma unroll
+        for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+          for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+            for (int dz = 0; dz < 2; ++dz) {
+              const int q = dx * 4 + dy * 2 + dz;
+              if (!k.ok[q]) continue;
+              const float v = go * load_f(tb + k.off[q] + c);
+              sx += (dx ? v : -v) * ay.w[dy] * az.w[dz];
+              sy += (dy ? v : -v) * ax.w[dx] * az.w[dz];
+              sz += (dz ? v : -v) * ax.w[dx] * ay.w[dy];
+            }
+      }
+    }
+    if (want_coords) {
+      L.d_coords[j * 3 + 0] = sx * ax.dpix;
+      L.d_coords[j * 3 + 1] = sy * ay.dpix;
+      L.d_coords[j * 3 + 2] = sz * az.dpix;
+    }
+  }
+}
+
+static unsigned grid_blocks(int64_t n, int threads) {
+  int64_t blocks = (n + threads - 1) / threads;
+  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
+  return (unsigned)blocks;
+}
+
+// Fills the descriptors; returns the thread count G * sum S_l, or -1 when
+// the level count is out of range.
+static int64_t make_levels(Levels* lv, int L, const void* const* tables,
+                           const void* const* coords, void* const* outs,
+                           void* const* d_tables, void* const* d_coords,
+                           const int* dims, int G) {
+  if (L < 1 || L > MAX_LEVELS) return -1;
+  int64_t start = 0;
+  lv->n = L;
+  for (int l = 0; l < MAX_LEVELS; ++l) {
+    Level& d = lv->l[l];
+    if (l >= L) {  // unused slots never match: start past every thread
+      d = lv->l[0];
+      d.start = INT64_MAX;
+      continue;
+    }
+    d.table = tables[l];
+    d.coords = (const float*)coords[l];
+    d.out = outs[l];
+    d.d_table = d_tables ? (float*)d_tables[l] : nullptr;
+    d.d_coords = d_coords ? (float*)d_coords[l] : nullptr;
+    d.X = dims[4 * l + 0];
+    d.Y = dims[4 * l + 1];
+    d.Z = dims[4 * l + 2];
+    d.S = dims[4 * l + 3];
+    d.start = start;
+    start += (int64_t)G * d.S;
+  }
+  return start;
+}
+
+// Plain C entry points, loaded with ctypes.  Per level l (L of them, at
+// most MAX_LEVELS): tables[l] a device pointer to [G, X, Y, Z, C], coords[l]
+// to float32 [G, S, 3], outs[l] to [G, C, S]; dims[4 l .. 4 l + 3] = X, Y,
+// Z, S.  dtype: 0 = float32 tables and outputs, 1 = bfloat16.  Each
+// launches on `stream` and returns cudaGetLastError() (0 when the launch was
+// accepted), or cudaErrorInvalidValue for a bad level count or dtype.
+extern "C" int multilevel_gather3d_fwd(int L, const void* const* tables,
+                                       const void* const* coords,
+                                       void* const* outs, const int* dims,
+                                       int G, int C, int align, int dtype,
+                                       void* stream) {
+  Levels lv;
+  const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, nullptr,
+                                dims, G);
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0 || C == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = grid_blocks(n, threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    multilevel_fwd_kernel<float><<<blocks, threads, 0, st>>>(lv, n, C, align);
+  } else if (dtype == 1) {
+    multilevel_fwd_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(lv, n, C,
+                                                                     align);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// gouts[l] [G, C, S] in the tables' type; d_tables[l] float32 [G, X, Y, Z, C]
+// ZEROED by the caller; d_coords NULL (no coordinate gradient: the tables
+// are then never read) or d_coords[l] float32 [G, S, 3], every element
+// written here.
+extern "C" int multilevel_gather3d_bwd(int L, const void* const* tables,
+                                       const void* const* coords,
+                                       void* const* gouts,
+                                       void* const* d_tables,
+                                       void* const* d_coords, const int* dims,
+                                       int G, int C, int align, int dtype,
+                                       void* stream) {
+  Levels lv;
+  const int64_t n = make_levels(&lv, L, tables, coords, gouts, d_tables,
+                                d_coords, dims, G);
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0 || C == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = grid_blocks(n, threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) {
+    multilevel_bwd_kernel<float><<<blocks, threads, 0, st>>>(lv, n, C, align);
+  } else if (dtype == 1) {
+    multilevel_bwd_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(lv, n, C,
+                                                                     align);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -9,12 +9,20 @@ point-cloud range with random labels (``make_serving_batch``); for training
 also the occupancy labels at ``occ_size`` and a sparse depth map
 (``make_train_batch``, drawn in the tool's order).  Everything comes from
 ``numpy.random.RandomState(seed)``.
+
+``SyntheticOccDataset`` is the port's copy of
+``occformer_tpu/data/synthetic.py:SyntheticOccDataset``: random samples with
+a dataset's full structure, so that the train and test CLIs run without
+nuScenes or SemanticKITTI on disk; sample ``i`` comes from
+``RandomState(seed + i)`` and equals the JAX package's array for array.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional, Sequence
 
 import numpy as np
+
+from ..registry import DATASETS
 
 
 def _cameras(cfg: Dict, rng: np.random.RandomState, depth=None) -> Dict[str, np.ndarray]:
@@ -84,3 +92,60 @@ def make_train_batch(cfg: Dict, seed: int = 0) -> Dict[str, np.ndarray]:
         lidar_label=rng.randint(1, num_classes, (1, P)).astype(np.int32),
     )
     return batch
+
+
+@DATASETS.register_module()
+class SyntheticOccDataset:
+    def __init__(
+        self,
+        num_samples: int = 8,
+        num_cams: int = 2,
+        input_size: Sequence[int] = (64, 128),
+        occ_size: Sequence[int] = (32, 32, 16),
+        num_classes: int = 5,
+        num_lidar_points: int = 512,
+        pc_range: Sequence[float] = (-8.0, -8.0, -2.0, 8.0, 8.0, 2.0),
+        seed: int = 0,
+        pipeline: Optional[Sequence] = None,  # accepted, unused
+        **kwargs,
+    ):
+        self.num_samples = num_samples
+        self.num_cams = num_cams
+        self.input_size = tuple(input_size)
+        self.occ_size = tuple(occ_size)
+        self.num_classes = num_classes
+        self.num_lidar_points = num_lidar_points
+        self.pc_range = np.asarray(pc_range, np.float32)
+        self.seed = seed
+
+    def __len__(self):
+        return self.num_samples
+
+    def __getitem__(self, index: int) -> Dict:
+        rng = np.random.RandomState(self.seed + index)
+        N = self.num_cams
+        H, W = self.input_size
+        intrins = np.tile(np.eye(3, dtype=np.float32), (N, 1, 1))
+        intrins[:, 0, 0] = intrins[:, 1, 1] = W / 2.0
+        intrins[:, 0, 2] = W / 2.0
+        intrins[:, 1, 2] = H / 2.0
+        depth = rng.uniform(0, 10, (N, H, W)).astype(np.float32)
+        depth[depth < 5] = 0.0
+        pts = rng.uniform(self.pc_range[:3], self.pc_range[3:],
+                          (self.num_lidar_points, 3)).astype(np.float32)
+        labels = rng.randint(1, self.num_classes,
+                             (self.num_lidar_points, 1)).astype(np.float32)
+        return {
+            "imgs": rng.randn(N, H, W, 3).astype(np.float32),
+            "rots": np.tile(np.eye(3, dtype=np.float32), (N, 1, 1)),
+            "trans": rng.uniform(-1, 1, (N, 3)).astype(np.float32),
+            "intrins": intrins,
+            "post_rots": np.tile(np.eye(3, dtype=np.float32), (N, 1, 1)),
+            "post_trans": np.zeros((N, 3), np.float32),
+            "bda": np.eye(3, dtype=np.float32),
+            "gt_depth": depth,
+            "gt_occ": rng.randint(0, self.num_classes,
+                                  self.occ_size).astype(np.int64),
+            "points_occ": np.concatenate([pts, labels], -1),
+            "pc_range": self.pc_range,
+        }

@@ -1,20 +1,25 @@
-"""Evaluation step: the serving path of the flagship.
+"""Evaluation: the serving step of the flagship and the split evaluation.
 
-Port of ``occformer_tpu/engine/eval.py:build_eval_step`` and
-``lidarseg_point_logits``, semantic branch: voxel class scores upsampled to
-the occupancy grid (argmax), per-point predicted labels, and the lidarseg
-confusion matrix (reference apis/test.py:22-105,
-mask2former_nusc_occ.py:505-542).
+Port of ``occformer_tpu/engine/eval.py``, lidarseg branch:
+``build_eval_step`` and ``lidarseg_point_logits`` (voxel class scores
+upsampled to the occupancy grid (argmax), per-point predicted labels, and
+the lidarseg confusion matrix; reference apis/test.py:22-105,
+mask2former_nusc_occ.py:505-542), and ``evaluate``, ``metrics_from_state``
+and ``format_iou_table`` (the confusion matrix summed over a split, the
+per-class IoU table; reference apis/test.py:107-212).  The SSC (KITTI) and
+panoptic branches wait for their slices.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
 from ..models.mask2former_head import format_results, mask_logits_from_embeds
 from ..ops.sampling import grid_sample_3d, resize_trilinear
+from ..utils.metrics import cm_to_ious
 
 
 def lidarseg_point_logits(voxel_scores: torch.Tensor, lidar_xyz01: torch.Tensor,
@@ -66,3 +71,62 @@ def build_eval_step(model, occ_size: Tuple[int, int, int], num_classes: int) -> 
         return result
 
     return eval_step
+
+
+def metrics_from_state(state: Dict[str, np.ndarray], num_classes: int,
+                       class_names=None) -> Dict[str, Any]:
+    """The metric table of (already reduced) counters: ``confusion``, the
+    lidarseg confusion matrix, gives ``nuScenes_lidarseg_<class>`` for the
+    foreground classes and ``nuScenes_lidarseg_mean``.  All entries are
+    sums, so summing per-process states first equals one pass over the
+    whole split."""
+    results: Dict[str, Any] = {}
+    cm = np.asarray(state["confusion"])
+    if cm.sum() > 0:
+        fg = cm[1:, 1:]  # crop the empty/noise row and column (fast_hist_crop)
+        ious = cm_to_ious(fg)
+        names = class_names or [str(i) for i in range(num_classes)]
+        for i, iou in enumerate(ious):
+            results[f"nuScenes_lidarseg_{names[i + 1]}"] = float(iou)
+        results["nuScenes_lidarseg_mean"] = float(np.nanmean(ious))
+    return results
+
+
+def evaluate(model, loader, occ_size, num_classes: int, class_names=None,
+             compute_ssc: bool = False, save_cb: Optional[Callable] = None,
+             panoptic: bool = False,
+             all_reduce: Optional[Callable] = None) -> Dict[str, Any]:
+    """Full-split evaluation of ``model`` (on its device, in eval mode):
+    the lidarseg IoU table.
+
+    ``save_cb(out, meta_list, batch)`` runs per batch on the host (the
+    submission writers, reference apis/test.py:161-167).  ``all_reduce``
+    sums the counter state across processes before the metrics are derived
+    (default: the identity, one process), the analogue of the reference's
+    ``dist.all_reduce(evaluation_semantic)`` (apis/test.py:209)."""
+    if compute_ssc:
+        raise NotImplementedError("SSC metrics come with the SemanticKITTI slice")
+    if panoptic:
+        raise NotImplementedError("panoptic evaluation comes with the panoptic slice")
+    all_reduce = all_reduce or (lambda state: state)
+    step = build_eval_step(model, occ_size, num_classes)
+    cm = np.zeros((num_classes, num_classes), np.int64)
+    for batch in loader:
+        batch = dict(batch)  # host-only keys popped locally, the caller's dict untouched
+        batch.pop("gt_occ", None)
+        meta = batch.pop("_meta", None)
+        out = step(batch)
+        if save_cb is not None:
+            save_cb(out, meta, batch)
+        if "confusion" in out:
+            cm += out["confusion"].cpu().numpy()
+    state = all_reduce({"confusion": cm})
+    return metrics_from_state(state, num_classes, class_names=class_names)
+
+
+def format_iou_table(results: Dict[str, float]) -> str:
+    """PrettyTable-style text report (reference utils/formating.py:14-47)."""
+    lines = ["| metric | value |", "|---|---|"]
+    for k, v in results.items():
+        lines.append(f"| {k} | {v:.4f} |")
+    return "\n".join(lines)

@@ -126,6 +126,15 @@ class TrainOptimizer:
         self.step_count += 1
         return norm
 
+    def state_dict(self) -> Dict:
+        """AdamW's state (its moments and per-parameter step, by parameter
+        position) and the schedule's step."""
+        return {"adamw": self.adamw.state_dict(), "step_count": self.step_count}
+
+    def load_state_dict(self, state: Dict):
+        self.adamw.load_state_dict(state["adamw"])
+        self.step_count = int(state["step_count"])
+
 
 def build_optimizer(model: torch.nn.Module, lr=1e-4, weight_decay: float = 0.01,
                     betas=(0.9, 0.999), eps: float = 1e-8,
@@ -148,3 +157,20 @@ def build_optimizer(model: torch.nn.Module, lr=1e-4, weight_decay: float = 0.01,
     adamw = torch.optim.AdamW(groups, lr=schedule(0), betas=tuple(betas), eps=eps,
                               weight_decay=weight_decay)
     return TrainOptimizer(adamw, [p for _, p in named], frozen, schedule, grad_clip)
+
+
+def build_optimizer_from_config(model: torch.nn.Module, cfg: Dict,
+                                steps_per_epoch: int) -> TrainOptimizer:
+    """``build_optimizer`` as a config asks for it (the train CLI's): AdamW
+    of ``optimizer``, the clip of ``optimizer_config.grad_clip``, the step
+    schedule of ``lr_config.step`` over ``steps_per_epoch``, and the
+    backbone freeze of ``model.img_backbone``."""
+    opt_cfg = cfg.get("optimizer", {})
+    return build_optimizer(
+        model,
+        lr=step_lr_schedule(opt_cfg.get("lr", 1e-4), steps_per_epoch,
+                            cfg.get("lr_config", {}).get("step", [20, 23])),
+        weight_decay=opt_cfg.get("weight_decay", 0.01),
+        betas=tuple(opt_cfg.get("betas", (0.9, 0.999))), eps=opt_cfg.get("eps", 1e-8),
+        grad_clip=cfg.get("optimizer_config", {}).get("grad_clip", {}).get("max_norm", 5.0),
+        freeze_mask=backbone_freeze_mask(model, cfg["model"].get("img_backbone")))

@@ -22,9 +22,11 @@ CSRC_DIR = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 
 # kernel library name -> source file under csrc/
-SOURCES = {"ms_deform_gather3d": "ms_deform_gather3d.cu",
+SOURCES = {"probe": "probe.cu",
+           "ms_deform_gather3d": "ms_deform_gather3d.cu",
            "trilerp_sample3d": "trilerp_sample3d.cu",
-           "label_gather3d": "label_gather3d.cu"}
+           "label_gather3d": "label_gather3d.cu",
+           "multilevel_gather3d": "multilevel_gather3d.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

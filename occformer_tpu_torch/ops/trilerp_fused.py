@@ -1,4 +1,4 @@
-"""Multi-scale deformable-attention gather over 3D pyramids (K1, K1-bwd).
+"""Multi-level trilinear gathers over 3D pyramids (K1, K1-bwd, K4, K4-bwd).
 
 Port of ``occformer_tpu/ops/trilerp_fused.py:fused_multilevel_weighted_gather``
 (Pallas bodies ``_wfold_fwd_body`` and ``_wfold_bwd_body``), with the level
@@ -15,11 +15,20 @@ d_weights), and runs the plain version, ``ms_deform_gather_3d_plain``
 autograd), for CPU tensors.  A CUDA tensor never takes the plain version: the
 kernel launches or the call raises.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count
 the two kernels' launches.
+
+``fused_multilevel_gather`` is the port of the JAX package's unweighted
+``fused_multilevel_gather`` (Pallas ``call_fwd`` / ``call_bwd``, bodies
+``_fwd_kernel`` and ``_bwd_kernel``): every level's trilinear samples,
+channels-first, in one launch of ``csrc/multilevel_gather3d.cu`` (K4), with
+K4-bwd as its autograd backward (d_tables, and d_coords when the
+coordinates require grad).  Its plain version is
+``fused_multilevel_gather_plain``; ``MULTI_LAUNCHES`` and
+``MULTI_BWD_LAUNCHES`` count the two kernels' launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -30,6 +39,10 @@ from . import cuda_build
 # reset them to 0
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+# launches of K4 and K4-bwd
+MULTI_LAUNCHES = 0
+MULTI_BWD_LAUNCHES = 0
+MAX_LEVELS = 8  # csrc/multilevel_gather3d.cu:MAX_LEVELS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
@@ -193,3 +206,170 @@ def ms_deform_gather_3d(
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("value, locs and weights must be contiguous")
     return _Gather.apply(value, locs, weights, spatial_shapes)
+
+
+def fused_multilevel_gather_plain(
+    tables: Sequence[torch.Tensor],
+    spatials: Sequence[Tuple[int, int, int]],
+    channels: int,
+    coords: Sequence[torch.Tensor],
+    align_corners: bool = False,
+) -> List[torch.Tensor]:
+    """Plain PyTorch version: one ``F.grid_sample`` per level in float32 on
+    the channels-first view of the level's table, zeros padding.  Returns
+    per level [G, C, S_l] in the table's dtype."""
+    outs = []
+    for t, (X, Y, Z), c in zip(tables, spatials, coords):
+        G, S = c.shape[:2]
+        vol = t.reshape(G, X, Y, Z, channels).permute(0, 4, 1, 2, 3).float()
+        # torch grids index the last spatial axis first: (x, y, z) -> (z, y, x)
+        grid = c.float().flip(-1).reshape(G, S, 1, 1, 3)
+        out = F.grid_sample(vol, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=align_corners)[..., 0, 0]  # [G, C, S]
+        outs.append(out.to(t.dtype))
+    return outs
+
+
+def _multi_fn(name: str):
+    """The C entry point ``multilevel_gather3d_{fwd,bwd}`` with its argtypes."""
+    if name not in _FNS:
+        fn = getattr(cuda_build.load("multilevel_gather3d"), name)
+        n_arrays = 3 if name.endswith("fwd") else 5
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_arrays
+                       + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
+
+
+def _pointers(tensors):
+    return (ctypes.c_void_p * len(tensors))(*[t.data_ptr() for t in tensors])
+
+
+def _multi_dims(spatials, coords):
+    dims = [d for (X, Y, Z), c in zip(spatials, coords) for d in (X, Y, Z, c.shape[1])]
+    return (ctypes.c_int * len(dims))(*dims)
+
+
+def _launch_multi_fwd(tables, spatials, channels, coords, align_corners):
+    global MULTI_LAUNCHES
+    dev, dtype = tables[0].device, tables[0].dtype
+    G = tables[0].shape[0]
+    outs = [torch.empty((G, channels, c.shape[1]), dtype=dtype, device=dev) for c in coords]
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _multi_fn("multilevel_gather3d_fwd")(
+            len(tables), _pointers(tables), _pointers(coords), _pointers(outs),
+            _multi_dims(spatials, coords), G, channels, int(bool(align_corners)),
+            _DTYPE_CODE[dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"multilevel_gather3d launch failed: cudaError {rc}")
+    MULTI_LAUNCHES += 1
+    return outs
+
+
+def _launch_multi_bwd(tables, spatials, channels, coords, gouts, align_corners,
+                      want_coords):
+    """K4-bwd: (d_tables in the tables' dtype, each summed in float32 and cast
+    once, as the Pallas VJP does; d_coords float32, or None)."""
+    global MULTI_BWD_LAUNCHES
+    dev, dtype = tables[0].device, tables[0].dtype
+    G = tables[0].shape[0]
+    gouts = [g.to(dtype).contiguous() for g in gouts]
+    d_tables = [torch.zeros(t.shape, dtype=torch.float32, device=dev) for t in tables]
+    d_coords = ([torch.empty(c.shape, dtype=torch.float32, device=dev) for c in coords]
+                if want_coords else None)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = _multi_fn("multilevel_gather3d_bwd")(
+            len(tables), _pointers(tables), _pointers(coords), _pointers(gouts),
+            _pointers(d_tables), None if d_coords is None else _pointers(d_coords),
+            _multi_dims(spatials, coords), G, channels, int(bool(align_corners)),
+            _DTYPE_CODE[dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"multilevel_gather3d_bwd launch failed: cudaError {rc}")
+    MULTI_BWD_LAUNCHES += 1
+    return [d.to(dtype) for d in d_tables], d_coords
+
+
+class _MultiGather(torch.autograd.Function):
+    """K4 forward, K4-bwd backward; the tensors are the L tables, then the L
+    coordinate arrays."""
+
+    @staticmethod
+    def forward(ctx, spatials, channels, align_corners, *tensors):
+        L = len(spatials)
+        ctx.opts = (spatials, channels, align_corners)
+        ctx.save_for_backward(*tensors)
+        return tuple(_launch_multi_fwd(tensors[:L], spatials, channels, tensors[L:],
+                                       align_corners))
+
+    @staticmethod
+    def backward(ctx, *gouts):
+        spatials, channels, align_corners = ctx.opts
+        L = len(spatials)
+        tensors = ctx.saved_tensors
+        need = ctx.needs_input_grad[3:]
+        if not any(need):
+            return (None,) * (3 + 2 * L)
+        want_coords = any(need[L:])
+        d_tables, d_coords = _launch_multi_bwd(tensors[:L], spatials, channels, tensors[L:],
+                                               gouts, align_corners, want_coords)
+        d_coords = d_coords or [None] * L
+        return (None, None, None,
+                *[d if n else None for d, n in zip(d_tables, need[:L])],
+                *[d if n else None for d, n in zip(d_coords, need[L:])])
+
+
+def fused_multilevel_gather(
+    tables: Sequence[torch.Tensor],
+    spatials: Sequence[Tuple[int, int, int]],
+    channels: int,
+    coords: Sequence[torch.Tensor],
+    align_corners: bool = False,
+) -> List[torch.Tensor]:
+    """Every level's trilinear samples in one call.
+
+    ``tables[l]`` is the level's slab ``[G, X*Y, Z*C]`` (the memory of the
+    channels-last ``[G, X, Y, Z, C]``; element (x, y, z, c) at
+    ``[g, x*Y + y, z*C + c]``), ``coords[l]`` ``[G, S_l, 3]`` in [-1, 1] as
+    (x, y, z).  Returns per level ``[G, C, S_l]`` in the tables' dtype;
+    zeros padding, unnormalization as ``F.grid_sample`` for
+    ``align_corners``.
+
+    CPU tensors run the plain version.  CUDA tensors run K4, which takes
+    contiguous float32 or bfloat16 tables of one dtype and contiguous
+    float32 coords, all on one device, at most ``MAX_LEVELS`` levels, and
+    raises on anything else.  On CUDA the result is differentiable in the
+    tables and the coords through K4-bwd.
+    """
+    spatials = tuple(tuple(int(v) for v in s) for s in spatials)
+    tables, coords, C = list(tables), list(coords), int(channels)
+    L = len(tables)
+    if not (1 <= L == len(spatials) == len(coords)):
+        raise ValueError(f"{L} tables, {len(spatials)} spatials, {len(coords)} coords")
+    G = tables[0].shape[0]
+    for l, (t, (X, Y, Z), c) in enumerate(zip(tables, spatials, coords)):
+        if tuple(t.shape) != (G, X * Y, Z * C):
+            raise ValueError(f"level {l}: table {tuple(t.shape)} != {(G, X * Y, Z * C)}")
+        if c.dim() != 3 or c.shape[0] != G or c.shape[2] != 3:
+            raise ValueError(f"level {l}: coords {tuple(c.shape)}, want [{G}, S, 3]")
+    tensors = tables + coords
+    if all(t.device.type == "cpu" for t in tensors):
+        return fused_multilevel_gather_plain(tables, spatials, C, coords, align_corners)
+    dev = tables[0].device
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError("tables and coords must lie on one CUDA device; got "
+                         f"{[str(t.device) for t in tensors]}")
+    if L > MAX_LEVELS:
+        raise ValueError(f"{L} levels; the kernel takes at most {MAX_LEVELS}")
+    dtype = tables[0].dtype
+    if dtype not in _DTYPE_CODE or any(t.dtype != dtype for t in tables):
+        raise TypeError(f"tables must all be float32 or all bfloat16; got "
+                        f"{[t.dtype for t in tables]}")
+    if any(c.dtype != torch.float32 for c in coords):
+        raise TypeError(f"coords must be float32; got {[c.dtype for c in coords]}")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("tables and coords must be contiguous")
+    return list(_MultiGather.apply(spatials, C, bool(align_corners), *tensors))

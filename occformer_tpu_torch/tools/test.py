@@ -1,0 +1,100 @@
+"""Evaluation / submission CLI.
+
+    python3 -m occformer_tpu_torch.tools.test <config> [--checkpoint CKPT]
+        [--test-save DIR] [--max-samples N] [--cfg-options a.b=value ...] [--cpu]
+
+The port of ``tools/test.py`` (reference tools/test.py + apis/test.py),
+lidarseg branch: the model in the config's ``compute_dtype``, its weights
+from ``--checkpoint`` (a ``step_{N}`` directory of the train CLI, or a
+reference ``.pth``; random weights without it, for debugging), evaluated
+over ``data.test`` in order.  It prints one JSON line with the sample count,
+the seconds per sample and the launches of each CUDA kernel of the port,
+the IoU table, and one JSON line of results.
+``--test-save`` writes the nuScenes lidarseg submission: one
+``lidarseg/test/<token>_lidarseg.bin`` of uint8 labels per sample (its
+valid points) and ``test/submission.json``.  SemanticKITTI configs and the
+panoptic head wait for their slices.  It runs on ``cuda``, and on the CPU
+only with ``--cpu``.
+"""
+from __future__ import annotations
+
+import argparse
+import itertools
+import json
+import os
+import sys
+import time
+from typing import List, Optional
+
+import torch
+
+from ..config import load_config, parse_cfg_options
+from ..data.loader import build_dataloader, build_dataset
+from ..engine.checkpoint import load_checkpoint
+from ..engine.eval import evaluate, format_iou_table
+from ..models.detector import build_model
+from ..ops import launch_counts
+from ..utils.semkitti_io import write_nusc_lidarseg_bin
+from .train import pick_device
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Evaluate a config with the PyTorch port.")
+    p.add_argument("config")
+    p.add_argument("--checkpoint", default=None)
+    p.add_argument("--test-save", default=None, help="write leaderboard submission files here")
+    p.add_argument("--max-samples", type=int, default=None)
+    p.add_argument("--cfg-options", nargs="*", default=[])
+    p.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
+    return p.parse_args(argv)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    device = pick_device(args.cpu)
+    cfg = load_config(args.config, parse_cfg_options(args.cfg_options))
+    if "SemanticKITTI" in cfg["data"]["test"]["type"]:
+        raise NotImplementedError("SemanticKITTI evaluation (SSC metrics, .label "
+                                  "submissions) comes with the KITTI slice")
+    m = cfg["model"]
+    dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else torch.float32
+    model = build_model(m, device=device, dtype=dtype, seed=0)
+    if args.checkpoint:
+        step = load_checkpoint(args.checkpoint, model)
+        print(f"loaded {args.checkpoint} (step {step})")
+
+    dataset = build_dataset(cfg["data"]["test"], test_mode=True)
+    loader = build_dataloader(dataset, samples_per_gpu=1, shuffle=False,
+                              max_points=cfg.get("max_lidar_points", 35000))
+    n = len(loader) if args.max_samples is None else min(len(loader), args.max_samples)
+
+    save_cb = None
+    if args.test_save:
+        def save_cb(out, meta, batch):
+            for bi, mt in enumerate(meta or []):
+                token = mt.get("lidar_token", mt.get("sample_idx", f"s{bi}"))
+                valid = torch.as_tensor(batch["lidar_valid"][bi]).cpu().numpy()
+                preds = out["point_pred"][bi].cpu().numpy()[valid]
+                write_nusc_lidarseg_bin(preds, os.path.join(
+                    args.test_save, "lidarseg", "test", f"{token}_lidarseg.bin"))
+
+    t0 = time.perf_counter()
+    results = evaluate(model, itertools.islice(loader, n), tuple(cfg["occ_size"]),
+                       cfg["num_class"], class_names=cfg.get("class_names"), save_cb=save_cb,
+                       panoptic=m["pts_bbox_head"].get("type") == "Mask2FormerNuscPanopticOccHead")
+    seconds = time.perf_counter() - t0
+    if args.test_save:
+        meta_file = os.path.join(args.test_save, "test", "submission.json")
+        os.makedirs(os.path.dirname(meta_file), exist_ok=True)
+        with open(meta_file, "w") as f:
+            json.dump({"meta": dict(use_lidar=False, use_camera=True, use_radar=False,
+                                    use_map=False, use_external=False)}, f)
+    print(json.dumps({"samples": n, "sec/sample": seconds / max(n, 1),
+                      "kernel_launches": launch_counts()}))
+    print(format_iou_table(results))
+    print(json.dumps(results), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,209 @@
+"""Training CLI: config -> model + loader + train loop, checkpoints, eval.
+
+    python3 -m occformer_tpu_torch.tools.train <config> [--work-dir DIR]
+        [--resume-from CKPT] [--load-from CKPT] [--seed N] [--max-steps N]
+        [--cfg-options a.b=value ...] [--cpu]
+
+The port of ``tools/train.py``: a plain epoch loop around the port's train
+step (``engine/train.py:build_train_step``), with the same behaviour:
+
+* the step LR schedule of ``lr_config.step`` (epochs) and AdamW with the
+  decay and freeze masks and the gradient clip of ``optimizer_config``;
+  ``optimizer_config.cumulative_iters`` as ``accum_steps``;
+* float32 parameters, the forward under bf16 autocast when
+  ``compute_dtype`` is ``bfloat16``;
+* auto-resume from the newest ``work_dir/ckpts/step_{N}`` (or
+  ``--resume-from``), at the start of the epoch that holds step N, as the
+  JAX CLI resumes; ``--load-from`` (or ``load_from``) loads weights only
+  (a checkpoint of this CLI, or a reference ``.pth``), with the step at 0;
+* a checkpoint at each epoch's end and at ``--max-steps``, and on SIGTERM
+  or SIGINT a checkpoint and a clean exit;
+* with ``evaluation.interval``, evaluation on ``data.val`` every that many
+  epochs (not with ``--max-steps``) and ``evaluation.save_best`` kept under
+  ``work_dir/best``;
+* one JSON line per ``log_config.interval`` steps with ``sec/iter`` and the
+  step's metrics; at the end one JSON line with the launches of each CUDA
+  kernel of the port in this run (all 0 on the CPU) and ``training done at
+  step N``.
+
+The random draws of step k (drop-path masks, the loss's point draws) come
+from a ``torch.Generator`` seeded from (seed, k) alone, so a resumed run
+draws what an uninterrupted one draws.  It runs on ``cuda``, and on the CPU
+only with ``--cpu``.  Not ported yet: the pretrained backbone init (the
+torchvision / mmcls files are not in the repository; the run keeps the
+random init, as the JAX CLI does when a file is missing), data parallelism,
+and the nuScenes / KITTI dataset pipelines (configs run on
+``SyntheticOccDataset`` through ``--cfg-options``).
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import signal
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..config import load_config, parse_cfg_options
+from ..data.loader import build_dataloader, build_dataset, prefetch_to_device
+from ..engine.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
+from ..engine.eval import evaluate, format_iou_table
+from ..engine.optim import build_optimizer_from_config
+from ..engine.train import build_loss_cfg, build_train_step
+from ..models.detector import build_model
+from ..ops import launch_counts
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(description="Train a config with the PyTorch port.")
+    p.add_argument("config")
+    p.add_argument("--work-dir", default=None)
+    p.add_argument("--resume-from", default=None)
+    p.add_argument("--load-from", default=None)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--max-steps", type=int, default=None, help="cap total steps (debug)")
+    p.add_argument("--cfg-options", nargs="*", default=[])
+    p.add_argument("--cpu", action="store_true", help="run on the CPU (plain versions)")
+    return p.parse_args(argv)
+
+
+def pick_device(cpu: bool) -> torch.device:
+    """``cuda``, or the CPU when asked; no card without ``--cpu`` raises."""
+    if cpu:
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --cpu to run on the CPU")
+    return torch.device("cuda")
+
+
+def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
+    """Step ``step``'s generator: seeded from (seed, step) alone."""
+    s = int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0])
+    return torch.Generator(device=device).manual_seed(s)
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    args = parse_args(argv)
+    device = pick_device(args.cpu)
+    cfg = load_config(args.config, parse_cfg_options(args.cfg_options))
+    work_dir = args.work_dir or os.path.join(
+        "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
+    os.makedirs(work_dir, exist_ok=True)
+    ckpt_dir = os.path.join(work_dir, "ckpts")
+    max_keep = cfg.get("checkpoint_config", {}).get("max_keep_ckpts", 1)
+    compute_dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
+    m = cfg["model"]
+
+    dataset = build_dataset(cfg["data"]["train"])
+    loader = build_dataloader(dataset, samples_per_gpu=cfg["data"].get("samples_per_gpu", 1),
+                              seed=args.seed, max_points=cfg.get("max_lidar_points", 35000))
+    steps_per_epoch = len(loader)
+    max_epochs = cfg.get("runner", {}).get("max_epochs", 24)
+
+    model = build_model(m, device=device, dtype=torch.float32, seed=args.seed).train()
+    if (m["img_backbone"].get("pretrained") or m["img_backbone"].get("init_cfg")):
+        print("WARNING: the pretrained backbone init is not ported yet; "
+              "keeping the random init")
+    load_from = args.load_from or cfg.get("load_from")
+    if load_from:
+        lf = latest_checkpoint(load_from) or load_from
+        if os.path.exists(lf):
+            load_checkpoint(lf, model)
+            print(f"loaded model weights from {lf}")
+        else:
+            print(f"WARNING: load_from={load_from} not found; training from random init")
+
+    optimizer = build_optimizer_from_config(model, cfg, steps_per_epoch)
+    step = 0
+    resume = args.resume_from or latest_checkpoint(ckpt_dir)
+    if resume:
+        step = load_checkpoint(resume, model, optimizer)
+        print(f"resumed from {resume} at step {step}")
+
+    # mmcv GradientCumulativeOptimizerHook: optimizer_config.cumulative_iters
+    accum = int(cfg.get("optimizer_config", {}).get("cumulative_iters", 1))
+    train_step = build_train_step(
+        model, optimizer, build_loss_cfg(m["pts_bbox_head"], m.get("train_cfg", {}).get("pts")),
+        device=device, compute_dtype=compute_dtype, accum_steps=accum)
+
+    # per-epoch evaluation and the best checkpoint (reference OccDistEvalHook,
+    # core/evaluation/eval_hooks.py:27-88, with evaluation.save_best)
+    eval_cfg = cfg.get("evaluation", {}) or {}
+    eval_every = eval_cfg.get("interval", 0)
+    save_best_key = eval_cfg.get("save_best")
+    best_metric = -float("inf")
+
+    def run_eval():
+        val_cfg = cfg.get("data", {}).get("val")
+        if not val_cfg:
+            return None
+        val_loader = build_dataloader(build_dataset(val_cfg, test_mode=True),
+                                      samples_per_gpu=1, shuffle=False,
+                                      max_points=cfg.get("max_lidar_points", 35000))
+        model.eval()
+        with torch.autocast(device.type, dtype=compute_dtype, enabled=compute_dtype is not None):
+            results = evaluate(model, val_loader, tuple(cfg.get("occ_size", (32, 32, 16))),
+                               cfg.get("num_class", 17), class_names=cfg.get("class_names"),
+                               compute_ssc="semkitti" in str(save_best_key).lower(),
+                               panoptic=m["pts_bbox_head"].get("type")
+                               == "Mask2FormerNuscPanopticOccHead")
+        model.train()
+        print(format_iou_table(results))
+        return results
+
+    # preemption: SIGTERM / SIGINT ask for a checkpoint and a clean exit
+    stop_requested = {"flag": False}
+
+    def _graceful_stop(signum, frame):
+        stop_requested["flag"] = True
+
+    previous = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            previous[sig] = signal.signal(sig, _graceful_stop)
+        except ValueError:
+            pass  # not the main thread
+    try:
+        log_every = cfg.get("log_config", {}).get("interval", 50)
+        for epoch in range(step // max(steps_per_epoch, 1), max_epochs):
+            loader.set_epoch(epoch)
+            t0 = time.time()
+            for batch in prefetch_to_device(loader, device):
+                if stop_requested["flag"]:
+                    save_checkpoint(ckpt_dir, model, optimizer, step, max_keep)
+                    print(f"preempted: checkpoint saved at step {step}", flush=True)
+                    return 0
+                metrics = train_step(batch, step_generator(args.seed, step, device))
+                step += 1
+                if step % log_every == 0:
+                    m_host = {k: float(v) for k, v in metrics.items()}
+                    dt = (time.time() - t0) / log_every
+                    t0 = time.time()
+                    print(json.dumps({"step": step, "epoch": epoch, "sec/iter": dt, **m_host}),
+                          flush=True)
+                if args.max_steps and step >= args.max_steps:
+                    break
+            save_checkpoint(ckpt_dir, model, optimizer, step, max_keep)
+            if eval_every and (epoch + 1) % eval_every == 0 and not args.max_steps:
+                results = run_eval()
+                if results and save_best_key and save_best_key in results \
+                        and results[save_best_key] > best_metric:
+                    best_metric = results[save_best_key]
+                    save_checkpoint(os.path.join(work_dir, "best"), model, optimizer, step, 1)
+                    print(f"new best {save_best_key}={best_metric:.4f}")
+            if args.max_steps and step >= args.max_steps:
+                break
+    finally:
+        for sig, handler in previous.items():
+            signal.signal(sig, handler)
+    print(json.dumps({"kernel_launches": launch_counts()}))
+    print("training done at step", step, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

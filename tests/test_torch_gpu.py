@@ -1,8 +1,11 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 K1 (``ms_deform_gather_3d``) and its backward K1-bwd, K2 (``trilerp_sample``)
-and its backward K2-bwd, K3 (``sample_id_masks``), and the all-layer batched
-loss on the card (K2, K2-bwd, K3) against the same loss on the CPU.  These
+and its backward K2-bwd, K3 (``sample_id_masks``), K4
+(``fused_multilevel_gather``) and its backward K4-bwd, the probe's P1
+(``add_one``) and P2 (``row_gather``), the all-layer batched loss on the
+card (K2, K2-bwd, K3) against the same loss on the CPU, and a checkpoint
+round trip of a model and optimizer on the card.  These
 tests need a CUDA device and skip without one; the kernels have no CPU mode.
 The file imports no JAX, so it also runs where JAX is absent:
 
@@ -13,7 +16,8 @@ for the gradients (the same float32 sums in another order; the gradients
 add up to 8 * hd atomics per element in an order that changes from run to
 run); bfloat16 1e-2 (the kernels round their outputs to bf16; the plain
 versions run in float32 on the same bf16-rounded inputs).  K3 1e-6
-absolute: it adds the plain version's float32 terms in its order.
+absolute: it adds the plain version's float32 terms in its order.  P1 and
+P2 exactly (one float32 add; a copy).
 """
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ from occformer_tpu_torch.losses.mask2former_loss import (
     mask2former_loss,
 )
 from occformer_tpu_torch.ops import loss_gather as k3
+from occformer_tpu_torch.ops import probe as kp
 from occformer_tpu_torch.ops import trilerp as k2
 from occformer_tpu_torch.ops import trilerp_fused as k1
 
@@ -268,3 +273,156 @@ def test_batched_loss_on_the_card_matches_the_cpu(cuda, B):
         assert abs(got[k] - r) <= 1e-4 * abs(r) + 1e-6, (k, got[k], r)
     for k, r in ref_g.items():
         _close(got_g[k], r, 1e-3, f"batched loss d_{k}")
+
+
+K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
+
+
+def _k4_inputs(dev, dtype, spatials, G, C, S, spill, seed=0):
+    """Slabs [G, X*Y, Z*C] and coords [G, S, 3] uniform in [-spill, spill]."""
+    rng = np.random.RandomState(seed)
+    tables = [torch.from_numpy(rng.randn(G, X * Y, Z * C).astype(np.float32)).to(dev, dtype)
+              for X, Y, Z in spatials]
+    coords = [torch.from_numpy(rng.uniform(-spill, spill, (G, S, 3)).astype(np.float32)).to(dev)
+              for _ in spatials]
+    return tables, coords
+
+
+def _k4_against_plain(tables, coords, spatials, C, align_corners, dtype):
+    """K4 and K4-bwd (through the autograd Function) against the plain
+    version and its autograd on the same inputs; gradients of a random
+    linear probe of the outputs."""
+    tl = [t.detach().clone().requires_grad_(True) for t in tables]
+    cl = [c.detach().clone().requires_grad_(True) for c in coords]
+    before = (k1.MULTI_LAUNCHES, k1.MULTI_BWD_LAUNCHES)
+    got = k1.fused_multilevel_gather(tl, spatials, C, cl, align_corners)
+    gen = torch.Generator(device=tables[0].device).manual_seed(1)
+    gouts = [torch.randn(o.shape, device=o.device, generator=gen).to(dtype) for o in got]
+    torch.autograd.backward(got, gouts)
+    torch.cuda.synchronize()
+    assert (k1.MULTI_LAUNCHES - before[0], k1.MULTI_BWD_LAUNCHES - before[1]) == (1, 1)
+    pl = [t.detach().float().requires_grad_(True) for t in tables]
+    pc = [c.detach().clone().requires_grad_(True) for c in coords]
+    ref = k1.fused_multilevel_gather_plain(pl, spatials, C, pc, align_corners)
+    torch.autograd.backward(ref, [g.float() for g in gouts])
+    for l, (g, r) in enumerate(zip(got, ref)):
+        assert g.dtype == dtype and g.shape == r.shape
+        _close(g, r, _tol(dtype), f"K4 level {l}")
+        assert tl[l].grad.dtype == dtype and cl[l].grad.dtype == torch.float32
+        _close(tl[l].grad, pl[l].grad, _tol(dtype, grad=True), f"K4-bwd level {l} d_table")
+        _close(cl[l].grad, pc[l].grad, _tol(dtype, grad=True), f"K4-bwd level {l} d_coords")
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_matches_plain_small(cuda, dtype, align_corners):
+    spatials = [(8, 8, 4), (4, 4, 2), (2, 2, 2), (5, 3, 7)]
+    dt = getattr(torch, dtype)
+    tables, coords = _k4_inputs(cuda, dt, spatials, G=3, C=6, S=57, spill=1.6)
+    _k4_against_plain(tables, coords, spatials, 6, align_corners, dt)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_k4_matches_plain_at_the_parity_gate_shapes(cuda, align_corners):
+    """bench.py's kernel-parity shapes: the decoder pyramid, G = 8, C = 24,
+    S = 512 per level, coords in [-1.1, 1.1], float32."""
+    tables, coords = _k4_inputs(cuda, torch.float32, K4_PYRAMID, G=8, C=24, S=512, spill=1.1)
+    _k4_against_plain(tables, coords, K4_PYRAMID, 24, align_corners, torch.float32)
+
+
+def test_k4_matches_plain_at_the_deformable_attention_shapes(cuda):
+    """The flagship's deformable attention: G = 8 (B * H), C = 24, S_l =
+    37376 * 4 per level, bf16 tables, locations spilling 1.8% past the
+    volume."""
+    tables, coords = _k4_inputs(cuda, torch.bfloat16, K4_PYRAMID, G=8, C=24, S=149504,
+                                spill=1.036)
+    _k4_against_plain(tables, coords, K4_PYRAMID, 24, False, torch.bfloat16)
+
+
+def test_k4_without_coordinate_gradient_and_rejects(cuda):
+    tables, coords = _k4_inputs(cuda, torch.float32, K4_PYRAMID[1:], G=2, C=8, S=100, spill=1.2)
+    tl = [t.clone().requires_grad_(True) for t in tables]
+    out = k1.fused_multilevel_gather(tl, K4_PYRAMID[1:], 8, coords)
+    sum(o.sum() for o in out).backward()
+    ref = [t.clone().requires_grad_(True) for t in tables]
+    sum(o.sum() for o in k1.fused_multilevel_gather_plain(
+        [r.float() for r in ref], K4_PYRAMID[1:], 8, coords)).backward()
+    for a, b in zip(tl, ref):
+        _close(a.grad, b.grad, 1e-4, "K4-bwd d_table without d_coords")
+    before = k1.MULTI_LAUNCHES
+    with pytest.raises(TypeError):
+        k1.fused_multilevel_gather([t.half() for t in tables], K4_PYRAMID[1:], 8, coords)
+    with pytest.raises(TypeError):
+        k1.fused_multilevel_gather(tables, K4_PYRAMID[1:], 8, [c.double() for c in coords])
+    with pytest.raises(ValueError):
+        k1.fused_multilevel_gather(tables, K4_PYRAMID[1:], 8, [coords[0].cpu(), coords[1]])
+    with pytest.raises(ValueError):
+        k1.fused_multilevel_gather([tables[0]] * 9, [K4_PYRAMID[1]] * 9, 8, [coords[0]] * 9)
+    assert k1.MULTI_LAUNCHES == before
+
+
+def test_probe_kernels_match_plain_exactly(cuda):
+    from occformer_tpu_torch.tools.probe_viability import probe_inputs
+
+    inp = probe_inputs(cuda)
+    before = (kp.ADD_ONE_LAUNCHES, kp.ROW_GATHER_LAUNCHES)
+    y = kp.add_one(inp["x"])
+    g = kp.row_gather(inp["table"], inp["idx"])
+    odd = torch.randn((50, 37), device=cuda)  # rows not a multiple of 4 floats
+    idx = torch.tensor([3, 0, 49, 7, 3], device=cuda, dtype=torch.int32)
+    g_odd = kp.row_gather(odd, idx)
+    torch.cuda.synchronize()
+    assert (kp.ADD_ONE_LAUNCHES - before[0], kp.ROW_GATHER_LAUNCHES - before[1]) == (1, 2)
+    assert torch.equal(y, kp.add_one_plain(inp["x"]))
+    assert torch.equal(g, kp.row_gather_plain(inp["table"], inp["idx"]))
+    assert torch.equal(g_odd, kp.row_gather_plain(odd, idx))
+    with pytest.raises(TypeError):
+        kp.row_gather(inp["table"], inp["idx"].long())
+    with pytest.raises(TypeError):
+        kp.add_one(inp["x"].double())
+
+
+def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
+    """A train step of the tiny CLI model on the card, a save, and a load
+    into a fresh model and optimizer on the card: every parameter, buffer,
+    AdamW moment and step bit-equal, and the next step alike."""
+    import os
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
+    from occformer_tpu_torch.engine.checkpoint import load_checkpoint, save_checkpoint
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "occformer_tpu_torch", "configs", "synthetic_tiny.py"),
+                      {"model.img_backbone.frozen_stages": 0})
+    m = cfg["model"]
+    batch = next(iter(build_dataloader(build_dataset(cfg["data"]["train"]), max_points=512)))
+    batch.pop("_meta")
+
+    def setup(seed):
+        model = build_model(m, device=cuda, seed=seed).train()
+        opt = build_optimizer_from_config(model, cfg, 16)
+        return model, opt, build_train_step(
+            model, opt, build_loss_cfg(m["pts_bbox_head"], m["train_cfg"]["pts"]), device=cuda)
+
+    model, opt, step = setup(0)
+    step(batch, torch.Generator(device=cuda).manual_seed(0))
+    path = save_checkpoint(str(tmp_path), model, opt, 1)
+    model2, opt2, step2 = setup(1)
+    assert load_checkpoint(path, model2, opt2) == 1
+    for (k, a), b in zip(model.state_dict().items(), model2.state_dict().values()):
+        assert b.is_cuda and torch.equal(a, b), k
+    s1, s2 = opt.state_dict()["adamw"]["state"], opt2.state_dict()["adamw"]["state"]
+    assert s1.keys() == s2.keys()
+    for i in s1:
+        for k in s1[i]:
+            assert torch.equal(s1[i][k], s2[i][k]), (i, k)
+    assert opt2.step_count == 1
+    m1 = step(batch, torch.Generator(device=cuda).manual_seed(1))
+    m2 = step2(batch, torch.Generator(device=cuda).manual_seed(1))
+    # the same inputs through kernels with float32 atomics: alike, not bit-equal
+    for k, v in m1.items():
+        assert abs(float(m2[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-5, k

@@ -7,8 +7,10 @@ Phases, each printing one JSON line:
   0. probe:      the backend viability probe
                  (occformer_tpu_torch.tools.probe_viability): builds only
                  csrc/probe.cu and holds P1 (add_one) and P2 (row_gather)
-                 exactly against their plain versions, then times them and
-                 torch.gather; a broken toolchain fails here in seconds.
+                 exactly against their plain versions, then times them, x + 1
+                 and index_select (by events and by the profiler's device
+                 time) and torch.gather; a broken toolchain fails here in
+                 seconds.
   1. build:      compile every other CUDA kernel of the package from its
                  sources, one nvcc per source, all started together.
   2. serve:      the flagship config (occformer_nusc_r50_256x704) at full
@@ -27,13 +29,20 @@ Phases, each printing one JSON line:
                  (each backward checked through the autograd Function the
                  train step runs, timed at its launch alone):
                  K1 (ms_deform_gather_3d) and K1-bwd at the pixel decoder's
-                 shapes in float32 and bfloat16; K2 (trilerp_sample) and
-                 K2-bwd at the per-layer loss's candidate readout (bf16
-                 feature table, border, align_corners=False), plus K2 on the
-                 per-slot GT masks and a zeros / align_corners=True case, and
-                 K2 / K2-bwd at the batched loss's three readouts; K3
+                 shapes in float32 and bfloat16, K1-bwd at uniform and at
+                 local locations; K2 (trilerp_sample) and K2-bwd at the
+                 per-layer loss's candidate readout (bf16 feature table,
+                 border, align_corners=False), K2-bwd's segmented path also
+                 at its random fill, two of its calls held bit-equal, and
+                 its narrow path timed at the candidate readout too (the
+                 kernel the segmented one replaced there; the sweep over row
+                 widths behind the path threshold is tools/time_backwards.py
+                 --sweep); K2 on the per-slot GT masks and a zeros /
+                 align_corners=True case; K2 / K2-bwd (its narrow
+                 path) at the batched loss's three readouts; K3
                  (sample_id_masks) at the batched loss's three GT reads and
-                 a zeros / align_corners=True case on a 40x24x12 grid.
+                 a zeros / align_corners=True case on a 40x24x12 grid; the
+                 K4 parity gate, K4 at its small shapes also by device time.
   4. tiny:       the tiny test model's forward on the card (kernels) against
                  the same model on the CPU (plain versions), float32.
   5. tiny_train: the tiny model's train step on the card against the same
@@ -45,7 +54,8 @@ Phases, each printing one JSON line:
                  parameters under bfloat16 autocast, batch 1, through
                  build_train_step on the per-layer loss route: 1 warm-up
                  step, then 3 timed steps, and a torch.profiler summary of
-                 one more step.
+                 one more step (with each port kernel's device ms and
+                 launches).
   7. train_batched: the same on the all-layer batched loss route
                  (mxu_readout="on"), plus both routes' losses and Hungarian
                  assignments on one float32 copy of a step's model outputs
@@ -59,8 +69,9 @@ Phases, each printing one JSON line:
 In phases 0, 2, 6 and 7 and in the K4 parity gate every kernel's launch
 count is set to 0 just before the path is driven and read just after; each
 must match its per-frame, per-step or per-run count.  The CLIs report their
-own counts, which must show their kernels.  Then the card's name and power limit (nvidia-smi), one JSON
-line of kernel records, and last ``{"ok": true, "device": {...}}``.  Any
+own counts, which must show their kernels.  Then the card's name and power
+limit (nvidia-smi), one JSON line of kernel records (K2-bwd's two paths as
+two records), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
 """
@@ -83,12 +94,16 @@ CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r5
 # decoder outputs with 6 K2 launches each, 2 of them differentiated; the
 # batched route reads all 10 at once: K2 at the matching points, the
 # candidates and the random fill, the last two differentiated, and K3 at the
-# same three point sets); PERF.md states the same counts
-_NONE = {"K1": 0, "K1-bwd": 0, "K2": 0, "K2-bwd": 0, "K3": 0, "K4": 0, "K4-bwd": 0,
-         "P1": 0, "P2": 0}
+# same three point sets); PERF.md states the same counts.  "K2-bwd" counts
+# both of its paths, "K2-bwd.narrow" the narrow one: the per-layer route's
+# C = 192 feature takes the segmented path, the batched route's C = 17 and
+# C = 1 per-slot volumes the narrow one
+_NONE = {"K1": 0, "K1-bwd": 0, "K2": 0, "K2-bwd": 0, "K2-bwd.narrow": 0, "K3": 0, "K4": 0,
+         "K4-bwd": 0, "P1": 0, "P2": 0}
 SERVE_LAUNCHES = dict(_NONE, K1=6)
 TRAIN_LAUNCHES = {"off": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 60, "K2-bwd": 20}),
-                  "on": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 3, "K2-bwd": 2, "K3": 3})}
+                  "on": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 3, "K2-bwd": 2,
+                                       "K2-bwd.narrow": 2, "K3": 3})}
 # the K4 parity gate: bench.py's shapes at both align_corners and the
 # flagship shapes, one forward and one backward each; the probe: P1 and P2 once
 K4_GATE_LAUNCHES = dict(_NONE, **{"K4": 3, "K4-bwd": 3})
@@ -123,6 +138,14 @@ def nbytes(*tensors):
     from occformer_tpu_torch.utils.timing import nbytes as total
 
     return total(*tensors)
+
+
+def device_ms(fn, iters=20):
+    """Device ms per call of ``fn()`` from the profiler
+    (``utils/timing.py:device_ms``)."""
+    from occformer_tpu_torch.utils.timing import device_ms as on_device
+
+    return on_device(fn, iters)
 
 
 def bound(n_bytes, flops):
@@ -163,45 +186,18 @@ def compare(got, ref, rel, name):
     return {"max_abs_err": err, "max_abs_plain": scale, "limit": limit}
 
 
-def flagship_gather_inputs(dtype, local, seed=0):
-    """K1's inputs at the flagship's shapes: B=1, H=8, hd=24, P=4, levels
-    (16,16,2), (32,32,4), (64,64,8), Nq = 37376.  ``local=False``: locations
-    uniform over [-a, 1+a]^3 with a = 0.018, so that about 10% of samples have
-    a coordinate outside [0, 1]; ``local=True``: each query's own grid center
-    plus up to +-2 voxels, the spread of the model's radial offset init."""
-    import numpy as np
-    import torch
-
-    from occformer_tpu_torch.models.pixel_decoder import reference_points
-
-    shapes = [(16, 16, 2), (32, 32, 4), (64, 64, 8)]
-    B, H, hd, L, P = 1, 8, 24, 3, 4
-    Nq = sum(x * y * z for x, y, z in shapes)
-    rng = np.random.RandomState(seed)
-    value = rng.randn(B, Nq, H, hd).astype(np.float32)
-    if local:
-        ref = reference_points(shapes)[None, :, None, None, None, :]
-        norm = np.asarray(shapes, np.float32)[None, None, None, :, None, :]
-        locs = ref + rng.uniform(-2, 2, (B, Nq, H, L, P, 3)) / norm
-    else:
-        locs = rng.uniform(-0.018, 1.018, (B, Nq, H, L, P, 3))
-    w = rng.rand(B, Nq, H, L * P)
-    w = (w / w.sum(-1, keepdims=True)).reshape(B, Nq, H, L, P)
-    dev = torch.device("cuda")
-    return (torch.from_numpy(value).to(dev, dtype), shapes,
-            torch.from_numpy(locs.astype(np.float32)).to(dev),
-            torch.from_numpy(w.astype(np.float32)).to(dev, dtype))
-
-
 def phase_k1():
-    """K1 and K1-bwd against the plain version and its autograd.  Tolerances
-    relative to max |plain|: float32 1e-5 forward and 1e-4 backward (the same
-    float32 sums in another order; the backward's d_value adds 8 * hd
-    atomics per element), bfloat16 1e-2 (outputs rounded to bf16; the plain
-    version runs in float32 on the same bf16-rounded inputs)."""
+    """K1 and K1-bwd against the plain version and its autograd, K1-bwd at
+    the uniform and at the local locations.  Tolerances relative to max
+    |plain|: float32 1e-5 forward and 1e-4 backward (the same float32 sums in
+    another order; the backward's d_value takes 8 * hd / 4 vector reductions
+    per sample in an order that changes from run to run), bfloat16 1e-2
+    (outputs rounded to bf16; the plain version runs in float32 on the same
+    bf16-rounded inputs)."""
     import torch
 
     from occformer_tpu_torch.ops import trilerp_fused as k1
+    from occformer_tpu_torch.tools.time_backwards import flagship_gather_inputs
 
     fwd, bwd = {}, {}
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
@@ -226,23 +222,27 @@ def phase_k1():
         r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
         fwd[name] = r
 
-        # K1-bwd, through the autograd Function the train step runs
-        gout = torch.randn(got.shape, device="cuda", generator=torch.Generator(
-            device="cuda").manual_seed(1)).to(dtype)
-        k_leaves = [t.detach().clone().requires_grad_(True) for t in (value, locs, w)]
-        k1.ms_deform_gather_3d(k_leaves[0], shapes, k_leaves[1], k_leaves[2]).backward(gout)
-        torch.cuda.synchronize()
-        leaves = [t.detach().float().requires_grad_(True) for t in (value, locs, w)]
-        out = k1.ms_deform_gather_3d_plain(leaves[0], shapes, leaves[1], leaves[2])
-        refs = torch.autograd.grad(out, leaves, gout.float())
+        # K1-bwd, through the autograd Function the train step runs, at the
+        # uniform and at the local locations
         rel = 1e-4 if dtype == torch.float32 else 1e-2
-        rb = {g: compare(a.grad, b, rel, f"K1-bwd {name} {g}")
-              for g, a, b in zip(("d_value", "d_locs", "d_weights"), k_leaves, refs)}
-        check(all(a.grad.dtype == a.dtype for a in k_leaves),
-              f"K1-bwd {name}: gradient dtypes {[a.grad.dtype for a in k_leaves]}")
-        del k_leaves
+        rb = {}
+        for where, (v_, l_, w_) in (("", (value, locs, w)), ("local_locs ", (lv, ll, lw))):
+            gout = torch.randn(got.shape, device="cuda", generator=torch.Generator(
+                device="cuda").manual_seed(1)).to(dtype)
+            k_leaves = [t.detach().clone().requires_grad_(True) for t in (v_, l_, w_)]
+            k1.ms_deform_gather_3d(k_leaves[0], shapes, k_leaves[1], k_leaves[2]).backward(gout)
+            torch.cuda.synchronize()
+            leaves = [t.detach().float().requires_grad_(True) for t in (v_, l_, w_)]
+            out = k1.ms_deform_gather_3d_plain(leaves[0], shapes, leaves[1], leaves[2])
+            refs = torch.autograd.grad(out, leaves, gout.float())
+            for g, a, b in zip(("d_value", "d_locs", "d_weights"), k_leaves, refs):
+                rb[where + g] = compare(a.grad, b, rel, f"K1-bwd {name} {where}{g}")
+            check(all(a.grad.dtype == a.dtype for a in k_leaves),
+                  f"K1-bwd {name}: gradient dtypes {[a.grad.dtype for a in k_leaves]}")
+            del k_leaves, leaves, out, refs
         rb["max_abs_err"] = max(v["max_abs_err"] for v in rb.values())
         rb["kernel_ms"] = time_cuda(lambda: k1._launch_bwd(value, shapes, locs, w, gout))
+        rb["kernel_ms_local_locs"] = time_cuda(lambda: k1._launch_bwd(lv, shapes, ll, lw, gout))
         plain_leaves = [t.detach().clone().requires_grad_(True) for t in (value, locs, w)]
         plain_out = k1.ms_deform_gather_3d_plain(plain_leaves[0], shapes, plain_leaves[1],
                                                  plain_leaves[2])
@@ -258,15 +258,18 @@ def phase_k1():
                         B * Nq * H * L * P * hd * 8 * 4))
         rb["roofline_share"] = rb["bound_ms"] / rb["kernel_ms"]
         bwd[name] = rb
-        del plain_out, out
+        del plain_out
     return fwd, bwd
 
 
 def phase_k2():
     """K2 and K2-bwd against the plain version (F.grid_sample on the permuted
-    table) and its autograd, at the loss's shapes.  Tolerances relative to
-    max |plain|: bfloat16 1e-2 (bf16 output), float32 1e-5 forward and 1e-4
-    backward (atomics in another order)."""
+    table) and its autograd, at the loss's shapes: K2-bwd's segmented path
+    at the per-layer route's candidate and random-fill readouts (bf16
+    feature, C = 192), with two calls held bit-equal, and its narrow path
+    timed at the candidates beside it.  Tolerances relative to max
+    |plain|: bfloat16 1e-2 (bf16 output), float32 1e-5 forward and 1e-4
+    backward (float32 sums in another order)."""
     import torch
     import torch.nn.functional as F
 
@@ -306,7 +309,9 @@ def phase_k2():
                                  "K2 zeros/align_corners")
 
     # K2-bwd at the candidate readout, through the autograd Function the
-    # train step runs (coordinates without grad, as in the loss: d_table)
+    # train step runs (coordinates without grad, as in the loss: d_table), on
+    # the segmented path; two calls must give the same bits
+    check(k2.bwd_path(table.shape, S) == "segmented", "K2-bwd candidates: not segmented")
     gout = torch.randn(got.shape, device=dev, generator=g).to(torch.bfloat16)
     k_leaf = table.detach().clone().requires_grad_(True)
     k2.trilerp_sample(k_leaf, coords, False, "border").backward(gout)
@@ -316,7 +321,10 @@ def phase_k2():
                               gout.float())[0]
     check(k_leaf.grad.dtype == table.dtype, f"K2-bwd d_table dtype {k_leaf.grad.dtype}")
     bwd = compare(k_leaf.grad, ref, 1e-2, "K2-bwd candidates d_table")
-    del k_leaf, leaf, ref
+    again, _ = k2._launch_bwd(table, coords, gout, False, "border", want_coords=False)
+    check(torch.equal(again, k_leaf.grad), "K2-bwd: two calls differ")
+    bwd["bit_identical_calls"] = True
+    del k_leaf, leaf, ref, again
     t_c = t32.detach().clone().requires_grad_(True)
     c_c = c32.detach().clone().requires_grad_(True)
     go32 = torch.randn((2, 20000, 40), device=dev, generator=g)
@@ -328,20 +336,40 @@ def phase_k2():
     bwd["zeros_align_d_coords"] = compare(c_c.grad, c_r.grad, 1e-4, "K2-bwd d_coords f32")
     bwd["kernel_ms"] = time_cuda(lambda: k2._launch_bwd(
         table, coords, gout, False, "border", want_coords=False))
+    # the narrow atomic path (the K2-bwd this path replaced at C = 192) here
+    bwd["narrow_path_ms"] = time_cuda(lambda: k2._launch_bwd(
+        table, coords, gout, False, "border", want_coords=False, path="narrow"))
     p_leaf = table.detach().clone().requires_grad_(True)
     p_out = k2.trilerp_sample_plain(p_leaf, coords, False, "border")
     bwd["plain_ms"] = time_cuda(lambda: torch.autograd.grad(
         p_out, p_leaf, gout, retain_graph=True), iters=20)
+    del p_out
     l_vol = vol.detach().clone().requires_grad_(True)
     l_out = F.grid_sample(l_vol, grid, mode="bilinear", padding_mode="border",
                           align_corners=False)
     l_gout = gout.transpose(1, 2).reshape(l_out.shape).contiguous()
     bwd["library_ms"] = time_cuda(lambda: torch.autograd.grad(
         l_out, l_vol, l_gout, retain_graph=True), iters=20)
+    del l_out, l_vol
     # gout and coords read once, d_table (the table's dtype) written once;
     # one product per corner and channel
     bwd.update(bound(nbytes(gout, coords, table), S * C * 8 * 2))
     bwd["roofline_share"] = bwd["bound_ms"] / bwd["kernel_ms"]
+
+    # the per-layer route's random-fill readout: 17 x 12544 points on the
+    # same table, the segmented path
+    rf = torch.rand((1, 17 * 12544, 3), device=dev, generator=g) * 2 - 1
+    rf_gout = torch.randn((1, rf.shape[1], C), device=dev, generator=g).to(torch.bfloat16)
+    rf_got, _ = k2._launch_bwd(table, rf, rf_gout, False, "border", want_coords=False)
+    leaf = table.detach().float().requires_grad_(True)
+    ref = torch.autograd.grad(k2.trilerp_sample_plain(leaf, rf, False, "border"), leaf,
+                              rf_gout.float())[0]
+    rec = compare(rf_got, ref, 1e-2, "K2-bwd random fill d_table")
+    del leaf, ref, rf_got
+    rec["kernel_ms"] = time_cuda(lambda: k2._launch_bwd(
+        table, rf, rf_gout, False, "border", want_coords=False))
+    rec.update(bound(nbytes(rf_gout, rf, table), rf.shape[1] * C * 8 * 2))
+    bwd["random_fill"] = rec
     return fwd, bwd
 
 
@@ -351,8 +379,11 @@ def phase_k2_batched():
     the per-query match volumes [10, 128, 128, 16, 100] bf16 at 50176 points
     each (forward only, detached), and the float32 per-slot volumes at the
     150528 candidates ([10, ..., 17]) and at the 12544 random-fill points of
-    each slot ([170, ..., 1]).  Tolerances as in phase_k2."""
+    each slot ([170, ..., 1]).  Both backwards take K2-bwd's narrow path,
+    timed beside the plain version's autograd and autograd through
+    F.grid_sample.  Tolerances as in phase_k2."""
     import torch
+    import torch.nn.functional as F
 
     from occformer_tpu_torch.ops import trilerp as k2
 
@@ -386,8 +417,24 @@ def phase_k2_batched():
         k2.trilerp_sample_plain(ref_leaf, coords, False, "border").backward(gout)
         rb = compare(leaf.grad, ref_leaf.grad, 1e-4, f"K2-bwd batched {name} d_table")
         del leaf, ref_leaf
+        check(k2.bwd_path(table.shape, cshape[1]) == "narrow", f"K2-bwd {name}: not narrow")
         rb["kernel_ms"] = time_cuda(lambda: k2._launch_bwd(
             table, coords, gout, False, "border", want_coords=False))
+        p_leaf = table.detach().clone().requires_grad_(True)
+        p_out = k2.trilerp_sample_plain(p_leaf, coords, False, "border")
+        rb["plain_ms"] = time_cuda(lambda: torch.autograd.grad(
+            p_out, p_leaf, gout, retain_graph=True), iters=10)
+        del p_out, p_leaf
+        # the library call: autograd through F.grid_sample on the
+        # channels-first copy of the volumes
+        l_vol = table.permute(0, 4, 1, 2, 3).contiguous().requires_grad_(True)
+        l_grid = coords.flip(-1).reshape(cshape[0], -1, 1, 1, 3).contiguous()
+        l_out = F.grid_sample(l_vol, l_grid, mode="bilinear", padding_mode="border",
+                              align_corners=False)
+        l_gout = gout.transpose(1, 2).reshape(l_out.shape).contiguous()
+        rb["library_ms"] = time_cuda(lambda: torch.autograd.grad(
+            l_out, l_vol, l_gout, retain_graph=True), iters=10)
+        del l_out, l_vol, l_gout
         rb.update(bound(nbytes(gout, coords, table), S * C * 8 * 2))
         bwd[name] = rb
         del gout
@@ -496,7 +543,8 @@ def k4_inputs(case, seed=6):
     S = 512 per level, coords uniform in [-1.1, 1.1], float32; (b) "flagship",
     the deformable attention's: G = B * H = 8, C = hd = 24, S_l = Nq * P =
     37376 * 4, bf16 tables, locations uniform over [-0.018, 1.018] as
-    flagship_gather_inputs draws them (2 * loc - 1 in [-1, 1] terms)."""
+    tools/time_backwards.py:flagship_gather_inputs draws them (2 * loc - 1
+    in [-1, 1] terms)."""
     import numpy as np
     import torch
 
@@ -585,6 +633,21 @@ def phase_k4():
                                                               False))
     fwd["kernel_ms_gate_f32"] = time_cuda(lambda: k4._launch_multi_fwd(
         gate[0], K4_PYRAMID, C, gate[1], False))
+    # at the gate's small shapes the events also time the launch's host
+    # work: the profiler's device time of the kernel alone, and of the
+    # library's three grid_sample calls there
+    fwd["kernel_device_ms_gate_f32"] = device_ms(lambda: k4._launch_multi_fwd(
+        gate[0], K4_PYRAMID, C, gate[1], False))
+    g_vols = [t.reshape(t.shape[0], X, Y, Z, C).permute(0, 4, 1, 2, 3).contiguous()
+              for t, (X, Y, Z) in zip(gate[0], K4_PYRAMID)]
+    g_grids = [c.flip(-1).reshape(c.shape[0], -1, 1, 1, 3).contiguous() for c in gate[1]]
+
+    def gate_library():
+        return [F.grid_sample(v, gr, mode="bilinear", padding_mode="zeros", align_corners=False)
+                for v, gr in zip(g_vols, g_grids)]
+
+    fwd["library_ms_gate_f32"] = time_cuda(gate_library)
+    fwd["library_device_ms_gate_f32"] = device_ms(gate_library)
     fwd["plain_ms"] = time_cuda(lambda: k4.fused_multilevel_gather_plain(
         tables, K4_PYRAMID, C, coords), iters=10)
     vols = [t.reshape(G, X, Y, Z, C).permute(0, 4, 1, 2, 3).contiguous()
@@ -784,8 +847,11 @@ def phase_tiny_train(mxu_readout="off", accum_steps=1):
            "launches": n_got, "metrics_cuda": m_got, "metrics_cpu": m_ref,
            "metrics_cpu_spread": spread_m, "cpu_moves_by_image_scale": moves}
     failed = []
-    # 2 deformable encoder layers, 4 supervised decoder outputs
-    per_micro = (dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 3, "K2-bwd": 2, "K3": 3})
+    # 2 deformable encoder layers, 4 supervised decoder outputs; the tiny
+    # feature's C = 48 takes K2-bwd's segmented path, the batched route's
+    # per-slot volumes the narrow one
+    per_micro = (dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 3, "K2-bwd": 2, "K2-bwd.narrow": 2,
+                                "K3": 3})
                  if loss_cfg.batched_readout else
                  dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 24, "K2-bwd": 8}))
     if n_got != {k: v * accum_steps for k, v in per_micro.items()}:
@@ -1116,6 +1182,44 @@ def phase_cli():
     return rec
 
 
+# the port's CUDA kernels by function name -> the kernel they belong to;
+# K2-bwd's segmented path runs the seven K2-bwd functions per launch, and
+# its gather (one per launch) counts the launches
+PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_bwd_kernel": "K1-bwd",
+                "trilerp_fwd_kernel": "K2", "trilerp_bwd_kernel": "K2-bwd.narrow",
+                "seg_count_kernel": "K2-bwd", "scan_tiles_kernel": "K2-bwd",
+                "scan_sums_kernel": "K2-bwd", "add_tile_offsets_kernel": "K2-bwd",
+                "seg_fill_kernel": "K2-bwd", "seg_rank_kernel": "K2-bwd",
+                "trilerp_bwd_gather_kernel": "K2-bwd",
+                "label_shared_kernel": "K3", "label_per_slot_kernel": "K3",
+                "multilevel_fwd_kernel": "K4", "multilevel_bwd_kernel": "K4-bwd",
+                "add_one_kernel": "P1", "row_gather_kernel": "P2"}
+_SEGMENTED_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
+                    "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel"}
+
+
+def port_kernel_ms(kernels):
+    """Device ms and launches of the port's kernels among profiled kernel
+    events, by kernel (K2's forward apart by table type: the bf16 feature,
+    the bool GT, float32 volumes; K2-bwd's segmented path summed over its
+    seven functions) and by CUDA function."""
+    import re
+
+    by_kernel, by_function = {}, {}
+    for e in kernels:
+        m = re.match(r"(?:void )?(\w+)(<[^(]*>)?\(", e.key)
+        if not m or m.group(1) not in PORT_KERNELS:
+            continue
+        name = PORT_KERNELS[m.group(1)] + (" " + m.group(2) if m.group(1) == "trilerp_fwd_kernel"
+                                           else "")
+        for key, table, n in ((name, by_kernel, m.group(1) not in _SEGMENTED_STEPS),
+                              (m.group(1) + (m.group(2) or ""), by_function, True)):
+            r = table.setdefault(key, {"launches": 0, "device_ms": 0.0})
+            r["launches"] += e.count if n else 0
+            r["device_ms"] += e.self_device_time_total / 1e3
+    return {"by_kernel": by_kernel, "by_function": by_function}
+
+
 def profile(run, outer, top=12):
     """torch.profiler over one more call of ``run``: host and device time of
     each ``stage:*`` range (``outer`` names the outermost ones, which must
@@ -1162,15 +1266,18 @@ def profile(run, outer, top=12):
                             for e in kernels[:top]],
             "top_ops": [{"name": e.key, "shapes": str(e.input_shapes)[:120],
                          "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
-                        for e in ops[:top]]}
+                        for e in ops[:top]],
+            "port_kernels": port_kernel_ms(kernels)}
 
 
 def kernel_records(kern, probe, paths):
     """One record per kernel; ``paths`` maps each driven path (serve, train,
     train_batched, the K4 gate, the probe) to its launch counts, and a
-    kernel's ``launches`` sums them."""
+    kernel's ``launches`` sums them.  K2-bwd's two paths are two records."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
+    paths = {p: dict(n, **{"K2-bwd.segmented": n["K2-bwd"] - n["K2-bwd.narrow"]})
+             for p, n in paths.items()}
     rows = [
         ("ms_deform_gather_3d", "K1", src + "ms_deform_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:284", kern["K1"]["bf16"]),
@@ -1178,8 +1285,10 @@ def kernel_records(kern, probe, paths):
          "occformer_tpu/ops/trilerp_fused.py:354", kern["K1-bwd"]["bf16"]),
         ("trilerp_sample", "K2", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:476", kern["K2"]),
-        ("trilerp_sample_bwd", "K2-bwd", src + "trilerp_sample3d.cu",
+        ("trilerp_sample_bwd", "K2-bwd.segmented", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]),
+        ("trilerp_sample_bwd_narrow", "K2-bwd.narrow", src + "trilerp_sample3d.cu",
+         "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]["batched"]["candidates"]),
         ("sample_id_masks", "K3", src + "label_gather3d.cu",
          "occformer_tpu/ops/loss_gather.py:127", kern["K3"]["candidates"]),
         ("fused_multilevel_gather", "K4", src + "multilevel_gather3d.cu",

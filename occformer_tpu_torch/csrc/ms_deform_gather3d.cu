@@ -128,41 +128,107 @@ __global__ void ms_deform_gather3d_kernel(
 // For every sample (b, q, h, l, p) it recomputes the 8 corners exactly as the
 // forward does (same unnormalization, same clamp) and, with gout [B, Nq, H, hd]:
 //
-//   d_value[corner, c] += w * corner_weight * gout[c]        (float32 atomics)
+//   d_value[corner, c] += w * corner_weight * gout[c]        (float32 reductions)
 //   d_w                 = sum_c gout[c] * trilerp(value)[c]
 //   d_loc[axis]         = w * sum_c gout[c] * d trilerp[c] / d pix[axis] * size
 //
 // (d pix / d loc = size per axis; a corner outside its level contributes
 // nothing, as in F.grid_sample's backward).  d_value is the float32 buffer the
-// Pallas VJP also returns; the wrapper casts it to value's dtype.
+// Pallas VJP also returns; the wrapper casts it to value's dtype once.
 //
-// Design: one warp per sample, its lanes over the channels (chunks of 32).
-// The warp's corner reads and its d_value atomics then touch hd neighbouring
-// addresses (coalesced, one L2 sector run per corner), and d_w / d_loc are a
-// warp-shuffle sum with no atomics.  With hd = 24, 8 of 32 lanes idle.
+// Design: d_value (28.7 MB float32 at the flagship) fits in the 50 MB L2, so
+// the kernel keeps reductions into it and makes them fewer and wider.  A
+// group of 4 lanes takes one sample (eight samples per warp); its lanes walk
+// the sample's (corner, 4-channel quad) units, corner-major so that
+// neighbouring lanes touch neighbouring quads of one corner row: 48 units at
+// hd = 24, twelve per lane, no lane idle.  Each unit loads its value quad and
+// gout quad with one 16-byte (float32) or 8-byte (bf16) load and adds its
+// four d_value terms with one red.global.add.v4.f32 (sm_90): 8 * hd / 4
+// vector reductions per sample (172 M at the flagship) where the first
+// version issued 8 * hd scalar atomics (689 M).  A lane issues the loads of
+// 3 units before their arithmetic and reductions, so that loads overlap.
+// d_weights and the three d_locs slopes need only the quad's dot
+// sum_c gout * value per corner; they are summed within the group by
+// shuffles and stored by its first lane, with no atomics.  When hd is not a
+// multiple of 4 (or a pointer is not aligned for the vector access) the
+// same mapping runs with one channel per unit and scalar atomics.
+//
+// What limits it is the latency of each sample's dependent loads (its
+// locations, then its corner rows), not the reductions: the same kernel
+// with the reductions removed took 2.23 ms at the flagship's uniform bf16
+// locations where the whole took 3.5 (H100 80GB HBM3, 700 W; 16-lane
+// groups, one unit's loads at a time).  So the group size and the loads in
+// flight (BWD_GROUP, BWD_INFLIGHT) were set for the most samples and loads
+// in flight per warp that registers allow, from occformer_tpu_torch/tools/
+// time_backwards.py on that card, uniform / local locations, ms: 16 lanes
+// x 1 unit 3.51-3.58 / 2.88-3.00; 8 x 3 2.47-2.53 / 2.06-2.24; 4 x 2
+// 2.24-2.26 / 1.64-1.67; 4 x 3 2.19-2.20 / 1.66-1.67; 4 x 4 2.51-2.63 /
+// 1.94-2.02; 4 x 12 4.16-4.25 / 3.33-3.36; 2 x 6 2.16-2.22 / 1.72.
+// A block-local shared-memory window over the small levels' d_value rows
+// (fewer L2 reductions) and a per-row segmented gather of d_value (no float
+// reductions) were slower or no faster (PERF.md).
 //
 // Bound on an H100 SXM at the flagship (B = 1, Nq = 37376, H = 8, hd = 24,
-// L = 3, P = 4, bf16): each input read once and each output written once in
-// its dtype is value 14.4 MB + locs 43.1 MB + weights 7.2 MB + gout 14.4 MB
-// in, d_value 14.4 MB + d_locs 43.1 MB + d_w 7.2 MB out, about 144 MB, 43 us
-// at 3.35 TB/s; the float32 arithmetic (8 corners x 9 operations per sample
-// and channel, 6.2 GFLOP) takes 93 us at 67 TFLOP/s, so operations bound it.
-// The kernel issues 8 * hd float32 atomics per sample (690 M at the
-// flagship) into a 28.7 MB buffer that stays in L2; their rate, not DRAM or
-// the arithmetic, is what limits this simple form.
-template <typename T>
+// L = 3, P = 4, bf16), with the count chip_smoke.py uses: each input read
+// once and each output written once in its dtype is value 14.4 MB + locs
+// 43.1 MB + weights 7.2 MB + gout 14.4 MB in, d_value 14.4 MB + d_locs
+// 43.1 MB + d_w 7.2 MB out, about 144 MB, 43 us at 3.35 TB/s.  The function
+// needs 8 x 4 float32 operations per (sample, channel) (per corner, one FMA
+// of the dot that d_w and d_locs share and the d_value product and add):
+// 2.76 GFLOP, 41 us at 67 TFLOP/s.  So bytes bound it, at 43 us.
+constexpr int BWD_GROUP = 4;     // lanes per sample
+constexpr int BWD_INFLIGHT = 3;  // units per lane whose loads are issued together
+
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const float4 x = *reinterpret_cast<const float4*>(p);
+    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
+  } else {
+    v[0] = *p;
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    __nv_bfloat162 a, b;
+    *reinterpret_cast<unsigned*>(&a) = u.x;
+    *reinterpret_cast<unsigned*>(&b) = u.y;
+    const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
+    v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+template <int VEC>
+__device__ __forceinline__ void red_add(float* p, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
+                 :
+                 : "l"(p), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]));
+  } else {
+    atomicAdd(p, v[0]);
+  }
+}
+
+template <typename T, int VEC>
 __global__ void ms_deform_gather3d_bwd_kernel(
     const T* __restrict__ value, const float* __restrict__ locs,
     const T* __restrict__ weights, const T* __restrict__ gout,
     float* __restrict__ d_value, float* __restrict__ d_locs,
     float* __restrict__ d_weights, int64_t n_samples, int Nv, int Nq, int H,
     int hd, int L, int P, Levels lv) {
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = (int64_t)gridDim.x * (blockDim.x >> 5);
-  for (int64_t s = (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-       s < n_samples; s += warps) {
-    // s = ((b * Nq + q) * H + h) * L * P + l * P + p; uniform in the warp
-    const int p = (int)(s % P);
+  const int sub = threadIdx.x & (BWD_GROUP - 1);
+  // the lanes of this thread's group
+  const unsigned mask = ((1u << BWD_GROUP) - 1u) << (threadIdx.x & (32 - BWD_GROUP));
+  const int nq = hd / VEC;
+  const int units = 8 * nq;
+  const int per_block = blockDim.x / BWD_GROUP;
+  const int64_t groups = (int64_t)gridDim.x * per_block;
+  for (int64_t s = (int64_t)blockIdx.x * per_block + threadIdx.x / BWD_GROUP;
+       s < n_samples; s += groups) {
+    // s = ((b * Nq + q) * H + h) * L * P + l * P + p; uniform in the group
     const int l = (int)((s / P) % L);
     const int64_t bqh = s / ((int64_t)L * P);
     const int h = (int)(bqh % H);
@@ -173,9 +239,8 @@ __global__ void ms_deform_gather3d_bwd_kernel(
     const float pz = unnormalize(locs[s * 3 + 2], Z);
     const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
     const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
-    const float wx[2] = {1.f - (px - fx), px - fx};
-    const float wy[2] = {1.f - (py - fy), py - fy};
-    const float wz[2] = {1.f - (pz - fz), pz - fz};
+    const float wx1 = px - fx, wy1 = py - fy, wz1 = pz - fz;
+    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1, wz0 = 1.f - wz1;
     const float w = load_f(weights + s);
     const int64_t vstride = (int64_t)H * hd;
     // element offset of value[b, start_l, h, 0]
@@ -183,49 +248,54 @@ __global__ void ms_deform_gather3d_bwd_kernel(
     const T* g_row = gout + bqh * hd;
 
     float dw = 0.f, dgx = 0.f, dgy = 0.f, dgz = 0.f;
-    for (int c0 = 0; c0 < hd; c0 += 32) {
-      const int c = c0 + lane;
-      if (c >= hd) continue;
-      const float g = load_f(g_row + c);
-      const float gw = g * w;
-      float sv = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
+    for (int u0 = sub; u0 < units; u0 += BWD_GROUP * BWD_INFLIGHT) {
+      // the loads of up to BWD_INFLIGHT units first, then their arithmetic
+      // and reductions, so that the loads overlap
+      float v[BWD_INFLIGHT][VEC], g[BWD_INFLIGHT][VEC];
+      int64_t off[BWD_INFLIGHT];
+      int corner[BWD_INFLIGHT];  // -1: no unit, or a corner outside the level
 #pragma unroll
-      for (int dx = 0; dx < 2; ++dx) {
-        const int xi = x0 + dx;
-        if (xi < 0 || xi >= X) continue;
-#pragma unroll
-        for (int dy = 0; dy < 2; ++dy) {
-          const int yi = y0 + dy;
-          if (yi < 0 || yi >= Y) continue;
-          const int64_t row = ((int64_t)xi * Y + yi) * Z;
-#pragma unroll
-          for (int dz = 0; dz < 2; ++dz) {
-            const int zi = z0 + dz;
-            if (zi < 0 || zi >= Z) continue;
-            const int64_t off = vbase + (row + zi) * vstride + c;
-            const float v = load_f(value + off);
-            const float cw = wx[dx] * wy[dy] * wz[dz];
-            sv += cw * v;
-            sx += (dx ? v : -v) * wy[dy] * wz[dz];
-            sy += (dy ? v : -v) * wx[dx] * wz[dz];
-            sz += (dz ? v : -v) * wx[dx] * wy[dy];
-            atomicAdd(d_value + off, gw * cw);
-          }
-        }
+      for (int k = 0; k < BWD_INFLIGHT; ++k) {
+        const int u = u0 + k * BWD_GROUP;
+        corner[k] = -1;
+        if (u >= units) continue;
+        const int c = u / nq;
+        const int q = u - c * nq;
+        const int xi = x0 + (c >> 2), yi = y0 + ((c >> 1) & 1), zi = z0 + (c & 1);
+        if (xi < 0 || xi >= X || yi < 0 || yi >= Y || zi < 0 || zi >= Z) continue;
+        corner[k] = c;
+        off[k] = vbase + (((int64_t)xi * Y + yi) * Z + zi) * vstride + q * VEC;
+        load_vec<VEC>(value + off[k], v[k]);
+        load_vec<VEC>(g_row + q * VEC, g[k]);
       }
-      dw += g * sv;
-      dgx += g * sx;
-      dgy += g * sy;
-      dgz += g * sz;
+#pragma unroll
+      for (int k = 0; k < BWD_INFLIGHT; ++k) {
+        if (corner[k] < 0) continue;
+        const int dx = corner[k] >> 2, dy = (corner[k] >> 1) & 1, dz = corner[k] & 1;
+        const float wxd = dx ? wx1 : wx0, wyd = dy ? wy1 : wy0, wzd = dz ? wz1 : wz0;
+        const float cw = wxd * wyd * wzd;
+        const float wcw = w * cw;
+        float gv = 0.f, upd[VEC];
+#pragma unroll
+        for (int j = 0; j < VEC; ++j) {
+          gv = fmaf(g[k][j], v[k][j], gv);
+          upd[j] = wcw * g[k][j];
+        }
+        red_add<VEC>(d_value + off[k], upd);
+        dw = fmaf(cw, gv, dw);
+        dgx = fmaf(dx ? gv : -gv, wyd * wzd, dgx);
+        dgy = fmaf(dy ? gv : -gv, wxd * wzd, dgy);
+        dgz = fmaf(dz ? gv : -gv, wxd * wyd, dgz);
+      }
     }
 #pragma unroll
-    for (int m = 16; m > 0; m >>= 1) {
-      dw += __shfl_xor_sync(0xffffffffu, dw, m);
-      dgx += __shfl_xor_sync(0xffffffffu, dgx, m);
-      dgy += __shfl_xor_sync(0xffffffffu, dgy, m);
-      dgz += __shfl_xor_sync(0xffffffffu, dgz, m);
+    for (int m = BWD_GROUP / 2; m > 0; m >>= 1) {
+      dw += __shfl_xor_sync(mask, dw, m);
+      dgx += __shfl_xor_sync(mask, dgx, m);
+      dgy += __shfl_xor_sync(mask, dgy, m);
+      dgz += __shfl_xor_sync(mask, dgz, m);
     }
-    if (lane == 0) {
+    if (sub == 0) {
       d_weights[s] = dw;
       d_locs[s * 3 + 0] = w * dgx * (float)X;
       d_locs[s * 3 + 1] = w * dgy * (float)Y;
@@ -297,20 +367,27 @@ extern "C" int ms_deform_gather3d_bwd(const void* value, const void* locs,
     return (int)cudaErrorInvalidValue;
   const int64_t n_samples = (int64_t)B * Nq * H * L * P;
   if (n_samples == 0) return 0;
-  const int threads = 256;  // 8 warps, one sample each
-  const unsigned blocks = grid_blocks(n_samples, threads / 32);
+  const int threads = 256;  // groups of BWD_GROUP lanes, one sample each
+  const unsigned blocks = grid_blocks(n_samples, threads / BWD_GROUP);
   cudaStream_t st = (cudaStream_t)stream;
+  const size_t esize = dtype == 1 ? sizeof(__nv_bfloat16) : sizeof(float);
+  // 4-channel units need hd % 4 == 0 and quads aligned for their loads
+  // (4 * esize bytes) and for the float32 reductions (16 bytes)
+  const bool quads = hd % 4 == 0 && (uintptr_t)value % (4 * esize) == 0 &&
+                     (uintptr_t)gout % (4 * esize) == 0 &&
+                     (uintptr_t)d_value % 16 == 0;
+#define MSDG_BWD(T, VEC)                                                      \
+  ms_deform_gather3d_bwd_kernel<T, VEC><<<blocks, threads, 0, st>>>(         \
+      (const T*)value, (const float*)locs, (const T*)weights, (const T*)gout, \
+      (float*)d_value, (float*)d_locs, (float*)d_weights, n_samples, Nv, Nq,  \
+      H, hd, L, P, lv)
   if (dtype == 1) {
-    ms_deform_gather3d_bwd_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)value, (const float*)locs,
-        (const __nv_bfloat16*)weights, (const __nv_bfloat16*)gout,
-        (float*)d_value, (float*)d_locs, (float*)d_weights, n_samples, Nv, Nq,
-        H, hd, L, P, lv);
+    if (quads) MSDG_BWD(__nv_bfloat16, 4);
+    else MSDG_BWD(__nv_bfloat16, 1);
   } else {
-    ms_deform_gather3d_bwd_kernel<float><<<blocks, threads, 0, st>>>(
-        (const float*)value, (const float*)locs, (const float*)weights,
-        (const float*)gout, (float*)d_value, (float*)d_locs,
-        (float*)d_weights, n_samples, Nv, Nq, H, hd, L, P, lv);
+    if (quads) MSDG_BWD(float, 4);
+    else MSDG_BWD(float, 1);
   }
+#undef MSDG_BWD
   return (int)cudaGetLastError();
 }

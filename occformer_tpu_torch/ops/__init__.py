@@ -2,7 +2,8 @@
 ``trilerp_fused`` (K1, K1-bwd, K4, K4-bwd), ``trilerp`` (K2, K2-bwd),
 ``loss_gather`` (K3) and ``probe`` (P1, P2).
 
-Each wrapper counts its kernel's launches in a module-level integer;
+Each wrapper counts its kernel's launches in a module-level integer
+("K2-bwd" counts both of K2-bwd's paths, "K2-bwd.narrow" the narrow one);
 ``launch_counts`` reads them all by kernel name and ``reset_launch_counts``
 sets them to 0.
 """
@@ -10,6 +11,7 @@ sets them to 0.
 # kernel name -> (module, counter) of its wrapper
 _COUNTERS = {"K1": ("trilerp_fused", "LAUNCHES"), "K1-bwd": ("trilerp_fused", "BWD_LAUNCHES"),
              "K2": ("trilerp", "LAUNCHES"), "K2-bwd": ("trilerp", "BWD_LAUNCHES"),
+             "K2-bwd.narrow": ("trilerp", "BWD_NARROW_LAUNCHES"),
              "K3": ("loss_gather", "LAUNCHES"),
              "K4": ("trilerp_fused", "MULTI_LAUNCHES"),
              "K4-bwd": ("trilerp_fused", "MULTI_BWD_LAUNCHES"),

@@ -12,12 +12,18 @@ Port of ``occformer_tpu/ops/trilerp.py:trilerp_gather_slab`` (Pallas
 
 For CUDA tensors ``trilerp_sample`` launches the kernels of
 ``csrc/trilerp_sample3d.cu`` through an autograd ``Function`` whose backward
-is the K2-bwd kernel (d_table, and d_coords when the coordinates require
-grad).  For CPU tensors it runs the plain version, ``trilerp_sample_plain``
-(``F.grid_sample`` on the permuted table, differentiated by autograd).  A
-CUDA tensor never takes the plain version.  Tables are float32, bfloat16 or
-a bool/uint8 mask (read as 0/1); the result has the table's dtype, float32
-for a mask.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches.
+is K2-bwd (d_table, and d_coords when the coordinates require grad).  K2-bwd
+has two paths, picked by ``bwd_path``: wide rows (the per-layer loss
+route's C = 192 feature) take a per-voxel segmented gather that writes
+d_table once in the table's dtype, bit-identical from call to call; narrow
+rows (the batched route's C = 17 and C = 1 volumes) take float32 atomics
+into a zeroed buffer, cast afterwards.  For CPU tensors it runs the plain
+version, ``trilerp_sample_plain`` (``F.grid_sample`` on the permuted table,
+differentiated by autograd).  A CUDA tensor never takes the plain version.
+Tables are float32, bfloat16 or a bool/uint8 mask (read as 0/1); the result
+has the table's dtype, float32 for a mask.  ``LAUNCHES`` and
+``BWD_LAUNCHES`` count kernel launches (the latter both K2-bwd paths),
+``BWD_NARROW_LAUNCHES`` the narrow path's alone.
 """
 from __future__ import annotations
 
@@ -28,10 +34,16 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-# launches of the forward (K2) and backward (K2-bwd) kernels; a caller may
-# reset them to 0
+# launches of the forward (K2) and backward (K2-bwd, both paths) kernels,
+# and of K2-bwd's narrow path alone; a caller may reset them to 0
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_NARROW_LAUNCHES = 0
+
+# The narrowest row (channels) that takes K2-bwd's segmented path; the
+# chip measurement behind it is in csrc/trilerp_sample3d.cu's header.
+SEGMENTED_MIN_C = 48
+_INT32_LIMIT = 2 ** 31
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
 _PADDING = ("zeros", "border")
@@ -57,14 +69,34 @@ def trilerp_sample_plain(table: torch.Tensor, coords: torch.Tensor,
     return out[..., 0, 0].transpose(1, 2).to(_out_dtype(table))
 
 
+# C entry point -> (pointer arguments, int arguments); each ends with the stream
+_SIGNATURES = {"trilerp_sample3d_fwd": (3, 9), "trilerp_sample3d_bwd": (5, 9),
+               "trilerp_sample3d_bwd_seg": (6, 9)}
+
+
 def _kernel_fn(name: str):
     if name not in _FNS:
         fn = getattr(cuda_build.load("trilerp_sample3d"), name)
-        n_ptr = 3 if name.endswith("fwd") else 5
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        if name == "trilerp_sample3d_bwd_seg_workspace":  # G, S, X, Y, Z -> int32s
+            fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+        else:
+            n_ptr, n_int = _SIGNATURES[name]
+            fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
+
+
+def bwd_path(table_shape, num_points: int) -> str:
+    """K2-bwd's path for a table ``[G, X, Y, Z, C]`` read at ``num_points``
+    points per table: "segmented" for rows of at least ``SEGMENTED_MIN_C``
+    channels in whole 8-channel chunks whose rows and (point, corner)
+    entries index in int32, else "narrow"."""
+    G, X, Y, Z, C = table_shape
+    if C % 8 == 0 and C >= SEGMENTED_MIN_C and G * X * Y * Z < _INT32_LIMIT \
+            and 8 * G * num_points < _INT32_LIMIT:
+        return "segmented"
+    return "narrow"
 
 
 def _dims(table, coords, align_corners, padding_mode):
@@ -88,23 +120,42 @@ def _launch_fwd(table, coords, align_corners, padding_mode):
     return out
 
 
-def _launch_bwd(table, coords, gout, align_corners, padding_mode, want_coords):
-    """K2-bwd: (d_table in the table's dtype, summed in float32; d_coords
-    float32 or None)."""
-    global BWD_LAUNCHES
+def _launch_bwd(table, coords, gout, align_corners, padding_mode, want_coords,
+                path=None):
+    """K2-bwd: (d_table in the table's dtype, d_coords float32 or None) on
+    ``path`` ("segmented" or "narrow"; ``bwd_path``'s choice by default).
+    Both sum in float32; the segmented path writes d_table once in the
+    table's dtype, the narrow one adds into a float32 buffer and casts it."""
+    global BWD_LAUNCHES, BWD_NARROW_LAUNCHES
+    path = path or bwd_path(table.shape, coords.shape[1])
+    dims = _dims(table, coords, align_corners, padding_mode)
     gout = gout.to(table.dtype).contiguous()
-    d_table = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+    if gout.data_ptr() % 16:  # the segmented gather reads 16-byte chunks
+        gout = gout.clone()
     d_coords = (torch.zeros(coords.shape, dtype=torch.float32, device=table.device)
                 if want_coords else None)
+    dc_ptr = None if d_coords is None else d_coords.data_ptr()
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = _kernel_fn("trilerp_sample3d_bwd")(
-            table.data_ptr(), coords.data_ptr(), gout.data_ptr(), d_table.data_ptr(),
-            None if d_coords is None else d_coords.data_ptr(),
-            *_dims(table, coords, align_corners, padding_mode), stream)
+        if path == "segmented":
+            d_table = torch.empty(table.shape, dtype=table.dtype, device=table.device)
+            n_ws = _kernel_fn("trilerp_sample3d_bwd_seg_workspace")(*dims[:5])
+            ws = torch.empty(n_ws, dtype=torch.int32, device=table.device)
+            rc = _kernel_fn("trilerp_sample3d_bwd_seg")(
+                table.data_ptr(), coords.data_ptr(), gout.data_ptr(), d_table.data_ptr(),
+                dc_ptr, ws.data_ptr(), *dims, stream)
+        elif path == "narrow":
+            d_table = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+            rc = _kernel_fn("trilerp_sample3d_bwd")(
+                table.data_ptr(), coords.data_ptr(), gout.data_ptr(), d_table.data_ptr(),
+                dc_ptr, *dims, stream)
+        else:
+            raise ValueError(f"path must be 'segmented' or 'narrow'; got {path!r}")
     if rc != 0:
-        raise RuntimeError(f"trilerp_sample3d_bwd launch failed: cudaError {rc}")
+        raise RuntimeError(f"trilerp_sample3d_bwd ({path}) launch failed: cudaError {rc}")
     BWD_LAUNCHES += 1
+    if path == "narrow":
+        BWD_NARROW_LAUNCHES += 1
     return d_table.to(table.dtype), d_coords
 
 

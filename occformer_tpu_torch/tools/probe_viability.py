@@ -10,7 +10,9 @@ on the card:
   2. does a dynamic row gather give the right values: P2,
      ``out[s, :] = table[idx[s], :]`` with table [1024, 128] float32 and
      2048 int32 indices, the JAX probe's shape;
-  3. how fast are P2 and ``index_select`` at that shape, and the library's
+  3. how fast are P1, P2, ``x + 1`` and ``index_select`` at those shapes,
+     by CUDA events around each call and by the profiler's device time of
+     its kernel alone; and the library's
      gather (``torch.gather``) along the last axis of an [8, 32, 36864]
      bfloat16 volume at 147456 indices per row, the JAX probe's part 3.
 
@@ -31,7 +33,7 @@ import torch
 
 from ..ops import cuda_build
 from ..ops import probe as kp
-from ..utils.timing import bound, nbytes, time_cuda
+from ..utils.timing import bound, device_ms, nbytes, time_cuda
 
 
 def probe_inputs(device) -> Dict[str, torch.Tensor]:
@@ -80,9 +82,14 @@ def probe_time(device) -> dict:
                           **bound((rows + idx.numel()) * table.shape[1] * 4 + nbytes(idx),
                                   0)}}
     # the plain versions are single PyTorch calls that compute the same
-    # function: they are the library calls too
-    for r in out.values():
+    # function: they are the library calls too.  At these sizes the events
+    # also time the host work of a launch; the device times do not
+    for r, kernel, plain in ((out["add_one"], lambda: kp.add_one(x), lambda: kp.add_one_plain(x)),
+                             (out["row_gather"], lambda: kp.row_gather(table, idx),
+                              lambda: kp.row_gather_plain(table, idx))):
         r["library_ms"] = r["plain_ms"]
+        r["device_ms"] = device_ms(kernel)
+        r["plain_device_ms"] = r["library_device_ms"] = device_ms(plain)
     rng = np.random.RandomState(0)
     BH, hd, Nv, S = 8, 32, 36864, 147456
     vol = torch.from_numpy(rng.randn(BH, hd, Nv).astype(np.float32)).to(device, torch.bfloat16)

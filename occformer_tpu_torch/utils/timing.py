@@ -1,9 +1,11 @@
 """Kernel timing on the card and the least time the card could take.
 
 ``time_cuda`` times a callable with CUDA events (median over calls, after a
-warm-up); ``bound`` is the larger of the bytes a function must move over the
-memory rate and its float32 operations over the float32 peak, the rates of
-one H100 SXM from NVIDIA's data sheet (at its full 700 W power limit).
+warm-up); ``device_ms`` takes the device time of its kernels alone from
+``torch.profiler``; ``bound`` is the larger of the bytes a function must
+move over the memory rate and its float32 operations over the float32 peak,
+the rates of one H100 SXM from NVIDIA's data sheet (at its full 700 W power
+limit).
 """
 from __future__ import annotations
 
@@ -30,6 +32,29 @@ def time_cuda(fn, iters: int = 30, warmup: int = 5) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Device milliseconds per call of ``fn()``: the self device time of the
+    kernels, copies and fills it launches (``torch.profiler``, CUPTI),
+    summed over ``iters`` calls.  Unlike CUDA events around the call, it
+    leaves out the host work between launches, which dominates calls of a
+    few microseconds."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
+    total = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA"
+                and not (e.is_user_annotation or e.key in ranges))
+    return total / 1e3 / iters
 
 
 def nbytes(*tensors) -> int:

@@ -12,9 +12,10 @@ The file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Tolerances, relative to max |plain|: float32 1e-5 for the forwards and 1e-4
-for the gradients (the same float32 sums in another order; the gradients
-add up to 8 * hd atomics per element in an order that changes from run to
-run); bfloat16 1e-2 (the kernels round their outputs to bf16; the plain
+for the gradients (the same float32 sums in another order; K1-bwd's d_value
+and the narrow K2-bwd path add atomics per element in an order that changes
+from run to run, while the segmented K2-bwd path sums each row in ascending
+point order and repeats itself bit for bit); bfloat16 1e-2 (the kernels round their outputs to bf16; the plain
 versions run in float32 on the same bf16-rounded inputs).  K3 1e-6
 absolute: it adds the plain version's float32 terms in its order.  P1 and
 P2 exactly (one float32 add; a copy).
@@ -80,26 +81,66 @@ def test_kernel_matches_plain(cuda, dtype, hd):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("hd", [24, 40])
+@pytest.mark.parametrize("hd", [24, 40, 12])
 def test_k1_backward_matches_plain_autograd(cuda, dtype, hd):
     """K1-bwd's d_value, d_locs, d_weights against autograd through the
-    plain version; hd = 40 spans two 32-lane channel chunks."""
+    plain version; a 4-lane group walks 8 * hd / 4 (corner, quad) units, 3
+    at a time: twelve per lane at hd = 24, twenty at 40, six at 12."""
     dt = getattr(torch, dtype)
     value, locs, w = _inputs(cuda, dt, hd=hd, seed=1)
+    _k1_backward_against_plain(value, locs, w)
+
+
+def _k1_backward_against_plain(value, locs, w, shapes=SHAPES):
+    dt, hd = value.dtype, value.shape[-1]
     gout = torch.randn(value.shape[0], locs.shape[1], value.shape[2], hd,
-                       device=cuda).to(dt)
+                       device=value.device).to(dt)
     leaves = [t.detach().clone().requires_grad_(True) for t in (value, locs, w)]
-    out = k1.ms_deform_gather_3d(leaves[0], SHAPES, leaves[1], leaves[2])
+    out = k1.ms_deform_gather_3d(leaves[0], shapes, leaves[1], leaves[2])
     assert out.grad_fn is not None
     before = k1.BWD_LAUNCHES
     out.backward(gout)
     torch.cuda.synchronize()
     assert k1.BWD_LAUNCHES == before + 1
     refs = [t.detach().float().requires_grad_(True) for t in (value, locs, w)]
-    k1.ms_deform_gather_3d_plain(refs[0], SHAPES, refs[1], refs[2]).backward(gout.float())
+    k1.ms_deform_gather_3d_plain(refs[0], shapes, refs[1], refs[2]).backward(gout.float())
     for name, got, ref in zip(("d_value", "d_locs", "d_weights"), leaves, refs):
         assert got.grad.dtype == got.dtype
         _close(got.grad, ref.grad, _tol(dt, grad=True), f"K1-bwd {name}")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [12, 24, 40])
+def test_k1_backward_at_local_locations(cuda, dtype, hd):
+    """The model's locations: every query at its own voxel centre of every
+    level (the pixel decoder's reference points) plus up to +-2 voxels, so
+    that neighbouring queries' reductions hit the same d_value rows."""
+    from occformer_tpu_torch.models.pixel_decoder import reference_points
+
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(2)
+    B, H, P, L = 2, 3, 4, len(SHAPES)
+    ref = reference_points(SHAPES)                      # [Nq, 3] in [0, 1]
+    Nq, Nv = ref.shape[0], sum(x * y * z for x, y, z in SHAPES)
+    size = np.asarray(SHAPES, np.float32)[None, None, None, :, None, :]
+    locs = ref[None, :, None, None, None, :] + rng.uniform(-2, 2, (B, Nq, H, L, P, 3)) / size
+    value = torch.from_numpy(rng.randn(B, Nv, H, hd).astype(np.float32)).to(cuda, dt)
+    w = torch.from_numpy(rng.rand(B, Nq, H, L, P).astype(np.float32)).to(cuda, dt)
+    _k1_backward_against_plain(value, torch.from_numpy(locs.astype(np.float32)).to(cuda), w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_backward_with_one_channel_units(cuda, dtype):
+    """hd = 6 (not a multiple of 4) and a value tensor 2 elements into its
+    storage (not aligned for vector access) take the scalar units."""
+    dt = getattr(torch, dtype)
+    value, locs, w = _inputs(cuda, dt, hd=6, seed=3)
+    _k1_backward_against_plain(value, locs, w)
+    value8, _, _ = _inputs(cuda, dt, hd=8, seed=4)
+    offset = torch.empty(value8.numel() + 2, device=cuda, dtype=dt)[2:].view(value8.shape)
+    offset.copy_(value8)
+    assert offset.data_ptr() % 16 != 0
+    _k1_backward_against_plain(offset, locs, w)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -192,6 +233,69 @@ def test_k2_rejects_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         k2.trilerp_sample(table, coords, padding_mode="reflection")
     assert k2.LAUNCHES == before
+
+
+def _k2_bwd_on(path, table, coords, gout, align_corners=False, padding_mode="border"):
+    """K2-bwd on ``path`` alone: (d_table, the launch counts it added)."""
+    before = (k2.BWD_LAUNCHES, k2.BWD_NARROW_LAUNCHES)
+    d_table, _ = k2._launch_bwd(table, coords, gout, align_corners, padding_mode,
+                                want_coords=False, path=path)
+    torch.cuda.synchronize()
+    return d_table, (k2.BWD_LAUNCHES - before[0], k2.BWD_NARROW_LAUNCHES - before[1])
+
+
+def _k2_plain_d_table(table, coords, gout, align_corners=False, padding_mode="border"):
+    leaf = table.detach().float().requires_grad_(True)
+    k2.trilerp_sample_plain(leaf, coords, align_corners, padding_mode).backward(gout.float())
+    return leaf.grad
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [192, 48])
+def test_k2_backward_both_paths_at_the_per_layer_shapes(cuda, dtype, C):
+    """The per-layer loss route's feature readout at a sixteenth of its size
+    (table [1, 32, 32, 8, C], 9408 points, border, align_corners=False): the
+    segmented and the narrow path against plain autograd, the autograd
+    Function on the segmented path, and two segmented calls bit-identical."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    table = torch.randn((1, 32, 32, 8, C), device=cuda, generator=gen).to(dt)
+    coords = torch.rand((1, 9408, 3), device=cuda, generator=gen) * 2 - 1
+    gout = torch.randn((1, 9408, C), device=cuda, generator=gen).to(dt)
+    ref = _k2_plain_d_table(table, coords, gout)
+    seg, n_seg = _k2_bwd_on("segmented", table, coords, gout)
+    seg2, _ = _k2_bwd_on("segmented", table, coords, gout)
+    narrow, n_narrow = _k2_bwd_on("narrow", table, coords, gout)
+    assert (n_seg, n_narrow) == ((1, 0), (1, 1))
+    assert seg.dtype == narrow.dtype == dt
+    _close(seg, ref, _tol(dt, grad=True), "K2-bwd segmented")
+    _close(narrow, ref, _tol(dt, grad=True), "K2-bwd narrow")
+    assert torch.equal(seg, seg2)
+    leaf = table.detach().clone().requires_grad_(True)
+    before = (k2.BWD_LAUNCHES, k2.BWD_NARROW_LAUNCHES)
+    k2.trilerp_sample(leaf, coords, False, "border").backward(gout)
+    assert (k2.BWD_LAUNCHES - before[0], k2.BWD_NARROW_LAUNCHES - before[1]) == (1, 0)
+    assert torch.equal(leaf.grad, seg)
+
+
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_k2_segmented_backward_with_crowded_and_empty_rows(cuda, padding_mode, align_corners):
+    """Most points far outside a 6x5x7 table: border clipping piles them onto
+    the edge voxels (segments of hundreds of entries), zeros drops them; and
+    a call with no points at all, which must give zeros."""
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    table = torch.randn((2, 6, 5, 7, 16), device=cuda, generator=gen)
+    coords = torch.rand((2, 3000, 3), device=cuda, generator=gen) * 8 - 4
+    gout = torch.randn((2, 3000, 16), device=cuda, generator=gen)
+    ref = _k2_plain_d_table(table, coords, gout, align_corners, padding_mode)
+    seg, _ = _k2_bwd_on("segmented", table, coords, gout, align_corners, padding_mode)
+    seg2, _ = _k2_bwd_on("segmented", table, coords, gout, align_corners, padding_mode)
+    _close(seg, ref, 1e-4, "K2-bwd segmented, crowded rows")
+    assert torch.equal(seg, seg2)
+    none, _ = _k2_bwd_on("segmented", table, coords[:, :0].contiguous(), gout[:, :0].contiguous(),
+                         align_corners, padding_mode)
+    assert torch.equal(none, torch.zeros_like(table))
 
 
 def _k3_inputs(dev, spatial, B=2, N=4, G=17, S=3000, P=200, seed=0):
@@ -421,8 +525,17 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         for k in s1[i]:
             assert torch.equal(s1[i][k], s2[i][k]), (i, k)
     assert opt2.step_count == 1
-    m1 = step(batch, torch.Generator(device=cuda).manual_seed(1))
-    m2 = step2(batch, torch.Generator(device=cuda).manual_seed(1))
-    # the same inputs through kernels with float32 atomics: alike, not bit-equal
+    # the same state and inputs.  The forward's LSS scatter (index_add_) sums
+    # in a fixed order only in deterministic mode.  Without it a mask loss
+    # once moved by 0.2%; a last-bit change moving a point across the loss's
+    # uncertainty top-k would explain that, but no run has shown it.  The
+    # kernels' float32 atomics in the backward still move
+    # grad_norm in its last bits: alike, not bit-equal
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        m1 = step(batch, torch.Generator(device=cuda).manual_seed(1))
+        m2 = step2(batch, torch.Generator(device=cuda).manual_seed(1))
+    finally:
+        torch.use_deterministic_algorithms(False)
     for k, v in m1.items():
         assert abs(float(m2[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-5, k

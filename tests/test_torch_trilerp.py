@@ -8,6 +8,13 @@ mode and its VJP (d_table, d_coords), for zeros and border padding and both
 ``point_sample_3d``.  Tolerance atol 1e-5: float32 on both sides, another
 summation order.  The CUDA kernels themselves are held against the plain
 version on the card by tests/test_torch_gpu.py and by chip_smoke.py.
+
+K2-bwd's segmented path (``csrc/trilerp_sample3d.cu``) has no CPU mode; a
+torch model of its formulation here (corner keys and weights with the
+kernel's ``make_axis`` arithmetic, a stable sort by key, segment sums in
+ascending point order) pins the index and weight rules it follows against
+autograd of the plain version, and ``bwd_path``, the wrapper's choice of
+path, is tested as the pure function it is.
 """
 import numpy as np
 import pytest
@@ -87,11 +94,11 @@ def test_point_sample_matches_jax_xla_path(align_corners, padding_mode):
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_launching():
     table, coords = _inputs(seed=3)
-    before = (k2.LAUNCHES, k2.BWD_LAUNCHES)
+    before = (k2.LAUNCHES, k2.BWD_LAUNCHES, k2.BWD_NARROW_LAUNCHES)
     t = torch.from_numpy(table).requires_grad_(True)
     got = k2.trilerp_sample(t, torch.from_numpy(coords), False, "border")
     got.sum().backward()
-    assert (k2.LAUNCHES, k2.BWD_LAUNCHES) == before
+    assert (k2.LAUNCHES, k2.BWD_LAUNCHES, k2.BWD_NARROW_LAUNCHES) == before
     ref = k2.trilerp_sample_plain(torch.from_numpy(table), torch.from_numpy(coords),
                                   False, "border")
     torch.testing.assert_close(got.detach(), ref, rtol=0, atol=0)
@@ -106,3 +113,99 @@ def test_wrapper_rejects_bad_arguments():
         k2.trilerp_sample(t[:1], c)
     with pytest.raises(ValueError):
         k2.trilerp_sample(t, c, padding_mode="reflection")
+
+
+def _axis(coord, size, align_corners, border):
+    """csrc/trilerp_sample3d.cu:make_axis: lower corner and the two lerp
+    weights of one axis."""
+    if align_corners:
+        pix = (coord + 1.0) * 0.5 * (size - 1)
+    else:
+        pix = ((coord + 1.0) * size - 1.0) * 0.5
+    pix = pix.clamp(0.0, size - 1) if border else pix.clamp(-2.0, size + 1.0)
+    i0 = pix.floor()
+    w1 = pix - i0
+    return i0.long(), (1.0 - w1, w1)
+
+
+def _segmented_d_table(table_shape, coords, gout, align_corners, padding_mode):
+    """The segmented K2-bwd formulation in torch: one entry per (point,
+    in-range corner) keyed by its voxel row g*X*Y*Z + (x*Y + y)*Z + z,
+    entries stably sorted by key from ascending point order, and each row's
+    sum of w * gout[point] taken in that order.  -> (d_table, sorted keys,
+    sorted points)."""
+    G, X, Y, Z, C = table_shape
+    S = coords.shape[1]
+    border = padding_mode == "border"
+    axes = [_axis(coords[..., i], n, align_corners, border) for i, n in enumerate((X, Y, Z))]
+    point = torch.arange(G * S).view(G, S)
+    row0 = torch.arange(G).view(G, 1) * (X * Y * Z)
+    keys, points, weights = [], [], []
+    for dx in (0, 1):
+        for dy in (0, 1):
+            for dz in (0, 1):
+                idx = [a[0] + d for a, d in zip(axes, (dx, dy, dz))]
+                ok = torch.ones_like(point, dtype=torch.bool)
+                for i, n in zip(idx, (X, Y, Z)):
+                    ok &= (i >= 0) & (i < n)
+                w = axes[0][1][dx] * axes[1][1][dy] * axes[2][1][dz]
+                key = row0 + (idx[0] * Y + idx[1]) * Z + idx[2]
+                keys.append(key[ok])
+                points.append(point[ok])
+                weights.append(w[ok])
+    key, pt, w = torch.cat(keys), torch.cat(points), torch.cat(weights)
+    by_point = torch.argsort(pt, stable=True)
+    order = by_point[torch.argsort(key[by_point], stable=True)]
+    key, pt, w = key[order], pt[order], w[order]
+    d = torch.zeros(G * X * Y * Z, C)
+    d.index_add_(0, key, w[:, None] * gout.reshape(G * S, C)[pt])
+    return d.view(G, X, Y, Z, C), key, pt
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_segmented_backward_formulation_matches_plain_autograd(align_corners, padding_mode):
+    """On a 5x7x3 volume (sides not powers of two), with points drawn over
+    [-1.15, 1.15] plus points exactly on the upper and lower edges, just
+    beyond them, and well beyond them."""
+    rng = np.random.RandomState(5)
+    G, C, spatial = 2, 16, (5, 7, 3)
+    table = rng.randn(G, *spatial, C).astype(np.float32)
+    edge = np.array([[1.0, 1.0, 1.0], [1.0, 0.3, -1.0], [-1.0, -1.0, 1.0],
+                     [1.0 + 1e-6, 0.0, 1.0 - 1e-6], [1.3, 1.0, 0.2], [-1.2, 1.07, 1.4],
+                     [1.0, 1.0, 0.999], [0.0, 1.0, 1.0]], np.float32)
+    coords = np.concatenate([rng.uniform(-1.15, 1.15, (G, 120, 3)).astype(np.float32),
+                             np.broadcast_to(edge, (G,) + edge.shape)], axis=1)
+    gout = rng.randn(G, coords.shape[1], C).astype(np.float32)
+    t = torch.from_numpy(table).requires_grad_(True)
+    k2.trilerp_sample_plain(t, torch.from_numpy(coords), align_corners,
+                            padding_mode).backward(torch.from_numpy(gout))
+    got, key, pt = _segmented_d_table(table.shape, torch.from_numpy(coords),
+                                      torch.from_numpy(gout), align_corners, padding_mode)
+    np.testing.assert_allclose(got.numpy(), t.grad.numpy(), atol=ATOL)
+    # every segment lists its points in ascending order, each at most once
+    same = key[1:] == key[:-1]
+    assert bool((pt[1:][same] > pt[:-1][same]).all())
+
+
+@pytest.mark.parametrize("shape,points,want", [
+    ((1, 128, 128, 16, 192), 150528, "segmented"),  # per-layer route: candidates
+    ((1, 128, 128, 16, 192), 213248, "segmented"),  # per-layer route: random fill
+    ((10, 128, 128, 16, 17), 150528, "narrow"),     # batched route: candidates
+    ((170, 128, 128, 16, 1), 12544, "narrow"),      # batched route: random fill
+    ((1, 16, 16, 8, 48), 100, "segmented"),         # the tiny test model's feature
+])
+def test_bwd_path_at_the_loss_shapes(shape, points, want):
+    assert k2.bwd_path(shape, points) == want
+
+
+def test_bwd_path_threshold_and_limits():
+    m = k2.SEGMENTED_MIN_C
+    assert m % 8 == 0
+    assert k2.bwd_path((2, 8, 8, 4, m), 1000) == "segmented"
+    assert k2.bwd_path((2, 8, 8, 4, m - 8), 1000) == "narrow"       # below the threshold
+    assert k2.bwd_path((2, 8, 8, 4, m + 12), 1000) == "narrow"      # not whole 8-channel chunks
+    assert k2.bwd_path((2, 8, 8, 4, 8 * m), 1000) == "segmented"
+    assert k2.bwd_path((2, 1024, 1024, 1024, m), 10) == "narrow"    # rows past int32
+    assert k2.bwd_path((1, 8, 8, 4, m), 2 ** 28) == "narrow"        # entries past int32
+    assert k2.bwd_path((1, 8, 8, 4, m), 2 ** 28 - 1) == "segmented"

@@ -15,13 +15,18 @@ Phases, each printing one JSON line:
                  sources, one nvcc per source, all started together.
   2. serve:      the flagship config (occformer_nusc_r50_256x704) at full
                  width and depth, random weights from a seeded
-                 torch.Generator, bfloat16, through build_eval_step on a
-                 synthetic 6-camera batch with 35000 LiDAR points: 1 warm-up
-                 frame, then 3 timed frames, and a torch.profiler summary of
-                 one more frame (its ``stage:*`` ranges, kernels, operators).
-                 It runs before any backward: a backward leaves the cuBLAS
-                 workspaces of autograd's threads resident (65 MiB), which a
-                 serving process never holds and its peak would count.
+                 torch.Generator, float32 parameters with the forward under
+                 bfloat16 autocast (as the JAX package serves), through
+                 build_eval_step on a synthetic 6-camera batch with 35000
+                 LiDAR points: 1 warm-up frame, then 3 timed frames, and a
+                 torch.profiler summary of one more frame (its ``stage:*``
+                 ranges, kernels, operators); then, once, the route served
+                 before (every tensor cast to bf16) on the same weights: its
+                 frames, peak, point-prediction agreement and largest score
+                 gap.  It runs before any backward: a backward leaves the
+                 cuBLAS workspaces of autograd's threads resident (65 MiB),
+                 which a serving process never holds and its peak would
+                 count.
   3. kernels:    hold each kernel against its plain PyTorch version at the
                  shapes the flagship's main paths give it, and time both (CUDA
                  events, median of 30 after warm-up) beside the one PyTorch
@@ -32,7 +37,10 @@ Phases, each printing one JSON line:
                  shapes in float32 and bfloat16, K1-bwd at uniform and at
                  local locations; K2 (trilerp_sample) and K2-bwd at the
                  per-layer loss's candidate readout (bf16 feature table,
-                 border, align_corners=False), K2-bwd's segmented path also
+                 border, align_corners=False; K2's row-wide path, two calls
+                 held bit-equal, and its scalar path timed beside it; K2's
+                 scalar path timed at the per-slot GT masks too), K2-bwd's
+                 segmented path also
                  at its random fill, two of its calls held bit-equal, and
                  its narrow path timed at the candidate readout too (the
                  kernel the segmented one replaced there; the sweep over row
@@ -42,7 +50,9 @@ Phases, each printing one JSON line:
                  path) at the batched loss's three readouts; K3
                  (sample_id_masks) at the batched loss's three GT reads and
                  a zeros / align_corners=True case on a 40x24x12 grid; the
-                 K4 parity gate, K4 at its small shapes also by device time.
+                 K4 parity gate, K4 at its small shapes also by device time,
+                 and at the flagship's shapes K4's row-wide path (two calls
+                 bit-equal) beside its scalar path, in bf16 and float32.
   4. tiny:       the tiny test model's forward on the card (kernels) against
                  the same model on the CPU (plain versions), float32.
   5. tiny_train: the tiny model's train step on the card against the same
@@ -50,6 +60,13 @@ Phases, each printing one JSON line:
                  losses, every gradient and every updated parameter; on the
                  per-layer loss route, on the batched route, and with
                  accum_steps=2 on a 2-sample batch (batched route).
+  5b. reload_determinism: pairs of train steps from one reloaded state,
+                 on the tiny CLI model and on the flagship, with the LSS
+                 scatter's atomic order and with only the scatter in
+                 deterministic mode (the default): losses, LSS volumes and
+                 the loss's uncertainty top-k compared bit for bit; the
+                 deterministic mode must repeat them; and the scatter's cost
+                 per step in both modes.
   6. train:      the flagship's train step at full width and depth, float32
                  parameters under bfloat16 autocast, batch 1, through
                  build_train_step on the per-layer loss route: 1 warm-up
@@ -70,8 +87,9 @@ In phases 0, 2, 6 and 7 and in the K4 parity gate every kernel's launch
 count is set to 0 just before the path is driven and read just after; each
 must match its per-frame, per-step or per-run count.  The CLIs report their
 own counts, which must show their kernels.  Then the card's name and power
-limit (nvidia-smi), one JSON line of kernel records (K2-bwd's two paths as
-two records), and last ``{"ok": true, "device": {...}}``.  Any
+limit (nvidia-smi), one JSON line of kernel records (K2's and K2-bwd's two
+paths as two records each; S1, the LSS splat, which has no Pallas original,
+last), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
 """
@@ -98,17 +116,24 @@ CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r5
 # both of its paths, "K2-bwd.narrow" the narrow one: the per-layer route's
 # C = 192 feature takes the segmented path, the batched route's C = 17 and
 # C = 1 per-slot volumes the narrow one
-_NONE = {"K1": 0, "K1-bwd": 0, "K2": 0, "K2-bwd": 0, "K2-bwd.narrow": 0, "K3": 0, "K4": 0,
-         "K4-bwd": 0, "P1": 0, "P2": 0}
-SERVE_LAUNCHES = dict(_NONE, K1=6)
-TRAIN_LAUNCHES = {"off": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 60, "K2-bwd": 20}),
+_NONE = {"K1": 0, "K1-bwd": 0, "K2": 0, "K2.row": 0, "K2-bwd": 0, "K2-bwd.narrow": 0, "K3": 0,
+         "K4": 0, "K4.row": 0, "K4-bwd": 0, "P1": 0, "P2": 0, "S1": 0}
+SERVE_LAUNCHES = dict(_NONE, K1=6, S1=1)
+# "K2.row": the per-layer route's 30 readouts of the bf16 C = 192 feature
+# take K2's row-wide path, its 30 GT-mask readouts (bool, C = 1) the scalar
+# one; the batched route's C = 100 bf16 and C = 17 / 1 float32 volumes all
+# take the scalar path
+TRAIN_LAUNCHES = {"off": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 60, "K2.row": 30,
+                                        "K2-bwd": 20, "S1": 1}),
                   "on": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 3, "K2-bwd": 2,
-                                       "K2-bwd.narrow": 2, "K3": 3})}
+                                       "K2-bwd.narrow": 2, "K3": 3, "S1": 1})}
 # the K4 parity gate: bench.py's shapes at both align_corners and the
-# flagship shapes, one forward and one backward each; the probe: P1 and P2 once
-K4_GATE_LAUNCHES = dict(_NONE, **{"K4": 3, "K4-bwd": 3})
+# flagship shapes, one forward (the row-wide path: C = 24 rows) and one
+# backward each; the probe: P1 and P2 once
+K4_GATE_LAUNCHES = dict(_NONE, **{"K4": 3, "K4.row": 3, "K4-bwd": 3})
 PROBE_LAUNCHES = dict(_NONE, P1=1, P2=1)
 # the pyramid of the deformable attention, largest level first, as bench.py
+# (tools/time_backwards.py:K4_PYRAMID)
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
 # the outermost torch.profiler ranges of a frame and of a train step
 SERVE_STAGES = ("upload", "image_encoder", "view_transformer", "occupancy_encoder",
@@ -264,10 +289,12 @@ def phase_k1():
 
 def phase_k2():
     """K2 and K2-bwd against the plain version (F.grid_sample on the permuted
-    table) and its autograd, at the loss's shapes: K2-bwd's segmented path
-    at the per-layer route's candidate and random-fill readouts (bf16
-    feature, C = 192), with two calls held bit-equal, and its narrow path
-    timed at the candidates beside it.  Tolerances relative to max
+    table) and its autograd, at the loss's shapes: K2's row-wide path at the
+    per-layer route's candidate readout (bf16 feature, C = 192), two calls
+    held bit-equal, its scalar path beside it there and at the per-slot GT
+    masks; K2-bwd's segmented path at the candidate and random-fill
+    readouts, with two calls held bit-equal, and its narrow path timed at
+    the candidates beside it.  Tolerances relative to max
     |plain|: bfloat16 1e-2 (bf16 output), float32 1e-5 forward and 1e-4
     backward (float32 sums in another order)."""
     import torch
@@ -281,27 +308,53 @@ def phase_k2():
     # 3 x 50176 candidates, border padding, align_corners=False
     table = torch.randn((1, 128, 128, 16, 192), device=dev, generator=g).to(torch.bfloat16)
     coords = torch.rand((1, 150528, 3), device=dev, generator=g) * 2 - 1
+    check(k2.fwd_path(table.shape, table.dtype, table.data_ptr()) == "row",
+          "K2 candidates: not the row-wide path")
     got = k2.trilerp_sample(table, coords, False, "border")
+    again = k2.trilerp_sample(table, coords, False, "border")
     torch.cuda.synchronize()
-    fwd = compare(got, k2.trilerp_sample_plain(table, coords, False, "border"), 1e-2,
-                  "K2 candidates")
+    ref = k2.trilerp_sample_plain(table, coords, False, "border")
+    fwd = compare(got, ref, 1e-2, "K2 candidates")
+    check(torch.equal(got, again), "K2 row path: two calls differ")
+    fwd["bit_identical_calls"] = True
+    fwd["lanes"] = k2.row_lanes(table.shape[-1], table.dtype)
     fwd["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(table, coords, False, "border"))
     fwd["plain_ms"] = time_cuda(lambda: k2.trilerp_sample_plain(table, coords, False, "border"))
     vol = table.permute(0, 4, 1, 2, 3).contiguous()  # the library call's layout
     grid = coords.flip(-1).reshape(1, -1, 1, 1, 3).to(torch.bfloat16)
     fwd["library_ms"] = time_cuda(lambda: F.grid_sample(
         vol, grid, mode="bilinear", padding_mode="border", align_corners=False))
+    # the scalar path (one thread per channel, the K2 the row-wide path
+    # replaced at C = 192) on the same inputs
+    fwd["scalar_path"] = compare(k2._launch_fwd(table, coords, False, "border", path="scalar"),
+                                 ref, 1e-2, "K2 scalar path candidates")
+    fwd["scalar_path_ms"] = time_cuda(lambda: k2._launch_fwd(
+        table, coords, False, "border", path="scalar"))
+    del again, ref
     S, C = coords.shape[1], table.shape[-1]
     fwd.update(bound(nbytes(table, coords, got), S * C * 8 * 2))
     fwd["roofline_share"] = fwd["bound_ms"] / fwd["kernel_ms"]
+    # the table is twice L2, and the points spread over it: each point reads
+    # its 8 corner rows whole
+    fwd["realistic_floor_ms"] = (S * 8 * C * table.element_size() + nbytes(coords, got)) \
+        / 3.35e12 * 1e3
 
     # the per-slot GT readout (bool masks [17, 256, 256, 32, 1]) and a
     # zeros / align_corners=True case on a float32 table
     gt = torch.rand((17, 256, 256, 32, 1), device=dev, generator=g) < 0.06
     rc = torch.rand((17, 12544, 3), device=dev, generator=g) * 2 - 1
-    fwd["per_slot_gt"] = compare(k2.trilerp_sample(gt, rc, False, "border"),
-                                 k2.trilerp_sample_plain(gt, rc, False, "border"), 1e-5,
-                                 "K2 per-slot GT")
+    gt_out = k2.trilerp_sample(gt, rc, False, "border")
+    rec = compare(gt_out, k2.trilerp_sample_plain(gt, rc, False, "border"), 1e-5,
+                  "K2 per-slot GT")
+    rec["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(gt, rc, False, "border"))
+    rec["plain_ms"] = time_cuda(lambda: k2.trilerp_sample_plain(gt, rc, False, "border"))
+    gt_vol = gt.permute(0, 4, 1, 2, 3).float().contiguous()  # the library call's input
+    gt_grid = rc.flip(-1).reshape(17, -1, 1, 1, 3).contiguous()
+    rec["library_ms"] = time_cuda(lambda: F.grid_sample(
+        gt_vol, gt_grid, mode="bilinear", padding_mode="border", align_corners=False))
+    rec.update(bound(nbytes(gt, rc, gt_out), rc.shape[0] * rc.shape[1] * 8 * 2))
+    fwd["per_slot_gt"] = rec
+    del gt_vol, gt_out
     t32 = torch.randn((2, 64, 64, 8, 40), device=dev, generator=g)
     c32 = torch.rand((2, 20000, 3), device=dev, generator=g) * 2.4 - 1.2
     fwd["zeros_align"] = compare(k2.trilerp_sample(t32, c32, True, "zeros"),
@@ -401,9 +454,16 @@ def phase_k2_batched():
         rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
         r = compare(got, k2.trilerp_sample_plain(table, coords, False, "border"), rel,
                     f"K2 batched {name}")
+        r["path"] = k2.fwd_path(table.shape, table.dtype, table.data_ptr())
         r["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(table, coords, False, "border"))
         r["plain_ms"] = time_cuda(
             lambda: k2.trilerp_sample_plain(table, coords, False, "border"), iters=10)
+        f_vol = table.permute(0, 4, 1, 2, 3).contiguous()
+        f_grid = coords.flip(-1).reshape(cshape[0], -1, 1, 1, 3).to(dtype).contiguous()
+        r["library_ms"] = time_cuda(lambda: F.grid_sample(
+            f_vol, f_grid, mode="bilinear", padding_mode="border", align_corners=False),
+            iters=10)
+        del f_vol, f_grid
         S, C = cshape[0] * cshape[1], tshape[-1]
         r.update(bound(nbytes(table, coords, got), S * C * 8 * 2))
         fwd[name] = r
@@ -538,29 +598,13 @@ def phase_probe():
     return rec
 
 
-def k4_inputs(case, seed=6):
-    """K4's inputs: (a) "gate", bench.py's _kernel_parity shapes: G = 8, C = 24,
-    S = 512 per level, coords uniform in [-1.1, 1.1], float32; (b) "flagship",
-    the deformable attention's: G = B * H = 8, C = hd = 24, S_l = Nq * P =
-    37376 * 4, bf16 tables, locations uniform over [-0.018, 1.018] as
-    tools/time_backwards.py:flagship_gather_inputs draws them (2 * loc - 1
-    in [-1, 1] terms)."""
-    import numpy as np
-    import torch
+def k4_inputs(case, dtype=None):
+    """K4's inputs (``tools/time_backwards.py:k4_inputs``): bench.py's
+    parity-gate shapes ("gate", float32) or the deformable attention's
+    ("flagship", bf16 unless ``dtype``)."""
+    from occformer_tpu_torch.tools.time_backwards import k4_inputs as inputs
 
-    rng = np.random.RandomState(seed)
-    G, C = 8, 24
-    if case == "gate":
-        S, dtype = 512, torch.float32
-        draw = [rng.uniform(-1.1, 1.1, (G, S, 3)) for _ in K4_PYRAMID]
-    else:
-        S, dtype = 37376 * 4, torch.bfloat16
-        draw = [2.0 * rng.uniform(-0.018, 1.018, (G, S, 3)) - 1.0 for _ in K4_PYRAMID]
-    dev = torch.device("cuda")
-    tables = [torch.from_numpy(rng.randn(G, X * Y, Z * C).astype(np.float32)).to(dev, dtype)
-              for X, Y, Z in K4_PYRAMID]
-    coords = [torch.from_numpy(c.astype(np.float32)).to(dev) for c in draw]
-    return tables, coords, C
+    return inputs(case, dtype)
 
 
 def k4_check(tables, coords, C, align_corners, name):
@@ -627,10 +671,47 @@ def phase_k4():
     tables, coords, C = flag
     G = tables[0].shape[0]
     S_tot = sum(c.shape[1] for c in coords)
+    check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == "row",
+          "K4 flagship: not the row-wide path")
     outs = k4.fused_multilevel_gather(tables, K4_PYRAMID, C, coords)
-    fwd = {"max_abs_err": max(r["max_abs_err"] for r in rec["flagship_bf16"]["values"])}
+    again = k4.fused_multilevel_gather(tables, K4_PYRAMID, C, coords)
+    check(all(torch.equal(a, b) for a, b in zip(outs, again)), "K4 row path: two calls differ")
+    del again
+    fwd = {"max_abs_err": max(r["max_abs_err"] for r in rec["flagship_bf16"]["values"]),
+           "bit_identical_calls": True}
     fwd["kernel_ms"] = time_cuda(lambda: k4._launch_multi_fwd(tables, K4_PYRAMID, C, coords,
                                                               False))
+    # the scalar path (the per-channel loop the row-wide path replaced) on
+    # the same inputs, held against the plain version too
+    ref = k4.fused_multilevel_gather_plain(tables, K4_PYRAMID, C, coords)
+    fwd["scalar_path"] = [compare(a, b, 1e-2, f"K4 scalar path level {l}") for l, (a, b) in
+                          enumerate(zip(k4._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False,
+                                                             path="scalar"), ref))]
+    del ref
+    fwd["scalar_path_ms"] = time_cuda(lambda: k4._launch_multi_fwd(
+        tables, K4_PYRAMID, C, coords, False, path="scalar"))
+    # float32 tables at the same shapes: both paths, the plain version and
+    # the library's three calls
+    t32, c32, _ = k4_inputs("flagship", torch.float32)
+    ref = k4.fused_multilevel_gather_plain(t32, K4_PYRAMID, C, c32)
+    fwd["f32"] = {"values": [compare(a, b, 1e-5, f"K4 f32 level {l}") for l, (a, b) in
+                             enumerate(zip(k4.fused_multilevel_gather(t32, K4_PYRAMID, C, c32),
+                                           ref))]}
+    del ref
+    v32 = [t.reshape(G, X, Y, Z, C).permute(0, 4, 1, 2, 3).contiguous()
+           for t, (X, Y, Z) in zip(t32, K4_PYRAMID)]
+    g32 = [c.flip(-1).reshape(G, -1, 1, 1, 3).contiguous() for c in c32]
+    fwd["f32"].update(
+        kernel_ms=time_cuda(lambda: k4._launch_multi_fwd(t32, K4_PYRAMID, C, c32, False)),
+        scalar_path_ms=time_cuda(lambda: k4._launch_multi_fwd(t32, K4_PYRAMID, C, c32, False,
+                                                              path="scalar")),
+        plain_ms=time_cuda(lambda: k4.fused_multilevel_gather_plain(t32, K4_PYRAMID, C, c32),
+                           iters=10),
+        library_ms=time_cuda(lambda: [F.grid_sample(v, gr, mode="bilinear",
+                                                    padding_mode="zeros", align_corners=False)
+                                      for v, gr in zip(v32, g32)]))
+    fwd["f32"].update(bound(nbytes(*t32, *c32) + G * S_tot * C * 4, G * S_tot * C * 8 * 2))
+    del t32, c32, v32, g32
     fwd["kernel_ms_gate_f32"] = time_cuda(lambda: k4._launch_multi_fwd(
         gate[0], K4_PYRAMID, C, gate[1], False))
     # at the gate's small shapes the events also time the launch's host
@@ -848,12 +929,16 @@ def phase_tiny_train(mxu_readout="off", accum_steps=1):
            "metrics_cpu_spread": spread_m, "cpu_moves_by_image_scale": moves}
     failed = []
     # 2 deformable encoder layers, 4 supervised decoder outputs; the tiny
-    # feature's C = 48 takes K2-bwd's segmented path, the batched route's
-    # per-slot volumes the narrow one
-    per_micro = (dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 3, "K2-bwd": 2, "K2-bwd.narrow": 2,
-                                "K3": 3})
+    # feature's C = 48 (float32) takes K2's row-wide path and K2-bwd's
+    # segmented one, the GT masks (C = 5 and 1) K2's scalar path; on the
+    # batched route the match volumes' C = 8 queries take K2's row-wide
+    # path, the per-slot volumes (C = 5 and 1) K2's scalar path and K2-bwd's
+    # narrow one
+    per_micro = (dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 3, "K2.row": 1, "K2-bwd": 2,
+                                "K2-bwd.narrow": 2, "K3": 3, "S1": 1})
                  if loss_cfg.batched_readout else
-                 dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 24, "K2-bwd": 8}))
+                 dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 24, "K2.row": 12, "K2-bwd": 8,
+                                "S1": 1}))
     if n_got != {k: v * accum_steps for k, v in per_micro.items()}:
         failed.append(f"launches {n_got}")
     for k, r in m_ref.items():
@@ -889,7 +974,209 @@ def phase_tiny_train(mxu_readout="off", accum_steps=1):
     check(not failed, f"tiny_train {mxu_readout} x{accum_steps}: " + "; ".join(failed[:10]))
 
 
+def point_scores(model, batch, compute_dtype):
+    """Per-point class scores [1, P, C] float32 of the eval step's readout
+    (``engine/eval.py``), the forward under autocast when ``compute_dtype``
+    is given."""
+    import torch
+
+    from occformer_tpu_torch.engine.eval import lidarseg_point_logits, to_device_batch
+    from occformer_tpu_torch.models.mask2former_head import (
+        format_results,
+        mask_logits_from_embeds,
+    )
+
+    b = to_device_batch(batch, torch.device("cuda"))
+    with torch.inference_mode(), torch.autocast("cuda", dtype=compute_dtype or torch.float32,
+                                                enabled=compute_dtype is not None):
+        out = model(b)
+        voxels = format_results(out["cls_preds"][-1], mask_logits_from_embeds(
+            out["mask_embeds"][-1], out["mask_feature"]))
+        return lidarseg_point_logits(voxels, b["lidar_xyz"]).float()
+
+
+def serve_frames(step, batch, frames=4):
+    """``frames`` calls of ``step`` (the first a warm-up): (ms of each, peak
+    bytes over them, resident bytes before them, the last output)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    frames_ms = []
+    for _ in range(frames):
+        t = time.perf_counter()
+        out = step(batch)
+        torch.cuda.synchronize()
+        frames_ms.append((time.perf_counter() - t) * 1e3)
+    return frames_ms, torch.cuda.max_memory_allocated(), resident, out
+
+
+def phase_determinism():
+    """Whether the LSS scatter's atomic order is what makes a reloaded train
+    step on the card differ (ops/scatter.py).  A model, optimizer, batch and
+    step seed are fixed; each pair of steps starts from one saved state
+    (model and optimizer reloaded bit for bit) and records every loss, the
+    LSS volume and every uncertainty top-k index set of the per-layer loss.
+    Pairs run with the scatter's atomic order (its plain version,
+    ``index_add_``), then with only the scatter deterministic (S1, the
+    default),
+    on the tiny CLI model (synthetic_tiny, frozen stem) and on the flagship
+    at full width.  In deterministic mode every pair must repeat its losses,
+    volumes and top-k bit for bit.  Then S1 (the splat kernel behind the
+    deterministic mode) on the flagship's captured inputs: held against the
+    plain version, two calls bit-equal, and one call of
+    ``voxel_scatter_lifted`` (one per frame or train step) timed in both
+    modes in turns, beside one ``index_add_`` of the whole lift."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    import occformer_tpu_torch.losses.mask2former_loss as loss_mod
+    import occformer_tpu_torch.models.lss as lss_mod
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
+    from occformer_tpu_torch.data.synthetic import make_train_batch
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+    from occformer_tpu_torch.ops import scatter
+
+    topks, volumes, captured = [], [], []
+    orig_topk, orig_scatter = loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted
+
+    def rec_topk(logits, n):
+        idx = orig_topk(logits, n)
+        topks.append(idx.detach().clone())
+        return idx
+
+    def atomic_scatter(depth, ctx, coords, valid, nx):
+        """The scatter through its plain version: atomic index_add_."""
+        B, n_rows = depth.shape[0], depth.shape[0] * int(np.prod(nx))
+        return scatter.voxel_scatter_plain(depth, ctx, scatter.voxel_rows(coords, valid, nx),
+                                           n_rows).reshape(B, *nx, -1).to(depth.dtype)
+
+    mode = {"atomic": False}
+
+    def rec_scatter(*args):
+        if not captured:
+            captured.append([a.detach().clone() if torch.is_tensor(a) else a for a in args])
+        out = (atomic_scatter if mode["atomic"] else orig_scatter)(*args)
+        volumes.append(out.detach().clone())
+        return out
+
+    def pairs(cfg_path, options, batch, n_pairs, warm_step, compute_dtype):
+        cfg = load_config(cfg_path, options)
+        m = cfg["model"]
+        model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
+        opt = build_optimizer_from_config(model, cfg, 16)
+        step = build_train_step(model, opt, build_loss_cfg(m["pts_bbox_head"],
+                                                           m["train_cfg"]["pts"]),
+                                device="cuda", compute_dtype=compute_dtype)
+        if batch is None:
+            batch = next(iter(build_dataloader(build_dataset(cfg["data"]["train"]),
+                                               max_points=512)))
+            batch.pop("_meta")
+        if warm_step:
+            step(batch, torch.Generator(device="cuda").manual_seed(0))
+        state = copy.deepcopy((model.state_dict(), opt.state_dict()))
+
+        def run():
+            model.load_state_dict(state[0])
+            opt.load_state_dict(state[1])
+            topks.clear()
+            volumes.clear()
+            metrics = step(batch, torch.Generator(device="cuda").manual_seed(1))
+            return ({k: float(v) for k, v in metrics.items()}, list(topks), list(volumes))
+
+        rec = {}
+        for name, atomic in (("atomic_scatter", True), ("deterministic_scatter", False)):
+            mode["atomic"] = atomic
+            counts = {"pairs": n_pairs, "losses_differ": 0, "volumes_differ": 0,
+                      "topk_differ": 0, "topk_sets_differing": 0, "grad_norm_differs": 0,
+                      "max_rel_loss_diff": 0.0}
+            for _ in range(n_pairs):
+                (ma, ta, va), (mb, tb, vb) = run(), run()
+                losses = [k for k in ma if "loss" in k]
+                counts["losses_differ"] += any(ma[k] != mb[k] for k in losses)
+                counts["max_rel_loss_diff"] = max(
+                    [counts["max_rel_loss_diff"]] + [abs(ma[k] - mb[k]) / max(abs(ma[k]), 1e-12)
+                                                     for k in losses])
+                counts["volumes_differ"] += not all(torch.equal(a, b) for a, b in zip(va, vb))
+                differing = sum(not torch.equal(a, b) for a, b in zip(ta, tb))
+                counts["topk_differ"] += differing > 0
+                counts["topk_sets_differing"] += differing
+                counts["grad_norm_differs"] += ma["grad_norm"] != mb["grad_norm"]
+            counts["topk_sets_per_step"] = len(ta)
+            rec[name] = counts
+        del model, opt, step, state
+        return rec
+
+    loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted = rec_topk, rec_scatter
+    try:
+        tiny = os.path.join(REPO, "occformer_tpu_torch", "configs", "synthetic_tiny.py")
+        rec = {"phase": "reload_determinism",
+               "tiny": pairs(tiny, {"model.img_backbone.frozen_stages": 0}, None, 5, True,
+                             None)}
+        free_memory()
+        captured.clear()  # keep the flagship's inputs
+        cfg = load_config(CONFIG)
+        rec["flagship"] = pairs(CONFIG, {}, make_train_batch(cfg, seed=0), 2, False,
+                                getattr(torch, cfg["compute_dtype"]))
+    finally:
+        loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted = orig_topk, orig_scatter
+    free_memory()
+
+    # S1 on the flagship's captured inputs against the plain version (the
+    # atomic index_add_), both timed in turns, beside one index_add_ of the
+    # whole lift (the library call)
+    depth, ctx, coords, valid, nx = captured[0]
+    captured.clear()
+    got = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+    again = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+    ref = atomic_scatter(depth.float(), ctx.float(), coords, valid, nx)
+    s1 = compare(got, ref, 1e-5 if got.dtype == torch.float32 else 1e-2, "S1 flagship")
+    check(torch.equal(got, again), "S1: two calls differ")
+    s1["bit_identical_calls"] = True
+    s1["dtypes"] = [str(depth.dtype), str(ctx.dtype)]
+    del again, ref
+    ms = {"atomic_scatter": [], "deterministic_scatter": []}
+    with torch.no_grad():
+        for name in ("atomic_scatter", "deterministic_scatter", "deterministic_scatter",
+                     "atomic_scatter"):
+            fn = atomic_scatter if name == "atomic_scatter" else scatter.voxel_scatter_lifted
+            ms[name].append(time_cuda(lambda: fn(depth, ctx, coords, valid, nx)))
+        rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
+        lift = (depth[..., None] * ctx[:, :, None]).reshape(rows.shape[0], -1).float()
+        vol = torch.zeros((depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2]) + 1,
+                           lift.shape[1]), device=lift.device)
+        s1["library_ms"] = time_cuda(lambda: vol.index_add_(0, rows, lift))
+        del rows, lift, vol
+    s1["kernel_ms"] = sum(ms["deterministic_scatter"]) / 2
+    s1["plain_ms"] = sum(ms["atomic_scatter"]) / 2
+    # the function's inputs read once and its volume written once; a
+    # product and an add per (point, channel)
+    s1.update(bound(nbytes(depth, ctx, coords, valid, got), depth.numel() * ctx.shape[-1] * 2))
+    rec["S1"] = s1
+    rec["flagship_scatter_ms"] = ms
+    rec["flagship_scatter_shapes"] = [list(a.shape) for a in (depth, ctx, coords, valid)]
+    rec["deterministic_cost_ms_per_step"] = s1["kernel_ms"] - s1["plain_ms"]
+    del depth, ctx, coords, valid, got
+    emit(rec)
+    for size in ("tiny", "flagship"):
+        r = rec[size]["deterministic_scatter"]
+        check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"] == 0,
+              f"reload_determinism {size}: a deterministic-scatter pair differs: {r}")
+    return rec
+
+
 def phase_serve():
+    """Serving as the JAX package serves: float32 parameters, the forward
+    under bf16 autocast (``build_eval_step(..., compute_dtype)``).  Then,
+    once, the route the port served before (every parameter and buffer cast
+    to bf16, no autocast) on the same weights and frame: its ms/frame and
+    peak, and how far its predictions stand from the served ones (share of
+    equal ``point_pred``, largest gap of the per-point class scores)."""
     import torch
 
     from occformer_tpu_torch.config import load_config
@@ -898,31 +1185,23 @@ def phase_serve():
     from occformer_tpu_torch.models.detector import build_model
 
     cfg = load_config(CONFIG)
-    dtype = getattr(torch, cfg["compute_dtype"])
+    compute_dtype = getattr(torch, cfg["compute_dtype"])
     t0 = time.perf_counter()
-    model = build_model(cfg["model"], device="cuda", dtype=dtype, seed=0)
+    model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
     num_classes = cfg["model"]["pts_bbox_head"]["num_occupancy_classes"]
     occ_size = tuple(cfg["occ_size"])
     batch = make_serving_batch(cfg, seed=0)
-    step = build_eval_step(model, occ_size, num_classes)
+    step = build_eval_step(model, occ_size, num_classes, compute_dtype)
 
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
     reset_launches()  # the main path's run starts here
-    frames_ms = []
-    for _ in range(4):  # 1 warm-up + 3 timed
-        t = time.perf_counter()
-        out = step(batch)
-        torch.cuda.synchronize()
-        frames_ms.append((time.perf_counter() - t) * 1e3)
+    frames_ms, peak, resident, out = serve_frames(step, batch)
     n = launches()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
 
     P = batch["lidar_xyz"].shape[1]
     rec = {"phase": "serve", "config": "occformer_nusc_r50_256x704",
-           "dtype": cfg["compute_dtype"], "model_build_s": build_s,
+           "param_dtype": "float32", "autocast": cfg["compute_dtype"], "model_build_s": build_s,
            "params": sum(p.numel() for p in model.parameters()),
            "warmup_frame_ms": frames_ms[0], "frame_ms": frames_ms[1:],
            "frames_run": len(frames_ms), "launches": n,
@@ -938,13 +1217,33 @@ def phase_serve():
           f"confusion {list(cm.shape)} sums to {int(cm.sum())}, want {P}")
     check(int(out["voxel_pred"].max()) < num_classes
           and int(out["point_pred"].min()) >= 1, "predicted labels out of range")
-    with torch.inference_mode():
+    with torch.inference_mode(), torch.autocast("cuda", dtype=compute_dtype):
         raw = model({k: torch.as_tensor(v).cuda() for k, v in batch.items()})
     finite = {k: bool(torch.isfinite(v.float()).all()) for k, v in raw.items()}
     rec["finite"] = finite
     rec["shapes"] = {k: list(v.shape) for k, v in raw.items()}
     check(all(finite.values()), f"non-finite outputs: {finite}")
     rec["profile"] = profile(lambda: step(batch), SERVE_STAGES)
+
+    # the route served before: the same weights, every tensor in bf16
+    pred = out["point_pred"].clone()
+    scores = point_scores(model, batch, compute_dtype)
+    old = build_model(cfg["model"], device="cuda", dtype=torch.bfloat16, seed=1)
+    old.load_state_dict(model.state_dict())  # cast to each of its tensors' dtypes
+    del model, step, raw, out
+    free_memory()
+    old_step = build_eval_step(old, occ_size, num_classes)
+    old_ms, old_peak, old_resident, old_out = serve_frames(old_step, batch)
+    old_scores = point_scores(old, batch, None)
+    rec["bf16_parameter_route"] = {
+        "warmup_frame_ms": old_ms[0], "frame_ms": old_ms[1:], "peak_memory_bytes": old_peak,
+        "resident_bytes_at_start": old_resident,
+        "point_pred_agreement": (old_out["point_pred"] == pred).float().mean().item(),
+        "distinct_point_classes": [len(torch.unique(pred)), len(torch.unique(old_out["point_pred"]))],
+        "max_abs_point_score_gap": (old_scores - scores).abs().max().item(),
+        "max_abs_point_score": scores.abs().max().item()}
+    del old, old_step, old_out
+    free_memory()
     emit(rec)
     return n
 
@@ -1186,23 +1485,26 @@ def phase_cli():
 # K2-bwd's segmented path runs the seven K2-bwd functions per launch, and
 # its gather (one per launch) counts the launches
 PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_bwd_kernel": "K1-bwd",
-                "trilerp_fwd_kernel": "K2", "trilerp_bwd_kernel": "K2-bwd.narrow",
+                "trilerp_fwd_kernel": "K2", "trilerp_fwd_rows_kernel": "K2.row",
+                "trilerp_bwd_kernel": "K2-bwd.narrow",
                 "seg_count_kernel": "K2-bwd", "scan_tiles_kernel": "K2-bwd",
                 "scan_sums_kernel": "K2-bwd", "add_tile_offsets_kernel": "K2-bwd",
                 "seg_fill_kernel": "K2-bwd", "seg_rank_kernel": "K2-bwd",
                 "trilerp_bwd_gather_kernel": "K2-bwd",
                 "label_shared_kernel": "K3", "label_per_slot_kernel": "K3",
-                "multilevel_fwd_kernel": "K4", "multilevel_bwd_kernel": "K4-bwd",
-                "add_one_kernel": "P1", "row_gather_kernel": "P2"}
+                "multilevel_fwd_kernel": "K4", "multilevel_fwd_rows_kernel": "K4.row",
+                "multilevel_bwd_kernel": "K4-bwd",
+                "add_one_kernel": "P1", "row_gather_kernel": "P2",
+                "voxel_splat_kernel": "S1"}
 _SEGMENTED_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
                     "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel"}
 
 
 def port_kernel_ms(kernels):
     """Device ms and launches of the port's kernels among profiled kernel
-    events, by kernel (K2's forward apart by table type: the bf16 feature,
-    the bool GT, float32 volumes; K2-bwd's segmented path summed over its
-    seven functions) and by CUDA function."""
+    events, by kernel (K2's forward apart by path and table type: the bf16
+    feature on the row-wide path, the bool GT, float32 volumes; K2-bwd's
+    segmented path summed over its seven functions) and by CUDA function."""
     import re
 
     by_kernel, by_function = {}, {}
@@ -1210,8 +1512,8 @@ def port_kernel_ms(kernels):
         m = re.match(r"(?:void )?(\w+)(<[^(]*>)?\(", e.key)
         if not m or m.group(1) not in PORT_KERNELS:
             continue
-        name = PORT_KERNELS[m.group(1)] + (" " + m.group(2) if m.group(1) == "trilerp_fwd_kernel"
-                                           else "")
+        name = PORT_KERNELS[m.group(1)] + (" " + m.group(2) if m.group(1).startswith(
+            "trilerp_fwd") else "")
         for key, table, n in ((name, by_kernel, m.group(1) not in _SEGMENTED_STEPS),
                               (m.group(1) + (m.group(2) or ""), by_function, True)):
             r = table.setdefault(key, {"launches": 0, "device_ms": 0.0})
@@ -1270,45 +1572,54 @@ def profile(run, outer, top=12):
             "port_kernels": port_kernel_ms(kernels)}
 
 
-def kernel_records(kern, probe, paths):
-    """One record per kernel; ``paths`` maps each driven path (serve, train,
-    train_batched, the K4 gate, the probe) to its launch counts, and a
-    kernel's ``launches`` sums them.  K2-bwd's two paths are two records."""
+def kernel_records(kern, probe, det, paths):
+    """One record per kernel path; ``paths`` maps each driven path (serve,
+    train, train_batched, the K4 gate, the probe) to its launch counts, and
+    a record's ``launches`` sums them.  K2 and K2-bwd each have two paths,
+    two records; K4's scalar path is launched on no driven path (it is held
+    against the plain version in the kernels phase)."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
-    paths = {p: dict(n, **{"K2-bwd.segmented": n["K2-bwd"] - n["K2-bwd.narrow"]})
+    paths = {p: dict(n, **{"K2.scalar": n["K2"] - n["K2.row"],
+                           "K2-bwd.segmented": n["K2-bwd"] - n["K2-bwd.narrow"]})
              for p, n in paths.items()}
     rows = [
-        ("ms_deform_gather_3d", "K1", src + "ms_deform_gather3d.cu",
+        ("ms_deform_gather_3d", "", "K1", src + "ms_deform_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:284", kern["K1"]["bf16"]),
-        ("ms_deform_gather_3d_bwd", "K1-bwd", src + "ms_deform_gather3d.cu",
+        ("ms_deform_gather_3d_bwd", "", "K1-bwd", src + "ms_deform_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:354", kern["K1-bwd"]["bf16"]),
-        ("trilerp_sample", "K2", src + "trilerp_sample3d.cu",
+        ("trilerp_sample", "row", "K2.row", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:476", kern["K2"]),
-        ("trilerp_sample_bwd", "K2-bwd.segmented", src + "trilerp_sample3d.cu",
+        ("trilerp_sample", "scalar", "K2.scalar", src + "trilerp_sample3d.cu",
+         "occformer_tpu/ops/trilerp.py:476", kern["K2"]["per_slot_gt"]),
+        ("trilerp_sample_bwd", "segmented", "K2-bwd.segmented", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]),
-        ("trilerp_sample_bwd_narrow", "K2-bwd.narrow", src + "trilerp_sample3d.cu",
+        ("trilerp_sample_bwd", "narrow", "K2-bwd.narrow", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]["batched"]["candidates"]),
-        ("sample_id_masks", "K3", src + "label_gather3d.cu",
+        ("sample_id_masks", "", "K3", src + "label_gather3d.cu",
          "occformer_tpu/ops/loss_gather.py:127", kern["K3"]["candidates"]),
-        ("fused_multilevel_gather", "K4", src + "multilevel_gather3d.cu",
+        ("fused_multilevel_gather", "row", "K4.row", src + "multilevel_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:495", kern["K4"]),
-        ("fused_multilevel_gather_bwd", "K4-bwd", src + "multilevel_gather3d.cu",
+        ("fused_multilevel_gather_bwd", "", "K4-bwd", src + "multilevel_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:511", kern["K4-bwd"]),
-        ("add_one", "P1", src + "probe.cu", "tools/probe_pallas_viability.py:41",
+        ("add_one", "", "P1", src + "probe.cu", "tools/probe_pallas_viability.py:41",
          dict(timing["add_one"], kernel_ms=timing["add_one"]["ms"],
               max_abs_err=probe["add_one_max_abs_err"])),
-        ("row_gather", "P2", src + "probe.cu", "tools/probe_pallas_viability.py:67",
+        ("row_gather", "", "P2", src + "probe.cu", "tools/probe_pallas_viability.py:67",
          dict(timing["row_gather"], kernel_ms=timing["row_gather"]["ms"],
               max_abs_err=probe["row_gather_max_abs_err"])),
+        # not a Pallas kernel's port: the JAX package leaves the splat to XLA
+        ("voxel_scatter_lifted", "", "S1", src + "voxel_splat.cu",
+         "occformer_tpu/ops/scatter.py:55", det["S1"]),
     ]
-    return [{"name": name, "route": "cuda", "source": source, "replaces": replaces,
+    return [{"name": name + (f".{path}" if path else ""), "path": path or None, "route": "cuda",
+             "source": source, "replaces": replaces,
              "launches": sum(n[key] for n in paths.values()),
              **{f"launches_{p}": n[key] for p, n in paths.items()},
              "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r.get("library_ms")}
-            for name, key, source, replaces, r in rows]
+            for name, path, key, source, replaces, r in rows]
 
 
 def main():
@@ -1341,6 +1652,8 @@ def main():
     phase_tiny_train("on")
     phase_tiny_train("on", accum_steps=2)
     free_memory()
+    det = phase_determinism()
+    free_memory()
     train_n = phase_train("off")
     free_memory()
     train_batched_n = phase_train("on")
@@ -1351,7 +1664,7 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True)
     print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
           else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
-    emit({"kernels": kernel_records(kern, probe, {
+    emit({"kernels": kernel_records(kern, probe, det, {
         "serve": serve_n, "train": train_n, "train_batched": train_batched_n,
         "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"]})})
     emit({"ok": True, "device": {"platform": "gpu",

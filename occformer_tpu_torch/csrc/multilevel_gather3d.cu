@@ -26,10 +26,27 @@
 // one-hot matmuls, windows and escape passes exist because the TPU gathers
 // badly; here each thread gathers directly.
 //
-// Thread mapping: one thread per (g, sample), looping over C.  Writes of the
-// channels-first output are then coalesced along s, and each of the 8
-// corner reads takes C contiguous channels.  The backward keeps the
-// mapping: d_table gets float32 atomics into zeroed [G, X, Y, Z, C] buffers
+// Thread mapping: one thread per (g, sample), so that the writes of the
+// channels-first output are coalesced along s (a warp's store of one
+// channel is 32 neighbouring samples: 64 bytes in bf16, 128 in float32).
+// The forward has two paths; ops/trilerp_fused.py:multi_fwd_path picks one
+// by the row width and the tables' alignment:
+// * Row-wide (multilevel_fwd_rows_kernel; rows of whole 16-byte vectors at
+//   16-byte aligned tables, the deformable attention's C = 24 in bf16 and
+//   float32).  The first design's per-channel loop issued one scalar 2-byte
+//   load per corner and channel, 192 dependent-address loads a thread at
+//   C = 24, each touching 32 rows across the warp: 1.79 ms at the flagship
+//   shapes, 2.3x slower than three F.grid_sample calls.  Here each thread
+//   reads its 8 corner rows as 16-byte vectors, 3 of a row per pass (a
+//   whole bf16 row, half a float32 one), issues all 8 x 3 loads of a pass
+//   before any FMA, sums its channels in float32 registers and stores them
+//   channels-first.  A corner outside the level is not loaded.  A
+//   shared-memory transpose tile for wider stores was not needed: the
+//   stores are already 64-byte runs.
+// * Scalar (multilevel_fwd_kernel): any other row width or a misaligned
+//   table: the per-channel loop, each of the 8 corner reads taking C
+//   contiguous channels.
+// The backward keeps the per-channel mapping: d_table gets float32 atomics into zeroed [G, X, Y, Z, C] buffers
 // (what the Pallas VJP returns before its cast to the table's type), and,
 // when the caller asks for it, each thread writes its own sample's d_coords
 // (float32 [G, S, 3]) with a plain store: one thread owns a sample, so no
@@ -41,7 +58,9 @@
 // (64,64,8), (32,32,4), (16,16,2), G = 8, C = 24, S_l = 149504, bf16
 // tables): both are memory-bound.  Forward: tables 14.35 MB + coords
 // 43.06 MB read, out 172.23 MB written, about 230 MB, about 69 us at
-// 3.35 TB/s; the corner reads mostly hit L2 (the tables are 14 MB).
+// 3.35 TB/s; the corner reads hit L2 (the tables are 14 MB), but they are
+// 8 rows of 48 bytes a sample, 1.38 GB of L2 traffic in all, which sets
+// the row-wide path's pace.
 // Backward: the same reads with gout in place of out, d_tables in the
 // table's type and d_coords written, about 287 MB, about 86 us; this
 // simple form adds a float32 d_table (28.7 MB of atomics, L2-resident) and
@@ -168,6 +187,86 @@ __global__ void multilevel_fwd_kernel(const Levels lv, int64_t n, int C,
   }
 }
 
+// ---- the row-wide forward: 16-byte vectors of each corner row ----
+
+// One 16-byte vector of a table row: 8 bf16 or 4 float32 channels.
+template <typename T> struct Vec16;
+template <> struct Vec16<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec16<float> { static constexpr int N = 4; };
+
+// a += w * (the vector's channels, as float)
+__device__ __forceinline__ void fma16(float (&a)[8], const uint4& u, float w) {
+  const unsigned wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<unsigned*>(&h) = wd[k];
+    const float2 f = __bfloat1622float2(h);
+    a[2 * k] = fmaf(w, f.x, a[2 * k]);
+    a[2 * k + 1] = fmaf(w, f.y, a[2 * k + 1]);
+  }
+}
+__device__ __forceinline__ void fma16(float (&a)[4], const uint4& u, float w) {
+  a[0] = fmaf(w, __uint_as_float(u.x), a[0]);
+  a[1] = fmaf(w, __uint_as_float(u.y), a[1]);
+  a[2] = fmaf(w, __uint_as_float(u.z), a[2]);
+  a[3] = fmaf(w, __uint_as_float(u.w), a[3]);
+}
+
+// One thread per (level, g, sample), as the scalar kernel, but each corner
+// row is read as 16-byte vectors: a pass takes VPT vectors (VPT * N
+// channels) of all 8 corners, issues those 8 * VPT loads before any FMA,
+// sums in float32 registers and stores its channels; the channels-first
+// stores of a warp are runs of 32 neighbouring samples along s.  A corner
+// outside the level is not loaded and has weight 0.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(256)
+multilevel_fwd_rows_kernel(const Levels lv, int64_t n, int C, int align) {
+  constexpr int N = Vec16<T>::N;
+  const int nvec = C / N;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const Level L = pick(lv, i);
+    const int64_t j = i - L.start;  // g * S + s
+    const int64_t g = j / L.S;
+    const int64_t s = j - g * L.S;
+    const Axis ax = make_axis(L.coords[j * 3 + 0], L.X, align);
+    const Axis ay = make_axis(L.coords[j * 3 + 1], L.Y, align);
+    const Axis az = make_axis(L.coords[j * 3 + 2], L.Z, align);
+    const Corners k = make_corners(ax, ay, az, L.Y, L.Z, C);
+    const T* tb = (const T*)L.table + g * ((int64_t)L.X * L.Y * L.Z * C);
+    T* out = (T*)L.out + g * C * (int64_t)L.S + s;
+    for (int v0 = 0; v0 < nvec; v0 += VPT) {
+      uint4 r[8][VPT];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int u = 0; u < VPT; ++u)
+          r[q][u] = (k.ok[q] && v0 + u < nvec)
+                        ? __ldg(reinterpret_cast<const uint4*>(tb + k.off[q]) +
+                                v0 + u)
+                        : make_uint4(0u, 0u, 0u, 0u);
+      float acc[VPT][N];
+#pragma unroll
+      for (int u = 0; u < VPT; ++u)
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[u][e] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int u = 0; u < VPT; ++u) fma16(acc[u], r[q][u], k.w[q]);
+#pragma unroll
+      for (int u = 0; u < VPT; ++u) {
+        if (v0 + u >= nvec) break;
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          store_f(out + (int64_t)((v0 + u) * N + e) * L.S, acc[u][e]);
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void multilevel_bwd_kernel(const Levels lv, int64_t n, int C,
                                       int align) {
@@ -281,6 +380,37 @@ extern "C" int multilevel_gather3d_fwd(int L, const void* const* tables,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The row-wide forward: as multilevel_gather3d_fwd, for tables and outputs
+// whose pointers are 16-byte aligned and rows of whole 16-byte vectors (C a
+// multiple of 8 in bfloat16, of 4 in float32); cudaErrorInvalidValue for
+// anything else.
+extern "C" int multilevel_gather3d_fwd_rows(int L, const void* const* tables,
+                                            const void* const* coords,
+                                            void* const* outs, const int* dims,
+                                            int G, int C, int align, int dtype,
+                                            void* stream) {
+  if ((dtype != 0 && dtype != 1) || C <= 0 || C % (dtype == 1 ? 8 : 4) != 0)
+    return (int)cudaErrorInvalidValue;
+  for (int l = 0; l < L && l < MAX_LEVELS; ++l)
+    if (((uintptr_t)tables[l] | (uintptr_t)outs[l]) % 16 != 0)
+      return (int)cudaErrorInvalidValue;
+  Levels lv;
+  const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, nullptr,
+                                dims, G);
+  if (n < 0) return (int)cudaErrorInvalidValue;
+  if (n == 0) return 0;
+  const int threads = 256;
+  const unsigned blocks = grid_blocks(n, threads);
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    multilevel_fwd_rows_kernel<float, 3><<<blocks, threads, 0, st>>>(lv, n, C,
+                                                                    align);
+  else
+    multilevel_fwd_rows_kernel<__nv_bfloat16, 3><<<blocks, threads, 0, st>>>(
+        lv, n, C, align);
   return (int)cudaGetLastError();
 }
 

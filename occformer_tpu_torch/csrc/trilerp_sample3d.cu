@@ -23,8 +23,38 @@
 //
 // The one-hot MXU matmuls, row windows and escape passes of the Pallas kernel
 // exist only because the TPU gathers badly; here every thread gathers
-// directly.  Forward: one thread per output (g, s, c), c fastest, so that a
-// warp reads neighbouring channels of the same corner.
+// directly.
+//
+// Forward, two paths; ops/trilerp.py:fwd_path picks one by the row.
+// * Row-wide (trilerp_fwd_rows_kernel): tables whose rows are whole 16-byte
+//   vectors (C a multiple of 8 in bf16, of 4 in float32; the per-layer loss
+//   route's C = 192 feature).  The first design, one thread per output
+//   (g, s, c), redid a point's axis, corner and weight arithmetic for every
+//   channel and loaded 2 bytes a thread, a warp reading 64 bytes of a
+//   384-byte corner row at a time: 0.53 ms at the candidate readout, 9% of
+//   its bound.  Here a group of `lanes` lanes (a power of two; by default
+//   the fewest that hold a row at 3 vectors a lane: 8 at C = 192 bf16)
+//   takes one point: each lane computes the axes and weights once, then
+//   issues the 16-byte loads of its vectors of all 8 corners before any
+//   FMA, sums in float32 registers and stores each vector once, rounded to
+//   the table's type.  Neighbouring lanes read neighbouring vectors of a
+//   corner row, so a group reads whole rows.
+// * Scalar (trilerp_fwd_kernel): everything else (the uint8 GT masks, the
+//   batched route's float32 C = 17 and C = 1 volumes and bf16 C = 100
+//   match volumes): one thread per output (g, s, c), c fastest, so that a
+//   warp reads neighbouring channels of the same corner.
+// fwd_path sets no width threshold beyond whole vectors, from
+// tools/time_backwards.py --sweep: both paths at the candidate readout's
+// shape (bf16 [1, 128, 128, 16, C], 150528 points, border) on an H100 80GB
+// HBM3 at 700 W, two sweeps in two calls, ms scalar / row-wide: C = 8
+// 0.041-0.055 / 0.034-0.054, 16 0.057-0.072 / 0.052-0.056, 32 0.093-0.109 /
+// 0.047-0.061, 48 0.132-0.154 / 0.061-0.078, 64 0.172-0.183 / 0.066-0.067,
+// 128 0.354-0.364 / 0.130-0.140, 192 0.513-0.524 / 0.213-0.224; the
+// row-wide path wins or ties at every width.  Lanes per point at C = 192:
+// 1 0.266-0.300, 2 0.225-0.247, 4 0.216-0.240, 8 0.202-0.232, 16
+// 0.196-0.226, 32 0.198-0.226 ms: more loads in flight per warp help up to
+// a group that holds the row at 3 vectors a lane (row_lanes' choice, 8);
+// 16 lanes were 2-7% faster again in both sweeps.
 //
 // Backward, two paths; ops/trilerp.py:bwd_path picks one by the row width C.
 // The threshold, SEGMENTED_MIN_C = 48, comes from tools/time_backwards.py
@@ -73,7 +103,10 @@
 // Bounds on an H100 SXM at the flagship's candidate readout (table
 // [1, 128, 128, 16, 192] bf16, 100.7 MB; S = 150528): both are memory-bound.
 // Forward: table 100.7 MB + coords 1.8 MB read, out 57.8 MB written, about
-// 160 MB, about 48 us at 3.35 TB/s.  Backward: gout 57.8 MB + coords 1.8 MB
+// 160 MB, about 48 us at 3.35 TB/s.  The table is twice L2 and the points
+// spread over it, so in fact each point reads its 8 corner rows whole
+// (384 bytes each, 462 MB in all) plus the 57.8 MB written: a realistic
+// floor of about 0.155 ms, which the row-wide path approaches.  Backward: gout 57.8 MB + coords 1.8 MB
 // read, d_table 100.7 MB written in the table's dtype, about 160 MB, about
 // 48 us.  The gather writes d_table once (no 201 MB float32 buffer, no
 // zero-fill, no cast); each gout row is read by up to 8 rows' threads, the
@@ -166,6 +199,116 @@ __global__ void trilerp_fwd_kernel(const Tin* __restrict__ table,
       }
     }
     store_f(out + i, acc);
+  }
+}
+
+// ---- the row-wide forward: 16-byte vectors of a row per lane ----
+
+// One 16-byte vector of a table row: 8 bf16 or 4 float32 channels.
+template <typename T> struct Vec16;
+template <> struct Vec16<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec16<float> { static constexpr int N = 4; };
+
+// a += w * (the vector's channels, as float)
+__device__ __forceinline__ void fma16(float (&a)[8], const uint4& u, float w) {
+  const unsigned wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<unsigned*>(&h) = wd[k];
+    const float2 f = __bfloat1622float2(h);
+    a[2 * k] = fmaf(w, f.x, a[2 * k]);
+    a[2 * k + 1] = fmaf(w, f.y, a[2 * k + 1]);
+  }
+}
+__device__ __forceinline__ void fma16(float (&a)[4], const uint4& u, float w) {
+  a[0] = fmaf(w, __uint_as_float(u.x), a[0]);
+  a[1] = fmaf(w, __uint_as_float(u.y), a[1]);
+  a[2] = fmaf(w, __uint_as_float(u.z), a[2]);
+  a[3] = fmaf(w, __uint_as_float(u.w), a[3]);
+}
+// the channels rounded once to the table's type, as one 16-byte vector
+__device__ __forceinline__ uint4 pack16(const float (&a)[8]) {
+  unsigned wd[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * k], a[2 * k + 1]);
+    wd[k] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+__device__ __forceinline__ uint4 pack16(const float (&a)[4]) {
+  return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
+                    __float_as_uint(a[2]), __float_as_uint(a[3]));
+}
+
+// A group of 2^lane_bits lanes per point (g, s).  Every lane computes the
+// point's axes, corners and weights (once per lane, not once per channel),
+// then walks the row's nvec = C / N vectors: lane l takes vectors l,
+// l + lanes, ..., VPT of them per pass, issues all 8 corners' loads of those
+// vectors before any FMA, sums in float32 registers and stores each vector
+// once.  A corner outside the table (zeros padding) is not loaded and has
+// weight 0.  Neighbouring lanes read neighbouring vectors of one corner row.
+template <typename T, int VPT>
+__global__ void __launch_bounds__(256)
+trilerp_fwd_rows_kernel(const T* __restrict__ table,
+                        const float* __restrict__ coords, T* __restrict__ out,
+                        int64_t n_pts, int S, int X, int Y, int Z, int C,
+                        int align, int border, int lane_bits) {
+  constexpr int N = Vec16<T>::N;
+  const int nvec = C / N;
+  const int lanes = 1 << lane_bits;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = (int)(t & (lanes - 1));
+  const int64_t step = ((int64_t)gridDim.x * blockDim.x) >> lane_bits;
+  const int64_t vol_vec = (int64_t)X * Y * Z * nvec;
+  for (int64_t gs = t >> lane_bits; gs < n_pts; gs += step) {
+    const Axis ax = make_axis(coords[gs * 3 + 0], X, align, border);
+    const Axis ay = make_axis(coords[gs * 3 + 1], Y, align, border);
+    const Axis az = make_axis(coords[gs * 3 + 2], Z, align, border);
+    int row[8];  // the corner's first vector within its table, or -1 outside
+    float w[8];
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+        for (int dz = 0; dz < 2; ++dz) {
+          const int q = dx * 4 + dy * 2 + dz;
+          const int xi = ax.i0 + dx, yi = ay.i0 + dy, zi = az.i0 + dz;
+          const bool ok = xi >= 0 && xi < X && yi >= 0 && yi < Y && zi >= 0 &&
+                          zi < Z;
+          w[q] = ok ? ax.w[dx] * ay.w[dy] * az.w[dz] : 0.f;
+          row[q] = ok ? ((xi * Y + yi) * Z + zi) * nvec : -1;
+        }
+    const uint4* tb =
+        reinterpret_cast<const uint4*>(table) + gs / S * vol_vec;
+    uint4* o = reinterpret_cast<uint4*>(out) + gs * nvec;
+    for (int v0 = lane; v0 < nvec; v0 += lanes * VPT) {
+      uint4 r[8][VPT];
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int k = 0; k < VPT; ++k) {
+          const int v = v0 + k * lanes;
+          r[q][k] = (row[q] >= 0 && v < nvec) ? __ldg(tb + row[q] + v)
+                                              : make_uint4(0u, 0u, 0u, 0u);
+        }
+      float acc[VPT][N];
+#pragma unroll
+      for (int k = 0; k < VPT; ++k)
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[k][e] = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+#pragma unroll
+        for (int k = 0; k < VPT; ++k) fma16(acc[k], r[q][k], w[q]);
+#pragma unroll
+      for (int k = 0; k < VPT; ++k) {
+        const int v = v0 + k * lanes;
+        if (v < nvec) o[v] = pack16(acc[k]);
+      }
+    }
   }
 }
 
@@ -513,6 +656,68 @@ extern "C" int trilerp_sample3d_fwd(const void* table, const void* coords,
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+// The row-wide forward.  table and out 16-byte aligned, C a multiple of
+// 8 (bfloat16, dtype 1) or 4 (float32, dtype 0), X*Y*Z*C below 2^31;
+// lanes (1, 2, 4, 8, 16 or 32) per point.  Returns cudaErrorInvalidValue
+// for anything else.
+template <typename T, int VPT>
+static void launch_fwd_rows(const void* table, const void* coords, void* out,
+                            int64_t n_pts, int S, int X, int Y, int Z, int C,
+                            int align, int border, int lane_bits,
+                            cudaStream_t st) {
+  const int threads = 256;
+  trilerp_fwd_rows_kernel<T, VPT>
+      <<<grid_blocks(n_pts << lane_bits, threads), threads, 0, st>>>(
+          (const T*)table, (const float*)coords, (T*)out, n_pts, S, X, Y, Z,
+          C, align, border, lane_bits);
+}
+
+template <typename T>
+static int launch_fwd_rows_vpt(const void* table, const void* coords,
+                               void* out, int64_t n_pts, int S, int X, int Y,
+                               int Z, int C, int align, int border,
+                               int lane_bits, cudaStream_t st) {
+  const int nvec = C / Vec16<T>::N;
+  const int lanes = 1 << lane_bits;
+  const int vpt = (nvec + lanes - 1) / lanes;  // vectors a lane holds
+  if (vpt <= 1)
+    launch_fwd_rows<T, 1>(table, coords, out, n_pts, S, X, Y, Z, C, align,
+                          border, lane_bits, st);
+  else if (vpt == 2)
+    launch_fwd_rows<T, 2>(table, coords, out, n_pts, S, X, Y, Z, C, align,
+                          border, lane_bits, st);
+  else if (vpt == 3)
+    launch_fwd_rows<T, 3>(table, coords, out, n_pts, S, X, Y, Z, C, align,
+                          border, lane_bits, st);
+  else  // wider rows take passes of 4
+    launch_fwd_rows<T, 4>(table, coords, out, n_pts, S, X, Y, Z, C, align,
+                          border, lane_bits, st);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int trilerp_sample3d_fwd_rows(const void* table, const void* coords,
+                                         void* out, int G, int S, int X, int Y,
+                                         int Z, int C, int align, int border,
+                                         int dtype, int lanes, void* stream) {
+  const int n = dtype == 1 ? 8 : 4;
+  int lane_bits = 0;
+  while ((1 << lane_bits) < lanes) ++lane_bits;
+  if ((dtype != 0 && dtype != 1) || C <= 0 || C % n != 0 ||
+      (1 << lane_bits) != lanes || lanes > 32 ||
+      (int64_t)X * Y * Z * C >= ((int64_t)1 << 31) ||
+      ((uintptr_t)table | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_pts = (int64_t)G * S;
+  if (n_pts == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 1)
+    return launch_fwd_rows_vpt<__nv_bfloat16>(table, coords, out, n_pts, S, X,
+                                              Y, Z, C, align, border,
+                                              lane_bits, st);
+  return launch_fwd_rows_vpt<float>(table, coords, out, n_pts, S, X, Y, Z, C,
+                                    align, border, lane_bits, st);
 }
 
 template <typename T>

@@ -11,11 +11,11 @@ a temporary, which the next save sweeps (as orbax sweeps its own).
 The state holds the model's ``state_dict`` (parameters and buffers, the
 BatchNorm statistics among them), the optimizer's (AdamW's moments and step,
 the schedule's step; ``engine/optim.py:TrainOptimizer.state_dict``) and the
-step.  ``load_checkpoint`` also takes a reference ``.pth`` state dict (an
-mmcv checkpoint or a bare state dict): the port carries the reference key
-space, so it loads strictly, with the step at 0.  That is the port's
-counterpart of ``tools/convert_checkpoint.py`` followed by a load.  The JAX
-package's orbax checkpoints are not read: that needs orbax and JAX.
+step.  ``load_checkpoint`` loads only these ``step_{N}`` directories, and
+strictly.  A reference ``.pth`` (an mmcv checkpoint or a bare state dict,
+in the reference key space the port carries) goes through
+``engine/pretrained.py:partial_load_torch``, non-strictly as mmcv loads it.
+The JAX package's orbax checkpoints are not read: that needs orbax and JAX.
 """
 from __future__ import annotations
 
@@ -64,23 +64,18 @@ def read_checkpoint(path: str) -> dict:
 
 
 def load_checkpoint(path: str, model: torch.nn.Module, optimizer=None) -> int:
-    """Load ``path`` into ``model`` (strictly) and, when given and saved,
-    ``optimizer``; returns the checkpoint's step.
-
-    ``path`` is a ``step_{N}`` directory of ``save_checkpoint`` or a
-    reference ``.pth`` file (``{"state_dict": ...}`` or a bare state dict,
-    the reference key space), which gives the weights and step 0."""
-    if os.path.isdir(path):
-        state = read_checkpoint(path)
-        model.load_state_dict(state["model"], strict=True)
-        if optimizer is not None and state["optimizer"] is not None:
-            optimizer.load_state_dict(state["optimizer"])
-        return int(state["step"])
-    # reference checkpoints carry mmcv metadata objects next to the tensors
-    obj = torch.load(path, map_location="cpu", weights_only=False)
-    sd = obj.get("state_dict", obj) if isinstance(obj, dict) else obj
-    model.load_state_dict(sd, strict=True)
-    return 0
+    """Load the ``step_{N}`` directory ``path`` of ``save_checkpoint`` into
+    ``model`` (strictly) and, when given and saved, ``optimizer``; returns
+    the checkpoint's step.  A file (a reference ``.pth``) raises: it loads
+    through ``engine/pretrained.py:partial_load_torch``."""
+    if not os.path.isdir(path):
+        raise ValueError(f"{path} is not a step_N checkpoint directory; a reference .pth "
+                         "loads through engine/pretrained.py:partial_load_torch")
+    state = read_checkpoint(path)
+    model.load_state_dict(state["model"], strict=True)
+    if optimizer is not None and state["optimizer"] is not None:
+        optimizer.load_state_dict(state["optimizer"])
+    return int(state["step"])
 
 
 def latest_checkpoint(ckpt_dir: str) -> Optional[str]:

@@ -36,11 +36,16 @@ def to_device_batch(batch: Dict, device: torch.device) -> Dict[str, torch.Tensor
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def build_eval_step(model, occ_size: Tuple[int, int, int], num_classes: int) -> Callable:
+def build_eval_step(model, occ_size: Tuple[int, int, int], num_classes: int,
+                    compute_dtype: Optional[torch.dtype] = None) -> Callable:
     """Returns ``eval_step(batch) -> dict`` on the model's device.
 
-    Outputs: ``voxel_pred`` [B, *occ_size] uint8, and with ``lidar_xyz`` in
-    the batch ``point_pred`` [B, P] int32 (the empty class 0 is skipped); with
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the forward and the
+    readout under ``torch.autocast``, the model keeping its (float32)
+    parameters, as the JAX package serves (``param_dtype`` float32 at a bf16
+    compute dtype) and as ``build_train_step`` trains.  Outputs:
+    ``voxel_pred`` [B, *occ_size] uint8, and with ``lidar_xyz`` in the batch
+    ``point_pred`` [B, P] int32 (the empty class 0 is skipped); with
     ``lidar_label`` and ``lidar_valid`` also ``confusion`` [n, n] int64.
     """
     device = next(model.parameters()).device
@@ -51,23 +56,26 @@ def build_eval_step(model, occ_size: Tuple[int, int, int], num_classes: int) -> 
         # named ranges for torch.profiler; the model's forward names its own stages
         with record_function("stage:upload"):
             batch = to_device_batch(batch, device)
-        out = model(batch)
-        with record_function("stage:readout"):
-            final_mask = mask_logits_from_embeds(out["mask_embeds"][-1], out["mask_feature"])
-            voxels = format_results(out["cls_preds"][-1], final_mask)  # [B, X, Y, Z, C] f32
-            # voxel semantics at full occupancy resolution (trilinear, align_corners)
-            up = resize_trilinear(voxels, tuple(occ_size), align_corners=True)
-            result = {"voxel_pred": up.argmax(dim=-1).to(torch.uint8)}
-            if "lidar_xyz" in batch:
-                logits = lidarseg_point_logits(voxels, batch["lidar_xyz"])
-                pts_pred = logits[..., 1:].argmax(dim=-1) + 1
-                result["point_pred"] = pts_pred.to(torch.int32)
-                if "lidar_label" in batch:
-                    idx = batch["lidar_label"].long() * n + pts_pred
-                    idx = torch.where(batch["lidar_valid"].bool(), idx,
-                                      torch.full_like(idx, n * n))
-                    cm = torch.bincount(idx.reshape(-1), minlength=n * n + 1)[:-1]
-                    result["confusion"] = cm.reshape(n, n)
+        with torch.autocast(device.type, dtype=compute_dtype or torch.float32,
+                            enabled=compute_dtype is not None):
+            out = model(batch)
+            with record_function("stage:readout"):
+                final_mask = mask_logits_from_embeds(out["mask_embeds"][-1],
+                                                     out["mask_feature"])
+                voxels = format_results(out["cls_preds"][-1], final_mask)  # [B, X, Y, Z, C]
+                # voxel semantics at full occupancy resolution (trilinear, align_corners)
+                up = resize_trilinear(voxels, tuple(occ_size), align_corners=True)
+                result = {"voxel_pred": up.argmax(dim=-1).to(torch.uint8)}
+                if "lidar_xyz" in batch:
+                    logits = lidarseg_point_logits(voxels, batch["lidar_xyz"])
+                    pts_pred = logits[..., 1:].argmax(dim=-1) + 1
+                    result["point_pred"] = pts_pred.to(torch.int32)
+                    if "lidar_label" in batch:
+                        idx = batch["lidar_label"].long() * n + pts_pred
+                        idx = torch.where(batch["lidar_valid"].bool(), idx,
+                                          torch.full_like(idx, n * n))
+                        cm = torch.bincount(idx.reshape(-1), minlength=n * n + 1)[:-1]
+                        result["confusion"] = cm.reshape(n, n)
         return result
 
     return eval_step
@@ -94,10 +102,10 @@ def metrics_from_state(state: Dict[str, np.ndarray], num_classes: int,
 
 def evaluate(model, loader, occ_size, num_classes: int, class_names=None,
              compute_ssc: bool = False, save_cb: Optional[Callable] = None,
-             panoptic: bool = False,
-             all_reduce: Optional[Callable] = None) -> Dict[str, Any]:
-    """Full-split evaluation of ``model`` (on its device, in eval mode):
-    the lidarseg IoU table.
+             panoptic: bool = False, all_reduce: Optional[Callable] = None,
+             compute_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """Full-split evaluation of ``model`` (on its device, in eval mode)
+    through ``build_eval_step(..., compute_dtype)``: the lidarseg IoU table.
 
     ``save_cb(out, meta_list, batch)`` runs per batch on the host (the
     submission writers, reference apis/test.py:161-167).  ``all_reduce``
@@ -109,7 +117,7 @@ def evaluate(model, loader, occ_size, num_classes: int, class_names=None,
     if panoptic:
         raise NotImplementedError("panoptic evaluation comes with the panoptic slice")
     all_reduce = all_reduce or (lambda state: state)
-    step = build_eval_step(model, occ_size, num_classes)
+    step = build_eval_step(model, occ_size, num_classes, compute_dtype)
     cm = np.zeros((num_classes, num_classes), np.int64)
     for batch in loader:
         batch = dict(batch)  # host-only keys popped locally, the caller's dict untouched

@@ -196,11 +196,7 @@ def build_model(model_cfg: Dict, device: Union[str, torch.device, None] = None,
     ``device`` is ``cuda`` by default, and a CUDA device without a card
     raises: nothing falls back to the CPU unless the caller passes
     ``device="cpu"``.  Weights are random, from a ``torch.Generator`` seeded
-    with ``seed``; ``device="meta"`` builds shapes only.  Serving builds the
-    parameters in the compute dtype (bfloat16); training builds them in
-    float32 and runs the forward under ``torch.autocast`` (flax's
-    ``param_dtype`` float32 with a bfloat16 ``dtype``), see
-    ``engine/train.py``.
+    with ``seed``; ``device="meta"`` builds shapes only.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():

@@ -6,12 +6,16 @@ names (``conv1``/``bn1``, ``layer{i}.{j}.conv{k}``/``bn{k}``,
 The R50 flagship has no deformable stages; the R101-DCN config's caffe-style
 blocks and DCN stages are not ported yet.
 
-Train mode follows mmdet's ``frozen_stages`` / ``norm_eval`` (JAX
-``resnet.py:130-167``): ``frozen_stages = n >= 0`` stops the gradient after
-the stem (n = 0) or after ``layer{n}``, so nothing before it is
-differentiated (``engine/optim.py:backbone_freeze_mask`` also keeps those
-parameters fixed); ``norm_eval`` keeps every BatchNorm on its running
-statistics while the model trains.
+Train mode follows mmdet's ``frozen_stages`` / ``norm_eval``:
+``frozen_stages = n >= 0`` stops the gradient after the stem (n = 0) or
+after ``layer{n}``, so nothing before it is differentiated
+(``engine/optim.py:backbone_freeze_mask`` also keeps those parameters
+fixed), and, as mmdet's ``_freeze_stages`` does on every ``train()``, puts
+the stem's ``bn1`` and every ``layer{i}`` with ``i <= n`` in eval mode: they
+normalize with their running statistics and never update them.
+``norm_eval`` keeps every BatchNorm on its running statistics while the
+model trains.  (The JAX package's ``resnet.py:135-143`` trains the frozen
+stages' BatchNorms; parity tests against it use ``frozen_stages=-1``.)
 """
 from __future__ import annotations
 
@@ -111,10 +115,15 @@ class ResNet(nn.Module):
 
     def train(self, mode: bool = True):
         super().train(mode)
-        if mode and self.norm_eval:
-            for m in self.modules():
-                if isinstance(m, nn.BatchNorm2d):
-                    m.eval()
+        if not mode:
+            return self
+        if self.norm_eval:
+            frozen = [m for m in self.modules() if isinstance(m, nn.BatchNorm2d)]
+        else:  # mmdet's _freeze_stages
+            frozen = ([self.bn1] if self.frozen_stages >= 0 else []) + [
+                getattr(self, f"layer{i}") for i in range(1, self.frozen_stages + 1)]
+        for m in frozen:
+            m.eval()
         return self
 
     def forward(self, x):

@@ -1,14 +1,125 @@
-"""Voxel scatter of the lifted depth x context features (LSS splat).
+"""Voxel scatter of the lifted depth x context features (LSS splat, S1).
 
-Port of ``occformer_tpu/ops/scatter.py:voxel_scatter_lifted``.  The sum by
-voxel is one ``index_add_`` per camera into ``B * nvox + 1`` rows; invalid
-points go to the dummy last row, which is dropped.
+Port of ``occformer_tpu/ops/scatter.py:voxel_scatter_lifted``: every
+frustum point's depth x context feature summed into its voxel; invalid
+points go to a dummy row, which is dropped.
+
+The JAX package's XLA scatter repeats its sums run to run; ``index_add_``
+on the card adds with float atomics in an order that changes from run to
+run, so two identical train steps differed in the last bits of their
+losses (PERF.md).  So ``voxel_scatter_lifted`` runs an autograd
+``Function`` whose forward, for CUDA tensors, is the splat kernel of
+``csrc/voxel_splat.cu`` (S1): the points sorted by voxel (a stable integer
+sort) and each voxel's sum taken in ascending point order, with no atomics
+and without storing the lift product; for CPU tensors it is the plain
+version, ``voxel_scatter_plain`` (one ``index_add_`` per camera, sequential
+on the CPU, atomic on the card).  Its backward is gathers, deterministic
+too.  ``LAUNCHES`` counts the kernel's launches.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
+import torch.nn.functional as F
+
+from . import cuda_build
+
+# launches of the splat kernel; a caller may reset it to 0
+LAUNCHES = 0
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FN = []
+
+
+def voxel_rows(coords: torch.Tensor, valid: torch.Tensor, nx: Sequence[int]) -> torch.Tensor:
+    """Each frustum point's row of the ``B * X * Y * Z + 1`` row sum: its
+    voxel (coordinates clamped into the grid), or the dummy last row when
+    invalid.  coords [B, N, D, fH, fW, 3], valid [B, N, D, fH, fW] -> int64."""
+    B = coords.shape[0]
+    X, Y, Z = int(nx[0]), int(nx[1]), int(nx[2])
+    nvox = X * Y * Z
+    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=coords.dtype, device=coords.device)
+    coords = torch.minimum(coords.clamp(min=0), hi)
+    lin = (coords[..., 0].long() * Y + coords[..., 1]) * Z + coords[..., 2]
+    batch_off = (torch.arange(B, device=lin.device) * nvox).view(B, 1, 1, 1, 1)
+    return torch.where(valid, lin + batch_off, torch.full_like(lin, B * nvox))
+
+
+def voxel_scatter_plain(depth: torch.Tensor, ctx: torch.Tensor, rows: torch.Tensor,
+                        n_rows: int) -> torch.Tensor:
+    """Plain PyTorch version: one ``index_add_`` per camera into float32
+    rows (the dummy row last), so one camera's [B, D, fH, fW, C] product is
+    the largest temporary.  -> [n_rows, C] float32."""
+    N, C = depth.shape[1], ctx.shape[-1]
+    out = torch.zeros((n_rows + 1, C), dtype=torch.float32, device=depth.device)
+    for n in range(N):
+        feats_n = depth[:, n, ..., None] * ctx[:, n, None]  # [B, D, fH, fW, C]
+        out.index_add_(0, rows[:, n].reshape(-1), feats_n.reshape(-1, C).float())
+    return out[:n_rows]
+
+
+def _kernel_fn():
+    if not _FN:
+        fn = cuda_build.load("voxel_splat").voxel_splat
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _FN.append(fn)
+    return _FN[0]
+
+
+def segments(rows: torch.Tensor, n_rows: int):
+    """The points sorted by row and each row's segment: (order, offsets),
+    int64; row r's points, in ascending point order, are
+    ``order[offsets[r]:offsets[r + 1]]``."""
+    flat = rows.reshape(-1)
+    order = torch.argsort(flat, stable=True)
+    counts = torch.bincount(flat, minlength=n_rows + 1)[:n_rows]
+    offsets = torch.zeros(n_rows + 1, dtype=torch.int64, device=rows.device)
+    torch.cumsum(counts, 0, out=offsets[1:])
+    return order, offsets
+
+
+def _launch(depth, ctx, rows, n_rows):
+    global LAUNCHES
+    B, N, D, fH, fW = depth.shape
+    C = ctx.shape[-1]
+    order, offsets = segments(rows, n_rows)
+    out = torch.empty((n_rows, C), dtype=torch.float32, device=depth.device)
+    with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream(depth.device).cuda_stream
+        rc = _kernel_fn()(depth.data_ptr(), ctx.data_ptr(), order.data_ptr(),
+                          offsets.data_ptr(), out.data_ptr(), n_rows, C, D, fH * fW,
+                          _DTYPE_CODE[depth.dtype], _DTYPE_CODE[ctx.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"voxel_splat launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out
+
+
+class _Splat(torch.autograd.Function):
+    """S1 forward (the plain version for CPU tensors); the backward gathers
+    each point's row of the output gradient: d_depth[p] = <g[row p],
+    ctx[pixel p]>, d_ctx[pixel] = sum over the pixel's depth bins of
+    depth[p] * g[row p] (the dummy row's g is 0)."""
+
+    @staticmethod
+    def forward(ctx_, depth, ctx, rows, n_rows):
+        ctx_.save_for_backward(depth, ctx, rows)
+        if depth.is_cuda:
+            return _launch(depth, ctx, rows, n_rows)
+        return voxel_scatter_plain(depth, ctx, rows, n_rows)
+
+    @staticmethod
+    def backward(ctx_, gout):
+        depth, ctx, rows = ctx_.saved_tensors
+        g = F.pad(gout.float(), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
+        g = g.view(*rows.shape, gout.shape[-1])                 # [B, N, D, fH, fW, C]
+        d_depth = (g * ctx[:, :, None].float()).sum(-1).to(depth.dtype)
+        d_ctx = (g * depth[..., None].float()).sum(2).to(ctx.dtype)
+        return d_depth, d_ctx, None, None
 
 
 def voxel_scatter_lifted(
@@ -28,23 +139,17 @@ def voxel_scatter_lifted(
       nx:     (X, Y, Z)
 
     Returns [B, X, Y, Z, C] in ``depth.dtype``.  The sum is kept in float32
-    and cast once at the end.
+    and cast once at the end.  CUDA tensors (float32 or bfloat16 depth and
+    ctx, on one device) run the splat kernel, CPU tensors the plain version.
     """
-    B, N, D, fH, fW = depth.shape
+    B = depth.shape[0]
     C = ctx.shape[-1]
     X, Y, Z = int(nx[0]), int(nx[1]), int(nx[2])
-    nvox = X * Y * Z
-
-    hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=coords.dtype, device=coords.device)
-    coords = torch.minimum(coords.clamp(min=0), hi)
-    lin = (coords[..., 0].long() * Y + coords[..., 1]) * Z + coords[..., 2]
-    batch_off = (torch.arange(B, device=lin.device) * nvox).view(B, 1, 1, 1, 1)
-    seg = torch.where(valid, lin + batch_off, torch.full_like(lin, B * nvox))
-
-    # camera by camera, so one camera's [B, D, fH, fW, C] product is the
-    # largest temporary rather than the whole [B, N, D, fH, fW, C] lift
-    out = torch.zeros((B * nvox + 1, C), dtype=torch.float32, device=depth.device)
-    for n in range(N):
-        feats_n = depth[:, n, ..., None] * ctx[:, n, None]  # [B, D, fH, fW, C]
-        out.index_add_(0, seg[:, n].reshape(-1), feats_n.reshape(-1, C).float())
-    return out[: B * nvox].reshape(B, X, Y, Z, C).to(depth.dtype)
+    n_rows = B * X * Y * Z
+    if depth.is_cuda and not (depth.dtype in _DTYPE_CODE and ctx.dtype in _DTYPE_CODE
+                              and ctx.device == depth.device):
+        raise TypeError(f"depth and ctx must be float32 or bfloat16 on one device; got "
+                        f"{depth.dtype} on {depth.device} and {ctx.dtype} on {ctx.device}")
+    out = _Splat.apply(depth.contiguous(), ctx.contiguous(), voxel_rows(coords, valid, nx),
+                       n_rows)
+    return out.reshape(B, X, Y, Z, C).to(depth.dtype)

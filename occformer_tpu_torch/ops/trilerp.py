@@ -17,13 +17,19 @@ has two paths, picked by ``bwd_path``: wide rows (the per-layer loss
 route's C = 192 feature) take a per-voxel segmented gather that writes
 d_table once in the table's dtype, bit-identical from call to call; narrow
 rows (the batched route's C = 17 and C = 1 volumes) take float32 atomics
-into a zeroed buffer, cast afterwards.  For CPU tensors it runs the plain
-version, ``trilerp_sample_plain`` (``F.grid_sample`` on the permuted table,
-differentiated by autograd).  A CUDA tensor never takes the plain version.
-Tables are float32, bfloat16 or a bool/uint8 mask (read as 0/1); the result
-has the table's dtype, float32 for a mask.  ``LAUNCHES`` and
-``BWD_LAUNCHES`` count kernel launches (the latter both K2-bwd paths),
-``BWD_NARROW_LAUNCHES`` the narrow path's alone.
+into a zeroed buffer, cast afterwards.  K2 has two paths too, picked by
+``fwd_path``: tables whose rows are whole 16-byte vectors (bf16 C a
+multiple of 8, float32 a multiple of 4; the per-layer route's C = 192
+feature) take the row-wide kernel, a group of lanes per point reading each
+corner row as 16-byte loads; the rest (the uint8 GT masks, the batched
+route's C = 17, C = 1 and C = 100 volumes) keep one thread per channel.
+For CPU tensors it runs the plain version, ``trilerp_sample_plain``
+(``F.grid_sample`` on the permuted table, differentiated by autograd).  A
+CUDA tensor never takes the plain version.  Tables are float32, bfloat16 or
+a bool/uint8 mask (read as 0/1); the result has the table's dtype, float32
+for a mask.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches (each
+over both of its paths), ``ROW_LAUNCHES`` K2's row-wide path alone and
+``BWD_NARROW_LAUNCHES`` K2-bwd's narrow path alone.
 """
 from __future__ import annotations
 
@@ -34,15 +40,19 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-# launches of the forward (K2) and backward (K2-bwd, both paths) kernels,
-# and of K2-bwd's narrow path alone; a caller may reset them to 0
+# launches of the forward (K2, both paths) and backward (K2-bwd, both
+# paths) kernels, of K2's row-wide path alone and of K2-bwd's narrow path
+# alone; a caller may reset them to 0
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+ROW_LAUNCHES = 0
 BWD_NARROW_LAUNCHES = 0
 
 # The narrowest row (channels) that takes K2-bwd's segmented path; the
 # chip measurement behind it is in csrc/trilerp_sample3d.cu's header.
 SEGMENTED_MIN_C = 48
+# channels per 16-byte vector by table dtype
+_VEC_CHANNELS = {torch.bfloat16: 8, torch.float32: 4}
 _INT32_LIMIT = 2 ** 31
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -70,7 +80,8 @@ def trilerp_sample_plain(table: torch.Tensor, coords: torch.Tensor,
 
 
 # C entry point -> (pointer arguments, int arguments); each ends with the stream
-_SIGNATURES = {"trilerp_sample3d_fwd": (3, 9), "trilerp_sample3d_bwd": (5, 9),
+_SIGNATURES = {"trilerp_sample3d_fwd": (3, 9), "trilerp_sample3d_fwd_rows": (3, 10),
+               "trilerp_sample3d_bwd": (5, 9),
                "trilerp_sample3d_bwd_seg": (6, 9)}
 
 
@@ -105,18 +116,55 @@ def _dims(table, coords, align_corners, padding_mode):
             int(padding_mode == "border"), _DTYPE_CODE[table.dtype])
 
 
-def _launch_fwd(table, coords, align_corners, padding_mode):
-    global LAUNCHES
+def fwd_path(table_shape, dtype, data_ptr: int = 0) -> str:
+    """K2's forward path for a table ``[G, X, Y, Z, C]`` of ``dtype`` at
+    address ``data_ptr``: "row" for bfloat16 or float32 rows of whole
+    16-byte vectors, a 16-byte aligned table and one table's elements
+    within int32; else "scalar".  No width threshold: the sweep in
+    csrc/trilerp_sample3d.cu's header found the row-wide path faster from a
+    single vector (C = 8 in bf16) up."""
+    G, X, Y, Z, C = table_shape
+    n = _VEC_CHANNELS.get(dtype)
+    if n and C % n == 0 and X * Y * Z * C < _INT32_LIMIT and data_ptr % 16 == 0:
+        return "row"
+    return "scalar"
+
+
+def row_lanes(channels: int, dtype) -> int:
+    """Lanes per point of the row-wide forward: the fewest (a power of two,
+    at most 32) that hold a row's 16-byte vectors at 3 a lane."""
+    nvec = channels // _VEC_CHANNELS[dtype]
+    lanes = 1
+    while lanes < 32 and 3 * lanes < nvec:
+        lanes *= 2
+    return lanes
+
+
+def _launch_fwd(table, coords, align_corners, padding_mode, path=None, lanes=None):
+    """K2 on ``path`` ("row" or "scalar"; ``fwd_path``'s choice by default),
+    the row-wide path with ``lanes`` lanes per point (``row_lanes``'s by
+    default)."""
+    global LAUNCHES, ROW_LAUNCHES
+    path = path or fwd_path(table.shape, table.dtype, table.data_ptr())
     G, S, C = coords.shape[0], coords.shape[1], table.shape[-1]
     out = torch.empty((G, S, C), dtype=_out_dtype(table), device=table.device)
+    dims = _dims(table, coords, align_corners, padding_mode)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
-        rc = _kernel_fn("trilerp_sample3d_fwd")(
-            table.data_ptr(), coords.data_ptr(), out.data_ptr(),
-            *_dims(table, coords, align_corners, padding_mode), stream)
+        if path == "row":
+            rc = _kernel_fn("trilerp_sample3d_fwd_rows")(
+                table.data_ptr(), coords.data_ptr(), out.data_ptr(), *dims,
+                lanes or row_lanes(C, table.dtype), stream)
+        elif path == "scalar":
+            rc = _kernel_fn("trilerp_sample3d_fwd")(
+                table.data_ptr(), coords.data_ptr(), out.data_ptr(), *dims, stream)
+        else:
+            raise ValueError(f"path must be 'row' or 'scalar'; got {path!r}")
     if rc != 0:
-        raise RuntimeError(f"trilerp_sample3d launch failed: cudaError {rc}")
+        raise RuntimeError(f"trilerp_sample3d ({path}) launch failed: cudaError {rc}")
     LAUNCHES += 1
+    if path == "row":
+        ROW_LAUNCHES += 1
     return out
 
 

@@ -21,9 +21,13 @@ the two kernels' launches.
 ``_fwd_kernel`` and ``_bwd_kernel``): every level's trilinear samples,
 channels-first, in one launch of ``csrc/multilevel_gather3d.cu`` (K4), with
 K4-bwd as its autograd backward (d_tables, and d_coords when the
-coordinates require grad).  Its plain version is
-``fused_multilevel_gather_plain``; ``MULTI_LAUNCHES`` and
-``MULTI_BWD_LAUNCHES`` count the two kernels' launches.
+coordinates require grad).  K4 has two paths, picked by ``multi_fwd_path``:
+rows of whole 16-byte vectors at 16-byte aligned tables (the deformable
+attention's C = 24, bf16 and float32) take the row-wide kernel, which reads
+each corner row as 16-byte loads; the rest keep the per-channel scalar
+loop.  Its plain version is ``fused_multilevel_gather_plain``;
+``MULTI_LAUNCHES`` and ``MULTI_BWD_LAUNCHES`` count the two kernels'
+launches, ``MULTI_ROW_LAUNCHES`` K4's row-wide path alone.
 """
 from __future__ import annotations
 
@@ -39,12 +43,14 @@ from . import cuda_build
 # reset them to 0
 LAUNCHES = 0
 BWD_LAUNCHES = 0
-# launches of K4 and K4-bwd
+# launches of K4 (both paths) and K4-bwd, and of K4's row-wide path alone
 MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
+MULTI_ROW_LAUNCHES = 0
 MAX_LEVELS = 8  # csrc/multilevel_gather3d.cu:MAX_LEVELS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_VEC_CHANNELS = {torch.float32: 4, torch.bfloat16: 8}  # per 16-byte vector
 _FNS = {}
 
 
@@ -231,16 +237,27 @@ def fused_multilevel_gather_plain(
 
 
 def _multi_fn(name: str):
-    """The C entry point ``multilevel_gather3d_{fwd,bwd}`` with its argtypes."""
+    """The C entry point ``multilevel_gather3d_{fwd,fwd_rows,bwd}`` with its
+    argtypes."""
     if name not in _FNS:
         fn = getattr(cuda_build.load("multilevel_gather3d"), name)
-        n_arrays = 3 if name.endswith("fwd") else 5
+        n_arrays = 5 if name.endswith("bwd") else 3
         fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_arrays
                        + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
+
+
+def multi_fwd_path(channels: int, dtype, data_ptrs=()) -> str:
+    """K4's forward path: "row" for float32 or bfloat16 rows of whole
+    16-byte vectors (``channels`` a multiple of 4 or 8) whose tables all
+    lie at 16-byte aligned ``data_ptrs``; else "scalar"."""
+    n = _VEC_CHANNELS.get(dtype)
+    if n and channels % n == 0 and all(p % 16 == 0 for p in data_ptrs):
+        return "row"
+    return "scalar"
 
 
 def _pointers(tensors):
@@ -252,20 +269,28 @@ def _multi_dims(spatials, coords):
     return (ctypes.c_int * len(dims))(*dims)
 
 
-def _launch_multi_fwd(tables, spatials, channels, coords, align_corners):
-    global MULTI_LAUNCHES
+def _launch_multi_fwd(tables, spatials, channels, coords, align_corners, path=None):
+    """K4 on ``path`` ("row" or "scalar"; ``multi_fwd_path``'s choice by
+    default)."""
+    global MULTI_LAUNCHES, MULTI_ROW_LAUNCHES
     dev, dtype = tables[0].device, tables[0].dtype
+    path = path or multi_fwd_path(channels, dtype, [t.data_ptr() for t in tables])
+    if path not in ("row", "scalar"):
+        raise ValueError(f"path must be 'row' or 'scalar'; got {path!r}")
     G = tables[0].shape[0]
     outs = [torch.empty((G, channels, c.shape[1]), dtype=dtype, device=dev) for c in coords]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _multi_fn("multilevel_gather3d_fwd")(
+        rc = _multi_fn("multilevel_gather3d_fwd_rows" if path == "row" else
+                       "multilevel_gather3d_fwd")(
             len(tables), _pointers(tables), _pointers(coords), _pointers(outs),
             _multi_dims(spatials, coords), G, channels, int(bool(align_corners)),
             _DTYPE_CODE[dtype], stream)
     if rc != 0:
-        raise RuntimeError(f"multilevel_gather3d launch failed: cudaError {rc}")
+        raise RuntimeError(f"multilevel_gather3d ({path}) launch failed: cudaError {rc}")
     MULTI_LAUNCHES += 1
+    if path == "row":
+        MULTI_ROW_LAUNCHES += 1
     return outs
 
 

@@ -4,10 +4,13 @@
         [--test-save DIR] [--max-samples N] [--cfg-options a.b=value ...] [--cpu]
 
 The port of ``tools/test.py`` (reference tools/test.py + apis/test.py),
-lidarseg branch: the model in the config's ``compute_dtype``, its weights
-from ``--checkpoint`` (a ``step_{N}`` directory of the train CLI, or a
-reference ``.pth``; random weights without it, for debugging), evaluated
-over ``data.test`` in order.  It prints one JSON line with the sample count,
+lidarseg branch: float32 parameters, the forward under bf16 autocast when
+the config's ``compute_dtype`` is ``bfloat16`` (as the JAX package serves,
+and as the train CLI's per-epoch evaluation runs), its weights from
+``--checkpoint`` (a ``step_{N}`` directory of the train CLI, loaded
+strictly, or a reference ``.pth``, loaded as mmcv's ``strict=False`` with a
+report; random weights without it, for debugging), evaluated over
+``data.test`` in order.  It prints one JSON line with the sample count,
 the seconds per sample and the launches of each CUDA kernel of the port,
 the IoU table, and one JSON line of results.
 ``--test-save`` writes the nuScenes lidarseg submission: one
@@ -32,6 +35,7 @@ from ..config import load_config, parse_cfg_options
 from ..data.loader import build_dataloader, build_dataset
 from ..engine.checkpoint import load_checkpoint
 from ..engine.eval import evaluate, format_iou_table
+from ..engine.pretrained import format_report, partial_load_torch
 from ..models.detector import build_model
 from ..ops import launch_counts
 from ..utils.semkitti_io import write_nusc_lidarseg_bin
@@ -57,11 +61,13 @@ def main(argv: Optional[List[str]] = None) -> int:
         raise NotImplementedError("SemanticKITTI evaluation (SSC metrics, .label "
                                   "submissions) comes with the KITTI slice")
     m = cfg["model"]
-    dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else torch.float32
-    model = build_model(m, device=device, dtype=dtype, seed=0)
-    if args.checkpoint:
+    compute_dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
+    model = build_model(m, device=device, dtype=torch.float32, seed=0)
+    if args.checkpoint and os.path.isdir(args.checkpoint):
         step = load_checkpoint(args.checkpoint, model)
         print(f"loaded {args.checkpoint} (step {step})")
+    elif args.checkpoint:
+        print(format_report(partial_load_torch(model, args.checkpoint)))
 
     dataset = build_dataset(cfg["data"]["test"], test_mode=True)
     loader = build_dataloader(dataset, samples_per_gpu=1, shuffle=False,
@@ -81,6 +87,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     t0 = time.perf_counter()
     results = evaluate(model, itertools.islice(loader, n), tuple(cfg["occ_size"]),
                        cfg["num_class"], class_names=cfg.get("class_names"), save_cb=save_cb,
+                       compute_dtype=compute_dtype,
                        panoptic=m["pts_bbox_head"].get("type") == "Mask2FormerNuscPanopticOccHead")
     seconds = time.perf_counter() - t0
     if args.test_save:

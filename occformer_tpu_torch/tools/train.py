@@ -12,10 +12,15 @@ step (``engine/train.py:build_train_step``), with the same behaviour:
   ``optimizer_config.cumulative_iters`` as ``accum_steps``;
 * float32 parameters, the forward under bf16 autocast when
   ``compute_dtype`` is ``bfloat16``;
+* the pretrained init the config declares (``engine/pretrained.py``):
+  ``img_backbone.pretrained`` (the torchvision R50 file) and a raw ``.pth``
+  ``--load-from`` (or ``load_from``), loaded non-strictly as mmcv's
+  ``strict=False`` does, with a report of what was loaded, skipped and
+  kept; a missing file keeps the random init with a warning;
 * auto-resume from the newest ``work_dir/ckpts/step_{N}`` (or
   ``--resume-from``), at the start of the epoch that holds step N, as the
-  JAX CLI resumes; ``--load-from`` (or ``load_from``) loads weights only
-  (a checkpoint of this CLI, or a reference ``.pth``), with the step at 0;
+  JAX CLI resumes; a ``--load-from`` checkpoint of this CLI loads its
+  weights strictly, with the step at 0;
 * a checkpoint at each epoch's end and at ``--max-steps``, and on SIGTERM
   or SIGINT a checkpoint and a clean exit;
 * with ``evaluation.interval``, evaluation on ``data.val`` every that many
@@ -29,10 +34,8 @@ step (``engine/train.py:build_train_step``), with the same behaviour:
 The random draws of step k (drop-path masks, the loss's point draws) come
 from a ``torch.Generator`` seeded from (seed, k) alone, so a resumed run
 draws what an uninterrupted one draws.  It runs on ``cuda``, and on the CPU
-only with ``--cpu``.  Not ported yet: the pretrained backbone init (the
-torchvision / mmcls files are not in the repository; the run keeps the
-random init, as the JAX CLI does when a file is missing), data parallelism,
-and the nuScenes / KITTI dataset pipelines (configs run on
+only with ``--cpu``.  Not ported yet: the mmcls EfficientNet-B7 init, data
+parallelism, and the nuScenes / KITTI dataset pipelines (configs run on
 ``SyntheticOccDataset`` through ``--cfg-options``).
 """
 from __future__ import annotations
@@ -53,6 +56,7 @@ from ..data.loader import build_dataloader, build_dataset, prefetch_to_device
 from ..engine.checkpoint import latest_checkpoint, load_checkpoint, save_checkpoint
 from ..engine.eval import evaluate, format_iou_table
 from ..engine.optim import build_optimizer_from_config
+from ..engine.pretrained import format_report, init_from_pretrained
 from ..engine.train import build_loss_cfg, build_train_step
 from ..models.detector import build_model
 from ..ops import launch_counts
@@ -105,13 +109,12 @@ def main(argv: Optional[List[str]] = None) -> int:
     max_epochs = cfg.get("runner", {}).get("max_epochs", 24)
 
     model = build_model(m, device=device, dtype=torch.float32, seed=args.seed).train()
-    if (m["img_backbone"].get("pretrained") or m["img_backbone"].get("init_cfg")):
-        print("WARNING: the pretrained backbone init is not ported yet; "
-              "keeping the random init")
     load_from = args.load_from or cfg.get("load_from")
-    if load_from:
+    for report in init_from_pretrained(model, m, load_from=load_from):
+        print(format_report(report))
+    if load_from and not str(load_from).endswith((".pth", ".pt")):
         lf = latest_checkpoint(load_from) or load_from
-        if os.path.exists(lf):
+        if os.path.isdir(lf):
             load_checkpoint(lf, model)
             print(f"loaded model weights from {lf}")
         else:
@@ -145,12 +148,11 @@ def main(argv: Optional[List[str]] = None) -> int:
                                       samples_per_gpu=1, shuffle=False,
                                       max_points=cfg.get("max_lidar_points", 35000))
         model.eval()
-        with torch.autocast(device.type, dtype=compute_dtype, enabled=compute_dtype is not None):
-            results = evaluate(model, val_loader, tuple(cfg.get("occ_size", (32, 32, 16))),
-                               cfg.get("num_class", 17), class_names=cfg.get("class_names"),
-                               compute_ssc="semkitti" in str(save_best_key).lower(),
-                               panoptic=m["pts_bbox_head"].get("type")
-                               == "Mask2FormerNuscPanopticOccHead")
+        results = evaluate(model, val_loader, tuple(cfg.get("occ_size", (32, 32, 16))),
+                           cfg.get("num_class", 17), class_names=cfg.get("class_names"),
+                           compute_ssc="semkitti" in str(save_best_key).lower(),
+                           panoptic=m["pts_bbox_head"].get("type")
+                           == "Mask2FormerNuscPanopticOccHead", compute_dtype=compute_dtype)
         model.train()
         print(format_iou_table(results))
         return results

@@ -4,9 +4,9 @@ After one train step of the tiny CLI model on the CPU (BatchNorm statistics
 updated, AdamW moments non-zero), a save and a load into a fresh model and
 optimizer give back every parameter, buffer, moment and step bit for bit,
 and the next step of both is the same.  ``max_keep`` pruning, the sweep of
-a killed save's temporary, ``latest_checkpoint`` and a reference ``.pth``
-state dict (strict, step 0) as the JAX package's directory contract has
-them.
+a killed save's temporary and ``latest_checkpoint`` as the JAX package's
+directory contract has them; a reference ``.pth`` state dict through the
+non-strict partial load.
 """
 import os
 
@@ -23,6 +23,7 @@ from occformer_tpu_torch.engine.checkpoint import (
     save_checkpoint,
 )
 from occformer_tpu_torch.engine.optim import build_optimizer
+from occformer_tpu_torch.engine.pretrained import partial_load_torch
 from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
 from occformer_tpu_torch.models.detector import build_model
 
@@ -100,14 +101,30 @@ def test_directory_contract(tmp_path):
 
 
 def test_reference_state_dict_loads_strictly_at_step_zero(tmp_path):
+    """A reference ``.pth`` (an mmcv checkpoint or a bare state dict) loads
+    through ``engine/pretrained.py:partial_load_torch``, as mmcv's
+    non-strict ``load_from``: a complete file fills every tensor and leaves
+    nothing unused; a file whose tensors match nothing is skipped and
+    reported, the model untouched.  ``load_checkpoint`` stays strict for the
+    train CLI's ``step_N`` directories (step 0 here) and refuses a file."""
     src = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.BatchNorm1d(4))
     dst = torch.nn.Sequential(torch.nn.Linear(3, 4), torch.nn.BatchNorm1d(4))
     torch.save({"state_dict": src.state_dict(), "meta": {"epoch": 24}}, tmp_path / "ref.pth")
     torch.save(src.state_dict(), tmp_path / "bare.pth")
     for name in ("ref.pth", "bare.pth"):
-        assert load_checkpoint(str(tmp_path / name), dst) == 0
+        rep = partial_load_torch(dst, str(tmp_path / name))
+        assert rep["loaded_subtrees"] == ["0", "1"] and rep["skipped_subtrees"] == []
+        assert rep["kept_init"] == [] and rep["unused_keys"] == []
         for k, v in src.state_dict().items():
             assert torch.equal(v, dst.state_dict()[k]), k
     torch.save({"state_dict": {"0.weight": np.zeros(1)}}, tmp_path / "bad.pth")
-    with pytest.raises(RuntimeError):  # strict: missing and unexpected keys
+    before = {k: v.clone() for k, v in dst.state_dict().items()}
+    rep = partial_load_torch(dst, str(tmp_path / "bad.pth"))
+    assert rep["skipped_subtrees"] == ["0"] and rep["unused_keys"] == ["0.weight"]
+    assert all(torch.equal(v, before[k]) for k, v in dst.state_dict().items())
+    with pytest.raises(ValueError):
         load_checkpoint(str(tmp_path / "bad.pth"), dst)
+    path = save_checkpoint(str(tmp_path / "ckpts"), src, None, 0)
+    assert load_checkpoint(path, dst) == 0
+    with pytest.raises(RuntimeError):  # strict: missing and unexpected keys
+        load_checkpoint(path, torch.nn.Sequential(torch.nn.Linear(3, 4)))

@@ -103,6 +103,24 @@ def test_test_cli_prints_lidarseg_mean_and_writes_the_submission(tmp_path, capsy
     assert len(preds) == 512 and max(preds) < 5 and min(preds) >= 1  # the valid points
 
 
+def test_test_cli_and_per_epoch_evaluation_agree(tmp_path, capsys):
+    """Both evaluation routes serve float32 parameters under the config's
+    compute dtype (bf16 autocast here, through ``build_eval_step``): the
+    train CLI's per-epoch evaluation and the test CLI on the checkpoint that
+    epoch saved give the same IoU table."""
+    opts = ["--cfg-options", "data.train.num_samples=2", "data.val.num_samples=2",
+            "data.test.num_samples=2", "runner.max_epochs=1", "evaluation.interval=1",
+            "compute_dtype='bfloat16'"]
+    assert train_cli.main([TINY, "--cpu", "--work-dir", str(tmp_path), *opts]) == 0
+    out = capsys.readouterr().out.splitlines()
+    per_epoch = [ln for ln in out if ln.startswith("|")]
+    assert any(ln.startswith("| nuScenes_lidarseg_mean |") for ln in per_epoch)
+    assert test_cli.main([TINY, "--cpu", "--checkpoint", str(tmp_path / "ckpts" / "step_2"),
+                          *opts]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln for ln in lines if ln.startswith("|")] == per_epoch
+
+
 def test_sigterm_during_training_leaves_a_loadable_checkpoint(tmp_path):
     work = tmp_path / "w"
     proc = subprocess.Popen(

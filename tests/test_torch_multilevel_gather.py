@@ -118,3 +118,18 @@ def test_probe_plain_versions_pass_the_jax_probe_checks():
     assert kp.ADD_ONE_LAUNCHES == 0 and kp.ROW_GATHER_LAUNCHES == 0
     with pytest.raises(ValueError):
         kp.row_gather(torch.from_numpy(table), torch.from_numpy(idx)[None])
+
+
+@pytest.mark.parametrize("C,dtype,ptrs,want", [
+    (24, torch.bfloat16, (0, 256, 512), "row"),    # the deformable attention's, bf16
+    (24, torch.float32, (0, 256, 512), "row"),     # ... and float32
+    (8, torch.bfloat16, (), "row"),
+    (4, torch.float32, (), "row"),
+    (6, torch.float32, (), "scalar"),              # 24-byte rows
+    (17, torch.float32, (), "scalar"),
+    (12, torch.bfloat16, (), "scalar"),
+    (24, torch.float16, (), "scalar"),             # not a dtype of the row path
+    (24, torch.bfloat16, (0, 8, 512), "scalar"),   # a table not 16-byte aligned
+])
+def test_multi_fwd_path(C, dtype, ptrs, want):
+    assert k4.multi_fwd_path(C, dtype, ptrs) == want

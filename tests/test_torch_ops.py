@@ -20,6 +20,7 @@ from occformer_tpu.ops.scatter import voxel_scatter_lifted as j_scatter
 from occformer_tpu_torch.ops import geometry as tgeo
 from occformer_tpu_torch.ops.pooling import adaptive_max_pool3d
 from occformer_tpu_torch.ops.sampling import grid_sample_2d, grid_sample_3d, resize_trilinear
+from occformer_tpu_torch.ops import scatter as scatter_mod
 from occformer_tpu_torch.ops.scatter import voxel_scatter_lifted
 
 ATOL = 1e-5
@@ -93,6 +94,58 @@ def test_voxel_scatter_lifted_matches_jax():
     ref = np.asarray(j_scatter(jnp.asarray(depth), jnp.asarray(ctx), jnp.asarray(coords),
                                jnp.asarray(valid), nx))
     np.testing.assert_allclose(got, ref, atol=ATOL)
+
+
+def test_voxel_scatter_function_and_plain_autograd_agree():
+    """The scatter's autograd Function (its gather backward; on the CPU its
+    forward is the plain version) against autograd through the plain
+    version: the same volume and the same depth and context gradients
+    within float32 rounding."""
+    rng = np.random.RandomState(3)
+    B, N, D, fH, fW, C = 2, 3, 5, 4, 6, 7
+    nx = (4, 4, 3)
+    n_rows = B * int(np.prod(nx))
+    depth = _t(rng.rand(B, N, D, fH, fW).astype(np.float32)).requires_grad_(True)
+    ctx = _t(rng.randn(B, N, fH, fW, C).astype(np.float32)).requires_grad_(True)
+    coords = _t(rng.randint(-1, 5, (B, N, D, fH, fW, 3)).astype(np.int32))
+    valid = _t(rng.rand(B, N, D, fH, fW) > 0.2)
+    probe = _t(rng.randn(n_rows, C).astype(np.float32))
+    got = voxel_scatter_lifted(depth, ctx, coords, valid, nx).reshape(n_rows, C)
+    ref = scatter_mod.voxel_scatter_plain(depth, ctx, scatter_mod.voxel_rows(coords, valid, nx),
+                                          n_rows)
+    g_got = torch.autograd.grad((got * probe).sum(), [depth, ctx])
+    g_ref = torch.autograd.grad((ref * probe).sum(), [depth, ctx])
+    for a, b in zip((got, *g_got), (ref, *g_ref)):
+        torch.testing.assert_close(a, b, rtol=0, atol=ATOL)
+
+
+def test_splat_kernel_formulation_matches_the_plain_version():
+    """csrc/voxel_splat.cu's formulation in numpy: the points sorted by
+    voxel (``segments``), each voxel's sum of depth[p] * ctx[pixel p] taken
+    in ascending point order, the dummy row never read; against the plain
+    version, and every segment in ascending point order."""
+    rng = np.random.RandomState(4)
+    B, N, D, fH, fW, C = 2, 2, 4, 3, 5, 6
+    nx = (3, 4, 2)
+    depth = rng.rand(B, N, D, fH, fW).astype(np.float32)
+    ctx = rng.randn(B, N, fH, fW, C).astype(np.float32)
+    coords = _t(rng.randint(-1, 4, (B, N, D, fH, fW, 3)).astype(np.int32))
+    valid = _t(rng.rand(B, N, D, fH, fW) > 0.3)
+    n_rows = B * int(np.prod(nx))
+    rows = scatter_mod.voxel_rows(coords, valid, nx)
+    order, offsets = scatter_mod.segments(rows, n_rows)
+    order, offsets = order.numpy(), offsets.numpy()
+    flat_depth, flat_ctx = depth.reshape(-1), ctx.reshape(-1, C)
+    HW = fH * fW
+    out = np.zeros((n_rows, C), np.float32)
+    for r in range(n_rows):
+        seg = order[offsets[r]:offsets[r + 1]]
+        assert (np.diff(seg) > 0).all()
+        for p in seg:
+            out[r] += flat_depth[p] * flat_ctx[p // (D * HW) * HW + p % HW]
+    ref = scatter_mod.voxel_scatter_plain(_t(depth), _t(ctx), rows, n_rows)
+    np.testing.assert_allclose(out, ref.numpy(), atol=ATOL)
+    assert offsets[-1] == int(valid.sum())  # the dummy row's points lie past the last voxel
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])

@@ -296,6 +296,39 @@ def test_frozen_stem_stops_the_gradient():
     assert net.training and not net.bn1.training and not net.layer2[0].bn1.training
 
 
+@pytest.mark.parametrize("frozen", [0, 2])
+def test_frozen_stages_batchnorms_keep_their_statistics(frozen):
+    """mmdet's ``_freeze_stages`` (port only; the JAX package trains the
+    frozen BatchNorms): after a train-mode forward, the BatchNorms of the
+    stem and of ``layer1`` ... ``layer{frozen}`` hold their running
+    statistics bit for bit, the later ones moved, and the frozen stem's
+    output equals an eval-mode stem's."""
+    torch.manual_seed(0)
+    net = ResNet(depth=18, frozen_stages=frozen)
+    for m in net.modules():  # running statistics away from (0, 1)
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.uniform_(-0.5, 0.5)
+            m.running_var.uniform_(0.5, 2.0)
+    before = {k: v.clone() for k, v in net.state_dict().items() if "running" in k}
+    x = torch.randn(2, 3, 32, 32)
+    net.train()
+    assert net.training and not net.bn1.training
+    net(x)
+    frozen_prefixes = ("bn1.",) + tuple(f"layer{i}." for i in range(1, frozen + 1))
+    for k, v in net.state_dict().items():
+        if "running" not in k:
+            continue
+        if k.startswith(frozen_prefixes):
+            assert torch.equal(v, before[k]), k
+        else:
+            assert not torch.equal(v, before[k]), k
+    assert net.layer3[0].bn1.training and net.layer2[0].bn1.training == (frozen < 2)
+    stem = torch.nn.functional.relu(net.bn1(net.conv1(x)))
+    net.eval()
+    torch.testing.assert_close(stem, torch.nn.functional.relu(net.bn1(net.conv1(x))),
+                               rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # the port's own train steps
 # ---------------------------------------------------------------------------

@@ -13,8 +13,8 @@ K2-bwd's segmented path (``csrc/trilerp_sample3d.cu``) has no CPU mode; a
 torch model of its formulation here (corner keys and weights with the
 kernel's ``make_axis`` arithmetic, a stable sort by key, segment sums in
 ascending point order) pins the index and weight rules it follows against
-autograd of the plain version, and ``bwd_path``, the wrapper's choice of
-path, is tested as the pure function it is.
+autograd of the plain version, and ``bwd_path`` and ``fwd_path``, the
+wrapper's choices of path, are tested as the pure functions they are.
 """
 import numpy as np
 import pytest
@@ -209,3 +209,30 @@ def test_bwd_path_threshold_and_limits():
     assert k2.bwd_path((2, 1024, 1024, 1024, m), 10) == "narrow"    # rows past int32
     assert k2.bwd_path((1, 8, 8, 4, m), 2 ** 28) == "narrow"        # entries past int32
     assert k2.bwd_path((1, 8, 8, 4, m), 2 ** 28 - 1) == "segmented"
+
+
+@pytest.mark.parametrize("shape,dtype,ptr,want", [
+    ((1, 128, 128, 16, 192), torch.bfloat16, 0, "row"),      # per-layer route: the feature
+    ((1, 16, 16, 8, 48), torch.bfloat16, 0, "row"),          # the tiny test model's feature
+    ((1, 8, 8, 4, 8), torch.bfloat16, 0, "row"),             # one 16-byte vector a row
+    ((2, 8, 8, 4, 4), torch.float32, 0, "row"),
+    ((2, 8, 8, 4, 40), torch.float32, 256, "row"),
+    ((10, 128, 128, 16, 17), torch.float32, 0, "scalar"),    # batched route: candidates
+    ((170, 128, 128, 16, 1), torch.float32, 0, "scalar"),    # batched route: random fill
+    ((10, 128, 128, 16, 100), torch.bfloat16, 0, "scalar"),  # batched route: match volumes
+    ((1, 8, 8, 4, 12), torch.bfloat16, 0, "scalar"),         # 24-byte rows
+    ((17, 256, 256, 32, 1), torch.uint8, 0, "scalar"),       # the GT masks
+    ((1, 8, 8, 4, 16), torch.uint8, 0, "scalar"),            # uint8 rows stay scalar
+    ((1, 8, 8, 4, 192), torch.bfloat16, 8, "scalar"),        # a table not 16-byte aligned
+    ((2, 1024, 1024, 64, 16), torch.bfloat16, 0, "row"),     # a table of 2^30 elements
+    ((1, 1024, 1024, 64, 32), torch.bfloat16, 0, "scalar"),  # a table past int32 elements
+])
+def test_fwd_path_at_the_loss_shapes_and_limits(shape, dtype, ptr, want):
+    assert k2.fwd_path(shape, dtype, ptr) == want
+
+
+@pytest.mark.parametrize("C,dtype,lanes", [(192, torch.bfloat16, 8), (8, torch.bfloat16, 1),
+                                           (48, torch.bfloat16, 2), (24, torch.float32, 2),
+                                           (1024, torch.bfloat16, 32)])
+def test_row_lanes_hold_three_vectors_a_lane(C, dtype, lanes):
+    assert k2.row_lanes(C, dtype) == lanes

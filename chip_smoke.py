@@ -32,22 +32,26 @@ Phases, each printing one JSON line:
                  events, median of 30 after warm-up) beside the one PyTorch
                  call that computes the same function, where there is one
                  (each backward checked through the autograd Function the
-                 train step runs, timed at its launch alone):
+                 train step runs, timed at its launch alone; the redesigned
+                 forwards also by the profiler's device time):
                  K1 (ms_deform_gather_3d) and K1-bwd at the pixel decoder's
-                 shapes in float32 and bfloat16, K1-bwd at uniform and at
-                 local locations; K2 (trilerp_sample) and K2-bwd at the
-                 per-layer loss's candidate readout (bf16 feature table,
-                 border, align_corners=False; K2's row-wide path, two calls
-                 held bit-equal, and its scalar path timed beside it; K2's
-                 scalar path timed at the per-slot GT masks too), K2-bwd's
-                 segmented path also
+                 shapes in float32 and bfloat16, at uniform and at local
+                 locations (K1's row-wide path, two calls held bit-equal,
+                 and its scalar path held and timed beside it); K2
+                 (trilerp_sample) and K2-bwd at the per-layer loss's
+                 candidate readout (bf16 feature table, border,
+                 align_corners=False; K2's row-wide path, two calls held
+                 bit-equal, and its narrow ("scalar") path timed beside it;
+                 the narrow path at the per-slot GT masks and the GT table
+                 too, beside F.grid_sample with and without the bool ->
+                 float cast), K2-bwd's segmented path also
                  at its random fill, two of its calls held bit-equal, and
                  its narrow path timed at the candidate readout too (the
                  kernel the segmented one replaced there; the sweep over row
                  widths behind the path threshold is tools/time_backwards.py
                  --sweep); K2 on the per-slot GT masks and a zeros /
-                 align_corners=True case; K2 / K2-bwd (its narrow
-                 path) at the batched loss's three readouts; K3
+                 align_corners=True case; K2 (its narrow path) / K2-bwd
+                 (its narrow path) at the batched loss's three readouts; K3
                  (sample_id_masks) at the batched loss's three GT reads and
                  a zeros / align_corners=True case on a 40x24x12 grid; the
                  K4 parity gate, K4 at its small shapes also by device time,
@@ -87,9 +91,9 @@ In phases 0, 2, 6 and 7 and in the K4 parity gate every kernel's launch
 count is set to 0 just before the path is driven and read just after; each
 must match its per-frame, per-step or per-run count.  The CLIs report their
 own counts, which must show their kernels.  Then the card's name and power
-limit (nvidia-smi), one JSON line of kernel records (K2's and K2-bwd's two
-paths as two records each; S1, the LSS splat, which has no Pallas original,
-last), and last ``{"ok": true, "device": {...}}``.  Any
+limit (nvidia-smi), one JSON line of kernel records (K1's, K2's and K2-bwd's
+two paths as two records each; S1, the LSS splat, which has no Pallas
+original, last), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
 """
@@ -116,17 +120,19 @@ CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r5
 # both of its paths, "K2-bwd.narrow" the narrow one: the per-layer route's
 # C = 192 feature takes the segmented path, the batched route's C = 17 and
 # C = 1 per-slot volumes the narrow one
-_NONE = {"K1": 0, "K1-bwd": 0, "K2": 0, "K2.row": 0, "K2-bwd": 0, "K2-bwd.narrow": 0, "K3": 0,
-         "K4": 0, "K4.row": 0, "K4-bwd": 0, "P1": 0, "P2": 0, "S1": 0}
-SERVE_LAUNCHES = dict(_NONE, K1=6, S1=1)
+_NONE = {"K1": 0, "K1.row": 0, "K1-bwd": 0, "K2": 0, "K2.row": 0, "K2-bwd": 0,
+         "K2-bwd.narrow": 0, "K3": 0, "K4": 0, "K4.row": 0, "K4-bwd": 0, "P1": 0, "P2": 0,
+         "S1": 0}
+# "K1.row": the deformable attention's hd = 24 rows take K1's row-wide path
+SERVE_LAUNCHES = dict(_NONE, **{"K1": 6, "K1.row": 6, "S1": 1})
 # "K2.row": the per-layer route's 30 readouts of the bf16 C = 192 feature
-# take K2's row-wide path, its 30 GT-mask readouts (bool, C = 1) the scalar
-# one; the batched route's C = 100 bf16 and C = 17 / 1 float32 volumes all
-# take the scalar path
-TRAIN_LAUNCHES = {"off": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 60, "K2.row": 30,
-                                        "K2-bwd": 20, "S1": 1}),
-                  "on": dict(_NONE, **{"K1": 6, "K1-bwd": 6, "K2": 3, "K2-bwd": 2,
-                                       "K2-bwd.narrow": 2, "K3": 3, "S1": 1})}
+# take K2's row-wide path, its 30 GT-mask readouts (bool, C = 1) the narrow
+# ("scalar") one; the batched route's C = 100 bf16 and C = 17 / 1 float32
+# volumes all take the narrow path
+TRAIN_LAUNCHES = {"off": dict(_NONE, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 60,
+                                        "K2.row": 30, "K2-bwd": 20, "S1": 1}),
+                  "on": dict(_NONE, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 3,
+                                       "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3, "S1": 1})}
 # the K4 parity gate: bench.py's shapes at both align_corners and the
 # flagship shapes, one forward (the row-wide path: C = 24 rows) and one
 # backward each; the probe: P1 and P2 once
@@ -212,13 +218,15 @@ def compare(got, ref, rel, name):
 
 
 def phase_k1():
-    """K1 and K1-bwd against the plain version and its autograd, K1-bwd at
-    the uniform and at the local locations.  Tolerances relative to max
-    |plain|: float32 1e-5 forward and 1e-4 backward (the same float32 sums in
-    another order; the backward's d_value takes 8 * hd / 4 vector reductions
-    per sample in an order that changes from run to run), bfloat16 1e-2
-    (outputs rounded to bf16; the plain version runs in float32 on the same
-    bf16-rounded inputs)."""
+    """K1 and K1-bwd against the plain version and its autograd, each at the
+    uniform and at the local locations: K1 on its row-wide path (the
+    flagship's), two calls held bit-equal, and on its scalar path beside it,
+    each timed by CUDA events and by the profiler's device time.
+    Tolerances relative to max |plain|: float32 1e-5 forward and 1e-4
+    backward (the same float32 sums in another order; the backward's d_value
+    takes 8 * hd / 4 vector reductions per sample in an order that changes
+    from run to run), bfloat16 1e-2 (outputs rounded to bf16; the plain
+    version runs in float32 on the same bf16-rounded inputs)."""
     import torch
 
     from occformer_tpu_torch.ops import trilerp_fused as k1
@@ -227,17 +235,38 @@ def phase_k1():
     fwd, bwd = {}, {}
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         value, shapes, locs, w = flagship_gather_inputs(dtype, local=False)
-        got = k1.ms_deform_gather_3d(value, shapes, locs, w)
-        torch.cuda.synchronize()
-        ref = k1.ms_deform_gather_3d_plain(value.float(), shapes, locs, w.float())
+        lv, _, ll, lw = flagship_gather_inputs(dtype, local=True)
+        check(k1.ms_deform_fwd_path(value.shape[-1], dtype, (value.data_ptr(),)) == "row",
+              f"K1 {name}: not the row-wide path")
         rel = 1e-5 if dtype == torch.float32 else 1e-2
-        r = compare(got, ref, rel, f"K1 {name}")
+        r = {"path": "row", "lanes": k1.ROW_LANES, "samples_per_lane": k1.ROW_SAMPLES_PER_LANE}
+        for where, (v_, l_, w_) in (("", (value, locs, w)), ("local_locs ", (lv, ll, lw))):
+            got = k1.ms_deform_gather_3d(v_, shapes, l_, w_)
+            again = k1.ms_deform_gather_3d(v_, shapes, l_, w_)
+            torch.cuda.synchronize()
+            check(torch.equal(got, again), f"K1 {name} {where}row path: two calls differ")
+            ref = k1.ms_deform_gather_3d_plain(v_.float(), shapes, l_, w_.float())
+            r[where + "values"] = compare(got, ref, rel, f"K1 {name} {where}row path")
+            r[where + "scalar_path"] = compare(k1._launch_fwd(v_, shapes, l_, w_, path="scalar"),
+                                               ref, rel, f"K1 {name} {where}scalar path")
+            del again, ref
+        got = k1.ms_deform_gather_3d(value, shapes, locs, w)
+        r["bit_identical_calls"] = True
+        r["max_abs_err"] = max(r[k]["max_abs_err"] for k in ("values", "local_locs values"))
         r["share_outside_01"] = ((locs < 0) | (locs > 1)).any(-1).float().mean().item()
         r["kernel_ms"] = time_cuda(lambda: k1.ms_deform_gather_3d(value, shapes, locs, w))
+        r["device_ms"] = device_ms(lambda: k1.ms_deform_gather_3d(value, shapes, locs, w))
         r["plain_ms"] = time_cuda(
             lambda: k1.ms_deform_gather_3d_plain(value, shapes, locs, w), iters=20)
-        lv, _, ll, lw = flagship_gather_inputs(dtype, local=True)
         r["kernel_ms_local_locs"] = time_cuda(lambda: k1.ms_deform_gather_3d(lv, shapes, ll, lw))
+        # the scalar path (one thread per output channel, the K1 the
+        # row-wide path replaced here) on the same inputs
+        r["scalar_path_ms"] = time_cuda(lambda: k1._launch_fwd(value, shapes, locs, w,
+                                                               path="scalar"))
+        r["scalar_path_device_ms"] = device_ms(lambda: k1._launch_fwd(value, shapes, locs, w,
+                                                                      path="scalar"))
+        r["scalar_path_ms_local_locs"] = time_cuda(lambda: k1._launch_fwd(lv, shapes, ll, lw,
+                                                                          path="scalar"))
         B, Nq, H, L, P = w.shape
         hd = value.shape[-1]
         # every input read once, the output written once; the function needs
@@ -245,6 +274,9 @@ def phase_k1():
         # folded into the 8 corner weights once per sample
         r.update(bound(nbytes(value, locs, w, got), B * Nq * H * L * P * hd * 8 * 2))
         r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
+        # the corner rows the gather reads (from L2: value fits in it), the
+        # traffic that sets the row-wide path's pace
+        r["corner_row_bytes"] = B * Nq * H * L * P * 8 * hd * value.element_size()
         fwd[name] = r
 
         # K1-bwd, through the autograd Function the train step runs, at the
@@ -291,12 +323,15 @@ def phase_k2():
     """K2 and K2-bwd against the plain version (F.grid_sample on the permuted
     table) and its autograd, at the loss's shapes: K2's row-wide path at the
     per-layer route's candidate readout (bf16 feature, C = 192), two calls
-    held bit-equal, its scalar path beside it there and at the per-slot GT
-    masks; K2-bwd's segmented path at the candidate and random-fill
-    readouts, with two calls held bit-equal, and its narrow path timed at
-    the candidates beside it.  Tolerances relative to max
-    |plain|: bfloat16 1e-2 (bf16 output), float32 1e-5 forward and 1e-4
-    backward (float32 sums in another order)."""
+    held bit-equal, its narrow ("scalar") path beside it there, at the
+    per-slot GT masks (C = 1) and at the GT table (C = 17), where the kernel
+    and F.grid_sample are also timed by the profiler's device time, the
+    library call both on a float copy made beforehand and with the bool ->
+    float cast included; K2-bwd's segmented
+    path at the candidate and random-fill readouts, with two calls held
+    bit-equal, and its narrow path timed at the candidates beside it.
+    Tolerances relative to max |plain|: bfloat16 1e-2 (bf16 output), float32
+    1e-5 forward and 1e-4 backward (float32 sums in another order)."""
     import torch
     import torch.nn.functional as F
 
@@ -319,13 +354,18 @@ def phase_k2():
     fwd["bit_identical_calls"] = True
     fwd["lanes"] = k2.row_lanes(table.shape[-1], table.dtype)
     fwd["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(table, coords, False, "border"))
+    fwd["device_ms"] = device_ms(lambda: k2.trilerp_sample(table, coords, False, "border"))
     fwd["plain_ms"] = time_cuda(lambda: k2.trilerp_sample_plain(table, coords, False, "border"))
     vol = table.permute(0, 4, 1, 2, 3).contiguous()  # the library call's layout
     grid = coords.flip(-1).reshape(1, -1, 1, 1, 3).to(torch.bfloat16)
-    fwd["library_ms"] = time_cuda(lambda: F.grid_sample(
-        vol, grid, mode="bilinear", padding_mode="border", align_corners=False))
-    # the scalar path (one thread per channel, the K2 the row-wide path
-    # replaced at C = 192) on the same inputs
+
+    def library():
+        return F.grid_sample(vol, grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    fwd["library_ms"] = time_cuda(library)
+    fwd["library_device_ms"] = device_ms(library)
+    # the narrow path (the one fwd_path calls "scalar") on the same inputs
     fwd["scalar_path"] = compare(k2._launch_fwd(table, coords, False, "border", path="scalar"),
                                  ref, 1e-2, "K2 scalar path candidates")
     fwd["scalar_path_ms"] = time_cuda(lambda: k2._launch_fwd(
@@ -343,16 +383,57 @@ def phase_k2():
     # zeros / align_corners=True case on a float32 table
     gt = torch.rand((17, 256, 256, 32, 1), device=dev, generator=g) < 0.06
     rc = torch.rand((17, 12544, 3), device=dev, generator=g) * 2 - 1
+    check(k2.fwd_path(gt.shape, torch.uint8, gt.data_ptr()) == "scalar",
+          "K2 per-slot GT: not the narrow path")
     gt_out = k2.trilerp_sample(gt, rc, False, "border")
+    again = k2.trilerp_sample(gt, rc, False, "border")
     rec = compare(gt_out, k2.trilerp_sample_plain(gt, rc, False, "border"), 1e-5,
                   "K2 per-slot GT")
+    check(torch.equal(gt_out, again), "K2 narrow path: two calls differ")
+    rec["bit_identical_calls"] = True
+    rec["points_per_lane"] = k2.NARROW_POINTS_PER_LANE
     rec["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(gt, rc, False, "border"))
+    rec["device_ms"] = device_ms(lambda: k2.trilerp_sample(gt, rc, False, "border"))
     rec["plain_ms"] = time_cuda(lambda: k2.trilerp_sample_plain(gt, rc, False, "border"))
     gt_vol = gt.permute(0, 4, 1, 2, 3).float().contiguous()  # the library call's input
     gt_grid = rc.flip(-1).reshape(17, -1, 1, 1, 3).contiguous()
-    rec["library_ms"] = time_cuda(lambda: F.grid_sample(
-        gt_vol, gt_grid, mode="bilinear", padding_mode="border", align_corners=False))
+
+    def gt_library():
+        return F.grid_sample(gt_vol, gt_grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    def gt_library_with_cast():  # the kernel reads the bool masks as they are
+        return F.grid_sample(gt.permute(0, 4, 1, 2, 3).float(), gt_grid, mode="bilinear",
+                             padding_mode="border", align_corners=False)
+
+    rec["library_ms"] = time_cuda(gt_library)
+    rec["library_device_ms"] = device_ms(gt_library)
+    rec["library_with_cast_ms"] = time_cuda(gt_library_with_cast)
+    rec["library_with_cast_device_ms"] = device_ms(gt_library_with_cast)
     rec.update(bound(nbytes(gt, rc, gt_out), rc.shape[0] * rc.shape[1] * 8 * 2))
+    del again
+    # the per-layer route's GT table (bool [1, 256, 256, 32, 17], the 17
+    # class slots as channels) at the 150528 candidates, the narrow path too
+    gtt = torch.rand((1, 256, 256, 32, 17), device=dev, generator=g) < 0.06
+    gtt_out = k2.trilerp_sample(gtt, coords, False, "border")
+    rt = compare(gtt_out, k2.trilerp_sample_plain(gtt, coords, False, "border"), 1e-5,
+                 "K2 per-layer GT table")
+    rt["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(gtt, coords, False, "border"))
+    rt["device_ms"] = device_ms(lambda: k2.trilerp_sample(gtt, coords, False, "border"))
+    rt["plain_ms"] = time_cuda(lambda: k2.trilerp_sample_plain(gtt, coords, False, "border"),
+                               iters=10)
+    gtt_vol = gtt.permute(0, 4, 1, 2, 3).float().contiguous()
+    gtt_grid = coords.flip(-1).reshape(1, -1, 1, 1, 3).contiguous()
+    rt["library_ms"] = time_cuda(lambda: F.grid_sample(
+        gtt_vol, gtt_grid, mode="bilinear", padding_mode="border", align_corners=False))
+    rt["library_device_ms"] = device_ms(lambda: F.grid_sample(
+        gtt_vol, gtt_grid, mode="bilinear", padding_mode="border", align_corners=False))
+    rt["library_with_cast_device_ms"] = device_ms(lambda: F.grid_sample(
+        gtt.permute(0, 4, 1, 2, 3).float(), gtt_grid, mode="bilinear", padding_mode="border",
+        align_corners=False))
+    rt.update(bound(nbytes(gtt, coords, gtt_out), coords.shape[1] * 17 * 8 * 2))
+    rec["gt_table"] = rt
+    del gtt, gtt_out, gtt_vol
     fwd["per_slot_gt"] = rec
     del gt_vol, gt_out
     t32 = torch.randn((2, 64, 64, 8, 40), device=dev, generator=g)
@@ -432,9 +513,12 @@ def phase_k2_batched():
     the per-query match volumes [10, 128, 128, 16, 100] bf16 at 50176 points
     each (forward only, detached), and the float32 per-slot volumes at the
     150528 candidates ([10, ..., 17]) and at the 12544 random-fill points of
-    each slot ([170, ..., 1]).  Both backwards take K2-bwd's narrow path,
-    timed beside the plain version's autograd and autograd through
-    F.grid_sample.  Tolerances as in phase_k2."""
+    each slot ([170, ..., 1]).  All three forwards take K2's narrow
+    ("scalar") path, two calls held bit-equal, timed by CUDA events and by
+    the profiler's device time beside F.grid_sample on a channels-first
+    copy.  Both backwards take K2-bwd's narrow path, timed beside the plain
+    version's autograd and autograd through F.grid_sample.  Tolerances as in
+    phase_k2."""
     import torch
     import torch.nn.functional as F
 
@@ -450,19 +534,30 @@ def phase_k2_batched():
         table = torch.randn(tshape, device=dev, generator=g).to(dtype)
         coords = torch.rand((*cshape, 3), device=dev, generator=g) * 2 - 1
         got = k2.trilerp_sample(table, coords, False, "border")
+        again = k2.trilerp_sample(table, coords, False, "border")
         torch.cuda.synchronize()
         rel = 1e-2 if dtype == torch.bfloat16 else 1e-5
         r = compare(got, k2.trilerp_sample_plain(table, coords, False, "border"), rel,
                     f"K2 batched {name}")
+        check(torch.equal(got, again), f"K2 batched {name}: two calls differ")
+        del again
         r["path"] = k2.fwd_path(table.shape, table.dtype, table.data_ptr())
+        check(r["path"] == "scalar", f"K2 batched {name}: not the narrow path")
+        r["vec"] = k2.narrow_vec(tshape[-1], dtype, table.data_ptr())
+        r["lanes"] = k2.narrow_lanes(tshape[-1], r["vec"])
         r["kernel_ms"] = time_cuda(lambda: k2.trilerp_sample(table, coords, False, "border"))
+        r["device_ms"] = device_ms(lambda: k2.trilerp_sample(table, coords, False, "border"))
         r["plain_ms"] = time_cuda(
             lambda: k2.trilerp_sample_plain(table, coords, False, "border"), iters=10)
         f_vol = table.permute(0, 4, 1, 2, 3).contiguous()
         f_grid = coords.flip(-1).reshape(cshape[0], -1, 1, 1, 3).to(dtype).contiguous()
-        r["library_ms"] = time_cuda(lambda: F.grid_sample(
-            f_vol, f_grid, mode="bilinear", padding_mode="border", align_corners=False),
-            iters=10)
+
+        def library():
+            return F.grid_sample(f_vol, f_grid, mode="bilinear", padding_mode="border",
+                                 align_corners=False)
+
+        r["library_ms"] = time_cuda(library, iters=10)
+        r["library_device_ms"] = device_ms(library, iters=10)
         del f_vol, f_grid
         S, C = cshape[0] * cshape[1], tshape[-1]
         r.update(bound(nbytes(table, coords, got), S * C * 8 * 2))
@@ -808,13 +903,16 @@ def phase_tiny():
     gpu = build_model(cfg, device="cuda")
     gpu.load_state_dict(cpu.state_dict())
     batch = tiny_cfg.make_batch(np.random.RandomState(0))
-    before = launches()["K1"]
+    before = launches()
     with torch.inference_mode():
         ref = cpu({k: torch.from_numpy(v) for k, v in batch.items()})
         got = gpu({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
-    rec = {"phase": "tiny", "k1_launches": launches()["K1"] - before}
-    check(rec["k1_launches"] == 2, f"tiny: K1 launched {rec['k1_launches']} times, want 2")
+    n = {k: v - before[k] for k, v in launches().items()}
+    # 2 deformable encoder layers; hd = 12 float32 rows take K1's row-wide path
+    rec = {"phase": "tiny", "k1_launches": n["K1"], "k1_row_launches": n["K1.row"]}
+    check(n["K1"] == n["K1.row"] == 2, f"tiny: K1 launched {n['K1']} times "
+          f"({n['K1.row']} on the row-wide path), want 2 (2)")
     for k, r in ref.items():
         g = got[k].float().cpu()
         err = (g - r).abs().max().item()
@@ -928,17 +1026,17 @@ def phase_tiny_train(mxu_readout="off", accum_steps=1):
            "launches": n_got, "metrics_cuda": m_got, "metrics_cpu": m_ref,
            "metrics_cpu_spread": spread_m, "cpu_moves_by_image_scale": moves}
     failed = []
-    # 2 deformable encoder layers, 4 supervised decoder outputs; the tiny
-    # feature's C = 48 (float32) takes K2's row-wide path and K2-bwd's
-    # segmented one, the GT masks (C = 5 and 1) K2's scalar path; on the
-    # batched route the match volumes' C = 8 queries take K2's row-wide
-    # path, the per-slot volumes (C = 5 and 1) K2's scalar path and K2-bwd's
-    # narrow one
-    per_micro = (dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 3, "K2.row": 1, "K2-bwd": 2,
-                                "K2-bwd.narrow": 2, "K3": 3, "S1": 1})
+    # 2 deformable encoder layers (hd = 12 float32: K1's row-wide path), 4
+    # supervised decoder outputs; the tiny feature's C = 48 (float32) takes
+    # K2's row-wide path and K2-bwd's segmented one, the GT masks (C = 5 and
+    # 1) K2's narrow path; on the batched route the match volumes' C = 8
+    # queries take K2's row-wide path, the per-slot volumes (C = 5 and 1)
+    # K2's narrow path and K2-bwd's narrow one
+    per_micro = (dict(_NONE, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 3, "K2.row": 1,
+                                "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3, "S1": 1})
                  if loss_cfg.batched_readout else
-                 dict(_NONE, **{"K1": 2, "K1-bwd": 2, "K2": 24, "K2.row": 12, "K2-bwd": 8,
-                                "S1": 1}))
+                 dict(_NONE, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 24, "K2.row": 12,
+                                "K2-bwd": 8, "S1": 1}))
     if n_got != {k: v * accum_steps for k, v in per_micro.items()}:
         failed.append(f"launches {n_got}")
     for k, r in m_ref.items():
@@ -1484,8 +1582,9 @@ def phase_cli():
 # the port's CUDA kernels by function name -> the kernel they belong to;
 # K2-bwd's segmented path runs the seven K2-bwd functions per launch, and
 # its gather (one per launch) counts the launches
-PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_bwd_kernel": "K1-bwd",
-                "trilerp_fwd_kernel": "K2", "trilerp_fwd_rows_kernel": "K2.row",
+PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kernel": "K1.row",
+                "ms_deform_gather3d_bwd_kernel": "K1-bwd",
+                "trilerp_fwd_narrow_kernel": "K2", "trilerp_fwd_rows_kernel": "K2.row",
                 "trilerp_bwd_kernel": "K2-bwd.narrow",
                 "seg_count_kernel": "K2-bwd", "scan_tiles_kernel": "K2-bwd",
                 "scan_sums_kernel": "K2-bwd", "add_tile_offsets_kernel": "K2-bwd",
@@ -1575,23 +1674,38 @@ def profile(run, outer, top=12):
 def kernel_records(kern, probe, det, paths):
     """One record per kernel path; ``paths`` maps each driven path (serve,
     train, train_batched, the K4 gate, the probe) to its launch counts, and
-    a record's ``launches`` sums them.  K2 and K2-bwd each have two paths,
-    two records; K4's scalar path is launched on no driven path (it is held
-    against the plain version in the kernels phase)."""
+    a record's ``launches`` sums them.  K1, K2 and K2-bwd each have two
+    paths, two records (K1's scalar path is launched on no driven path: it
+    is held against the plain version and timed in the kernels phase; K2's
+    "scalar" record is its narrow kernel at the GT masks, with the GT table
+    and the batched readouts under ``readouts``); K4's scalar path is launched on
+    no driven path either.  Records carry the profiler's device ms beside
+    the event times where the kernels phase took them."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
-    paths = {p: dict(n, **{"K2.scalar": n["K2"] - n["K2.row"],
+    paths = {p: dict(n, **{"K1.scalar": n["K1"] - n["K1.row"],
+                           "K2.scalar": n["K2"] - n["K2.row"],
                            "K2-bwd.segmented": n["K2-bwd"] - n["K2-bwd.narrow"]})
              for p, n in paths.items()}
+    k1 = kern["K1"]["bf16"]
+    k1_scalar = dict(k1, max_abs_err=k1["scalar_path"]["max_abs_err"],
+                     kernel_ms=k1["scalar_path_ms"], device_ms=k1["scalar_path_device_ms"])
+    readouts = dict(kern["K2"]["batched"], gt_table=kern["K2"]["per_slot_gt"]["gt_table"])
+    k2_narrow = dict(kern["K2"]["per_slot_gt"], readouts={
+        name: {k: r[k] for k in ("max_abs_err", "kernel_ms", "device_ms", "plain_ms",
+                                 "bound_ms", "library_ms", "library_device_ms")}
+        for name, r in readouts.items()})
     rows = [
-        ("ms_deform_gather_3d", "", "K1", src + "ms_deform_gather3d.cu",
-         "occformer_tpu/ops/trilerp_fused.py:284", kern["K1"]["bf16"]),
+        ("ms_deform_gather_3d", "row", "K1.row", src + "ms_deform_gather3d.cu",
+         "occformer_tpu/ops/trilerp_fused.py:284", k1),
+        ("ms_deform_gather_3d", "scalar", "K1.scalar", src + "ms_deform_gather3d.cu",
+         "occformer_tpu/ops/trilerp_fused.py:284", k1_scalar),
         ("ms_deform_gather_3d_bwd", "", "K1-bwd", src + "ms_deform_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:354", kern["K1-bwd"]["bf16"]),
         ("trilerp_sample", "row", "K2.row", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:476", kern["K2"]),
         ("trilerp_sample", "scalar", "K2.scalar", src + "trilerp_sample3d.cu",
-         "occformer_tpu/ops/trilerp.py:476", kern["K2"]["per_slot_gt"]),
+         "occformer_tpu/ops/trilerp.py:476", k2_narrow),
         ("trilerp_sample_bwd", "segmented", "K2-bwd.segmented", src + "trilerp_sample3d.cu",
          "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]),
         ("trilerp_sample_bwd", "narrow", "K2-bwd.narrow", src + "trilerp_sample3d.cu",
@@ -1618,7 +1732,8 @@ def kernel_records(kern, probe, det, paths):
              **{f"launches_{p}": n[key] for p, n in paths.items()},
              "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "library_ms": r.get("library_ms")}
+             "library_ms": r.get("library_ms"),
+             **{k: r[k] for k in ("device_ms", "library_device_ms", "readouts") if k in r}}
             for name, path, key, source, replaces, r in rows]
 
 

@@ -15,13 +15,43 @@
 // F.grid_sample(align_corners=False, padding_mode="zeros"): a corner outside
 // its level contributes zero.
 //
-// Design: the 3D analogue of Deformable-DETR's ms_deform_attn im2col kernel.
 // The one-hot matmuls, 16-row windows, escape pass and padded meta rows of
 // the Pallas kernel exist only because the TPU gathers badly; here every
-// thread gathers directly.  One thread per output element (b, q, h, c), with
-// c fastest so that neighbouring threads read neighbouring channels of the
-// same corner; a loop over L x P computes each sample's 8 corner indices and
-// weights once, the sum is kept in float32 and written once.
+// thread gathers directly.  The forward has two paths;
+// ops/trilerp_fused.py:ms_deform_fwd_path picks one by the row and the
+// alignment of value and out:
+// * Row-wide (ms_deform_gather3d_rows_kernel; rows of whole 16-byte
+//   vectors at a 16-byte aligned value and out: the flagship's hd = 24 in
+//   bf16 and float32).  The first design (below) ran one thread per output
+//   channel: the 24 threads of a (b, q, h) each re-read its 36 location
+//   floats and 12 weights, redid the 12 samples' unnormalize, floor and
+//   corner weights, and loaded 2 bytes a corner, a warp straddling two
+//   heads' rows; 1.25 ms bf16 at the flagship, 1.9% of its bound.  Here a
+//   group of `lanes` lanes (ROW_LANES) takes one output row (b, q, h) and
+//   its lanes own whole samples of the L x P: a lane reads a sample's
+//   location and attention weight once, folds the weight into the 8 corner
+//   weights, issues the 16-byte loads of all 8 corner rows (3 vectors a
+//   bf16 row, 6 a float32 one, in batches of 3) before their FMAs and sums
+//   in float32 registers; the group adds its lanes' sums with a fixed
+//   shuffle butterfly (two calls give the same bits) and stores the row once
+//   as 16-byte vectors.  Lanes per row x samples a lane loads at a time, from
+//   occformer_tpu_torch/tools/time_backwards.py --sweep at the flagship's
+//   shapes on an H100 80GB HBM3 at 700 W, ms bf16 uniform / local, float32
+//   uniform / local locations: 1x1 0.410 / 0.234-0.248 / 0.794-0.822 /
+//   0.406-0.411, 2x1 0.390-0.391 / 0.217-0.233 / 0.708-0.712 /
+//   0.353-0.355, 4x1 0.397-0.398 / 0.234-0.239 / 0.709-0.710 / 0.413,
+//   8x1 0.413-0.415 / 0.322-0.323 / 0.735-0.739 / 0.551-0.561, 16x1
+//   0.414-0.415 / 0.370 / 0.741-0.746 / 0.635-0.653, 32x1 0.694 / 0.665-0.693
+//   / 1.092 / 0.989-0.994; 2 samples at a time (1 vector a batch) tie at 1
+//   lane on local locations and are 0.02-0.99 ms slower everywhere else, 3
+//   slower again (the scalar path 1.24 / 1.07 / 1.47 / 1.10).  ROW_LANES =
+//   2, one sample at a time.
+// * Scalar (ms_deform_gather3d_kernel; any other row, e.g. hd = 12 in bf16,
+//   or a misaligned value): the 3D analogue of Deformable-DETR's
+//   ms_deform_attn im2col kernel, one thread per output element
+//   (b, q, h, c), c fastest so that neighbouring threads read neighbouring
+//   channels of the same corner; a loop over L x P computes each sample's 8
+//   corner indices and weights, the sum is kept in float32 and written once.
 //
 // Bound on an H100 SXM at the flagship (B = 1, H = 8, hd = 24, L = 3 levels
 // (16,16,2), (32,32,4), (64,64,8), P = 4, Nq = 37376): memory-bound.  One
@@ -29,9 +59,9 @@
 // 7.2 MB (bf16) + out 14.4 MB (bf16), about 79 MB, about 24 us at
 // 3.35 TB/s; its arithmetic, about 1.5 GFLOP, is negligible beside that.
 // The 14 MB value table fits in the 50 MB L2, so the scattered corner reads
-// mostly hit L2; locs dominate the traffic and are read once, coalesced.
-// Faster variants (shared-memory staging of locs, 16-byte vector loads of
-// the channel row) are later work.
+// mostly hit L2, but they are 12 samples x 8 rows of 48 bytes per output
+// row, 1.38 GB of L2 traffic in all (2.76 GB in float32), which sets the
+// row-wide path's pace, as it does K4's (csrc/multilevel_gather3d.cu).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +150,173 @@ __global__ void ms_deform_gather3d_kernel(
       }
     }
     store_f(out + i, acc);
+  }
+}
+
+// ---- the row-wide forward: a lane group per output row ----
+
+// One 16-byte vector of a value row: 8 bf16 or 4 float32 channels.
+template <typename T> struct Vec16;
+template <> struct Vec16<__nv_bfloat16> { static constexpr int N = 8; };
+template <> struct Vec16<float> { static constexpr int N = 4; };
+
+// a += w * (the vector's channels, as float)
+__device__ __forceinline__ void fma16(float (&a)[8], const uint4& u, float w) {
+  const unsigned wd[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<unsigned*>(&h) = wd[k];
+    const float2 f = __bfloat1622float2(h);
+    a[2 * k] = fmaf(w, f.x, a[2 * k]);
+    a[2 * k + 1] = fmaf(w, f.y, a[2 * k + 1]);
+  }
+}
+__device__ __forceinline__ void fma16(float (&a)[4], const uint4& u, float w) {
+  a[0] = fmaf(w, __uint_as_float(u.x), a[0]);
+  a[1] = fmaf(w, __uint_as_float(u.y), a[1]);
+  a[2] = fmaf(w, __uint_as_float(u.z), a[2]);
+  a[3] = fmaf(w, __uint_as_float(u.w), a[3]);
+}
+// the channels rounded once to the value's type, as one 16-byte vector
+__device__ __forceinline__ uint4 pack16(const float (&a)[8]) {
+  unsigned wd[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const __nv_bfloat162 h = __floats2bfloat162_rn(a[2 * k], a[2 * k + 1]);
+    wd[k] = *reinterpret_cast<const unsigned*>(&h);
+  }
+  return make_uint4(wd[0], wd[1], wd[2], wd[3]);
+}
+__device__ __forceinline__ uint4 pack16(const float (&a)[4]) {
+  return make_uint4(__float_as_uint(a[0]), __float_as_uint(a[1]),
+                    __float_as_uint(a[2]), __float_as_uint(a[3]));
+}
+
+// A group of 2^lane_bits lanes per output row r = (b * Nq + q) * H + h; the
+// row's L * P samples are dealt out to the lanes, sample s to lane
+// s % lanes, so a lane owns whole samples.  The row's nvec 16-byte vectors
+// are summed in passes of NV (one pass when the row has at most 6).  Per
+// pass, a lane takes its samples SPL at a time: for each it reads the
+// location and the attention weight once, picks the level's descriptor by
+// an unrolled compare (no dynamic index into the by-value Levels), computes
+// the 8 corners with the scalar kernel's unnormalize and folds the attention
+// weight into the 8 corner weights; then it issues the 16-byte loads of all
+// 8 corners of those samples, VPT vectors of a row at a time, before their
+// FMAs, and sums in float32 registers.  A corner outside its level is not
+// loaded and has weight 0.  The group then adds its lanes' partial sums
+// with a butterfly of shuffles in a fixed order (every lane ends with the
+// same bits, and two calls give the same bits), and lane u % lanes stores
+// vector u of the pass once.
+template <typename T, int NV, int SPL>
+__global__ void __launch_bounds__(256) ms_deform_gather3d_rows_kernel(
+    const T* __restrict__ value, const float* __restrict__ locs,
+    const T* __restrict__ weights, T* __restrict__ out, int64_t n_rows, int Nv,
+    int Nq, int H, int hd, int L, int P, Levels lv, int lane_bits) {
+  constexpr int N = Vec16<T>::N;
+  constexpr int VPT = SPL == 1 ? 3 : 1;  // vectors of a row per load batch
+  const int nvec = hd / N;
+  const int LP = L * P;
+  const int lanes = 1 << lane_bits;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = (int)(t & (lanes - 1));
+  // the lanes of this thread's group
+  const unsigned mask =
+      lanes == 32 ? 0xffffffffu
+                  : ((1u << lanes) - 1u) << ((threadIdx.x & 31) & ~(lanes - 1));
+  const int64_t groups = ((int64_t)gridDim.x * blockDim.x) >> lane_bits;
+  const int64_t vstride = (int64_t)H * nvec;  // vectors from one voxel to the next
+  for (int64_t r = t >> lane_bits; r < n_rows; r += groups) {
+    const int h = (int)(r % H);
+    const int64_t b = r / ((int64_t)H * Nq);
+    // value[b, 0, h, 0] and out[b, q, h, 0] as vectors
+    const uint4* vb = reinterpret_cast<const uint4*>(value) + (b * Nv * H + h) * nvec;
+    uint4* o = reinterpret_cast<uint4*>(out) + r * nvec;
+    const float* loc = locs + r * LP * 3;
+    const T* aw = weights + r * LP;
+    for (int v0 = 0; v0 < nvec; v0 += NV) {
+      float acc[NV][N];
+#pragma unroll
+      for (int u = 0; u < NV; ++u)
+#pragma unroll
+        for (int e = 0; e < N; ++e) acc[u][e] = 0.f;
+      for (int s0 = lane; s0 < LP; s0 += lanes * SPL) {
+        int row[SPL][8];  // corner voxel in value's rows (level start added), or -1
+        float cw[SPL][8];
+#pragma unroll
+        for (int k = 0; k < SPL; ++k) {
+          const int s = s0 + k * lanes;
+#pragma unroll
+          for (int q = 0; q < 8; ++q) {
+            row[k][q] = -1;
+            cw[k][q] = 0.f;
+          }
+          if (s >= LP) continue;
+          const int l = s / P;
+          int X = lv.X[0], Y = lv.Y[0], Z = lv.Z[0], start = lv.start[0];
+#pragma unroll
+          for (int m = 1; m < MSDG_MAX_LEVELS; ++m)
+            if (m == l) {
+              X = lv.X[m];
+              Y = lv.Y[m];
+              Z = lv.Z[m];
+              start = lv.start[m];
+            }
+          const float px = unnormalize(loc[s * 3 + 0], X);
+          const float py = unnormalize(loc[s * 3 + 1], Y);
+          const float pz = unnormalize(loc[s * 3 + 2], Z);
+          const float a = load_f(aw + s);
+          const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+          const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
+          const float wx[2] = {1.f - (px - fx), px - fx};
+          const float wy[2] = {1.f - (py - fy), py - fy};
+          const float wz[2] = {1.f - (pz - fz), pz - fz};
+#pragma unroll
+          for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+            for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+              for (int dz = 0; dz < 2; ++dz) {
+                const int q = dx * 4 + dy * 2 + dz;
+                const int xi = x0 + dx, yi = y0 + dy, zi = z0 + dz;
+                if (xi < 0 || xi >= X || yi < 0 || yi >= Y || zi < 0 || zi >= Z)
+                  continue;
+                row[k][q] = start + (xi * Y + yi) * Z + zi;
+                cw[k][q] = a * (wx[dx] * wy[dy] * wz[dz]);
+              }
+        }
+#pragma unroll
+        for (int u0 = 0; u0 < NV; u0 += VPT) {
+          uint4 raw[SPL][8][VPT];
+#pragma unroll
+          for (int k = 0; k < SPL; ++k)
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+#pragma unroll
+              for (int u = 0; u < VPT; ++u) {
+                const int v = v0 + u0 + u;
+                raw[k][q][u] = (row[k][q] >= 0 && u0 + u < NV && v < nvec)
+                                   ? __ldg(vb + row[k][q] * vstride + v)
+                                   : make_uint4(0u, 0u, 0u, 0u);
+              }
+#pragma unroll
+          for (int k = 0; k < SPL; ++k)
+#pragma unroll
+            for (int q = 0; q < 8; ++q)
+#pragma unroll
+              for (int u = 0; u < VPT; ++u)
+                if (u0 + u < NV) fma16(acc[u0 + u], raw[k][q][u], cw[k][q]);
+        }
+      }
+      for (int m = lanes >> 1; m > 0; m >>= 1)
+#pragma unroll
+        for (int u = 0; u < NV; ++u)
+#pragma unroll
+          for (int e = 0; e < N; ++e) acc[u][e] += __shfl_xor_sync(mask, acc[u][e], m);
+#pragma unroll
+      for (int u = 0; u < NV; ++u)
+        if ((u & (lanes - 1)) == lane && v0 + u < nvec) o[v0 + u] = pack16(acc[u]);
+    }
   }
 }
 
@@ -348,6 +545,77 @@ extern "C" int ms_deform_gather3d_fwd(const void* value, const void* locs,
         (const float*)value, (const float*)locs, (const float*)weights,
         (float*)out, n_out, Nv, Nq, H, hd, L, P, lv);
   }
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int NV, int SPL>
+static void launch_rows(const void* value, const void* locs,
+                        const void* weights, void* out, int64_t n_rows, int Nv,
+                        int Nq, int H, int hd, int L, int P, const Levels& lv,
+                        int lane_bits, cudaStream_t st) {
+  const int threads = 256;
+  ms_deform_gather3d_rows_kernel<T, NV, SPL>
+      <<<grid_blocks(n_rows << lane_bits, threads), threads, 0, st>>>(
+          (const T*)value, (const float*)locs, (const T*)weights, (T*)out,
+          n_rows, Nv, Nq, H, hd, L, P, lv, lane_bits);
+}
+
+template <typename T, int SPL>
+static void launch_rows_nv(const void* value, const void* locs,
+                           const void* weights, void* out, int64_t n_rows,
+                           int Nv, int Nq, int H, int hd, int L, int P,
+                           const Levels& lv, int lane_bits, cudaStream_t st) {
+  const int nvec = hd / Vec16<T>::N;
+#define MSDG_ROWS(NV)                                                     \
+  launch_rows<T, NV, SPL>(value, locs, weights, out, n_rows, Nv, Nq, H, hd, \
+                          L, P, lv, lane_bits, st)
+  switch (nvec) {
+    case 1: MSDG_ROWS(1); break;
+    case 2: MSDG_ROWS(2); break;
+    case 3: MSDG_ROWS(3); break;
+    case 4: MSDG_ROWS(4); break;
+    case 5: MSDG_ROWS(5); break;
+    case 6: MSDG_ROWS(6); break;
+    default: MSDG_ROWS(4); break;  // wider rows take passes of 4 vectors
+  }
+#undef MSDG_ROWS
+}
+
+// The row-wide forward: as ms_deform_gather3d_fwd, for value and out
+// 16-byte aligned with rows of whole 16-byte vectors (hd a multiple of 8 in
+// bfloat16, of 4 in float32); lanes (1, 2, 4, 8, 16 or 32) per output row
+// and spl (1, 2 or 3) samples a lane loads at a time.  Returns
+// cudaErrorInvalidValue for anything else.
+extern "C" int ms_deform_gather3d_fwd_rows(const void* value, const void* locs,
+                                           const void* weights, void* out,
+                                           int B, int Nv, int Nq, int H,
+                                           int hd, int L, int P,
+                                           const int* levels, int dtype,
+                                           int lanes, int spl, void* stream) {
+  Levels lv;
+  int lane_bits = 0;
+  while ((1 << lane_bits) < lanes) ++lane_bits;
+  if (read_levels(levels, L, &lv) != 0 || (dtype != 0 && dtype != 1) ||
+      hd <= 0 || hd % (dtype == 1 ? 8 : 4) != 0 || (1 << lane_bits) != lanes ||
+      lanes > 32 || spl < 1 || spl > 3 ||
+      ((uintptr_t)value | (uintptr_t)out) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int64_t n_rows = (int64_t)B * Nq * H;
+  if (n_rows == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+#define MSDG_ROWS_T(T, S)                                                  \
+  launch_rows_nv<T, S>(value, locs, weights, out, n_rows, Nv, Nq, H, hd, L, \
+                       P, lv, lane_bits, st)
+  if (dtype == 1) {
+    if (spl == 1) MSDG_ROWS_T(__nv_bfloat16, 1);
+    else if (spl == 2) MSDG_ROWS_T(__nv_bfloat16, 2);
+    else MSDG_ROWS_T(__nv_bfloat16, 3);
+  } else {
+    if (spl == 1) MSDG_ROWS_T(float, 1);
+    else if (spl == 2) MSDG_ROWS_T(float, 2);
+    else MSDG_ROWS_T(float, 3);
+  }
+#undef MSDG_ROWS_T
   return (int)cudaGetLastError();
 }
 

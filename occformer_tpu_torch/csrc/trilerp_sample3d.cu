@@ -25,7 +25,8 @@
 // exist only because the TPU gathers badly; here every thread gathers
 // directly.
 //
-// Forward, two paths; ops/trilerp.py:fwd_path picks one by the row.
+// Forward, two paths; ops/trilerp.py:fwd_path picks one by the row and the
+// table's alignment.
 // * Row-wide (trilerp_fwd_rows_kernel): tables whose rows are whole 16-byte
 //   vectors (C a multiple of 8 in bf16, of 4 in float32; the per-layer loss
 //   route's C = 192 feature).  The first design, one thread per output
@@ -39,22 +40,59 @@
 //   FMA, sums in float32 registers and stores each vector once, rounded to
 //   the table's type.  Neighbouring lanes read neighbouring vectors of a
 //   corner row, so a group reads whole rows.
-// * Scalar (trilerp_fwd_kernel): everything else (the uint8 GT masks, the
-//   batched route's float32 C = 17 and C = 1 volumes and bf16 C = 100
-//   match volumes): one thread per output (g, s, c), c fastest, so that a
-//   warp reads neighbouring channels of the same corner.
-// fwd_path sets no width threshold beyond whole vectors, from
-// tools/time_backwards.py --sweep: both paths at the candidate readout's
-// shape (bf16 [1, 128, 128, 16, C], 150528 points, border) on an H100 80GB
-// HBM3 at 700 W, two sweeps in two calls, ms scalar / row-wide: C = 8
-// 0.041-0.055 / 0.034-0.054, 16 0.057-0.072 / 0.052-0.056, 32 0.093-0.109 /
-// 0.047-0.061, 48 0.132-0.154 / 0.061-0.078, 64 0.172-0.183 / 0.066-0.067,
-// 128 0.354-0.364 / 0.130-0.140, 192 0.513-0.524 / 0.213-0.224; the
-// row-wide path wins or ties at every width.  Lanes per point at C = 192:
-// 1 0.266-0.300, 2 0.225-0.247, 4 0.216-0.240, 8 0.202-0.232, 16
-// 0.196-0.226, 32 0.198-0.226 ms: more loads in flight per warp help up to
-// a group that holds the row at 3 vectors a lane (row_lanes' choice, 8);
-// 16 lanes were 2-7% faster again in both sweeps.
+// * Narrow (trilerp_fwd_narrow_kernel; fwd_path keeps the first design's
+//   name for it, "scalar"): everything else, at any C, dtype and alignment (the
+//   uint8 GT masks, the batched route's float32 C = 17 and C = 1 volumes and
+//   bf16 C = 100 match volumes, unaligned tables).  The first design ran one
+//   thread per output (g, s, c): every channel's thread redid the point's
+//   axes and 8 weights, loaded 1-4 bytes a corner with its loads and FMAs
+//   interleaved, and at C = 1 loaded a point's two adjacent z corners
+//   apart: 0.884 / 0.513 / 0.138 ms at the batched match / candidate /
+//   random-fill readouts, 17-46% of their bounds.  Here, as on the row-wide
+//   path, a group of lanes (a power of two) takes a point; its row is read
+//   in chunks of `vec` elements, one load each, as wide as the row and the
+//   table's alignment allow (ops/trilerp.py:narrow_vec: 8-byte loads at
+//   C = 100 bf16, 4-byte at C = 17 float32); each lane computes the
+//   weights once and issues the loads of its chunks of all 8 corners before
+//   any FMA; the sums are float32 in (dx, dy, dz) corner order and each
+//   chunk is stored once.  At C = 1 a lane takes a point (or several,
+//   NARROW_POINTS_PER_LANE).  Sweeps (tools/time_backwards.py --sweep, H100
+//   80GB HBM3 at 700 W, ms by events; two sweeps in two calls where two
+//   ranges are given): lanes 1 / 2 / 4 / 8 / 16 / 32 at the batched match
+//   readout (C = 100 bf16, 25 chunks) 2.08-2.11 / 0.827-0.856 / 0.369-0.377
+//   / 0.312-0.315 / 0.390-0.396 / 0.333-0.339, at its candidates (C = 17
+//   float32, 17 chunks) 1.31-1.33 / 0.650-0.659 / 0.410-0.413 /
+//   0.374-0.379 / 0.487-0.493 / 0.622-0.629, at the per-layer route's GT
+//   table (C = 17 uint8) 0.174 / 0.082 / 0.064 / 0.069-0.070 / 0.082 /
+//   0.094: narrow_lanes takes the fewest lanes that hold the row at 4
+//   chunks a lane (NARROW_CHUNKS_PER_LANE), 8 at all three (4 was 9%
+//   faster at the uint8 table in one sweep and tied in another, and 10%
+//   slower at the float32 one); points a
+//   lane 1 / 2 / 4 at the GT masks (C = 1 uint8) 0.047-0.055 /
+//   0.048-0.056 / 0.047-0.055 (the wrapper's host time: 0.010-0.012 ms of
+//   device time) and at the random fill (C = 1 float32) 0.129-0.135 /
+//   0.131-0.139 / 0.164-0.169: one.  Tried and dropped: at C = 1 one load
+//   of a point's two adjacent z corners where both lie inside and the pair
+//   is aligned gave nothing (device ms with / without, in turns in one call:
+//   GT masks 0.0122-0.0123 / 0.0104-0.0116, random fill 0.0953-0.0954 /
+//   0.0913-0.0983); capping the registers at 32 for 8 blocks of 256 threads
+//   an SM spilled and took 2.8x as long at the random fill.
+// fwd_path sets no width threshold beyond whole vectors.  Both paths at the
+// candidate readout's shape (bf16 [1, 128, 128, 16, C], 150528 points,
+// border), ms narrow / row-wide, H100 80GB HBM3 at 700 W: two sweeps with
+// the first design in place of the narrow kernel, C = 8 0.041-0.055 /
+// 0.034-0.054, 32 0.093-0.109 / 0.047-0.061, 64 0.172-0.183 /
+// 0.066-0.067, 192 0.513-0.524 / 0.213-0.224; with the narrow kernel C = 8
+// 0.054 / 0.047-0.048, 16
+// 0.062 / 0.051, 32 0.096-0.097 / 0.056, 40 0.075-0.076 / 0.064-0.065, 48
+// 0.078 / 0.070, 56 0.101-0.102 / 0.073, 64 0.113 / 0.076, 128 0.145-0.147
+// / 0.129-0.130, 192 0.181 / 0.212: the row-wide path wins up to C = 128
+// and loses at 192, where it runs; since it shares point_corners, 0.187-0.194
+// / 0.192-0.203 at 192 and 0.152-0.161 / 0.152-0.157 at 128 (ROADMAP B).
+// Lanes per point of the row-wide path at C = 192 (two sweeps): 1
+// 0.266-0.300, 2 0.225-0.247, 4 0.216-0.240, 8 0.202-0.232, 16
+// 0.196-0.226, 32 0.198-0.226 ms: row_lanes' choice, 8, holds the row at 3
+// vectors a lane.
 //
 // Backward, two paths; ops/trilerp.py:bwd_path picks one by the row width C.
 // The threshold, SEGMENTED_MIN_C = 48, comes from tools/time_backwards.py
@@ -117,15 +155,11 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
-}
-__device__ __forceinline__ float load_f(const uint8_t* p) { return (float)*p; }
-__device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
 }
 
 struct Axis {
@@ -162,43 +196,147 @@ __device__ __forceinline__ Axis make_axis(float coord, int size, int align,
   return a;
 }
 
-template <typename Tin, typename Tout>
-__global__ void trilerp_fwd_kernel(const Tin* __restrict__ table,
-                                   const float* __restrict__ coords,
-                                   Tout* __restrict__ out, int64_t n_out,
-                                   int S, int X, int Y, int Z, int C,
-                                   int align, int border) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int64_t vol = (int64_t)X * Y * Z * C;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_out;
-       i += stride) {
-    const int c = (int)(i % C);
-    const int64_t gs = i / C;  // g * S + s
-    const int64_t g = gs / S;
-    const Axis ax = make_axis(coords[gs * 3 + 0], X, align, border);
-    const Axis ay = make_axis(coords[gs * 3 + 1], Y, align, border);
-    const Axis az = make_axis(coords[gs * 3 + 2], Z, align, border);
-    const Tin* base = table + g * vol + c;
-    float acc = 0.f;
+// The 8 corners of point gs: each corner's voxel within its table (-1
+// outside it, zeros padding) and its weight (0 outside), in (dx, dy, dz)
+// order, q = dx * 4 + dy * 2 + dz.
+__device__ __forceinline__ void point_corners(const float* __restrict__ coords,
+                                              int64_t gs, int X, int Y, int Z,
+                                              int align, int border,
+                                              int (&row)[8], float (&w)[8]) {
+  const Axis ax = make_axis(coords[gs * 3 + 0], X, align, border);
+  const Axis ay = make_axis(coords[gs * 3 + 1], Y, align, border);
+  const Axis az = make_axis(coords[gs * 3 + 2], Z, align, border);
 #pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const int xi = ax.i0 + dx;
-      if (xi < 0 || xi >= X) continue;
+  for (int dx = 0; dx < 2; ++dx)
 #pragma unroll
-      for (int dy = 0; dy < 2; ++dy) {
-        const int yi = ay.i0 + dy;
-        if (yi < 0 || yi >= Y) continue;
-        const float wxy = ax.w[dx] * ay.w[dy];
-        const int64_t row = ((int64_t)xi * Y + yi) * Z;
+    for (int dy = 0; dy < 2; ++dy)
 #pragma unroll
-        for (int dz = 0; dz < 2; ++dz) {
-          const int zi = az.i0 + dz;
-          if (zi < 0 || zi >= Z) continue;
-          acc += wxy * az.w[dz] * load_f(base + (row + zi) * C);
+      for (int dz = 0; dz < 2; ++dz) {
+        const int q = dx * 4 + dy * 2 + dz;
+        const int xi = ax.i0 + dx, yi = ay.i0 + dy, zi = az.i0 + dz;
+        const bool ok = xi >= 0 && xi < X && yi >= 0 && yi < Y && zi >= 0 &&
+                        zi < Z;
+        w[q] = ok ? ax.w[dx] * ay.w[dy] * az.w[dz] : 0.f;
+        row[q] = ok ? (xi * Y + yi) * Z + zi : -1;
+      }
+}
+
+// ---- the narrow-row forward: a lane group per point, the widest loads the
+// row allows ----
+
+// The raw word of one load of B bytes.
+template <int B> struct Raw;
+template <> struct Raw<1> { using T = uint8_t; };
+template <> struct Raw<2> { using T = unsigned short; };
+template <> struct Raw<4> { using T = unsigned; };
+template <> struct Raw<8> { using T = uint2; };
+template <> struct Raw<16> { using T = uint4; };
+
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_f(uint8_t v) { return (float)v; }
+__device__ __forceinline__ void from_f(float& d, float v) { d = v; }
+__device__ __forceinline__ void from_f(__nv_bfloat16& d, float v) { d = __float2bfloat16(v); }
+
+// a += w * (the VEC elements of one loaded chunk, as float)
+template <typename Tin, int VEC, typename R>
+__device__ __forceinline__ void fma_chunk(float (&a)[VEC], const R& r, float w) {
+  static_assert(sizeof(R) == VEC * sizeof(Tin), "chunk size");
+  Tin e[VEC];
+  memcpy(e, &r, sizeof(R));
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) a[k] = fmaf(w, to_f(e[k]), a[k]);
+}
+
+// the VEC sums rounded once to the output's type, as one store
+template <typename Tout, int VEC>
+__device__ __forceinline__ void store_chunk(Tout* p, const float (&a)[VEC]) {
+  using R = typename Raw<VEC * sizeof(Tout)>::T;
+  Tout e[VEC];
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) from_f(e[k], a[k]);
+  R r;
+  memcpy(&r, e, sizeof(R));
+  *reinterpret_cast<R*>(p) = r;
+}
+
+// A group of 2^lane_bits lanes takes PPL points at a time: the group's
+// points p0, p0 + groups, ..., so that at each of the PPL slots the warp's
+// groups hold neighbouring points (their coordinate reads and output stores
+// are coalesced).  Every lane computes its points' axes, corners and
+// weights (once per lane, not once per channel).  The row's nchunk = C / VEC
+// chunks (VEC elements, one load each) are walked in passes: lane l takes
+// chunks l, l + lanes, ..., CPT of them per pass, issues the loads of all 8
+// corners of those chunks for its PPL points before any FMA, sums in float32
+// registers in (dx, dy, dz) corner order and stores each chunk once.  A
+// corner outside the table (zeros padding) is not loaded and has weight 0.
+// PPL > 1 only at C = 1 (one lane, one chunk).
+template <typename Tin, typename Tout, int VEC, int CPT, int PPL>
+__global__ void __launch_bounds__(256)
+trilerp_fwd_narrow_kernel(const Tin* __restrict__ table,
+                          const float* __restrict__ coords,
+                          Tout* __restrict__ out, int64_t n_pts, int S, int X,
+                          int Y, int Z, int C, int align, int border,
+                          int lane_bits) {
+  using RawIn = typename Raw<VEC * sizeof(Tin)>::T;
+  const int nchunk = C / VEC;
+  const int lanes = 1 << lane_bits;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = (int)(t & (lanes - 1));
+  const int64_t groups = ((int64_t)gridDim.x * blockDim.x) >> lane_bits;
+  const int64_t vol = (int64_t)X * Y * Z * C;  // elements of one table
+  for (int64_t p0 = t >> lane_bits; p0 < n_pts; p0 += groups * PPL) {
+    int row[PPL][8];
+    float w[PPL][8];
+    const Tin* tb[PPL];
+#pragma unroll
+    for (int j = 0; j < PPL; ++j) {
+      const int64_t gs = p0 + j * groups;
+      if (gs < n_pts) {
+        point_corners(coords, gs, X, Y, Z, align, border, row[j], w[j]);
+        tb[j] = table + gs / S * vol;
+      } else {
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          row[j][q] = -1;
+          w[j][q] = 0.f;
+        }
+        tb[j] = table;
+      }
+    }
+    for (int c0 = lane; c0 < nchunk; c0 += lanes * CPT) {
+      RawIn r[PPL][8][CPT];
+#pragma unroll
+      for (int j = 0; j < PPL; ++j)
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int k = 0; k < CPT; ++k) {
+            const int c = c0 + k * lanes;
+            r[j][q][k] = (row[j][q] >= 0 && c < nchunk)
+                             ? __ldg(reinterpret_cast<const RawIn*>(
+                                         tb[j] + (int64_t)row[j][q] * C) + c)
+                             : RawIn{};
+          }
+#pragma unroll
+      for (int j = 0; j < PPL; ++j) {
+        const int64_t gs = p0 + j * groups;
+        float acc[CPT][VEC];
+#pragma unroll
+        for (int k = 0; k < CPT; ++k)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[k][e] = 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+#pragma unroll
+          for (int k = 0; k < CPT; ++k) fma_chunk<Tin, VEC>(acc[k], r[j][q][k], w[j][q]);
+#pragma unroll
+        for (int k = 0; k < CPT; ++k) {
+          const int c = c0 + k * lanes;
+          if (gs < n_pts && c < nchunk) store_chunk<Tout, VEC>(out + gs * C + c * VEC, acc[k]);
         }
       }
     }
-    store_f(out + i, acc);
   }
 }
 
@@ -263,24 +401,9 @@ trilerp_fwd_rows_kernel(const T* __restrict__ table,
   const int64_t step = ((int64_t)gridDim.x * blockDim.x) >> lane_bits;
   const int64_t vol_vec = (int64_t)X * Y * Z * nvec;
   for (int64_t gs = t >> lane_bits; gs < n_pts; gs += step) {
-    const Axis ax = make_axis(coords[gs * 3 + 0], X, align, border);
-    const Axis ay = make_axis(coords[gs * 3 + 1], Y, align, border);
-    const Axis az = make_axis(coords[gs * 3 + 2], Z, align, border);
-    int row[8];  // the corner's first vector within its table, or -1 outside
+    int row[8];
     float w[8];
-#pragma unroll
-    for (int dx = 0; dx < 2; ++dx)
-#pragma unroll
-      for (int dy = 0; dy < 2; ++dy)
-#pragma unroll
-        for (int dz = 0; dz < 2; ++dz) {
-          const int q = dx * 4 + dy * 2 + dz;
-          const int xi = ax.i0 + dx, yi = ay.i0 + dy, zi = az.i0 + dz;
-          const bool ok = xi >= 0 && xi < X && yi >= 0 && yi < Y && zi >= 0 &&
-                          zi < Z;
-          w[q] = ok ? ax.w[dx] * ay.w[dy] * az.w[dz] : 0.f;
-          row[q] = ok ? ((xi * Y + yi) * Z + zi) * nvec : -1;
-        }
+    point_corners(coords, gs, X, Y, Z, align, border, row, w);
     const uint4* tb =
         reinterpret_cast<const uint4*>(table) + gs / S * vol_vec;
     uint4* o = reinterpret_cast<uint4*>(out) + gs * nvec;
@@ -291,7 +414,7 @@ trilerp_fwd_rows_kernel(const T* __restrict__ table,
 #pragma unroll
         for (int k = 0; k < VPT; ++k) {
           const int v = v0 + k * lanes;
-          r[q][k] = (row[q] >= 0 && v < nvec) ? __ldg(tb + row[q] + v)
+          r[q][k] = (row[q] >= 0 && v < nvec) ? __ldg(tb + row[q] * nvec + v)
                                               : make_uint4(0u, 0u, 0u, 0u);
         }
       float acc[VPT][N];
@@ -631,31 +754,85 @@ static unsigned grid_blocks(int64_t n, int threads) {
 // dtype: 0 = float32 table and out, 1 = bfloat16 table and out, 2 = uint8
 // table and float32 out (forward only).  Each launches on `stream` and
 // returns cudaGetLastError() (0 when the launch was accepted).
+
+struct NarrowArgs {
+  const void* table;
+  const float* coords;
+  void* out;
+  int64_t n_pts;
+  int S, X, Y, Z, C, align, border, lane_bits;
+};
+
+template <typename Tin, typename Tout, int VEC, int CPT, int PPL>
+static void launch_narrow(const NarrowArgs& a, cudaStream_t st) {
+  const int threads = 256;
+  const int64_t n_groups = (a.n_pts + PPL - 1) / PPL;
+  trilerp_fwd_narrow_kernel<Tin, Tout, VEC, CPT, PPL>
+      <<<grid_blocks(n_groups << a.lane_bits, threads), threads, 0, st>>>(
+          (const Tin*)a.table, a.coords, (Tout*)a.out, a.n_pts, a.S, a.X, a.Y,
+          a.Z, a.C, a.align, a.border, a.lane_bits);
+}
+
+template <typename Tin, typename Tout, int VEC>
+static void launch_narrow_cpt(const NarrowArgs& a, int cpt, cudaStream_t st) {
+  if (cpt <= 1) launch_narrow<Tin, Tout, VEC, 1, 1>(a, st);
+  else if (cpt == 2) launch_narrow<Tin, Tout, VEC, 2, 1>(a, st);
+  else if (cpt == 3) launch_narrow<Tin, Tout, VEC, 3, 1>(a, st);
+  else launch_narrow<Tin, Tout, VEC, 4, 1>(a, st);  // wider rows take passes of 4
+}
+
+template <typename Tin, typename Tout>
+static int launch_narrow_typed(const NarrowArgs& a, int vec, int ppl,
+                               cudaStream_t st) {
+  if (a.C == 1) {  // vec == 1 and one lane (checked by the caller)
+    if (ppl == 1) launch_narrow<Tin, Tout, 1, 1, 1>(a, st);
+    else if (ppl == 2) launch_narrow<Tin, Tout, 1, 1, 2>(a, st);
+    else launch_narrow<Tin, Tout, 1, 1, 4>(a, st);
+    return (int)cudaGetLastError();
+  }
+  const int lanes = 1 << a.lane_bits;
+  const int nchunk = a.C / vec;
+  const int cpt = (nchunk + lanes - 1) / lanes;  // chunks a lane holds
+  if (vec == 1) launch_narrow_cpt<Tin, Tout, 1>(a, cpt, st);
+  else if (vec == 2) launch_narrow_cpt<Tin, Tout, 2>(a, cpt, st);
+  else if (vec == 4) launch_narrow_cpt<Tin, Tout, 4>(a, cpt, st);
+  else if constexpr (sizeof(Tin) == 2) launch_narrow_cpt<Tin, Tout, 8>(a, cpt, st);
+  return (int)cudaGetLastError();
+}
+
+// The narrow-row forward, for any row: `vec` elements per load (1, 2 or 4,
+// or 8 in bfloat16: at most 16 bytes loaded and 16 stored per chunk), C a
+// multiple of vec, table and out aligned to a chunk; lanes (1, 2, 4, 8, 16
+// or 32) per point; ppl points a lane at C = 1 (1, 2 or 4; then vec and
+// lanes are 1), else 1.  One table's voxels below 2^31.  Returns
+// cudaErrorInvalidValue for anything else.
 extern "C" int trilerp_sample3d_fwd(const void* table, const void* coords,
                                     void* out, int G, int S, int X, int Y,
                                     int Z, int C, int align, int border,
-                                    int dtype, void* stream) {
-  const int64_t n_out = (int64_t)G * S * C;
-  if (n_out == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = grid_blocks(n_out, threads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    trilerp_fwd_kernel<float, float><<<blocks, threads, 0, st>>>(
-        (const float*)table, (const float*)coords, (float*)out, n_out, S, X, Y,
-        Z, C, align, border);
-  } else if (dtype == 1) {
-    trilerp_fwd_kernel<__nv_bfloat16, __nv_bfloat16><<<blocks, threads, 0, st>>>(
-        (const __nv_bfloat16*)table, (const float*)coords,
-        (__nv_bfloat16*)out, n_out, S, X, Y, Z, C, align, border);
-  } else if (dtype == 2) {
-    trilerp_fwd_kernel<uint8_t, float><<<blocks, threads, 0, st>>>(
-        (const uint8_t*)table, (const float*)coords, (float*)out, n_out, S, X,
-        Y, Z, C, align, border);
-  } else {
+                                    int dtype, int vec, int lanes, int ppl,
+                                    void* stream) {
+  const int in_size = dtype == 0 ? 4 : dtype == 1 ? 2 : 1;
+  const int out_size = dtype == 1 ? 2 : 4;
+  int lane_bits = 0;
+  while ((1 << lane_bits) < lanes) ++lane_bits;
+  const bool vec_ok = vec == 1 || vec == 2 || vec == 4 || (vec == 8 && dtype == 1);
+  if (dtype < 0 || dtype > 2 || !vec_ok || C <= 0 || C % vec != 0 ||
+      (1 << lane_bits) != lanes || lanes > 32 ||
+      (C == 1 ? (vec != 1 || lanes != 1 || (ppl != 1 && ppl != 2 && ppl != 4))
+              : ppl != 1) ||
+      (int64_t)X * Y * Z >= ((int64_t)1 << 31) ||
+      (uintptr_t)table % (vec * in_size) != 0 ||
+      (uintptr_t)out % (vec * out_size) != 0)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  const int64_t n_pts = (int64_t)G * S;
+  if (n_pts == 0) return 0;
+  const NarrowArgs a{table, (const float*)coords, out, n_pts, S, X, Y, Z,
+                     C, align, border, lane_bits};
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0) return launch_narrow_typed<float, float>(a, vec, ppl, st);
+  if (dtype == 1)
+    return launch_narrow_typed<__nv_bfloat16, __nv_bfloat16>(a, vec, ppl, st);
+  return launch_narrow_typed<uint8_t, float>(a, vec, ppl, st);
 }
 
 // The row-wide forward.  table and out 16-byte aligned, C a multiple of

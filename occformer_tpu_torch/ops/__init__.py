@@ -5,14 +5,15 @@ Pallas kernels, and ``scatter`` (S1, the LSS splat, which the JAX package
 leaves to XLA).
 
 Each wrapper counts its kernel's launches in a module-level integer
-("K2" and "K2-bwd" count both paths of their kernel, "K2.row",
-"K2-bwd.narrow" and "K4.row" one path alone);
+("K1", "K2" and "K2-bwd" count both paths of their kernel, "K1.row",
+"K2.row", "K2-bwd.narrow" and "K4.row" one path alone);
 ``launch_counts`` reads them all by kernel name and ``reset_launch_counts``
 sets them to 0.
 """
 
 # kernel name -> (module, counter) of its wrapper
-_COUNTERS = {"K1": ("trilerp_fused", "LAUNCHES"), "K1-bwd": ("trilerp_fused", "BWD_LAUNCHES"),
+_COUNTERS = {"K1": ("trilerp_fused", "LAUNCHES"), "K1.row": ("trilerp_fused", "ROW_LAUNCHES"),
+             "K1-bwd": ("trilerp_fused", "BWD_LAUNCHES"),
              "K2": ("trilerp", "LAUNCHES"), "K2.row": ("trilerp", "ROW_LAUNCHES"),
              "K2-bwd": ("trilerp", "BWD_LAUNCHES"),
              "K2-bwd.narrow": ("trilerp", "BWD_NARROW_LAUNCHES"),

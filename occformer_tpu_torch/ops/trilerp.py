@@ -22,7 +22,10 @@ into a zeroed buffer, cast afterwards.  K2 has two paths too, picked by
 multiple of 8, float32 a multiple of 4; the per-layer route's C = 192
 feature) take the row-wide kernel, a group of lanes per point reading each
 corner row as 16-byte loads; the rest (the uint8 GT masks, the batched
-route's C = 17, C = 1 and C = 100 volumes) keep one thread per channel.
+route's C = 17, C = 1 and C = 100 volumes, unaligned tables) take the
+narrow-row kernel (the path keeps its first design's name, "scalar"): a
+group of lanes per point too, each load as wide as the row and the table's
+alignment allow (``narrow_vec``), one lane per point at C = 1.
 For CPU tensors it runs the plain version, ``trilerp_sample_plain``
 (``F.grid_sample`` on the permuted table, differentiated by autograd).  A
 CUDA tensor never takes the plain version.  Tables are float32, bfloat16 or
@@ -53,6 +56,14 @@ BWD_NARROW_LAUNCHES = 0
 SEGMENTED_MIN_C = 48
 # channels per 16-byte vector by table dtype
 _VEC_CHANNELS = {torch.bfloat16: 8, torch.float32: 4}
+# K2's narrow forward: elements per load by table dtype, widest first (a
+# chunk loads and stores at most 16 bytes: a uint8 chunk of 4 stores 4
+# float32); the most chunks a lane holds when the group is sized; the points
+# a lane takes at C = 1.  The chip measurements behind the two numbers are
+# in csrc/trilerp_sample3d.cu's header.
+_NARROW_VECS = {torch.bfloat16: (8, 4, 2, 1), torch.float32: (4, 2, 1), torch.uint8: (4, 2, 1)}
+NARROW_CHUNKS_PER_LANE = 4
+NARROW_POINTS_PER_LANE = 1
 _INT32_LIMIT = 2 ** 31
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.uint8: 2}
@@ -80,7 +91,7 @@ def trilerp_sample_plain(table: torch.Tensor, coords: torch.Tensor,
 
 
 # C entry point -> (pointer arguments, int arguments); each ends with the stream
-_SIGNATURES = {"trilerp_sample3d_fwd": (3, 9), "trilerp_sample3d_fwd_rows": (3, 10),
+_SIGNATURES = {"trilerp_sample3d_fwd": (3, 12), "trilerp_sample3d_fwd_rows": (3, 10),
                "trilerp_sample3d_bwd": (5, 9),
                "trilerp_sample3d_bwd_seg": (6, 9)}
 
@@ -130,6 +141,25 @@ def fwd_path(table_shape, dtype, data_ptr: int = 0) -> str:
     return "scalar"
 
 
+def narrow_vec(channels: int, dtype, data_ptr: int = 0) -> int:
+    """Elements per load of K2's narrow forward for rows of ``channels``
+    elements of ``dtype`` at a table at ``data_ptr``: the most that divide
+    the row and whose load the table's alignment allows."""
+    return next(v for v in _NARROW_VECS[dtype]
+                if channels % v == 0 and data_ptr % (v * dtype.itemsize) == 0)
+
+
+def narrow_lanes(channels: int, vec: int) -> int:
+    """Lanes per point of the narrow forward: the fewest (a power of two,
+    at most 32) that hold the row's ``channels / vec`` chunks at
+    ``NARROW_CHUNKS_PER_LANE`` a lane; one at C = 1."""
+    chunks = channels // vec
+    lanes = 1
+    while lanes < 32 and NARROW_CHUNKS_PER_LANE * lanes < chunks:
+        lanes *= 2
+    return lanes
+
+
 def row_lanes(channels: int, dtype) -> int:
     """Lanes per point of the row-wide forward: the fewest (a power of two,
     at most 32) that hold a row's 16-byte vectors at 3 a lane."""
@@ -140,10 +170,12 @@ def row_lanes(channels: int, dtype) -> int:
     return lanes
 
 
-def _launch_fwd(table, coords, align_corners, padding_mode, path=None, lanes=None):
-    """K2 on ``path`` ("row" or "scalar"; ``fwd_path``'s choice by default),
-    the row-wide path with ``lanes`` lanes per point (``row_lanes``'s by
-    default)."""
+def _launch_fwd(table, coords, align_corners, padding_mode, path=None, lanes=None,
+                points=None):
+    """K2 on ``path`` ("row" or "scalar"; ``fwd_path``'s choice by default)
+    with ``lanes`` lanes per point (``row_lanes``' or ``narrow_lanes``'
+    choice by default) and, on the narrow path at C = 1, ``points`` points a
+    lane (``NARROW_POINTS_PER_LANE`` by default)."""
     global LAUNCHES, ROW_LAUNCHES
     path = path or fwd_path(table.shape, table.dtype, table.data_ptr())
     G, S, C = coords.shape[0], coords.shape[1], table.shape[-1]
@@ -156,8 +188,11 @@ def _launch_fwd(table, coords, align_corners, padding_mode, path=None, lanes=Non
                 table.data_ptr(), coords.data_ptr(), out.data_ptr(), *dims,
                 lanes or row_lanes(C, table.dtype), stream)
         elif path == "scalar":
+            vec = narrow_vec(C, table.dtype, table.data_ptr())
             rc = _kernel_fn("trilerp_sample3d_fwd")(
-                table.data_ptr(), coords.data_ptr(), out.data_ptr(), *dims, stream)
+                table.data_ptr(), coords.data_ptr(), out.data_ptr(), *dims, vec,
+                lanes or narrow_lanes(C, vec),
+                (points or NARROW_POINTS_PER_LANE) if C == 1 else 1, stream)
         else:
             raise ValueError(f"path must be 'row' or 'scalar'; got {path!r}")
     if rc != 0:

@@ -13,8 +13,14 @@ sum that ``models/deform_attn.py`` does after the call folded in:
 d_weights), and runs the plain version, ``ms_deform_gather_3d_plain``
 (``F.grid_sample`` per level plus the weighted sum, differentiated by
 autograd), for CPU tensors.  A CUDA tensor never takes the plain version: the
-kernel launches or the call raises.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count
-the two kernels' launches.
+kernel launches or the call raises.  K1 has two paths, picked by
+``ms_deform_fwd_path``: rows of whole 16-byte vectors at a 16-byte aligned
+value and output (the flagship's hd = 24, bf16 and float32) take the
+row-wide kernel, a group of ``ROW_LANES`` lanes per output row (b, q, h)
+whose lanes own whole samples and read each corner row as 16-byte loads;
+the rest keep one thread per output channel.  ``LAUNCHES`` and
+``BWD_LAUNCHES`` count the two kernels' launches (K1 over both of its
+paths), ``ROW_LAUNCHES`` K1's row-wide path alone.
 
 ``fused_multilevel_gather`` is the port of the JAX package's unweighted
 ``fused_multilevel_gather`` (Pallas ``call_fwd`` / ``call_bwd``, bodies
@@ -39,10 +45,16 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-# launches of the forward (K1) and backward (K1-bwd) kernels; a caller may
-# reset them to 0
+# launches of the forward (K1, both paths) and backward (K1-bwd) kernels,
+# and of K1's row-wide path alone; a caller may reset them to 0
 LAUNCHES = 0
 BWD_LAUNCHES = 0
+ROW_LAUNCHES = 0
+# K1's row-wide path: lanes per output row and samples a lane loads at a
+# time; the chip measurements behind them are in
+# csrc/ms_deform_gather3d.cu's header
+ROW_LANES = 2
+ROW_SAMPLES_PER_LANE = 1
 # launches of K4 (both paths) and K4-bwd, and of K4's row-wide path alone
 MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
@@ -85,13 +97,15 @@ def ms_deform_gather_3d_plain(
 
 
 def _kernel_fn(name: str):
-    """The C entry point ``ms_deform_gather3d_{fwd,bwd}`` with its argtypes."""
+    """The C entry point ``ms_deform_gather3d_{fwd,fwd_rows,bwd}`` with its
+    argtypes."""
     if name not in _FNS:
         fn = getattr(cuda_build.load("ms_deform_gather3d"), name)
-        n_ptr = 4 if name.endswith("fwd") else 7
+        n_ptr = 7 if name.endswith("bwd") else 4
+        n_opts = 3 if name.endswith("rows") else 1  # dtype (, lanes, spl)
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
-                       + [ctypes.POINTER(ctypes.c_int), ctypes.c_int,
-                          ctypes.c_void_p])
+                       + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * n_opts
+                       + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
@@ -122,20 +136,42 @@ def _check(value, spatial_shapes, locs, weights):
                          f"need {sum(x * y * z for x, y, z in spatial_shapes)}")
 
 
-def _launch_fwd(value, spatial_shapes, locs, weights):
-    global LAUNCHES
+def ms_deform_fwd_path(head_dim: int, dtype, data_ptrs=()) -> str:
+    """K1's forward path: "row" for float32 or bfloat16 rows of whole
+    16-byte vectors (``head_dim`` a multiple of 4 or 8) whose value and
+    output lie at 16-byte aligned ``data_ptrs``; else "scalar"."""
+    n = _VEC_CHANNELS.get(dtype)
+    if n and head_dim % n == 0 and all(p % 16 == 0 for p in data_ptrs):
+        return "row"
+    return "scalar"
+
+
+def _launch_fwd(value, spatial_shapes, locs, weights, path=None, lanes=None, samples=None):
+    """K1 on ``path`` ("row" or "scalar"; ``ms_deform_fwd_path``'s choice by
+    default), the row-wide path with ``lanes`` lanes per output row and
+    ``samples`` samples a lane loads at a time (``ROW_LANES``,
+    ``ROW_SAMPLES_PER_LANE`` by default)."""
+    global LAUNCHES, ROW_LAUNCHES
     B, Nv, H, hd = value.shape
     Nq, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
     out = torch.empty((B, Nq, H, hd), dtype=value.dtype, device=value.device)
+    path = path or ms_deform_fwd_path(hd, value.dtype, (value.data_ptr(), out.data_ptr()))
+    args = (value.data_ptr(), locs.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            B, Nv, Nq, H, hd, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype])
     with torch.cuda.device(value.device):
         stream = torch.cuda.current_stream(value.device).cuda_stream
-        rc = _kernel_fn("ms_deform_gather3d_fwd")(
-            value.data_ptr(), locs.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            B, Nv, Nq, H, hd, L, P, _levels(spatial_shapes),
-            _DTYPE_CODE[value.dtype], stream)
+        if path == "row":
+            rc = _kernel_fn("ms_deform_gather3d_fwd_rows")(
+                *args, lanes or ROW_LANES, samples or ROW_SAMPLES_PER_LANE, stream)
+        elif path == "scalar":
+            rc = _kernel_fn("ms_deform_gather3d_fwd")(*args, stream)
+        else:
+            raise ValueError(f"path must be 'row' or 'scalar'; got {path!r}")
     if rc != 0:
-        raise RuntimeError(f"ms_deform_gather3d launch failed: cudaError {rc}")
+        raise RuntimeError(f"ms_deform_gather3d ({path}) launch failed: cudaError {rc}")
     LAUNCHES += 1
+    if path == "row":
+        ROW_LAUNCHES += 1
     return out
 
 

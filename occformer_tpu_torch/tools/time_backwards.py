@@ -2,32 +2,40 @@
 
     python3 occformer_tpu_torch/tools/time_backwards.py [--root DIR] [--label NAME] [--sweep]
 
-K1-bwd (``ops/trilerp_fused.py:_launch_bwd``) at the flagship's deformable
-attention shapes in bf16, at uniform and at local locations
-(``flagship_gather_inputs``, which ``chip_smoke.py`` draws its K1 inputs
-from too); K2-bwd (``ops/trilerp.py:_launch_bwd``) at the per-layer loss
+K1 (``ops/trilerp_fused.py:_launch_fwd``) at the flagship's deformable
+attention shapes in bf16 and float32 and K1-bwd (``_launch_bwd``) in bf16,
+each at uniform and at local locations (``flagship_gather_inputs``, which
+``chip_smoke.py`` draws its K1 inputs from too); K2-bwd (``ops/trilerp.py:_launch_bwd``) at the per-layer loss
 route's candidate (150528 points) and random-fill (17 x 12544 points)
 readouts of the bf16 feature ``[1, 128, 128, 16, 192]``, border,
 align_corners=False; K2 (``ops/trilerp.py:_launch_fwd``) at that candidate
 readout, at the per-layer route's GT masks (bool ``[17, 256, 256, 32, 1]``,
-17 x 12544 points) and at the batched route's match (bf16 ``[10, 128, 128,
-16, 100]``, 10 x 50176 points) and per-slot (float32 C = 17 at 10 x 150528
-points, C = 1 at 170 x 12544) volumes; and K4
+17 x 12544 points) and GT table (bool ``[1, 256, 256, 32, 17]`` at the
+150528 candidates), and at the batched route's match (bf16 ``[10, 128,
+128, 16, 100]``, 10 x 50176 points) and per-slot (float32 C = 17 at 10 x
+150528 points, C = 1 at 170 x 12544) volumes; and K4
 (``ops/trilerp_fused.py:_launch_multi_fwd``) at the deformable attention's
 pyramid (``k4_inputs``, bf16 and float32), and at bench.py's parity-gate
 shapes by the profiler's device time.  Each is the median ms of 30
-CUDA-event timed launches, on the path the checkout picks.  ``--root``
-names the checkout whose ``occformer_tpu_torch`` is imported (this one by
-default), so that two versions can be timed in turns on one card:
+CUDA-event timed launches, on the path the checkout picks; K1 and K2 also
+by the profiler's device time.  ``--root`` names the checkout whose
+``occformer_tpu_torch`` is imported (this one by default), so that two
+versions can be timed in turns on one card:
 
     for r in parent . . parent; do python3 .../time_backwards.py --root $r; done
 
 ``--sweep`` also times both of K2-bwd's paths, and both of K2's forward
 paths, at the candidate readout's shape over row widths C = 8 ... 192, in
 turns (the measurements behind ``ops/trilerp.py:SEGMENTED_MIN_C`` and
-``fwd_path``), and K2's row-wide path at C = 192 over its lane-group
-sizes 1 ... 32 (it needs a checkout with both paths of each kernel).  It
-prints one JSON line and exits 2 without a CUDA device.
+``fwd_path``), K2's row-wide path at C = 192 over its lane-group sizes
+1 ... 32, K2's narrow path at the batched route's C = 17 and C = 100 over
+and the GT table's C = 17 over its lane-group sizes and at C = 1 (the GT
+masks, the random fill) over its
+points per lane (``NARROW_CHUNKS_PER_LANE``, ``NARROW_POINTS_PER_LANE``),
+and K1's row-wide path over its lanes per row and samples per lane at the
+uniform and local locations in bf16 and float32 (``ROW_LANES``,
+``ROW_SAMPLES_PER_LANE``; it needs a checkout with those paths).  It prints
+one JSON line and exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,6 +46,8 @@ import sys
 
 SWEEP_WIDTHS = (8, 16, 32, 40, 48, 56, 64, 128, 192)
 LANE_SWEEP = (1, 2, 4, 8, 16, 32)
+POINTS_SWEEP = (1, 2, 4)
+SAMPLES_SWEEP = (1, 2, 3)
 # the pyramid of the deformable attention, largest level first, as bench.py
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
 
@@ -100,12 +110,15 @@ def k4_inputs(case, dtype=None, seed=6):
 
 def k2_fwd_cases(seed=2):
     """K2's readouts on the card, by name: (table, coords) of the per-layer
-    route's candidates and GT masks and the batched route's three volumes."""
+    route's candidates, its per-slot GT masks at the random fill and its GT
+    table (17 class slots as channels) at the candidates, and the batched
+    route's three volumes."""
     import torch
 
     g = torch.Generator(device="cuda").manual_seed(seed)
     shapes = (("candidates", (1, 128, 128, 16, 192), torch.bfloat16, (1, 150528)),
               ("gt_masks", (17, 256, 256, 32, 1), torch.bool, (17, 12544)),
+              ("gt_table_candidates", (1, 256, 256, 32, 17), torch.bool, (1, 150528)),
               ("batched_matching", (10, 128, 128, 16, 100), torch.bfloat16, (10, 50176)),
               ("batched_candidates", (10, 128, 128, 16, 17), torch.float32, (10, 150528)),
               ("batched_random_fill", (170, 128, 128, 16, 1), torch.float32, (170, 12544)))
@@ -149,6 +162,60 @@ def k2_fwd_path_sweep(widths=SWEEP_WIDTHS, lanes=LANE_SWEEP, seed=10):
     return recs
 
 
+def k2_narrow_sweep(lanes=LANE_SWEEP, points=POINTS_SWEEP):
+    """K2's narrow forward at the GT and the batched route's readouts
+    (``k2_fwd_cases``): over lane-group sizes at C = 17 and C = 100, over
+    points per lane at C = 1; ms twice each, in turns over the settings."""
+    from occformer_tpu_torch.ops import trilerp as k2
+    from occformer_tpu_torch.utils.timing import time_cuda
+
+    recs = {}
+    for name, table, coords in k2_fwd_cases():
+        C = table.shape[-1]
+        if name == "candidates":
+            continue
+        if C == 1:
+            key, opts = "points", [{"points": n} for n in points]
+        else:
+            key, opts = "lanes", [{"lanes": n} for n in lanes]
+        ms = {str(o[key]): [] for o in opts}
+        for o in opts + opts[::-1]:
+            ms[str(o[key])].append(time_cuda(lambda: k2._launch_fwd(
+                table, coords, False, "border", path="scalar", **o)))
+        vec = k2.narrow_vec(C, table.dtype, table.data_ptr())
+        recs[name] = {"C": C, "vec": vec, f"ms_by_{key}": ms,
+                      "default_lanes": k2.narrow_lanes(C, vec),
+                      "default_points": k2.NARROW_POINTS_PER_LANE}
+    return recs
+
+
+def k1_row_sweep(lanes=LANE_SWEEP, samples=SAMPLES_SWEEP):
+    """K1's row-wide path at the flagship's shapes over lanes per row and
+    samples a lane loads at a time, at uniform and local locations, bf16
+    and float32: ms twice each, in turns; and the scalar path once each."""
+    import torch
+
+    from occformer_tpu_torch.ops import trilerp_fused as k1
+    from occformer_tpu_torch.utils.timing import time_cuda
+
+    recs = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for where, local in (("uniform", False), ("local", True)):
+            value, shapes, locs, w = flagship_gather_inputs(dtype, local)
+            opts = [(n, k) for n in lanes for k in samples]
+            ms = {f"{n}x{k}": [] for n, k in opts}
+            for n, k in opts + opts[::-1]:
+                ms[f"{n}x{k}"].append(time_cuda(lambda: k1._launch_fwd(
+                    value, shapes, locs, w, path="row", lanes=n, samples=k)))
+            recs[f"{str(dtype)[6:]}_{where}"] = {
+                "ms_by_lanes_x_samples": ms,
+                "scalar_ms": time_cuda(lambda: k1._launch_fwd(value, shapes, locs, w,
+                                                              path="scalar"))}
+            del value, locs, w
+    recs["default"] = f"{k1.ROW_LANES}x{k1.ROW_SAMPLES_PER_LANE}"
+    return recs
+
+
 def k2_bwd_path_sweep(widths=SWEEP_WIDTHS, seed=9):
     """Both K2-bwd paths at the candidate readout's shape (bf16 table [1,
     128, 128, 16, C], 150528 points, border) for each row width C: ms lists
@@ -180,7 +247,8 @@ def main(argv=None) -> int:
         os.path.abspath(__file__)))), help="the checkout whose port is timed")
     p.add_argument("--label", default=None, help="a name for the run in the output")
     p.add_argument("--sweep", action="store_true",
-                   help="also time both paths of K2-bwd and of K2 over row widths 8-192")
+                   help="also time both paths of K2-bwd and of K2 over row widths 8-192, "
+                        "and the lane groups of K2's and K1's redesigned paths")
     args = p.parse_args(argv)
     import torch
 
@@ -194,6 +262,14 @@ def main(argv=None) -> int:
 
     rec = {"label": args.label or args.root, "root": os.path.abspath(args.root),
            "package": os.path.dirname(k1.__file__), "device": torch.cuda.get_device_name(0)}
+    for dtype in (torch.bfloat16, torch.float32):
+        for where, local in (("uniform", False), ("local", True)):
+            value, shapes, locs, w = flagship_gather_inputs(dtype, local)
+            rec[f"K1_{str(dtype)[6:]}_{where}_ms"] = time_cuda(
+                lambda: k1._launch_fwd(value, shapes, locs, w))
+            rec[f"K1_{str(dtype)[6:]}_{where}_device_ms"] = device_ms(
+                lambda: k1._launch_fwd(value, shapes, locs, w))
+            del value, locs, w
     gen = torch.Generator(device="cuda").manual_seed(1)
     for where, local in (("uniform", False), ("local", True)):
         value, shapes, locs, w = flagship_gather_inputs(torch.bfloat16, local)
@@ -212,6 +288,9 @@ def main(argv=None) -> int:
     del table, coords, gout
     for name, table, coords in k2_fwd_cases():
         rec[f"K2_{name}_ms"] = time_cuda(lambda: k2._launch_fwd(table, coords, False, "border"))
+        # the events also time the wrapper's host work, most of a short launch
+        rec[f"K2_{name}_device_ms"] = device_ms(
+            lambda: k2._launch_fwd(table, coords, False, "border"))
     del table, coords
     for dtype in (torch.bfloat16, torch.float32):
         tables, coords, C = k4_inputs("flagship", dtype)
@@ -223,6 +302,8 @@ def main(argv=None) -> int:
     if args.sweep:
         rec["K2-bwd_path_sweep"] = k2_bwd_path_sweep()
         rec["K2_path_sweep"] = k2_fwd_path_sweep()
+        rec["K2_narrow_sweep"] = k2_narrow_sweep()
+        rec["K1_row_sweep"] = k1_row_sweep()
     print(json.dumps(rec), flush=True)
     return 0
 

@@ -14,7 +14,11 @@ version) is held against ``jax.vjp`` of the Pallas gather (K1-bwd,
 module; their tolerances are stated where they are used.
 
 The CUDA kernel itself is held against the plain version on the card by
-tests/test_torch_gpu.py (skipped without a GPU) and by chip_smoke.py.
+tests/test_torch_gpu.py (skipped without a GPU) and by chip_smoke.py.  Its
+row-wide path's order of sums (lanes owning whole samples, then a shuffle
+butterfly) is emulated here in torch and held to both references, and
+``ms_deform_fwd_path``, the wrapper's choice of path, is tested as the pure
+function it is.
 """
 from functools import partial
 
@@ -102,6 +106,82 @@ def test_plain_version_backward_matches_pallas_vjp(P):
                                     (ATOL, 1e-4, ATOL)):
         np.testing.assert_allclose(got.grad.numpy(), np.asarray(ref), atol=atol,
                                    err_msg=name)
+
+
+def _row_path_emulation(value, locs, w, lanes):
+    """K1's row-wide path (csrc/ms_deform_gather3d.cu) sum for sum, in
+    float32: sample s goes to lane s % lanes; each lane adds its samples in
+    ascending order, each sample's 8 corners in (dx, dy, dz) order with the
+    attention weight folded into the corner weight, a corner outside its
+    level skipped; then the group's shuffle butterfly (xor distance
+    lanes / 2 first) adds the lanes' partial sums."""
+    B, Nv, H, hd = value.shape
+    Nq, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
+    v = value.float()
+    b_idx = torch.arange(B).view(B, 1, 1)
+    h_idx = torch.arange(H).view(1, 1, H)
+    starts = np.cumsum([0] + [x * y * z for x, y, z in SHAPES])
+    partial = [torch.zeros(B, Nq, H, hd) for _ in range(lanes)]
+    for s in range(L * P):
+        l, p = divmod(s, P)
+        size = SHAPES[l]
+        axes = []
+        for i, n in enumerate(size):  # unnormalize, with the kernel's clamp
+            g = locs[:, :, :, l, p, i] * 2.0 - 1.0
+            pix = (((g + 1.0) * n - 1.0) * 0.5).clamp(-2.0, n + 1.0)
+            f = pix.floor()
+            axes.append((f.long(), (1.0 - (pix - f), pix - f)))
+        a = w[:, :, :, l, p].float()
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    idx = [ax[0] + d for ax, d in zip(axes, (dx, dy, dz))]
+                    ok = torch.ones_like(a, dtype=torch.bool)
+                    for i, n in zip(idx, size):
+                        ok &= (i >= 0) & (i < n)
+                    X, Y, Z = size
+                    row = int(starts[l]) + (idx[0] * Y + idx[1]) * Z + idx[2]
+                    row = torch.where(ok, row, torch.zeros_like(row))
+                    cw = a * (axes[0][1][dx] * axes[1][1][dy] * axes[2][1][dz])
+                    cw = torch.where(ok, cw, torch.zeros_like(cw))
+                    partial[s % lanes] = partial[s % lanes] + cw[..., None] * v[b_idx, row, h_idx]
+    m = lanes // 2
+    while m:
+        partial = [partial[i] + partial[i ^ m] for i in range(lanes)]
+        m //= 2
+    assert all(torch.equal(t, partial[0]) for t in partial)  # every lane ends with the same bits
+    return partial[0]
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_row_path_order_of_sums_matches_plain_and_pallas(lanes):
+    """K1's row-wide path has no CPU mode: its order of sums, emulated in
+    torch at every lane count of the sweep (more lanes than the 8 samples
+    leave lanes idle), against the plain version and the Pallas kernel in
+    interpret mode, atol 1e-5 (float32, other summation orders)."""
+    value, locs, w = _inputs(4, seed=8)
+    args = [torch.from_numpy(a) for a in (value, locs, w)]
+    got = _row_path_emulation(*args, lanes)
+    plain = k1.ms_deform_gather_3d_plain(args[0], SHAPES, args[1], args[2])
+    ref = _jax_k1(*(jnp.asarray(a) for a in (value, locs, w)))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+@pytest.mark.parametrize("hd,dtype,ptrs,want", [
+    (24, torch.bfloat16, (0, 0), "row"),       # the flagship, served under autocast
+    (24, torch.float32, (0, 256), "row"),      # the flagship in float32
+    (12, torch.float32, (0, 0), "row"),        # the tiny test model: 48-byte rows
+    (40, torch.bfloat16, (0, 0), "row"),
+    (8, torch.bfloat16, (0, 0), "row"),        # one vector a row
+    (12, torch.bfloat16, (0, 0), "scalar"),    # 24-byte rows
+    (6, torch.float32, (0, 0), "scalar"),
+    (24, torch.bfloat16, (8, 0), "scalar"),    # a value not 16-byte aligned
+    (24, torch.float32, (0, 4), "scalar"),     # an output not 16-byte aligned
+    (24, torch.float16, (0, 0), "scalar"),     # no kernel dtype
+])
+def test_ms_deform_fwd_path(hd, dtype, ptrs, want):
+    assert k1.ms_deform_fwd_path(hd, dtype, ptrs) == want
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_launching():

@@ -82,6 +82,50 @@ def test_kernel_matches_plain(cuda, dtype, hd):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [24, 40])
+@pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
+def test_k1_row_path_matches_plain(cuda, dtype, hd, lanes):
+    """K1's row-wide path (rows of whole 16-byte vectors) against the plain
+    version at every lane count of the sweep and 1-3 samples a lane at a
+    time; hd = 40 in float32 takes passes of 4 vectors.  Two calls of the
+    default are bit-equal and counted on the row path."""
+    dt = getattr(torch, dtype)
+    value, locs, w = _inputs(cuda, dt, hd=hd, seed=11)
+    assert k1.ms_deform_fwd_path(hd, dt, (value.data_ptr(),)) == "row"
+    ref = k1.ms_deform_gather_3d_plain(value.float(), SHAPES, locs, w.float())
+    for samples in (1, 2, 3):
+        got = k1._launch_fwd(value, SHAPES, locs, w, path="row", lanes=lanes, samples=samples)
+        _close(got, ref, _tol(dt), f"K1 row path, {lanes} lanes x {samples} samples")
+    before = (k1.LAUNCHES, k1.ROW_LAUNCHES)
+    got = k1.ms_deform_gather_3d(value, SHAPES, locs, w)
+    again = k1.ms_deform_gather_3d(value, SHAPES, locs, w)
+    torch.cuda.synchronize()
+    assert (k1.LAUNCHES - before[0], k1.ROW_LAUNCHES - before[1]) == (2, 2)
+    assert got.dtype == dt and torch.equal(got, again)
+    _close(got, ref, _tol(dt), "K1 row path")
+
+
+def test_k1_scalar_path_for_other_rows(cuda):
+    """hd = 12 in bf16 (24-byte rows) and a float32 value 4 bytes past a
+    16-byte boundary keep one thread per channel."""
+    value, locs, w = _inputs(cuda, torch.bfloat16, hd=12, seed=12)
+    assert k1.ms_deform_fwd_path(12, torch.bfloat16, (value.data_ptr(),)) == "scalar"
+    v32, _, w32 = _inputs(cuda, torch.float32, hd=24, seed=13)
+    odd = torch.empty(v32.numel() + 1, device=cuda)[1:].view(v32.shape).copy_(v32)
+    assert odd.data_ptr() % 16 and k1.ms_deform_fwd_path(24, torch.float32,
+                                                         (odd.data_ptr(),)) == "scalar"
+    for v, ww, rel in ((value, w, 1e-2), (odd, w32, 1e-5)):
+        before = (k1.LAUNCHES, k1.ROW_LAUNCHES)
+        got = k1.ms_deform_gather_3d(v, SHAPES, locs, ww)
+        torch.cuda.synchronize()
+        assert (k1.LAUNCHES - before[0], k1.ROW_LAUNCHES - before[1]) == (1, 0)
+        _close(got, k1.ms_deform_gather_3d_plain(v.float(), SHAPES, locs, ww.float()), rel,
+               "K1 scalar path")
+    with pytest.raises(RuntimeError):  # the row path refuses a misaligned value
+        k1._launch_fwd(odd, SHAPES, locs, w32, path="row")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("hd", [24, 40, 12])
 def test_k1_backward_matches_plain_autograd(cuda, dtype, hd):
     """K1-bwd's d_value, d_locs, d_weights against autograd through the
@@ -282,6 +326,40 @@ def test_k2_scalar_path_for_other_rows(cuda, dtype, C):
         assert odd.data_ptr() % 16 and k2.fwd_path(odd.shape, odd.dtype, odd.data_ptr()) == "scalar"
         _close(k2.trilerp_sample(odd, coords), k2.trilerp_sample_plain(odd, coords), 1e-5,
                "K2 unaligned table")
+
+
+@pytest.mark.parametrize("case", ["uint8 C1", "float32 C1", "float32 C17", "bfloat16 C100",
+                                  "bool C16", "float32 C8 unaligned"])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_k2_narrow_path_matches_plain(cuda, case, align_corners, padding_mode):
+    """K2's narrow forward (the "scalar" path) against the plain version,
+    coordinates up to +-1.15, at its default and at every lane count (C > 1)
+    or points per lane (C = 1).  Two calls are bit-equal."""
+    dtype, C = case.split()[0], int(case.split()[1][1:])
+    table, coords = _k2_inputs(cuda, "bool" if dtype == "uint8" else dtype, C=C, seed=9)
+    if dtype == "uint8":
+        table = table.view(torch.uint8)
+    if case.endswith("unaligned"):  # one float past a 16-byte boundary
+        buf = torch.empty(table.numel() + 1, device=cuda)[1:]
+        table = buf.view(table.shape).copy_(table)
+        assert table.data_ptr() % 16
+    t = table.view(torch.uint8) if table.dtype == torch.bool else table
+    assert k2.fwd_path(t.shape, t.dtype, t.data_ptr()) == "scalar"
+    ref = k2.trilerp_sample_plain(table, coords, align_corners, padding_mode)
+    tol = _tol(ref.dtype)
+    before = (k2.LAUNCHES, k2.ROW_LAUNCHES)
+    got = k2.trilerp_sample(table, coords, align_corners, padding_mode)
+    again = k2.trilerp_sample(table, coords, align_corners, padding_mode)
+    torch.cuda.synchronize()
+    assert (k2.LAUNCHES - before[0], k2.ROW_LAUNCHES - before[1]) == (2, 0)
+    assert got.dtype == ref.dtype and torch.equal(got, again)
+    _close(got, ref, tol, f"K2 narrow {case}")
+    opts = ([{"points": n} for n in (1, 2, 4)] if C == 1 else
+            [{"lanes": n} for n in (1, 2, 4, 8, 16, 32)])
+    for o in opts:
+        _close(k2._launch_fwd(t, coords, align_corners, padding_mode, "scalar", **o), ref, tol,
+               f"K2 narrow {case} {o}")
 
 
 def _k2_bwd_on(path, table, coords, gout, align_corners=False, padding_mode="border"):

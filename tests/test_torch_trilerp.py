@@ -14,7 +14,9 @@ torch model of its formulation here (corner keys and weights with the
 kernel's ``make_axis`` arithmetic, a stable sort by key, segment sums in
 ascending point order) pins the index and weight rules it follows against
 autograd of the plain version, and ``bwd_path`` and ``fwd_path``, the
-wrapper's choices of path, are tested as the pure functions they are.
+wrapper's choices of path, and ``narrow_vec`` and ``narrow_lanes``, the
+narrow forward's load width and lane group, are tested as the pure
+functions they are.
 """
 import numpy as np
 import pytest
@@ -229,6 +231,34 @@ def test_bwd_path_threshold_and_limits():
 ])
 def test_fwd_path_at_the_loss_shapes_and_limits(shape, dtype, ptr, want):
     assert k2.fwd_path(shape, dtype, ptr) == want
+
+
+@pytest.mark.parametrize("C,dtype,ptr,vec,lanes", [
+    (1, torch.uint8, 0, 1, 1),             # per-layer route: the GT masks (a z pair a lane)
+    (5, torch.uint8, 0, 1, 2),             # the tiny test model's GT masks
+    (17, torch.float32, 0, 1, 8),          # batched route: candidates, 4-byte loads
+    (1, torch.float32, 0, 1, 1),           # batched route: random fill
+    (100, torch.bfloat16, 0, 4, 8),        # batched route: match volumes, 8-byte loads
+    (16, torch.uint8, 0, 4, 1),            # uint8 chunks of 4 (16 bytes of float32 out)
+    (12, torch.bfloat16, 0, 4, 1),         # 24-byte rows
+    (192, torch.bfloat16, 0, 8, 8),        # a whole-vector row forced onto the narrow path
+    (192, torch.bfloat16, 8, 4, 16),       # a table 8 bytes past a 16-byte boundary
+    (8, torch.float32, 4, 1, 2),           # ... 4 bytes past one
+    (6, torch.float32, 8, 2, 1),
+    (1024, torch.bfloat16, 0, 8, 32),
+    (4096, torch.bfloat16, 0, 8, 32),      # at most 32 lanes; the chunks take passes
+])
+def test_narrow_vec_and_lanes_at_the_loss_shapes_and_limits(C, dtype, ptr, vec, lanes):
+    """K2's narrow forward loads the widest chunk (at most 16 bytes, and at
+    most 4 elements of a uint8 table, whose float32 output chunk is 4x as
+    wide) that divides the row and the table's alignment, and sizes its
+    lane group to hold the row at NARROW_CHUNKS_PER_LANE chunks a lane."""
+    assert k2.narrow_vec(C, dtype, ptr) == vec
+    assert k2.narrow_lanes(C, vec) == lanes
+    chunks = C // vec
+    assert lanes == 32 or k2.NARROW_CHUNKS_PER_LANE * lanes >= chunks
+    assert lanes == 1 or k2.NARROW_CHUNKS_PER_LANE * lanes // 2 < chunks
+    assert vec * dtype.itemsize <= 16 and C % vec == 0 and ptr % (vec * dtype.itemsize) == 0
 
 
 @pytest.mark.parametrize("C,dtype,lanes", [(192, torch.bfloat16, 8), (8, torch.bfloat16, 1),

@@ -69,8 +69,14 @@ Phases, each printing one JSON line:
                  scatter's atomic order and with only the scatter in
                  deterministic mode (the default): losses, LSS volumes and
                  the loss's uncertainty top-k compared bit for bit; the
-                 deterministic mode must repeat them; and the scatter's cost
-                 per step in both modes.
+                 deterministic mode must repeat them; then on the flagship's
+                 batched loss route with the kernels as they are (its
+                 losses, selections and the loss's gradients must repeat),
+                 with K2-bwd through its segmented path and with torch's
+                 deterministic algorithms beside it; every pair also
+                 records grad_norm and which parameters' gradients differ
+                 (C.6); and S1 against its plain version and the scatter's
+                 cost per step in both modes.
   6. train:      the flagship's train step at full width and depth, float32
                  parameters under bfloat16 autocast, batch 1, through
                  build_train_step on the per-layer loss route: 1 warm-up
@@ -329,7 +335,8 @@ def phase_k2():
     library call both on a float copy made beforehand and with the bool ->
     float cast included; K2-bwd's segmented
     path at the candidate and random-fill readouts, with two calls held
-    bit-equal, and its narrow path timed at the candidates beside it.
+    bit-equal, and its narrow path (the per-column gather) timed at the
+    candidates beside it.
     Tolerances relative to max |plain|: bfloat16 1e-2 (bf16 output), float32
     1e-5 forward and 1e-4 backward (float32 sums in another order)."""
     import torch
@@ -470,7 +477,8 @@ def phase_k2():
     bwd["zeros_align_d_coords"] = compare(c_c.grad, c_r.grad, 1e-4, "K2-bwd d_coords f32")
     bwd["kernel_ms"] = time_cuda(lambda: k2._launch_bwd(
         table, coords, gout, False, "border", want_coords=False))
-    # the narrow atomic path (the K2-bwd this path replaced at C = 192) here
+    # the narrow path (the per-column gather) at C = 192, beside the
+    # segmented path that bwd_path picks there
     bwd["narrow_path_ms"] = time_cuda(lambda: k2._launch_bwd(
         table, coords, gout, False, "border", want_coords=False, path="narrow"))
     p_leaf = table.detach().clone().requires_grad_(True)
@@ -516,13 +524,17 @@ def phase_k2_batched():
     each slot ([170, ..., 1]).  All three forwards take K2's narrow
     ("scalar") path, two calls held bit-equal, timed by CUDA events and by
     the profiler's device time beside F.grid_sample on a channels-first
-    copy.  Both backwards take K2-bwd's narrow path, timed beside the plain
-    version's autograd and autograd through F.grid_sample.  Tolerances as in
+    copy.  Both backwards take K2-bwd's narrow path (the per-column
+    gather), two calls held bit-equal, timed by CUDA events and by the
+    profiler's device time at the random points and at the same points
+    sorted by column (as the loss sends them), beside the plain version's
+    autograd and autograd through F.grid_sample.  Tolerances as in
     phase_k2."""
     import torch
     import torch.nn.functional as F
 
     from occformer_tpu_torch.ops import trilerp as k2
+    from occformer_tpu_torch.ops.loss_gather import sort_points_by_row
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(3)
@@ -571,25 +583,38 @@ def phase_k2_batched():
         ref_leaf = table.detach().clone().requires_grad_(True)
         k2.trilerp_sample_plain(ref_leaf, coords, False, "border").backward(gout)
         rb = compare(leaf.grad, ref_leaf.grad, 1e-4, f"K2-bwd batched {name} d_table")
-        del leaf, ref_leaf
+        again, _ = k2._launch_bwd(table, coords, gout, False, "border", want_coords=False)
+        check(torch.equal(again, leaf.grad), f"K2-bwd batched {name}: two calls differ")
+        rb["bit_identical_calls"] = True
+        del leaf, ref_leaf, again
         check(k2.bwd_path(table.shape, cshape[1]) == "narrow", f"K2-bwd {name}: not narrow")
-        rb["kernel_ms"] = time_cuda(lambda: k2._launch_bwd(
+        rb["lanes"] = k2.column_lanes(tshape[-1])
+        # timed at the points sorted by column, as the loss sends them; the
+        # kernel also at the random order beside
+        by_col = (sort_points_by_row((coords + 1) / 2, tshape[1:4]) * 2 - 1).contiguous()
+        rb["random_order_ms"] = time_cuda(lambda: k2._launch_bwd(
             table, coords, gout, False, "border", want_coords=False))
+        rb["random_order_device_ms"] = device_ms(lambda: k2._launch_bwd(
+            table, coords, gout, False, "border", want_coords=False))
+        rb["kernel_ms"] = time_cuda(lambda: k2._launch_bwd(
+            table, by_col, gout, False, "border", want_coords=False))
+        rb["device_ms"] = device_ms(lambda: k2._launch_bwd(
+            table, by_col, gout, False, "border", want_coords=False))
         p_leaf = table.detach().clone().requires_grad_(True)
-        p_out = k2.trilerp_sample_plain(p_leaf, coords, False, "border")
+        p_out = k2.trilerp_sample_plain(p_leaf, by_col, False, "border")
         rb["plain_ms"] = time_cuda(lambda: torch.autograd.grad(
             p_out, p_leaf, gout, retain_graph=True), iters=10)
         del p_out, p_leaf
         # the library call: autograd through F.grid_sample on the
         # channels-first copy of the volumes
         l_vol = table.permute(0, 4, 1, 2, 3).contiguous().requires_grad_(True)
-        l_grid = coords.flip(-1).reshape(cshape[0], -1, 1, 1, 3).contiguous()
+        l_grid = by_col.flip(-1).reshape(cshape[0], -1, 1, 1, 3).contiguous()
         l_out = F.grid_sample(l_vol, l_grid, mode="bilinear", padding_mode="border",
                               align_corners=False)
         l_gout = gout.transpose(1, 2).reshape(l_out.shape).contiguous()
         rb["library_ms"] = time_cuda(lambda: torch.autograd.grad(
             l_out, l_vol, l_gout, retain_graph=True), iters=10)
-        del l_out, l_vol, l_gout
+        del l_out, l_vol, l_gout, by_col
         rb.update(bound(nbytes(gout, coords, table), S * C * 8 * 2))
         bwd[name] = rb
         del gout
@@ -1110,26 +1135,38 @@ def serve_frames(step, batch, frames=4):
 
 
 def phase_determinism():
-    """Whether the LSS scatter's atomic order is what makes a reloaded train
-    step on the card differ (ops/scatter.py).  A model, optimizer, batch and
-    step seed are fixed; each pair of steps starts from one saved state
-    (model and optimizer reloaded bit for bit) and records every loss, the
-    LSS volume and every uncertainty top-k index set of the per-layer loss.
-    Pairs run with the scatter's atomic order (its plain version,
-    ``index_add_``), then with only the scatter deterministic (S1, the
-    default),
-    on the tiny CLI model (synthetic_tiny, frozen stem) and on the flagship
-    at full width.  In deterministic mode every pair must repeat its losses,
-    volumes and top-k bit for bit.  Then S1 (the splat kernel behind the
-    deterministic mode) on the flagship's captured inputs: held against the
-    plain version, two calls bit-equal, and one call of
-    ``voxel_scatter_lifted`` (one per frame or train step) timed in both
-    modes in turns, beside one ``index_add_`` of the whole lift."""
+    """Whether a reloaded train step on the card repeats itself bit for bit.
+    A model, optimizer, batch and step seed are fixed; each pair of steps
+    starts from one saved state (model and optimizer reloaded bit for bit)
+    and records every loss, the LSS volume, the loss's uncertainty
+    selections (the per-layer route's top-k index sets, the batched route's
+    0/1 selections), the gradients the loss hands back to the model (of the
+    class logits, mask embeddings and mask feature), grad_norm and every
+    parameter's gradient before the optimizer's global-norm clip
+    (``grads_differ_by_module``: per module, the parameters whose gradients
+    differed in some pair, of those with one; after the clip every gradient
+    differs where grad_norm does).
+
+    * Per-layer route (C.4, ops/scatter.py), on the tiny CLI model
+      (synthetic_tiny, frozen stem) and on the flagship at full width: pairs
+      with the LSS scatter's atomic order (its plain version, index_add_),
+      then with only the scatter deterministic (S1, the default).
+    * Batched route (C.5, mxu_readout="on") on the flagship: pairs with the
+      port's kernels as they are.
+    S1's pairs must repeat their losses, volumes and top-k bit for bit; the
+    batched route's pairs must repeat their losses, selections and the
+    loss's gradients (grad_norm is recorded, not held: C.6).  Then S1 (the
+    splat kernel behind the deterministic mode) on the flagship's captured
+    depth and context at two geometries (``s1_check``): the voxel
+    coordinates of a forward-looking nuScenes rig
+    (``tools/time_backwards.py:NUSCENES_RIG``; S1's record) and those the
+    captured step saw (the synthetic cameras, which look straight up)."""
     import copy
 
     import numpy as np
     import torch
 
+    import occformer_tpu_torch.engine.train as train_mod
     import occformer_tpu_torch.losses.mask2former_loss as loss_mod
     import occformer_tpu_torch.models.lss as lss_mod
     from occformer_tpu_torch.config import load_config
@@ -1139,14 +1176,29 @@ def phase_determinism():
     from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
     from occformer_tpu_torch.models.detector import build_model
     from occformer_tpu_torch.ops import scatter
+    from occformer_tpu_torch.tools.time_backwards import s1_geometry, segment_stats
 
-    topks, volumes, captured = [], [], []
+    topks, volumes, captured, loss_grads = [], [], [], {}
     orig_topk, orig_scatter = loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted
+    orig_select, orig_loss = loss_mod.uncertainty_select, train_mod.mask2former_loss
 
     def rec_topk(logits, n):
         idx = orig_topk(logits, n)
         topks.append(idx.detach().clone())
         return idx
+
+    def rec_select(logits, n):
+        sel = orig_select(logits, n)
+        topks.append(sel.clone())
+        return sel
+
+    def rec_loss(cls_preds, mask_embeds, mask_feature, *rest):
+        for name, t in (("cls_preds", cls_preds), ("mask_embeds", mask_embeds),
+                        ("mask_feature", mask_feature)):
+            if t.requires_grad:
+                t.register_hook(lambda g, name=name: loss_grads.__setitem__(
+                    name, g.detach().clone()))
+        return orig_loss(cls_preds, mask_embeds, mask_feature, *rest)
 
     def atomic_scatter(depth, ctx, coords, valid, nx):
         """The scatter through its plain version: atomic index_add_."""
@@ -1163,13 +1215,17 @@ def phase_determinism():
         volumes.append(out.detach().clone())
         return out
 
-    def pairs(cfg_path, options, batch, n_pairs, warm_step, compute_dtype):
+    def pairs(cfg_path, options, batch, n_pairs, warm_step, compute_dtype, modes,
+              mxu_readout=None):
+        """``n_pairs`` pairs of reloaded steps in each of ``modes``: (name,
+        atomic scatter)."""
         cfg = load_config(cfg_path, options)
         m = cfg["model"]
+        head = m["pts_bbox_head"] if mxu_readout is None else dict(m["pts_bbox_head"],
+                                                                    mxu_readout=mxu_readout)
         model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
         opt = build_optimizer_from_config(model, cfg, 16)
-        step = build_train_step(model, opt, build_loss_cfg(m["pts_bbox_head"],
-                                                           m["train_cfg"]["pts"]),
+        step = build_train_step(model, opt, build_loss_cfg(head, m["train_cfg"]["pts"]),
                                 device="cuda", compute_dtype=compute_dtype)
         if batch is None:
             batch = next(iter(build_dataloader(build_dataset(cfg["data"]["train"]),
@@ -1178,93 +1234,168 @@ def phase_determinism():
         if warm_step:
             step(batch, torch.Generator(device="cuda").manual_seed(0))
         state = copy.deepcopy((model.state_dict(), opt.state_dict()))
+        names = [k for k, p in model.named_parameters()]
 
         def run():
             model.load_state_dict(state[0])
             opt.load_state_dict(state[1])
             topks.clear()
             volumes.clear()
-            metrics = step(batch, torch.Generator(device="cuda").manual_seed(1))
-            return ({k: float(v) for k, v in metrics.items()}, list(topks), list(volumes))
+            loss_grads.clear()
+            grads = []
+
+            def opt_step():  # the gradients as the backward left them, before the clip
+                grads.extend(None if p.grad is None else p.grad.detach().clone()
+                             for p in model.parameters())
+                return type(opt).step(opt)
+
+            opt.step = opt_step
+            try:
+                metrics = step(batch, torch.Generator(device="cuda").manual_seed(1))
+            finally:
+                del opt.step
+            return ({k: float(v) for k, v in metrics.items()}, list(topks), list(volumes),
+                    dict(loss_grads), grads)
 
         rec = {}
-        for name, atomic in (("atomic_scatter", True), ("deterministic_scatter", False)):
+        for name, atomic in modes:
             mode["atomic"] = atomic
             counts = {"pairs": n_pairs, "losses_differ": 0, "volumes_differ": 0,
                       "topk_differ": 0, "topk_sets_differing": 0, "grad_norm_differs": 0,
-                      "max_rel_loss_diff": 0.0}
+                      "loss_grads_differ": 0, "max_rel_loss_diff": 0.0}
+            grads_differ = {}
             for _ in range(n_pairs):
-                (ma, ta, va), (mb, tb, vb) = run(), run()
+                (ma, ta, va, la, ga), (mb, tb, vb, lb, gb) = run(), run()
                 losses = [k for k in ma if "loss" in k]
                 counts["losses_differ"] += any(ma[k] != mb[k] for k in losses)
                 counts["max_rel_loss_diff"] = max(
-                    [counts["max_rel_loss_diff"]] + [abs(ma[k] - mb[k]) / max(abs(ma[k]), 1e-12)
-                                                     for k in losses])
+                    [counts["max_rel_loss_diff"]]
+                    + [abs(ma[k] - mb[k]) / max(abs(ma[k]), 1e-12) for k in losses])
                 counts["volumes_differ"] += not all(torch.equal(a, b) for a, b in zip(va, vb))
                 differing = sum(not torch.equal(a, b) for a, b in zip(ta, tb))
                 counts["topk_differ"] += differing > 0
                 counts["topk_sets_differing"] += differing
                 counts["grad_norm_differs"] += ma["grad_norm"] != mb["grad_norm"]
+                counts["loss_grads_differ"] += sorted(la) != sorted(lb) or not all(
+                    torch.equal(la[k], lb[k]) for k in la)
+                for k, a, b in zip(names, ga, gb):
+                    if a is None:
+                        continue
+                    module = ".".join(k.split(".")[:2])
+                    d = grads_differ.setdefault(module, set())
+                    if not torch.equal(a, b):
+                        d.add(k)
+                del ga, gb
+            n_grads = {}
+            for k, p in model.named_parameters():
+                if p.grad is not None:
+                    module = ".".join(k.split(".")[:2])
+                    n_grads[module] = n_grads.get(module, 0) + 1
             counts["topk_sets_per_step"] = len(ta)
+            counts["loss_grads_compared"] = sorted(la)
+            counts["param_grads_differ"] = sum(len(v) for v in grads_differ.values())
+            counts["param_grads"] = sum(n_grads.values())
+            counts["grads_differ_by_module"] = {
+                mod: [len(v), n_grads[mod]] for mod, v in grads_differ.items() if v}
             rec[name] = counts
         del model, opt, step, state
         return rec
 
+    scatter_modes = (("atomic_scatter", True), ("deterministic_scatter", False))
     loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted = rec_topk, rec_scatter
+    loss_mod.uncertainty_select, train_mod.mask2former_loss = rec_select, rec_loss
     try:
         tiny = os.path.join(REPO, "occformer_tpu_torch", "configs", "synthetic_tiny.py")
         rec = {"phase": "reload_determinism",
                "tiny": pairs(tiny, {"model.img_backbone.frozen_stages": 0}, None, 5, True,
-                             None)}
+                             None, scatter_modes)}
         free_memory()
         captured.clear()  # keep the flagship's inputs
         cfg = load_config(CONFIG)
-        rec["flagship"] = pairs(CONFIG, {}, make_train_batch(cfg, seed=0), 2, False,
-                                getattr(torch, cfg["compute_dtype"]))
+        batch = make_train_batch(cfg, seed=0)
+        dtype = getattr(torch, cfg["compute_dtype"])
+        rec["flagship"] = pairs(CONFIG, {}, batch, 2, False, dtype, scatter_modes)
+        free_memory()
+        rec["flagship_batched"] = pairs(CONFIG, {}, batch, 2, False, dtype, (("kernels", False),),
+                                        mxu_readout="on")
     finally:
         loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted = orig_topk, orig_scatter
+        loss_mod.uncertainty_select, train_mod.mask2former_loss = orig_select, orig_loss
     free_memory()
 
-    # S1 on the flagship's captured inputs against the plain version (the
-    # atomic index_add_), both timed in turns, beside one index_add_ of the
-    # whole lift (the library call)
+    def s1_check(depth, ctx, coords, valid, nx, label):
+        """S1 against its plain version (the atomic index_add_), two calls
+        bit-equal, both timed in turns, beside one index_add_ of the whole
+        lift (the library call); its backward (plain gathers of the volume's
+        gradient, one per train step) alone; the sort's segment sizes."""
+        got = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+        again = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+        ref = atomic_scatter(depth.float(), ctx.float(), coords, valid, nx)
+        s1 = compare(got, ref, 1e-5 if got.dtype == torch.float32 else 1e-2, f"S1 {label}")
+        check(torch.equal(got, again), f"S1 {label}: two calls differ")
+        s1["bit_identical_calls"] = True
+        s1["dtypes"] = [str(depth.dtype), str(ctx.dtype), str(coords.dtype),
+                        str(valid.dtype), str(got.dtype)]
+        s1["shapes"] = [list(a.shape) for a in (depth, ctx, coords, valid)]
+        s1.update(segment_stats(coords, valid, nx))
+        del again, ref
+        ms = {"atomic_scatter": [], "deterministic_scatter": []}
+        with torch.no_grad():
+            for name in ("atomic_scatter", "deterministic_scatter", "deterministic_scatter",
+                         "atomic_scatter"):
+                fn = atomic_scatter if name == "atomic_scatter" else scatter.voxel_scatter_lifted
+                ms[name].append(time_cuda(lambda: fn(depth, ctx, coords, valid, nx)))
+            rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
+            lift = (depth[..., None] * ctx[:, :, None]).reshape(rows.shape[0], -1).float()
+            vol = torch.zeros((depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2]) + 1,
+                               lift.shape[1]), device=lift.device)
+            s1["library_ms"] = time_cuda(lambda: vol.index_add_(0, rows, lift))
+            del rows, lift, vol
+            # the kernels alone, the sort's included
+            s1["device_ms"] = device_ms(lambda: scatter.voxel_scatter_lifted(
+                depth, ctx, coords, valid, nx))
+        d_leaf, c_leaf = (t.detach().clone().requires_grad_(True) for t in (depth, ctx))
+        vol = scatter.voxel_scatter_lifted(d_leaf, c_leaf, coords, valid, nx)
+        g_vol = torch.randn(vol.shape, device=vol.device, dtype=vol.dtype)
+
+        def s1_backward():
+            return torch.autograd.grad(vol, (d_leaf, c_leaf), g_vol, retain_graph=True)
+
+        s1["backward_ms"] = time_cuda(s1_backward, iters=10)
+        s1["backward_device_ms"] = device_ms(s1_backward, iters=10)
+        del d_leaf, c_leaf, vol, g_vol
+        s1["ms_in_turns"] = ms
+        s1["kernel_ms"] = sum(ms["deterministic_scatter"]) / 2
+        s1["plain_ms"] = sum(ms["atomic_scatter"]) / 2
+        # the function's inputs read once and its volume written once; a
+        # product and an add per (valid point, channel)
+        s1.update(bound(nbytes(depth, ctx, coords, valid, got),
+                        s1["points_valid"] * ctx.shape[-1] * 2))
+        return s1
+
+    # S1 on the flagship's captured depth and context, at a forward-looking
+    # nuScenes rig's voxel coordinates (S1's record) and at those the
+    # captured step saw
     depth, ctx, coords, valid, nx = captured[0]
     captured.clear()
-    got = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
-    again = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
-    ref = atomic_scatter(depth.float(), ctx.float(), coords, valid, nx)
-    s1 = compare(got, ref, 1e-5 if got.dtype == torch.float32 else 1e-2, "S1 flagship")
-    check(torch.equal(got, again), "S1: two calls differ")
-    s1["bit_identical_calls"] = True
-    s1["dtypes"] = [str(depth.dtype), str(ctx.dtype)]
-    del again, ref
-    ms = {"atomic_scatter": [], "deterministic_scatter": []}
-    with torch.no_grad():
-        for name in ("atomic_scatter", "deterministic_scatter", "deterministic_scatter",
-                     "atomic_scatter"):
-            fn = atomic_scatter if name == "atomic_scatter" else scatter.voxel_scatter_lifted
-            ms[name].append(time_cuda(lambda: fn(depth, ctx, coords, valid, nx)))
-        rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
-        lift = (depth[..., None] * ctx[:, :, None]).reshape(rows.shape[0], -1).float()
-        vol = torch.zeros((depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2]) + 1,
-                           lift.shape[1]), device=lift.device)
-        s1["library_ms"] = time_cuda(lambda: vol.index_add_(0, rows, lift))
-        del rows, lift, vol
-    s1["kernel_ms"] = sum(ms["deterministic_scatter"]) / 2
-    s1["plain_ms"] = sum(ms["atomic_scatter"]) / 2
-    # the function's inputs read once and its volume written once; a
-    # product and an add per (point, channel)
-    s1.update(bound(nbytes(depth, ctx, coords, valid, got), depth.numel() * ctx.shape[-1] * 2))
-    rec["S1"] = s1
-    rec["flagship_scatter_ms"] = ms
-    rec["flagship_scatter_shapes"] = [list(a.shape) for a in (depth, ctx, coords, valid)]
-    rec["deterministic_cost_ms_per_step"] = s1["kernel_ms"] - s1["plain_ms"]
-    del depth, ctx, coords, valid, got
+    rig_coords, rig_valid, rig_nx, _ = s1_geometry("nuscenes")
+    check(tuple(rig_nx) == tuple(nx) and rig_coords.shape == coords.shape,
+          f"S1: the rig's grid {rig_nx} {list(rig_coords.shape)} is not the flagship's")
+    rec["S1"] = dict(s1_check(depth, ctx, rig_coords, rig_valid, nx, "nuscenes rig"),
+                     geometry="tools/time_backwards.py:NUSCENES_RIG")
+    rec["S1_synthetic_cameras"] = dict(s1_check(depth, ctx, coords, valid, nx,
+                                                "synthetic cameras"),
+                                       geometry="data/synthetic.py:make_train_batch")
+    del depth, ctx, coords, valid, rig_coords, rig_valid
     emit(rec)
     for size in ("tiny", "flagship"):
         r = rec[size]["deterministic_scatter"]
         check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"] == 0,
               f"reload_determinism {size}: a deterministic-scatter pair differs: {r}")
+    r = rec["flagship_batched"]["kernels"]
+    check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"]
+          == r["loss_grads_differ"] == 0 and len(r["loss_grads_compared"]) == 3,
+          f"reload_determinism flagship_batched: a pair differs: {r}")
     return rec
 
 
@@ -1580,40 +1711,50 @@ def phase_cli():
 
 
 # the port's CUDA kernels by function name -> the kernel they belong to;
-# K2-bwd's segmented path runs the seven K2-bwd functions per launch, and
-# its gather (one per launch) counts the launches
+# the counting sort of csrc/segment_sort.cuh runs six functions per launch
+# of K2-bwd's two paths and of S1, told apart by their key type (its template
+# argument), and the path's gather or splat (one per launch) counts the
+# launches; S1's second splat kernel (its heavy voxels) runs beside it
 PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kernel": "K1.row",
                 "ms_deform_gather3d_bwd_kernel": "K1-bwd",
                 "trilerp_fwd_narrow_kernel": "K2", "trilerp_fwd_rows_kernel": "K2.row",
-                "trilerp_bwd_kernel": "K2-bwd.narrow",
-                "seg_count_kernel": "K2-bwd", "scan_tiles_kernel": "K2-bwd",
-                "scan_sums_kernel": "K2-bwd", "add_tile_offsets_kernel": "K2-bwd",
-                "seg_fill_kernel": "K2-bwd", "seg_rank_kernel": "K2-bwd",
                 "trilerp_bwd_gather_kernel": "K2-bwd",
+                "trilerp_bwd_tiles_kernel": "K2-bwd.narrow",
+                "trilerp_bwd_coords_kernel": "K2-bwd",
                 "label_shared_kernel": "K3", "label_per_slot_kernel": "K3",
                 "multilevel_fwd_kernel": "K4", "multilevel_fwd_rows_kernel": "K4.row",
                 "multilevel_bwd_kernel": "K4-bwd",
                 "add_one_kernel": "P1", "row_gather_kernel": "P2",
-                "voxel_splat_kernel": "S1"}
-_SEGMENTED_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
-                    "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel"}
+                "voxel_splat_kernel": "S1", "voxel_splat_heavy_kernel": "S1"}
+_UNCOUNTED = {"voxel_splat_heavy_kernel"}
+_SORT_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
+               "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel"}
+_SORT_KEYS = {"CornerKeys": "K2-bwd", "ColumnKeys": "K2-bwd.narrow", "SplatKeys": "S1"}
 
 
 def port_kernel_ms(kernels):
     """Device ms and launches of the port's kernels among profiled kernel
     events, by kernel (K2's forward apart by path and table type: the bf16
-    feature on the row-wide path, the bool GT, float32 volumes; K2-bwd's
-    segmented path summed over its seven functions) and by CUDA function."""
+    feature on the row-wide path, the bool GT, float32 volumes; K2-bwd's two
+    paths and S1 each summed over their sort's six functions and their gather
+    or splat) and by CUDA function."""
     import re
 
     by_kernel, by_function = {}, {}
     for e in kernels:
         m = re.match(r"(?:void )?(\w+)(<[^(]*>)?\(", e.key)
-        if not m or m.group(1) not in PORT_KERNELS:
+        if not m:
             continue
-        name = PORT_KERNELS[m.group(1)] + (" " + m.group(2) if m.group(1).startswith(
-            "trilerp_fwd") else "")
-        for key, table, n in ((name, by_kernel, m.group(1) not in _SEGMENTED_STEPS),
+        if m.group(1) in _SORT_STEPS:
+            name = _SORT_KEYS.get((m.group(2) or "").strip("<>"))
+        else:
+            name = PORT_KERNELS.get(m.group(1))
+            if name and m.group(1).startswith("trilerp_fwd"):
+                name += " " + m.group(2)
+        if name is None:
+            continue
+        counted = m.group(1) not in _SORT_STEPS and m.group(1) not in _UNCOUNTED
+        for key, table, n in ((name, by_kernel, counted),
                               (m.group(1) + (m.group(2) or ""), by_function, True)):
             r = table.setdefault(key, {"launches": 0, "device_ms": 0.0})
             r["launches"] += e.count if n else 0
@@ -1733,7 +1874,8 @@ def kernel_records(kern, probe, det, paths):
              "max_abs_err": r["max_abs_err"], "ms": r["kernel_ms"], "plain_ms": r["plain_ms"],
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r.get("library_ms"),
-             **{k: r[k] for k in ("device_ms", "library_device_ms", "readouts") if k in r}}
+             **{k: r[k] for k in ("device_ms", "library_device_ms", "random_order_ms",
+                                  "random_order_device_ms", "readouts") if k in r}}
             for name, path, key, source, replaces, r in rows]
 
 

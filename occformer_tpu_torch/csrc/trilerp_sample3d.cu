@@ -95,48 +95,67 @@
 // vectors a lane.
 //
 // Backward, two paths; ops/trilerp.py:bwd_path picks one by the row width C.
-// The threshold, SEGMENTED_MIN_C = 48, comes from tools/time_backwards.py
-// --sweep: both paths at the candidate readout's shape (bf16 [1, 128, 128,
-// 16, C], 150528 points, border) on an H100 80GB HBM3 at 700 W, ms narrow /
-// segmented: C = 8 0.07-0.14 / 0.21-0.23, 32 0.18 / 0.21-0.22, 40 0.20-0.21
-// / 0.23-0.24, 48 0.23-0.27 / 0.25-0.26, 56 0.30-0.31 / 0.26, 64 0.31-0.34
-// / 0.24, 192 1.01-1.03 / 0.35-0.36.  The narrow path's time grows with C (one
-// atomic per channel), the segmented one's mostly with the points (its
-// count, fill and rank passes do not depend on C); they cross near C = 48.
+// The threshold, SEGMENTED_MIN_C = 48, came from tools/time_backwards.py
+// --sweep with the first, atomic, narrow path: both paths at the candidate
+// readout's shape (bf16 [1, 128, 128, 16, C], 150528 points, border) on an
+// H100 80GB HBM3 at 700 W, ms narrow / segmented, C = 8 0.07-0.14 /
+// 0.21-0.23, 32 0.18 / 0.21-0.22, 48 0.23-0.27 / 0.25-0.26, 192 1.01-1.03 /
+// 0.35-0.36.  With the per-column gather the same sweep gives C = 8
+// 0.125-0.140 / 0.193-0.201, 16 0.174-0.185 / 0.196-0.198, 32 0.252-0.264 /
+// 0.204-0.213, 48 0.298-0.320 / 0.193-0.208, 192 0.906-0.920 / 0.322-0.324:
+// the crossing moved between 16 and 32; no loss shape lies between, and the
+// threshold stays.
 //
 // * Wide rows (C a multiple of 8 and at least SEGMENTED_MIN_C; the
 //   per-layer loss route's C = 192 feature): a per-voxel segmented
 //   gather that writes every d_table row once, in the table's dtype, with no
 //   float atomics and no float32 buffer.
-//     1. count: one thread per point computes its 8 corners (make_axis, the
-//        same in-range test as the forward) and adds 1 to an int32 histogram
-//        over the G*X*Y*Z rows for each corner inside the table;
-//     2. offsets: an exclusive scan of the histogram (a block scan of 4096
-//        entries per block, a one-block scan of the block sums, an add pass);
-//     3. fill: each (point, corner) entry takes a slot of its row's segment
-//        through an int32 cursor (atomics, so the order is arbitrary);
-//     4. rank: each entry counts the entries of its segment with a smaller
-//        point index and moves to that rank, so every segment is in
-//        ascending point order (the same order on every call);
+//     1-4. the counting sort of segment_sort.cuh with CornerKeys: one entry
+//        per (point, corner inside the table), keyed by the corner's voxel
+//        row (make_axis, the same in-range test as the forward), every
+//        row's entries in ascending point order;
 //     5. gather: one thread per (row, 8-channel chunk), C/8 threads per row
 //        (24 at C = 192), walks its segment in that order, recomputes the
 //        corner weight from the point's coordinates, adds w * gout[point,
 //        chunk] in float32 registers from 16-byte loads and stores the chunk
 //        once; a row without entries gets zeros.
-//   Two calls give bit-identical d_tables.  The int32 workspace (histogram,
-//   cursor, block sums, two entry arrays: about 4 * (2 * G*X*Y*Z + 16 * G*S)
-//   bytes) is allocated by the wrapper.
 // * Narrow rows (everything else: the batched loss route's C = 17 and C = 1
-//   per-slot volumes, G up to 170): one thread per (g, s, c) with float32
-//   atomics into a zeroed [G, X*Y*Z, C] d_table (what the Pallas VJP returns
-//   before its cast to the table's dtype), cast by the wrapper.  A 4-68 byte
-//   row gains nothing from a row-wide gather, and the histogram would span
-//   up to 44.6 M rows.
+//   per-slot volumes, G up to 170): a per-column segmented gather that
+//   writes every d_table column once, in the table's dtype, with no float
+//   atomics and no float32 buffer.  The first design ran one thread per
+//   (g, s, c) with float32 atomics into a zeroed d_table, each thread
+//   redoing the point's three make_axis and 64-bit index arithmetic: 205 M
+//   atomics into a 178 MB buffer (3.6x L2) at the batched candidates, 0.70
+//   ms, and its sums changed from run to run.  Here:
+//     1-4. the counting sort of segment_sort.cuh with ColumnKeys: one entry
+//        per point with a corner inside its table, keyed by its lower
+//        corner's (x, y) column g*X*Y + x0*Y + y0 (clamped into the table,
+//        as ops/loss_gather.py:row_key, so points the loss sorted by row
+//        arrive sorted); 164 K keys at the candidates, 2.8 M at the random
+//        fill, against 2.6 M and 44.6 M voxels;
+//     5. gather (trilerp_bwd_tiles_kernel): a block takes a tile of
+//        output columns (g, x, y) of one table, a group of column_lanes
+//        lanes per column (the fewest, a power of two, that give each
+//        channel a lane: 32 at C = 17, a tile of 1 x 8 columns; 1 at
+//        C = 1, a tile of 8 x 32).  The points that touch the tile are the
+//        lists of the key columns one row and one column back from it: per
+//        key row one contiguous span of the sorted entries, staged
+//        COL_STAGE entries at a time into shared memory, a thread an entry
+//        (its gout row in float32, its corners and weights from one
+//        make_axis per axis).  Lane c of a column then walks the lists of
+//        the four key columns that touch it, (x-1, y-1), (x-1, y),
+//        (x, y-1), (x, y), in that order, each in ascending point order, and
+//        adds w * gout to the column's two z corners of channel c in a
+//        float32 tile of the outputs in shared memory.  Each output is added
+//        to by one lane in a fixed order, and the tile is stored once.
+//   Two calls give bit-identical d_tables on both paths; the int32 workspace
+//   (offsets, cursor, tile sums, the fill's item indices, the sorted
+//   entries) is allocated by the wrapper.
 // Coordinate gradients (asked for by no loss readout; by the tests and the
-// smoke run's float32 case) stay on the atomic kernel on both paths: each
-// (g, s, c) thread adds its channel's share of the three derivatives into a
-// zeroed [G, S, 3] buffer; on the wide path that kernel runs with no
-// d_table and reads the table, which only the coordinate gradient needs.
+// smoke run's float32 case) take an atomic kernel on both paths,
+// trilerp_bwd_coords_kernel: each (g, s, c) thread adds its channel's share
+// of the three derivatives into a zeroed [G, S, 3] buffer; it reads the
+// table, which only the coordinate gradient needs.
 //
 // Bounds on an H100 SXM at the flagship's candidate readout (table
 // [1, 128, 128, 16, 192] bf16, 100.7 MB; S = 150528): both are memory-bound.
@@ -150,12 +169,21 @@
 // zero-fill, no cast); each gout row is read by up to 8 rows' threads, the
 // repeats mostly from L2.  The atomic path's float32 d_table at this shape
 // would be 201 MB, four times L2, so every atomic would be a DRAM
-// read-modify-write.
+// read-modify-write.  Narrow path at the batched candidates (float32 table
+// [10, 128, 128, 16, 17], 10 x 150528 points): gout 102.4 MB + coords 18.1
+// MB read, d_table 178.3 MB written, 0.0892 ms; at the random fill ([170,
+// 128, 128, 16, 1], 170 x 12544): 8.5 + 25.6 + 178.3 MB, 0.0634 ms.  Both
+// are d_table writes above all; the gather reads each point's gout row and
+// coordinates once per tile that its four columns fall in (about 2.25
+// tiles at C = 17).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include "chunk_io.cuh"
+#include "segment_sort.cuh"
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
 __device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
@@ -223,42 +251,6 @@ __device__ __forceinline__ void point_corners(const float* __restrict__ coords,
 
 // ---- the narrow-row forward: a lane group per point, the widest loads the
 // row allows ----
-
-// The raw word of one load of B bytes.
-template <int B> struct Raw;
-template <> struct Raw<1> { using T = uint8_t; };
-template <> struct Raw<2> { using T = unsigned short; };
-template <> struct Raw<4> { using T = unsigned; };
-template <> struct Raw<8> { using T = uint2; };
-template <> struct Raw<16> { using T = uint4; };
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
-__device__ __forceinline__ float to_f(uint8_t v) { return (float)v; }
-__device__ __forceinline__ void from_f(float& d, float v) { d = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16& d, float v) { d = __float2bfloat16(v); }
-
-// a += w * (the VEC elements of one loaded chunk, as float)
-template <typename Tin, int VEC, typename R>
-__device__ __forceinline__ void fma_chunk(float (&a)[VEC], const R& r, float w) {
-  static_assert(sizeof(R) == VEC * sizeof(Tin), "chunk size");
-  Tin e[VEC];
-  memcpy(e, &r, sizeof(R));
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) a[k] = fmaf(w, to_f(e[k]), a[k]);
-}
-
-// the VEC sums rounded once to the output's type, as one store
-template <typename Tout, int VEC>
-__device__ __forceinline__ void store_chunk(Tout* p, const float (&a)[VEC]) {
-  using R = typename Raw<VEC * sizeof(Tout)>::T;
-  Tout e[VEC];
-#pragma unroll
-  for (int k = 0; k < VEC; ++k) from_f(e[k], a[k]);
-  R r;
-  memcpy(&r, e, sizeof(R));
-  *reinterpret_cast<R*>(p) = r;
-}
 
 // A group of 2^lane_bits lanes takes PPL points at a time: the group's
 // points p0, p0 + groups, ..., so that at each of the PPL slots the warp's
@@ -435,17 +427,16 @@ trilerp_fwd_rows_kernel(const T* __restrict__ table,
   }
 }
 
-// The narrow-row backward: float32 atomics into a zeroed d_table; with
-// d_table NULL it computes d_coords alone (the wide path's coordinate
-// gradient).
+// The coordinate gradient (both backward paths): one thread per (g, s, c)
+// adds its channel's share of the three derivatives into a zeroed d_coords
+// with float32 atomics.
 template <typename T>
-__global__ void trilerp_bwd_kernel(const T* __restrict__ table,
-                                   const float* __restrict__ coords,
-                                   const T* __restrict__ gout,
-                                   float* __restrict__ d_table,
-                                   float* __restrict__ d_coords, int64_t n_out,
-                                   int S, int X, int Y, int Z, int C,
-                                   int align, int border) {
+__global__ void trilerp_bwd_coords_kernel(const T* __restrict__ table,
+                                          const float* __restrict__ coords,
+                                          const T* __restrict__ gout,
+                                          float* __restrict__ d_coords, int64_t n_out,
+                                          int S, int X, int Y, int Z, int C,
+                                          int align, int border) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   const int64_t vol = (int64_t)X * Y * Z * C;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_out;
@@ -472,23 +463,16 @@ __global__ void trilerp_bwd_kernel(const T* __restrict__ table,
         for (int dz = 0; dz < 2; ++dz) {
           const int zi = az.i0 + dz;
           if (zi < 0 || zi >= Z) continue;
-          const int64_t off = off0 + (row + zi) * C;
-          if (d_table != nullptr)
-            atomicAdd(d_table + off, go * ax.w[dx] * ay.w[dy] * az.w[dz]);
-          if (d_coords != nullptr) {
-            const float v = load_f(table + off);
-            sx += (dx ? v : -v) * ay.w[dy] * az.w[dz];
-            sy += (dy ? v : -v) * ax.w[dx] * az.w[dz];
-            sz += (dz ? v : -v) * ax.w[dx] * ay.w[dy];
-          }
+          const float v = load_f(table + off0 + (row + zi) * C);
+          sx += (dx ? v : -v) * ay.w[dy] * az.w[dz];
+          sy += (dy ? v : -v) * ax.w[dx] * az.w[dz];
+          sz += (dz ? v : -v) * ax.w[dx] * ay.w[dy];
         }
       }
     }
-    if (d_coords != nullptr) {
-      if (ax.dpix != 0.f) atomicAdd(d_coords + gs * 3 + 0, go * sx * ax.dpix);
-      if (ay.dpix != 0.f) atomicAdd(d_coords + gs * 3 + 1, go * sy * ay.dpix);
-      if (az.dpix != 0.f) atomicAdd(d_coords + gs * 3 + 2, go * sz * az.dpix);
-    }
+    if (ax.dpix != 0.f) atomicAdd(d_coords + gs * 3 + 0, go * sx * ax.dpix);
+    if (ay.dpix != 0.f) atomicAdd(d_coords + gs * 3 + 1, go * sy * ay.dpix);
+    if (az.dpix != 0.f) atomicAdd(d_coords + gs * 3 + 2, go * sz * az.dpix);
   }
 }
 
@@ -523,149 +507,17 @@ __device__ __forceinline__ void each_corner(const float* __restrict__ coords,
   }
 }
 
-// 1. count: hist[row] += 1 for every in-range corner
-__global__ void seg_count_kernel(const float* __restrict__ coords,
-                                 int* __restrict__ hist, int64_t n_pts, int S,
-                                 int X, int Y, int Z, int align, int border) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t gs = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; gs < n_pts;
-       gs += stride)
-    each_corner(coords, gs, S, X, Y, Z, align, border,
-                [&](int64_t row) { atomicAdd(hist + row, 1); });
-}
-
-// 2. offsets: an exclusive scan, hand-written (no library kernel): a block
-// scan of SCAN_TILE entries per block, a one-block scan of the block sums,
-// and a pass that adds each tile's offset
-constexpr int SCAN_THREADS = 1024;
-constexpr int SCAN_ITEMS = 4;
-constexpr int SCAN_TILE = SCAN_THREADS * SCAN_ITEMS;
-
-// Exclusive scan of one int per thread over the block (blockDim.x ==
-// SCAN_THREADS); *total receives the block's sum.  Every thread must call it.
-__device__ __forceinline__ int block_exclusive_scan(int v, int* total) {
-  __shared__ int warp_sums[SCAN_THREADS / 32];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int x = v;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(0xffffffffu, x, o);
-    if (lane >= o) x += y;
+// The wide path's sort keys: each in-range corner voxel of point gs.
+struct CornerKeys {
+  using Entry = int;
+  const float* coords;
+  int S, X, Y, Z, align, border;
+  template <typename Fn>
+  __device__ __forceinline__ void operator()(int64_t gs, Fn fn) const {
+    each_corner(coords, gs, S, X, Y, Z, align, border, fn);
   }
-  if (lane == 31) warp_sums[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int t = warp_sums[lane];  // SCAN_THREADS / 32 == 32 warps
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, t, o);
-      if (lane >= o) t += y;
-    }
-    warp_sums[lane] = t;  // inclusive over warps
-  }
-  __syncthreads();
-  const int prefix = x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
-  *total = warp_sums[SCAN_THREADS / 32 - 1];
-  __syncthreads();  // warp_sums may be reused by the next call
-  return prefix;
-}
-
-// In place: each SCAN_TILE-entry tile of data[0, n) becomes its exclusive
-// scan; tile_sums[tile] = the tile's sum.
-__global__ void scan_tiles_kernel(int* __restrict__ data, int64_t n,
-                                  int* __restrict__ tile_sums) {
-  const int64_t base = (int64_t)blockIdx.x * SCAN_TILE + threadIdx.x * SCAN_ITEMS;
-  int v[SCAN_ITEMS];
-  int sum = 0;
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    v[k] = base + k < n ? data[base + k] : 0;
-    sum += v[k];
-  }
-  int total;
-  int run = block_exclusive_scan(sum, &total);
-#pragma unroll
-  for (int k = 0; k < SCAN_ITEMS; ++k) {
-    if (base + k < n) data[base + k] = run;
-    run += v[k];
-  }
-  if (threadIdx.x == 0) tile_sums[blockIdx.x] = total;
-}
-
-// One block: in-place exclusive scan of sums[0, n), a tile at a time.
-__global__ void scan_sums_kernel(int* __restrict__ sums, int64_t n) {
-  int carry = 0;
-  for (int64_t start = 0; start < n; start += SCAN_TILE) {
-    const int64_t base = start + threadIdx.x * SCAN_ITEMS;
-    int v[SCAN_ITEMS];
-    int sum = 0;
-#pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k) {
-      v[k] = base + k < n ? sums[base + k] : 0;
-      sum += v[k];
-    }
-    int total;
-    int run = carry + block_exclusive_scan(sum, &total);
-#pragma unroll
-    for (int k = 0; k < SCAN_ITEMS; ++k) {
-      if (base + k < n) sums[base + k] = run;
-      run += v[k];
-    }
-    carry += total;
-  }
-}
-
-__global__ void add_tile_offsets_kernel(int* __restrict__ data, int64_t n,
-                                        const int* __restrict__ tile_sums) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride)
-    data[i] += tile_sums[i / SCAN_TILE];
-}
-
-static int64_t scan_tile_count(int64_t n) { return (n + SCAN_TILE - 1) / SCAN_TILE; }
-
-// In place: data[0, n) becomes its exclusive scan; tile_sums holds
-// scan_tile_count(n) ints of scratch.  Launches on `st`.
-static void exclusive_scan(int* data, int64_t n, int* tile_sums, cudaStream_t st) {
-  const int64_t tiles = scan_tile_count(n);
-  if (tiles == 0) return;
-  scan_tiles_kernel<<<(unsigned)tiles, SCAN_THREADS, 0, st>>>(data, n, tile_sums);
-  scan_sums_kernel<<<1, SCAN_THREADS, 0, st>>>(tile_sums, tiles);
-  int64_t blocks = (n + 255) / 256;
-  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
-  add_tile_offsets_kernel<<<(unsigned)blocks, 256, 0, st>>>(data, n, tile_sums);
-}
-
-// 3. fill: each entry (the point's index g*S + s) takes a slot of its row
-__global__ void seg_fill_kernel(const float* __restrict__ coords,
-                                int* __restrict__ cursor, int* __restrict__ ent,
-                                int64_t n_pts, int S, int X, int Y, int Z,
-                                int align, int border) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t gs = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; gs < n_pts;
-       gs += stride)
-    each_corner(coords, gs, S, X, Y, Z, align, border,
-                [&](int64_t row) { ent[atomicAdd(cursor + row, 1)] = (int)gs; });
-}
-
-// 4. rank: every segment in ascending point order (a point has at most one
-// entry per row, so the ranks within a segment are distinct)
-__global__ void seg_rank_kernel(const float* __restrict__ coords,
-                                const int* __restrict__ offs,
-                                const int* __restrict__ ent,
-                                int* __restrict__ sorted, int64_t n_pts, int S,
-                                int X, int Y, int Z, int align, int border) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t gs = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; gs < n_pts;
-       gs += stride)
-    each_corner(coords, gs, S, X, Y, Z, align, border, [&](int64_t row) {
-      const int beg = offs[row], end = offs[row + 1];
-      int rank = 0;
-      for (int j = beg; j < end; ++j) rank += ent[j] < (int)gs;
-      sorted[beg + rank] = (int)gs;
-    });
-}
+  __device__ __forceinline__ int entry(int64_t gs) const { return (int)gs; }
+};
 
 // 8 channels as float from one 16-byte (bf16) or two 16-byte (float32) loads
 __device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
@@ -743,11 +595,217 @@ __global__ void trilerp_bwd_gather_kernel(const float* __restrict__ coords,
   }
 }
 
-static unsigned grid_blocks(int64_t n, int threads) {
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
-  return (unsigned)blocks;
+// ---- the narrow-row backward: per-column segmented gather ----
+
+// A corner index i0 or i0 + 1 lies in [0, size).
+__device__ __forceinline__ bool axis_touches(int i0, int size) {
+  return i0 >= -1 && i0 < size;
 }
+
+// The narrow path's sort key: point gs's column g*X*Y + x0*Y + y0, its lower
+// corner's (x, y) clamped into the table (as ops/loss_gather.py:row_key);
+// none for a point with no corner inside its table.
+struct ColumnKeys {
+  using Entry = int;
+  const float* coords;
+  int S, X, Y, Z, align, border;
+  template <typename Fn>
+  __device__ __forceinline__ void operator()(int64_t gs, Fn fn) const {
+    const Axis ax = make_axis(coords[gs * 3 + 0], X, align, border);
+    const Axis ay = make_axis(coords[gs * 3 + 1], Y, align, border);
+    const Axis az = make_axis(coords[gs * 3 + 2], Z, align, border);
+    if (!axis_touches(ax.i0, X) || !axis_touches(ay.i0, Y) || !axis_touches(az.i0, Z))
+      return;
+    const int x = min(max(ax.i0, 0), X - 1), y = min(max(ay.i0, 0), Y - 1);
+    fn(gs / S * ((int64_t)X * Y) + (int64_t)x * Y + y);
+  }
+  __device__ __forceinline__ int entry(int64_t gs) const { return (int)gs; }
+};
+
+// The narrow path's gather works on tiles of output columns; these set its
+// shape and staging: threads a block, z slices a pass, and sorted entries
+// staged in shared memory at a time.
+constexpr int COL_THREADS = 256;
+constexpr int COL_ZB = 16;
+constexpr int COL_STAGE = 256;
+
+// A block takes a tile of TX x TY output columns of one table (TY
+// consecutive y, TX consecutive x; TX * TY * lanes = COL_THREADS), a group
+// of 2^lane_bits lanes per column, lane c taking channel cb + c.  The points
+// that touch the tile are those of the key columns (x, y) with x in
+// [x_t - 1, x_t + TX) and y in [y_t - 1, y_t + TY): for each such x one
+// contiguous span of the sorted entries.  The block stages those spans,
+// COL_STAGE entries at a time, into shared memory, a thread an entry: the
+// entry's point, then its gout row (CLMAX or fewer channels, the row's loads
+// in flight together with the coordinates') in float32, and its corner
+// indices and weights from one make_axis per axis; then every lane walks the
+// entries of its column's four lists, (x-1, y-1), (x-1, y), (x, y-1),
+// (x, y) in that order, each in ascending point order, adding w * gout to
+// the column's two z corners of its channel in a float32 tile of the
+// outputs in shared memory (COL_ZB slices, the tile's channels a pass).
+// Each output is added to by one lane in a fixed order, whatever the tile
+// shape: the same bits on every call.  The tile's outputs, TX runs of
+// contiguous columns, are then written once with coalesced 16-byte stores
+// where the runs allow them.  Every phase waits on loads, so residency and
+// dependent rounds set the pace (tools/time_backwards.py, batched
+// candidates with points sorted by column / random fill, device ms, H100
+// 80GB HBM3 at 700 W, each pair in turns in one call): at most 40
+// registers a thread, for 6 blocks an SM (the shared memory at C = 17
+// allows 6), 0.821 -> 0.631 / 0.360 -> 0.288; a thread loading its
+// entry's whole gout row itself, in flight with its coordinates, instead
+// of the block loading the rows after a barrier, 0.636 -> 0.561 / 0.289 ->
+// 0.276-0.280 (without the register cap 0.818 / 0.317); 8 blocks (32
+// registers, 128 entries a stage) were no faster.
+template <typename T, int CLMAX>
+__global__ void __launch_bounds__(COL_THREADS, 6)
+trilerp_bwd_tiles_kernel(const float* __restrict__ coords, const T* __restrict__ gout,
+                         const int* __restrict__ offs, const int* __restrict__ sorted,
+                         T* __restrict__ d_table, int G, int X, int Y, int Z, int C,
+                         int align, int border, int lane_bits, int TY) {
+  extern __shared__ float smem[];
+  const int lanes = 1 << lane_bits;
+  const int CL = min(C, lanes);  // channels a pass
+  const int cols = COL_THREADS >> lane_bits;
+  float* s_acc = smem;                                        // [cols][COL_ZB][CL]
+  int* s_x0 = reinterpret_cast<int*>(s_acc + cols * COL_ZB * CL);  // lower corner
+  int* s_y0 = s_x0 + COL_STAGE;
+  int* s_z0 = s_y0 + COL_STAGE;
+  float* s_w = reinterpret_cast<float*>(s_z0 + COL_STAGE);    // 6 weights an entry
+  float* s_g = s_w + 6 * COL_STAGE;                           // CL channels an entry
+  __shared__ int s_beg[COL_THREADS + 1], s_len[COL_THREADS + 1];
+  const int TX = cols / TY;
+  const int tiles_y = (Y + TY - 1) / TY, tiles_x = (X + TX - 1) / TX;
+  const int lane = threadIdx.x & (lanes - 1);
+  const int col = threadIdx.x >> lane_bits;
+  const int tx = col / TY, ty = col - tx * TY;
+  const int64_t n_tiles = (int64_t)G * tiles_x * tiles_y;
+  // one pass holds every output of the tile: the outputs can be copied out
+  // as the runs of contiguous columns they are
+  const bool one_pass = Z <= COL_ZB && C <= lanes;
+  for (int64_t tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int g = (int)(tile / ((int64_t)tiles_x * tiles_y));
+    const int t2 = (int)(tile - (int64_t)g * tiles_x * tiles_y);
+    const int x_t = t2 / tiles_y * TX, y_t = t2 % tiles_y * TY;
+    const int x = x_t + tx, y = y_t + ty;
+    const bool mine = x < X && y < Y;
+    // the key spans: rows [r_lo, r_hi), each the keys (row, y_lo .. y_hi - 1)
+    const int r_lo = max(x_t - 1, 0), r_hi = min(x_t + TX, X);
+    const int n_rows = r_hi - r_lo;
+    const int y_lo = max(y_t - 1, 0), y_hi = min(y_t + TY, Y);
+    const int64_t key0 = (int64_t)g * X * Y;
+    __syncthreads();  // the previous tile is done with the shared arrays
+    if (threadIdx.x < n_rows) {
+      const int64_t k = key0 + (int64_t)(r_lo + threadIdx.x) * Y;
+      const int b0 = offs[k + y_lo];
+      s_beg[threadIdx.x] = b0;
+      s_len[threadIdx.x] = offs[k + y_hi] - b0;
+    }
+    __syncthreads();
+    int total = 0;
+    for (int r = 0; r < n_rows; ++r) total += s_len[r];
+    // this column's two stretches (rows x - 1 and x), as positions of the
+    // spans laid end to end
+    int pa[2] = {0, 0}, pb[2] = {0, 0};
+    if (mine) {
+      int base = 0;
+      for (int ri = 0; ri < n_rows; ++ri) {
+        const int r = r_lo + ri;
+        if (r == x - 1 || r == x) {
+          const int64_t k = key0 + (int64_t)r * Y;
+          const int a = base + offs[k + max(y - 1, 0)] - s_beg[ri];
+          const int b = base + offs[k + y + 1] - s_beg[ri];
+          if (r == x) {
+            pa[1] = a;
+            pb[1] = b;
+          } else {
+            pa[0] = a;
+            pb[0] = b;
+          }
+        }
+        base += s_len[ri];
+      }
+    }
+    for (int zb = 0; zb < Z; zb += COL_ZB) {
+      for (int cb = 0; cb < C; cb += lanes) {
+        const int c = cb + lane;
+        for (int i = threadIdx.x; i < cols * COL_ZB * CL; i += COL_THREADS) s_acc[i] = 0.f;
+        for (int s0 = 0; s0 < total; s0 += COL_STAGE) {
+          const int n_here = min(COL_STAGE, total - s0);
+          __syncthreads();  // the previous stage is read, s_acc zeroed
+          for (int e = threadIdx.x; e < n_here; e += COL_THREADS) {
+            int pos = s0 + e, ri = 0;
+            while (pos >= s_len[ri]) pos -= s_len[ri++];
+            const int gs = sorted[s_beg[ri] + pos];
+            float gv[CLMAX];  // the entry's gout row, its loads in flight together
+#pragma unroll
+            for (int ch = 0; ch < CLMAX; ++ch)
+              gv[ch] = ch < CL && cb + ch < C ? to_f(gout[(int64_t)gs * C + cb + ch]) : 0.f;
+            const Axis ax = make_axis(coords[(int64_t)gs * 3 + 0], X, align, border);
+            const Axis ay = make_axis(coords[(int64_t)gs * 3 + 1], Y, align, border);
+            const Axis az = make_axis(coords[(int64_t)gs * 3 + 2], Z, align, border);
+            s_x0[e] = ax.i0;
+            s_y0[e] = ay.i0;
+            s_z0[e] = az.i0 - zb;
+            s_w[6 * e + 0] = ax.w[0];
+            s_w[6 * e + 1] = ax.w[1];
+            s_w[6 * e + 2] = ay.w[0];
+            s_w[6 * e + 3] = ay.w[1];
+            s_w[6 * e + 4] = az.w[0];
+            s_w[6 * e + 5] = az.w[1];
+#pragma unroll
+            for (int ch = 0; ch < CLMAX; ++ch)
+              if (ch < CL) s_g[e * CL + ch] = gv[ch];
+          }
+          __syncthreads();
+          if (mine && c < C) {
+            float* acc = s_acc + col * COL_ZB * CL + lane;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int e1 = min(pb[h], s0 + n_here) - s0;
+              for (int e = max(pa[h], s0) - s0; e < e1; ++e) {
+                const int dx = x - s_x0[e], dy = y - s_y0[e];
+                if (dx < 0 || dx > 1 || dy < 0 || dy > 1) continue;
+                const float wxy = s_w[6 * e + dx] * s_w[6 * e + 2 + dy];
+                const float go = s_g[e * CL + lane];
+                const int z = s_z0[e];
+                if (z >= 0 && z < COL_ZB)
+                  acc[z * CL] = fmaf(wxy * s_w[6 * e + 4], go, acc[z * CL]);
+                if (z + 1 >= 0 && z + 1 < COL_ZB)
+                  acc[(z + 1) * CL] = fmaf(wxy * s_w[6 * e + 5], go, acc[(z + 1) * CL]);
+              }
+            }
+          }
+        }
+        __syncthreads();  // the tile's sums are complete
+        if (one_pass) {
+          // each tile row's columns (x, y_t ..) are contiguous in d_table, as
+          // they are in s_acc
+          const int run_cols = min(TY, Y - y_t), run = run_cols * Z * C;
+          for (int rx = 0; rx < TX && x_t + rx < X; ++rx) {
+            T* out = d_table + (key0 + (int64_t)(x_t + rx) * Y + y_t) * Z * C;
+            const float* src = s_acc + rx * TY * COL_ZB * CL;
+            if (sizeof(T) == 4 && Z == COL_ZB && C == CL && run % 4 == 0 &&
+                ((uintptr_t)out & 15) == 0) {
+              for (int v = threadIdx.x; v < run / 4; v += COL_THREADS)
+                reinterpret_cast<float4*>(out)[v] = reinterpret_cast<const float4*>(src)[v];
+            } else {
+              for (int v = threadIdx.x; v < run; v += COL_THREADS) {
+                const int cz = v / C, ch = v - cz * C;  // (column, z) and channel
+                from_f(out[v], src[(cz / Z * COL_ZB + cz % Z) * CL + ch]);
+              }
+            }
+          }
+        } else if (mine && c < C) {
+          const float* acc = s_acc + col * COL_ZB * CL + lane;
+          T* out = d_table + ((key0 + (int64_t)x * Y + y) * Z + zb) * C + c;
+          for (int i = 0; i < COL_ZB && zb + i < Z; ++i) from_f(out[(int64_t)i * C], acc[i * CL]);
+        }
+        __syncthreads();  // s_acc is read before the next pass zeroes it
+      }
+    }
+  }
+}
+
 
 // Plain C entry points, loaded with ctypes.  Pointers are device pointers;
 // table [G, X, Y, Z, C], coords float32 [G, S, 3], out/gout [G, S, C].
@@ -898,48 +956,110 @@ extern "C" int trilerp_sample3d_fwd_rows(const void* table, const void* coords,
 }
 
 template <typename T>
-static void launch_bwd_atomic(const void* table, const void* coords,
-                              const void* gout, void* d_table, void* d_coords,
-                              int64_t n_out, int S, int X, int Y, int Z, int C,
-                              int align, int border, cudaStream_t st) {
+static void launch_bwd_coords(const void* table, const void* coords, const void* gout,
+                              void* d_coords, int64_t n_pts, int S, int X, int Y, int Z,
+                              int C, int align, int border, cudaStream_t st) {
   const int threads = 256;
-  trilerp_bwd_kernel<T><<<grid_blocks(n_out, threads), threads, 0, st>>>(
-      (const T*)table, (const float*)coords, (const T*)gout, (float*)d_table,
-      (float*)d_coords, n_out, S, X, Y, Z, C, align, border);
+  const int64_t n_out = n_pts * C;
+  trilerp_bwd_coords_kernel<T><<<grid_blocks(n_out, threads), threads, 0, st>>>(
+      (const T*)table, (const float*)coords, (const T*)gout, (float*)d_coords, n_out, S, X,
+      Y, Z, C, align, border);
 }
 
-// The narrow-row backward.  d_table float32 [G, X, Y, Z, C] ZEROED by the
-// caller; d_coords float32 [G, S, 3] ZEROED by the caller, or NULL when no
-// coordinate gradient is wanted (the table is then never read).  dtype 0 or
-// 1 as above.
+template <typename T, int CLMAX>
+static void launch_tiles_cl(const float* xyz, const void* gout, const int* offs,
+                            const int* sorted, void* d_table, unsigned blocks, int smem, int G,
+                            int X, int Y, int Z, int C, int align, int border, int lane_bits,
+                            int TY, cudaStream_t st) {
+  // above 48 KB (C of 25-32 channels) only as opted-in dynamic shared memory
+  if (smem > 48 * 1024)
+    cudaFuncSetAttribute(trilerp_bwd_tiles_kernel<T, CLMAX>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  trilerp_bwd_tiles_kernel<T, CLMAX><<<blocks, COL_THREADS, smem, st>>>(
+      xyz, (const T*)gout, offs, sorted, (T*)d_table, G, X, Y, Z, C, align, border, lane_bits,
+      TY);
+}
+
+template <typename T>
+static void launch_tiles(const float* xyz, const void* gout, const int* offs, const int* sorted,
+                         void* d_table, unsigned blocks, int smem, int G, int X, int Y, int Z,
+                         int C, int align, int border, int lane_bits, int TY, int CL,
+                         cudaStream_t st) {
+  if (CL == 1)
+    launch_tiles_cl<T, 1>(xyz, gout, offs, sorted, d_table, blocks, smem, G, X, Y, Z, C, align,
+                          border, lane_bits, TY, st);
+  else if (CL <= 8)
+    launch_tiles_cl<T, 8>(xyz, gout, offs, sorted, d_table, blocks, smem, G, X, Y, Z, C, align,
+                          border, lane_bits, TY, st);
+  else
+    launch_tiles_cl<T, 32>(xyz, gout, offs, sorted, d_table, blocks, smem, G, X, Y, Z, C,
+                           align, border, lane_bits, TY, st);
+}
+
+// Int32s of the narrow path's workspace: segment_sort over the G*X*Y
+// columns with one int entry per point.
+extern "C" long long trilerp_sample3d_bwd_workspace(int G, int S, int X, int Y) {
+  return (long long)segment_sort_ints((int64_t)G * X * Y, (int64_t)G * S, 1);
+}
+
+// The narrow-row backward (any C).  d_table [G, X, Y, Z, C] in the table's
+// dtype (0 float32, 1 bfloat16) is written in full; d_coords float32
+// [G, S, 3] ZEROED by the caller, or NULL when no coordinate gradient is
+// wanted (the table is then never read).  lanes (1, 2, 4, 8, 16 or 32) per
+// column; `workspace` holds trilerp_sample3d_bwd_workspace(G, S, X, Y)
+// int32s, 8-byte aligned; the columns (G*X*Y + 1) and points (G*S) below
+// 2^31.  Returns cudaErrorInvalidValue for anything else.
 extern "C" int trilerp_sample3d_bwd(const void* table, const void* coords,
                                     const void* gout, void* d_table,
-                                    void* d_coords, int G, int S, int X, int Y,
-                                    int Z, int C, int align, int border,
-                                    int dtype, void* stream) {
-  const int64_t n_out = (int64_t)G * S * C;
-  if (n_out == 0) return 0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    launch_bwd_atomic<float>(table, coords, gout, d_table, d_coords, n_out, S,
-                             X, Y, Z, C, align, border, st);
-  } else if (dtype == 1) {
-    launch_bwd_atomic<__nv_bfloat16>(table, coords, gout, d_table, d_coords,
-                                     n_out, S, X, Y, Z, C, align, border, st);
-  } else {
+                                    void* d_coords, void* workspace, int G, int S,
+                                    int X, int Y, int Z, int C, int align, int border,
+                                    int dtype, int lanes, void* stream) {
+  const int64_t n_cols = (int64_t)G * X * Y;
+  const int64_t n_pts = (int64_t)G * S;
+  int lane_bits = 0;
+  while ((1 << lane_bits) < lanes) ++lane_bits;
+  if ((dtype != 0 && dtype != 1) || (1 << lane_bits) != lanes || lanes > 32 ||
+      n_cols + 1 >= ((int64_t)1 << 31) || n_pts >= ((int64_t)1 << 31) ||
+      (uintptr_t)workspace % 8 != 0)
     return (int)cudaErrorInvalidValue;
+  if (n_cols == 0 || Z == 0 || C == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const float* xyz = (const float*)coords;
+  const auto s = segment_sort_space<int>(workspace, n_cols, n_pts);
+  cudaError_t err =
+      segment_sort(ColumnKeys{xyz, S, X, Y, Z, align, border}, n_pts, n_cols, s, st);
+  if (err != cudaSuccess) return (int)err;
+  // tiles of TY consecutive y (at most 32) by TX x
+  const int cols = COL_THREADS >> lane_bits;
+  const int TY = cols < 32 ? cols : 32;
+  const int TX = cols / TY;
+  const int64_t n_tiles = (int64_t)G * ((X + TX - 1) / TX) * ((Y + TY - 1) / TY);
+  const unsigned blocks = (unsigned)(n_tiles < ((int64_t)1 << 30) ? n_tiles : (int64_t)1 << 30);
+  const int CL = C < lanes ? C : lanes;
+  const int smem = ((COL_THREADS >> lane_bits) * COL_ZB * CL + COL_STAGE * (3 + 6 + CL)) *
+                   (int)sizeof(float);
+  if (dtype == 1)
+    launch_tiles<__nv_bfloat16>(xyz, gout, s.offs, s.sorted, d_table, blocks, smem, G, X, Y, Z,
+                                C, align, border, lane_bits, TY, CL, st);
+  else
+    launch_tiles<float>(xyz, gout, s.offs, s.sorted, d_table, blocks, smem, G, X, Y, Z, C,
+                        align, border, lane_bits, TY, CL, st);
+  if (d_coords != nullptr && n_pts > 0) {
+    if (dtype == 1)
+      launch_bwd_coords<__nv_bfloat16>(table, coords, gout, d_coords, n_pts, S, X, Y, Z, C,
+                                       align, border, st);
+    else
+      launch_bwd_coords<float>(table, coords, gout, d_coords, n_pts, S, X, Y, Z, C, align,
+                               border, st);
   }
   return (int)cudaGetLastError();
 }
 
-// Layout of the wide path's int32 workspace: offsets [R + 1], cursor [R],
-// tile sums, entries [8 * G * S], sorted entries [8 * G * S], with R =
-// G * X * Y * Z rows.
-
+// Int32s of the wide path's workspace: segment_sort over the R = G*X*Y*Z
+// rows with up to 8 int entries per point.
 extern "C" long long trilerp_sample3d_bwd_seg_workspace(int G, int S, int X,
                                                         int Y, int Z) {
-  const int64_t R = (int64_t)G * X * Y * Z;
-  return (long long)(2 * R + 1 + scan_tile_count(R + 1) + 16 * (int64_t)G * S);
+  return (long long)segment_sort_ints((int64_t)G * X * Y * Z, 8 * (int64_t)G * S, 1);
 }
 
 // The wide-row backward.  d_table [G, X, Y, Z, C] in the table's dtype is
@@ -960,42 +1080,27 @@ extern "C" int trilerp_sample3d_bwd_seg(const void* table, const void* coords,
     return (int)cudaErrorInvalidValue;
   if (R == 0 || C == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  int* offs = (int*)workspace;
-  int* cursor = offs + R + 1;
-  int* sums = cursor + R;
-  int* ent = sums + scan_tile_count(R + 1);
-  int* sorted = ent + 8 * n_pts;
   const float* xyz = (const float*)coords;
-  const int threads = 256;
-  cudaError_t err = cudaMemsetAsync(offs, 0, (R + 1) * sizeof(int), st);
+  const auto s = segment_sort_space<int>(workspace, R, 8 * n_pts);
+  cudaError_t err =
+      segment_sort(CornerKeys{xyz, S, X, Y, Z, align, border}, n_pts, R, s, st);
   if (err != cudaSuccess) return (int)err;
-  if (n_pts > 0)
-    seg_count_kernel<<<grid_blocks(n_pts, threads), threads, 0, st>>>(
-        xyz, offs, n_pts, S, X, Y, Z, align, border);
-  exclusive_scan(offs, R + 1, sums, st);
-  if (n_pts > 0) {
-    err = cudaMemcpyAsync(cursor, offs, R * sizeof(int), cudaMemcpyDeviceToDevice, st);
-    if (err != cudaSuccess) return (int)err;
-    seg_fill_kernel<<<grid_blocks(n_pts, threads), threads, 0, st>>>(
-        xyz, cursor, ent, n_pts, S, X, Y, Z, align, border);
-    seg_rank_kernel<<<grid_blocks(n_pts, threads), threads, 0, st>>>(
-        xyz, offs, ent, sorted, n_pts, S, X, Y, Z, align, border);
-  }
+  const int threads = 256;
   const int64_t n_work = R * (C / 8);
   if (dtype == 1) {
     trilerp_bwd_gather_kernel<__nv_bfloat16><<<grid_blocks(n_work, threads), threads, 0, st>>>(
-        xyz, (const __nv_bfloat16*)gout, offs, sorted, (__nv_bfloat16*)d_table,
+        xyz, (const __nv_bfloat16*)gout, s.offs, s.sorted, (__nv_bfloat16*)d_table,
         n_work, X, Y, Z, C, align, border);
     if (d_coords != nullptr && n_pts > 0)
-      launch_bwd_atomic<__nv_bfloat16>(table, coords, gout, nullptr, d_coords,
-                                       n_pts * C, S, X, Y, Z, C, align, border, st);
+      launch_bwd_coords<__nv_bfloat16>(table, coords, gout, d_coords, n_pts, S, X, Y, Z, C,
+                                       align, border, st);
   } else {
     trilerp_bwd_gather_kernel<float><<<grid_blocks(n_work, threads), threads, 0, st>>>(
-        xyz, (const float*)gout, offs, sorted, (float*)d_table, n_work, X, Y, Z,
+        xyz, (const float*)gout, s.offs, s.sorted, (float*)d_table, n_work, X, Y, Z,
         C, align, border);
     if (d_coords != nullptr && n_pts > 0)
-      launch_bwd_atomic<float>(table, coords, gout, nullptr, d_coords, n_pts * C,
-                               S, X, Y, Z, C, align, border, st);
+      launch_bwd_coords<float>(table, coords, gout, d_coords, n_pts, S, X, Y, Z, C, align,
+                               border, st);
   }
   return (int)cudaGetLastError();
 }

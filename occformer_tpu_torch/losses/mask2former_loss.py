@@ -363,6 +363,19 @@ def _batched_assign(cfg, cls_preds, mask_embeds, feature, read_gt, gt_labels, gt
         return hungarian_match(cost, gt_valid.expand(L, B, G))
 
 
+def uncertainty_select(cand_logits: torch.Tensor, n_unc: int) -> torch.Tensor:
+    """The batched route's uncertainty selection as a 0/1 float weight over
+    the candidates (last axis): the set of top-k of -|logit| (all above the
+    k-th value, then ties in index order up to k, top-k's tie rule), JAX
+    :587-594.  Detached."""
+    score = -cand_logits.detach().abs()
+    kth = torch.topk(score, n_unc, dim=-1).values[..., -1:]
+    above = score > kth
+    ties = score == kth
+    tie_rank = ties.int().cumsum(-1)
+    return (above | (ties & (tie_rank <= n_unc - above.sum(-1, keepdim=True)))).float()
+
+
 def _batched_loss(cfg, cls_preds, mask_embeds, feature, read_gt, gt_labels, gt_valid,
                   assigns, cand_pts, rand_fill, class_weight):
     """The batched route's differentiated losses given the assignments (JAX
@@ -386,16 +399,7 @@ def _batched_loss(cfg, cls_preds, mask_embeds, feature, read_gt, gt_labels, gt_v
         vol, cand_s.reshape(NB, S, 3), ALIGN_CORNERS, PADDING)   # [NB, S, G]
     cand_logits = cand_logits.transpose(1, 2).reshape(L, B, G, S)
     gt_cand = read_gt(cand_s)                                    # [L, B, G, S]
-
-    # the uncertainty selection as a 0/1 weight over the candidates: the set
-    # of top-k of -|logit| (all above the k-th value, then ties in index
-    # order up to k, top-k's tie rule), JAX :587-594
-    score = -cand_logits.detach().abs()
-    kth = torch.topk(score, n_unc, dim=-1).values[..., -1:]
-    above = score > kth
-    ties = score == kth
-    tie_rank = ties.int().cumsum(-1)
-    sel = (above | (ties & (tie_rank <= n_unc - above.sum(-1, keepdim=True)))).float()
+    sel = uncertainty_select(cand_logits, n_unc)
 
     bce = (bce_elem(cand_logits, gt_cand) * sel).sum(-1)         # [L, B, G]
     sig = torch.sigmoid(cand_logits)

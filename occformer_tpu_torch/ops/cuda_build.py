@@ -3,7 +3,8 @@
 Each source under ``occformer_tpu_torch/csrc/`` is compiled by ``nvcc`` for
 ``sm_90a`` into a shared library with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  Libraries go to
-``occformer_tpu_torch/_build/``, named by a hash of their source, and are
+``occformer_tpu_torch/_build/``, named by a hash of their source and the
+shared headers (``csrc/*.cuh``, included by more than one source), and are
 built at first use; ``build()`` compiles several sources in parallel.
 Nothing here runs at import time.
 """
@@ -48,10 +49,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> str:
-    src = os.path.join(CSRC_DIR, SOURCES[name])
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return os.path.join(BUILD_DIR, f"lib{name}-{digest[:16]}.so")
+    """The library's path, named by a hash of its source, every header under
+    ``csrc/`` and the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for f in [SOURCES[name]] + headers:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(fh.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:

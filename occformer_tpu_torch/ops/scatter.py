@@ -1,20 +1,22 @@
 """Voxel scatter of the lifted depth x context features (LSS splat, S1).
 
-Port of ``occformer_tpu/ops/scatter.py:voxel_scatter_lifted``: every
-frustum point's depth x context feature summed into its voxel; invalid
-points go to a dummy row, which is dropped.
+Port of ``occformer_tpu/ops/scatter.py:voxel_scatter_lifted``: every valid
+frustum point's depth x context feature summed into its voxel.
 
 The JAX package's XLA scatter repeats its sums run to run; ``index_add_``
 on the card adds with float atomics in an order that changes from run to
 run, so two identical train steps differed in the last bits of their
 losses (PERF.md).  So ``voxel_scatter_lifted`` runs an autograd
-``Function`` whose forward, for CUDA tensors, is the splat kernel of
-``csrc/voxel_splat.cu`` (S1): the points sorted by voxel (a stable integer
-sort) and each voxel's sum taken in ascending point order, with no atomics
-and without storing the lift product; for CPU tensors it is the plain
-version, ``voxel_scatter_plain`` (one ``index_add_`` per camera, sequential
-on the CPU, atomic on the card).  Its backward is gathers, deterministic
-too.  ``LAUNCHES`` counts the kernel's launches.
+``Function`` whose forward, for CUDA tensors, is S1 (``csrc/voxel_splat.cu``):
+a counting sort of the valid points by voxel on the card (int32 rows
+computed from ``coords`` and ``valid``, each voxel's points in ascending
+point order) and a splat that takes each voxel's sum in that order, with
+no atomics, no library call and without storing the lift product, and
+writes the volume once in ``depth``'s dtype; for CPU tensors it is the
+plain version, ``voxel_scatter_plain`` (one ``index_add_`` per camera over
+``voxel_rows``, sequential on the CPU, atomic on the card).  Its backward
+is gathers, deterministic too.  ``segments`` states the order S1's sort
+gives (a stable sort of ``voxel_rows``).  ``LAUNCHES`` counts S1's launches.
 """
 from __future__ import annotations
 
@@ -30,7 +32,7 @@ from . import cuda_build
 LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_FN = []
+_FNS = {}
 
 
 def voxel_rows(coords: torch.Tensor, valid: torch.Tensor, nx: Sequence[int]) -> torch.Tensor:
@@ -60,14 +62,16 @@ def voxel_scatter_plain(depth: torch.Tensor, ctx: torch.Tensor, rows: torch.Tens
     return out[:n_rows]
 
 
-def _kernel_fn():
-    if not _FN:
-        fn = cuda_build.load("voxel_splat").voxel_splat
-        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_longlong] + [ctypes.c_int] * 5
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _FN.append(fn)
-    return _FN[0]
+def _kernel_fn(name: str = "voxel_splat"):
+    if name not in _FNS:
+        fn = getattr(cuda_build.load("voxel_splat"), name)
+        if name == "voxel_splat_workspace":  # rows, points -> int32s
+            fn.argtypes, fn.restype = [ctypes.c_longlong] * 2, ctypes.c_longlong
+        else:
+            fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        _FNS[name] = fn
+    return _FNS[name]
 
 
 def segments(rows: torch.Tensor, n_rows: int):
@@ -82,16 +86,22 @@ def segments(rows: torch.Tensor, n_rows: int):
     return order, offsets
 
 
-def _launch(depth, ctx, rows, n_rows):
+def _launch(depth, ctx, coords, valid, nx):
+    """S1: the volume [B * X * Y * Z, C] in ``depth``'s dtype."""
     global LAUNCHES
     B, N, D, fH, fW = depth.shape
     C = ctx.shape[-1]
-    order, offsets = segments(rows, n_rows)
-    out = torch.empty((n_rows, C), dtype=torch.float32, device=depth.device)
+    X, Y, Z = (int(n) for n in nx)
+    n_rows = B * X * Y * Z
+    coords = coords.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    out = torch.empty((n_rows, C), dtype=depth.dtype, device=depth.device)
+    ws = torch.empty(_kernel_fn("voxel_splat_workspace")(n_rows, depth.numel()),
+                     dtype=torch.int32, device=depth.device)
     with torch.cuda.device(depth.device):
         stream = torch.cuda.current_stream(depth.device).cuda_stream
-        rc = _kernel_fn()(depth.data_ptr(), ctx.data_ptr(), order.data_ptr(),
-                          offsets.data_ptr(), out.data_ptr(), n_rows, C, D, fH * fW,
+        rc = _kernel_fn()(depth.data_ptr(), ctx.data_ptr(), coords.data_ptr(), valid.data_ptr(),
+                          out.data_ptr(), ws.data_ptr(), B, N, D, fH * fW, X, Y, Z, C,
                           _DTYPE_CODE[depth.dtype], _DTYPE_CODE[ctx.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"voxel_splat launch failed: cudaError {rc}")
@@ -103,23 +113,26 @@ class _Splat(torch.autograd.Function):
     """S1 forward (the plain version for CPU tensors); the backward gathers
     each point's row of the output gradient: d_depth[p] = <g[row p],
     ctx[pixel p]>, d_ctx[pixel] = sum over the pixel's depth bins of
-    depth[p] * g[row p] (the dummy row's g is 0)."""
+    depth[p] * g[row p] (an invalid point's g is 0)."""
 
     @staticmethod
-    def forward(ctx_, depth, ctx, rows, n_rows):
-        ctx_.save_for_backward(depth, ctx, rows)
+    def forward(ctx_, depth, ctx, coords, valid, nx):
+        ctx_.save_for_backward(depth, ctx, coords, valid)
+        ctx_.nx = nx
         if depth.is_cuda:
-            return _launch(depth, ctx, rows, n_rows)
-        return voxel_scatter_plain(depth, ctx, rows, n_rows)
+            return _launch(depth, ctx, coords, valid, nx)
+        n_rows = depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2])
+        return voxel_scatter_plain(depth, ctx, voxel_rows(coords, valid, nx), n_rows)
 
     @staticmethod
     def backward(ctx_, gout):
-        depth, ctx, rows = ctx_.saved_tensors
+        depth, ctx, coords, valid = ctx_.saved_tensors
+        rows = voxel_rows(coords, valid, ctx_.nx)
         g = F.pad(gout.float(), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
         g = g.view(*rows.shape, gout.shape[-1])                 # [B, N, D, fH, fW, C]
         d_depth = (g * ctx[:, :, None].float()).sum(-1).to(depth.dtype)
         d_ctx = (g * depth[..., None].float()).sum(2).to(ctx.dtype)
-        return d_depth, d_ctx, None, None
+        return d_depth, d_ctx, None, None, None
 
 
 def voxel_scatter_lifted(
@@ -139,17 +152,17 @@ def voxel_scatter_lifted(
       nx:     (X, Y, Z)
 
     Returns [B, X, Y, Z, C] in ``depth.dtype``.  The sum is kept in float32
-    and cast once at the end.  CUDA tensors (float32 or bfloat16 depth and
-    ctx, on one device) run the splat kernel, CPU tensors the plain version.
+    and rounded once at the end.  CUDA tensors (float32 or bfloat16 depth and
+    ctx, all four on one device) run S1, CPU tensors the plain version.
     """
     B = depth.shape[0]
     C = ctx.shape[-1]
     X, Y, Z = int(nx[0]), int(nx[1]), int(nx[2])
-    n_rows = B * X * Y * Z
     if depth.is_cuda and not (depth.dtype in _DTYPE_CODE and ctx.dtype in _DTYPE_CODE
-                              and ctx.device == depth.device):
-        raise TypeError(f"depth and ctx must be float32 or bfloat16 on one device; got "
-                        f"{depth.dtype} on {depth.device} and {ctx.dtype} on {ctx.device}")
-    out = _Splat.apply(depth.contiguous(), ctx.contiguous(), voxel_rows(coords, valid, nx),
-                       n_rows)
+                              and ctx.device == coords.device == valid.device == depth.device):
+        raise TypeError(f"depth and ctx must be float32 or bfloat16 and lie with coords and "
+                        f"valid on one device; got {depth.dtype} on {depth.device}, "
+                        f"{ctx.dtype} on {ctx.device}, coords on {coords.device}, valid on "
+                        f"{valid.device}")
+    out = _Splat.apply(depth.contiguous(), ctx.contiguous(), coords, valid, (X, Y, Z))
     return out.reshape(B, X, Y, Z, C).to(depth.dtype)

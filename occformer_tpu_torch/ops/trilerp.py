@@ -13,11 +13,11 @@ Port of ``occformer_tpu/ops/trilerp.py:trilerp_gather_slab`` (Pallas
 For CUDA tensors ``trilerp_sample`` launches the kernels of
 ``csrc/trilerp_sample3d.cu`` through an autograd ``Function`` whose backward
 is K2-bwd (d_table, and d_coords when the coordinates require grad).  K2-bwd
-has two paths, picked by ``bwd_path``: wide rows (the per-layer loss
-route's C = 192 feature) take a per-voxel segmented gather that writes
-d_table once in the table's dtype, bit-identical from call to call; narrow
-rows (the batched route's C = 17 and C = 1 volumes) take float32 atomics
-into a zeroed buffer, cast afterwards.  K2 has two paths too, picked by
+has two paths, picked by ``bwd_path``, both writing d_table once in the
+table's dtype, bit-identical from call to call: wide rows (the per-layer
+loss route's C = 192 feature) take a per-voxel segmented gather; narrow
+rows (the batched route's C = 17 and C = 1 volumes) a per-column one, a
+group of ``column_lanes`` lanes per (x, y) column of the table.  K2 has two paths too, picked by
 ``fwd_path``: tables whose rows are whole 16-byte vectors (bf16 C a
 multiple of 8, float32 a multiple of 4; the per-layer route's C = 192
 feature) take the row-wide kernel, a group of lanes per point reading each
@@ -92,15 +92,18 @@ def trilerp_sample_plain(table: torch.Tensor, coords: torch.Tensor,
 
 # C entry point -> (pointer arguments, int arguments); each ends with the stream
 _SIGNATURES = {"trilerp_sample3d_fwd": (3, 12), "trilerp_sample3d_fwd_rows": (3, 10),
-               "trilerp_sample3d_bwd": (5, 9),
+               "trilerp_sample3d_bwd": (6, 10),
                "trilerp_sample3d_bwd_seg": (6, 9)}
+# workspace entry point -> its int arguments; each returns int32s
+_WORKSPACES = {"trilerp_sample3d_bwd_seg_workspace": 5,  # G, S, X, Y, Z
+               "trilerp_sample3d_bwd_workspace": 4}      # G, S, X, Y
 
 
 def _kernel_fn(name: str):
     if name not in _FNS:
         fn = getattr(cuda_build.load("trilerp_sample3d"), name)
-        if name == "trilerp_sample3d_bwd_seg_workspace":  # G, S, X, Y, Z -> int32s
-            fn.argtypes, fn.restype = [ctypes.c_int] * 5, ctypes.c_longlong
+        if name in _WORKSPACES:
+            fn.argtypes, fn.restype = [ctypes.c_int] * _WORKSPACES[name], ctypes.c_longlong
         else:
             n_ptr, n_int = _SIGNATURES[name]
             fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
@@ -113,7 +116,8 @@ def bwd_path(table_shape, num_points: int) -> str:
     """K2-bwd's path for a table ``[G, X, Y, Z, C]`` read at ``num_points``
     points per table: "segmented" for rows of at least ``SEGMENTED_MIN_C``
     channels in whole 8-channel chunks whose rows and (point, corner)
-    entries index in int32, else "narrow"."""
+    entries index in int32, else "narrow" (the per-column gather, whose
+    columns and points index in int32)."""
     G, X, Y, Z, C = table_shape
     if C % 8 == 0 and C >= SEGMENTED_MIN_C and G * X * Y * Z < _INT32_LIMIT \
             and 8 * G * num_points < _INT32_LIMIT:
@@ -203,35 +207,48 @@ def _launch_fwd(table, coords, align_corners, padding_mode, path=None, lanes=Non
     return out
 
 
+def column_lanes(channels: int) -> int:
+    """Lanes per (x, y) column of K2-bwd's narrow path: the fewest (a power
+    of two, at most 32) that give each of the row's ``channels`` a lane; one
+    at C = 1.  A block of 256 threads takes 256 / lanes columns."""
+    lanes = 1
+    while lanes < 32 and lanes < channels:
+        lanes *= 2
+    return lanes
+
+
 def _launch_bwd(table, coords, gout, align_corners, padding_mode, want_coords,
-                path=None):
+                path=None, lanes=None):
     """K2-bwd: (d_table in the table's dtype, d_coords float32 or None) on
-    ``path`` ("segmented" or "narrow"; ``bwd_path``'s choice by default).
-    Both sum in float32; the segmented path writes d_table once in the
-    table's dtype, the narrow one adds into a float32 buffer and casts it."""
+    ``path`` ("segmented" or "narrow"; ``bwd_path``'s choice by default),
+    the narrow one with ``lanes`` lanes per column (``column_lanes``' choice
+    by default).  Both sum in float32 in a fixed order and write d_table
+    once; the coordinate gradient adds with float32 atomics."""
     global BWD_LAUNCHES, BWD_NARROW_LAUNCHES
     path = path or bwd_path(table.shape, coords.shape[1])
     dims = _dims(table, coords, align_corners, padding_mode)
+    G, S, X, Y, Z = dims[:5]
     gout = gout.to(table.dtype).contiguous()
     if gout.data_ptr() % 16:  # the segmented gather reads 16-byte chunks
         gout = gout.clone()
     d_coords = (torch.zeros(coords.shape, dtype=torch.float32, device=table.device)
                 if want_coords else None)
     dc_ptr = None if d_coords is None else d_coords.data_ptr()
+    d_table = torch.empty(table.shape, dtype=table.dtype, device=table.device)
     with torch.cuda.device(table.device):
         stream = torch.cuda.current_stream(table.device).cuda_stream
         if path == "segmented":
-            d_table = torch.empty(table.shape, dtype=table.dtype, device=table.device)
-            n_ws = _kernel_fn("trilerp_sample3d_bwd_seg_workspace")(*dims[:5])
-            ws = torch.empty(n_ws, dtype=torch.int32, device=table.device)
+            ws = torch.empty(_kernel_fn("trilerp_sample3d_bwd_seg_workspace")(G, S, X, Y, Z),
+                             dtype=torch.int32, device=table.device)
             rc = _kernel_fn("trilerp_sample3d_bwd_seg")(
                 table.data_ptr(), coords.data_ptr(), gout.data_ptr(), d_table.data_ptr(),
                 dc_ptr, ws.data_ptr(), *dims, stream)
         elif path == "narrow":
-            d_table = torch.zeros(table.shape, dtype=torch.float32, device=table.device)
+            ws = torch.empty(_kernel_fn("trilerp_sample3d_bwd_workspace")(G, S, X, Y),
+                             dtype=torch.int32, device=table.device)
             rc = _kernel_fn("trilerp_sample3d_bwd")(
                 table.data_ptr(), coords.data_ptr(), gout.data_ptr(), d_table.data_ptr(),
-                dc_ptr, *dims, stream)
+                dc_ptr, ws.data_ptr(), *dims, lanes or column_lanes(table.shape[-1]), stream)
         else:
             raise ValueError(f"path must be 'segmented' or 'narrow'; got {path!r}")
     if rc != 0:
@@ -239,7 +256,7 @@ def _launch_bwd(table, coords, gout, align_corners, padding_mode, want_coords,
     BWD_LAUNCHES += 1
     if path == "narrow":
         BWD_NARROW_LAUNCHES += 1
-    return d_table.to(table.dtype), d_coords
+    return d_table, d_coords
 
 
 class _Sample(torch.autograd.Function):

@@ -1,6 +1,7 @@
 """Time the redesigned gather kernels of a checkout of the port on the card.
 
-    python3 occformer_tpu_torch/tools/time_backwards.py [--root DIR] [--label NAME] [--sweep]
+    python3 occformer_tpu_torch/tools/time_backwards.py [--root DIR] [--label NAME]
+        [--only GROUPS] [--sweep]
 
 K1 (``ops/trilerp_fused.py:_launch_fwd``) at the flagship's deformable
 attention shapes in bf16 and float32 and K1-bwd (``_launch_bwd``) in bf16,
@@ -16,13 +17,26 @@ readout, at the per-layer route's GT masks (bool ``[17, 256, 256, 32, 1]``,
 150528 points, C = 1 at 170 x 12544) volumes; and K4
 (``ops/trilerp_fused.py:_launch_multi_fwd``) at the deformable attention's
 pyramid (``k4_inputs``, bf16 and float32), and at bench.py's parity-gate
-shapes by the profiler's device time.  Each is the median ms of 30
-CUDA-event timed launches, on the path the checkout picks; K1 and K2 also
-by the profiler's device time.  ``--root`` names the checkout whose
+shapes by the profiler's device time; K2-bwd's narrow path at the batched
+route's two differentiated readouts, at random points and at the same
+points sorted by column (``k2_bwd_narrow_cases``), two calls compared bit
+for bit; S1 (``ops/scatter.py:voxel_scatter_lifted``, sort included) at
+the flagship's LSS shapes (``s1_inputs``) seen from a forward-looking
+nuScenes rig (``NUSCENES_RIG``) and from ``make_train_batch``'s synthetic
+cameras, with a digest of its volume (two checkouts' volumes are bit-equal
+when their digests are), its peak memory beyond its inputs, and the valid
+points, filled voxels and the largest voxel's points; and the flagship's
+train step on the batched loss route by the profiler's device time, all
+kernels and K2-bwd's (``batched_step_profile``).  Each kernel time is the
+median ms of 30 CUDA-event timed launches, on the path the checkout picks;
+K1 and K2 also by the profiler's device time.  ``--root`` names the checkout whose
 ``occformer_tpu_torch`` is imported (this one by default), so that two
 versions can be timed in turns on one card:
 
     for r in parent . . parent; do python3 .../time_backwards.py --root $r; done
+
+``--only`` names the groups to time (K1, K1-bwd, K2-bwd, K2-bwd.narrow,
+S1, K2, K4, step; all by default), and the sweeps of those groups.
 
 ``--sweep`` also times both of K2-bwd's paths, and both of K2's forward
 paths, at the candidate readout's shape over row widths C = 8 ... 192, in
@@ -32,6 +46,7 @@ turns (the measurements behind ``ops/trilerp.py:SEGMENTED_MIN_C`` and
 and the GT table's C = 17 over its lane-group sizes and at C = 1 (the GT
 masks, the random fill) over its
 points per lane (``NARROW_CHUNKS_PER_LANE``, ``NARROW_POINTS_PER_LANE``),
+K2-bwd's narrow path over its lanes per column (``column_lanes``),
 and K1's row-wide path over its lanes per row and samples per lane at the
 uniform and local locations in bf16 and float32 (``ROW_LANES``,
 ``ROW_SAMPLES_PER_LANE``; it needs a checkout with those paths).  It prints
@@ -40,6 +55,7 @@ one JSON line and exits 2 without a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
@@ -216,6 +232,220 @@ def k1_row_sweep(lanes=LANE_SWEEP, samples=SAMPLES_SWEEP):
     return recs
 
 
+def device_ms_by_kernel(fn, iters=20):
+    """Device ms per call of ``fn()`` by kernel name (its first 80
+    characters), from the profiler, as ``utils/timing.py:device_ms`` sums
+    them (kept here: ``--root`` may import a checkout without it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
+    return {e.key[:80]: e.self_device_time_total / 1e3 / iters for e in events
+            if e.device_type.name == "CUDA" and not (e.is_user_annotation or e.key in ranges)}
+
+
+# A forward-looking six-camera rig in nuScenes' layout, in the flagship's
+# camera order: the optical axis's yaw from the ego x axis (degrees, to the
+# left positive), the camera's position in the ego frame (m: forward, left,
+# up) and its focal length on the 1600 x 900 sensor (px).  Rounded from the
+# calibrated_sensor records of nuScenes v1.0 (vehicle n015): yaw to 5
+# degrees, position to the cm, focal length to the pixel; pitch and roll 0,
+# principal point at the sensor's centre.  The repo holds no nuScenes files
+# to read the exact values from.
+NUSCENES_RIG = (("CAM_FRONT_LEFT", 55.0, (1.52, 0.49, 1.51), 1273.0),
+                ("CAM_FRONT", 0.0, (1.70, 0.02, 1.51), 1266.0),
+                ("CAM_FRONT_RIGHT", -55.0, (1.55, -0.49, 1.50), 1261.0),
+                ("CAM_BACK_LEFT", 110.0, (1.04, 0.48, 1.59), 1257.0),
+                ("CAM_BACK", 180.0, (0.03, 0.00, 1.58), 809.0),
+                ("CAM_BACK_RIGHT", -110.0, (1.01, -0.48, 1.56), 1260.0))
+NUSCENES_SENSOR = (900, 1600)  # H, W
+
+
+def nuscenes_rig_cameras(input_size, rig=NUSCENES_RIG, sensor=NUSCENES_SENSOR):
+    """Batch-1 camera geometry of ``rig`` at the network input ``input_size``
+    (H, W), as ``make_train_batch`` lays it out (rots, trans, intrins,
+    post_rots, post_trans, bda; numpy float32).  Camera axes: x right, y
+    down, z along the optical axis.  The image is resized by W / sensor W
+    and its top rows cropped to H, the flagship's test-time augmentation
+    (``data_config``'s ``resize_test`` 0, ``crop_h`` (0, 0))."""
+    import numpy as np
+
+    H, W = input_size
+    scale = W / sensor[1]
+    N = len(rig)
+    rots = np.zeros((1, N, 3, 3), np.float32)
+    trans = np.zeros((1, N, 3), np.float32)
+    intrins = np.zeros((1, N, 3, 3), np.float32)
+    for i, (_, yaw, pos, f) in enumerate(rig):
+        c, s = np.cos(np.radians(yaw)), np.sin(np.radians(yaw))
+        # columns: the camera's x (right), y (down) and z (forward) in the ego frame
+        rots[0, i] = [[s, 0.0, c], [-c, 0.0, s], [0.0, -1.0, 0.0]]
+        trans[0, i] = pos
+        intrins[0, i] = [[f, 0.0, sensor[1] / 2], [0.0, f, sensor[0] / 2], [0.0, 0.0, 1.0]]
+    post_rots = np.tile(np.diag([scale, scale, 1.0]).astype(np.float32), (1, N, 1, 1))
+    post_trans = np.zeros((1, N, 3), np.float32)
+    post_trans[..., 1] = -(int(sensor[0] * scale) - H)
+    return {"rots": rots, "trans": trans, "intrins": intrins, "post_rots": post_rots,
+            "post_trans": post_trans, "bda": np.eye(3, dtype=np.float32)[None]}
+
+
+def s1_geometry(rig="nuscenes", seed=0, device="cuda"):
+    """S1's voxel coordinates at the flagship's LSS geometry (frustum [112,
+    16, 44] over 6 cameras, 128 x 128 x 16 voxels): ``rig="nuscenes"`` the
+    forward-looking rig above (``NUSCENES_RIG``), ``"synthetic"``
+    ``make_train_batch(cfg, seed)``'s cameras (identity rotations: every
+    camera looks straight up, so few points fall inside the grid).  Returns
+    (coords, valid, nx, frustum shape)."""
+    import numpy as np
+    import torch
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.synthetic import make_train_batch
+    from occformer_tpu_torch.ops.geometry import (compute_voxel_coords, create_frustum,
+                                                  gen_dx_bx, get_geometry)
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "occformer_nusc_r50_256x704.py"))
+    vt = cfg["model"]["img_view_transformer"]
+    gc = vt["grid_config"]
+    dx, bx, nx = gen_dx_bx(gc["xbound"], gc["ybound"], gc["zbound"])
+    input_size = tuple(vt["data_config"]["input_size"])
+    frustum = create_frustum(gc, input_size, vt.get("downsample", 16))
+    b = (nuscenes_rig_cameras(input_size) if rig == "nuscenes"
+         else make_train_batch(cfg, seed=seed))
+    cams = [torch.from_numpy(b[k]).to(device)
+            for k in ("rots", "trans", "intrins", "post_rots", "post_trans", "bda")]
+    geom = get_geometry(torch.from_numpy(frustum).to(device), *cams)
+    coords, valid = compute_voxel_coords(geom, dx, bx, nx)
+    return coords, valid, tuple(int(n) for n in np.asarray(nx)), frustum.shape[:3]
+
+
+def s1_inputs(rig="nuscenes", seed=0):
+    """S1's inputs at the flagship's shapes on the card: ``s1_geometry(rig)``,
+    a depth softmax over random logits and random context features [1, 6,
+    16, 44, 128], both bf16 as under the flagship's autocast.  Returns
+    (depth, ctx, coords, valid, nx)."""
+    import torch
+
+    coords, valid, nx, (D, fH, fW) = s1_geometry(rig, seed)
+    N = coords.shape[1]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    depth = torch.softmax(torch.randn((1, N, D, fH, fW), device="cuda", generator=g), 2)
+    ctx = torch.randn((1, N, fH, fW, 128), device="cuda", generator=g)
+    return depth.to(torch.bfloat16), ctx.to(torch.bfloat16), coords, valid, nx
+
+
+def segment_stats(coords, valid, nx):
+    """Valid points, filled voxels and the largest voxel's points of S1's
+    sort."""
+    import torch
+
+    from occformer_tpu_torch.ops.scatter import voxel_rows
+
+    counts = torch.bincount(voxel_rows(coords, valid, nx).reshape(-1))[:-1]
+    return {"points": int(valid.numel()), "points_valid": int(valid.sum()),
+            "voxels": int(counts.numel()), "voxels_filled": int((counts > 0).sum()),
+            "largest_voxel_points": int(counts.max())}
+
+
+def batched_step_profile(steps=3):
+    """Device time of the flagship's train step on the batched loss route
+    (``mxu_readout="on"``; float32 parameters, bf16 autocast,
+    ``make_train_batch(cfg, seed=0)``, random weights), ``steps`` steps after
+    two warm ones under the profiler: ms a step of all kernels, of K2-bwd's
+    kernels (every function named ``trilerp_bwd*`` or sorting
+    ``ColumnKeys``/``CornerKeys``) and of the 20 costliest functions."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.synthetic import make_train_batch
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "occformer_nusc_r50_256x704.py"))
+    m = cfg["model"]
+    model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="on"),
+                              m["train_cfg"]["pts"])
+    opt = build_optimizer_from_config(model, cfg, 28130)
+    step = build_train_step(model, opt, loss_cfg, device="cuda",
+                            compute_dtype=getattr(torch, cfg["compute_dtype"]))
+    batch = make_train_batch(cfg, seed=0)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(2):
+        step(batch, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(batch, g)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
+    kernels = {e.key[:100]: e.self_device_time_total / 1e3 / steps for e in events
+               if e.device_type.name == "CUDA" and not (e.is_user_annotation
+                                                        or e.key in ranges)}
+    k2_bwd = {k: v for k, v in kernels.items()
+              if "trilerp_bwd" in k or "ColumnKeys" in k or "CornerKeys" in k}
+    del model, opt, step, batch
+    torch.cuda.empty_cache()
+    return {"step_batched_device_ms": sum(kernels.values()),
+            "step_batched_K2-bwd_device_ms": sum(k2_bwd.values()),
+            "step_batched_K2-bwd_by_function": k2_bwd,
+            "step_batched_top_functions": dict(sorted(kernels.items(),
+                                                      key=lambda kv: -kv[1])[:20])}
+
+
+def k2_bwd_narrow_cases(seed=12):
+    """K2-bwd's narrow path at the batched route's two differentiated
+    readouts (float32 [10, 128, 128, 16, 17] at 10 x 150528 candidates and
+    [170, 128, 128, 16, 1] at 170 x 12544 random-fill points, border), with
+    the points in random order and sorted by column as the loss sends them
+    (``sort_points_by_row``): yields (name, table, coords, gout)."""
+    import torch
+
+    from occformer_tpu_torch.ops.loss_gather import sort_points_by_row
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    for name, tshape, cshape in (("candidates", (10, 128, 128, 16, 17), (10, 150528)),
+                                 ("random_fill", (170, 128, 128, 16, 1), (170, 12544))):
+        table = torch.randn(tshape, device="cuda", generator=g)
+        pts = torch.rand((*cshape, 3), device="cuda", generator=g)
+        gout = torch.randn((*cshape, tshape[-1]), device="cuda", generator=g)
+        yield name, table, (pts * 2 - 1).contiguous(), gout
+        yield f"{name}_by_column", table, (sort_points_by_row(pts, tshape[1:4]) * 2
+                                           - 1).contiguous(), gout
+        del table, pts, gout
+
+
+def k2_bwd_narrow_lanes_sweep(lanes=LANE_SWEEP):
+    """K2-bwd's narrow path over lanes per column at the batched readouts,
+    points sorted by column: ms twice each, in turns over the settings."""
+    from occformer_tpu_torch.ops import trilerp as k2
+    from occformer_tpu_torch.utils.timing import time_cuda
+
+    recs = {}
+    for name, table, coords, gout in k2_bwd_narrow_cases():
+        if not name.endswith("by_column"):
+            continue
+        ms = {str(n): [] for n in lanes}
+        for n in lanes + lanes[::-1]:
+            ms[str(n)].append(time_cuda(lambda: k2._launch_bwd(
+                table, coords, gout, False, "border", False, path="narrow", lanes=n)))
+        recs[name] = {"ms_by_lanes": ms, "default": k2.column_lanes(table.shape[-1])}
+    return recs
+
+
 def k2_bwd_path_sweep(widths=SWEEP_WIDTHS, seed=9):
     """Both K2-bwd paths at the candidate readout's shape (bf16 table [1,
     128, 128, 16, C], 150528 points, border) for each row width C: ms lists
@@ -248,8 +478,16 @@ def main(argv=None) -> int:
     p.add_argument("--label", default=None, help="a name for the run in the output")
     p.add_argument("--sweep", action="store_true",
                    help="also time both paths of K2-bwd and of K2 over row widths 8-192, "
-                        "and the lane groups of K2's and K1's redesigned paths")
+                        "and the lane groups of K2's, K2-bwd's narrow and K1's paths")
+    p.add_argument("--only", default=None,
+                   help="comma-separated groups to time (K1, K1-bwd, K2-bwd, K2, K4, S1, "
+                        "K2-bwd.narrow, step); all by default")
     args = p.parse_args(argv)
+    only = None if args.only is None else set(args.only.split(","))
+
+    def want(group):
+        return only is None or group in only
+
     import torch
 
     if not torch.cuda.is_available():
@@ -262,7 +500,7 @@ def main(argv=None) -> int:
 
     rec = {"label": args.label or args.root, "root": os.path.abspath(args.root),
            "package": os.path.dirname(k1.__file__), "device": torch.cuda.get_device_name(0)}
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32) if want("K1") else ():
         for where, local in (("uniform", False), ("local", True)):
             value, shapes, locs, w = flagship_gather_inputs(dtype, local)
             rec[f"K1_{str(dtype)[6:]}_{where}_ms"] = time_cuda(
@@ -271,39 +509,87 @@ def main(argv=None) -> int:
                 lambda: k1._launch_fwd(value, shapes, locs, w))
             del value, locs, w
     gen = torch.Generator(device="cuda").manual_seed(1)
-    for where, local in (("uniform", False), ("local", True)):
+    for where, local in (("uniform", False), ("local", True)) if want("K1-bwd") else ():
         value, shapes, locs, w = flagship_gather_inputs(torch.bfloat16, local)
         gout = torch.randn((1, locs.shape[1], 8, 24), device="cuda",
                            generator=gen).to(torch.bfloat16)
         rec[f"K1-bwd_{where}_ms"] = time_cuda(
             lambda: k1._launch_bwd(value, shapes, locs, w, gout))
         del value, locs, w, gout
-    g = torch.Generator(device="cuda").manual_seed(2)
-    table = torch.randn((1, 128, 128, 16, 192), device="cuda", generator=g).to(torch.bfloat16)
-    for where, S in (("candidates", 150528), ("random_fill", 17 * 12544)):
-        coords = torch.rand((1, S, 3), device="cuda", generator=g) * 2 - 1
-        gout = torch.randn((1, S, 192), device="cuda", generator=g).to(torch.bfloat16)
-        rec[f"K2-bwd_{where}_ms"] = time_cuda(
-            lambda: k2._launch_bwd(table, coords, gout, False, "border", want_coords=False))
-    del table, coords, gout
-    for name, table, coords in k2_fwd_cases():
-        rec[f"K2_{name}_ms"] = time_cuda(lambda: k2._launch_fwd(table, coords, False, "border"))
-        # the events also time the wrapper's host work, most of a short launch
-        rec[f"K2_{name}_device_ms"] = device_ms(
-            lambda: k2._launch_fwd(table, coords, False, "border"))
-    del table, coords
-    for dtype in (torch.bfloat16, torch.float32):
-        tables, coords, C = k4_inputs("flagship", dtype)
-        rec[f"K4_{str(dtype)[6:]}_ms"] = time_cuda(
+    if want("K2-bwd"):
+        g = torch.Generator(device="cuda").manual_seed(2)
+        table = torch.randn((1, 128, 128, 16, 192), device="cuda",
+                            generator=g).to(torch.bfloat16)
+        for where, S in (("candidates", 150528), ("random_fill", 17 * 12544)):
+            coords = torch.rand((1, S, 3), device="cuda", generator=g) * 2 - 1
+            gout = torch.randn((1, S, 192), device="cuda", generator=g).to(torch.bfloat16)
+            rec[f"K2-bwd_{where}_ms"] = time_cuda(lambda: k2._launch_bwd(
+                table, coords, gout, False, "border", want_coords=False))
+        del table, coords, gout
+    if want("K2-bwd.narrow"):
+        for name, table, coords, gout in k2_bwd_narrow_cases():
+            def call():
+                return k2._launch_bwd(table, coords, gout, False, "border", False,
+                                      path="narrow")
+            a, b = call()[0], call()[0]
+            rec[f"K2-bwd.narrow_{name}_bit_equal_calls"] = bool(torch.equal(a, b))
+            del a, b
+            rec[f"K2-bwd.narrow_{name}_ms"] = time_cuda(call)
+            rec[f"K2-bwd.narrow_{name}_device_ms"] = device_ms(call)
+            rec[f"K2-bwd.narrow_{name}_device_ms_by_kernel"] = device_ms_by_kernel(call)
+        del table, coords, gout
+    for rig in ("nuscenes", "synthetic") if want("S1") else ():
+        from occformer_tpu_torch.ops import scatter
+
+        depth, ctx, coords, valid, nx = s1_inputs(rig)
+        key = f"S1_{rig}"
+
+        def call():
+            return scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+
+        with torch.no_grad():
+            vol = call()
+            # two checkouts' volumes are bit-equal when their digests are
+            rec[f"{key}_volume_sha256"] = hashlib.sha256(
+                vol.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            rec[f"{key}_volume_dtype"] = str(vol.dtype)
+            rec[f"{key}_ms"] = time_cuda(call)
+            rec[f"{key}_device_ms"] = device_ms(call)
+            rec[f"{key}_device_ms_by_kernel"] = device_ms_by_kernel(call)
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            call()
+            rec[f"{key}_peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
+        rec[f"{key}_segments"] = segment_stats(coords, valid, nx)
+        del depth, ctx, coords, valid, vol
+    if want("step"):
+        rec.update(batched_step_profile())
+    if want("K2"):
+        for name, table, coords in k2_fwd_cases():
+            rec[f"K2_{name}_ms"] = time_cuda(lambda: k2._launch_fwd(
+                table, coords, False, "border"))
+            # the events also time the wrapper's host work, most of a short launch
+            rec[f"K2_{name}_device_ms"] = device_ms(
+                lambda: k2._launch_fwd(table, coords, False, "border"))
+        del table, coords
+    if want("K4"):
+        for dtype in (torch.bfloat16, torch.float32):
+            tables, coords, C = k4_inputs("flagship", dtype)
+            rec[f"K4_{str(dtype)[6:]}_ms"] = time_cuda(
+                lambda: k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False))
+        tables, coords, C = k4_inputs("gate")
+        rec["K4_gate_f32_device_ms"] = device_ms(
             lambda: k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False))
-    tables, coords, C = k4_inputs("gate")
-    rec["K4_gate_f32_device_ms"] = device_ms(
-        lambda: k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False))
     if args.sweep:
-        rec["K2-bwd_path_sweep"] = k2_bwd_path_sweep()
-        rec["K2_path_sweep"] = k2_fwd_path_sweep()
-        rec["K2_narrow_sweep"] = k2_narrow_sweep()
-        rec["K1_row_sweep"] = k1_row_sweep()
+        if want("K2-bwd.narrow") and hasattr(k2, "column_lanes"):
+            rec["K2-bwd.narrow_lanes_sweep"] = k2_bwd_narrow_lanes_sweep()
+        if want("K2-bwd"):
+            rec["K2-bwd_path_sweep"] = k2_bwd_path_sweep()
+        if want("K2"):
+            rec["K2_path_sweep"] = k2_fwd_path_sweep()
+            rec["K2_narrow_sweep"] = k2_narrow_sweep()
+        if want("K1"):
+            rec["K1_row_sweep"] = k1_row_sweep()
     print(json.dumps(rec), flush=True)
     return 0
 

@@ -14,9 +14,10 @@ The file imports no JAX, so it also runs where JAX is absent:
 
 Tolerances, relative to max |plain|: float32 1e-5 for the forwards and 1e-4
 for the gradients (the same float32 sums in another order; K1-bwd's d_value
-and the narrow K2-bwd path add atomics per element in an order that changes
-from run to run, while the segmented K2-bwd path sums each row in ascending
-point order and repeats itself bit for bit); bfloat16 1e-2 (the kernels round their outputs to bf16; the plain
+adds atomics per element in an order that changes from run to run, while
+both K2-bwd paths sum each output in a fixed order, the segmented one each
+voxel's points in ascending point order, the narrow one each (x, y)
+column's, and repeat themselves bit for bit); bfloat16 1e-2 (the kernels round their outputs to bf16; the plain
 versions run in float32 on the same bf16-rounded inputs).  K3 1e-6
 absolute: it adds the plain version's float32 terms in its order.  P1 and
 P2 exactly (one float32 add; a copy).
@@ -425,6 +426,61 @@ def test_k2_segmented_backward_with_crowded_and_empty_rows(cuda, padding_mode, a
     assert torch.equal(none, torch.zeros_like(table))
 
 
+@pytest.mark.parametrize("case", ["float32 C1", "float32 C17", "bfloat16 C17", "float32 C5",
+                                  "float32 C40"])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("order", ["random", "by_column"])
+def test_k2_narrow_backward_column_gather(cuda, case, align_corners, padding_mode, order):
+    """K2-bwd's narrow path (the per-column gather) against plain autograd,
+    with points in random order and sorted by column as the loss sends them
+    (``sort_points_by_row``), a quarter of them outside the table: two calls
+    and every lane count give the same bits (each output's sum runs over the
+    column's entries in one order whatever the lanes), and one lane per
+    column at C = 17 takes the column in passes of 32 outputs."""
+    dtype, C = case.split(" C")
+    C = int(C)
+    table, coords = _k2_inputs(cuda, dtype, G=2, spatial=(9, 7, 6), C=C, S=3000, seed=11)
+    if order == "by_column":
+        pts = k3.sort_points_by_row((coords + 1) / 2, (9, 7, 6), align_corners)
+        coords = (pts * 2 - 1).contiguous()
+    gout = torch.randn(coords.shape[:2] + (C,), device=cuda).to(table.dtype)
+    assert k2.bwd_path(table.shape, coords.shape[1]) == "narrow"
+    ref = _k2_plain_d_table(table, coords, gout, align_corners, padding_mode)
+    got, n = _k2_bwd_on("narrow", table, coords, gout, align_corners, padding_mode)
+    again, _ = _k2_bwd_on("narrow", table, coords, gout, align_corners, padding_mode)
+    assert n == (1, 1) and got.dtype == table.dtype and torch.equal(got, again)
+    _close(got, ref, _tol(table.dtype, grad=True), f"K2-bwd narrow {case}")
+    for lanes in (1, 2, 4, 8, 16, 32):
+        d, _ = k2._launch_bwd(table, coords, gout, align_corners, padding_mode, False,
+                              path="narrow", lanes=lanes)
+        assert torch.equal(d, got), lanes
+
+
+def test_k2_narrow_backward_at_the_batched_shapes(cuda):
+    """The batched route's per-slot readouts at a quarter of their size
+    (float32 [10, 32, 32, 16, 17] at 10 x 9408 candidates and [170, 32, 32,
+    16, 1] at 170 x 784 random-fill points, both sorted by column, border,
+    align_corners=False): against plain autograd, two calls bit-equal, and
+    the autograd Function on the narrow path."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    for G, C, S in ((10, 17, 9408), (170, 1, 784)):
+        table = torch.randn((G, 32, 32, 16, C), device=cuda, generator=gen)
+        pts = k3.sort_points_by_row(torch.rand((G, S, 3), device=cuda, generator=gen),
+                                    (32, 32, 16))
+        coords = (pts * 2 - 1).contiguous()
+        gout = torch.randn((G, S, C), device=cuda, generator=gen)
+        ref = _k2_plain_d_table(table, coords, gout)
+        leaf = table.detach().clone().requires_grad_(True)
+        before = (k2.BWD_LAUNCHES, k2.BWD_NARROW_LAUNCHES)
+        k2.trilerp_sample(leaf, coords, False, "border").backward(gout)
+        torch.cuda.synchronize()
+        assert (k2.BWD_LAUNCHES - before[0], k2.BWD_NARROW_LAUNCHES - before[1]) == (1, 1)
+        again, _ = _k2_bwd_on("narrow", table, coords, gout)
+        assert torch.equal(leaf.grad, again)
+        _close(leaf.grad, ref, 1e-4, f"K2-bwd narrow G={G} C={C}")
+
+
 def _k3_inputs(dev, spatial, B=2, N=4, G=17, S=3000, P=200, seed=0):
     rng = np.random.RandomState(seed)
     grid = rng.randint(0, G + 2, (B, *spatial)).astype(np.int32)
@@ -683,6 +739,103 @@ def test_splat_matches_plain_and_repeats_itself(cuda, depth_dtype, ctx_dtype):
     _close(runs[0][0], ref, tol, "S1 volume")
     _close(runs[0][1], d.grad, 1e-4 if tol == 1e-5 else tol, "S1 d_depth")
     _close(runs[0][2], c.grad, 1e-4 if tol == 1e-5 else tol, "S1 d_ctx")
+
+
+def _splat_in_stable_order(depth, ctx, coords, valid, nx):
+    """S1's sum emulated in numpy: each voxel's points in
+    ``torch.argsort(stable=True)`` order (``segments``), each term added as
+    one fused multiply-add rounded to float32 (taken in numpy's long double,
+    which holds a float32 product exactly), the volume rounded once to
+    depth's dtype."""
+    from occformer_tpu_torch.ops import scatter
+
+    B, N, D, fH, fW = depth.shape
+    C = ctx.shape[-1]
+    n_rows = B * int(np.prod(nx))
+    order, offsets = scatter.segments(scatter.voxel_rows(coords, valid, nx), n_rows)
+    order, offsets = order.cpu().numpy(), offsets.cpu().numpy()
+    d = depth.float().cpu().numpy().reshape(-1).astype(np.longdouble)
+    c = ctx.float().cpu().numpy().reshape(-1, C).astype(np.longdouble)
+    HW = fH * fW
+    out = np.zeros((n_rows, C), np.float32)
+    for r in np.nonzero(np.diff(offsets))[0]:
+        acc = np.zeros(C, np.float32)
+        for p in order[offsets[r]:offsets[r + 1]]:
+            acc = (d[p] * c[p // (D * HW) * HW + p % HW] + acc).astype(np.float32)
+        out[r] = acc
+    return torch.from_numpy(out).to(depth.device).to(depth.dtype)
+
+
+@pytest.mark.parametrize("depth_dtype,ctx_dtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                                   ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("C", [40, 128, 7])
+def test_splat_sums_each_voxel_in_stable_sort_order(cuda, depth_dtype, ctx_dtype, C):
+    """S1's volume equals, bit for bit, each voxel's sum taken in
+    ``torch.argsort(stable=True)`` order (the order of the sort the kernel
+    replaced): hot voxels of hundreds of points, a fifth of the points
+    invalid, rows of 7 (narrow loads), 40 and 128 channels."""
+    from occformer_tpu_torch.ops import scatter
+
+    depth, ctx, coords, valid, nx = _splat_inputs(cuda, depth_dtype, ctx_dtype, C=C, seed=5)
+    got = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+    ref = _splat_in_stable_order(depth, ctx, coords, valid, nx)
+    assert got.dtype == depth.dtype
+    assert torch.equal(got.reshape(ref.shape), ref)
+
+
+def test_batched_train_step_repeats_its_losses_and_loss_gradients(cuda):
+    """The tiny CLI model's train step on the batched loss route, twice from
+    one state: every loss and the gradients the loss hands to the model (of
+    the class logits, mask embeddings and mask feature) bit-equal.  (K1-bwd's
+    float32 reductions still move the parameters' gradients in their last
+    bits.)"""
+    import copy
+    import os
+
+    import occformer_tpu_torch.engine.train as train_mod
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "occformer_tpu_torch", "configs", "synthetic_tiny.py"),
+                      {"model.img_backbone.frozen_stages": 0})
+    m = cfg["model"]
+    batch = next(iter(build_dataloader(build_dataset(cfg["data"]["train"]), max_points=512)))
+    batch.pop("_meta")
+    model = build_model(m, device=cuda, seed=0).train()
+    opt = build_optimizer_from_config(model, cfg, 16)
+    step = build_train_step(model, opt, build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="on"),
+                                                       m["train_cfg"]["pts"]), device=cuda)
+    state = copy.deepcopy((model.state_dict(), opt.state_dict()))
+    orig = train_mod.mask2former_loss
+
+    def run():
+        grads = {}
+
+        def loss(*args):
+            for name, t in zip(("cls_preds", "mask_embeds", "mask_feature"), args[:3]):
+                t.register_hook(lambda g, name=name: grads.__setitem__(name, g.clone()))
+            return orig(*args)
+
+        model.load_state_dict(state[0])
+        opt.load_state_dict(state[1])
+        before = k2.BWD_NARROW_LAUNCHES
+        train_mod.mask2former_loss = loss
+        try:
+            metrics = step(batch, torch.Generator(device=cuda).manual_seed(1))
+        finally:
+            train_mod.mask2former_loss = orig
+        assert k2.BWD_NARROW_LAUNCHES == before + 2
+        return {k: float(v) for k, v in metrics.items() if "loss" in k}, grads
+
+    (la, ga), (lb, gb) = run(), run()
+    assert la == lb
+    assert sorted(ga) == sorted(gb) == ["cls_preds", "mask_embeds", "mask_feature"]
+    for k in ga:
+        assert torch.equal(ga[k], gb[k]), k
 
 
 def test_probe_kernels_match_plain_exactly(cuda):

@@ -4,6 +4,8 @@ Inputs come from a seeded numpy generator and go through both functions.
 Tolerance: atol 1e-5 — the same float32 arithmetic, in another library and
 summation order.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -146,6 +148,93 @@ def test_splat_kernel_formulation_matches_the_plain_version():
     ref = scatter_mod.voxel_scatter_plain(_t(depth), _t(ctx), rows, n_rows)
     np.testing.assert_allclose(out, ref.numpy(), atol=ATOL)
     assert offsets[-1] == int(valid.sum())  # the dummy row's points lie past the last voxel
+
+
+def _splat_counting_sort(coords, valid, nx, depth):
+    """S1's counting sort (csrc/voxel_splat.cu with segment_sort.cuh) in
+    torch: each valid point's voxel row in int32 (no dummy row), a histogram,
+    its exclusive scan, and each point placed at its row's offset plus its
+    rank among the row's points by point index; each entry is the point's
+    pixel in int32 and its depth as a float.  -> (offsets, points, pixels,
+    depths)."""
+    B, N, D, fH, fW = valid.shape
+    X, Y, Z = nx
+    c = coords.to(torch.int32)
+    x, y, z = (c[..., i].clamp(0, n - 1) for i, n in enumerate(nx))
+    b = torch.arange(B, dtype=torch.int32).view(B, 1, 1, 1, 1)
+    rows = (b * (X * Y * Z) + (x * Y + y) * Z + z).reshape(-1)
+    p = torch.nonzero(valid.reshape(-1)).reshape(-1).to(torch.int32)
+    r = rows[p.long()]
+    offs = torch.zeros(B * X * Y * Z + 1, dtype=torch.int32)
+    offs[1:] = torch.cumsum(torch.bincount(r, minlength=B * X * Y * Z), 0)
+    rank = ((r[None, :] == r[:, None]) & (p[None, :] < p[:, None])).sum(1).to(torch.int32)
+    points = torch.empty_like(p)
+    points[(offs[r.long()] + rank).long()] = p
+    HW = fH * fW
+    return (offs, points, points // (D * HW) * HW + points % HW,
+            depth.reshape(-1)[points.long()].float())
+
+
+@pytest.mark.parametrize("clustered", [False, True])
+def test_splat_counting_sort_gives_the_stable_sort_order(clustered):
+    """S1's on-card sort in torch against ``segments`` (a stable argsort of
+    ``voxel_rows``) on the valid points: the same order and offsets, at
+    random geometry and at clustered geometry (hundreds of points in the hot
+    voxels, as near a camera); the pixels as the first design computed them
+    and the entries' depths those of the points in that order."""
+    rng = np.random.RandomState(7)
+    B, N, D, fH, fW = 2, 3, 16, 6, 8
+    nx = (6, 5, 4)
+    if clustered:
+        coords = rng.randint(0, 2, (B, N, D, fH, fW, 3))
+        coords[:, :, ::3] = rng.randint(-1, 7, (B, N, (D + 2) // 3, fH, fW, 3))
+    else:
+        coords = rng.randint(-1, 7, (B, N, D, fH, fW, 3))
+    coords = _t(coords.astype(np.int32))
+    valid = ((coords >= 0) & (coords < _t(nx))).all(-1) & _t(rng.rand(B, N, D, fH, fW) > 0.2)
+    n_rows = B * int(np.prod(nx))
+    depth = _t(rng.rand(B, N, D, fH, fW).astype(np.float32)).to(torch.bfloat16)
+    offs, points, pixels, depths = _splat_counting_sort(coords, valid, nx, depth)
+    order, offsets = scatter_mod.segments(scatter_mod.voxel_rows(coords, valid, nx), n_rows)
+    assert torch.equal(offs.long(), offsets)
+    assert torch.equal(points.long(), order[:int(valid.sum())])
+    HW = fH * fW
+    assert torch.equal(pixels.long(), order[:len(points)] // (D * HW) * HW
+                       + order[:len(points)] % HW)
+    assert torch.equal(depths, depth.reshape(-1)[order[:len(points)]].float())
+    if clustered:
+        assert int(torch.diff(offsets).max()) >= 100
+
+
+def test_nuscenes_rig_looks_out_along_each_camera_yaw():
+    """S1's timing rig (``tools/time_backwards.py:NUSCENES_RIG``) at the
+    flagship's frustum: the port's geometry equals the JAX package's; each
+    camera's frustum, seen from the camera, is centred on its yaw and looks
+    down (the crop keeps the image's lower rows); more than half the points
+    fall in the grid, against under 5% at the synthetic cameras, which look
+    straight up."""
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.tools import time_backwards as tb
+
+    cfg = load_config(os.path.join(os.path.dirname(tgeo.__file__), "..", "configs",
+                                   "occformer_nusc_r50_256x704.py"))
+    vt = cfg["model"]["img_view_transformer"]
+    gc, size = vt["grid_config"], tuple(vt["data_config"]["input_size"])
+    fr = tgeo.create_frustum(gc, size, vt.get("downsample", 16))
+    cams = tb.nuscenes_rig_cameras(size)
+    keys = ("rots", "trans", "intrins", "post_rots", "post_trans", "bda")
+    geom = tgeo.get_geometry(_t(fr), *(_t(cams[k]) for k in keys))
+    ref = np.asarray(jgeo.get_geometry(jnp.asarray(fr), *(jnp.asarray(cams[k]) for k in keys)))
+    np.testing.assert_allclose(geom.numpy(), ref, rtol=1e-5, atol=1e-4)
+    rays = (geom[0] - _t(cams["trans"][0])[:, None, None, None]).reshape(6, -1, 3).mean(1)
+    yaws = torch.rad2deg(torch.atan2(rays[:, 1], rays[:, 0]))
+    want = torch.tensor([yaw for _, yaw, _, _ in tb.NUSCENES_RIG])
+    assert float(((yaws - want + 180) % 360 - 180).abs().max()) < 1.0
+    assert bool((rays[:, 2] < 0).all())
+    stats = {rig: tb.segment_stats(*tb.s1_geometry(rig, device="cpu")[:3])
+             for rig in ("nuscenes", "synthetic")}
+    assert stats["nuscenes"]["points_valid"] > 0.5 * stats["nuscenes"]["points"]
+    assert stats["synthetic"]["points_valid"] < 0.05 * stats["synthetic"]["points"]
 
 
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])

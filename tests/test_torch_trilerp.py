@@ -9,11 +9,13 @@ mode and its VJP (d_table, d_coords), for zeros and border padding and both
 summation order.  The CUDA kernels themselves are held against the plain
 version on the card by tests/test_torch_gpu.py and by chip_smoke.py.
 
-K2-bwd's segmented path (``csrc/trilerp_sample3d.cu``) has no CPU mode; a
-torch model of its formulation here (corner keys and weights with the
-kernel's ``make_axis`` arithmetic, a stable sort by key, segment sums in
-ascending point order) pins the index and weight rules it follows against
-autograd of the plain version, and ``bwd_path`` and ``fwd_path``, the
+K2-bwd's two paths (``csrc/trilerp_sample3d.cu``) have no CPU mode; torch
+models of their formulations here (the segmented path: corner keys and
+weights with the kernel's ``make_axis`` arithmetic, a stable sort by key,
+segment sums in ascending point order; the narrow path: one (x, y) column
+key a point, lists in ascending point order, each column's sums over the
+four lists that touch it) pin the index and weight rules they follow
+against autograd of the plain version, and ``bwd_path`` and ``fwd_path``, the
 wrapper's choices of path, and ``narrow_vec`` and ``narrow_lanes``, the
 narrow forward's load width and lane group, are tested as the pure
 functions they are.
@@ -28,6 +30,7 @@ import jax.numpy as jnp
 from occformer_tpu.ops.sampling import point_sample_3d as jax_point_sample_3d
 from occformer_tpu.ops.trilerp import trilerp_gather_slab
 from occformer_tpu_torch.ops import trilerp as k2
+from occformer_tpu_torch.ops.loss_gather import sort_points_by_row
 from occformer_tpu_torch.ops.sampling import point_sample_3d
 
 SPATIAL = (4, 8, 4)
@@ -188,6 +191,92 @@ def test_segmented_backward_formulation_matches_plain_autograd(align_corners, pa
     # every segment lists its points in ascending order, each at most once
     same = key[1:] == key[:-1]
     assert bool((pt[1:][same] > pt[:-1][same]).all())
+
+
+def _column_d_table(table_shape, coords, gout, align_corners, padding_mode):
+    """The narrow K2-bwd formulation in torch: one entry per point with a
+    corner inside its table, keyed by its column g*X*Y + x0*Y + y0 (the
+    lower corner clamped into the table), entries stably sorted by key from
+    ascending point order; each output column (g, x, y) walks the lists of
+    the key columns (x-1, y-1), (x-1, y), (x, y-1), (x, y) in that order,
+    the kernel's (``trilerp_bwd_tiles_kernel``), and adds w * gout[point] to
+    its two z corners.  -> (d_table, sorted keys,
+    sorted points)."""
+    G, X, Y, Z, C = table_shape
+    S = coords.shape[1]
+    border = padding_mode == "border"
+    axes = [_axis(coords[..., i].reshape(-1), n, align_corners, border)
+            for i, n in enumerate((X, Y, Z))]
+    (x0, wx), (y0, wy), (z0, wz) = axes
+    has = torch.ones(G * S, dtype=torch.bool)
+    for i0, n in ((x0, X), (y0, Y), (z0, Z)):
+        has &= (i0 >= -1) & (i0 < n)
+    g = torch.arange(G).repeat_interleave(S)
+    key = g * (X * Y) + x0.clamp(0, X - 1) * Y + y0.clamp(0, Y - 1)
+    pt = torch.arange(G * S)[has]
+    key = key[has]
+    order = torch.argsort(key, stable=True)
+    key, pt = key[order], pt[order]
+    offs = torch.zeros(G * X * Y + 1, dtype=torch.long)
+    offs[1:] = torch.cumsum(torch.bincount(key, minlength=G * X * Y), 0)
+    go = gout.reshape(G * S, C)
+    d = torch.zeros(G, X, Y, Z, C)
+    for col in range(G * X * Y):
+        x, y = col % (X * Y) // Y, col % Y
+        for dx, dy in ((1, 1), (1, 0), (0, 1), (0, 0)):
+            if x < dx or y < dy:
+                continue
+            k = col - dx * Y - dy
+            for p in pt[offs[k]:offs[k + 1]].tolist():
+                ex, ey = x - int(x0[p]), y - int(y0[p])
+                if ex not in (0, 1) or ey not in (0, 1):
+                    continue
+                wxy = wx[ex][p] * wy[ey][p]
+                for ez in (0, 1):
+                    z = int(z0[p]) + ez
+                    if 0 <= z < Z:
+                        d[col // (X * Y), x, y, z] += wxy * wz[ez][p] * go[p]
+    return d, key, pt
+
+
+@pytest.mark.parametrize("C", [1, 17])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+@pytest.mark.parametrize("by_column", [False, True])
+def test_column_backward_formulation_matches_plain_autograd(C, align_corners, padding_mode,
+                                                            by_column):
+    """On a 5x7x3 volume with points over [-1.15, 1.15] plus points on and
+    beyond the edges, in random order or sorted by ``sort_points_by_row`` as
+    the batched loss sends them (then the sort keeps the input order): the
+    narrow formulation within 1e-5 of autograd of the plain version, the same
+    bits on two calls, every list in ascending point order."""
+    rng = np.random.RandomState(6)
+    G, spatial = 2, (5, 7, 3)
+    table = rng.randn(G, *spatial, C).astype(np.float32)
+    edge = np.array([[1.0, 1.0, 1.0], [1.0, 0.3, -1.0], [-1.0, -1.0, 1.0],
+                     [1.0 + 1e-6, 0.0, 1.0 - 1e-6], [1.3, 1.0, 0.2], [-1.2, 1.07, 1.4],
+                     [-1.1, -1.1, 0.0], [0.0, 1.0, 1.0]], np.float32)
+    coords = torch.from_numpy(np.concatenate(
+        [rng.uniform(-1.15, 1.15, (G, 100, 3)).astype(np.float32),
+         np.broadcast_to(edge, (G,) + edge.shape)], axis=1))
+    if by_column:
+        coords = sort_points_by_row((coords + 1) / 2, spatial, align_corners) * 2 - 1
+    gout = torch.from_numpy(rng.randn(G, coords.shape[1], C).astype(np.float32))
+    t = torch.from_numpy(table).requires_grad_(True)
+    k2.trilerp_sample_plain(t, coords, align_corners, padding_mode).backward(gout)
+    got, key, pt = _column_d_table(table.shape, coords, gout, align_corners, padding_mode)
+    again, _, _ = _column_d_table(table.shape, coords, gout, align_corners, padding_mode)
+    assert torch.equal(got, again)
+    torch.testing.assert_close(got, t.grad, rtol=0, atol=1e-5 * t.grad.abs().max().item())
+    same = key[1:] == key[:-1]
+    assert bool((pt[1:][same] > pt[:-1][same]).all())
+    if by_column:  # sorted by column already: the sort returns the input order
+        assert bool((pt[1:] > pt[:-1]).all())
+
+
+def test_column_lanes():
+    assert [k2.column_lanes(c) for c in (1, 2, 5, 8, 17, 32, 40, 100)] == \
+        [1, 2, 8, 8, 32, 32, 32, 32]
 
 
 @pytest.mark.parametrize("shape,points,want", [

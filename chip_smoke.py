@@ -71,12 +71,20 @@ Phases, each printing one JSON line:
                  the loss's uncertainty top-k compared bit for bit; the
                  deterministic mode must repeat them; then on the flagship's
                  batched loss route with the kernels as they are (its
-                 losses, selections and the loss's gradients must repeat),
-                 with K2-bwd through its segmented path and with torch's
-                 deterministic algorithms beside it; every pair also
-                 records grad_norm and which parameters' gradients differ
-                 (C.6); and S1 against its plain version and the scatter's
-                 cost per step in both modes.
+                 losses, selections and the loss's gradients must repeat);
+                 every pair also records grad_norm and which parameters'
+                 gradients differ, and the deformable encoder's must repeat
+                 in the deterministic-scatter and batched pairs (C.6: K1-bwd
+                 and the FPN upsample's backward sum in a fixed order; the
+                 tiny model's on cuDNN's deterministic algorithms, its
+                 default ones recorded beside them: C.8); two
+                 more modes, on the tiny model and the flagship, isolate
+                 what still varies upstream (C.7): torch's deterministic
+                 algorithms (warn_only), and the same with the DepthNet
+                 DCN's bilinear sampler read through K4 and K4-bwd, where
+                 every gradient and grad_norm must repeat; and S1 against
+                 its plain version and the scatter's cost per step in both
+                 modes.
   6. train:      the flagship's train step at full width and depth, float32
                  parameters under bfloat16 autocast, batch 1, through
                  build_train_step on the per-layer loss route: 1 warm-up
@@ -147,6 +155,8 @@ PROBE_LAUNCHES = dict(_NONE, P1=1, P2=1)
 # the pyramid of the deformable attention, largest level first, as bench.py
 # (tools/time_backwards.py:K4_PYRAMID)
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
+# the pixel decoder's deformable encoder, as grads_differ_by_module names it
+ENCODER = "img_bev_encoder_neck.encoder"
 # the outermost torch.profiler ranges of a frame and of a train step
 SERVE_STAGES = ("upload", "image_encoder", "view_transformer", "occupancy_encoder",
                 "pixel_decoder", "head", "readout")
@@ -228,11 +238,12 @@ def phase_k1():
     uniform and at the local locations: K1 on its row-wide path (the
     flagship's), two calls held bit-equal, and on its scalar path beside it,
     each timed by CUDA events and by the profiler's device time.
-    Tolerances relative to max |plain|: float32 1e-5 forward and 1e-4
-    backward (the same float32 sums in another order; the backward's d_value
-    takes 8 * hd / 4 vector reductions per sample in an order that changes
-    from run to run), bfloat16 1e-2 (outputs rounded to bf16; the plain
-    version runs in float32 on the same bf16-rounded inputs)."""
+    K1-bwd's two calls are held bit-equal too, at both locations (each
+    d_value row summed in ascending sample order), and timed by the
+    profiler's device time.  Tolerances relative to max |plain|: float32
+    1e-5 forward and 1e-4 backward (the same float32 sums in another order),
+    bfloat16 1e-2 (outputs rounded to bf16; the plain version runs in
+    float32 on the same bf16-rounded inputs)."""
     import torch
 
     from occformer_tpu_torch.ops import trilerp_fused as k1
@@ -298,13 +309,17 @@ def phase_k1():
             leaves = [t.detach().float().requires_grad_(True) for t in (v_, l_, w_)]
             out = k1.ms_deform_gather_3d_plain(leaves[0], shapes, leaves[1], leaves[2])
             refs = torch.autograd.grad(out, leaves, gout.float())
-            for g, a, b in zip(("d_value", "d_locs", "d_weights"), k_leaves, refs):
+            again = k1._launch_bwd(v_, shapes, l_, w_, gout)
+            for g, a, b, c in zip(("d_value", "d_locs", "d_weights"), k_leaves, refs, again):
                 rb[where + g] = compare(a.grad, b, rel, f"K1-bwd {name} {where}{g}")
+                check(torch.equal(a.grad, c), f"K1-bwd {name} {where}{g}: two calls differ")
             check(all(a.grad.dtype == a.dtype for a in k_leaves),
                   f"K1-bwd {name}: gradient dtypes {[a.grad.dtype for a in k_leaves]}")
-            del k_leaves, leaves, out, refs
+            del k_leaves, leaves, out, refs, again
         rb["max_abs_err"] = max(v["max_abs_err"] for v in rb.values())
+        rb["bit_identical_calls"] = True
         rb["kernel_ms"] = time_cuda(lambda: k1._launch_bwd(value, shapes, locs, w, gout))
+        rb["device_ms"] = device_ms(lambda: k1._launch_bwd(value, shapes, locs, w, gout))
         rb["kernel_ms_local_locs"] = time_cuda(lambda: k1._launch_bwd(lv, shapes, ll, lw, gout))
         plain_leaves = [t.detach().clone().requires_grad_(True) for t in (value, locs, w)]
         plain_out = k1.ms_deform_gather_3d_plain(plain_leaves[0], shapes, plain_leaves[1],
@@ -658,6 +673,7 @@ def phase_k3():
         r = compare(got, ref, 1e-6, f"K3 {name}")
         del ref
         r["kernel_ms"] = time_cuda(lambda: k3.sample_id_masks(grid, ids, pts, False, "border"))
+        r["device_ms"] = device_ms(lambda: k3.sample_id_masks(grid, ids, pts, False, "border"))
         r["plain_ms"] = time_cuda(
             lambda: k3.sample_id_masks_plain(grid, ids, pts, False, "border"), iters=10)
         if pts.dim() == 3:  # every layer's points in one grid
@@ -731,10 +747,10 @@ def k4_check(tables, coords, C, align_corners, name):
     """K4 and K4-bwd through the autograd Function against the plain
     version's autograd: values, d_tables and d_coords of a random linear
     probe.  Tolerances relative to max |plain|: float32 1e-5 values and 1e-4
-    gradients (d_table adds up to 8 * C float32 atomics per element in an
-    order that changes from run to run), bf16 1e-2 (outputs and d_tables
-    rounded to bf16; the plain version runs in float32 on the same
-    bf16-rounded inputs)."""
+    gradients (the same float32 sums in another order: each d_table row in
+    ascending sample order), bf16 1e-2 (outputs and d_tables rounded to
+    bf16; the plain version runs in float32 on the same bf16-rounded
+    inputs)."""
     import torch
 
     from occformer_tpu_torch.ops import trilerp_fused as k4
@@ -778,6 +794,7 @@ def phase_k4():
     import torch.nn.functional as F
 
     from occformer_tpu_torch.ops import trilerp_fused as k4
+    from occformer_tpu_torch.tools.time_backwards import k4_library_bwd_ms
 
     gate = k4_inputs("gate")
     flag = k4_inputs("flagship")
@@ -869,9 +886,16 @@ def phase_k4():
     g = torch.Generator(device="cuda").manual_seed(8)
     gouts = [torch.randn(o.shape, device="cuda", generator=g).to(o.dtype) for o in outs]
     d_tables, d_coords = k4._launch_multi_bwd(tables, K4_PYRAMID, C, coords, gouts, False, True)
+    a_tables, a_coords = k4._launch_multi_bwd(tables, K4_PYRAMID, C, coords, gouts, False, True)
+    check(all(torch.equal(a, b) for a, b in zip(d_tables + d_coords, a_tables + a_coords)),
+          "K4-bwd: two calls differ")
+    del a_tables, a_coords
     bwd = {"max_abs_err": max(r["max_abs_err"] for k in ("d_tables", "d_coords")
-                              for r in rec["flagship_bf16"][k])}
+                              for r in rec["flagship_bf16"][k]),
+           "bit_identical_calls": True}
     bwd["kernel_ms"] = time_cuda(lambda: k4._launch_multi_bwd(
+        tables, K4_PYRAMID, C, coords, gouts, False, True))
+    bwd["device_ms"] = device_ms(lambda: k4._launch_multi_bwd(
         tables, K4_PYRAMID, C, coords, gouts, False, True))
     bwd["kernel_ms_without_d_coords"] = time_cuda(lambda: k4._launch_multi_bwd(
         tables, K4_PYRAMID, C, coords, gouts, False, False))
@@ -881,15 +905,8 @@ def phase_k4():
     bwd["plain_ms"] = time_cuda(lambda: torch.autograd.grad(
         p_out, pl + pc, gouts, retain_graph=True), iters=10)
     del p_out
-    lv = [v.detach().clone().requires_grad_(True) for v in vols]
-    lg = [x.detach().clone().requires_grad_(True) for x in grids]
-    l_out = [F.grid_sample(v, x, mode="bilinear", padding_mode="zeros", align_corners=False)
-             for v, x in zip(lv, lg)]
-    l_gout = [go.reshape(o.shape) for go, o in zip(gouts, l_out)]
-    bwd["library_ms"] = time_cuda(lambda: torch.autograd.grad(
-        l_out, lv + lg, l_gout, retain_graph=True), iters=10)
+    bwd["library_ms"] = k4_library_bwd_ms(tables, coords, gouts, C)
     bwd["library_calls"] = len(K4_PYRAMID)
-    del l_out
     # tables, coords and gout read once; d_tables (the tables' dtype) and
     # d_coords (float32) written once.  Per corner and channel the d_table
     # product and add and one FMA of the dot that d_coords needs: 8 x 4
@@ -1153,9 +1170,19 @@ def phase_determinism():
       then with only the scatter deterministic (S1, the default).
     * Batched route (C.5, mxu_readout="on") on the flagship: pairs with the
       port's kernels as they are.
-    S1's pairs must repeat their losses, volumes and top-k bit for bit; the
-    batched route's pairs must repeat their losses, selections and the
-    loss's gradients (grad_norm is recorded, not held: C.6).  Then S1 (the
+    * Isolation on the per-layer route (C.7), tiny and flagship: pairs
+      under torch's deterministic algorithms with warn_only=True and the
+      DCN's sampler read through K4 and K4-bwd.
+    S1's pairs must repeat their losses, volumes and top-k bit for bit, on
+    the tiny model on cuDNN's default algorithms (``default_convolutions``)
+    and on its deterministic ones (C.8); the batched route's pairs must
+    repeat their losses, selections and the loss's gradients; in both, and
+    in the tiny model's pairs on cuDNN's deterministic algorithms, the
+    deformable encoder's gradients must repeat (C.6; grad_norm is recorded,
+    not held: the DepthNet DCN's F.grid_sample backward upstream still
+    varies, C.7); in the isolation mode every gradient and grad_norm must
+    repeat, on the tiny model and the flagship, so that nothing but the
+    DCN's sampler varies.  Then S1 (the
     splat kernel behind the deterministic mode) on the flagship's captured
     depth and context at two geometries (``s1_check``): the voxel
     coordinates of a forward-looking nuScenes rig
@@ -1166,8 +1193,11 @@ def phase_determinism():
     import numpy as np
     import torch
 
+    import contextlib
+
     import occformer_tpu_torch.engine.train as train_mod
     import occformer_tpu_torch.losses.mask2former_loss as loss_mod
+    import occformer_tpu_torch.models.dcn as dcn_mod
     import occformer_tpu_torch.models.lss as lss_mod
     from occformer_tpu_torch.config import load_config
     from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
@@ -1176,10 +1206,12 @@ def phase_determinism():
     from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
     from occformer_tpu_torch.models.detector import build_model
     from occformer_tpu_torch.ops import scatter
+    from occformer_tpu_torch.ops.trilerp_fused import fused_multilevel_gather
     from occformer_tpu_torch.tools.time_backwards import s1_geometry, segment_stats
 
     topks, volumes, captured, loss_grads = [], [], [], {}
     orig_topk, orig_scatter = loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted
+    orig_dcn_sample = dcn_mod.grid_sample_2d
     orig_select, orig_loss = loss_mod.uncertainty_select, train_mod.mask2former_loss
 
     def rec_topk(logits, n):
@@ -1215,10 +1247,51 @@ def phase_determinism():
         volumes.append(out.detach().clone())
         return out
 
+    def k4_grid_sample_2d(img, coords, align_corners=False, padding_mode="zeros"):
+        """ops/sampling.py:grid_sample_2d through K4 and K4-bwd, whose
+        backward repeats itself: the image [B, H, W, C] as a one-level table
+        of Z = 1, the coordinates (row, column, 0)."""
+        check(padding_mode == "zeros", "k4_grid_sample_2d: zeros padding only")
+        B, H, W, C = img.shape
+        c = coords.reshape(B, -1, 2).float()
+        c3 = torch.cat([c, torch.zeros_like(c[..., :1])], -1).contiguous()
+        out = fused_multilevel_gather([img.float().reshape(B, H * W, C).contiguous()],
+                                      [(H, W, 1)], C, [c3], align_corners)[0]
+        return out.transpose(1, 2).to(img.dtype).reshape(B, *coords.shape[1:-1], C)
+
+    @contextlib.contextmanager
+    def isolate(setting=None):
+        """C.7's isolation of what varies upstream of the deformable encoder:
+        "cudnn_deterministic" runs cuDNN's deterministic algorithms (C.8: at
+        the tiny model's shapes the default ones vary),
+        "torch_deterministic_k4_dcn" runs torch's deterministic algorithms
+        with warn_only=True (cuDNN's deterministic convolutions, sorted index
+        adds; ops without a deterministic implementation run as they are)
+        and reads the DepthNet DCN's bilinear samples through K4
+        (models/dcn.py, whose F.grid_sample backward adds with atomics)."""
+        if setting is None:
+            yield
+            return
+        if setting == "cudnn_deterministic":
+            torch.backends.cudnn.deterministic = True
+            try:
+                yield
+            finally:
+                torch.backends.cudnn.deterministic = False
+            return
+        check(setting == "torch_deterministic_k4_dcn", f"isolate: unknown setting {setting}")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        dcn_mod.grid_sample_2d = k4_grid_sample_2d
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(False)
+            dcn_mod.grid_sample_2d = orig_dcn_sample
+
     def pairs(cfg_path, options, batch, n_pairs, warm_step, compute_dtype, modes,
               mxu_readout=None):
         """``n_pairs`` pairs of reloaded steps in each of ``modes``: (name,
-        atomic scatter)."""
+        atomic scatter[, isolation]), the isolation one of ``isolate``'s."""
         cfg = load_config(cfg_path, options)
         m = cfg["model"]
         head = m["pts_bbox_head"] if mxu_readout is None else dict(m["pts_bbox_head"],
@@ -1258,14 +1331,15 @@ def phase_determinism():
                     dict(loss_grads), grads)
 
         rec = {}
-        for name, atomic in modes:
+        for name, atomic, *iso in modes:
             mode["atomic"] = atomic
             counts = {"pairs": n_pairs, "losses_differ": 0, "volumes_differ": 0,
                       "topk_differ": 0, "topk_sets_differing": 0, "grad_norm_differs": 0,
                       "loss_grads_differ": 0, "max_rel_loss_diff": 0.0}
             grads_differ = {}
             for _ in range(n_pairs):
-                (ma, ta, va, la, ga), (mb, tb, vb, lb, gb) = run(), run()
+                with isolate(*iso):
+                    (ma, ta, va, la, ga), (mb, tb, vb, lb, gb) = run(), run()
                 losses = [k for k in ma if "loss" in k]
                 counts["losses_differ"] += any(ma[k] != mb[k] for k in losses)
                 counts["max_rel_loss_diff"] = max(
@@ -1302,19 +1376,26 @@ def phase_determinism():
         return rec
 
     scatter_modes = (("atomic_scatter", True), ("deterministic_scatter", False))
+    # the tiny model's encoder gate on cuDNN's deterministic algorithms, and
+    # its pairs on the default ones beside them (C.8)
+    tiny_modes = (("atomic_scatter", True),
+                  ("deterministic_scatter", False, "cudnn_deterministic"),
+                  ("default_convolutions", False))
+    isolation_modes = (("torch_deterministic_k4_dcn", False, "torch_deterministic_k4_dcn"),)
     loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted = rec_topk, rec_scatter
     loss_mod.uncertainty_select, train_mod.mask2former_loss = rec_select, rec_loss
     try:
         tiny = os.path.join(REPO, "occformer_tpu_torch", "configs", "synthetic_tiny.py")
         rec = {"phase": "reload_determinism",
                "tiny": pairs(tiny, {"model.img_backbone.frozen_stages": 0}, None, 5, True,
-                             None, scatter_modes)}
+                             None, tiny_modes + isolation_modes)}
         free_memory()
         captured.clear()  # keep the flagship's inputs
         cfg = load_config(CONFIG)
         batch = make_train_batch(cfg, seed=0)
         dtype = getattr(torch, cfg["compute_dtype"])
-        rec["flagship"] = pairs(CONFIG, {}, batch, 2, False, dtype, scatter_modes)
+        rec["flagship"] = pairs(CONFIG, {}, batch, 2, False, dtype,
+                                scatter_modes + isolation_modes)
         free_memory()
         rec["flagship_batched"] = pairs(CONFIG, {}, batch, 2, False, dtype, (("kernels", False),),
                                         mxu_readout="on")
@@ -1388,14 +1469,28 @@ def phase_determinism():
                                        geometry="data/synthetic.py:make_train_batch")
     del depth, ctx, coords, valid, rig_coords, rig_valid
     emit(rec)
-    for size in ("tiny", "flagship"):
-        r = rec[size]["deterministic_scatter"]
+    for name, r in (("tiny", rec["tiny"]["deterministic_scatter"]),
+                    ("tiny default_convolutions", rec["tiny"]["default_convolutions"]),
+                    ("flagship", rec["flagship"]["deterministic_scatter"])):
         check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"] == 0,
-              f"reload_determinism {size}: a deterministic-scatter pair differs: {r}")
+              f"reload_determinism {name}: a deterministic-scatter pair differs: {r}")
     r = rec["flagship_batched"]["kernels"]
     check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"]
           == r["loss_grads_differ"] == 0 and len(r["loss_grads_compared"]) == 3,
           f"reload_determinism flagship_batched: a pair differs: {r}")
+    # C.6: the deformable encoder's gradients (K1-bwd's d_value, and the FPN
+    # upsample's backward before it) repeat in every pair
+    for name, r in (("tiny", rec["tiny"]["deterministic_scatter"]),
+                    ("flagship", rec["flagship"]["deterministic_scatter"]),
+                    ("flagship_batched", rec["flagship_batched"]["kernels"])):
+        check(ENCODER not in r["grads_differ_by_module"],
+              f"reload_determinism {name}: the deformable encoder's gradients differ: "
+              f"{r['grads_differ_by_module']}")
+    # C.7: with the DCN's sampler through K4 nothing else varies
+    for size in ("tiny", "flagship"):
+        r = rec[size]["torch_deterministic_k4_dcn"]
+        check(r["grad_norm_differs"] == r["param_grads_differ"] == r["losses_differ"] == 0,
+              f"reload_determinism {size}: with the DCN's sampler through K4 a pair differs: {r}")
     return rec
 
 
@@ -1712,24 +1807,33 @@ def phase_cli():
 
 # the port's CUDA kernels by function name -> the kernel they belong to;
 # the counting sort of csrc/segment_sort.cuh runs six functions per launch
-# of K2-bwd's two paths and of S1, told apart by their key type (its template
-# argument), and the path's gather or splat (one per launch) counts the
-# launches; S1's second splat kernel (its heavy voxels) runs beside it
+# of K2-bwd's two paths and of S1, and the binning, span sorts, entry scales
+# (K1-bwd only) and corner reduce of csrc/ordered_rows.cuh ten per launch of
+# K1-bwd and nine of K4-bwd, told apart by their key or geometry type (a
+# template argument); the path's
+# gather, splat or corner reduce (one per launch) counts the launches; S1's
+# second splat kernel (its heavy voxels) runs beside it, K1-bwd's
+# sample-major kernel and K4-bwd's coordinate kernel before the binning
 PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kernel": "K1.row",
-                "ms_deform_gather3d_bwd_kernel": "K1-bwd",
+                "ms_deform_bwd_samples_kernel": "K1-bwd",
                 "trilerp_fwd_narrow_kernel": "K2", "trilerp_fwd_rows_kernel": "K2.row",
                 "trilerp_bwd_gather_kernel": "K2-bwd",
                 "trilerp_bwd_tiles_kernel": "K2-bwd.narrow",
                 "trilerp_bwd_coords_kernel": "K2-bwd",
                 "label_shared_kernel": "K3", "label_per_slot_kernel": "K3",
                 "multilevel_fwd_kernel": "K4", "multilevel_fwd_rows_kernel": "K4.row",
-                "multilevel_bwd_kernel": "K4-bwd",
+                "multilevel_bwd_coords_kernel": "K4-bwd",
                 "add_one_kernel": "P1", "row_gather_kernel": "P2",
                 "voxel_splat_kernel": "S1", "voxel_splat_heavy_kernel": "S1"}
-_UNCOUNTED = {"voxel_splat_heavy_kernel"}
+_UNCOUNTED = {"voxel_splat_heavy_kernel", "ms_deform_bwd_samples_kernel",
+              "multilevel_bwd_coords_kernel"}
 _SORT_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
-               "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel"}
-_SORT_KEYS = {"CornerKeys": "K2-bwd", "ColumnKeys": "K2-bwd.narrow", "SplatKeys": "S1"}
+               "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel",
+               "seg_fill_entries_kernel", "span_sort_warp_kernel", "span_sort_block_kernel",
+               "heavy_bins_kernel", "entry_scale_kernel", "corner_reduce_kernel"}
+_COUNTED_STEPS = {"corner_reduce_kernel"}
+_SORT_KEYS = {"CornerKeys": "K2-bwd", "ColumnKeys": "K2-bwd.narrow", "SplatKeys": "S1",
+              "K1Keys": "K1-bwd", "K1Geo": "K1-bwd", "K4Keys": "K4-bwd", "K4Geo": "K4-bwd"}
 
 
 def port_kernel_ms(kernels):
@@ -1737,7 +1841,8 @@ def port_kernel_ms(kernels):
     events, by kernel (K2's forward apart by path and table type: the bf16
     feature on the row-wide path, the bool GT, float32 volumes; K2-bwd's two
     paths and S1 each summed over their sort's six functions and their gather
-    or splat) and by CUDA function."""
+    or splat, K1-bwd and K4-bwd over their sample kernel and the steps of
+    csrc/ordered_rows.cuh) and by CUDA function."""
     import re
 
     by_kernel, by_function = {}, {}
@@ -1746,14 +1851,16 @@ def port_kernel_ms(kernels):
         if not m:
             continue
         if m.group(1) in _SORT_STEPS:
-            name = _SORT_KEYS.get((m.group(2) or "").strip("<>"))
+            name = next((v for k, v in _SORT_KEYS.items()
+                         if re.search(rf"\b{k}\b", m.group(2) or "")), None)
         else:
             name = PORT_KERNELS.get(m.group(1))
             if name and m.group(1).startswith("trilerp_fwd"):
                 name += " " + m.group(2)
         if name is None:
             continue
-        counted = m.group(1) not in _SORT_STEPS and m.group(1) not in _UNCOUNTED
+        counted = m.group(1) in _COUNTED_STEPS or (m.group(1) not in _SORT_STEPS
+                                                   and m.group(1) not in _UNCOUNTED)
         for key, table, n in ((name, by_kernel, counted),
                               (m.group(1) + (m.group(2) or ""), by_function, True)):
             r = table.setdefault(key, {"launches": 0, "device_ms": 0.0})

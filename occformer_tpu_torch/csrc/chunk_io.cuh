@@ -1,7 +1,8 @@
 // Typed chunk loads and stores shared by the narrow-row kernels of
-// trilerp_sample3d.cu (K2, K2-bwd) and voxel_splat.cu (S1): a chunk of VEC
-// elements moved as one load or store of VEC * sizeof(element) bytes, its
-// sums kept in float32.
+// trilerp_sample3d.cu (K2, K2-bwd), voxel_splat.cu (S1) and the row
+// kernels of ordered_rows.cuh, ms_deform_gather3d.cu (K1-bwd) and
+// multilevel_gather3d.cu (K4-bwd): a chunk of VEC elements moved as one
+// load or store of VEC * sizeof(element) bytes, its sums kept in float32.
 //
 // Include after <cuda_bf16.h>, <stdint.h> and <string.h>.
 
@@ -29,6 +30,16 @@ __device__ __forceinline__ void fma_chunk(float (&a)[VEC], const R& r, float w) 
   memcpy(e, &r, sizeof(R));
 #pragma unroll
   for (int k = 0; k < VEC; ++k) a[k] = fmaf(w, to_f(e[k]), a[k]);
+}
+
+// the VEC elements of one loaded chunk, as float
+template <typename Tin, int VEC, typename R>
+__device__ __forceinline__ void chunk_floats(float (&a)[VEC], const R& r) {
+  static_assert(sizeof(R) == VEC * sizeof(Tin), "chunk size");
+  Tin e[VEC];
+  memcpy(e, &r, sizeof(R));
+#pragma unroll
+  for (int k = 0; k < VEC; ++k) a[k] = to_f(e[k]);
 }
 
 // the VEC sums rounded once to the output's type, as one store

@@ -66,6 +66,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "ordered_rows.cuh"
 
 #define MSDG_MAX_LEVELS 8
 
@@ -74,6 +77,10 @@ struct Levels {
   int Y[MSDG_MAX_LEVELS];
   int Z[MSDG_MAX_LEVELS];
   int start[MSDG_MAX_LEVELS];
+  // K1-bwd's bins (lower corners, ordered_rows.cuh): the level's first bin
+  // within a (b, h) and the bins of a (b, h), sum of (X + 1) (Y + 1) (Z + 1)
+  int bstart[MSDG_MAX_LEVELS];
+  int bins;
 };
 
 __device__ __forceinline__ float load_f(const float* p) { return *p; }
@@ -321,49 +328,48 @@ __global__ void __launch_bounds__(256) ms_deform_gather3d_rows_kernel(
 }
 
 // K1-bwd: the VJP of the gather above.  Replaces the TPU kernel
-// occformer_tpu/ops/trilerp_fused.py:_wfold_bwd_body (call_bwd, VJP :713-716).
-// For every sample (b, q, h, l, p) it recomputes the 8 corners exactly as the
-// forward does (same unnormalization, same clamp) and, with gout [B, Nq, H, hd]:
+// occformer_tpu/ops/trilerp_fused.py:_wfold_bwd_body (call_bwd :681, its
+// pallas_call :684, VJP :713-716).  For every sample (b, q, h, l, p) it
+// recomputes the 8 corners exactly as the forward does (same
+// unnormalization, same clamp) and, with gout [B, Nq, H, hd]:
 //
-//   d_value[corner, c] += w * corner_weight * gout[c]        (float32 reductions)
+//   d_value[corner, c] += w * corner_weight * gout[c]
 //   d_w                 = sum_c gout[c] * trilerp(value)[c]
 //   d_loc[axis]         = w * sum_c gout[c] * d trilerp[c] / d pix[axis] * size
 //
 // (d pix / d loc = size per axis; a corner outside its level contributes
-// nothing, as in F.grid_sample's backward).  d_value is the float32 buffer the
-// Pallas VJP also returns; the wrapper casts it to value's dtype once.
-//
-// Design: d_value (28.7 MB float32 at the flagship) fits in the 50 MB L2, so
-// the kernel keeps reductions into it and makes them fewer and wider.  A
-// group of 4 lanes takes one sample (eight samples per warp); its lanes walk
-// the sample's (corner, 4-channel quad) units, corner-major so that
-// neighbouring lanes touch neighbouring quads of one corner row: 48 units at
-// hd = 24, twelve per lane, no lane idle.  Each unit loads its value quad and
-// gout quad with one 16-byte (float32) or 8-byte (bf16) load and adds its
-// four d_value terms with one red.global.add.v4.f32 (sm_90): 8 * hd / 4
-// vector reductions per sample (172 M at the flagship) where the first
-// version issued 8 * hd scalar atomics (689 M).  A lane issues the loads of
-// 3 units before their arithmetic and reductions, so that loads overlap.
-// d_weights and the three d_locs slopes need only the quad's dot
-// sum_c gout * value per corner; they are summed within the group by
-// shuffles and stored by its first lane, with no atomics.  When hd is not a
-// multiple of 4 (or a pointer is not aligned for the vector access) the
-// same mapping runs with one channel per unit and scalar atomics.
-//
-// What limits it is the latency of each sample's dependent loads (its
-// locations, then its corner rows), not the reductions: the same kernel
-// with the reductions removed took 2.23 ms at the flagship's uniform bf16
-// locations where the whole took 3.5 (H100 80GB HBM3, 700 W; 16-lane
-// groups, one unit's loads at a time).  So the group size and the loads in
-// flight (BWD_GROUP, BWD_INFLIGHT) were set for the most samples and loads
-// in flight per warp that registers allow, from occformer_tpu_torch/tools/
-// time_backwards.py on that card, uniform / local locations, ms: 16 lanes
-// x 1 unit 3.51-3.58 / 2.88-3.00; 8 x 3 2.47-2.53 / 2.06-2.24; 4 x 2
-// 2.24-2.26 / 1.64-1.67; 4 x 3 2.19-2.20 / 1.66-1.67; 4 x 4 2.51-2.63 /
-// 1.94-2.02; 4 x 12 4.16-4.25 / 3.33-3.36; 2 x 6 2.16-2.22 / 1.72.
-// A block-local shared-memory window over the small levels' d_value rows
-// (fewer L2 reductions) and a per-row segmented gather of d_value (no float
-// reductions) were slower or no faster (PERF.md).
+// nothing, as in F.grid_sample's backward).  Every output is written once in
+// its final dtype, with no float atomics, so two calls give the same bits:
+// * Sample-major (ms_deform_bwd_samples_kernel): d_w and d_locs.  A thread
+//   per sample reads its location and attention weight once, issues the
+//   loads of the gout row and of all 8 corner rows, CPP chunks of VEC
+//   channels at a time (a 16-byte chunk where hd and the pointers allow:
+//   the flagship's bf16 row is 3 of them), before their FMAs, sums the 8
+//   dots gout . value[corner] in float32 and stores d_w and the three
+//   d_locs slopes itself.  (K4-bwd's d_coords kernel computes the same dots
+//   with a null check per corner; written so here it took 0.67 device ms
+//   in place of 0.49 at the flagship, PERF.md, section 6.)
+// * Destination-major (ordered_rows.cuh): d_value.  Every sample with a
+//   corner inside its level is binned once, by its lower corner in its
+//   (b, h, level), as an entry (sample, w1x, w1y, w1z); each bin's entries
+//   are ordered by sample.  A thread per (d_value row, 16-byte chunk) walks
+//   the row's 8 neighbour bins in corner order (the row is corner (dx, dy,
+//   dz) of the samples of bin (x - dx, y - dy, z - dz)), each in ascending
+//   sample order, adds w * corner_weight * gout[sample's (b, q, h)] in
+//   float32 registers and stores the row once in value's dtype (a row no
+//   sample touches as zeros).  At the flagship's uniform locations a row
+//   takes about 36 (level 64x64x8), 292 (32x32x4) and 2336 (16x16x2)
+//   terms.
+// The design before this one summed d_value with 16-byte float32 vector
+// reductions (red.global.add.v4.f32) into a zeroed float32 buffer and cast
+// it: 2.18-2.30 ms bf16 at the flagship's uniform locations, 1.64-1.67 at
+// local ones, and sums that changed from run to run (a reloaded train step
+// did not repeat its grad_norm).  A per-row segmented gather that recomputed
+// each corner weight from its sample's location and ranked spans in
+// O(L^2) was 5.73 ms.  An entry per (sample, corner), binned by d_value row
+// and sorted by sample (28.7 M entries of 8 bytes), repeated itself but took
+// 4.1 ms, the fill's cursor atomics 1.35 and the spans' block sorts 1.15
+// (H100 80GB HBM3, 700 W; PERF.md, section 6).
 //
 // Bound on an H100 SXM at the flagship (B = 1, Nq = 37376, H = 8, hd = 24,
 // L = 3, P = 4, bf16), with the count chip_smoke.py uses: each input read
@@ -372,150 +378,214 @@ __global__ void __launch_bounds__(256) ms_deform_gather3d_rows_kernel(
 // 43.1 MB + d_w 7.2 MB out, about 144 MB, 43 us at 3.35 TB/s.  The function
 // needs 8 x 4 float32 operations per (sample, channel) (per corner, one FMA
 // of the dot that d_w and d_locs share and the d_value product and add):
-// 2.76 GFLOP, 41 us at 67 TFLOP/s.  So bytes bound it, at 43 us.
-constexpr int BWD_GROUP = 4;     // lanes per sample
-constexpr int BWD_INFLIGHT = 3;  // units per lane whose loads are issued together
+// 2.76 GFLOP, 41 us at 67 TFLOP/s.  So bytes bound it, at 43 us.  The fixed
+// order adds its binning (3.6 M entries of 16 bytes written, sorted and
+// read 8 times, once per corner) and each term's 48-byte gout row and
+// attention weight read from L2.
+// the level of sample s's descriptor, by an unrolled compare (no dynamic
+// index into the by-value Levels)
+struct Level1 {
+  int X, Y, Z, start;
+};
+__device__ __forceinline__ Level1 level_at(const Levels& lv, int l) {
+  Level1 d{lv.X[0], lv.Y[0], lv.Z[0], lv.start[0]};
+#pragma unroll
+  for (int m = 1; m < MSDG_MAX_LEVELS; ++m)
+    if (m == l) d = Level1{lv.X[m], lv.Y[m], lv.Z[m], lv.start[m]};
+  return d;
+}
 
-template <int VEC>
-__device__ __forceinline__ void load_vec(const float* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 x = *reinterpret_cast<const float4*>(p);
-    v[0] = x.x; v[1] = x.y; v[2] = x.z; v[3] = x.w;
-  } else {
-    v[0] = *p;
-  }
+// One sample's lower corner and lerp weights in its level
+struct SampleAxes {
+  int x0, y0, z0;
+  float wx[2], wy[2], wz[2];
+};
+__device__ __forceinline__ SampleAxes sample_axes(const float* loc, const Level1& d) {
+  const float px = unnormalize(loc[0], d.X);
+  const float py = unnormalize(loc[1], d.Y);
+  const float pz = unnormalize(loc[2], d.Z);
+  const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
+  SampleAxes a;
+  a.x0 = (int)fx;
+  a.y0 = (int)fy;
+  a.z0 = (int)fz;
+  a.wx[1] = px - fx;
+  a.wy[1] = py - fy;
+  a.wz[1] = pz - fz;
+  a.wx[0] = 1.f - a.wx[1];
+  a.wy[0] = 1.f - a.wy[1];
+  a.wz[0] = 1.f - a.wz[1];
+  return a;
 }
-template <int VEC>
-__device__ __forceinline__ void load_vec(const __nv_bfloat16* p, float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    __nv_bfloat162 a, b;
-    *reinterpret_cast<unsigned*>(&a) = u.x;
-    *reinterpret_cast<unsigned*>(&b) = u.y;
-    const float2 fa = __bfloat1622float2(a), fb = __bfloat1622float2(b);
-    v[0] = fa.x; v[1] = fa.y; v[2] = fb.x; v[3] = fb.y;
-  } else {
-    v[0] = __bfloat162float(*p);
-  }
-}
-template <int VEC>
-__device__ __forceinline__ void red_add(float* p, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    asm volatile("red.global.add.v4.f32 [%0], {%1, %2, %3, %4};"
-                 :
-                 : "l"(p), "f"(v[0]), "f"(v[1]), "f"(v[2]), "f"(v[3]));
-  } else {
-    atomicAdd(p, v[0]);
-  }
-}
+
+constexpr int BWD_CPP = 3;  // chunks of a row whose loads a sample issues together
 
 template <typename T, int VEC>
-__global__ void ms_deform_gather3d_bwd_kernel(
+__global__ void __launch_bounds__(256) ms_deform_bwd_samples_kernel(
     const T* __restrict__ value, const float* __restrict__ locs,
     const T* __restrict__ weights, const T* __restrict__ gout,
-    float* __restrict__ d_value, float* __restrict__ d_locs,
-    float* __restrict__ d_weights, int64_t n_samples, int Nv, int Nq, int H,
-    int hd, int L, int P, Levels lv) {
-  const int sub = threadIdx.x & (BWD_GROUP - 1);
-  // the lanes of this thread's group
-  const unsigned mask = ((1u << BWD_GROUP) - 1u) << (threadIdx.x & (32 - BWD_GROUP));
-  const int nq = hd / VEC;
-  const int units = 8 * nq;
-  const int per_block = blockDim.x / BWD_GROUP;
-  const int64_t groups = (int64_t)gridDim.x * per_block;
-  for (int64_t s = (int64_t)blockIdx.x * per_block + threadIdx.x / BWD_GROUP;
-       s < n_samples; s += groups) {
-    // s = ((b * Nq + q) * H + h) * L * P + l * P + p; uniform in the group
+    float* __restrict__ d_locs, T* __restrict__ d_weights, int64_t n_samples, int Nv,
+    int Nq, int H, int hd, int L, int P, Levels lv) {
+  using R = typename Raw<VEC * sizeof(T)>::T;
+  const int nchunk = hd / VEC;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t s = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; s < n_samples;
+       s += stride) {
+    // s = ((b * Nq + q) * H + h) * L * P + l * P + p
     const int l = (int)((s / P) % L);
     const int64_t bqh = s / ((int64_t)L * P);
     const int h = (int)(bqh % H);
     const int64_t b = bqh / ((int64_t)H * Nq);
-    const int X = lv.X[l], Y = lv.Y[l], Z = lv.Z[l];
-    const float px = unnormalize(locs[s * 3 + 0], X);
-    const float py = unnormalize(locs[s * 3 + 1], Y);
-    const float pz = unnormalize(locs[s * 3 + 2], Z);
-    const float fx = floorf(px), fy = floorf(py), fz = floorf(pz);
-    const int x0 = (int)fx, y0 = (int)fy, z0 = (int)fz;
-    const float wx1 = px - fx, wy1 = py - fy, wz1 = pz - fz;
-    const float wx0 = 1.f - wx1, wy0 = 1.f - wy1, wz0 = 1.f - wz1;
-    const float w = load_f(weights + s);
-    const int64_t vstride = (int64_t)H * hd;
-    // element offset of value[b, start_l, h, 0]
-    const int64_t vbase = (b * Nv * H + h) * (int64_t)hd + (int64_t)lv.start[l] * vstride;
-    const T* g_row = gout + bqh * hd;
-
-    float dw = 0.f, dgx = 0.f, dgy = 0.f, dgz = 0.f;
-    for (int u0 = sub; u0 < units; u0 += BWD_GROUP * BWD_INFLIGHT) {
-      // the loads of up to BWD_INFLIGHT units first, then their arithmetic
-      // and reductions, so that the loads overlap
-      float v[BWD_INFLIGHT][VEC], g[BWD_INFLIGHT][VEC];
-      int64_t off[BWD_INFLIGHT];
-      int corner[BWD_INFLIGHT];  // -1: no unit, or a corner outside the level
+    const Level1 d = level_at(lv, l);
+    const SampleAxes ax = sample_axes(locs + s * 3, d);
+    const float a = load_f(weights + s);
+    int64_t row[8];  // element offset of the corner's value row, or -1
 #pragma unroll
-      for (int k = 0; k < BWD_INFLIGHT; ++k) {
-        const int u = u0 + k * BWD_GROUP;
-        corner[k] = -1;
-        if (u >= units) continue;
-        const int c = u / nq;
-        const int q = u - c * nq;
-        const int xi = x0 + (c >> 2), yi = y0 + ((c >> 1) & 1), zi = z0 + (c & 1);
-        if (xi < 0 || xi >= X || yi < 0 || yi >= Y || zi < 0 || zi >= Z) continue;
-        corner[k] = c;
-        off[k] = vbase + (((int64_t)xi * Y + yi) * Z + zi) * vstride + q * VEC;
-        load_vec<VEC>(value + off[k], v[k]);
-        load_vec<VEC>(g_row + q * VEC, g[k]);
+    for (int q = 0; q < 8; ++q) {
+      const int xi = ax.x0 + (q >> 2), yi = ax.y0 + ((q >> 1) & 1), zi = ax.z0 + (q & 1);
+      const bool ok = xi >= 0 && xi < d.X && yi >= 0 && yi < d.Y && zi >= 0 && zi < d.Z;
+      row[q] = ok ? ((b * Nv + d.start + (xi * d.Y + yi) * d.Z + zi) * H + h) * (int64_t)hd
+                  : -1;
+    }
+    const T* g = gout + bqh * hd;
+    float gv[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) gv[q] = 0.f;
+    for (int c0 = 0; c0 < nchunk; c0 += BWD_CPP) {
+      R graw[BWD_CPP], vraw[BWD_CPP][8];
+#pragma unroll
+      for (int u = 0; u < BWD_CPP; ++u) {
+        const int c = c0 + u;
+        graw[u] = c < nchunk ? *reinterpret_cast<const R*>(g + c * VEC) : R{};
+#pragma unroll
+        for (int q = 0; q < 8; ++q)
+          vraw[u][q] = (c < nchunk && row[q] >= 0)
+                           ? __ldg(reinterpret_cast<const R*>(value + row[q] + c * VEC))
+                           : R{};
       }
 #pragma unroll
-      for (int k = 0; k < BWD_INFLIGHT; ++k) {
-        if (corner[k] < 0) continue;
-        const int dx = corner[k] >> 2, dy = (corner[k] >> 1) & 1, dz = corner[k] & 1;
-        const float wxd = dx ? wx1 : wx0, wyd = dy ? wy1 : wy0, wzd = dz ? wz1 : wz0;
-        const float cw = wxd * wyd * wzd;
-        const float wcw = w * cw;
-        float gv = 0.f, upd[VEC];
+      for (int u = 0; u < BWD_CPP; ++u) {
+        float gf[VEC];
+        chunk_floats<T, VEC>(gf, graw[u]);
 #pragma unroll
-        for (int j = 0; j < VEC; ++j) {
-          gv = fmaf(g[k][j], v[k][j], gv);
-          upd[j] = wcw * g[k][j];
+        for (int q = 0; q < 8; ++q) {
+          float vf[VEC];
+          chunk_floats<T, VEC>(vf, vraw[u][q]);
+#pragma unroll
+          for (int k = 0; k < VEC; ++k) gv[q] = fmaf(gf[k], vf[k], gv[q]);
         }
-        red_add<VEC>(d_value + off[k], upd);
-        dw = fmaf(cw, gv, dw);
-        dgx = fmaf(dx ? gv : -gv, wyd * wzd, dgx);
-        dgy = fmaf(dy ? gv : -gv, wxd * wzd, dgy);
-        dgz = fmaf(dz ? gv : -gv, wxd * wyd, dgz);
       }
     }
+    float dw = 0.f, dgx = 0.f, dgy = 0.f, dgz = 0.f;
 #pragma unroll
-    for (int m = BWD_GROUP / 2; m > 0; m >>= 1) {
-      dw += __shfl_xor_sync(mask, dw, m);
-      dgx += __shfl_xor_sync(mask, dgx, m);
-      dgy += __shfl_xor_sync(mask, dgy, m);
-      dgz += __shfl_xor_sync(mask, dgz, m);
+    for (int q = 0; q < 8; ++q) {
+      const int dx = q >> 2, dy = (q >> 1) & 1, dz = q & 1;
+      const float wxd = ax.wx[dx], wyd = ax.wy[dy], wzd = ax.wz[dz];
+      dw = fmaf(wxd * wyd * wzd, gv[q], dw);
+      dgx = fmaf(dx ? gv[q] : -gv[q], wyd * wzd, dgx);
+      dgy = fmaf(dy ? gv[q] : -gv[q], wxd * wzd, dgy);
+      dgz = fmaf(dz ? gv[q] : -gv[q], wxd * wyd, dgz);
     }
-    if (sub == 0) {
-      d_weights[s] = dw;
-      d_locs[s * 3 + 0] = w * dgx * (float)X;
-      d_locs[s * 3 + 1] = w * dgy * (float)Y;
-      d_locs[s * 3 + 2] = w * dgz * (float)Z;
-    }
+    store_f(d_weights + s, dw);
+    d_locs[s * 3 + 0] = a * dgx * (float)d.X;
+    d_locs[s * 3 + 1] = a * dgy * (float)d.Y;
+    d_locs[s * 3 + 2] = a * dgz * (float)d.Z;
   }
 }
 
+// The lower-corner bin of a sample of (b, h) in level l with lower corner
+// (x0, y0, z0), each in [-1, size - 1]
+__device__ __forceinline__ int64_t k1_bin(const Levels& lv, const Level1& d, int l, int64_t bh,
+                                          int x0, int y0, int z0) {
+  int bstart = lv.bstart[0];
+#pragma unroll
+  for (int m = 1; m < MSDG_MAX_LEVELS; ++m)
+    if (m == l) bstart = lv.bstart[m];
+  return bh * lv.bins + bstart + ((x0 + 1) * (d.Y + 1) + (y0 + 1)) * (d.Z + 1) + (z0 + 1);
+}
+
+// d_value's entries: sample s, with a corner inside its level, binned by its
+// lower corner, the entry (s, w1x, w1y, w1z)
+struct K1Keys {
+  using Entry = BinEntry;
+  const float* locs;
+  Levels lv;
+  int Nq, H, L, P;
+  template <class Fn>
+  __device__ __forceinline__ void operator()(int64_t s, Fn fn) const {
+    const int l = (int)((s / P) % L);
+    const int64_t bqh = s / ((int64_t)L * P);
+    const int h = (int)(bqh % H);
+    const int64_t b = bqh / ((int64_t)H * Nq);
+    const Level1 d = level_at(lv, l);
+    const SampleAxes ax = sample_axes(locs + s * 3, d);
+    if (ax.x0 < -1 || ax.x0 >= d.X || ax.y0 < -1 || ax.y0 >= d.Y || ax.z0 < -1 || ax.z0 >= d.Z)
+      return;
+    fn(k1_bin(lv, d, l, b * H + h, ax.x0, ax.y0, ax.z0),
+       BinEntry{(int)s, {ax.wx[1], ax.wy[1], ax.wz[1]}});
+  }
+};
+
+// d_value row r = (b * Nv + v) * H + h: its 8 neighbour bins; a term's src
+// row (gout's (b, q, h)) and weight w * corner_weight, as the forward forms it
+template <typename T>
+struct K1Geo {
+  static constexpr bool kScaled = true;  // the attention weight
+  const T* weights;
+  Levels lv;
+  int Nv, H, L, P;
+  __device__ __forceinline__ void bins(int64_t r, int64_t (&bn)[8]) const {
+    const int h = (int)(r % H);
+    const int64_t bv = r / H;
+    const int v = (int)(bv % Nv);
+    const int64_t b = bv / Nv;
+    int l = 0;
+#pragma unroll
+    for (int m = 1; m < MSDG_MAX_LEVELS; ++m)
+      if (m < L && v >= lv.start[m]) l = m;
+    const Level1 d = level_at(lv, l);
+    const int u = v - d.start;
+    const int z = u % d.Z, y = u / d.Z % d.Y, x = u / (d.Z * d.Y);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      bn[q] = k1_bin(lv, d, l, b * H + h, x - (q >> 2), y - ((q >> 1) & 1), z - (q & 1));
+  }
+  __device__ __forceinline__ int64_t src(int s) const { return s / (L * P); }
+  __device__ __forceinline__ float scale(int s) const { return load_f(weights + s); }
+  __device__ __forceinline__ float weight(float a, float wx, float wy, float wz) const {
+    return a * (wx * wy * wz);
+  }
+};
+
+// A heavy bin's candidates: the Nq * P samples of its (b, h, level)
+struct K1Cand {
+  Levels lv;
+  int Nq, H, L, P;
+  __device__ __forceinline__ int64_t count(int64_t) const { return (int64_t)Nq * P; }
+  __device__ __forceinline__ int item(int64_t bin, int64_t t) const {
+    const int64_t bh = bin / lv.bins;
+    const int rem = (int)(bin % lv.bins);
+    int l = 0;
+#pragma unroll
+    for (int m = 1; m < MSDG_MAX_LEVELS; ++m)
+      if (m < L && rem >= lv.bstart[m]) l = m;
+    const int64_t b = bh / H, h = bh % H;
+    return (int)(((b * Nq + t / P) * H + h) * L * P + l * P + t % P);
+  }
+};
+
 static int read_levels(const int* levels, int L, Levels* lv) {
   if (L < 1 || L > MSDG_MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  lv->bins = 0;
   for (int l = 0; l < L; ++l) {
     lv->X[l] = levels[4 * l + 0];
     lv->Y[l] = levels[4 * l + 1];
     lv->Z[l] = levels[4 * l + 2];
     lv->start[l] = levels[4 * l + 3];
+    lv->bstart[l] = lv->bins;
+    lv->bins += (lv->X[l] + 1) * (lv->Y[l] + 1) * (lv->Z[l] + 1);
   }
   return 0;
-}
-
-static unsigned grid_blocks(int64_t work_items, int per_block) {
-  int64_t blocks = (work_items + per_block - 1) / per_block;
-  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
-  return (unsigned)blocks;
 }
 
 // Plain C entry points, loaded with ctypes.  Pointers are device pointers;
@@ -619,43 +689,74 @@ extern "C" int ms_deform_gather3d_fwd_rows(const void* value, const void* locs,
   return (int)cudaGetLastError();
 }
 
-// K1-bwd.  value/weights/gout in the forward's dtype; d_value float32
-// [B, Nv, H, hd], ZEROED by the caller (the kernel adds into it); d_locs
-// float32 [B, Nq, H, L, P, 3] and d_weights float32 [B, Nq, H, L, P] are
-// written in full.
+// K1-bwd's workspace: int32s for ordered_rows.cuh over the B * H bins of
+// every level's lower corners and one entry per sample.
+extern "C" long long ms_deform_gather3d_bwd_workspace(int B, int Nv, int Nq, int H, int L,
+                                                      int P, const int* levels) {
+  Levels lv;
+  if (read_levels(levels, L, &lv) != 0) return -1;
+  return (long long)ordered_rows_ints((int64_t)B * H * lv.bins, (int64_t)B * Nq * H * L * P);
+}
+
+// K1-bwd.  value/weights/gout in the forward's dtype; d_value
+// [B, Nv, H, hd] in value's dtype, d_locs float32 [B, Nq, H, L, P, 3] and
+// d_weights [B, Nq, H, L, P] in weights' dtype, each written in full;
+// `workspace` holds ms_deform_gather3d_bwd_workspace(...) int32s, 16-byte
+// aligned.  The bins (+ 1) and the samples must lie below 2^31.
 extern "C" int ms_deform_gather3d_bwd(const void* value, const void* locs,
                                       const void* weights, const void* gout,
                                       void* d_value, void* d_locs,
-                                      void* d_weights, int B, int Nv, int Nq,
-                                      int H, int hd, int L, int P,
+                                      void* d_weights, void* workspace, int B, int Nv,
+                                      int Nq, int H, int hd, int L, int P,
                                       const int* levels, int dtype,
                                       void* stream) {
   Levels lv;
+  const int64_t n_samples = (int64_t)B * Nq * H * L * P;
+  const int64_t n_rows = (int64_t)B * Nv * H;
   if (read_levels(levels, L, &lv) != 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  const int64_t n_samples = (int64_t)B * Nq * H * L * P;
-  if (n_samples == 0) return 0;
-  const int threads = 256;  // groups of BWD_GROUP lanes, one sample each
-  const unsigned blocks = grid_blocks(n_samples, threads / BWD_GROUP);
+  const int64_t n_bins = (int64_t)B * H * lv.bins;
+  if (n_bins + 1 >= ((int64_t)1 << 31) || n_samples >= ((int64_t)1 << 31) ||
+      (uintptr_t)workspace % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0 || hd == 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const size_t esize = dtype == 1 ? sizeof(__nv_bfloat16) : sizeof(float);
-  // 4-channel units need hd % 4 == 0 and quads aligned for their loads
-  // (4 * esize bytes) and for the float32 reductions (16 bytes)
-  const bool quads = hd % 4 == 0 && (uintptr_t)value % (4 * esize) == 0 &&
-                     (uintptr_t)gout % (4 * esize) == 0 &&
-                     (uintptr_t)d_value % 16 == 0;
-#define MSDG_BWD(T, VEC)                                                      \
-  ms_deform_gather3d_bwd_kernel<T, VEC><<<blocks, threads, 0, st>>>(         \
-      (const T*)value, (const float*)locs, (const T*)weights, (const T*)gout, \
-      (float*)d_value, (float*)d_locs, (float*)d_weights, n_samples, Nv, Nq,  \
-      H, hd, L, P, lv)
+  const int esize = dtype == 1 ? 2 : 4;
+  const void* ptrs[3] = {value, gout, d_value};
+  const int vec = row_chunk(hd, esize, ptrs, 3);
+  const OrderedRowsSpace s = ordered_rows_space(workspace, n_bins, n_samples);
+  const int threads = 256;
+  const K1Cand cand{lv, Nq, H, L, P};
   if (dtype == 1) {
-    if (quads) MSDG_BWD(__nv_bfloat16, 4);
-    else MSDG_BWD(__nv_bfloat16, 1);
+    using T = __nv_bfloat16;
+    if (n_samples > 0) {
+#define MSDG_BWD_SAMPLES(V)                                                                \
+  ms_deform_bwd_samples_kernel<T, V><<<grid_blocks(n_samples, threads), threads, 0, st>>>( \
+      (const T*)value, (const float*)locs, (const T*)weights, (const T*)gout,              \
+      (float*)d_locs, (T*)d_weights, n_samples, Nv, Nq, H, hd, L, P, lv)
+      if (vec == 8) MSDG_BWD_SAMPLES(8);
+      else if (vec == 4) MSDG_BWD_SAMPLES(4);
+      else if (vec == 2) MSDG_BWD_SAMPLES(2);
+      else MSDG_BWD_SAMPLES(1);
+    }
+    const cudaError_t err = ordered_rows_sum<T>(
+        K1Keys{(const float*)locs, lv, Nq, H, L, P}, n_samples,
+        K1Geo<T>{(const T*)weights, lv, Nv, H, L, P}, cand, n_bins, n_rows, hd, vec,
+        (const T*)gout, (T*)d_value, s, st);
+    if (err != cudaSuccess) return (int)err;
   } else {
-    if (quads) MSDG_BWD(float, 4);
-    else MSDG_BWD(float, 1);
+    using T = float;
+    if (n_samples > 0) {
+      if (vec == 4) MSDG_BWD_SAMPLES(4);
+      else if (vec == 2) MSDG_BWD_SAMPLES(2);
+      else MSDG_BWD_SAMPLES(1);
+#undef MSDG_BWD_SAMPLES
+    }
+    const cudaError_t err = ordered_rows_sum<T>(
+        K1Keys{(const float*)locs, lv, Nq, H, L, P}, n_samples,
+        K1Geo<T>{(const T*)weights, lv, Nv, H, L, P}, cand, n_bins, n_rows, hd, vec,
+        (const T*)gout, (T*)d_value, s, st);
+    if (err != cudaSuccess) return (int)err;
   }
-#undef MSDG_BWD
   return (int)cudaGetLastError();
 }

@@ -46,14 +46,30 @@
 // * Scalar (multilevel_fwd_kernel): any other row width or a misaligned
 //   table: the per-channel loop, each of the 8 corner reads taking C
 //   contiguous channels.
-// The backward keeps the per-channel mapping: d_table gets float32 atomics into zeroed [G, X, Y, Z, C] buffers
-// (what the Pallas VJP returns before its cast to the table's type), and,
-// when the caller asks for it, each thread writes its own sample's d_coords
-// (float32 [G, S, 3]) with a plain store: one thread owns a sample, so no
-// atomic is needed.  As in _bwd_kernel (:214-216), d_coords carries the
-// derivative through the corner weights only; floor and the validity masks
-// carry none.
-//
+// The backward (K4-bwd) writes every output once in the table's or float32
+// dtype, with no float atomics, so two calls give the same bits:
+// * d_tables through ordered_rows.cuh, as K1-bwd's d_value
+//   (ms_deform_gather3d.cu): every (level, g, sample) with a corner inside
+//   its level is binned once by its lower corner, as an entry (item, w1x,
+//   w1y, w1z), each bin's entries ordered by item; a thread per (d_table
+//   row, chunk) walks the row's 8 neighbour bins in corner order, each in
+//   ascending item order, adds corner_weight * gout[item, :] in float32 and
+//   stores the row once in the table's dtype (rows no sample touches as
+//   zeros).  The gather reads gout as rows [sum_l G * S_l, C], which the
+//   wrapper makes from the channels-first [G, C, S_l] with one transpose
+//   copy per level; the levels' d_tables are one buffer.
+// * d_coords, when the caller asks for it (multilevel_bwd_coords_kernel): a
+//   thread per sample sums the 8 dots gout . table[corner] from the rows'
+//   chunks (16 bytes where C and the pointers allow), CPP chunks of all 8
+//   corners loaded before their FMAs, and stores its three slopes with a
+//   plain store.  As in _bwd_kernel (:214-216), d_coords carries the
+//   derivative through the corner weights only; floor and the validity
+//   masks carry none.
+// The design before this one ran a thread per (g, sample) that added
+// go * corner_weight into a zeroed float32 d_table with one scalar atomic
+// per (corner, channel), 689 M at the flagship's shapes, and cast it: 10.5
+// ms, 0.8% of its bound, and sums that changed from run to run.
+
 // Bounds on an H100 SXM at the deformable attention's shapes (levels
 // (64,64,8), (32,32,4), (16,16,2), G = 8, C = 24, S_l = 149504, bf16
 // tables): both are memory-bound.  Forward: tables 14.35 MB + coords
@@ -63,12 +79,16 @@
 // the row-wide path's pace.
 // Backward: the same reads with gout in place of out, d_tables in the
 // table's type and d_coords written, about 287 MB, about 86 us; this
-// simple form adds a float32 d_table (28.7 MB of atomics, L2-resident) and
-// casts it afterwards.
+// fixed order adds its binning (3.6 M entries of 16 bytes written, sorted
+// and read 8 times, once per corner), the 172 MB gout transpose, and each
+// term's 48-byte gout row read from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "ordered_rows.cuh"
 
 #define MAX_LEVELS 8
 
@@ -84,10 +104,12 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
 struct Level {
   const void* table;   // [G, X, Y, Z, C]
   const float* coords; // [G, S, 3]
-  void* out;           // forward: [G, C, S]; backward: gout [G, C, S]
-  float* d_table;      // backward: float32 [G, X, Y, Z, C], zeroed
+  void* out;           // forward: [G, C, S]
   float* d_coords;     // backward: float32 [G, S, 3], or NULL
-  int64_t start;       // first thread of the level: G * sum of earlier S
+  int64_t start;       // first thread (item) of the level: G * sum of earlier S
+  int64_t row_start;   // first d_table row of the level: G * sum of earlier X * Y * Z
+  int64_t bin_start;   // K4-bwd's first lower-corner bin of the level (ordered_rows.cuh):
+                       // G * sum of earlier (X + 1) * (Y + 1) * (Z + 1)
   int X, Y, Z, S;
 };
 
@@ -267,89 +289,185 @@ multilevel_fwd_rows_kernel(const Levels lv, int64_t n, int C, int align) {
   }
 }
 
-template <typename T>
-__global__ void multilevel_bwd_kernel(const Levels lv, int64_t n, int C,
-                                      int align) {
+constexpr int BWD_CPP = 3;  // chunks of a row whose loads a sample issues together
+
+// d_coords: thread i = (level, g, sample)
+template <typename T, int VEC>
+__global__ void __launch_bounds__(256) multilevel_bwd_coords_kernel(
+    const Levels lv, const T* __restrict__ gout_rows, int64_t n, int C, int align) {
+  using R = typename Raw<VEC * sizeof(T)>::T;
+  const int nchunk = C / VEC;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
     const Level L = pick(lv, i);
     const int64_t j = i - L.start;
     const int64_t g = j / L.S;
-    const int64_t s = j - g * L.S;
     const Axis ax = make_axis(L.coords[j * 3 + 0], L.X, align);
     const Axis ay = make_axis(L.coords[j * 3 + 1], L.Y, align);
     const Axis az = make_axis(L.coords[j * 3 + 2], L.Z, align);
     const Corners k = make_corners(ax, ay, az, L.Y, L.Z, C);
-    const int64_t vol = (int64_t)L.X * L.Y * L.Z * C;
-    const T* tb = (const T*)L.table + g * vol;
-    const T* go_p = (const T*)L.out + g * C * (int64_t)L.S + s;
-    float* dt = L.d_table + g * vol;
-    const bool want_coords = L.d_coords != nullptr;
-    float sx = 0.f, sy = 0.f, sz = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float go = load_f(go_p + (int64_t)c * L.S);
+    const T* tb = (const T*)L.table + g * ((int64_t)L.X * L.Y * L.Z * C);
+    const T* go = gout_rows + i * C;
+    float gv[8];
 #pragma unroll
-      for (int q = 0; q < 8; ++q)
-        if (k.ok[q]) atomicAdd(dt + k.off[q] + c, go * k.w[q]);
-      if (want_coords) {
+    for (int q = 0; q < 8; ++q) gv[q] = 0.f;
+    for (int c0 = 0; c0 < nchunk; c0 += BWD_CPP) {
+      R graw[BWD_CPP], vraw[BWD_CPP][8];
 #pragma unroll
-        for (int dx = 0; dx < 2; ++dx)
+      for (int u = 0; u < BWD_CPP; ++u) {
+        const int c = c0 + u;
+        graw[u] = c < nchunk ? *reinterpret_cast<const R*>(go + c * VEC) : R{};
 #pragma unroll
-          for (int dy = 0; dy < 2; ++dy)
+        for (int q = 0; q < 8; ++q)
+          vraw[u][q] = (c < nchunk && k.ok[q])
+                           ? __ldg(reinterpret_cast<const R*>(tb + k.off[q] + c * VEC))
+                           : R{};
+      }
 #pragma unroll
-            for (int dz = 0; dz < 2; ++dz) {
-              const int q = dx * 4 + dy * 2 + dz;
-              if (!k.ok[q]) continue;
-              const float v = go * load_f(tb + k.off[q] + c);
-              sx += (dx ? v : -v) * ay.w[dy] * az.w[dz];
-              sy += (dy ? v : -v) * ax.w[dx] * az.w[dz];
-              sz += (dz ? v : -v) * ax.w[dx] * ay.w[dy];
-            }
+      for (int u = 0; u < BWD_CPP; ++u) {
+        float gf[VEC];
+        chunk_floats<T, VEC>(gf, graw[u]);
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          if (!k.ok[q]) continue;
+          float vf[VEC];
+          chunk_floats<T, VEC>(vf, vraw[u][q]);
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) gv[q] = fmaf(gf[e], vf[e], gv[q]);
+        }
       }
     }
-    if (want_coords) {
-      L.d_coords[j * 3 + 0] = sx * ax.dpix;
-      L.d_coords[j * 3 + 1] = sy * ay.dpix;
-      L.d_coords[j * 3 + 2] = sz * az.dpix;
-    }
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+    for (int dx = 0; dx < 2; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < 2; ++dy)
+#pragma unroll
+        for (int dz = 0; dz < 2; ++dz) {
+          const float v = gv[dx * 4 + dy * 2 + dz];
+          sx += (dx ? v : -v) * ay.w[dy] * az.w[dz];
+          sy += (dy ? v : -v) * ax.w[dx] * az.w[dz];
+          sz += (dz ? v : -v) * ax.w[dx] * ay.w[dy];
+        }
+    L.d_coords[j * 3 + 0] = sx * ax.dpix;
+    L.d_coords[j * 3 + 1] = sy * ay.dpix;
+    L.d_coords[j * 3 + 2] = sz * az.dpix;
   }
 }
 
-static unsigned grid_blocks(int64_t n, int threads) {
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
-  return (unsigned)blocks;
+// the bins of one g of a level: (X + 1) (Y + 1) (Z + 1) lower corners
+__device__ __forceinline__ int64_t bins_per_g(const Level& L) {
+  return (int64_t)(L.X + 1) * (L.Y + 1) * (L.Z + 1);
 }
 
-// Fills the descriptors; returns the thread count G * sum S_l, or -1 when
-// the level count is out of range.
+// d_tables' entries: item i = (level, g, sample), with a corner inside its
+// level, binned by its lower corner, the entry (i, w1x, w1y, w1z)
+struct K4Keys {
+  using Entry = BinEntry;
+  Levels lv;
+  int align;
+  template <class Fn>
+  __device__ __forceinline__ void operator()(int64_t i, Fn fn) const {
+    const Level L = pick(lv, i);
+    const int64_t j = i - L.start;
+    const int64_t g = j / L.S;
+    const Axis ax = make_axis(L.coords[j * 3 + 0], L.X, align);
+    const Axis ay = make_axis(L.coords[j * 3 + 1], L.Y, align);
+    const Axis az = make_axis(L.coords[j * 3 + 2], L.Z, align);
+    if (ax.i0 < -1 || ax.i0 >= L.X || ay.i0 < -1 || ay.i0 >= L.Y || az.i0 < -1 || az.i0 >= L.Z)
+      return;
+    fn(L.bin_start + g * bins_per_g(L) +
+           ((int64_t)(ax.i0 + 1) * (L.Y + 1) + (ay.i0 + 1)) * (L.Z + 1) + (az.i0 + 1),
+       BinEntry{(int)i, {ax.w[1], ay.w[1], az.w[1]}});
+  }
+};
+
+// The level of d_table row r, and of bin k
+__device__ __forceinline__ Level level_of_row(const Levels& lv, int64_t r) {
+  Level L = lv.l[0];
+#pragma unroll
+  for (int k = 1; k < MAX_LEVELS; ++k)
+    if (k < lv.n && r >= lv.l[k].row_start) L = lv.l[k];
+  return L;
+}
+__device__ __forceinline__ Level level_of_bin(const Levels& lv, int64_t bin) {
+  Level L = lv.l[0];
+#pragma unroll
+  for (int k = 1; k < MAX_LEVELS; ++k)
+    if (k < lv.n && bin >= lv.l[k].bin_start) L = lv.l[k];
+  return L;
+}
+
+// d_table row r = row_start + g * X * Y * Z + voxel: its 8 neighbour bins; a
+// term's src row (the item's gout row) and weight (the corner weight)
+struct K4Geo {
+  static constexpr bool kScaled = false;
+  Levels lv;
+  __device__ __forceinline__ void bins(int64_t r, int64_t (&bn)[8]) const {
+    const Level L = level_of_row(lv, r);
+    const int64_t vol = (int64_t)L.X * L.Y * L.Z;
+    const int64_t g = (r - L.row_start) / vol;
+    const int v = (int)((r - L.row_start) % vol);
+    const int z = v % L.Z, y = v / L.Z % L.Y, x = v / (L.Z * L.Y);
+    const int64_t base = L.bin_start + g * bins_per_g(L);
+#pragma unroll
+    for (int q = 0; q < 8; ++q)
+      bn[q] = base + ((int64_t)(x - (q >> 2) + 1) * (L.Y + 1) + (y - ((q >> 1) & 1) + 1)) *
+                         (L.Z + 1) + (z - (q & 1) + 1);
+  }
+  __device__ __forceinline__ int64_t src(int i) const { return i; }
+  __device__ __forceinline__ float weight(float, float wx, float wy, float wz) const {
+    return wx * wy * wz;
+  }
+};
+
+// A heavy bin's candidates: the S samples of its (level, g)
+struct K4Cand {
+  Levels lv;
+  __device__ __forceinline__ int64_t count(int64_t bin) const { return level_of_bin(lv, bin).S; }
+  __device__ __forceinline__ int item(int64_t bin, int64_t t) const {
+    const Level L = level_of_bin(lv, bin);
+    return (int)(L.start + (bin - L.bin_start) / bins_per_g(L) * L.S + t);
+  }
+};
+
+// Fills the descriptors; returns the thread count G * sum S_l (and, in
+// *n_rows and *n_bins when given, the d_table rows G * sum X_l * Y_l * Z_l
+// and K4-bwd's bins G * sum (X_l + 1) (Y_l + 1) (Z_l + 1)), or -1 when the
+// level count is out of range.
 static int64_t make_levels(Levels* lv, int L, const void* const* tables,
                            const void* const* coords, void* const* outs,
-                           void* const* d_tables, void* const* d_coords,
-                           const int* dims, int G) {
+                           void* const* d_coords, const int* dims, int G,
+                           int64_t* n_rows = nullptr, int64_t* n_bins = nullptr) {
   if (L < 1 || L > MAX_LEVELS) return -1;
-  int64_t start = 0;
+  int64_t start = 0, row_start = 0, bin_start = 0;
   lv->n = L;
   for (int l = 0; l < MAX_LEVELS; ++l) {
     Level& d = lv->l[l];
     if (l >= L) {  // unused slots never match: start past every thread
       d = lv->l[0];
       d.start = INT64_MAX;
+      d.row_start = INT64_MAX;
+      d.bin_start = INT64_MAX;
       continue;
     }
-    d.table = tables[l];
+    d.table = tables ? tables[l] : nullptr;
     d.coords = (const float*)coords[l];
-    d.out = outs[l];
-    d.d_table = d_tables ? (float*)d_tables[l] : nullptr;
+    d.out = outs ? outs[l] : nullptr;
     d.d_coords = d_coords ? (float*)d_coords[l] : nullptr;
     d.X = dims[4 * l + 0];
     d.Y = dims[4 * l + 1];
     d.Z = dims[4 * l + 2];
     d.S = dims[4 * l + 3];
     d.start = start;
+    d.row_start = row_start;
+    d.bin_start = bin_start;
     start += (int64_t)G * d.S;
+    row_start += (int64_t)G * d.X * d.Y * d.Z;
+    bin_start += (int64_t)G * (d.X + 1) * (d.Y + 1) * (d.Z + 1);
   }
+  if (n_rows) *n_rows = row_start;
+  if (n_bins) *n_bins = bin_start;
   return start;
 }
 
@@ -365,8 +483,7 @@ extern "C" int multilevel_gather3d_fwd(int L, const void* const* tables,
                                        int G, int C, int align, int dtype,
                                        void* stream) {
   Levels lv;
-  const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, nullptr,
-                                dims, G);
+  const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, dims, G);
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0 || C == 0) return 0;
   const int threads = 256;
@@ -398,8 +515,7 @@ extern "C" int multilevel_gather3d_fwd_rows(int L, const void* const* tables,
     if (((uintptr_t)tables[l] | (uintptr_t)outs[l]) % 16 != 0)
       return (int)cudaErrorInvalidValue;
   Levels lv;
-  const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, nullptr,
-                                dims, G);
+  const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, dims, G);
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   const int threads = 256;
@@ -414,32 +530,72 @@ extern "C" int multilevel_gather3d_fwd_rows(int L, const void* const* tables,
   return (int)cudaGetLastError();
 }
 
-// gouts[l] [G, C, S] in the tables' type; d_tables[l] float32 [G, X, Y, Z, C]
-// ZEROED by the caller; d_coords NULL (no coordinate gradient: the tables
-// are then never read) or d_coords[l] float32 [G, S, 3], every element
-// written here.
+// K4-bwd's workspace: int32s for ordered_rows.cuh over the bins
+// G * sum (X_l + 1) (Y_l + 1) (Z_l + 1) and one entry per (g, sample).
+extern "C" long long multilevel_gather3d_bwd_workspace(int L, const int* dims, int G) {
+  int64_t bins = 0, items = 0;
+  for (int l = 0; l < L; ++l) {
+    bins += (int64_t)G * (dims[4 * l] + 1) * (dims[4 * l + 1] + 1) * (dims[4 * l + 2] + 1);
+    items += (int64_t)G * dims[4 * l + 3];
+  }
+  return (long long)ordered_rows_ints(bins, items);
+}
+
+// gout_rows [sum_l G * S_l, C] in the tables' type (level l's gout [G, C,
+// S_l] as rows (g, s), the levels back to back); d_tables the levels'
+// [G, X, Y, Z, C] back to back in the tables' type, written in full;
+// d_coords NULL (no coordinate gradient: the tables are then never read) or
+// d_coords[l] float32 [G, S, 3], every element written here; `workspace`
+// holds multilevel_gather3d_bwd_workspace(L, dims, G) int32s, 16-byte
+// aligned.  The bins (+ 1) and the items must lie below 2^31.
 extern "C" int multilevel_gather3d_bwd(int L, const void* const* tables,
                                        const void* const* coords,
-                                       void* const* gouts,
-                                       void* const* d_tables,
-                                       void* const* d_coords, const int* dims,
-                                       int G, int C, int align, int dtype,
-                                       void* stream) {
+                                       const void* gout_rows, void* d_tables,
+                                       void* const* d_coords, void* workspace,
+                                       const int* dims, int G, int C, int align,
+                                       int dtype, void* stream) {
   Levels lv;
-  const int64_t n = make_levels(&lv, L, tables, coords, gouts, d_tables,
-                                d_coords, dims, G);
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0 || C == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = grid_blocks(n, threads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    multilevel_bwd_kernel<float><<<blocks, threads, 0, st>>>(lv, n, C, align);
-  } else if (dtype == 1) {
-    multilevel_bwd_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(lv, n, C,
-                                                                     align);
-  } else {
+  int64_t n_rows = 0, n_bins = 0;
+  const int64_t n = make_levels(&lv, L, tables, coords, nullptr, d_coords, dims, G, &n_rows,
+                                &n_bins);
+  if (n < 0 || (dtype != 0 && dtype != 1) || n_bins + 1 >= ((int64_t)1 << 31) ||
+      n >= ((int64_t)1 << 31) || (uintptr_t)workspace % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  if (n_rows == 0 || C == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int esize = dtype == 1 ? 2 : 4;
+  const void* ptrs[MAX_LEVELS + 2];
+  for (int l = 0; l < L; ++l) ptrs[l] = tables[l];
+  ptrs[L] = gout_rows;
+  ptrs[L + 1] = d_tables;
+  const int vec = row_chunk(C, esize, ptrs, L + 2);
+  const OrderedRowsSpace s = ordered_rows_space(workspace, n_bins, n);
+  const int threads = 256;
+#define K4_BWD_COORDS(T, V)                                                    \
+  multilevel_bwd_coords_kernel<T, V><<<grid_blocks(n, threads), threads, 0, st>>>( \
+      lv, (const T*)gout_rows, n, C, align)
+  cudaError_t err;
+  if (dtype == 1) {
+    using T = __nv_bfloat16;
+    if (d_coords != nullptr && n > 0) {
+      if (vec == 8) K4_BWD_COORDS(T, 8);
+      else if (vec == 4) K4_BWD_COORDS(T, 4);
+      else if (vec == 2) K4_BWD_COORDS(T, 2);
+      else K4_BWD_COORDS(T, 1);
+    }
+    err = ordered_rows_sum<T>(K4Keys{lv, align}, n, K4Geo{lv}, K4Cand{lv}, n_bins, n_rows, C,
+                              vec, (const T*)gout_rows, (T*)d_tables, s, st);
+  } else {
+    using T = float;
+    if (d_coords != nullptr && n > 0) {
+      if (vec == 4) K4_BWD_COORDS(T, 4);
+      else if (vec == 2) K4_BWD_COORDS(T, 2);
+      else K4_BWD_COORDS(T, 1);
+    }
+    err = ordered_rows_sum<T>(K4Keys{lv, align}, n, K4Geo{lv}, K4Cand{lv}, n_bins, n_rows, C,
+                              vec, (const T*)gout_rows, (T*)d_tables, s, st);
   }
+#undef K4_BWD_COORDS
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

@@ -3,7 +3,9 @@
 // order on every call, as a stable sort gives.  Shared by K2-bwd
 // (trilerp_sample3d.cu: a point's corner voxels on the wide-row path, its
 // (x, y) column on the narrow-row path) and S1 (voxel_splat.cu: a frustum
-// point's voxel).
+// point's voxel).  Steps 1-3 with an entry per (item, key) instead of the
+// item's index (segment_bin, below) are the binning of ordered_rows.cuh
+// (K1-bwd and K4-bwd), which orders each key's span itself.
 //
 // The caller describes its items with a Keys type:
 //   using Entry = ...;                what a key's list holds per item
@@ -36,7 +38,7 @@ template <class Keys>
 __global__ void seg_count_kernel(Keys keys, int* __restrict__ hist, int64_t n_items) {
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_items; i += stride)
-    keys(i, [&](int64_t k) { atomicAdd(hist + k, 1); });
+    keys(i, [&](int64_t k, auto&&...) { atomicAdd(hist + k, 1); });
 }
 
 // 2. offsets
@@ -205,6 +207,27 @@ static inline SegmentSortSpace<Entry> segment_sort_space(void* workspace, int64_
   return s;
 }
 
+// Steps 1-2: offs[0 .. n_keys] the exclusive scan of every key's count,
+// cursor[0 .. n_keys) a copy of it (tile_sums scratch).  Returns the first
+// CUDA error.
+template <class Keys>
+static cudaError_t segment_offsets(const Keys& keys, int64_t n_items, int64_t n_keys, int* offs,
+                                   int* cursor, int* tile_sums, cudaStream_t st) {
+  const int threads = 256;
+  cudaError_t err = cudaMemsetAsync(offs, 0, (n_keys + 1) * sizeof(int), st);
+  if (err != cudaSuccess) return err;
+  if (n_items > 0)
+    seg_count_kernel<Keys><<<grid_blocks(n_items, threads), threads, 0, st>>>(keys, offs,
+                                                                             n_items);
+  const int64_t tiles = scan_tile_count(n_keys + 1);
+  scan_tiles_kernel<Keys><<<(unsigned)tiles, SCAN_THREADS, 0, st>>>(offs, n_keys + 1,
+                                                                    tile_sums);
+  scan_sums_kernel<Keys><<<1, SCAN_THREADS, 0, st>>>(tile_sums, tiles);
+  add_tile_offsets_kernel<Keys><<<grid_blocks(n_keys + 1, threads), threads, 0, st>>>(
+      offs, n_keys + 1, tile_sums, cursor);
+  return cudaGetLastError();
+}
+
 // Steps 1-4 for n_items items over n_keys keys (n_keys + 1 and the entries
 // below 2^31), on `st`: afterwards s.offs and s.sorted hold each key's
 // entries in ascending item order (s.idx and s.cursor are scratch).
@@ -214,22 +237,56 @@ static cudaError_t segment_sort(const Keys& keys, int64_t n_items, int64_t n_key
                                 const SegmentSortSpace<typename Keys::Entry>& s,
                                 cudaStream_t st) {
   const int threads = 256;
-  cudaError_t err = cudaMemsetAsync(s.offs, 0, (n_keys + 1) * sizeof(int), st);
+  cudaError_t err = segment_offsets(keys, n_items, n_keys, s.offs, s.cursor, s.tile_sums, st);
   if (err != cudaSuccess) return err;
-  if (n_items > 0)
-    seg_count_kernel<Keys><<<grid_blocks(n_items, threads), threads, 0, st>>>(keys, s.offs,
-                                                                             n_items);
-  const int64_t tiles = scan_tile_count(n_keys + 1);
-  scan_tiles_kernel<Keys><<<(unsigned)tiles, SCAN_THREADS, 0, st>>>(s.offs, n_keys + 1,
-                                                                    s.tile_sums);
-  scan_sums_kernel<Keys><<<1, SCAN_THREADS, 0, st>>>(s.tile_sums, tiles);
-  add_tile_offsets_kernel<Keys><<<grid_blocks(n_keys + 1, threads), threads, 0, st>>>(
-      s.offs, n_keys + 1, s.tile_sums, s.cursor);
   if (n_items > 0) {
     seg_fill_kernel<Keys><<<grid_blocks(n_items, threads), threads, 0, st>>>(keys, s.cursor,
                                                                             s.idx, n_items);
     seg_rank_kernel<Keys><<<grid_blocks(n_items, threads), threads, 0, st>>>(
         keys, s.offs, s.idx, s.sorted, n_items);
   }
+  return cudaGetLastError();
+}
+
+// ---- binning: steps 1-3 with an entry per (item, key) ----
+//
+// For a Keys type whose operator() calls fn(key, entry) (an entry of its
+// own for each key of the item; Keys::Entry its type), segment_bin() leaves
+// each key's entries in its span of `entries`, offs[k] .. offs[k + 1], in
+// an order that changes from call to call (the fill's cursor atomics): the
+// caller orders each span itself.  Its workspace is the int32 head
+// (offsets, cursor, tile sums) of segment_bin_head_ints, then the entries.
+
+// 3. fill, each (item, key) pair writing its own entry
+template <class Keys>
+__global__ void seg_fill_entries_kernel(Keys keys, int* __restrict__ cursor,
+                                        typename Keys::Entry* __restrict__ entries,
+                                        int64_t n_items) {
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_items; i += stride)
+    keys(i, [&](int64_t k, const typename Keys::Entry& e) {
+      entries[atomicAdd(cursor + k, 1)] = e;
+    });
+}
+
+// int32s of segment_bin's head for n_keys keys
+static inline int64_t segment_bin_head_ints(int64_t n_keys) {
+  return 2 * n_keys + 1 + scan_tile_count(n_keys + 1);
+}
+
+// Steps 1-3 for n_items items over n_keys keys (n_keys + 1 and the entries
+// below 2^31): offs [n_keys + 1], cursor [n_keys] and tile_sums
+// [scan_tile_count(n_keys + 1)] back to back from `head`.  Returns the first
+// CUDA error.
+template <class Keys>
+static cudaError_t segment_bin(const Keys& keys, int64_t n_items, int64_t n_keys, int* head,
+                               typename Keys::Entry* entries, cudaStream_t st) {
+  const int threads = 256;
+  int* cursor = head + n_keys + 1;
+  cudaError_t err = segment_offsets(keys, n_items, n_keys, head, cursor, cursor + n_keys, st);
+  if (err != cudaSuccess) return err;
+  if (n_items > 0)
+    seg_fill_entries_kernel<Keys><<<grid_blocks(n_items, threads), threads, 0, st>>>(
+        keys, cursor, entries, n_items);
   return cudaGetLastError();
 }

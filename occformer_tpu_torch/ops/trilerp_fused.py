@@ -20,14 +20,19 @@ row-wide kernel, a group of ``ROW_LANES`` lanes per output row (b, q, h)
 whose lanes own whole samples and read each corner row as 16-byte loads;
 the rest keep one thread per output channel.  ``LAUNCHES`` and
 ``BWD_LAUNCHES`` count the two kernels' launches (K1 over both of its
-paths), ``ROW_LAUNCHES`` K1's row-wide path alone.
+paths), ``ROW_LAUNCHES`` K1's row-wide path alone.  K1-bwd writes every
+gradient once in its dtype with no float atomics: d_value's rows are summed
+in a fixed order (``csrc/ordered_rows.cuh``: samples binned by their lower
+corner, each row's terms corner by corner, each corner's in ascending sample
+order), so two calls give the same bits.
 
 ``fused_multilevel_gather`` is the port of the JAX package's unweighted
 ``fused_multilevel_gather`` (Pallas ``call_fwd`` / ``call_bwd``, bodies
 ``_fwd_kernel`` and ``_bwd_kernel``): every level's trilinear samples,
 channels-first, in one launch of ``csrc/multilevel_gather3d.cu`` (K4), with
 K4-bwd as its autograd backward (d_tables, and d_coords when the
-coordinates require grad).  K4 has two paths, picked by ``multi_fwd_path``:
+coordinates require grad), which sums d_tables in the same fixed order as
+K1-bwd's d_value.  K4 has two paths, picked by ``multi_fwd_path``:
 rows of whole 16-byte vectors at 16-byte aligned tables (the deformable
 attention's C = 24, bf16 and float32) take the row-wide kernel, which reads
 each corner row as 16-byte loads; the rest keep the per-channel scalar
@@ -97,16 +102,20 @@ def ms_deform_gather_3d_plain(
 
 
 def _kernel_fn(name: str):
-    """The C entry point ``ms_deform_gather3d_{fwd,fwd_rows,bwd}`` with its
-    argtypes."""
+    """The C entry point ``ms_deform_gather3d_{fwd,fwd_rows,bwd,bwd_workspace}``
+    with its argtypes."""
     if name not in _FNS:
         fn = getattr(cuda_build.load("ms_deform_gather3d"), name)
-        n_ptr = 7 if name.endswith("bwd") else 4
-        n_opts = 3 if name.endswith("rows") else 1  # dtype (, lanes, spl)
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
-                       + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * n_opts
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        if name.endswith("workspace"):  # B, Nv, Nq, H, L, P, levels
+            fn.argtypes = [ctypes.c_int] * 6 + [ctypes.POINTER(ctypes.c_int)]
+            fn.restype = ctypes.c_longlong
+        else:
+            n_ptr = 8 if name.endswith("bwd") else 4
+            n_opts = 3 if name.endswith("rows") else 1  # dtype (, lanes, spl)
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
+                           + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * n_opts
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
 
@@ -177,26 +186,32 @@ def _launch_fwd(value, spatial_shapes, locs, weights, path=None, lanes=None, sam
 
 def _launch_bwd(value, spatial_shapes, locs, weights, gout):
     """K1-bwd: (d_value, d_locs, d_weights) in value's, float32 and weights'
-    dtypes.  d_value is summed in float32 and cast once, as the Pallas VJP
-    does."""
+    dtypes, each written once by the kernels; d_value's rows are summed in
+    float32 in a fixed order (each row's terms in ascending sample order),
+    so two calls give the same bits."""
     global BWD_LAUNCHES
     B, Nv, H, hd = value.shape
     Nq, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
+    dev = value.device
     gout = gout.to(value.dtype).contiguous()
-    d_value = torch.zeros(value.shape, dtype=torch.float32, device=value.device)
-    d_locs = torch.empty(locs.shape, dtype=torch.float32, device=value.device)
-    d_weights = torch.empty(weights.shape, dtype=torch.float32, device=value.device)
-    with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream(value.device).cuda_stream
+    d_value = torch.empty(value.shape, dtype=value.dtype, device=dev)
+    d_locs = torch.empty(locs.shape, dtype=torch.float32, device=dev)
+    d_weights = torch.empty(weights.shape, dtype=weights.dtype, device=dev)
+    with torch.cuda.device(dev):
+        workspace = torch.empty(
+            _kernel_fn("ms_deform_gather3d_bwd_workspace")(B, Nv, Nq, H, L, P,
+                                                           _levels(spatial_shapes)),
+            dtype=torch.int32, device=dev)
+        stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _kernel_fn("ms_deform_gather3d_bwd")(
             value.data_ptr(), locs.data_ptr(), weights.data_ptr(), gout.data_ptr(),
             d_value.data_ptr(), d_locs.data_ptr(), d_weights.data_ptr(),
-            B, Nv, Nq, H, hd, L, P, _levels(spatial_shapes),
+            workspace.data_ptr(), B, Nv, Nq, H, hd, L, P, _levels(spatial_shapes),
             _DTYPE_CODE[value.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"ms_deform_gather3d_bwd launch failed: cudaError {rc}")
     BWD_LAUNCHES += 1
-    return d_value.to(value.dtype), d_locs, d_weights.to(weights.dtype)
+    return d_value, d_locs, d_weights
 
 
 class _Gather(torch.autograd.Function):
@@ -273,15 +288,21 @@ def fused_multilevel_gather_plain(
 
 
 def _multi_fn(name: str):
-    """The C entry point ``multilevel_gather3d_{fwd,fwd_rows,bwd}`` with its
-    argtypes."""
+    """The C entry point ``multilevel_gather3d_{fwd,fwd_rows,bwd,bwd_workspace}``
+    with its argtypes."""
     if name not in _FNS:
         fn = getattr(cuda_build.load("multilevel_gather3d"), name)
-        n_arrays = 5 if name.endswith("bwd") else 3
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_arrays
-                       + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
+        if name.endswith("workspace"):  # L, dims, G
+            fn.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int]
+            fn.restype = ctypes.c_longlong
+        else:
+            # L, tables, coords, outs (fwd) / gout rows, d_tables, d_coords,
+            # workspace (bwd), dims, G, C, align, dtype, stream
+            n_arrays = 6 if name.endswith("bwd") else 3
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_arrays
+                           + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+                           + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
 
@@ -332,26 +353,42 @@ def _launch_multi_fwd(tables, spatials, channels, coords, align_corners, path=No
 
 def _launch_multi_bwd(tables, spatials, channels, coords, gouts, align_corners,
                       want_coords):
-    """K4-bwd: (d_tables in the tables' dtype, each summed in float32 and cast
-    once, as the Pallas VJP does; d_coords float32, or None)."""
+    """K4-bwd: (d_tables in the tables' dtype, each row summed in float32 in
+    a fixed order (ascending (g, sample)) and written once, so that two calls
+    give the same bits; d_coords float32, or None).  gout is read as rows:
+    each level's [G, C, S_l] transposed into its slice of one
+    [sum_l G * S_l, C] buffer, in one pass."""
     global MULTI_BWD_LAUNCHES
     dev, dtype = tables[0].device, tables[0].dtype
-    G = tables[0].shape[0]
-    gouts = [g.to(dtype).contiguous() for g in gouts]
-    d_tables = [torch.zeros(t.shape, dtype=torch.float32, device=dev) for t in tables]
+    C = channels
+    gout_rows = torch.empty((sum(g.numel() for g in gouts) // C, C), dtype=dtype, device=dev)
+    row = 0
+    for g in gouts:
+        n = g.numel() // C
+        gout_rows[row:row + n].view(g.shape[0], g.shape[2], C).copy_(g.transpose(1, 2))
+        row += n
+    d_all = torch.empty((sum(t.numel() for t in tables) // C, C), dtype=dtype, device=dev)
+    d_tables, row = [], 0
+    for t in tables:
+        d_tables.append(d_all[row:row + t.numel() // C].view(t.shape))
+        row += t.numel() // C
     d_coords = ([torch.empty(c.shape, dtype=torch.float32, device=dev) for c in coords]
                 if want_coords else None)
+    dims = _multi_dims(spatials, coords)
+    G = tables[0].shape[0]
     with torch.cuda.device(dev):
+        workspace = torch.empty(_multi_fn("multilevel_gather3d_bwd_workspace")(
+            len(tables), dims, G), dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = _multi_fn("multilevel_gather3d_bwd")(
-            len(tables), _pointers(tables), _pointers(coords), _pointers(gouts),
-            _pointers(d_tables), None if d_coords is None else _pointers(d_coords),
-            _multi_dims(spatials, coords), G, channels, int(bool(align_corners)),
+            len(tables), _pointers(tables), _pointers(coords), gout_rows.data_ptr(),
+            d_all.data_ptr(), None if d_coords is None else _pointers(d_coords),
+            workspace.data_ptr(), dims, G, C, int(bool(align_corners)),
             _DTYPE_CODE[dtype], stream)
     if rc != 0:
         raise RuntimeError(f"multilevel_gather3d_bwd launch failed: cudaError {rc}")
     MULTI_BWD_LAUNCHES += 1
-    return [d.to(dtype) for d in d_tables], d_coords
+    return d_tables, d_coords
 
 
 class _MultiGather(torch.autograd.Function):

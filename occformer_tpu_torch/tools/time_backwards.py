@@ -25,9 +25,16 @@ the flagship's LSS shapes (``s1_inputs``) seen from a forward-looking
 nuScenes rig (``NUSCENES_RIG``) and from ``make_train_batch``'s synthetic
 cameras, with a digest of its volume (two checkouts' volumes are bit-equal
 when their digests are), its peak memory beyond its inputs, and the valid
-points, filled voxels and the largest voxel's points; and the flagship's
-train step on the batched loss route by the profiler's device time, all
-kernels and K2-bwd's (``batched_step_profile``).  Each kernel time is the
+points, filled voxels and the largest voxel's points; K3
+(``ops/loss_gather.py:sample_id_masks``) at the batched route's three GT
+reads (``k3_cases``), with a digest of its masks, and at the candidates
+with one slot and beside a plain write of its output (what holds it
+back); K4-bwd (``_launch_multi_bwd``) at the deformable attention's shapes
+beside the three ``F.grid_sample`` backwards; each backward's two calls
+compared bit for bit, its device time by kernel and its peak memory
+beyond its inputs; and the flagship's train step on each loss route by the
+profiler's device time, all kernels, K1-bwd's and K2-bwd's, and its peak
+memory (``step_profile``).  Each kernel time is the
 median ms of 30 CUDA-event timed launches, on the path the checkout picks;
 K1 and K2 also by the profiler's device time.  ``--root`` names the checkout whose
 ``occformer_tpu_torch`` is imported (this one by default), so that two
@@ -36,7 +43,8 @@ versions can be timed in turns on one card:
     for r in parent . . parent; do python3 .../time_backwards.py --root $r; done
 
 ``--only`` names the groups to time (K1, K1-bwd, K2-bwd, K2-bwd.narrow,
-S1, K2, K4, step; all by default), and the sweeps of those groups.
+S1, K2, K3, K4, K4-bwd, step; all by default), and the sweeps of those
+groups.
 
 ``--sweep`` also times both of K2-bwd's paths, and both of K2's forward
 paths, at the candidate readout's shape over row widths C = 8 ... 192, in
@@ -122,6 +130,74 @@ def k4_inputs(case, dtype=None, seed=6):
               for X, Y, Z in K4_PYRAMID]
     coords = [torch.from_numpy(c.astype(np.float32)).to(dev) for c in draw]
     return tables, coords, C
+
+
+def k3_cases(seed=4):
+    """K3's inputs on the card, as the batched loss route reads the GT at
+    the flagship: an int32 label grid [1, 256, 256, 32] (labels 0-16, 10%
+    255), slot ids 0-16 (G = 17), and N = 10 layers' points in [0, 1]: the
+    150528 candidates and the 50176 matching points (shared, [10, S, 3]) and
+    the 12544 random-fill points of each slot ([10, 17, 12544, 3]).  Yields
+    (name, grid, ids, pts)."""
+    import torch
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(seed)
+    G, N = 17, 10
+    grid = torch.randint(0, G, (1, 256, 256, 32), device=dev, generator=g, dtype=torch.int32)
+    grid[torch.rand(grid.shape, device=dev, generator=g) < 0.1] = 255
+    ids = torch.arange(G, device=dev, dtype=torch.int32)[None]
+    for name, shape in (("candidates", (N, 150528, 3)), ("matching", (N, 50176, 3)),
+                        ("random_fill", (N, G, 12544, 3))):
+        yield name, grid, ids, torch.rand(shape, device=dev, generator=g)
+
+
+def backward_record(key, call, device_ms):
+    """A backward wrapper's two calls compared bit for bit, its ms by events
+    and by the profiler's device time (all kernels, and by kernel name), and
+    its peak memory beyond what was allocated before the call."""
+    import torch
+
+    from occformer_tpu_torch.utils.timing import time_cuda
+
+    a, b = call(), call()
+    flat = [t for x in (a, b) for t in (x if isinstance(x, (list, tuple)) else [x])
+            for t in (t if isinstance(t, (list, tuple)) else [t]) if t is not None]
+    half = len(flat) // 2
+    rec = {f"{key}_bit_equal_calls": all(torch.equal(x, y)
+                                         for x, y in zip(flat[:half], flat[half:]))}
+    del a, b, flat
+    rec[f"{key}_ms"] = time_cuda(call)
+    rec[f"{key}_device_ms"] = device_ms(call)
+    rec[f"{key}_device_ms_by_kernel"] = device_ms_by_kernel(call)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    call()
+    torch.cuda.synchronize()
+    rec[f"{key}_peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
+    return rec
+
+
+def k4_library_bwd_ms(tables, coords, gouts, C):
+    """The library's counterpart of K4-bwd: autograd through one
+    F.grid_sample per level on a channels-first copy of the level, the grids
+    in the tables' dtype (as chip_smoke.py:phase_k4 times it)."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.utils.timing import time_cuda
+
+    G = tables[0].shape[0]
+    vols = [t.reshape(G, X, Y, Z, C).permute(0, 4, 1, 2, 3).contiguous().requires_grad_(True)
+            for t, (X, Y, Z) in zip(tables, K4_PYRAMID)]
+    grids = [c.flip(-1).reshape(G, -1, 1, 1, 3).to(t.dtype).contiguous().requires_grad_(True)
+             for c, t in zip(coords, tables)]
+    outs = [F.grid_sample(v, x, mode="bilinear", padding_mode="zeros", align_corners=False)
+            for v, x in zip(vols, grids)]
+    gos = [go.reshape(o.shape) for go, o in zip(gouts, outs)]
+    return time_cuda(lambda: torch.autograd.grad(outs, vols + grids, gos, retain_graph=True),
+                     iters=10)
 
 
 def k2_fwd_cases(seed=2):
@@ -356,13 +432,17 @@ def segment_stats(coords, valid, nx):
             "largest_voxel_points": int(counts.max())}
 
 
-def batched_step_profile(steps=3):
-    """Device time of the flagship's train step on the batched loss route
-    (``mxu_readout="on"``; float32 parameters, bf16 autocast,
-    ``make_train_batch(cfg, seed=0)``, random weights), ``steps`` steps after
-    two warm ones under the profiler: ms a step of all kernels, of K2-bwd's
-    kernels (every function named ``trilerp_bwd*`` or sorting
-    ``ColumnKeys``/``CornerKeys``) and of the 20 costliest functions."""
+def step_profile(route, steps=3):
+    """Device time of the flagship's train step on a loss route
+    (``mxu_readout`` "off": the per-layer route, "on": the batched one;
+    float32 parameters, bf16 autocast, ``make_train_batch(cfg, seed=0)``,
+    random weights), ``steps`` steps after two warm ones under the profiler:
+    ms a step of all kernels, of K1-bwd's kernels (every function named
+    ``ms_deform_gather3d_bwd*`` / ``ms_deform_bwd*`` or binning
+    ``K1Keys``/``K1Geo``/``K1Cand``; a zero-fill or cast around it runs under
+    a generic name and is not counted) and of K2-bwd's (every function
+    named ``trilerp_bwd*`` or sorting ``ColumnKeys``/``CornerKeys``), of the
+    20 costliest functions, and the step's peak memory."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -376,7 +456,7 @@ def batched_step_profile(steps=3):
     cfg = load_config(os.path.join(root, "configs", "occformer_nusc_r50_256x704.py"))
     m = cfg["model"]
     model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
-    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="on"),
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout=route),
                               m["train_cfg"]["pts"])
     opt = build_optimizer_from_config(model, cfg, 28130)
     step = build_train_step(model, opt, loss_cfg, device="cuda",
@@ -386,6 +466,10 @@ def batched_step_profile(steps=3):
     for _ in range(2):
         step(batch, g)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(batch, g)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step(batch, g)
@@ -395,15 +479,18 @@ def batched_step_profile(steps=3):
     kernels = {e.key[:100]: e.self_device_time_total / 1e3 / steps for e in events
                if e.device_type.name == "CUDA" and not (e.is_user_annotation
                                                         or e.key in ranges)}
-    k2_bwd = {k: v for k, v in kernels.items()
-              if "trilerp_bwd" in k or "ColumnKeys" in k or "CornerKeys" in k}
+    groups = {"K1-bwd": ("ms_deform_gather3d_bwd", "ms_deform_bwd", "K1Keys", "K1Geo", "K1Cand"),
+              "K2-bwd": ("trilerp_bwd", "ColumnKeys", "CornerKeys")}
     del model, opt, step, batch
     torch.cuda.empty_cache()
-    return {"step_batched_device_ms": sum(kernels.values()),
-            "step_batched_K2-bwd_device_ms": sum(k2_bwd.values()),
-            "step_batched_K2-bwd_by_function": k2_bwd,
-            "step_batched_top_functions": dict(sorted(kernels.items(),
-                                                      key=lambda kv: -kv[1])[:20])}
+    key = "step_batched" if route == "on" else "step_per_layer"
+    rec = {f"{key}_device_ms": sum(kernels.values()), f"{key}_peak_bytes": peak}
+    for name, marks in groups.items():
+        fns = {k: v for k, v in kernels.items() if any(x in k for x in marks)}
+        rec[f"{key}_{name}_device_ms"] = sum(fns.values())
+        rec[f"{key}_{name}_by_function"] = fns
+    rec[f"{key}_top_functions"] = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:20])
+    return rec
 
 
 def k2_bwd_narrow_cases(seed=12):
@@ -480,8 +567,8 @@ def main(argv=None) -> int:
                    help="also time both paths of K2-bwd and of K2 over row widths 8-192, "
                         "and the lane groups of K2's, K2-bwd's narrow and K1's paths")
     p.add_argument("--only", default=None,
-                   help="comma-separated groups to time (K1, K1-bwd, K2-bwd, K2, K4, S1, "
-                        "K2-bwd.narrow, step); all by default")
+                   help="comma-separated groups to time (K1, K1-bwd, K2-bwd, K2, K3, K4, "
+                        "K4-bwd, S1, K2-bwd.narrow, step); all by default")
     args = p.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -513,9 +600,48 @@ def main(argv=None) -> int:
         value, shapes, locs, w = flagship_gather_inputs(torch.bfloat16, local)
         gout = torch.randn((1, locs.shape[1], 8, 24), device="cuda",
                            generator=gen).to(torch.bfloat16)
-        rec[f"K1-bwd_{where}_ms"] = time_cuda(
-            lambda: k1._launch_bwd(value, shapes, locs, w, gout))
+
+        def call():
+            return k1._launch_bwd(value, shapes, locs, w, gout)
+
+        key = f"K1-bwd_{where}"
+        rec.update(backward_record(key, call, device_ms))
         del value, locs, w, gout
+    if want("K4-bwd"):
+        tables, coords, C = k4_inputs("flagship")
+        g = torch.Generator(device="cuda").manual_seed(8)
+        gouts = [torch.randn((t.shape[0], C, c.shape[1]), device="cuda", generator=g).to(t.dtype)
+                 for t, c in zip(tables, coords)]
+
+        def call():
+            return k1._launch_multi_bwd(tables, K4_PYRAMID, C, coords, gouts, False, True)
+
+        rec.update(backward_record("K4-bwd", call, device_ms))
+        rec["K4-bwd_without_d_coords_ms"] = time_cuda(lambda: k1._launch_multi_bwd(
+            tables, K4_PYRAMID, C, coords, gouts, False, False))
+        rec["K4-bwd_library_ms"] = k4_library_bwd_ms(tables, coords, gouts, C)
+        del tables, coords, gouts
+    if want("K3"):
+        from occformer_tpu_torch.ops import loss_gather as k3
+
+        for name, grid, ids, pts in k3_cases():
+            def call():
+                return k3.sample_id_masks(grid, ids, pts, False, "border")
+
+            out = call()
+            rec[f"K3_{name}_sha256"] = hashlib.sha256(
+                out.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+            rec[f"K3_{name}_ms"] = time_cuda(call)
+            rec[f"K3_{name}_device_ms"] = device_ms(call)
+            if name == "candidates":
+                # what holds it back: the same points with one slot (the
+                # corner reads and one store a point) and a plain write of
+                # the output's bytes
+                one = ids[:, :1].contiguous()
+                rec["K3_candidates_one_slot_device_ms"] = device_ms(
+                    lambda: k3.sample_id_masks(grid, one, pts, False, "border"))
+                rec["K3_candidates_write_only_device_ms"] = device_ms(lambda: out.fill_(1.0))
+            del out
     if want("K2-bwd"):
         g = torch.Generator(device="cuda").manual_seed(2)
         table = torch.randn((1, 128, 128, 16, 192), device="cuda",
@@ -563,7 +689,8 @@ def main(argv=None) -> int:
         rec[f"{key}_segments"] = segment_stats(coords, valid, nx)
         del depth, ctx, coords, valid, vol
     if want("step"):
-        rec.update(batched_step_profile())
+        rec.update(step_profile("on"))
+        rec.update(step_profile("off"))
     if want("K2"):
         for name, table, coords in k2_fwd_cases():
             rec[f"K2_{name}_ms"] = time_cuda(lambda: k2._launch_fwd(

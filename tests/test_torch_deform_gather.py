@@ -57,13 +57,13 @@ def _inputs(P, seed=0, B=2, H=2, hd=8, Nq=12, spill=0.2):
     return value, locs, w
 
 
-def _jax_k1(value, locs, w):
+def _jax_k1(value, locs, w, shapes=SHAPES):
     """The Pallas weighted gather in the layout deform_attn.py gives it
     (jnp throughout, so that ``jax.vjp`` reaches the kernel's VJP)."""
     B, Nv, H, hd = value.shape
     Nq, P = locs.shape[1], locs.shape[4]
     tables, coords, weights, start = [], [], [], 0
-    for l, (X, Y, Z) in enumerate(SHAPES):
+    for l, (X, Y, Z) in enumerate(shapes):
         n = X * Y * Z
         v = value[:, start:start + n].reshape(B, X, Y, Z, H, hd)
         tables.append(v.transpose(0, 4, 1, 2, 3, 5).reshape(B * H, X * Y, Z * hd))
@@ -71,7 +71,7 @@ def _jax_k1(value, locs, w):
         coords.append(g.transpose(0, 2, 1, 3, 4).reshape(B * H, Nq * P, 3))
         weights.append(w[:, :, :, l].transpose(0, 2, 1, 3).reshape(B * H, Nq * P))
         start += n
-    outs = fused_multilevel_weighted_gather(tables, SHAPES, hd, coords, weights, P,
+    outs = fused_multilevel_weighted_gather(tables, shapes, hd, coords, weights, P,
                                             s_block=P * 8, interpret=True)
     out = sum(outs[1:], outs[0])  # [B*H, hd, Nq]
     return out.reshape(B, H, hd, Nq).transpose(0, 3, 1, 2)
@@ -166,6 +166,96 @@ def test_row_path_order_of_sums_matches_plain_and_pallas(lanes):
     ref = _jax_k1(*(jnp.asarray(a) for a in (value, locs, w)))
     np.testing.assert_allclose(got.numpy(), plain.numpy(), atol=ATOL)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=ATOL)
+
+
+def _fixed_order_d_value(value, locs, w, gout, shapes):
+    """K1-bwd's d_value as csrc/ms_deform_gather3d.cu and csrc/ordered_rows.cuh
+    form it, in float32: a term (row, corner, sample, w * corner_weight) for
+    every in-range corner (dx, dy, dz) of every sample, the row being
+    d_value's (b * Nv + v) * H + h and the corner numbered dx * 4 + dy * 2 +
+    dz (the kernel reads a row's terms from the bins of its 8 neighbour lower
+    corners, corner by corner, each bin in ascending sample order); the terms
+    sorted by (row, corner, sample); each row's w * corner_weight *
+    gout[sample's (b, q, h)] added in that order."""
+    B, Nv, H, hd = value.shape
+    Nq, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
+    sample = torch.arange(B * Nq * H * L * P).view(B, Nq, H, L, P)
+    b_idx = torch.arange(B).view(B, 1, 1, 1)
+    h_idx = torch.arange(H).view(1, 1, H, 1)
+    rows, corners, items, wts, start = [], [], [], [], 0
+    for l, size in enumerate(shapes):
+        X, Y, Z = size
+        axes = []
+        for i, n in enumerate(size):  # unnormalize, with the kernel's clamp
+            g = locs[:, :, :, l, :, i] * 2.0 - 1.0
+            pix = (((g + 1.0) * n - 1.0) * 0.5).clamp(-2.0, n + 1.0)
+            f = pix.floor()
+            axes.append((f.long(), (1.0 - (pix - f), pix - f)))
+        a = w[:, :, :, l].float()
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    (xi, yi, zi) = (ax[0] + d for ax, d in zip(axes, (dx, dy, dz)))
+                    ok = ((xi >= 0) & (xi < X) & (yi >= 0) & (yi < Y) & (zi >= 0) & (zi < Z))
+                    row = (b_idx * Nv + start + (xi * Y + yi) * Z + zi) * H + h_idx
+                    cw = a * (axes[0][1][dx] * axes[1][1][dy] * axes[2][1][dz])
+                    rows.append(row[ok])
+                    corners.append(torch.full_like(row[ok], dx * 4 + dy * 2 + dz))
+                    items.append(sample[:, :, :, l][ok])
+                    wts.append(cw[ok])
+        start += X * Y * Z
+    rows, corners, items, wts = (torch.cat(t) for t in (rows, corners, items, wts))
+    order = torch.argsort((rows * 8 + corners) * sample.numel() + items)
+    rows, items, wts = rows[order], items[order], wts[order]
+    first = torch.searchsorted(rows, rows)  # the first entry of each entry's row
+    rank = torch.arange(rows.numel()) - first
+    src = gout.reshape(-1, hd).float()
+    d = torch.zeros(B * Nv * H, hd)
+    for k in range(int(rank.max()) + 1 if rank.numel() else 0):
+        sel = rank == k  # at most one entry of each row: the rows' k-th terms
+        d[rows[sel]] = d[rows[sel]] + wts[sel, None] * src[items[sel] // (L * P)]
+    return d.view(B, Nv, H, hd)
+
+
+# three level sizes, largest first: with the smallest level first the Pallas
+# kernel's forward already disagrees with F.grid_sample (by 0.43 at
+# [(2, 2, 2), (4, 4, 2), (8, 8, 4)])
+SHAPES3 = [(8, 8, 4), (4, 4, 2), (2, 2, 2)]
+
+
+@pytest.mark.parametrize("spill", [0.0, 0.3])
+def test_fixed_order_d_value_matches_plain_and_pallas_vjp(spill):
+    """K1-bwd's d_value has no CPU mode: its formulation (each row's terms
+    corner by corner, each corner's in ascending sample order) in torch against
+    autograd through the plain version and ``jax.vjp`` of the Pallas gather,
+    atol 1e-5 (float32, other summation orders), over three level sizes at
+    locations inside, on and beyond the edges: on the lattice of voxel
+    centres and faces (a zero lerp weight), exactly 0 and 1, and up to
+    ``spill`` past [0, 1]."""
+    B, H, hd, Nq, P = 2, 2, 8, 12, 4
+    rng = np.random.RandomState(11)
+    Nv = sum(x * y * z for x, y, z in SHAPES3)
+    value = rng.randn(B, Nv, H, hd).astype(np.float32)
+    locs = rng.uniform(-spill, 1 + spill, (B, Nq, H, len(SHAPES3), P, 3)).astype(np.float32)
+    for l, size in enumerate(SHAPES3):  # every third sample on an edge
+        n = np.asarray(size, np.float32)
+        k = rng.randint(0, 2 * n.max() + 1, (B, Nq, H, P, 3)).astype(np.float32)
+        edge = np.where(rng.rand(B, Nq, H, P, 3) < 0.2, np.float32(rng.randint(0, 2)),
+                        k / (2 * n))  # k / (2n): a voxel face or centre
+        pick = rng.rand(B, Nq, H, P, 1) < 1 / 3
+        locs[:, :, :, l] = np.where(pick, edge, locs[:, :, :, l])
+    w = rng.rand(B, Nq, H, len(SHAPES3), P).astype(np.float32)
+    gout = rng.randn(B, Nq, H, hd).astype(np.float32)
+    got = _fixed_order_d_value(torch.from_numpy(value), torch.from_numpy(locs),
+                               torch.from_numpy(w), torch.from_numpy(gout), SHAPES3)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in (value, locs, w)]
+    k1.ms_deform_gather_3d_plain(leaves[0], SHAPES3, leaves[1], leaves[2]).backward(
+        torch.from_numpy(gout))
+    _, vjp = jax.vjp(lambda v, lo, a: _jax_k1(v, lo, a, SHAPES3),
+                     *(jnp.asarray(a) for a in (value, locs, w)))
+    ref = np.asarray(vjp(jnp.asarray(gout))[0])
+    np.testing.assert_allclose(got.numpy(), leaves[0].grad.numpy(), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), ref, atol=ATOL)
 
 
 @pytest.mark.parametrize("hd,dtype,ptrs,want", [

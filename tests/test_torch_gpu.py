@@ -13,14 +13,15 @@ The file imports no JAX, so it also runs where JAX is absent:
     python -m pytest --noconftest tests/test_torch_gpu.py -q
 
 Tolerances, relative to max |plain|: float32 1e-5 for the forwards and 1e-4
-for the gradients (the same float32 sums in another order; K1-bwd's d_value
-adds atomics per element in an order that changes from run to run, while
-both K2-bwd paths sum each output in a fixed order, the segmented one each
-voxel's points in ascending point order, the narrow one each (x, y)
-column's, and repeat themselves bit for bit); bfloat16 1e-2 (the kernels round their outputs to bf16; the plain
-versions run in float32 on the same bf16-rounded inputs).  K3 1e-6
-absolute: it adds the plain version's float32 terms in its order.  P1 and
-P2 exactly (one float32 add; a copy).
+for the gradients (the same float32 sums in another order; every backward
+sums each output in a fixed order and repeats itself bit for bit: K1-bwd's
+d_value and K4-bwd's d_tables each row's terms in ascending sample order,
+the segmented K2-bwd each voxel's points in ascending point order, the
+narrow one each (x, y) column's); bfloat16 1e-2 (the kernels round their
+outputs to bf16; the plain versions run in float32 on the same bf16-rounded
+inputs).  K3 1e-6 absolute, and exactly where the test says so: it adds
+the plain version's float32 terms in its order.  P1 and P2 exactly (one
+float32 add; a copy).
 """
 import numpy as np
 import pytest
@@ -130,8 +131,8 @@ def test_k1_scalar_path_for_other_rows(cuda):
 @pytest.mark.parametrize("hd", [24, 40, 12])
 def test_k1_backward_matches_plain_autograd(cuda, dtype, hd):
     """K1-bwd's d_value, d_locs, d_weights against autograd through the
-    plain version; a 4-lane group walks 8 * hd / 4 (corner, quad) units, 3
-    at a time: twelve per lane at hd = 24, twenty at 40, six at 12."""
+    plain version: rows of three, five and one and a half 16-byte chunks
+    (hd = 12 in bf16 and float32 takes 8-byte and 16-byte chunks)."""
     dt = getattr(torch, dtype)
     value, locs, w = _inputs(cuda, dt, hd=hd, seed=1)
     _k1_backward_against_plain(value, locs, w)
@@ -150,8 +151,10 @@ def _k1_backward_against_plain(value, locs, w, shapes=SHAPES):
     assert k1.BWD_LAUNCHES == before + 1
     refs = [t.detach().float().requires_grad_(True) for t in (value, locs, w)]
     k1.ms_deform_gather_3d_plain(refs[0], shapes, refs[1], refs[2]).backward(gout.float())
-    for name, got, ref in zip(("d_value", "d_locs", "d_weights"), leaves, refs):
+    again = k1._launch_bwd(value, shapes, locs, w, gout)
+    for name, got, ref, rep in zip(("d_value", "d_locs", "d_weights"), leaves, refs, again):
         assert got.grad.dtype == got.dtype
+        assert torch.equal(got.grad, rep), f"K1-bwd {name}: two calls differ"
         _close(got.grad, ref.grad, _tol(dt, grad=True), f"K1-bwd {name}")
 
 
@@ -178,7 +181,8 @@ def test_k1_backward_at_local_locations(cuda, dtype, hd):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_k1_backward_with_one_channel_units(cuda, dtype):
     """hd = 6 (not a multiple of 4) and a value tensor 2 elements into its
-    storage (not aligned for vector access) take the scalar units."""
+    storage (not aligned for 16-byte access) take narrower chunks on the same
+    fixed-order path (there is no atomic path)."""
     dt = getattr(torch, dtype)
     value, locs, w = _inputs(cuda, dt, hd=6, seed=3)
     _k1_backward_against_plain(value, locs, w)
@@ -187,6 +191,38 @@ def test_k1_backward_with_one_channel_units(cuda, dtype):
     offset.copy_(value8)
     assert offset.data_ptr() % 16 != 0
     _k1_backward_against_plain(offset, locs, w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("local", [False, True])
+def test_k1_backward_at_the_flagship_shapes(cuda, dtype, local):
+    """K1-bwd at the pixel decoder's shapes (Nq = 37376, H = 8, hd = 24,
+    levels (16,16,2), (32,32,4), (64,64,8), P = 4), at uniform and at local
+    locations: within the gradient tolerance of the plain version's
+    autograd, two calls bit-equal."""
+    from occformer_tpu_torch.tools.time_backwards import flagship_gather_inputs
+
+    value, shapes, locs, w = flagship_gather_inputs(getattr(torch, dtype), local)
+    _k1_backward_against_plain(value, locs, w, shapes)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k1_backward_with_crowded_and_empty_rows(cuda, dtype):
+    """Every sample of the first level inside its 2 x 2 x 2 voxels (4800
+    samples a (b, h): rows too long to sort in shared memory, summed by the
+    heavy-row kernel), the second level's samples crowded into one corner
+    (rows of hundreds, sorted by a block; most rows empty)."""
+    dt = getattr(torch, dtype)
+    shapes = [(2, 2, 2), (16, 16, 4)]
+    rng = np.random.RandomState(7)
+    B, H, hd, Nq, P = 1, 2, 8, 1200, 4
+    Nv = sum(x * y * z for x, y, z in shapes)
+    locs = np.empty((B, Nq, H, 2, P, 3), np.float32)
+    locs[:, :, :, 0] = rng.uniform(0.3, 0.7, (B, Nq, H, P, 3))
+    locs[:, :, :, 1] = rng.uniform(0.0, 0.2, (B, Nq, H, P, 3))
+    value = torch.from_numpy(rng.randn(B, Nv, H, hd).astype(np.float32)).to(cuda, dt)
+    w = torch.from_numpy(rng.rand(B, Nq, H, 2, P).astype(np.float32)).to(cuda, dt)
+    _k1_backward_against_plain(value, torch.from_numpy(locs).to(cuda), w, shapes)
 
 
 def test_kernel_rejects_what_it_does_not_take(cuda):
@@ -491,6 +527,21 @@ def _k3_inputs(dev, spatial, B=2, N=4, G=17, S=3000, P=200, seed=0):
     return [torch.from_numpy(a).to(dev) for a in (grid, ids, shared, per_slot)]
 
 
+@pytest.mark.parametrize("S", [3000, 3001, 3])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_k3_is_the_plain_version_bit_for_bit(cuda, S, align_corners, padding_mode):
+    """K3 equals the plain version exactly: the shared kernel (a point a
+    thread) and the per-slot one (two points a thread, 8-byte stores where
+    the row's length keeps them aligned, paired label loads), at per-slot
+    point counts that are and are not even."""
+    grid, ids, shared, per_slot = _k3_inputs(cuda, (40, 24, 12), S=S, P=S + 1)
+    for pts in (shared, per_slot):
+        got = k3.sample_id_masks(grid, ids, pts, align_corners, padding_mode)
+        ref = k3.sample_id_masks_plain(grid, ids, pts, align_corners, padding_mode)
+        assert torch.equal(got, ref)
+
+
 @pytest.mark.parametrize("spatial", [(16, 8, 4), (40, 24, 12)])
 @pytest.mark.parametrize("align_corners", [False, True])
 @pytest.mark.parametrize("padding_mode", ["zeros", "border"])
@@ -592,10 +643,14 @@ def _k4_against_plain(tables, coords, spatials, C, align_corners, dtype):
     pc = [c.detach().clone().requires_grad_(True) for c in coords]
     ref = k1.fused_multilevel_gather_plain(pl, spatials, C, pc, align_corners)
     torch.autograd.backward(ref, [g.float() for g in gouts])
+    d_tables, d_coords = k1._launch_multi_bwd(tables, spatials, C, coords, gouts, align_corners,
+                                              True)
     for l, (g, r) in enumerate(zip(got, ref)):
         assert g.dtype == dtype and g.shape == r.shape
         _close(g, r, _tol(dtype), f"K4 level {l}")
         assert tl[l].grad.dtype == dtype and cl[l].grad.dtype == torch.float32
+        assert torch.equal(tl[l].grad, d_tables[l]) and torch.equal(cl[l].grad, d_coords[l]), \
+            f"K4-bwd level {l}: two calls differ"
         _close(tl[l].grad, pl[l].grad, _tol(dtype, grad=True), f"K4-bwd level {l} d_table")
         _close(cl[l].grad, pc[l].grad, _tol(dtype, grad=True), f"K4-bwd level {l} d_coords")
 
@@ -624,6 +679,24 @@ def test_k4_matches_plain_at_the_deformable_attention_shapes(cuda):
     tables, coords = _k4_inputs(cuda, torch.bfloat16, K4_PYRAMID, G=8, C=24, S=149504,
                                 spill=1.036)
     _k4_against_plain(tables, coords, K4_PYRAMID, 24, False, torch.bfloat16)
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_backward_with_crowded_and_empty_rows(cuda, align_corners, dtype):
+    """A 2 x 2 x 2 level every sample of which lies inside (4400 samples a
+    g: rows summed by the heavy-row kernel) and a 16 x 16 x 4 level whose
+    samples crowd one corner (rows of hundreds, sorted by a block; most rows
+    empty), C = 8 and C = 6 (narrower chunks)."""
+    rng = np.random.RandomState(11)
+    spatials = [(2, 2, 2), (16, 16, 4)]
+    dt = getattr(torch, dtype)
+    for C in (8, 6):
+        tables = [torch.from_numpy(rng.randn(2, X * Y, Z * C).astype(np.float32)).to(cuda, dt)
+                  for X, Y, Z in spatials]
+        coords = [torch.from_numpy(rng.uniform(lo, hi, (2, 4400, 3)).astype(np.float32)).to(cuda)
+                  for lo, hi in ((-0.4, 0.4), (-1.0, -0.6))]
+        _k4_against_plain(tables, coords, spatials, C, align_corners, dt)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -79,6 +79,87 @@ def test_plain_version_and_its_backward_match_pallas_kernel(spill, align_corners
         _close(cs[l].grad, d_coords_ref[l], 1e-4, f"level {l} d_coords")
 
 
+def _fixed_order_d_tables(coords, gouts, align_corners):
+    """K4-bwd's d_tables as csrc/multilevel_gather3d.cu and
+    csrc/ordered_rows.cuh form them, in float32: a term (row, corner, item,
+    corner_weight) for every in-range corner (dx, dy, dz) of every item
+    (level, g, s), numbered level after level, the row being the d_table row
+    (level, g, voxel) of the levels back to back and the corner dx * 4 + dy
+    * 2 + dz; the terms sorted by (row, corner, item); each row's
+    corner_weight * gout[item] added in that order, gout read as rows
+    [sum_l G * S_l, C]."""
+    rows, corners, items, wts = [], [], [], []
+    row0 = item0 = 0
+    for (X, Y, Z), c in zip(SPATIALS, coords):
+        axes = []
+        for i, n in enumerate((X, Y, Z)):  # ops/sampling.py's unnormalize, the kernel's clamp
+            v = c[..., i]
+            pix = (v + 1) * 0.5 * (n - 1) if align_corners else ((v + 1) * n - 1) * 0.5
+            pix = pix.clamp(-2.0, n + 1.0)
+            f = pix.floor()
+            axes.append((f.long(), (1.0 - (pix - f), pix - f)))
+        g = torch.arange(G).view(G, 1)
+        item = item0 + torch.arange(G * S).view(G, S)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    xi, yi, zi = (ax[0] + d for ax, d in zip(axes, (dx, dy, dz)))
+                    ok = (xi >= 0) & (xi < X) & (yi >= 0) & (yi < Y) & (zi >= 0) & (zi < Z)
+                    rows.append((row0 + g * X * Y * Z + (xi * Y + yi) * Z + zi)[ok])
+                    corners.append(torch.full_like(rows[-1], dx * 4 + dy * 2 + dz))
+                    items.append(item[ok])
+                    wts.append((axes[0][1][dx] * axes[1][1][dy] * axes[2][1][dz])[ok])
+        row0 += G * X * Y * Z
+        item0 += G * S
+    rows, corners, items, wts = (torch.cat(t) for t in (rows, corners, items, wts))
+    order = torch.argsort((rows * 8 + corners) * item0 + items)
+    rows, items, wts = rows[order], items[order], wts[order]
+    rank = torch.arange(rows.numel()) - torch.searchsorted(rows, rows)
+    src = torch.cat([go.transpose(1, 2).reshape(-1, C) for go in gouts])
+    d = torch.zeros(row0, C)
+    for k in range(int(rank.max()) + 1):
+        sel = rank == k  # at most one entry of each row: the rows' k-th terms
+        d[rows[sel]] = d[rows[sel]] + wts[sel, None] * src[items[sel]]
+    out, r = [], 0
+    for X, Y, Z in SPATIALS:
+        out.append(d[r:r + G * X * Y * Z].view(G, X * Y, Z * C))
+        r += G * X * Y * Z
+    return out
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("spill", [0.0, 0.6])
+def test_fixed_order_d_tables_match_plain_and_pallas_vjp(spill, align_corners):
+    """K4-bwd's d_tables have no CPU mode: their formulation (each row's
+    terms corner by corner, each corner's in ascending item order) in torch against
+    autograd through the plain version and ``jax.vjp`` of the Pallas
+    kernel, within 1e-5 of max |ref| (float32, other summation orders), on
+    the three levels, with a third of the points on the lattice of voxel
+    centres and faces or at exactly -1 and 1, the rest spilling ``spill``
+    past [-1, 1]."""
+    tables, coords = _inputs(spill, seed=3)
+    rng = np.random.RandomState(4)
+    for c, (X, Y, Z) in zip(coords, SPATIALS):
+        n = np.asarray((X, Y, Z), np.float32)
+        lattice = rng.randint(0, 2 * n.max() + 1, c.shape) / (2 * n) * 2 - 1
+        edge = np.where(rng.rand(*c.shape) < 0.2, rng.choice([-1.0, 1.0], c.shape), lattice)
+        c[:] = np.where(rng.rand(G, S, 1) < 1 / 3, edge, c).astype(np.float32)
+    gouts = [rng.randn(G, C, S).astype(np.float32) for _ in SPATIALS]
+    got = _fixed_order_d_tables([torch.from_numpy(c) for c in coords],
+                                [torch.from_numpy(g) for g in gouts], align_corners)
+    ts = [torch.from_numpy(t).requires_grad_(True) for t in tables]
+    out = k4.fused_multilevel_gather(ts, SPATIALS, C, [torch.from_numpy(c) for c in coords],
+                                     align_corners)
+    torch.autograd.backward(out, [torch.from_numpy(g) for g in gouts])
+    _, vjp = jax.vjp(lambda t: jax_multi(t, SPATIALS, C, [jnp.asarray(c) for c in coords],
+                                         align_corners, s_block=32, interpret=True),
+                     [jnp.asarray(t) for t in tables])
+    refs = vjp([jnp.asarray(g) for g in gouts])[0]
+    for l in range(len(SPATIALS)):
+        _close(got[l], ts[l].grad.numpy(), 1e-5, f"level {l} against the plain version")
+        _close(got[l], refs[l], 1e-5, f"level {l} against the Pallas VJP")
+
+
 def test_bf16_tables_keep_their_dtype_and_round_once():
     """bf16 tables: the result is the float32 sum rounded once to bf16."""
     tables, coords = _inputs(0.3, seed=1)

@@ -273,6 +273,30 @@ def test_resize_trilinear_matches_jax(size, align_corners):
     np.testing.assert_allclose(got, ref, atol=ATOL)
 
 
+@pytest.mark.parametrize("size", [(8, 6, 4), (7, 5, 3), (4, 3, 2)])
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_resize_trilinear_backward_matches_jax_vjp(size, align_corners):
+    """The resize's backward (the separable adjoint through the 1-D
+    interpolation matrices, which repeats itself on the card) against
+    ``jax.vjp`` of the JAX resize and autograd through ``F.interpolate``,
+    atol 1e-5 (float32, other summation orders); (8, 6, 4) is the FPN's
+    factor-2 upsample, (4, 3, 2) the identity."""
+    import jax
+
+    rng = np.random.RandomState(5)
+    vol = rng.randn(1, 4, 3, 2, 5).astype(np.float32)
+    g = rng.randn(1, *size, 5).astype(np.float32)
+    leaf = _t(vol).requires_grad_(True)
+    resize_trilinear(leaf, size, align_corners).backward(_t(g))
+    _, vjp = jax.vjp(lambda v: j_resize(v, size, align_corners), jnp.asarray(vol))
+    np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(vjp(jnp.asarray(g))[0]), atol=ATOL)
+    ref = _t(vol).requires_grad_(True)
+    torch.nn.functional.interpolate(ref.permute(0, 4, 1, 2, 3), size=size, mode="trilinear",
+                                    align_corners=align_corners).permute(0, 2, 3, 4, 1).backward(
+        _t(g))
+    np.testing.assert_allclose(leaf.grad.numpy(), ref.grad.numpy(), atol=ATOL)
+
+
 @pytest.mark.parametrize("out_size", [(4, 2, 2), (3, 5, 2)])
 def test_adaptive_max_pool3d_matches_jax(out_size):
     rng = np.random.RandomState(4)

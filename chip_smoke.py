@@ -9,8 +9,8 @@ Phases, each printing one JSON line:
                  csrc/probe.cu and holds P1 (add_one) and P2 (row_gather)
                  exactly against their plain versions, then times them, x + 1
                  and index_select (by events and by the profiler's device
-                 time) and torch.gather; a broken toolchain fails here in
-                 seconds.
+                 time), an empty kernel (the launch floor) and torch.gather;
+                 a broken toolchain fails here in seconds.
   1. build:      compile every other CUDA kernel of the package from its
                  sources, one nvcc per source, all started together.
   2. serve:      the flagship config (occformer_nusc_r50_256x704) at full
@@ -56,7 +56,9 @@ Phases, each printing one JSON line:
                  a zeros / align_corners=True case on a 40x24x12 grid; the
                  K4 parity gate, K4 at its small shapes also by device time,
                  and at the flagship's shapes K4's row-wide path (two calls
-                 bit-equal) beside its scalar path, in bf16 and float32.
+                 bit-equal) beside its scalar path, in bf16 and float32; K4
+                 and K4-bwd at the DepthNet DCN's shapes (two K4-bwd calls
+                 bit-equal) beside F.grid_sample 2-D forward and backward.
   4. tiny:       the tiny test model's forward on the card (kernels) against
                  the same model on the CPU (plain versions), float32.
   5. tiny_train: the tiny model's train step on the card against the same
@@ -65,26 +67,23 @@ Phases, each printing one JSON line:
                  per-layer loss route, on the batched route, and with
                  accum_steps=2 on a 2-sample batch (batched route).
   5b. reload_determinism: pairs of train steps from one reloaded state,
-                 on the tiny CLI model and on the flagship, with the LSS
-                 scatter's atomic order and with only the scatter in
-                 deterministic mode (the default): losses, LSS volumes and
-                 the loss's uncertainty top-k compared bit for bit; the
-                 deterministic mode must repeat them; then on the flagship's
-                 batched loss route with the kernels as they are (its
-                 losses, selections and the loss's gradients must repeat);
-                 every pair also records grad_norm and which parameters'
-                 gradients differ, and the deformable encoder's must repeat
-                 in the deterministic-scatter and batched pairs (C.6: K1-bwd
-                 and the FPN upsample's backward sum in a fixed order; the
-                 tiny model's on cuDNN's deterministic algorithms, its
-                 default ones recorded beside them: C.8); two
-                 more modes, on the tiny model and the flagship, isolate
-                 what still varies upstream (C.7): torch's deterministic
-                 algorithms (warn_only), and the same with the DepthNet
-                 DCN's bilinear sampler read through K4 and K4-bwd, where
-                 every gradient and grad_norm must repeat; and S1 against
-                 its plain version and the scatter's cost per step in both
-                 modes.
+                 on the port's default settings (no torch deterministic mode,
+                 no global cuDNN switch, cuDNN's TF32 as torch sets it), on
+                 the tiny CLI model and on the flagship, with the LSS
+                 scatter's atomic order (C.4's record) and as the port runs
+                 (the default), then on the flagship's batched loss route:
+                 losses, LSS volumes, the loss's uncertainty selections,
+                 grad_norm and every parameter's gradient compared bit for
+                 bit, and on the batched route the loss's gradients; every
+                 pair of the port as it runs must repeat them all (C.6-C.8);
+                 then each convolution of the tiny model and of the
+                 flagship, and the tiny model's linear, norm and window
+                 attention modules, replayed at the inputs their step gave
+                 them: none may vary as the model runs it, and those whose
+                 cuDNN default backward varies, with and without TF32, are
+                 named and timed beside cuDNN's deterministic backward; and
+                 S1 against its plain version and the scatter's cost per
+                 step in both modes.
   6. train:      the flagship's train step at full width and depth, float32
                  parameters under bfloat16 autocast, batch 1, through
                  build_train_step on the per-layer loss route: 1 warm-up
@@ -95,13 +94,25 @@ Phases, each printing one JSON line:
                  (mxu_readout="on"), plus both routes' losses and Hungarian
                  assignments on one float32 copy of a step's model outputs
                  with one set of draws.
-  8. cli:        the train and test CLIs at the flagship's full width on
+  8. data:       the flagship's nuScenes pipeline on a tree that
+                 data/fixtures.py:make_nuscenes_tree writes (8 samples at a
+                 forward-looking camera rig, 34000 LiDAR points): the host
+                 ms per sample of the train and test pipelines by step, the
+                 loader's rate alone and beside train steps, then the
+                 flagship's train step over the epoch of pipeline batches and
+                 the served frames of the test split (launch counts, finite
+                 losses, the LiDAR inside the grid, depth in every camera),
+                 beside the same on synthetic batches.
+  9. cli:        the train and test CLIs at the flagship's full width on
                  SyntheticOccDataset (--cfg-options), as subprocesses in a
                  temporary work directory outside the repo: 2 steps, then a
                  resume at step 2 to step 4, then tools.test on step_4 over 2
                  samples; in process, step_2 loaded into a fresh model and
-                 optimizer and held bit-equal to the saved file.
-In phases 0, 2, 6 and 7 and in the K4 parity gate every kernel's launch
+                 optimizer and held bit-equal to the saved file; then on the
+                 config's own CustomNuScenesOccLSSDataset over the data
+                 phase's tree: 2 steps, and tools.test over 2 samples with its
+                 per-class IoU table.
+In phases 0, 2, 6, 7 and 8 and in the K4 parity gate every kernel's launch
 count is set to 0 just before the path is driven and read just after; each
 must match its per-frame, per-step or per-run count.  The CLIs report their
 own counts, which must show their kernels.  Then the card's name and power
@@ -122,6 +133,8 @@ import sys
 import tempfile
 import time
 
+import numpy as np
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r50_256x704.py")
 
@@ -133,20 +146,25 @@ CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r5
 # same three point sets); PERF.md states the same counts.  "K2-bwd" counts
 # both of its paths, "K2-bwd.narrow" the narrow one: the per-layer route's
 # C = 192 feature takes the segmented path, the batched route's C = 17 and
-# C = 1 per-slot volumes the narrow one
+# C = 1 per-slot volumes the narrow one.  The DepthNet's deformable
+# convolution reads its taps through K4 (one level of Z = 1, its 512 input
+# channels in bf16 rows of whole 16-byte vectors: K4's row-wide path) once a
+# frame and a step, and K4-bwd once a step
 _NONE = {"K1": 0, "K1.row": 0, "K1-bwd": 0, "K2": 0, "K2.row": 0, "K2-bwd": 0,
          "K2-bwd.narrow": 0, "K3": 0, "K4": 0, "K4.row": 0, "K4-bwd": 0, "P1": 0, "P2": 0,
          "S1": 0}
 # "K1.row": the deformable attention's hd = 24 rows take K1's row-wide path
-SERVE_LAUNCHES = dict(_NONE, **{"K1": 6, "K1.row": 6, "S1": 1})
+SERVE_LAUNCHES = dict(_NONE, **{"K1": 6, "K1.row": 6, "K4": 1, "K4.row": 1, "S1": 1})
 # "K2.row": the per-layer route's 30 readouts of the bf16 C = 192 feature
 # take K2's row-wide path, its 30 GT-mask readouts (bool, C = 1) the narrow
 # ("scalar") one; the batched route's C = 100 bf16 and C = 17 / 1 float32
 # volumes all take the narrow path
-TRAIN_LAUNCHES = {"off": dict(_NONE, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 60,
-                                        "K2.row": 30, "K2-bwd": 20, "S1": 1}),
-                  "on": dict(_NONE, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 3,
-                                       "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3, "S1": 1})}
+_DCN = {"K4": 1, "K4.row": 1, "K4-bwd": 1}
+TRAIN_LAUNCHES = {"off": dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 60,
+                                                "K2.row": 30, "K2-bwd": 20, "S1": 1}),
+                  "on": dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 3,
+                                               "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3,
+                                               "S1": 1})}
 # the K4 parity gate: bench.py's shapes at both align_corners and the
 # flagship shapes, one forward (the row-wide path: C = 24 rows) and one
 # backward each; the probe: P1 and P2 once
@@ -743,7 +761,7 @@ def k4_inputs(case, dtype=None):
     return inputs(case, dtype)
 
 
-def k4_check(tables, coords, C, align_corners, name):
+def k4_check(tables, coords, C, align_corners, name, spatials=K4_PYRAMID):
     """K4 and K4-bwd through the autograd Function against the plain
     version's autograd: values, d_tables and d_coords of a random linear
     probe.  Tolerances relative to max |plain|: float32 1e-5 values and 1e-4
@@ -758,14 +776,14 @@ def k4_check(tables, coords, C, align_corners, name):
     dtype = tables[0].dtype
     tl = [t.detach().clone().requires_grad_(True) for t in tables]
     cl = [c.detach().clone().requires_grad_(True) for c in coords]
-    got = k4.fused_multilevel_gather(tl, K4_PYRAMID, C, cl, align_corners)
+    got = k4.fused_multilevel_gather(tl, spatials, C, cl, align_corners)
     g = torch.Generator(device="cuda").manual_seed(7)
     gouts = [torch.randn(o.shape, device="cuda", generator=g).to(dtype) for o in got]
     torch.autograd.backward(got, gouts)
     torch.cuda.synchronize()
     pl = [t.detach().float().requires_grad_(True) for t in tables]
     pc = [c.detach().clone().requires_grad_(True) for c in coords]
-    ref = k4.fused_multilevel_gather_plain(pl, K4_PYRAMID, C, pc, align_corners)
+    ref = k4.fused_multilevel_gather_plain(pl, spatials, C, pc, align_corners)
     torch.autograd.backward(ref, [x.float() for x in gouts])
     f32 = dtype == torch.float32
     rec = {"values": [compare(a, b, 1e-5 if f32 else 1e-2, f"K4 {name} level {l}")
@@ -918,6 +936,90 @@ def phase_k4():
     return rec
 
 
+def phase_k4_dcn():
+    """K4 and K4-bwd as the DepthNet's deformable convolution runs them
+    (``tools/time_backwards.py:dcn_inputs``: one level of Z = 1, [6, 704,
+    512], 6336 taps a camera, align_corners=True): held against the plain
+    version in bf16 (1e-2) and float32 (1e-5 values, 1e-4 gradients), two
+    K4-bwd calls bit-equal; then K4, K4-bwd (its workspace and d_coords
+    included, and without d_coords), the plain version and its autograd
+    timed, beside the library's call on the parent's route: ``F.grid_sample``
+    2-D (bilinear, zeros, align_corners=True) on the float32 channels-first
+    map, forward and its backward in the map and the grid."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import trilerp_fused as k4
+    from occformer_tpu_torch.tools.time_backwards import dcn_inputs
+
+    tables, coords, C, spatials = dcn_inputs()
+    rec = {"shapes": {"table": list(tables[0].shape), "coords": list(coords[0].shape),
+                      "spatials": spatials},
+           "bf16": k4_check(tables, coords, C, True, "DCN bf16", spatials)}
+    t32, c32, _, _ = dcn_inputs(torch.float32)
+    rec["f32"] = k4_check(t32, c32, C, True, "DCN f32", spatials)
+    check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == "row",
+          "K4 DCN: not the row-wide path")
+    outs = k4._launch_multi_fwd(tables, spatials, C, coords, True)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    gouts = [torch.randn(o.shape, device="cuda", generator=g).to(o.dtype) for o in outs]
+    a = k4._launch_multi_bwd(tables, spatials, C, coords, gouts, True, True)
+    b = k4._launch_multi_bwd(tables, spatials, C, coords, gouts, True, True)
+    check(all(torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1])),
+          "K4-bwd DCN: two calls differ")
+    del a, b
+    G, S = coords[0].shape[:2]
+    fwd = {"max_abs_err": max(r["max_abs_err"] for r in rec["bf16"]["values"]),
+           "kernel_ms": time_cuda(lambda: k4._launch_multi_fwd(tables, spatials, C, coords,
+                                                                True)),
+           "device_ms": device_ms(lambda: k4._launch_multi_fwd(tables, spatials, C, coords,
+                                                                True)),
+           "plain_ms": time_cuda(lambda: k4.fused_multilevel_gather_plain(
+               tables, spatials, C, coords, True), iters=10)}
+    bwd = {"max_abs_err": max(r["max_abs_err"] for k in ("d_tables", "d_coords")
+                              for r in rec["bf16"][k]),
+           "bit_identical_calls": True,
+           "kernel_ms": time_cuda(lambda: k4._launch_multi_bwd(
+               tables, spatials, C, coords, gouts, True, True)),
+           "device_ms": device_ms(lambda: k4._launch_multi_bwd(
+               tables, spatials, C, coords, gouts, True, True)),
+           "kernel_ms_without_d_coords": time_cuda(lambda: k4._launch_multi_bwd(
+               tables, spatials, C, coords, gouts, True, False)),
+           "workspace_bytes": 4 * int(k4._multi_fn("multilevel_gather3d_bwd_workspace")(
+               1, k4._multi_dims(spatials, coords), G))}
+    pl = [t.detach().clone().requires_grad_(True) for t in tables]
+    pc = [c.detach().clone().requires_grad_(True) for c in coords]
+    p_out = k4.fused_multilevel_gather_plain(pl, spatials, C, pc, True)
+    bwd["plain_ms"] = time_cuda(lambda: torch.autograd.grad(p_out, pl + pc, gouts,
+                                                            retain_graph=True), iters=10)
+    del p_out, pl, pc
+    # the parent's route: the float32 channels-first map, the grid (x, y)
+    (H, W, _), = spatials
+    vol = tables[0].float().reshape(G, H, W, C).permute(0, 3, 1, 2).contiguous()
+    grid = coords[0][..., :2].flip(-1).reshape(G, S, 1, 2).contiguous()
+    fwd["library_ms"] = time_cuda(lambda: F.grid_sample(
+        vol, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    fwd["library_device_ms"] = device_ms(lambda: F.grid_sample(
+        vol, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
+    vl, gl = vol.requires_grad_(True), grid.requires_grad_(True)
+    lib_out = F.grid_sample(vl, gl, mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib_gout = gouts[0].float().reshape(lib_out.shape)
+    bwd["library_ms"] = time_cuda(lambda: torch.autograd.grad(lib_out, (vl, gl), lib_gout,
+                                                              retain_graph=True), iters=10)
+    bwd["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
+        lib_out, (vl, gl), lib_gout, retain_graph=True), iters=10)
+    bwd["library_calls"] = fwd["library_calls"] = 1
+    del vol, grid, vl, gl, lib_out, lib_gout
+    # every input read once, every output written once; 8 corner FMAs per
+    # (sample, channel) forward, 8 x 4 operations backward (k4_check's count)
+    fwd.update(bound(nbytes(*tables, *coords, *outs), G * S * C * 8 * 2))
+    bwd.update(bound(nbytes(*tables, *coords, *gouts, *tables, *coords), G * S * C * 8 * 4))
+    for r in (fwd, bwd):
+        r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
+    rec["K4"], rec["K4-bwd"] = fwd, bwd
+    return rec
+
+
 def phase_kernels():
     k1_fwd, k1_bwd = phase_k1()
     k2_fwd, k2_bwd = phase_k2()
@@ -926,7 +1028,11 @@ def phase_kernels():
            "K2-bwd": k2_bwd, "K3": phase_k3()}
     free_memory()
     rec["K4_gate"] = phase_k4()
-    rec["K4"], rec["K4-bwd"] = rec["K4_gate"].pop("K4"), rec["K4_gate"].pop("K4-bwd")
+    rec["K4_attention"], rec["K4-bwd_attention"] = (rec["K4_gate"].pop("K4"),
+                                                    rec["K4_gate"].pop("K4-bwd"))
+    free_memory()
+    rec["K4_dcn"] = phase_k4_dcn()
+    rec["K4"], rec["K4-bwd"] = rec["K4_dcn"].pop("K4"), rec["K4_dcn"].pop("K4-bwd")
     emit(rec)
     return rec
 
@@ -951,10 +1057,14 @@ def phase_tiny():
         got = gpu({k: torch.from_numpy(v).cuda() for k, v in batch.items()})
     torch.cuda.synchronize()
     n = {k: v - before[k] for k, v in launches().items()}
-    # 2 deformable encoder layers; hd = 12 float32 rows take K1's row-wide path
-    rec = {"phase": "tiny", "k1_launches": n["K1"], "k1_row_launches": n["K1.row"]}
+    # 2 deformable encoder layers; hd = 12 float32 rows take K1's row-wide
+    # path; the DCN's 64 float32 channels K4's
+    rec = {"phase": "tiny", "k1_launches": n["K1"], "k1_row_launches": n["K1.row"],
+           "k4_launches": n["K4"], "k4_row_launches": n["K4.row"]}
     check(n["K1"] == n["K1.row"] == 2, f"tiny: K1 launched {n['K1']} times "
           f"({n['K1.row']} on the row-wide path), want 2 (2)")
+    check(n["K4"] == n["K4.row"] == 1, f"tiny: K4 launched {n['K4']} times "
+          f"({n['K4.row']} on the row-wide path), want 1 (1)")
     for k, r in ref.items():
         g = got[k].float().cpu()
         err = (g - r).abs().max().item()
@@ -1073,12 +1183,14 @@ def phase_tiny_train(mxu_readout="off", accum_steps=1):
     # K2's row-wide path and K2-bwd's segmented one, the GT masks (C = 5 and
     # 1) K2's narrow path; on the batched route the match volumes' C = 8
     # queries take K2's row-wide path, the per-slot volumes (C = 5 and 1)
-    # K2's narrow path and K2-bwd's narrow one
-    per_micro = (dict(_NONE, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 3, "K2.row": 1,
-                                "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3, "S1": 1})
+    # K2's narrow path and K2-bwd's narrow one; the DCN's sampler K4 (its
+    # row-wide path) and K4-bwd once each
+    per_micro = (dict(_NONE, **_DCN, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 3,
+                                        "K2.row": 1, "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3,
+                                        "S1": 1})
                  if loss_cfg.batched_readout else
-                 dict(_NONE, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 24, "K2.row": 12,
-                                "K2-bwd": 8, "S1": 1}))
+                 dict(_NONE, **_DCN, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 24,
+                                        "K2.row": 12, "K2-bwd": 8, "S1": 1}))
     if n_got != {k: v * accum_steps for k, v in per_micro.items()}:
         failed.append(f"launches {n_got}")
     for k, r in m_ref.items():
@@ -1151,53 +1263,129 @@ def serve_frames(step, batch, frames=4):
     return frames_ms, torch.cuda.max_memory_allocated(), resident, out
 
 
+def backward_repeats(captured, repeats=6):
+    """Whether each captured module's backward repeats itself bit for bit at
+    the inputs it saw, under the autocast it ran in: ``repeats`` calls of
+    ``autograd.grad`` (in its first input where that needs a gradient, and
+    in its parameters) of one forward, on one output gradient, against the
+    first.  ``module``: the module as the model runs it.  For convolutions
+    also ``default``, the plain ``nn.Conv*`` forward, whose backward takes
+    cuDNN's default algorithms (the same as ``module`` but for the
+    convolutions the port gives another backward, ``layers.
+    Conv3dFixedOrderBackward`` and ``Conv2dIm2colBackward``), and
+    ``deterministic``, that plain forward with
+    ``torch.backends.cudnn.deterministic`` on around its backward.  The
+    backwards are timed (CUDA events, median of 5) where the default one
+    varies or the port replaces it.  Returns how many modules were probed
+    and the records of those whose backward varied in some mode or was
+    replaced."""
+    import contextlib
+
+    import torch
+
+    from occformer_tpu_torch.models.layers import (
+        Conv2dIm2colBackward,
+        Conv3dFixedOrderBackward,
+    )
+
+    @contextlib.contextmanager
+    def deterministic(on):
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = on
+        try:
+            yield
+        finally:
+            torch.backends.cudnn.deterministic = before
+
+    convs = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose2d)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    rec = {}
+    for name, (mod, args, kwargs, dtype) in captured.items():
+        x = args[0]
+        params = [p for p in mod.parameters() if p.requires_grad]
+        if not (params or x.requires_grad):
+            continue
+        replaced = isinstance(mod, (Conv3dFixedOrderBackward, Conv2dIm2colBackward))
+        base = torch.nn.Conv3d if isinstance(mod, Conv3dFixedOrderBackward) else torch.nn.Conv2d
+        plain = (lambda *a, m=mod, **k: base.forward(m, *a, **k)) if replaced else mod.forward
+        runs = {"module": (mod.forward, False)}
+        if isinstance(mod, convs):
+            runs.update(default=(plain, False), deterministic=(plain, True))
+        r = {"type": type(mod).__name__, "input": list(x.shape), "dtype": str(x.dtype),
+             "autocast": None if dtype is None else str(dtype), "replaced": replaced}
+        xl = x.detach().clone().requires_grad_(x.requires_grad)
+        leaves = ([xl] if x.requires_grad else []) + params
+        outs = {}
+        with torch.autocast("cuda", dtype=dtype or torch.float32, enabled=dtype is not None):
+            gout = None
+            for how, (fwd, det) in runs.items():
+                outs[how] = fwd(xl, *args[1:], **kwargs)
+                if gout is None:
+                    gout = torch.randn(outs[how].shape, device="cuda", generator=g,
+                                       dtype=outs[how].dtype)
+                first, varies = None, False
+                for _ in range(repeats):
+                    with deterministic(det):
+                        grads = torch.autograd.grad(outs[how], leaves, gout, retain_graph=True)
+                    if first is None:
+                        first = grads
+                    else:
+                        varies |= not all(torch.equal(a, b) for a, b in zip(first, grads))
+                r[f"{how}_varies"] = varies
+            if replaced or r.get("default_varies"):
+                for how in runs:
+                    with deterministic(runs[how][1]):
+                        r[f"{how}_backward_ms"] = time_cuda(lambda: torch.autograd.grad(
+                            outs[how], leaves, gout, retain_graph=True), iters=5, warmup=2)
+        del outs, xl, leaves
+        rec[name] = r
+    return {"probed": len(rec),
+            "varying_or_replaced": {k: r for k, r in rec.items() if r["replaced"] or any(
+                r.get(f"{how}_varies") for how in ("module", "default", "deterministic"))}}
+
+
 def phase_determinism():
-    """Whether a reloaded train step on the card repeats itself bit for bit.
-    A model, optimizer, batch and step seed are fixed; each pair of steps
-    starts from one saved state (model and optimizer reloaded bit for bit)
-    and records every loss, the LSS volume, the loss's uncertainty
-    selections (the per-layer route's top-k index sets, the batched route's
-    0/1 selections), the gradients the loss hands back to the model (of the
-    class logits, mask embeddings and mask feature), grad_norm and every
-    parameter's gradient before the optimizer's global-norm clip
-    (``grads_differ_by_module``: per module, the parameters whose gradients
-    differed in some pair, of those with one; after the clip every gradient
-    differs where grad_norm does).
+    """Whether a reloaded train step on the card repeats itself bit for bit
+    on the port's default settings (no torch deterministic mode, no global
+    cuDNN switch, cuDNN's TF32 as torch sets it).  A model, optimizer, batch
+    and step seed are fixed; each pair of steps starts from one saved state
+    (model and optimizer reloaded bit for bit) and records every loss, the
+    LSS volume, the loss's uncertainty selections (the per-layer route's
+    top-k index sets, the batched route's 0/1 selections), the gradients the
+    loss hands back to the model (of the class logits, mask embeddings and
+    mask feature), grad_norm and every parameter's gradient before the
+    optimizer's global-norm clip (``grads_differ_by_module``: per module,
+    the parameters whose gradients differed in some pair, of those with one;
+    after the clip every gradient differs where grad_norm does).
 
     * Per-layer route (C.4, ops/scatter.py), on the tiny CLI model
       (synthetic_tiny, frozen stem) and on the flagship at full width: pairs
-      with the LSS scatter's atomic order (its plain version, index_add_),
-      then with only the scatter deterministic (S1, the default).
+      with the LSS scatter's atomic order (its plain version, index_add_;
+      C.4's record), then with the port as it is (S1, the default).
     * Batched route (C.5, mxu_readout="on") on the flagship: pairs with the
-      port's kernels as they are.
-    * Isolation on the per-layer route (C.7), tiny and flagship: pairs
-      under torch's deterministic algorithms with warn_only=True and the
-      DCN's sampler read through K4 and K4-bwd.
-    S1's pairs must repeat their losses, volumes and top-k bit for bit, on
-    the tiny model on cuDNN's default algorithms (``default_convolutions``)
-    and on its deterministic ones (C.8); the batched route's pairs must
-    repeat their losses, selections and the loss's gradients; in both, and
-    in the tiny model's pairs on cuDNN's deterministic algorithms, the
-    deformable encoder's gradients must repeat (C.6; grad_norm is recorded,
-    not held: the DepthNet DCN's F.grid_sample backward upstream still
-    varies, C.7); in the isolation mode every gradient and grad_norm must
-    repeat, on the tiny model and the flagship, so that nothing but the
-    DCN's sampler varies.  Then S1 (the
-    splat kernel behind the deterministic mode) on the flagship's captured
-    depth and context at two geometries (``s1_check``): the voxel
-    coordinates of a forward-looking nuScenes rig
-    (``tools/time_backwards.py:NUSCENES_RIG``; S1's record) and those the
-    captured step saw (the synthetic cameras, which look straight up)."""
+      port as it is.
+    Every pair of the port as it is must repeat its losses, volumes,
+    selections, grad_norm and every parameter's gradient (C.6-C.8: K1-bwd,
+    the FPN upsample's backward and the DepthNet DCN's sampler, K4-bwd, sum
+    in a fixed order; the FPN's and the occupancy encoder's input
+    convolutions take cuDNN's deterministic backward, the DepthNet's
+    dilated ASPP branches of dilation 12 and 18 an im2col one),
+    and the batched pairs the loss's gradients too.  Then the modules of the
+    tiny model and the flagship's convolutions at the inputs their step gave
+    them (``backward_repeats``): none may vary as the model runs it; which
+    vary on cuDNN's default algorithms is recorded (C.8).  Then S1 (the
+    splat kernel behind the default mode) on the flagship's captured depth
+    and context at two geometries (``s1_check``): the voxel coordinates of a
+    forward-looking nuScenes rig (``tools/time_backwards.py:NUSCENES_RIG``;
+    S1's record) and those the captured step saw (the synthetic cameras,
+    which look straight up)."""
     import copy
 
     import numpy as np
     import torch
 
-    import contextlib
-
     import occformer_tpu_torch.engine.train as train_mod
     import occformer_tpu_torch.losses.mask2former_loss as loss_mod
-    import occformer_tpu_torch.models.dcn as dcn_mod
     import occformer_tpu_torch.models.lss as lss_mod
     from occformer_tpu_torch.config import load_config
     from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
@@ -1205,13 +1393,12 @@ def phase_determinism():
     from occformer_tpu_torch.engine.optim import build_optimizer_from_config
     from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
     from occformer_tpu_torch.models.detector import build_model
+    from occformer_tpu_torch.models.swin import WindowMSA
     from occformer_tpu_torch.ops import scatter
-    from occformer_tpu_torch.ops.trilerp_fused import fused_multilevel_gather
     from occformer_tpu_torch.tools.time_backwards import s1_geometry, segment_stats
 
-    topks, volumes, captured, loss_grads = [], [], [], {}
+    topks, volumes, captured, loss_grads, convs = [], [], [], {}, {}
     orig_topk, orig_scatter = loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted
-    orig_dcn_sample = dcn_mod.grid_sample_2d
     orig_select, orig_loss = loss_mod.uncertainty_select, train_mod.mask2former_loss
 
     def rec_topk(logits, n):
@@ -1247,51 +1434,11 @@ def phase_determinism():
         volumes.append(out.detach().clone())
         return out
 
-    def k4_grid_sample_2d(img, coords, align_corners=False, padding_mode="zeros"):
-        """ops/sampling.py:grid_sample_2d through K4 and K4-bwd, whose
-        backward repeats itself: the image [B, H, W, C] as a one-level table
-        of Z = 1, the coordinates (row, column, 0)."""
-        check(padding_mode == "zeros", "k4_grid_sample_2d: zeros padding only")
-        B, H, W, C = img.shape
-        c = coords.reshape(B, -1, 2).float()
-        c3 = torch.cat([c, torch.zeros_like(c[..., :1])], -1).contiguous()
-        out = fused_multilevel_gather([img.float().reshape(B, H * W, C).contiguous()],
-                                      [(H, W, 1)], C, [c3], align_corners)[0]
-        return out.transpose(1, 2).to(img.dtype).reshape(B, *coords.shape[1:-1], C)
-
-    @contextlib.contextmanager
-    def isolate(setting=None):
-        """C.7's isolation of what varies upstream of the deformable encoder:
-        "cudnn_deterministic" runs cuDNN's deterministic algorithms (C.8: at
-        the tiny model's shapes the default ones vary),
-        "torch_deterministic_k4_dcn" runs torch's deterministic algorithms
-        with warn_only=True (cuDNN's deterministic convolutions, sorted index
-        adds; ops without a deterministic implementation run as they are)
-        and reads the DepthNet DCN's bilinear samples through K4
-        (models/dcn.py, whose F.grid_sample backward adds with atomics)."""
-        if setting is None:
-            yield
-            return
-        if setting == "cudnn_deterministic":
-            torch.backends.cudnn.deterministic = True
-            try:
-                yield
-            finally:
-                torch.backends.cudnn.deterministic = False
-            return
-        check(setting == "torch_deterministic_k4_dcn", f"isolate: unknown setting {setting}")
-        torch.use_deterministic_algorithms(True, warn_only=True)
-        dcn_mod.grid_sample_2d = k4_grid_sample_2d
-        try:
-            yield
-        finally:
-            torch.use_deterministic_algorithms(False)
-            dcn_mod.grid_sample_2d = orig_dcn_sample
-
     def pairs(cfg_path, options, batch, n_pairs, warm_step, compute_dtype, modes,
-              mxu_readout=None):
+              mxu_readout=None, capture_convs=()):
         """``n_pairs`` pairs of reloaded steps in each of ``modes``: (name,
-        atomic scatter[, isolation]), the isolation one of ``isolate``'s."""
+        atomic scatter).  ``capture_convs``: module types whose inputs in the
+        warm step ``backward_repeats`` replays."""
         cfg = load_config(cfg_path, options)
         m = cfg["model"]
         head = m["pts_bbox_head"] if mxu_readout is None else dict(m["pts_bbox_head"],
@@ -1304,8 +1451,26 @@ def phase_determinism():
             batch = next(iter(build_dataloader(build_dataset(cfg["data"]["train"]),
                                                max_points=512)))
             batch.pop("_meta")
-        if warm_step:
+        hooks = []
+
+        def keep_input(name, mod, args, kwargs):
+            if name not in convs:
+                keep = [a.detach().clone().requires_grad_(a.requires_grad)
+                        if torch.is_tensor(a) else a for a in args]
+                convs[name] = (mod, keep, dict(kwargs),
+                               torch.get_autocast_dtype("cuda")
+                               if torch.is_autocast_enabled("cuda") else None)
+
+        if capture_convs:
+            for name, mod in model.named_modules():
+                if isinstance(mod, capture_convs):
+                    hooks.append(mod.register_forward_pre_hook(
+                        lambda mod, args, kwargs, name=name: keep_input(name, mod, args, kwargs),
+                        with_kwargs=True))
+        if warm_step or capture_convs:
             step(batch, torch.Generator(device="cuda").manual_seed(0))
+        for h in hooks:
+            h.remove()
         state = copy.deepcopy((model.state_dict(), opt.state_dict()))
         names = [k for k, p in model.named_parameters()]
 
@@ -1331,15 +1496,14 @@ def phase_determinism():
                     dict(loss_grads), grads)
 
         rec = {}
-        for name, atomic, *iso in modes:
+        for name, atomic in modes:
             mode["atomic"] = atomic
             counts = {"pairs": n_pairs, "losses_differ": 0, "volumes_differ": 0,
                       "topk_differ": 0, "topk_sets_differing": 0, "grad_norm_differs": 0,
                       "loss_grads_differ": 0, "max_rel_loss_diff": 0.0}
             grads_differ = {}
             for _ in range(n_pairs):
-                with isolate(*iso):
-                    (ma, ta, va, la, ga), (mb, tb, vb, lb, gb) = run(), run()
+                (ma, ta, va, la, ga), (mb, tb, vb, lb, gb) = run(), run()
                 losses = [k for k in ma if "loss" in k]
                 counts["losses_differ"] += any(ma[k] != mb[k] for k in losses)
                 counts["max_rel_loss_diff"] = max(
@@ -1360,14 +1524,17 @@ def phase_determinism():
                     if not torch.equal(a, b):
                         d.add(k)
                 del ga, gb
+            counts["topk_sets_per_step"] = len(ta)
+            counts["loss_grads_compared"] = sorted(la)
             n_grads = {}
             for k, p in model.named_parameters():
                 if p.grad is not None:
                     module = ".".join(k.split(".")[:2])
                     n_grads[module] = n_grads.get(module, 0) + 1
-            counts["topk_sets_per_step"] = len(ta)
-            counts["loss_grads_compared"] = sorted(la)
             counts["param_grads_differ"] = sum(len(v) for v in grads_differ.values())
+            # by name, in the modules where only some of the gradients differ
+            counts["param_grads_differing"] = sorted(
+                k for mod, v in grads_differ.items() if 0 < len(v) < n_grads[mod] for k in v)
             counts["param_grads"] = sum(n_grads.values())
             counts["grads_differ_by_module"] = {
                 mod: [len(v), n_grads[mod]] for mod, v in grads_differ.items() if v}
@@ -1376,32 +1543,47 @@ def phase_determinism():
         return rec
 
     scatter_modes = (("atomic_scatter", True), ("deterministic_scatter", False))
-    # the tiny model's encoder gate on cuDNN's deterministic algorithms, and
-    # its pairs on the default ones beside them (C.8)
-    tiny_modes = (("atomic_scatter", True),
-                  ("deterministic_scatter", False, "cudnn_deterministic"),
-                  ("default_convolutions", False))
-    isolation_modes = (("torch_deterministic_k4_dcn", False, "torch_deterministic_k4_dcn"),)
     loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted = rec_topk, rec_scatter
     loss_mod.uncertainty_select, train_mod.mask2former_loss = rec_select, rec_loss
+    # the port's default settings: torch's own cuDNN TF32 (main() turns it
+    # off for the float32 references of the other phases)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+          and not torch.are_deterministic_algorithms_enabled(),
+          "reload_determinism: a global determinism switch is on")
     try:
         tiny = os.path.join(REPO, "occformer_tpu_torch", "configs", "synthetic_tiny.py")
+        conv_types = (torch.nn.Conv2d, torch.nn.Conv3d, torch.nn.ConvTranspose2d)
         rec = {"phase": "reload_determinism",
+               "settings": {"cudnn.deterministic": False, "cudnn.benchmark": False,
+                            "cudnn.allow_tf32": True, "deterministic_algorithms": False},
                "tiny": pairs(tiny, {"model.img_backbone.frozen_stages": 0}, None, 5, True,
-                             None, tiny_modes + isolation_modes)}
+                             None, scatter_modes, capture_convs=conv_types + (
+                                 torch.nn.Linear, torch.nn.LayerNorm, torch.nn.GroupNorm,
+                                 WindowMSA))}
+        rec["tiny_modules"] = backward_repeats(convs)
+        torch.backends.cudnn.allow_tf32 = False  # the float32 references' setting
+        rec["tiny_modules_without_tf32"] = backward_repeats(
+            {k: v for k, v in convs.items() if isinstance(v[0], conv_types)})
+        torch.backends.cudnn.allow_tf32 = True
+        convs.clear()
         free_memory()
         captured.clear()  # keep the flagship's inputs
         cfg = load_config(CONFIG)
         batch = make_train_batch(cfg, seed=0)
         dtype = getattr(torch, cfg["compute_dtype"])
-        rec["flagship"] = pairs(CONFIG, {}, batch, 2, False, dtype,
-                                scatter_modes + isolation_modes)
+        rec["flagship"] = pairs(CONFIG, {}, batch, 2, False, dtype, scatter_modes,
+                                capture_convs=conv_types)
+        rec["flagship_modules"] = backward_repeats(convs)
+        convs.clear()
         free_memory()
         rec["flagship_batched"] = pairs(CONFIG, {}, batch, 2, False, dtype, (("kernels", False),),
                                         mxu_readout="on")
     finally:
         loss_mod.uncertainty_topk, lss_mod.voxel_scatter_lifted = orig_topk, orig_scatter
         loss_mod.uncertainty_select, train_mod.mask2former_loss = orig_select, orig_loss
+        torch.backends.cudnn.allow_tf32 = tf32
     free_memory()
 
     def s1_check(depth, ctx, coords, valid, nx, label):
@@ -1469,28 +1651,24 @@ def phase_determinism():
                                        geometry="data/synthetic.py:make_train_batch")
     del depth, ctx, coords, valid, rig_coords, rig_valid
     emit(rec)
-    for name, r in (("tiny", rec["tiny"]["deterministic_scatter"]),
-                    ("tiny default_convolutions", rec["tiny"]["default_convolutions"]),
-                    ("flagship", rec["flagship"]["deterministic_scatter"])):
-        check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"] == 0,
-              f"reload_determinism {name}: a deterministic-scatter pair differs: {r}")
-    r = rec["flagship_batched"]["kernels"]
-    check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"]
-          == r["loss_grads_differ"] == 0 and len(r["loss_grads_compared"]) == 3,
-          f"reload_determinism flagship_batched: a pair differs: {r}")
-    # C.6: the deformable encoder's gradients (K1-bwd's d_value, and the FPN
-    # upsample's backward before it) repeat in every pair
+    # C.4-C.8: the port as it is repeats every loss, volume, selection,
+    # gradient and grad_norm in every pair; the batched route the loss's
+    # gradients too
     for name, r in (("tiny", rec["tiny"]["deterministic_scatter"]),
                     ("flagship", rec["flagship"]["deterministic_scatter"]),
                     ("flagship_batched", rec["flagship_batched"]["kernels"])):
-        check(ENCODER not in r["grads_differ_by_module"],
-              f"reload_determinism {name}: the deformable encoder's gradients differ: "
-              f"{r['grads_differ_by_module']}")
-    # C.7: with the DCN's sampler through K4 nothing else varies
+        check(r["losses_differ"] == r["volumes_differ"] == r["topk_differ"]
+              == r["grad_norm_differs"] == r["param_grads_differ"] == 0
+              and r["param_grads"] > 0,
+              f"reload_determinism {name}: a pair differs: {r}")
+    r = rec["flagship_batched"]["kernels"]
+    check(r["loss_grads_differ"] == 0 and len(r["loss_grads_compared"]) == 3,
+          f"reload_determinism flagship_batched: the loss's gradients differ: {r}")
     for size in ("tiny", "flagship"):
-        r = rec[size]["torch_deterministic_k4_dcn"]
-        check(r["grad_norm_differs"] == r["param_grads_differ"] == r["losses_differ"] == 0,
-              f"reload_determinism {size}: with the DCN's sampler through K4 a pair differs: {r}")
+        probe = rec[f"{size}_modules"]
+        varies = [k for k, v in probe["varying_or_replaced"].items() if v["module_varies"]]
+        check(probe["probed"] > 0 and not varies,
+              f"reload_determinism {size}: the backward of {varies} varies as the model runs it")
     return rec
 
 
@@ -1699,15 +1877,302 @@ def compare_routes(model, batch, loss_cfg):
 
 
 
-def phase_cli():
-    """The train and test CLIs at the flagship's full width and depth on
-    SyntheticOccDataset (6 cameras at 256x704, 17 classes, 35000 LiDAR
-    points, 4 samples), as subprocesses in a temporary work directory that
-    is deleted afterwards: tools.train to step 2, the same command resumed
-    to step 4, and tools.test on step_4 over 2 samples.  Between the two
-    train runs, step_2 is loaded in process into a fresh model and
-    optimizer on the card and every tensor held bit-equal to the saved
-    file; the load and a save of that state are timed."""
+class _TimedSamples:
+    """A dataset whose ``__getitem__`` records its host ms (the loader's
+    producer thread calls it)."""
+
+    def __init__(self, dataset):
+        self.dataset, self.ms = dataset, []
+
+    def __len__(self):
+        return len(self.dataset)
+
+    def __getitem__(self, i):
+        t = time.perf_counter()
+        out = self.dataset[i]
+        self.ms.append((time.perf_counter() - t) * 1e3)
+        return out
+
+
+def pipeline_ms(dataset, max_points):
+    """Host ms per sample of ``dataset``'s pipeline on this thread, by step
+    (each step's ``__call__``), and of ``collate_batch``: medians over the
+    samples, and the whole sample's."""
+    import statistics
+
+    from occformer_tpu_torch.data.loader import collate_batch
+
+    by_step, whole = {}, []
+    for i in range(len(dataset)):
+        t0 = time.perf_counter()
+        results = dataset.get_data_info(i)
+        for step in dataset.pipeline:
+            t = time.perf_counter()
+            results = step(results)
+            by_step.setdefault(type(step).__name__, []).append((time.perf_counter() - t) * 1e3)
+        t = time.perf_counter()
+        collate_batch([results], max_points=max_points, rng=np.random.RandomState(i))
+        by_step.setdefault("collate_batch", []).append((time.perf_counter() - t) * 1e3)
+        whole.append((time.perf_counter() - t0) * 1e3)
+    return {"samples": len(dataset), "ms_per_sample": statistics.median(whole),
+            "ms_by_step": {k: statistics.median(v) for k, v in by_step.items()}}
+
+
+def busy_share(run):
+    """Wall ms of ``run()`` and the share of it the device spent in kernels
+    (torch.profiler's device time over the host clock)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t) * 1e3
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
+    dev_ms = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA"
+                 and not (e.is_user_annotation or e.key in ranges)) / 1e3
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms}
+
+
+def phase_data(root):
+    """The flagship's nuScenes data pipeline at full size on the card's host,
+    on a tree that ``data/fixtures.py:make_nuscenes_tree`` writes under
+    ``root`` (8 samples at the nuScenes rig, 34000 LiDAR points each):
+
+    * the train and test pipelines' host ms per sample on this one thread,
+      by step (image load and augmentation, the depth z-buffer, the
+      voxelization) and collation; a JPEG of the tree and one of pure
+      per-pixel noise decoded by PIL;
+    * the loader's (``build_dataloader``: one producer thread) samples per
+      second alone, and its host ms per sample while flagship train steps
+      run beside it;
+    * the flagship's train step (per-layer route) over the epoch of 8
+      pipeline batches through ``build_dataloader`` and
+      ``prefetch_to_device`` (the train CLI's path: the launch counts of
+      the main path, finite losses, the LiDAR inside the grid, depth in
+      every camera; s/step, the time each step waited for its batch, the
+      peak), beside 3 steps on ``make_train_batch`` batches;
+    * the 8 frames of the test pipeline served (ms/frame, the time each
+      frame waited for its batch), beside 3 on ``make_serving_batch``'s;
+    each timed by the host clock, then run again under the profiler for the
+    device's busy share (which the profiler's own host work lowers).
+    Returns (the record, the info pickle's path)."""
+    import statistics
+
+    import torch
+    from PIL import Image
+
+    from occformer_tpu_torch.config import load_config, parse_cfg_options
+    from occformer_tpu_torch.data.fixtures import make_nuscenes_tree, nuscenes_cfg_options
+    from occformer_tpu_torch.data.loader import (
+        build_dataloader,
+        build_dataset,
+        prefetch_to_device,
+    )
+    from occformer_tpu_torch.data.synthetic import make_serving_batch, make_train_batch
+    from occformer_tpu_torch.engine.eval import build_eval_step
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    rec = {"phase": "data", "cpu_count": os.cpu_count(), "samples": 8, "lidar_points": 34000}
+    t = time.perf_counter()
+    ann = make_nuscenes_tree(root, n_samples=8, n_points=34000, seed=0)
+    rec["tree_build_s"] = time.perf_counter() - t
+    jpg = os.path.join(root, "samples", "CAM_FRONT", "sample0000.jpg")
+    noise = os.path.join(root, "noise.jpg")
+    Image.fromarray(np.random.RandomState(1).randint(0, 256, (900, 1600, 3), np.uint8)).save(
+        noise, quality=90)
+
+    def decode_ms(path):
+        times = []
+        for _ in range(5):
+            t = time.perf_counter()
+            Image.open(path).convert("RGB").load()
+            times.append((time.perf_counter() - t) * 1e3)
+        return statistics.median(times)
+
+    rec["jpeg"] = {"bytes": os.path.getsize(jpg), "decode_ms": decode_ms(jpg),
+                   "noise_bytes": os.path.getsize(noise), "noise_decode_ms": decode_ms(noise)}
+    os.remove(noise)
+    cfg = load_config(CONFIG)
+    cfg = load_config(CONFIG, parse_cfg_options(nuscenes_cfg_options(cfg, root, ann)))
+    max_points = cfg["max_lidar_points"]
+    train_ds = build_dataset(cfg["data"]["train"])
+    test_ds = build_dataset(cfg["data"]["val"], test_mode=True)
+    rec["pipeline_ms"] = {"train": pipeline_ms(train_ds, max_points),
+                          "test": pipeline_ms(test_ds, max_points)}
+
+    timed = _TimedSamples(train_ds)
+    t = time.perf_counter()
+    n = sum(1 for _ in build_dataloader(timed, max_points=max_points, seed=0))
+    alone_s = time.perf_counter() - t
+    rec["loader_alone"] = {"batches": n, "samples_per_s": n / alone_s,
+                           "ms_per_sample": statistics.median(timed.ms)}
+
+    m = cfg["model"]
+    model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="off"), m["train_cfg"]["pts"])
+    opt = build_optimizer_from_config(model, cfg, 28130)
+    step = build_train_step(model, opt, loss_cfg, device="cuda",
+                            compute_dtype=getattr(torch, cfg["compute_dtype"]))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    synthetic = make_train_batch(cfg, seed=0)
+    step(synthetic, g)  # warm-up
+    torch.cuda.synchronize()
+
+    timed = _TimedSamples(train_ds)
+    seen, history, steps_s, waits_ms = [], [], [], []
+
+    def pipeline_epoch(epoch):
+        it = iter(prefetch_to_device(build_dataloader(timed, max_points=max_points,
+                                                      seed=epoch), torch.device("cuda")))
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            waits_ms.append((time.perf_counter() - t) * 1e3)
+            if not seen:
+                seen.append({k: batch[k].detach().cpu() for k in
+                             ("lidar_xyz", "lidar_valid", "gt_depth", "gt_occ", "imgs")})
+            t = time.perf_counter()
+            metrics = step(batch, g)
+            torch.cuda.synchronize()
+            steps_s.append(time.perf_counter() - t)
+            history.append({k: float(v) for k, v in metrics.items()})
+
+    # one epoch timed by the host clock, then one under the profiler for the
+    # device's busy share (the profiler slows the host)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the pipeline-fed train path starts here
+    pipeline_epoch(1)
+    n_train = launches()  # ... and ends here
+    rec["train_pipeline"] = {
+        "steps": len(steps_s), "step_s": list(steps_s), "batch_wait_ms": list(waits_ms),
+        "launches": n_train, "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        "loader_ms_per_sample_beside_steps": statistics.median(timed.ms)}
+    del steps_s[:], waits_ms[:]
+    rec["train_pipeline"]["profiled_epoch"] = dict(busy_share(lambda: pipeline_epoch(2)),
+                                                   step_s=steps_s, batch_wait_ms=waits_ms)
+    rec["train_pipeline"]["metrics"] = history
+    n_steps = rec["train_pipeline"]["steps"]
+    check(n_steps == 8 and n_train == {k: v * 8 for k, v in TRAIN_LAUNCHES["off"].items()},
+          f"data: pipeline-fed train launches {n_train} in {n_steps} steps, want 8 steps")
+    for h in history:
+        check(all(v == v and abs(v) != float("inf") for k, v in h.items()
+                  if k != "point_mean_iou"), f"data: non-finite train metrics {h}")
+    b = seen[0]
+    xyz = b["lidar_xyz"][b["lidar_valid"]]
+    in_grid = ((xyz >= 0) & (xyz <= 1)).all(-1).float().mean().item()
+    depth_px = (b["gt_depth"] > 0).sum(dim=(-2, -1))[0].tolist()
+    occ = torch.bincount(b["gt_occ"].reshape(-1).long().clamp(max=18), minlength=19)
+    rec["first_batch"] = {"lidar_valid": int(b["lidar_valid"].sum()),
+                          "lidar_in_grid_share": in_grid, "depth_pixels_per_camera": depth_px,
+                          "occupied_voxels": int(occ[1:17].sum()),
+                          "imgs": list(b["imgs"].shape)}
+    check(b["lidar_valid"].sum() > 0 and in_grid == 1.0,
+          f"data: LiDAR outside the grid ({in_grid} inside)")
+    check(len(depth_px) == 6 and min(depth_px) > 0, f"data: depth per camera {depth_px}")
+    check(rec["first_batch"]["occupied_voxels"] > 0, "data: no occupied voxel in the GT")
+
+    syn_s = []
+
+    def synthetic_steps():
+        for _ in range(3):
+            t = time.perf_counter()
+            step(synthetic, g)
+            torch.cuda.synchronize()
+            syn_s.append(time.perf_counter() - t)
+
+    torch.cuda.reset_peak_memory_stats()
+    synthetic_steps()
+    rec["train_synthetic"] = {"step_s": list(syn_s),
+                              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del syn_s[:]
+    rec["train_synthetic"]["profiled"] = dict(busy_share(synthetic_steps), step_s=syn_s)
+    del model, opt, step, synthetic, seen
+    free_memory()
+
+    model = build_model(m, device="cuda", dtype=torch.float32, seed=0)
+    eval_step = build_eval_step(model, tuple(cfg["occ_size"]), cfg["num_class"],
+                                getattr(torch, cfg["compute_dtype"]))
+    serving = make_serving_batch(cfg, seed=0)
+    eval_step(serving)  # warm-up
+    frames_ms, served, frame_waits_ms = [], [], []
+
+    def pipeline_frames():  # the whole split: the loader's thread ends with it
+        loader = build_dataloader(test_ds, samples_per_gpu=1, shuffle=False,
+                                  max_points=max_points)
+        it = iter(prefetch_to_device(loader, torch.device("cuda"),
+                                     skip_keys=("_meta", "gt_occ")))
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            frame_waits_ms.append((time.perf_counter() - t) * 1e3)
+            t = time.perf_counter()
+            out = eval_step(batch)
+            torch.cuda.synchronize()
+            frames_ms.append((time.perf_counter() - t) * 1e3)
+            served.append({k: out[k] for k in ("confusion", "voxel_pred")})
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()  # the pipeline-fed serving path starts here
+    pipeline_frames()
+    n_serve = launches()  # ... and ends here
+    rec["serve_pipeline"] = {"frames": len(frames_ms), "frame_ms": list(frames_ms),
+                             "batch_wait_ms": list(frame_waits_ms), "launches": n_serve,
+                             "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    n_frames = len(frames_ms)
+    del frames_ms[:], frame_waits_ms[:]
+    rec["serve_pipeline"]["profiled_split"] = dict(busy_share(pipeline_frames),
+                                                   frame_ms=frames_ms,
+                                                   batch_wait_ms=frame_waits_ms)
+    check(n_frames == 8 and n_serve == {k: v * 8 for k, v in SERVE_LAUNCHES.items()},
+          f"data: pipeline-fed serve launches {n_serve} in {n_frames} frames")
+    for out in served:
+        check(int(out["confusion"].sum()) > 0 and int(out["voxel_pred"].max()) < cfg["num_class"],
+              "data: a served frame's confusion or voxel labels are wrong")
+    syn_ms = []
+
+    def synthetic_frames():
+        for _ in range(3):
+            t = time.perf_counter()
+            eval_step(serving)
+            torch.cuda.synchronize()
+            syn_ms.append((time.perf_counter() - t) * 1e3)
+
+    torch.cuda.reset_peak_memory_stats()
+    synthetic_frames()
+    rec["serve_synthetic"] = {"frame_ms": list(syn_ms),
+                              "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    del syn_ms[:]
+    rec["serve_synthetic"]["profiled"] = dict(busy_share(synthetic_frames), frame_ms=syn_ms)
+    del model, eval_step, served
+    free_memory()
+    emit(rec)
+    return rec, ann
+
+
+def phase_cli(nusc_root, nusc_ann):
+    """The train and test CLIs at the flagship's full width and depth, as
+    subprocesses in a temporary work directory that is deleted afterwards.
+    On SyntheticOccDataset (6 cameras at 256x704, 17 classes, 35000 LiDAR
+    points, 4 samples): tools.train to step 2, the same command resumed to
+    step 4, and tools.test on step_4 over 2 samples; between the two train
+    runs, step_2 is loaded in process into a fresh model and optimizer on
+    the card and every tensor held bit-equal to the saved file, and the
+    load and a save of that state are timed.  Then on the config's own
+    CustomNuScenesOccLSSDataset over the nuScenes tree of the data phase
+    (``nusc_root``, ``nusc_ann``; only data_root, ann_file and the
+    annotation step's data_root set by --cfg-options): tools.train for 2
+    steps, and tools.test on its step_2 over 2 samples of data.val, whose
+    IoU table names the classes."""
     import torch
 
     from occformer_tpu_torch.config import load_config
@@ -1726,10 +2191,10 @@ def phase_cli():
     work = tempfile.mkdtemp(prefix="occformer_cli_")
     rec = {"phase": "cli", "config": "occformer_nusc_r50_256x704", "cfg_options": opts}
 
-    def run(module, *args):
+    def run(module, *args, options=opts):
         t = time.perf_counter()
         r = subprocess.run([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}",
-                            CONFIG, *args, "--cfg-options", *opts],
+                            CONFIG, *args, "--cfg-options", *options],
                            cwd=REPO, capture_output=True, text=True, timeout=600)
         seconds = time.perf_counter() - t
         check(r.returncode == 0, f"tools.{module} {' '.join(args)} exited {r.returncode}:\n"
@@ -1786,7 +2251,8 @@ def phase_cli():
         rec["total_loss"] = [ln["total_loss"] for ln in steps]
         rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 + logs2
                                  if "kernel_launches" in ln]
-        check(all(n[k] > 0 for n in rec["train_launches"] for k in ("K1", "K1-bwd", "K2", "K2-bwd")),
+        check(all(n[k] > 0 for n in rec["train_launches"]
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
               f"train CLI launches {rec['train_launches']}")
 
         out3, logs3, rec["test_s"] = run("test", "--checkpoint", os.path.join(ckpts, "step_4"),
@@ -1795,10 +2261,45 @@ def phase_cli():
         rec["test_sec_per_sample"] = timing["sec/sample"]
         rec["test_launches"] = timing["kernel_launches"]
         rec["test_results"] = results
-        check(timing["samples"] == 2 and timing["kernel_launches"]["K1"] == 2 * 6,
-              f"test CLI: {timing}")
+        check(timing["samples"] == 2 and timing["kernel_launches"]["K1"] == 2 * 6
+              and timing["kernel_launches"]["K4"] == 2, f"test CLI: {timing}")
         mean = results.get("nuScenes_lidarseg_mean")
         check(mean is not None and 0.0 <= mean <= 1.0, f"test CLI results {results}")
+
+        # the config's own dataset on the nuScenes tree
+        from occformer_tpu_torch.data.fixtures import nuscenes_cfg_options
+
+        nusc = nuscenes_cfg_options(cfg, nusc_root, nusc_ann) + ["log_config.interval=1"]
+        rec["nuscenes_cfg_options"] = nusc
+        work_n = os.path.join(work, "nuscenes")
+        out4, logs4, rec["nuscenes_train_to_2_s"] = run(
+            "train", "--work-dir", work_n, "--max-steps", "2", options=nusc)
+        steps = [ln for ln in logs4 if "step" in ln]
+        check("training done at step 2" in out4 and [ln["step"] for ln in steps] == [1, 2],
+              f"nuScenes train CLI:\n{out4[-2000:]}")
+        for ln in steps:
+            check(all(v == v and abs(v) != float("inf") for k, v in ln.items()
+                      if k not in ("point_mean_iou", "epoch")), f"non-finite train log {ln}")
+        rec["nuscenes_sec_per_iter"] = [ln["sec/iter"] for ln in steps]
+        rec["nuscenes_total_loss"] = [ln["total_loss"] for ln in steps]
+        rec["nuscenes_train_launches"] = [ln["kernel_launches"] for ln in logs4
+                                          if "kernel_launches" in ln]
+        check(all(n[k] > 0 for n in rec["nuscenes_train_launches"]
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+              f"nuScenes train CLI launches {rec['nuscenes_train_launches']}")
+        out5, logs5, rec["nuscenes_test_s"] = run(
+            "test", "--checkpoint", os.path.join(work_n, "ckpts", "step_2"),
+            "--max-samples", "2", options=nusc)
+        timing, results = logs5[0], logs5[-1]
+        rec["nuscenes_test_sec_per_sample"] = timing["sec/sample"]
+        rec["nuscenes_test_launches"] = timing["kernel_launches"]
+        rec["nuscenes_test_results"] = results
+        check(timing["samples"] == 2 and timing["kernel_launches"]["K1"] == 2 * 6
+              and timing["kernel_launches"]["K4"] == 2, f"nuScenes test CLI: {timing}")
+        names = [f"nuScenes_lidarseg_{c}" for c in cfg["class_names"][1:]]
+        check(all(k in results for k in names) and 0.0 <= results["nuScenes_lidarseg_mean"] <= 1.0
+              and all(f"| {k} |" in out5 for k in names),
+              f"nuScenes test CLI: the per-class IoU table {results}\n{out5[-2000:]}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit(rec)
@@ -1921,13 +2422,16 @@ def profile(run, outer, top=12):
 
 def kernel_records(kern, probe, det, paths):
     """One record per kernel path; ``paths`` maps each driven path (serve,
-    train, train_batched, the K4 gate, the probe) to its launch counts, and
+    train, train_batched, the pipeline-fed train steps and frames, the K4
+    gate, the probe) to its launch counts, and
     a record's ``launches`` sums them.  K1, K2 and K2-bwd each have two
     paths, two records (K1's scalar path is launched on no driven path: it
     is held against the plain version and timed in the kernels phase; K2's
     "scalar" record is its narrow kernel at the GT masks, with the GT table
     and the batched readouts under ``readouts``); K4's scalar path is launched on
-    no driven path either.  Records carry the profiler's device ms beside
+    no driven path either, and K4's and K4-bwd's records are at the DepthNet
+    DCN's shapes, the main path's, with the deformable attention's under
+    ``attention_shapes``.  Records carry the profiler's device ms beside
     the event times where the kernels phase took them."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
@@ -1960,10 +2464,14 @@ def kernel_records(kern, probe, det, paths):
          "occformer_tpu/ops/trilerp.py:493", kern["K2-bwd"]["batched"]["candidates"]),
         ("sample_id_masks", "", "K3", src + "label_gather3d.cu",
          "occformer_tpu/ops/loss_gather.py:127", kern["K3"]["candidates"]),
+        # at the DCN's shapes, the main path's; the deformable attention's
+        # (the K4 gate's flagship case) under "attention_shapes"
         ("fused_multilevel_gather", "row", "K4.row", src + "multilevel_gather3d.cu",
-         "occformer_tpu/ops/trilerp_fused.py:495", kern["K4"]),
+         "occformer_tpu/ops/trilerp_fused.py:495",
+         dict(kern["K4"], attention_shapes=kern["K4_attention"])),
         ("fused_multilevel_gather_bwd", "", "K4-bwd", src + "multilevel_gather3d.cu",
-         "occformer_tpu/ops/trilerp_fused.py:511", kern["K4-bwd"]),
+         "occformer_tpu/ops/trilerp_fused.py:511",
+         dict(kern["K4-bwd"], attention_shapes=kern["K4-bwd_attention"])),
         ("add_one", "", "P1", src + "probe.cu", "tools/probe_pallas_viability.py:41",
          dict(timing["add_one"], kernel_ms=timing["add_one"]["ms"],
               max_abs_err=probe["add_one_max_abs_err"])),
@@ -1982,7 +2490,8 @@ def kernel_records(kern, probe, det, paths):
              "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
              "library_ms": r.get("library_ms"),
              **{k: r[k] for k in ("device_ms", "library_device_ms", "random_order_ms",
-                                  "random_order_device_ms", "readouts") if k in r}}
+                                  "random_order_device_ms", "readouts", "attention_shapes",
+                                  "launch_floor_ms", "bound_with_floor_ms") if k in r}}
             for name, path, key, source, replaces, r in rows]
 
 
@@ -2022,7 +2531,13 @@ def main():
     free_memory()
     train_batched_n = phase_train("on")
     free_memory()
-    phase_cli()
+    tree = tempfile.mkdtemp(prefix="occformer_nusc_")
+    try:
+        data, ann = phase_data(tree)
+        free_memory()
+        phase_cli(tree, ann)
+    finally:
+        shutil.rmtree(tree, ignore_errors=True)
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -2030,6 +2545,8 @@ def main():
           else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
     emit({"kernels": kernel_records(kern, probe, det, {
         "serve": serve_n, "train": train_n, "train_batched": train_batched_n,
+        "data_train": data["train_pipeline"]["launches"],
+        "data_serve": data["serve_pipeline"]["launches"],
         "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"]})})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

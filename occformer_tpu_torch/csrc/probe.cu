@@ -13,7 +13,9 @@
 // memory-bound on an H100 SXM: P1 reads and writes 4 KB at the probe's
 // [8, 128], P2 reads the rows its indices name and writes 1 MB at
 // [1024, 128] x 2048 rows, well under a microsecond at 3.35 TB/s, so launch
-// latency sets their time.
+// latency sets their time.  empty_kernel does nothing: its device time is
+// the card's launch floor, the least time any kernel takes, which a
+// kernel's bound cannot go below.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -23,6 +25,8 @@ __global__ void add_one_kernel(const float* __restrict__ x,
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i < n) y[i] = x[i] + 1.f;
 }
+
+__global__ void empty_kernel() {}
 
 __global__ void row_gather_kernel(const float* __restrict__ table,
                                   const int32_t* __restrict__ idx,
@@ -66,5 +70,11 @@ extern "C" int probe_row_gather(const void* table, const void* idx, void* out,
   const unsigned blocks = (unsigned)(((int64_t)S * 32 + threads - 1) / threads);
   row_gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const float*)table, (const int32_t*)idx, (float*)out, N, C, S);
+  return (int)cudaGetLastError();
+}
+
+// One block of one thread that does nothing (the launch floor).
+extern "C" int probe_empty(void* stream) {
+  empty_kernel<<<1, 1, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,8 @@ parallelism; one process passes 1 / 0.
 ``prefetch_to_device`` takes the place of the JAX package's
 ``prefetch_to_mesh``: batch i+1 goes from pinned host buffers to the card by
 ``non_blocking`` copies on a copy stream while step i runs.  ``build_dataset``
-builds a config's dataset from the registry.
+builds a config's dataset from the registry (``data/nuscenes.py``,
+``data/synthetic.py``).
 """
 from __future__ import annotations
 
@@ -275,16 +276,16 @@ def build_dataset(cfg: Dict[str, Any], test_mode: bool = False):
     """The dataset of a config's ``data.train`` / ``data.val`` / ``data.test``
     entry.  Evaluation datasets run in ``test_mode`` (mmdet
     ``build_dataset(..., dict(test_mode=True))``)."""
-    from ..registry import DATASETS, build_from_cfg
-    from . import synthetic  # noqa: F401  (registers SyntheticOccDataset)
+    from ..registry import DATASETS, build_from_cfg  # filled by data/__init__.py
 
     cfg = dict(cfg)
     if test_mode:
         cfg["test_mode"] = True
     if cfg.get("type") not in DATASETS:
         raise NotImplementedError(
-            f"dataset {cfg.get('type')!r} is not ported yet: the nuScenes and KITTI "
-            "pipelines wait for their slice; the port's CLIs run on SyntheticOccDataset")
+            f"dataset {cfg.get('type')!r} is not ported yet: the SemanticKITTI pipeline "
+            "waits for its slice; the port builds CustomNuScenesOccLSSDataset and "
+            "SyntheticOccDataset")
     return build_from_cfg(cfg, DATASETS)
 
 

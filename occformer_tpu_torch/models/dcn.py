@@ -8,6 +8,17 @@ reference checkpoint loads unchanged: ``weight`` (O, I/groups, K, K) and
 tap (channel ``2k + {0, 1}``).  Each tap is one bilinear sample
 (pixel-index coordinates, zeros outside); the weighted sum over taps and
 input channels is one grouped matmul.  Channels-first.
+
+The nine taps are read in one call of ``ops/trilerp_fused.py:
+fused_multilevel_gather`` (K4 on the card, its plain version on the CPU):
+one level of Z = 1, the input channels-last as the table ``[B, H*W, Cin]``
+and the taps' coordinates (y, x, 0) in [-1, 1] with ``align_corners=True``.
+At Z = 1 the z corner weights are exact (index 0 with weight 1, its
+neighbour out of range), so this is the bilinear sample of
+``ops/sampling.py:grid_sample_2d``.  K4-bwd sums the input's gradient in a
+fixed order (``csrc/ordered_rows.cuh``), so a reloaded train step repeats
+it bit for bit, where ``F.grid_sample``'s backward adds with atomics; the
+offsets' gradient comes from its coordinates' gradient.
 """
 from __future__ import annotations
 
@@ -16,7 +27,7 @@ import math
 import torch
 import torch.nn as nn
 
-from ..ops.sampling import grid_sample_2d
+from ..ops.trilerp_fused import fused_multilevel_gather
 
 
 class DeformConv2d(nn.Module):
@@ -52,11 +63,13 @@ class DeformConv2d(nn.Module):
         # pixel index -> [-1, 1] under align_corners=True
         ny = py / (H - 1) * 2 - 1 if H > 1 else torch.zeros_like(py)
         nx = px / (W - 1) * 2 - 1 if W > 1 else torch.zeros_like(px)
-        sampled = grid_sample_2d(x.permute(0, 2, 3, 1), torch.stack([ny, nx], dim=-1),
-                                 align_corners=True)  # [B, KK, oh, ow, Cin]
+        table = x.permute(0, 2, 3, 1).reshape(B, H * W, Cin).contiguous()
+        coords = torch.stack([ny, nx, torch.zeros_like(ny)], dim=-1).reshape(B, -1, 3)
+        sampled = fused_multilevel_gather([table], [(H, W, 1)], Cin, [coords.contiguous()],
+                                          align_corners=True)[0]  # [B, Cin, KK*oh*ow]
 
         # grouped sum over (input channel, tap): weight (O, I/g, K, K)
         ng = self.groups
-        cols = sampled.permute(0, 4, 1, 2, 3).reshape(B, ng, (Cin // ng) * KK, oh * ow)
+        cols = sampled.reshape(B, ng, (Cin // ng) * KK, oh * ow)
         w = self.weight.reshape(ng, -1, (Cin // ng) * KK)  # [ng, O/ng, I/ng*KK]
         return torch.einsum("gok,bgkl->bgol", w, cols).reshape(B, -1, oh, ow)

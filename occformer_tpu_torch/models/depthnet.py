@@ -14,14 +14,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from .dcn import DeformConv2d
-from .layers import BasicBlock2D, BatchNorm1d, BatchNorm2d, Mlp, SELayer
+from .layers import BasicBlock2D, BatchNorm1d, BatchNorm2d, Conv2dIm2colBackward, Mlp, SELayer
 
 
 class _ASPPModule(nn.Module):
-    def __init__(self, cin, cout, k, padding, dilation, norm, dtype):
+    def __init__(self, cin, cout, k, padding, dilation, norm, dtype, conv=nn.Conv2d):
         super().__init__()
-        self.atrous_conv = nn.Conv2d(cin, cout, k, padding=padding, dilation=dilation,
-                                     bias=False, dtype=dtype)
+        self.atrous_conv = conv(cin, cout, k, padding=padding, dilation=dilation,
+                                bias=False, dtype=dtype)
         self.bn = norm(cout)
 
     def forward(self, x):
@@ -35,16 +35,22 @@ class ASPP2D(nn.Module):
     ``norm`` builds the norm layer for a channel count (BatchNorm in the
     DepthNet, GroupNorm in the 3D encoder).  The DepthNet variant has no
     residual add; the encoder's (``residual=True``) ends with ``x + y``.
+    ``fixed_order``: the branches of dilation 12 and 18 take their backward
+    as im2col and matrix products (``layers.Conv2dIm2colBackward``): at the
+    flagship DepthNet's [6, 512, 16, 44] cuDNN's default backward of those
+    two varies from run to run and its deterministic one is 4.6-7.8x slower
+    (ROADMAP C.8); dilation 6's repeats.
     """
 
     def __init__(self, inplanes: int, norm, residual: bool = False,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, fixed_order: bool = False):
         super().__init__()
         mid = inplanes
+        dilated = Conv2dIm2colBackward if fixed_order else nn.Conv2d
         self.aspp1 = _ASPPModule(inplanes, mid, 1, 0, 1, norm, dtype)
         self.aspp2 = _ASPPModule(inplanes, mid, 3, 6, 6, norm, dtype)
-        self.aspp3 = _ASPPModule(inplanes, mid, 3, 12, 12, norm, dtype)
-        self.aspp4 = _ASPPModule(inplanes, mid, 3, 18, 18, norm, dtype)
+        self.aspp3 = _ASPPModule(inplanes, mid, 3, 12, 12, norm, dtype, dilated)
+        self.aspp4 = _ASPPModule(inplanes, mid, 3, 18, 18, norm, dtype, dilated)
         self.global_avg_pool = nn.Sequential(
             nn.AdaptiveAvgPool2d((1, 1)),
             nn.Conv2d(inplanes, mid, 1, bias=False, dtype=dtype),
@@ -78,7 +84,8 @@ class DepthNet(nn.Module):
         self.context_conv = nn.Conv2d(mid_channels, context_channels, 1, dtype=dtype)
         self.depth_conv = nn.Sequential(
             *(BasicBlock2D(mid_channels, dtype=dtype) for _ in range(3)),
-            ASPP2D(mid_channels, lambda c: BatchNorm2d(c, dtype=dtype), dtype=dtype),
+            ASPP2D(mid_channels, lambda c: BatchNorm2d(c, dtype=dtype), dtype=dtype,
+                   fixed_order=True),
             # mmcv DeformConv2d (v1, type='DCN', groups=4) has no bias
             DeformConv2d(mid_channels, mid_channels, 3, padding=1, groups=4, dtype=dtype),
             nn.Conv2d(mid_channels, depth_channels, 1, dtype=dtype))

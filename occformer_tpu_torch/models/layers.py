@@ -13,7 +13,12 @@ composite bricks, named as the reference's checkpoints name them:
 * the train-mode pieces: ``BatchNorm1d`` / ``BatchNorm2d`` with flax's
   running-statistics update, ``DropPath`` drawing from an explicit
   generator (``drop_path_generator``), and ``checkpoint``, gradient
-  checkpointing that replays those draws when it recomputes.
+  checkpointing that replays those draws when it recomputes;
+* ``Conv3dFixedOrderBackward``: an ``nn.Conv3d`` whose backward on the card
+  runs cuDNN's deterministic algorithms, and ``Conv2dIm2colBackward``: an
+  ``nn.Conv2d`` whose backward is im2col and matrix products, for the
+  convolutions whose default backward algorithms vary from run to run
+  (ROADMAP C.8).
 
 Every module takes a ``dtype`` for its parameters, as the flax modules take a
 compute dtype; float32 islands cast back to it.
@@ -224,3 +229,141 @@ class BasicBlock2D(nn.Module):
         y = F.relu(self.bn1(self.conv1(x)))
         y = self.bn2(self.conv2(y))
         return F.relu(y + x)
+
+
+class _ConvFixedOrderBackward(torch.autograd.Function):
+    """``F.conv3d`` forward; the backward through ``aten.convolution_backward``
+    with ``torch.backends.cudnn.deterministic`` on for that call alone."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride, padding, dilation, groups):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (None if bias is None else [bias.shape[0]], stride, padding, dilation, groups)
+        return F.conv3d(x, weight, bias, stride, padding, dilation, groups)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, weight = ctx.saved_tensors
+        bias_sizes, stride, padding, dilation, groups = ctx.conv
+        mask = [ctx.needs_input_grad[0], ctx.needs_input_grad[1],
+                bias_sizes is not None and ctx.needs_input_grad[2]]
+        before = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            dx, dw, db = torch.ops.aten.convolution_backward(
+                gout, x, weight, bias_sizes, stride, padding, dilation, False,
+                [0] * len(stride), groups, mask)
+        finally:
+            torch.backends.cudnn.deterministic = before
+        return dx, dw, db, None, None, None, None
+
+
+def _autocast_inputs(x, weight, bias):
+    """The convolution's inputs as autocast would cast them, and the device
+    type, whose autocast the caller then turns off."""
+    dev = x.device.type
+    if torch.is_autocast_enabled(dev):
+        dt = torch.get_autocast_dtype(dev)
+        x, weight = x.to(dt), weight.to(dt)
+        bias = None if bias is None else bias.to(dt)
+    return x, weight, bias, dev
+
+
+def conv3d_fixed_order_backward(x, weight, bias=None, stride=(1, 1, 1), padding=(0, 0, 0),
+                                dilation=(1, 1, 1), groups=1):
+    """``F.conv3d(x, weight, bias, ...)`` whose backward takes cuDNN's
+    deterministic algorithms (on any device; on the CPU the same
+    ``convolution_backward`` as autograd's).  Under autocast its inputs are
+    cast as autocast casts a convolution's."""
+    x, weight, bias, dev = _autocast_inputs(x, weight, bias)
+    with torch.autocast(dev, enabled=False):
+        return _ConvFixedOrderBackward.apply(x, weight, bias, tuple(stride), tuple(padding),
+                                             tuple(dilation), groups)
+
+
+class Conv3dFixedOrderBackward(nn.Conv3d):
+    """``nn.Conv3d`` (same parameters and names) whose backward on the card
+    runs cuDNN's deterministic algorithms, scoped to this convolution: at
+    some shapes cuDNN's default backward algorithms give other bits from run
+    to run (ROADMAP C.8), while turning ``cudnn.deterministic`` on for the
+    whole step sends other convolutions to much slower kernels.  On the CPU,
+    and without autograd, it is ``nn.Conv3d``.  Zeros padding only."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        if self.padding_mode != "zeros":
+            raise ValueError("Conv3dFixedOrderBackward takes zeros padding")
+
+    def forward(self, x):
+        if not (x.is_cuda and torch.is_grad_enabled()):
+            return super().forward(x)
+        return conv3d_fixed_order_backward(x, self.weight, self.bias, self.stride, self.padding,
+                                           self.dilation, self.groups)
+
+
+class _Conv2dIm2colBackward(torch.autograd.Function):
+    """``F.conv2d`` forward (stride 1, one group, "same" padding); the
+    backward as im2col (``F.unfold``) and matrix products, which sum in a
+    fixed order: the input's gradient is the convolution of the output's
+    gradient with the kernel flipped and transposed, the weight's the
+    product of the output's gradient with the input's columns."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, padding, dilation):
+        ctx.save_for_backward(x, weight)
+        ctx.conv = (padding, dilation, bias is not None)
+        return F.conv2d(x, weight, bias, 1, padding, dilation)
+
+    @staticmethod
+    def backward(ctx, gout):
+        x, weight = ctx.saved_tensors
+        padding, dilation, has_bias = ctx.conv
+        B, O, H, W = gout.shape
+        kh, kw = weight.shape[2:]
+        I = weight.shape[1]
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            w_t = weight.flip(2, 3).transpose(0, 1).reshape(I, O * kh * kw)
+            cols = F.unfold(gout, (kh, kw), dilation=dilation, padding=padding)
+            dx = torch.matmul(w_t, cols).reshape(B, I, H, W)
+        if ctx.needs_input_grad[1]:
+            cols = F.unfold(x, (kh, kw), dilation=dilation, padding=padding)  # [B, I*kh*kw, HW]
+            g = gout.reshape(B, O, H * W).transpose(0, 1).reshape(O, B * H * W)
+            dw = torch.matmul(g, cols.transpose(1, 2).reshape(B * H * W, I * kh * kw))
+            dw = dw.reshape(O, I, kh, kw)
+        if has_bias and ctx.needs_input_grad[2]:
+            db = gout.sum((0, 2, 3))
+        return dx, dw, db, None, None
+
+
+def conv2d_im2col_backward(x, weight, bias=None, padding=(0, 0), dilation=(1, 1)):
+    """``F.conv2d(x, weight, bias, 1, padding, dilation)`` for a stride-1,
+    one-group convolution with "same" padding (``dilation * (k - 1) / 2``),
+    whose backward is im2col and matrix products (on any device).  Under
+    autocast its inputs are cast as autocast casts a convolution's."""
+    x, weight, bias, dev = _autocast_inputs(x, weight, bias)
+    with torch.autocast(dev, enabled=False):
+        return _Conv2dIm2colBackward.apply(x, weight, bias, tuple(padding), tuple(dilation))
+
+
+class Conv2dIm2colBackward(nn.Conv2d):
+    """``nn.Conv2d`` (same parameters and names; stride 1, one group, odd
+    kernel, "same" padding) whose backward on the card is im2col and matrix
+    products: at the DepthNet's shapes cuDNN's default backward of its
+    dilated convolutions gives other bits from run to run, and its
+    deterministic one is several times slower (ROADMAP C.8).  On the CPU,
+    and without autograd, it is ``nn.Conv2d``."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        same = all(p == d * (k - 1) // 2 and k % 2 == 1 for p, d, k in
+                   zip(self.padding, self.dilation, self.kernel_size))
+        if self.stride != (1, 1) or self.groups != 1 or not same \
+                or self.padding_mode != "zeros":
+            raise ValueError("Conv2dIm2colBackward takes stride 1, one group, an odd kernel "
+                             "and zeros 'same' padding")
+
+    def forward(self, x):
+        if not (x.is_cuda and torch.is_grad_enabled()):
+            return super().forward(x)
+        return conv2d_im2col_backward(x, self.weight, self.bias, self.padding, self.dilation)

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 
 from .aspp import BottleNeckASPP
-from .layers import checkpoint
+from .layers import Conv3dFixedOrderBackward, checkpoint
 from .swin import SwinBlock
 
 
@@ -28,9 +28,11 @@ class DualpathTransformerBlock(nn.Module):
                  layer_index: int = 0, num_groups: int = 32,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
+        # its backward on cuDNN's deterministic algorithms: at the tiny test
+        # model's shapes the default ones vary from run to run (ROADMAP C.8)
         self.input_conv = nn.Sequential(
-            nn.Conv3d(in_channels, channels, 3, stride=stride, padding=1, bias=False,
-                      dtype=dtype),
+            Conv3dFixedOrderBackward(in_channels, channels, 3, stride=stride, padding=1,
+                                     bias=False, dtype=dtype),
             nn.GroupNorm(num_groups, channels, dtype=dtype), nn.ReLU())
         self.bev_encoder = SwinBlock(channels, channels // 32, channels, window_size=7,
                                      shift=(layer_index % 2) == 1, drop_path_rate=0.2,

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 
 from ..ops.sampling import resize_trilinear
 from .deform_attn import MultiScaleDeformableAttention3D
-from .layers import FFN
+from .layers import FFN, Conv3dFixedOrderBackward
 from .pos_embed import sine_positional_encoding_3d
 
 
@@ -38,11 +38,14 @@ def reference_points(spatial_shapes) -> np.ndarray:
 
 
 class _ConvGN(nn.Module):
-    """mmcv ConvModule naming: ``conv`` then ``gn``."""
+    """mmcv ConvModule naming: ``conv`` then ``gn``.  ``fixed_order``: the
+    convolution's backward on the card takes cuDNN's deterministic
+    algorithms (``layers.Conv3dFixedOrderBackward``)."""
 
-    def __init__(self, cin, cout, k, bias, groups, dtype):
+    def __init__(self, cin, cout, k, bias, groups, dtype, fixed_order=False):
         super().__init__()
-        self.conv = nn.Conv3d(cin, cout, k, padding=k // 2, bias=bias, dtype=dtype)
+        conv = Conv3dFixedOrderBackward if fixed_order else nn.Conv3d
+        self.conv = conv(cin, cout, k, padding=k // 2, bias=bias, dtype=dtype)
         self.gn = nn.GroupNorm(groups, cout, dtype=dtype)
 
     def forward(self, x):
@@ -95,10 +98,14 @@ class MSDeformAttnPixelDecoder3D(nn.Module):
             for _ in range(num_encoder_layers)])
         self.level_encoding = nn.Embedding(num_encoder_levels, C, dtype=dtype)
         n_fpn = n_in - num_encoder_levels
+        # the FPN's convolutions: at the tiny test model's shapes, with
+        # cuDNN's TF32 off, cuDNN's default backward algorithms vary from run
+        # to run (ROADMAP C.8)
         self.lateral_convs = nn.ModuleList([
-            _ConvGN(in_channels[i], C, 1, False, num_groups, dtype) for i in range(n_fpn)])
+            _ConvGN(in_channels[i], C, 1, False, num_groups, dtype, fixed_order=True)
+            for i in range(n_fpn)])
         self.output_convs = nn.ModuleList([
-            _ConvGN(C, C, 3, False, num_groups, dtype) for i in range(n_fpn)])
+            _ConvGN(C, C, 3, False, num_groups, dtype, fixed_order=True) for i in range(n_fpn)])
         self.mask_feature = nn.Conv3d(C, out_channels, 1, bias=True, dtype=dtype)
         # per (shapes, device) host constants moved to the device once
         self._const: Dict[Tuple, Tuple[torch.Tensor, torch.Tensor]] = {}

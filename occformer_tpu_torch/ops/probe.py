@@ -7,6 +7,8 @@ Port of the two Pallas kernels inside ``tools/probe_pallas_viability.py``
 run the plain versions, ``x + 1`` and ``table.index_select(0, idx)``.  A CUDA
 tensor never takes the plain version: the kernel launches or the call
 raises.  ``ADD_ONE_LAUNCHES`` and ``ROW_GATHER_LAUNCHES`` count the launches.
+``empty`` launches a kernel that does nothing, a measurement of the card's
+launch floor beside them (no TPU kernel's port, on no path).
 """
 from __future__ import annotations
 
@@ -94,3 +96,12 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"probe_row_gather launch failed: cudaError {rc}")
     ROW_GATHER_LAUNCHES += 1
     return out
+
+
+def empty(device) -> None:
+    """Launches ``csrc/probe.cu:empty_kernel`` (one thread, no work) on
+    ``device``'s current stream: its device time is the launch floor."""
+    with torch.cuda.device(device):
+        rc = _fn("probe_empty", [ctypes.c_void_p])(_stream(device))
+    if rc != 0:
+        raise RuntimeError(f"probe_empty launch failed: cudaError {rc}")

@@ -4,7 +4,8 @@ The port's copy of ``occformer_tpu/registry.py`` (reference
 mmdetection3d/mmdet3d/models/builder.py): the ``dict(type='Name', **kwargs)``
 config convention, so that the reference's config files map 1:1 onto the
 port.  The port builds its models with ``models/detector.py:translate_cfg``;
-only datasets go through a registry (``DATASETS``, used by the CLIs).
+datasets (``DATASETS``, used by the CLIs) and the steps of their data
+pipelines (``PIPELINES``) go through a registry.
 """
 from __future__ import annotations
 
@@ -77,3 +78,5 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry, **default_args) -> A
 
 # the datasets the CLIs build from ``data.train`` / ``data.val`` / ``data.test``
 DATASETS = Registry("datasets")
+# the steps of a dataset's ``pipeline`` (``data/transforms.py``, ``data/voxelize.py``)
+PIPELINES = Registry("pipelines")

@@ -12,7 +12,10 @@ on the card:
      2048 int32 indices, the JAX probe's shape;
   3. how fast are P1, P2, ``x + 1`` and ``index_select`` at those shapes,
      by CUDA events around each call and by the profiler's device time of
-     its kernel alone; and the library's
+     its kernel alone, beside the device time of a kernel that does nothing
+     (the launch floor, below which no kernel's bound can lie: each row's
+     ``bound_with_floor_ms`` is the larger of its ``bound_ms`` and it); and
+     the library's
      gather (``torch.gather``) along the last axis of an [8, 32, 36864]
      bfloat16 volume at 147456 indices per row, the JAX probe's part 3.
 
@@ -68,8 +71,10 @@ def probe_check(device) -> dict:
 def probe_time(device) -> dict:
     """Times P1, P2, their plain versions (which are also the library calls)
     and ``torch.gather`` at the JAX probe's part-3 shape; with each kernel's
-    bound (the indices' distinct rows are what P2 must read)."""
+    bound (the indices' distinct rows are what P2 must read), and that bound
+    raised to the launch floor (the device time of an empty kernel)."""
     inp = probe_inputs(device)
+    floor_ms = device_ms(lambda: kp.empty(device), iters=50)
     x, table, idx = inp["x"], inp["table"], inp["idx"]
     rows = int(torch.unique(idx).numel())
     out = {"add_one": {"ms": time_cuda(lambda: kp.add_one(x)),
@@ -90,6 +95,9 @@ def probe_time(device) -> dict:
         r["library_ms"] = r["plain_ms"]
         r["device_ms"] = device_ms(kernel)
         r["plain_device_ms"] = r["library_device_ms"] = device_ms(plain)
+        r["launch_floor_ms"] = floor_ms
+        r["bound_with_floor_ms"] = max(r["bound_ms"], floor_ms)
+    out["launch_floor"] = {"device_ms": floor_ms, "kernel": "csrc/probe.cu:empty_kernel"}
     rng = np.random.RandomState(0)
     BH, hd, Nv, S = 8, 32, 36864, 147456
     vol = torch.from_numpy(rng.randn(BH, hd, Nv).astype(np.float32)).to(device, torch.bfloat16)

@@ -10,9 +10,12 @@ and as the train CLI's per-epoch evaluation runs), its weights from
 ``--checkpoint`` (a ``step_{N}`` directory of the train CLI, loaded
 strictly, or a reference ``.pth``, loaded as mmcv's ``strict=False`` with a
 report; random weights without it, for debugging), evaluated over
-``data.test`` in order.  It prints one JSON line with the sample count,
+``data.test`` in order: the flagship's ``CustomNuScenesOccLSSDataset`` on
+a nuScenes tree that ``--cfg-options`` points at (``data.test.data_root``,
+``data.test.ann_file`` and ``data.test.pipeline.1.data_root``), or
+``SyntheticOccDataset``.  It prints one JSON line with the sample count,
 the seconds per sample and the launches of each CUDA kernel of the port,
-the IoU table, and one JSON line of results.
+the IoU table by class name, and one JSON line of results.
 ``--test-save`` writes the nuScenes lidarseg submission: one
 ``lidarseg/test/<token>_lidarseg.bin`` of uint8 labels per sample (its
 valid points) and ``test/submission.json``.  SemanticKITTI configs and the

@@ -32,9 +32,11 @@ with one slot and beside a plain write of its output (what holds it
 back); K4-bwd (``_launch_multi_bwd``) at the deformable attention's shapes
 beside the three ``F.grid_sample`` backwards; each backward's two calls
 compared bit for bit, its device time by kernel and its peak memory
-beyond its inputs; and the flagship's train step on each loss route by the
-profiler's device time, all kernels, K1-bwd's and K2-bwd's, and its peak
-memory (``step_profile``).  Each kernel time is the
+beyond its inputs; the flagship's train step on each loss route by the
+profiler's device time, all kernels, K1-bwd's, K2-bwd's, the convolutions'
+backward and the DCN's sampler, its peak memory and its host seconds
+(``step_profile``); and the flagship's serving frame, its host ms, peak and
+device ms (``serve_profile``).  Each kernel time is the
 median ms of 30 CUDA-event timed launches, on the path the checkout picks;
 K1 and K2 also by the profiler's device time.  ``--root`` names the checkout whose
 ``occformer_tpu_torch`` is imported (this one by default), so that two
@@ -67,6 +69,7 @@ import hashlib
 import json
 import os
 import sys
+import time
 
 SWEEP_WIDTHS = (8, 16, 32, 40, 48, 56, 64, 128, 192)
 LANE_SWEEP = (1, 2, 4, 8, 16, 32)
@@ -130,6 +133,36 @@ def k4_inputs(case, dtype=None, seed=6):
               for X, Y, Z in K4_PYRAMID]
     coords = [torch.from_numpy(c.astype(np.float32)).to(dev) for c in draw]
     return tables, coords, C
+
+
+# the flagship DepthNet's deformable convolution: 6 cameras, 512 channels on
+# the 16 x 44 feature map, 3 x 3 taps (models/dcn.py)
+DCN_SHAPE = (6, 512, 16, 44)
+
+
+def dcn_inputs(dtype=None, seed=7, shape=DCN_SHAPE, max_offset=1.5):
+    """K4's inputs as the DCN sends them (``models/dcn.py``): the feature
+    map [B, C, H, W] channels-last as one level of Z = 1, ``[B, H*W, C]``
+    (bf16 as under the flagship's autocast, or ``dtype``), and each output
+    pixel's 9 taps at random offsets of up to ``max_offset`` pixels as
+    (y, x, 0) in [-1, 1] under align_corners=True, ``[B, 9*H*W, 3]``
+    float32.  Returns (tables, coords, C, spatials)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    B, C, H, W = shape
+    ky, kx = np.divmod(np.arange(9), 3)
+    py = (np.arange(H) - 1)[None, :, None] + ky[:, None, None] \
+        + rng.uniform(-max_offset, max_offset, (B, 9, H, W))
+    px = (np.arange(W) - 1)[None, None, :] + kx[:, None, None] \
+        + rng.uniform(-max_offset, max_offset, (B, 9, H, W))
+    coords = np.stack([py / (H - 1) * 2 - 1, px / (W - 1) * 2 - 1, np.zeros_like(py)], -1)
+    dev = torch.device("cuda")
+    table = torch.from_numpy(rng.randn(B, H * W, C).astype(np.float32)).to(
+        dev, dtype or torch.bfloat16)
+    return ([table], [torch.from_numpy(coords.reshape(B, -1, 3).astype(np.float32)).to(dev)],
+            C, [(H, W, 1)])
 
 
 def k3_cases(seed=4):
@@ -440,9 +473,14 @@ def step_profile(route, steps=3):
     ms a step of all kernels, of K1-bwd's kernels (every function named
     ``ms_deform_gather3d_bwd*`` / ``ms_deform_bwd*`` or binning
     ``K1Keys``/``K1Geo``/``K1Cand``; a zero-fill or cast around it runs under
-    a generic name and is not counted) and of K2-bwd's (every function
+    a generic name and is not counted), of K2-bwd's (every function
     named ``trilerp_bwd*`` or sorting ``ColumnKeys``/``CornerKeys``), of the
-    20 costliest functions, and the step's peak memory."""
+    convolutions' backward (cuDNN's ``dgrad``/``wgrad`` functions and the
+    im2col of ``models/layers.py:Conv2dIm2colBackward``), of the DCN's
+    sampler (K4 and K4-bwd's ``multilevel_*`` functions and the ``K4Keys`` /
+    ``K4Geo`` steps, or ``F.grid_sample``'s 2-D kernels), of the 20
+    costliest functions, the step's peak memory, and the host seconds of
+    ``steps`` more steps, each ended by a synchronize."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -470,6 +508,12 @@ def step_profile(route, steps=3):
     step(batch, g)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated()
+    step_s = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        step(batch, g)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
             step(batch, g)
@@ -480,17 +524,68 @@ def step_profile(route, steps=3):
                if e.device_type.name == "CUDA" and not (e.is_user_annotation
                                                         or e.key in ranges)}
     groups = {"K1-bwd": ("ms_deform_gather3d_bwd", "ms_deform_bwd", "K1Keys", "K1Geo", "K1Cand"),
-              "K2-bwd": ("trilerp_bwd", "ColumnKeys", "CornerKeys")}
+              "K2-bwd": ("trilerp_bwd", "ColumnKeys", "CornerKeys"),
+              "conv_backward": ("dgrad", "wgrad", "im2col"),
+              "dcn_sampler": ("multilevel_", "K4Keys", "K4Geo", "grid_sampler_2d")}
     del model, opt, step, batch
     torch.cuda.empty_cache()
     key = "step_batched" if route == "on" else "step_per_layer"
-    rec = {f"{key}_device_ms": sum(kernels.values()), f"{key}_peak_bytes": peak}
+    rec = {f"{key}_device_ms": sum(kernels.values()), f"{key}_peak_bytes": peak,
+           f"{key}_s": step_s}
     for name, marks in groups.items():
         fns = {k: v for k, v in kernels.items() if any(x in k for x in marks)}
         rec[f"{key}_{name}_device_ms"] = sum(fns.values())
         rec[f"{key}_{name}_by_function"] = fns
     rec[f"{key}_top_functions"] = dict(sorted(kernels.items(), key=lambda kv: -kv[1])[:20])
     return rec
+
+
+def serve_profile(frames=3):
+    """The flagship's serving frame (float32 parameters, bf16 autocast,
+    ``make_serving_batch(cfg, seed=0)``, random weights): host ms of
+    ``frames`` frames after two warm ones, each ended by a synchronize, the
+    peak, and by the profiler over ``frames`` more the device ms a frame of
+    all kernels and of the DCN's sampler (as ``step_profile`` names it)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.synthetic import make_serving_batch
+    from occformer_tpu_torch.engine.eval import build_eval_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(root, "configs", "occformer_nusc_r50_256x704.py"))
+    model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=0)
+    step = build_eval_step(model, tuple(cfg["occ_size"]), cfg["num_class"],
+                           getattr(torch, cfg["compute_dtype"]))
+    batch = make_serving_batch(cfg, seed=0)
+    for _ in range(2):
+        step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    frame_ms = []
+    for _ in range(frames):
+        t = time.perf_counter()
+        step(batch)
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(frames):
+            step(batch)
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
+    kernels = {e.key[:100]: e.self_device_time_total / 1e3 / frames for e in events
+               if e.device_type.name == "CUDA" and not (e.is_user_annotation
+                                                        or e.key in ranges)}
+    del model, step, batch
+    torch.cuda.empty_cache()
+    return {"serve_frame_ms": frame_ms, "serve_peak_bytes": peak,
+            "serve_device_ms": sum(kernels.values()),
+            "serve_dcn_sampler_device_ms": sum(v for k, v in kernels.items() if any(
+                x in k for x in ("multilevel_", "grid_sampler_2d")))}
 
 
 def k2_bwd_narrow_cases(seed=12):
@@ -568,7 +663,7 @@ def main(argv=None) -> int:
                         "and the lane groups of K2's, K2-bwd's narrow and K1's paths")
     p.add_argument("--only", default=None,
                    help="comma-separated groups to time (K1, K1-bwd, K2-bwd, K2, K3, K4, "
-                        "K4-bwd, S1, K2-bwd.narrow, step); all by default")
+                        "K4-bwd, S1, K2-bwd.narrow, step, serve); all by default")
     args = p.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -691,6 +786,8 @@ def main(argv=None) -> int:
     if want("step"):
         rec.update(step_profile("on"))
         rec.update(step_profile("off"))
+    if want("serve"):
+        rec.update(serve_profile())
     if want("K2"):
         for name, table, coords in k2_fwd_cases():
             rec[f"K2_{name}_ms"] = time_cuda(lambda: k2._launch_fwd(

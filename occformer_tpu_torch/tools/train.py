@@ -31,12 +31,18 @@ step (``engine/train.py:build_train_step``), with the same behaviour:
   kernel of the port in this run (all 0 on the CPU) and ``training done at
   step N``.
 
+The data come from the config's ``data.train`` through the registry: the
+flagship's ``CustomNuScenesOccLSSDataset`` and its pipeline
+(``data/nuscenes.py``) on a nuScenes tree that ``--cfg-options`` points at
+(``data.train.data_root``, ``data.train.ann_file`` and the annotation
+step's ``data.train.pipeline.2.data_root``), or ``SyntheticOccDataset``.
 The random draws of step k (drop-path masks, the loss's point draws) come
 from a ``torch.Generator`` seeded from (seed, k) alone, so a resumed run
-draws what an uninterrupted one draws.  It runs on ``cuda``, and on the CPU
-only with ``--cpu``.  Not ported yet: the mmcls EfficientNet-B7 init, data
-parallelism, and the nuScenes / KITTI dataset pipelines (configs run on
-``SyntheticOccDataset`` through ``--cfg-options``).
+draws what an uninterrupted one draws; the pipeline's augmentation draws
+come from its steps' own ``RandomState`` (unseeded, as in the JAX CLI).
+It runs on ``cuda``, and on the CPU only with ``--cpu``.  Not ported yet:
+the mmcls EfficientNet-B7 init, data parallelism and the SemanticKITTI
+pipeline.
 """
 from __future__ import annotations
 

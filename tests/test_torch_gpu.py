@@ -2,7 +2,10 @@
 
 K1 (``ms_deform_gather_3d``) and its backward K1-bwd, K2 (``trilerp_sample``)
 and its backward K2-bwd, K3 (``sample_id_masks``), K4
-(``fused_multilevel_gather``) and its backward K4-bwd, the probe's P1
+(``fused_multilevel_gather``) and its backward K4-bwd (also as the
+DepthNet's deformable convolution runs them, and that module on the card
+against itself on the CPU), the convolutions and the attention whose
+backward the port sums in a fixed order, the probe's P1
 (``add_one``) and P2 (``row_gather``), the LSS splat S1
 (``voxel_scatter_lifted``), the all-layer batched loss on the card (K2,
 K2-bwd, K3) against the same loss on the CPU, and a checkpoint round trip
@@ -932,6 +935,121 @@ def test_probe_kernels_match_plain_exactly(cuda):
         kp.add_one(inp["x"].double())
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k4_at_the_dcn_shapes(cuda, dtype):
+    """K4 and K4-bwd as the DepthNet's deformable convolution runs them: one
+    level of Z = 1 [6, 16*44, 512], 9 * 704 taps a camera at offsets of up
+    to 1.5 pixels, align_corners=True; two K4-bwd calls bit-equal."""
+    from occformer_tpu_torch.tools.time_backwards import dcn_inputs
+
+    dt = getattr(torch, dtype)
+    tables, coords, C, spatials = dcn_inputs(dt)
+    _k4_against_plain(tables, coords, spatials, C, True, dt)
+
+
+@pytest.mark.parametrize("shape", [(2, 64, 4, 8), (6, 512, 16, 44)])
+def test_dcn_on_k4_matches_its_plain_version(cuda, shape):
+    """``models/dcn.py`` on the card (its taps through K4, the gradient
+    through K4-bwd) against the same module on the CPU (K4's plain
+    version), float32, at the tiny and the flagship DepthNet's widths:
+    outputs within 1e-5 and the gradients in the input, the offsets' conv
+    and the weight within 1e-4 of max |CPU|; two backwards bit-equal.  The
+    offsets' convolution runs without TF32, as a float32 reference must."""
+    from occformer_tpu_torch.models.dcn import DeformConv2d
+
+    B, C, H, W = shape
+    torch.manual_seed(0)
+    cpu = DeformConv2d(C, C, 3, padding=1, groups=4)
+    with torch.no_grad():
+        cpu.conv_offset.weight.uniform_(-0.02, 0.02)
+        cpu.conv_offset.bias.uniform_(-1.5, 1.5)
+    gpu = DeformConv2d(C, C, 3, padding=1, groups=4).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    gout = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    def run(module, dev):
+        module.zero_grad()
+        xl = x.to(dev).requires_grad_(True)
+        before = (k1.MULTI_LAUNCHES, k1.MULTI_BWD_LAUNCHES)
+        out = module(xl)
+        out.backward(gout.to(dev))
+        launched = (k1.MULTI_LAUNCHES - before[0], k1.MULTI_BWD_LAUNCHES - before[1])
+        return [t.detach().cpu() for t in (out, xl.grad, module.conv_offset.weight.grad,
+                                           module.conv_offset.bias.grad, module.weight.grad)], \
+            launched
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        got, launched = run(gpu, cuda)
+        again, _ = run(gpu, cuda)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    ref, none = run(cpu, "cpu")
+    assert launched == (1, 1) and none == (0, 0)
+    for name, g, a, r in zip(("output", "d_input", "d_offset_weight", "d_offset_bias",
+                              "d_weight"), got, again, ref):
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        _close(g, r, 1e-5 if name == "output" else 1e-4, name)
+
+
+@pytest.mark.parametrize("dilation", [12, 18])
+def test_conv2d_im2col_backward_repeats_at_the_depthnet_shapes(cuda, dilation):
+    """The DepthNet's dilated ASPP convolution under bf16 autocast
+    ([6, 512, 16, 44]): its im2col backward gives the same bits in two
+    calls, and cuDNN's gradients within 1e-2 of max |cuDNN|."""
+    from occformer_tpu_torch.models.layers import Conv2dIm2colBackward
+
+    torch.manual_seed(dilation)
+    conv = Conv2dIm2colBackward(512, 512, 3, padding=dilation, dilation=dilation,
+                                bias=False).to(cuda)
+    plain = torch.nn.Conv2d(512, 512, 3, padding=dilation, dilation=dilation, bias=False).to(cuda)
+    plain.load_state_dict(conv.state_dict())
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    x = torch.randn((6, 512, 16, 44), device=cuda, generator=gen)
+    gout = torch.randn((6, 512, 16, 44), device=cuda, generator=gen).to(torch.bfloat16)
+
+    def grads(module):
+        xl = x.clone().requires_grad_(True)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            out = module(xl)
+        return [out.detach()] + list(torch.autograd.grad(out, (xl, module.weight), gout))
+
+    got, again, ref = grads(conv), grads(conv), grads(plain)
+    for name, g, a, r in zip(("output", "d_input", "d_weight"), got, again, ref):
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        _close(g, r, 1e-2, name)
+
+
+def test_fixed_order_modules_repeat_on_the_card(cuda):
+    """The occupancy encoder's input convolution (cuDNN's deterministic
+    backward) and the Swin window attention give the same gradients in
+    four backwards, float32."""
+    from occformer_tpu_torch.models.layers import Conv3dFixedOrderBackward
+    from occformer_tpu_torch.models.swin import WindowMSA
+
+    torch.manual_seed(0)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    for module, shape in ((Conv3dFixedOrderBackward(32, 64, 3, stride=2, padding=1,
+                                                    bias=False), (1, 32, 8, 8, 4)),
+                          (WindowMSA(64, 2, 7), (32, 49, 64))):
+        module = module.to(cuda)
+        with torch.no_grad():
+            for p in module.parameters():
+                p.uniform_(-0.1, 0.1)
+        x = torch.randn(shape, device=cuda, generator=gen)
+        out = module(x.clone().requires_grad_(True))
+        gout = torch.randn(out.shape, device=cuda, generator=gen)
+        runs = []
+        for _ in range(4):
+            xl = x.clone().requires_grad_(True)
+            runs.append(torch.autograd.grad(module(xl), [xl] + list(module.parameters()), gout))
+        for r in runs[1:]:
+            assert all(torch.equal(a, b) for a, b in zip(runs[0], r)), type(module).__name__
+
+
 def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     """A train step of the tiny CLI model on the card, a save, and a load
     into a fresh model and optimizer on the card: every parameter, buffer,
@@ -971,13 +1089,10 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
         for k in s1[i]:
             assert torch.equal(s1[i][k], s2[i][k]), (i, k)
     assert opt2.step_count == 1
-    # the same state and inputs: the forward sums in a fixed order (the LSS
-    # splat, S1, has no atomics), so every loss repeats bit for bit; the
-    # backward kernels' float32 atomics still move grad_norm in its last
-    # bits: alike, not bit-equal
+    # the same state and inputs: the forward and the backward sum in a fixed
+    # order (S1, K1-bwd, K4-bwd, the fixed-order convolutions; ROADMAP
+    # C.4-C.8), so every loss and grad_norm repeats bit for bit
     m1 = step(batch, torch.Generator(device=cuda).manual_seed(1))
     m2 = step2(batch, torch.Generator(device=cuda).manual_seed(1))
     for k, v in m1.items():
-        if "loss" in k:
-            assert float(m2[k]) == float(v), k
-        assert abs(float(m2[k]) - float(v)) <= 1e-4 * abs(float(v)) + 1e-5, k
+        assert float(m2[k]) == float(v), k

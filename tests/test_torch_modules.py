@@ -328,6 +328,62 @@ def test_pixel_decoder_matches_jax():
         _close(np.moveaxis(g.numpy(), 1, -1), r)
 
 
+@pytest.mark.parametrize("bias", [True, False])
+@pytest.mark.parametrize("k", [1, 3])
+def test_conv3d_fixed_order_backward_is_conv3d(bias, k):
+    """The pixel decoder's FPN convolution (C.8): the same output as
+    ``F.conv3d`` and, through ``aten.convolution_backward``, the same
+    gradients as autograd's in input, weight and bias, on the CPU; the
+    module is ``nn.Conv3d`` with the same parameters."""
+    rng = np.random.RandomState(k)
+    x = torch.from_numpy(rng.randn(2, 6, 5, 4, 3).astype(np.float32))
+    w = torch.from_numpy(rng.randn(8, 6, k, k, k).astype(np.float32))
+    b = torch.from_numpy(rng.randn(8).astype(np.float32)) if bias else None
+    gout = torch.from_numpy(rng.randn(2, 8, 5, 4, 3).astype(np.float32))
+    pad = (k // 2,) * 3
+    leaves = [t.clone().requires_grad_(True) for t in (x, w) + ((b,) if bias else ())]
+    got = tl.conv3d_fixed_order_backward(leaves[0], leaves[1], leaves[2] if bias else None,
+                                        padding=pad)
+    grads = torch.autograd.grad(got, leaves, gout)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, w) + ((b,) if bias else ())]
+    ref = torch.nn.functional.conv3d(ref_leaves[0], ref_leaves[1],
+                                     ref_leaves[2] if bias else None, padding=pad)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, gout)
+    assert torch.equal(got, ref)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, rtol=1e-6, atol=1e-6)
+    m = tl.Conv3dFixedOrderBackward(6, 8, k, padding=k // 2, bias=bias)
+    assert isinstance(m, tnn.Conv3d) and list(m.state_dict()) == (
+        ["weight", "bias"] if bias else ["weight"])
+    assert torch.equal(m(x), torch.nn.functional.conv3d(x, m.weight, m.bias, padding=pad))
+
+
+@pytest.mark.parametrize("dilation", [1, 6, 18])
+def test_conv2d_im2col_backward_is_conv2d(dilation):
+    """The DepthNet's dilated ASPP convolution (C.8): ``F.conv2d``'s output,
+    and through im2col and matrix products autograd's gradients in input,
+    weight and bias, on the CPU (float32, 1e-5 of max |grad|: the same sums
+    in another order), on a map smaller than the dilation."""
+    rng = np.random.RandomState(dilation)
+    x = torch.from_numpy(rng.randn(2, 5, 16, 11).astype(np.float32))
+    w = torch.from_numpy(rng.randn(7, 5, 3, 3).astype(np.float32))
+    b = torch.from_numpy(rng.randn(7).astype(np.float32))
+    gout = torch.from_numpy(rng.randn(2, 7, 16, 11).astype(np.float32))
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    got = tl.conv2d_im2col_backward(*leaves, padding=(dilation,) * 2, dilation=(dilation,) * 2)
+    grads = torch.autograd.grad(got, leaves, gout)
+    ref_leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    ref = torch.nn.functional.conv2d(*ref_leaves, padding=dilation, dilation=dilation)
+    ref_grads = torch.autograd.grad(ref, ref_leaves, gout)
+    assert torch.equal(got, ref)
+    for g, r in zip(grads, ref_grads):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-5 * r.abs().max().item())
+    m = tl.Conv2dIm2colBackward(5, 7, 3, padding=dilation, dilation=dilation, bias=False)
+    assert isinstance(m, tnn.Conv2d) and list(m.state_dict()) == ["weight"]
+    with pytest.raises(ValueError, match="same"):
+        tl.Conv2dIm2colBackward(5, 7, 3, padding=1, dilation=2)
+
+
 def test_mask2former_head_matches_jax():
     rng = np.random.RandomState(10)
     C, NQ, NH, NL, NCLS = 24, 5, 3, 4, 6

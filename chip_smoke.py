@@ -105,17 +105,35 @@ Phases, each printing one JSON line:
                  beside the same on synthetic batches.
   9. cli:        the train and test CLIs at the flagship's full width on
                  SyntheticOccDataset (--cfg-options), as subprocesses in a
-                 temporary work directory outside the repo: 2 steps, then a
-                 resume at step 2 to step 4, then tools.test on step_4 over 2
-                 samples; in process, step_2 loaded into a fresh model and
-                 optimizer and held bit-equal to the saved file; then on the
-                 config's own CustomNuScenesOccLSSDataset over the data
-                 phase's tree: 2 steps, and tools.test over 2 samples with its
-                 per-class IoU table.
-In phases 0, 2, 6, 7 and 8 and in the K4 parity gate every kernel's launch
-count is set to 0 just before the path is driven and read just after; each
-must match its per-frame, per-step or per-run count.  The CLIs report their
-own counts, which must show their kernels.  Then the card's name and power
+                 temporary work directory outside the repo: 2 steps, then
+                 tools.test on step_2 over 2 samples; in process, step_2
+                 loaded into a fresh model and optimizer and held bit-equal
+                 to the saved file.
+  10. resume:    a resumed run repeats the uninterrupted one (ROADMAP C.9,
+                 C.10): tools.train at full width on the config's own
+                 CustomNuScenesOccLSSDataset over the data phase's tree (8
+                 samples an epoch) to step 6 in one go, and to step 3 then
+                 resumed to step 6; every logged loss, metric and grad_norm
+                 equal bit for bit; tools.test on step_6 over 2 samples with
+                 its per-class IoU table; one skipped-batch restart of the
+                 loader timed.
+  11. soak:      tools/soak.py: 40 flagship steps on the default route with
+                 the checkpoint at step 20 (the reloaded state bit-equal,
+                 training going on from it), then the same 40 steps without
+                 it: equal trajectories and final states, a falling loss;
+                 p50 / p95 s/step and the peak.
+  12. learn:     the tiny held-out learnability run (300 steps on 12 box
+                 scenes, 4 held out; data/geo_scenes.py) on the card: SC
+                 IoU > 0.15 and class mIoU > 0.08.
+  13. ddp:       world size 1 under nccl and DistributedDataParallel: two
+                 flagship steps repeat the plain steps' losses, grad_norm
+                 and every gradient bit for bit, no parameter without a
+                 gradient.
+In phases 0, 2, 6, 7, 8, 11, 12 and 13 and in the K4 parity gate every
+kernel's launch count is set to 0 just before the path is driven and read
+just after; each must match its per-frame, per-step or per-run count (the
+learn phase: launched).  The CLIs report their own counts, which must show
+their kernels.  A ``wall`` line gives each phase's seconds.  Then the card's name and power
 limit (nvidia-smi), one JSON line of kernel records (K1's, K2's and K2-bwd's
 two paths as two records each; S1, the LSS splat, which has no Pallas
 original, last), and last ``{"ok": true, "device": {...}}``.  Any
@@ -1901,11 +1919,13 @@ def pipeline_ms(dataset, max_points):
     import statistics
 
     from occformer_tpu_torch.data.loader import collate_batch
+    from occformer_tpu_torch.data.nuscenes import sample_rng
 
     by_step, whole = {}, []
     for i in range(len(dataset)):
         t0 = time.perf_counter()
         results = dataset.get_data_info(i)
+        results["aug_rng"] = sample_rng(dataset.seed, dataset.epoch, i)  # as _run_pipeline
         for step in dataset.pipeline:
             t = time.perf_counter()
             results = step(results)
@@ -1920,21 +1940,26 @@ def pipeline_ms(dataset, max_points):
 
 def busy_share(run):
     """Wall ms of ``run()`` and the share of it the device spent in kernels
-    (torch.profiler's device time over the host clock)."""
+    (torch.profiler's device time over the host clock).  Only the device's
+    activity is traced: reading a trace of the host's operators too took
+    98 s for an epoch of 8 flagship train steps on an H100, and the
+    host-side tracing slowed the run it measured."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
     events = prof.key_averages()
     ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
     dev_ms = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA"
                  and not (e.is_user_annotation or e.key in ranges)) / 1e3
-    return {"wall_ms": wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms}
+    return {"wall_ms": wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
+            "trace_read_s": time.perf_counter() - t}
 
 
 def phase_data(root):
@@ -1957,8 +1982,8 @@ def phase_data(root):
       peak), beside 3 steps on ``make_train_batch`` batches;
     * the 8 frames of the test pipeline served (ms/frame, the time each
       frame waited for its batch), beside 3 on ``make_serving_batch``'s;
-    each timed by the host clock, then run again under the profiler for the
-    device's busy share (which the profiler's own host work lowers).
+    each timed by the host clock, then run again under the profiler (the
+    device's activity only) for the device's busy share.
     Returns (the record, the info pickle's path)."""
     import statistics
 
@@ -2159,20 +2184,16 @@ def phase_data(root):
     return rec, ann
 
 
-def phase_cli(nusc_root, nusc_ann):
+def phase_cli():
     """The train and test CLIs at the flagship's full width and depth, as
-    subprocesses in a temporary work directory that is deleted afterwards.
-    On SyntheticOccDataset (6 cameras at 256x704, 17 classes, 35000 LiDAR
-    points, 4 samples): tools.train to step 2, the same command resumed to
-    step 4, and tools.test on step_4 over 2 samples; between the two train
-    runs, step_2 is loaded in process into a fresh model and optimizer on
-    the card and every tensor held bit-equal to the saved file, and the
-    load and a save of that state are timed.  Then on the config's own
-    CustomNuScenesOccLSSDataset over the nuScenes tree of the data phase
-    (``nusc_root``, ``nusc_ann``; only data_root, ann_file and the
-    annotation step's data_root set by --cfg-options): tools.train for 2
-    steps, and tools.test on its step_2 over 2 samples of data.val, whose
-    IoU table names the classes."""
+    subprocesses in a temporary work directory that is deleted afterwards,
+    on SyntheticOccDataset (6 cameras at 256x704, 17 classes, 35000 LiDAR
+    points, 4 samples): tools.train to step 2 and tools.test on step_2 over
+    2 samples; between them, step_2 is loaded in process into a fresh model
+    and optimizer on the card and every tensor held bit-equal to the saved
+    file, and the load and a save of that state are timed.  The CLIs on the
+    config's own CustomNuScenesOccLSSDataset, and the train CLI's resume,
+    run in the resume phase."""
     import torch
 
     from occformer_tpu_torch.config import load_config
@@ -2191,16 +2212,8 @@ def phase_cli(nusc_root, nusc_ann):
     work = tempfile.mkdtemp(prefix="occformer_cli_")
     rec = {"phase": "cli", "config": "occformer_nusc_r50_256x704", "cfg_options": opts}
 
-    def run(module, *args, options=opts):
-        t = time.perf_counter()
-        r = subprocess.run([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}",
-                            CONFIG, *args, "--cfg-options", *options],
-                           cwd=REPO, capture_output=True, text=True, timeout=600)
-        seconds = time.perf_counter() - t
-        check(r.returncode == 0, f"tools.{module} {' '.join(args)} exited {r.returncode}:\n"
-              f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-        lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
-        return r.stdout, lines, seconds
+    def run(module, *args):
+        return cli_run(module, *args, options=opts)
 
     try:
         ckpts = os.path.join(work, "ckpts")
@@ -2239,24 +2252,20 @@ def phase_cli(nusc_root, nusc_ann):
         del saved, model, opt, o_got
         free_memory()
 
-        out2, logs2, rec["train_2_to_4_s"] = run("train", "--work-dir", work, "--max-steps", "4")
-        check(f"resumed from {step2} at step 2" in out2 and "training done at step 4" in out2,
-              f"resume:\n{out2[-2000:]}")
-        steps = [ln for ln in logs1 + logs2 if "step" in ln]
-        check([ln["step"] for ln in steps] == [1, 2, 3, 4], f"steps {[ln['step'] for ln in steps]}")
+        steps = [ln for ln in logs1 if "step" in ln]
+        check([ln["step"] for ln in steps] == [1, 2], f"steps {[ln['step'] for ln in steps]}")
         for ln in steps:
             check(all(v == v and abs(v) != float("inf") for k, v in ln.items()
                       if k not in ("point_mean_iou", "epoch")), f"non-finite train log {ln}")
         rec["sec_per_iter"] = [ln["sec/iter"] for ln in steps]
         rec["total_loss"] = [ln["total_loss"] for ln in steps]
-        rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 + logs2
+        rec["train_launches"] = [ln["kernel_launches"] for ln in logs1
                                  if "kernel_launches" in ln]
         check(all(n[k] > 0 for n in rec["train_launches"]
                   for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
               f"train CLI launches {rec['train_launches']}")
 
-        out3, logs3, rec["test_s"] = run("test", "--checkpoint", os.path.join(ckpts, "step_4"),
-                                         "--max-samples", "2")
+        out3, logs3, rec["test_s"] = run("test", "--checkpoint", step2, "--max-samples", "2")
         timing, results = logs3[0], logs3[-1]
         rec["test_sec_per_sample"] = timing["sec/sample"]
         rec["test_launches"] = timing["kernel_launches"]
@@ -2266,44 +2275,275 @@ def phase_cli(nusc_root, nusc_ann):
         mean = results.get("nuScenes_lidarseg_mean")
         check(mean is not None and 0.0 <= mean <= 1.0, f"test CLI results {results}")
 
-        # the config's own dataset on the nuScenes tree
-        from occformer_tpu_torch.data.fixtures import nuscenes_cfg_options
-
-        nusc = nuscenes_cfg_options(cfg, nusc_root, nusc_ann) + ["log_config.interval=1"]
-        rec["nuscenes_cfg_options"] = nusc
-        work_n = os.path.join(work, "nuscenes")
-        out4, logs4, rec["nuscenes_train_to_2_s"] = run(
-            "train", "--work-dir", work_n, "--max-steps", "2", options=nusc)
-        steps = [ln for ln in logs4 if "step" in ln]
-        check("training done at step 2" in out4 and [ln["step"] for ln in steps] == [1, 2],
-              f"nuScenes train CLI:\n{out4[-2000:]}")
-        for ln in steps:
-            check(all(v == v and abs(v) != float("inf") for k, v in ln.items()
-                      if k not in ("point_mean_iou", "epoch")), f"non-finite train log {ln}")
-        rec["nuscenes_sec_per_iter"] = [ln["sec/iter"] for ln in steps]
-        rec["nuscenes_total_loss"] = [ln["total_loss"] for ln in steps]
-        rec["nuscenes_train_launches"] = [ln["kernel_launches"] for ln in logs4
-                                          if "kernel_launches" in ln]
-        check(all(n[k] > 0 for n in rec["nuscenes_train_launches"]
-                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
-              f"nuScenes train CLI launches {rec['nuscenes_train_launches']}")
-        out5, logs5, rec["nuscenes_test_s"] = run(
-            "test", "--checkpoint", os.path.join(work_n, "ckpts", "step_2"),
-            "--max-samples", "2", options=nusc)
-        timing, results = logs5[0], logs5[-1]
-        rec["nuscenes_test_sec_per_sample"] = timing["sec/sample"]
-        rec["nuscenes_test_launches"] = timing["kernel_launches"]
-        rec["nuscenes_test_results"] = results
-        check(timing["samples"] == 2 and timing["kernel_launches"]["K1"] == 2 * 6
-              and timing["kernel_launches"]["K4"] == 2, f"nuScenes test CLI: {timing}")
-        names = [f"nuScenes_lidarseg_{c}" for c in cfg["class_names"][1:]]
-        check(all(k in results for k in names) and 0.0 <= results["nuScenes_lidarseg_mean"] <= 1.0
-              and all(f"| {k} |" in out5 for k in names),
-              f"nuScenes test CLI: the per-class IoU table {results}\n{out5[-2000:]}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit(rec)
     return rec
+
+
+def same_metrics(a, b):
+    """Two dicts of metrics equal bit for bit (a NaN equal to a NaN: the
+    point mIoU of a batch in which no class was predicted)."""
+    return a.keys() == b.keys() and all(
+        a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
+
+
+def cli_run(module, *args, options=(), timeout=600):
+    """``python3 -m occformer_tpu_torch.tools.<module> CONFIG *args
+    --cfg-options *options`` from the repo: (stdout, its JSON lines, the
+    seconds it took); a non-zero exit fails the run."""
+    t = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}", CONFIG,
+                        *args, "--cfg-options", *options],
+                       cwd=REPO, capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - t
+    check(r.returncode == 0, f"tools.{module} {' '.join(args)} exited {r.returncode}:\n"
+          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
+    lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
+    return r.stdout, lines, seconds
+
+
+def phase_resume(nusc_root, nusc_ann):
+    """A resumed train CLI run repeats the uninterrupted one (ROADMAP C.9,
+    C.10), at the flagship's full width on the config's own
+    CustomNuScenesOccLSSDataset over the data phase's nuScenes tree (only
+    data_root, ann_file and the annotation step's data_root set by
+    --cfg-options; 8 samples: an epoch of 8 steps, the train pipeline's
+    augmentation drawn per sample): tools.train to step 6 in one go, and to
+    step 3 then resumed to step 6 (mid-epoch: the resumed epoch skips its
+    first 3 batches without building them).  Every logged loss and metric
+    of steps 1-6 (grad_norm among them) must be equal, bit for bit.  Then
+    tools.test on the uninterrupted run's step_6 over 2 samples of
+    data.val, whose IoU table names the classes, and one skipped-batch
+    restart timed in process: the loader's first batch of the epoch from
+    batch 0 and from batch 3 (no skipped sample is built)."""
+    from occformer_tpu_torch.config import load_config, parse_cfg_options
+    from occformer_tpu_torch.data.fixtures import nuscenes_cfg_options
+    from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
+
+    cfg = load_config(CONFIG)
+    opts = nuscenes_cfg_options(cfg, nusc_root, nusc_ann) + ["log_config.interval=1"]
+    work = tempfile.mkdtemp(prefix="occformer_resume_")
+    rec = {"phase": "resume", "config": "occformer_nusc_r50_256x704", "samples": 8,
+           "stop_at": 3, "resume_to": 6}
+
+    def steps(lines):
+        return {ln["step"]: {k: v for k, v in ln.items() if k not in ("step", "sec/iter")}
+                for ln in lines if "step" in ln}
+
+    try:
+        out_w, lines_w, rec["whole_s"] = cli_run(
+            "train", "--work-dir", os.path.join(work, "whole"), "--max-steps", "6",
+            options=opts)
+        split = os.path.join(work, "split")
+        out_a, lines_a, rec["to_3_s"] = cli_run("train", "--work-dir", split, "--max-steps",
+                                                "3", options=opts)
+        out_b, lines_b, rec["resumed_3_to_6_s"] = cli_run(
+            "train", "--work-dir", split, "--max-steps", "6", options=opts)
+        check("at step 3 (epoch 0 from batch 3)" in out_b, f"resume:\n{out_b[-2000:]}")
+        whole, resumed = steps(lines_w), {**steps(lines_a), **steps(lines_b)}
+        check(sorted(whole) == sorted(resumed) == [1, 2, 3, 4, 5, 6],
+              f"steps {sorted(whole)} / {sorted(resumed)}")
+        differ = {k: [n for n in whole[k] if not same_metrics({n: whole[k][n]},
+                                                               {n: resumed[k].get(n)})]
+                  for k in whole}
+        rec["total_loss"] = [whole[k]["total_loss"] for k in sorted(whole)]
+        rec["grad_norm"] = [whole[k]["grad_norm"] for k in sorted(whole)]
+        rec["differing"] = {k: v for k, v in differ.items() if v}
+        check(not rec["differing"], f"the resumed run differs from the uninterrupted one: "
+              f"{rec['differing']}")
+        rec["sec_per_iter_whole"] = [ln["sec/iter"] for ln in lines_w if "step" in ln]
+        rec["sec_per_iter_resumed"] = [ln["sec/iter"] for ln in lines_b if "step" in ln]
+        rec["launches"] = [ln["kernel_launches"] for ln in lines_w + lines_a + lines_b
+                           if "kernel_launches" in ln]
+        check(all(n[k] > 0 for n in rec["launches"]
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+              f"train CLI launches {rec['launches']}")
+
+        out_t, lines_t, rec["test_s"] = cli_run(
+            "test", "--checkpoint", os.path.join(work, "whole", "ckpts", "step_6"),
+            "--max-samples", "2", options=opts)
+        timing, results = lines_t[0], lines_t[-1]
+        rec["test_sec_per_sample"] = timing["sec/sample"]
+        rec["test_launches"] = timing["kernel_launches"]
+        rec["test_results"] = results
+        check(timing["samples"] == 2 and timing["kernel_launches"]["K1"] == 2 * 6
+              and timing["kernel_launches"]["K4"] == 2, f"nuScenes test CLI: {timing}")
+        names = [f"nuScenes_lidarseg_{c}" for c in cfg["class_names"][1:]]
+        check(all(k in results for k in names) and 0.0 <= results["nuScenes_lidarseg_mean"] <= 1.0
+              and all(f"| {k} |" in out_t for k in names),
+              f"nuScenes test CLI: the per-class IoU table {results}\n{out_t[-2000:]}")
+
+        train_cfg = dict(load_config(CONFIG, parse_cfg_options(opts))["data"]["train"])
+        loader = build_dataloader(build_dataset(train_cfg), seed=0,
+                                  max_points=cfg["max_lidar_points"])
+        first_batch_s = {}
+        for start in (0, 3):
+            loader.set_epoch(0, start)
+            t = time.perf_counter()
+            it = iter(loader)
+            next(it)
+            first_batch_s[start] = time.perf_counter() - t
+            for _ in it:  # drain: the producer thread ends with the epoch
+                pass
+        rec["first_batch_s"] = {"from_batch_0": first_batch_s[0],
+                                "from_batch_3": first_batch_s[3]}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(rec)
+    total = dict(_NONE)
+    for n in rec["launches"]:
+        total = {k: total[k] + n.get(k, 0) for k in total}
+    return total
+
+
+def phase_soak(steps=40):
+    """``tools/soak.py`` at the flagship's full width on the default loss
+    route: ``steps`` steps on one fixed batch with the checkpoint at the
+    middle step (saved, loaded into a fresh model and optimizer, every
+    tensor held bit-equal, training going on from it), then the same steps
+    again without the checkpoint: the two trajectories (every loss and
+    grad_norm) and the final states must be equal, and the loss must fall.
+    The launch counts cover both runs."""
+    import torch
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.tools.soak import soak
+
+    cfg = load_config(CONFIG)
+    work = tempfile.mkdtemp(prefix="occformer_soak_")
+    try:
+        reset_launches()  # the main path's run starts here
+        rec = soak(cfg, "auto", steps, steps // 2, 0, work, log=lambda s: None)
+        n = launches()  # ... and ends here
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    rec = dict(rec, phase="soak", config="occformer_nusc_r50_256x704", launches=n)
+    want = {k: v * 2 * steps for k, v in TRAIN_LAUNCHES["off"].items()}
+    check(n == want, f"soak launches {n} in 2 x {steps} steps, want {want}")
+    check(rec["mid_run_reload_bit_equal"] is True, f"soak reload: {rec['events']}")
+    check(rec["replay"]["trajectory_equal"] and rec["replay"]["final_state_equal"],
+          f"soak replay differs: {rec['replay']}")
+    check(rec["loss_falls"] and rec["loss_last"] < rec["loss_first"],
+          f"soak loss did not fall: {rec['loss_first']} -> {rec['loss_last']}")
+    emit(rec)
+    free_memory()
+    return n
+
+
+def phase_learn():
+    """The tiny held-out learnability run of
+    ``tests/test_torch_geometric_learnability.py`` on the card: the tiny
+    model trained 300 steps on 12 box scenes of the 2-camera rig, float32,
+    then the 4 held-out scenes; held-out SC IoU > 0.15 and class mIoU (every
+    foreground class) > 0.08, the JAX test's thresholds."""
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import tiny_cfg
+
+    from occformer_tpu_torch.engine.train import build_loss_cfg
+    from occformer_tpu_torch.tools.synthetic_geo_benchmark import train_geo
+
+    cfg = tiny_cfg.model_cfg()
+    loss_cfg = build_loss_cfg(cfg["pts_bbox_head"], dict(
+        num_points=128, oversample_ratio=2.0, importance_sample_ratio=0.75))
+    reset_launches()  # the main path's run starts here
+    rec = train_geo(cfg, loss_cfg, "tiny", steps=300, train_scenes=12, test_scenes=4,
+                    device="cuda", lr=3e-4)
+    n = launches()  # ... and ends here
+    rec = dict(rec, phase="learn", launches=n,
+               launches_per_step={k: v / 300 for k, v in n.items()})
+    check(all(n[k] > 0 for k in ("K1", "K1-bwd", "K2", "K2-bwd", "S1")),
+          f"learn launches {n}")
+    check(rec["heldout_SC_IoU"] > 0.15, f"held-out SC IoU {rec['heldout_SC_IoU']} "
+          f"(chance {rec['chance_SC_IoU']})")
+    check(rec["heldout_mIoU_all_classes"] > 0.08,
+          f"held-out class mIoU {rec['heldout_mIoU_all_classes']}")
+    emit(rec)
+    free_memory()
+    return n
+
+
+def phase_ddp():
+    """World size 1 under ``nccl`` and ``DistributedDataParallel``
+    (``engine/train.py:wrap_ddp``): two flagship train steps from the same
+    seed and batch as two plain steps must repeat their losses, grad_norm
+    and every gradient (captured before the optimizer touches them) bit for
+    bit, and leave the same parameters without a gradient (the frozen stem,
+    which DDP's search for unused parameters must skip)."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.synthetic import make_train_batch
+    from occformer_tpu_torch.engine.eval import to_device_batch
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step, wrap_ddp
+    from occformer_tpu_torch.models.detector import build_model
+    from occformer_tpu_torch.tools.train import step_generator
+
+    cfg = load_config(CONFIG)
+    m = cfg["model"]
+    loss_cfg = build_loss_cfg(m["pts_bbox_head"], m["train_cfg"]["pts"])
+    batch = to_device_batch(make_train_batch(cfg, seed=0), torch.device("cuda"))
+
+    def two_steps(ddp):
+        model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
+        opt = build_optimizer_from_config(model, cfg, 28130)
+        grads, missing, step_s = [], [], []
+        adamw_step = opt.step
+
+        def capture():  # the gradients as the backward (and DDP) left them
+            missing.append([k for k, p in model.named_parameters() if p.grad is None])
+            grads.append({k: p.grad.clone() for k, p in model.named_parameters()
+                          if p.grad is not None})
+            return adamw_step()
+
+        opt.step = capture
+        step = build_train_step(wrap_ddp(model) if ddp else model, opt, loss_cfg,
+                                device="cuda", compute_dtype=torch.bfloat16)
+        metrics = []
+        for k in range(2):
+            t = time.perf_counter()
+            out = step(batch, step_generator(0, k, torch.device("cuda")))
+            metrics.append({name: float(v) for name, v in out.items()})
+            step_s.append(time.perf_counter() - t)
+        return metrics, grads, missing, step_s
+
+    plain = two_steps(False)
+    free_memory()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0)
+    try:
+        reset_launches()  # the main path's run starts here
+        ddp = two_steps(True)
+        n = launches()  # ... and ends here
+    finally:
+        dist.destroy_process_group()
+    grads_differ = [[k for k, g in ref.items() if not torch.equal(g, got[k])]
+                    for ref, got in zip(plain[1], ddp[1])]
+    rec = {"phase": "ddp", "config": "occformer_nusc_r50_256x704", "world_size": 1,
+           "backend": "nccl", "steps": 2, "launches": n,
+           "plain_metrics": plain[0], "ddp_metrics": ddp[0],
+           "metrics_equal": all(same_metrics(a, b) for a, b in zip(plain[0], ddp[0])),
+           "gradients": len(plain[1][0]),
+           "gradients_differing": [len(d) for d in grads_differ],
+           "names_differing": [d[:5] for d in grads_differ],
+           "parameters_without_gradient": ddp[2],
+           "plain_step_s": plain[3], "ddp_step_s": ddp[3]}
+    emit(rec)
+    want = {k: v * 2 for k, v in TRAIN_LAUNCHES["off"].items()}
+    check(n == want, f"ddp launches {n} in 2 steps, want {want}")
+    check(ddp[2] == plain[2], f"parameters without a gradient: {ddp[2]} / {plain[2]}")
+    check(rec["metrics_equal"], f"DDP metrics differ: {plain[0]} / {ddp[0]}")
+    check(not any(grads_differ), f"DDP gradients differ: {rec['names_differing']}")
+    del plain, ddp
+    free_memory()
+    return n
 
 
 # the port's CUDA kernels by function name -> the kernel they belong to;
@@ -2511,6 +2751,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    start = time.perf_counter()
     probe = phase_probe()  # before any other build: a broken toolchain fails here
     t0 = time.perf_counter()
     report = cuda_build.build()
@@ -2518,26 +2759,35 @@ def main():
           "kernels": {k: {"seconds": v["seconds"],
                           "ptxas": [ln for ln in v["log"].splitlines() if "ptxas" in ln]}
                       for k, v in report.items()}})
-    serve_n = phase_serve()
-    kern = phase_kernels()
-    phase_tiny()
-    phase_tiny_train("off")
-    phase_tiny_train("on")
-    phase_tiny_train("on", accum_steps=2)
-    free_memory()
-    det = phase_determinism()
-    free_memory()
-    train_n = phase_train("off")
-    free_memory()
-    train_batched_n = phase_train("on")
-    free_memory()
+    wall = {"probe_and_build": time.perf_counter() - start}
+
+    def timed(name, fn, *args, **kwargs):
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        wall[name] = time.perf_counter() - t
+        free_memory()
+        return out
+
+    serve_n = timed("serve", phase_serve)
+    kern = timed("kernels", phase_kernels)
+    timed("tiny", phase_tiny)
+    timed("tiny_train", phase_tiny_train, "off")
+    timed("tiny_train_batched", phase_tiny_train, "on")
+    timed("tiny_train_accum", phase_tiny_train, "on", accum_steps=2)
+    det = timed("reload_determinism", phase_determinism)
+    train_n = timed("train", phase_train, "off")
+    train_batched_n = timed("train_batched", phase_train, "on")
     tree = tempfile.mkdtemp(prefix="occformer_nusc_")
     try:
-        data, ann = phase_data(tree)
-        free_memory()
-        phase_cli(tree, ann)
+        data, ann = timed("data", phase_data, tree)
+        timed("cli", phase_cli)
+        resume_n = timed("resume", phase_resume, tree, ann)
     finally:
         shutil.rmtree(tree, ignore_errors=True)
+    soak_n = timed("soak", phase_soak)
+    learn_n = timed("learn", phase_learn)
+    ddp_n = timed("ddp", phase_ddp)
+    emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
@@ -2547,7 +2797,8 @@ def main():
         "serve": serve_n, "train": train_n, "train_batched": train_batched_n,
         "data_train": data["train_pipeline"]["launches"],
         "data_serve": data["serve_pipeline"]["launches"],
-        "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"]})})
+        "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"],
+        "resume": resume_n, "soak": soak_n, "learn": learn_n, "ddp": ddp_n})})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -6,8 +6,12 @@ each host iterates its contiguous shard of an epoch-seeded permutation;
 samples are collated into fixed-capacity numpy buffers (LiDAR points padded
 to ``max_points`` with a validity mask), so every step sees one shape.
 ``group_flags`` give group-pure batches, as ``DistributedGroupSampler``'s
-aspect-ratio groups do.  ``num_hosts`` / ``host_id`` are kept for data
-parallelism; one process passes 1 / 0.
+aspect-ratio groups do.  ``num_hosts`` / ``host_id`` shard the epoch for
+data parallelism (the train and test CLIs pass the process group's world
+size and rank; one process passes 1 / 0).  ``set_epoch(epoch, start_batch)``
+starts an epoch part-way, skipping its first batches without building them:
+a run resumed from a mid-epoch checkpoint sees the batches the uninterrupted
+run saw.
 
 ``prefetch_to_device`` takes the place of the JAX package's
 ``prefetch_to_mesh``: batch i+1 goes from pinned host buffers to the card by
@@ -146,12 +150,24 @@ class ShardedLoader:
         except (TypeError, ValueError):
             self._collate_takes_rng = False
         self.epoch = 0
+        self.start_batch = 0
 
-    def set_epoch(self, epoch: int):
-        """Epoch-seeded reshuffle (group_sampler.py epoch semantics)."""
+    def set_epoch(self, epoch: int, start_batch: int = 0):
+        """Epoch-seeded reshuffle (group_sampler.py epoch semantics); its
+        iterations start at batch ``start_batch`` of this host's order (a
+        resumed epoch), with no sample of the skipped batches built.
+        A dataset with a ``set_epoch`` of its own (its augmentation draws
+        are addressed by epoch) is told the epoch too."""
+        if not 0 <= start_batch <= len(self):
+            raise ValueError(f"start_batch {start_batch} outside the epoch's "
+                             f"{len(self)} batches")
         self.epoch = epoch
+        self.start_batch = start_batch
+        if hasattr(self.dataset, "set_epoch"):
+            self.dataset.set_epoch(epoch)
 
     def __len__(self):
+        """The epoch's batch count, whatever its start batch."""
         if self._grouped:
             bs_nh = self.batch_size * self.num_hosts
             return sum(
@@ -221,12 +237,13 @@ class ShardedLoader:
     def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
         idxs = self._indices()
         nb = len(self)
+        start = self.start_batch
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
         stop = object()
 
         def worker():
             try:
-                for b in range(nb):
+                for b in range(start, nb):
                     chunk = idxs[b * self.batch_size : (b + 1) * self.batch_size]
                     if len(chunk) == 0:
                         break

@@ -7,6 +7,13 @@ this program or the nuScenes tools wrote: unpickling runs code) and runs the
 numpy pipeline of ``data/transforms.py`` and ``data/voxelize.py``, whose
 steps come from the ``PIPELINES`` registry; evaluation consumes accumulated
 confusion matrices (``utils/metrics.py``).
+
+Every random draw of a sample (camera choice, image and BDA augmentation,
+the corrupt-sample retry's replacement) comes from ``sample_rng(seed, epoch,
+index)``: a rerun, a resumed epoch, another loader thread or another host
+count builds the same sample.  (The JAX package's steps each hold one
+unseeded ``RandomState`` for their lifetime, and its retry draws from the
+global ``np.random``; a step given its own ``rng`` still draws from it.)
 """
 from __future__ import annotations
 
@@ -27,6 +34,14 @@ NUSC_CLASS_NAMES = [
 ]
 
 
+def sample_rng(seed: int, epoch: int, index: int, stream: int = 0) -> np.random.RandomState:
+    """The ``RandomState`` of sample ``index``'s draws in ``epoch`` of a run
+    seeded ``seed``: stream 0 the pipeline's augmentation, stream 1 the
+    retry's choice of a replacement."""
+    s = np.random.SeedSequence([seed, epoch, index, stream]).generate_state(1)[0]
+    return np.random.RandomState(s)
+
+
 @DATASETS.register_module()
 class CustomNuScenesOccLSSDataset:
     def __init__(
@@ -38,9 +53,12 @@ class CustomNuScenesOccLSSDataset:
         pc_range: Sequence[float],
         classes: Optional[Sequence[str]] = None,
         test_mode: bool = False,
+        seed: int = 0,
         **kwargs,
     ):
         self.data_root = data_root
+        self.seed = int(seed)
+        self.epoch = 0
         self.occ_size = np.asarray(occ_size)
         self.pc_range = np.asarray(pc_range)
         self.classes = list(classes or NUSC_CLASS_NAMES)
@@ -65,6 +83,11 @@ class CustomNuScenesOccLSSDataset:
 
     def __len__(self):
         return len(self.data_infos)
+
+    def set_epoch(self, epoch: int):
+        """The epoch whose draws the samples take (``ShardedLoader.set_epoch``
+        calls it)."""
+        self.epoch = int(epoch)
 
     def get_data_info(self, index: int) -> Dict:
         """Mirrors reference get_data_info (:49-119): path fixups and the
@@ -97,8 +120,10 @@ class CustomNuScenesOccLSSDataset:
 
     def _run_pipeline(self, index: int) -> Dict:
         results = self.get_data_info(index)
+        results["aug_rng"] = sample_rng(self.seed, self.epoch, index)
         for step in self.pipeline:
             results = step(results)
+        del results["aug_rng"]
         return results
 
     def __getitem__(self, index: int) -> Dict:
@@ -106,7 +131,9 @@ class CustomNuScenesOccLSSDataset:
             return self._run_pipeline(index)
         # train mode: a corrupt/unreadable sample is replaced by a random
         # other one (reference _rand_another retry loop,
-        # nuscenes_lss_dataset.py:23-29) instead of killing the epoch
+        # nuscenes_lss_dataset.py:23-29) instead of killing the epoch; the
+        # replacements are drawn from the failed sample's own stream
+        retry = sample_rng(self.seed, self.epoch, index, stream=1)
         for _ in range(50):
             try:
                 results = self._run_pipeline(index)
@@ -116,7 +143,7 @@ class CustomNuScenesOccLSSDataset:
                 results = None
             if results is not None:
                 return results
-            index = int(np.random.randint(len(self)))
+            index = int(retry.randint(len(self)))
         raise RuntimeError("50 consecutive corrupt samples — dataset broken?")
 
     def evaluate_lidarseg(self, confusion_matrix: np.ndarray) -> Dict:

@@ -24,6 +24,19 @@ from PIL import Image
 from ..registry import PIPELINES
 from .native import zbuffer_depth_native
 
+def step_rng(step, results: Dict) -> np.random.RandomState:
+    """The ``RandomState`` a pipeline step draws from: its own ``rng`` where
+    one was set (a ``seed`` argument, or a test seeding it as the JAX
+    package's tests do), else the sample's, ``results["aug_rng"]``, which
+    the dataset addresses by (seed, epoch, index)."""
+    if step.rng is not None:
+        return step.rng
+    if "aug_rng" not in results:
+        raise KeyError(f"{type(step).__name__} draws from results['aug_rng'] (set by the "
+                       "dataset) or from its own rng (its seed argument); neither is set")
+    return results["aug_rng"]
+
+
 def get_rot(h: float) -> np.ndarray:
     """2D rotation used by the aug homography (loading_nusc_imgs.py:28-32)."""
     return np.array(
@@ -129,26 +142,28 @@ def sample_augmentation(
 @PIPELINES.register_module()
 class LoadMultiViewImageFromFiles_OccFormer:
     """nuScenes multi-view image loading + per-camera aug
-    (loading_nusc_imgs.py:10-179)."""
+    (loading_nusc_imgs.py:10-179).  The draws come from ``step_rng``: the
+    sample's RandomState, or the step's own where ``seed`` gives one."""
 
     def __init__(self, data_config, is_train=False, img_norm_cfg=None,
                  seed: Optional[int] = None):
         self.data_config = dict(data_config)
         self.is_train = is_train
         self.img_norm_cfg = img_norm_cfg
-        self.rng = np.random.RandomState(seed)
+        self.rng = None if seed is None else np.random.RandomState(seed)
 
-    def choose_cams(self):
+    def choose_cams(self, rng: np.random.RandomState):
         cams = self.data_config["cams"]
         n = self.data_config["Ncams"]
         if self.is_train and n < len(cams):
-            return list(self.rng.choice(cams, n, replace=False))
+            return list(rng.choice(cams, n, replace=False))
         return list(cams)
 
     def __call__(self, results: Dict) -> Dict:
         imgs, rots, trans, intrins = [], [], [], []
         post_rots, post_trans, sensor2sensors = [], [], []
-        cam_names = self.choose_cams()
+        rng = step_rng(self, results)
+        cam_names = self.choose_cams(rng)
         results["cam_names"] = cam_names
         for cam in cam_names:
             cam_data = results["curr"]["cams"][cam]
@@ -158,7 +173,7 @@ class LoadMultiViewImageFromFiles_OccFormer:
                 np.asarray(results["lidar2cam_dic"][cam], np.float64)
             ).astype(np.float32)
             resize, resize_dims, crop, flip, rotate = sample_augmentation(
-                self.data_config, img.height, img.width, self.is_train, self.rng
+                self.data_config, img.height, img.width, self.is_train, rng
             )
             img = img_transform_core(img, resize_dims, crop, flip, rotate)
             pr2, pt2 = img_transform_matrices(resize, crop, flip, rotate)

@@ -19,6 +19,7 @@ from PIL import Image
 
 from ..registry import PIPELINES
 from .native import majority_vote_native
+from .transforms import step_rng
 
 # nuScenes lidarseg 32 -> 16 learning map (projects/configs/_base_/nuscenes.yaml)
 NUSC_LEARNING_MAP = {
@@ -175,7 +176,8 @@ def voxel_transform(
 @PIPELINES.register_module()
 class LoadNuscOccupancyAnnotations:
     """LiDAR-seg loading, BDA aug, majority-vote voxelization
-    (loading_nusc_occ.py:14-120)."""
+    (loading_nusc_occ.py:14-120).  The BDA draws come from ``step_rng``: the
+    sample's RandomState, or the step's own where ``seed`` gives one."""
 
     def __init__(self, data_root="data/nuscenes", is_train=False,
                  is_test_submit=False, grid_size=None, point_cloud_range=None,
@@ -188,7 +190,7 @@ class LoadNuscOccupancyAnnotations:
         self.point_cloud_range = np.asarray(point_cloud_range, np.float64)
         self.bda_aug_conf = bda_aug_conf
         self.unoccupied_id = unoccupied_id
-        self.rng = np.random.RandomState(seed)
+        self.rng = None if seed is None else np.random.RandomState(seed)
         if cls_metas is not None and os.path.exists(str(cls_metas)):
             import yaml
 
@@ -218,7 +220,8 @@ class LoadNuscOccupancyAnnotations:
         labels = self.lut[raw].astype(np.float32).reshape(-1, 1)
 
         if self.is_train:
-            rot, scale, fdx, fdy, fdz = sample_3d_augmentation(self.bda_aug_conf, self.rng)
+            rot, scale, fdx, fdy, fdz = sample_3d_augmentation(self.bda_aug_conf,
+                                                               step_rng(self, results))
             bda = bda_matrix(rot, fdx, fdy, fdz)
         else:
             bda = np.eye(3, dtype=np.float32)

@@ -16,6 +16,7 @@ strictly.  A reference ``.pth`` (an mmcv checkpoint or a bare state dict,
 in the reference key space the port carries) goes through
 ``engine/pretrained.py:partial_load_torch``, non-strictly as mmcv loads it.
 The JAX package's orbax checkpoints are not read: that needs orbax and JAX.
+Under data parallelism rank 0 writes and every rank loads.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ import shutil
 from typing import Optional
 
 import torch
+
+from ..parallel.distributed import barrier, is_main_process
 
 STATE_FILE = "state.pt"
 _TMP = ".tmp-"
@@ -38,13 +41,22 @@ def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, optimizer, step: int,
                     max_keep: int = 1) -> str:
     """Save the train state as ``ckpt_dir/step_{step}``; keep the newest
     ``max_keep``.  ``optimizer`` may be None (weights only).  Returns the
-    checkpoint's path."""
+    checkpoint's path.  Under data parallelism every rank calls it: rank 0
+    writes (every rank holds the same state) and the others wait for it at
+    a barrier, as the JAX package's ``save_checkpoint`` does (:45)."""
     ckpt_dir = os.path.abspath(ckpt_dir)
+    path = os.path.join(ckpt_dir, f"step_{step}")
+    if is_main_process():
+        _write(ckpt_dir, path, model, optimizer, step, max_keep)
+    barrier()
+    return path
+
+
+def _write(ckpt_dir, path, model, optimizer, step, max_keep):
     os.makedirs(ckpt_dir, exist_ok=True)
     for d in os.listdir(ckpt_dir):  # a save killed half-way
         if _TMP in d:
             shutil.rmtree(os.path.join(ckpt_dir, d), ignore_errors=True)
-    path = os.path.join(ckpt_dir, f"step_{step}")
     tmp = f"{path}{_TMP}{os.getpid()}"
     os.makedirs(tmp)
     state = {"step": int(step), "model": model.state_dict(),
@@ -55,7 +67,6 @@ def save_checkpoint(ckpt_dir: str, model: torch.nn.Module, optimizer, step: int,
     os.replace(tmp, path)
     for s in _steps(ckpt_dir)[:-max_keep]:
         shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
-    return path
 
 
 def read_checkpoint(path: str) -> dict:

@@ -19,6 +19,7 @@ from torch.profiler import record_function
 
 from ..models.mask2former_head import format_results, mask_logits_from_embeds
 from ..ops.sampling import grid_sample_3d, resize_trilinear
+from ..parallel.distributed import host_allreduce_sum
 from ..utils.metrics import cm_to_ious
 
 
@@ -110,13 +111,14 @@ def evaluate(model, loader, occ_size, num_classes: int, class_names=None,
     ``save_cb(out, meta_list, batch)`` runs per batch on the host (the
     submission writers, reference apis/test.py:161-167).  ``all_reduce``
     sums the counter state across processes before the metrics are derived
-    (default: the identity, one process), the analogue of the reference's
+    (default: ``parallel/distributed.py:host_allreduce_sum``, the identity
+    for one process), the analogue of the reference's
     ``dist.all_reduce(evaluation_semantic)`` (apis/test.py:209)."""
     if compute_ssc:
         raise NotImplementedError("SSC metrics come with the SemanticKITTI slice")
     if panoptic:
         raise NotImplementedError("panoptic evaluation comes with the panoptic slice")
-    all_reduce = all_reduce or (lambda state: state)
+    all_reduce = all_reduce or host_allreduce_sum
     step = build_eval_step(model, occ_size, num_classes, compute_dtype)
     cm = np.zeros((num_classes, num_classes), np.int64)
     for batch in loader:

@@ -18,6 +18,7 @@ import contextlib
 from typing import Callable, Dict, List, Optional, Union
 
 import torch
+from torch.nn.parallel import DistributedDataParallel
 from torch.profiler import record_function
 
 from ..losses.mask2former_loss import MaskLossConfig, make_loss_draws, mask2former_loss
@@ -25,6 +26,7 @@ from ..models.layers import drop_path_generator
 from ..models.lss import depth_bce_loss
 from ..models.mask2former_head import format_results, mask_logits_from_embeds
 from ..ops.sampling import grid_sample_3d
+from ..parallel.distributed import all_reduce_sum, world_size
 from .eval import to_device_batch
 from .optim import TrainOptimizer
 
@@ -67,6 +69,27 @@ def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
     )
 
 
+def wrap_ddp(model: torch.nn.Module) -> DistributedDataParallel:
+    """``model`` (on its device, in train mode) in ``DistributedDataParallel``
+    as ``build_train_step`` runs it under an active process group.
+
+    * ``find_unused_parameters=True``: the image backbone's frozen stages
+      get no gradient (``models/resnet.py`` detaches their output in
+      training; at the flagship's ``frozen_stages=0`` the stem's conv1 and
+      bn1), and without the search DDP waits for them and fails the next
+      step.  The search walks the step's autograd graph once a step.  The
+      occupancy encoder's ``with_cp`` recomputation is the non-reentrant
+      checkpoint, whose gradients reach DDP's hooks once each, so it needs
+      nothing more.
+    * ``broadcast_buffers=False``: every rank moves its BatchNorm running
+      statistics by the same all-reduced global statistics, so the buffers
+      never part; a broadcast from rank 0 would hide it if they did."""
+    dev = next(model.parameters()).device
+    return DistributedDataParallel(
+        model, device_ids=[dev.index] if dev.type == "cuda" else None,
+        broadcast_buffers=False, find_unused_parameters=True)
+
+
 @torch.no_grad()
 def train_point_miou(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor],
                      num_classes: int) -> torch.Tensor:
@@ -86,7 +109,7 @@ def train_point_miou(out: Dict[str, torch.Tensor], batch: Dict[str, torch.Tensor
     ok = batch["lidar_valid"].bool() & (label > 0) & (label < n)
     idx = torch.where(ok, label * n + pred, torch.full_like(label, n * n))
     cm = torch.bincount(idx.reshape(-1), minlength=n * n + 1)[:-1]
-    cm = cm.reshape(n, n)[1:, 1:].float()
+    cm = all_reduce_sum(cm).reshape(n, n)[1:, 1:].float()  # over the global batch
     tp = cm.diagonal()
     denom = cm.sum(0) + cm.sum(1) - tp
     iou = torch.where(denom > 0, tp / denom.clamp(min=1), torch.full_like(tp, float("nan")))
@@ -117,6 +140,18 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
     drop-path masks and then its loss draws from ``generator``; gradients
     and metrics are averaged over them, and the optimizer updates once.
 
+    ``model`` may be a ``DistributedDataParallel`` wrapper: each rank then
+    runs its shard of the global batch, and the step is the one-process step
+    on the global batch (the rank-major concatenation of the shards).  Each
+    rank keeps its rows of the global batch's drop-path masks and loss
+    draws (one per-step generator on every rank), BatchNorm takes the global
+    batch's statistics, the loss normalisers are summed over ranks, the
+    gradients are averaged by DDP before the clip reads their norm, and the
+    returned metrics are the global batch's (losses averaged over ranks,
+    ``unassigned_gt`` summed, ``point_mean_iou`` from the summed confusion).
+    With ``accum_steps > 1`` every micro-batch but the last runs under
+    ``no_sync``.
+
     The step runs on ``cuda`` unless the caller passes ``device="cpu"``; the
     model must already be there.  It does not change the model's mode: call
     ``model.train()`` first for the train-mode forward.  ``compute_dtype``
@@ -129,10 +164,15 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                            "the train step's plain PyTorch path on the CPU")
     if accum_steps < 1:
         raise ValueError(f"accum_steps must be at least 1; got {accum_steps}")
-    params = list(model.parameters())
+    ddp = isinstance(model, DistributedDataParallel)
+    if world_size() > 1 and not ddp:
+        raise ValueError(f"a process group of {world_size()} is active: wrap the model in "
+                         "DistributedDataParallel (engine/train.py:wrap_ddp)")
+    core = model.module if ddp else model
+    params = list(core.parameters())
     if any(p.device.type != dev.type for p in params):
         raise ValueError(f"the model's parameters must lie on {dev}")
-    vt = model.img_view_transformer
+    vt = core.img_view_transformer
 
     def autocast():
         if compute_dtype is None:
@@ -181,12 +221,23 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
         micro = [batch] if accum_steps == 1 else [
             {k: v[m * mb:(m + 1) * mb] for k, v in batch.items()} for m in range(accum_steps)]
         optimizer.zero_grad()
-        per_micro = [micro_step(b, generator, d) for b, d in zip(micro, draws)]
+        per_micro = []
+        for m, (b, d) in enumerate(zip(micro, draws)):
+            # DDP all-reduces the gradients in the last micro-batch's backward
+            sync = not ddp or m == accum_steps - 1
+            with contextlib.nullcontext() if sync else model.no_sync():
+                per_micro.append(micro_step(b, generator, d))
         metrics = per_micro[0]
         if accum_steps > 1:
             inv = 1.0 / accum_steps
             torch._foreach_mul_([p.grad for p in params if p.grad is not None], inv)
             metrics = {k: sum(m[k] for m in per_micro) * inv for k in metrics}
+        world = world_size()
+        if world > 1:
+            keys = [k for k in metrics if k != "point_mean_iou"]
+            summed = all_reduce_sum(torch.stack([metrics[k].float() for k in keys]))
+            metrics.update({k: v if k == "unassigned_gt" else v / world
+                            for k, v in zip(keys, summed)})
         with record_function("stage:optimizer"):
             metrics["grad_norm"] = optimizer.step()
         return metrics

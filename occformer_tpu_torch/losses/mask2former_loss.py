@@ -41,6 +41,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from ..ops.loss_gather import sample_id_masks, sort_points_by_row
+from ..parallel.distributed import all_reduce_sum, global_rows, world_size
 from ..ops.sampling import point_sample_3d
 from .matching import hungarian_match, mask_matching_cost
 from .point_sampling import gumbel_noise, gumbel_topk_sample, uncertainty_topk
@@ -121,9 +122,15 @@ def make_loss_draws(generator: torch.Generator, cfg: MaskLossConfig,
     * ``cand_perm`` [L, B, n] with n = min(candidates, P), ``cand_rand``
       [L, B, n, 3], ``cand_extra`` [L, B, candidates - n, 3] and
       ``rand_fill`` [L, B, G, n_rand, 3], JAX ``_loss_single_sample``.
+
+    Under data parallelism each rank draws the global batch's noise and
+    keeps its rows (``parallel/distributed.py:global_rows``), so the ranks'
+    draws are one process's on the global batch.
     """
     L = num_layers
     B, P = lidar_valid.shape
+    rows = global_rows(B)
+    Bg = B * world_size()
     G = cfg.num_classes
     n_match = cfg.num_match_points
     k1 = n_match // 2
@@ -133,16 +140,19 @@ def make_loss_draws(generator: torch.Generator, cfg: MaskLossConfig,
     valid = lidar_valid.to(dev).float().expand(L, B, P)
 
     def uniform(*shape):
-        return torch.rand(shape, generator=generator, device=dev)
+        return torch.rand((L, Bg) + shape, generator=generator, device=dev)[:, rows]
+
+    def gumbel():
+        return gumbel_noise((L, Bg, P), generator)[:, rows]
 
     return {
-        "match_perm": gumbel_topk_sample(valid, k1, gumbel_noise((L, B, P), generator)),
-        "match_rand1": uniform(L, B, k1, 3),
-        "match_rand2": uniform(L, B, n_match - k1, 3),
-        "cand_perm": gumbel_topk_sample(valid, n_cand, gumbel_noise((L, B, P), generator)),
-        "cand_rand": uniform(L, B, n_cand, 3),
-        "cand_extra": uniform(L, B, cfg.num_candidates - n_cand, 3),
-        "rand_fill": uniform(L, B, G, n_rand, 3),
+        "match_perm": gumbel_topk_sample(valid, k1, gumbel()),
+        "match_rand1": uniform(k1, 3),
+        "match_rand2": uniform(n_match - k1, 3),
+        "cand_perm": gumbel_topk_sample(valid, n_cand, gumbel()),
+        "cand_rand": uniform(n_cand, 3),
+        "cand_extra": uniform(cfg.num_candidates - n_cand, 3),
+        "rand_fill": uniform(G, n_rand, 3),
     }
 
 
@@ -185,11 +195,19 @@ def _cls_terms(cls_score, assign, gt_labels, gt_valid, class_weight, num_classes
 
 
 def _layer_losses(cfg, s, assigns, gt_valid):
-    """The loss dict from per-layer partial sums ``s`` ([L] each)."""
+    """The loss dict from per-layer partial sums ``s`` ([L] each).
+
+    Under data parallelism the normalisers (no gradient flows through them)
+    are summed over ranks and each rank's loss is ``world`` times its share
+    of the global loss, so that ``DistributedDataParallel``'s mean of the
+    ranks' gradients is the global loss's gradient; the train step averages
+    the ranks' loss values back into the global one."""
     eps = torch.finfo(torch.float32).eps
-    lc = cfg.cls_loss_weight * s["cls_num"] / s["cls_avg"].clamp(min=eps)
-    lm = cfg.mask_loss_weight * s["mask_num"] / s["mask_avg"].clamp(min=eps)
-    ld = cfg.dice_loss_weight * s["dice_num"] / s["dice_avg"].clamp(min=eps)
+    world = world_size()
+    avg = all_reduce_sum(torch.stack([s["cls_avg"], s["mask_avg"], s["dice_avg"]]))
+    lc = world * cfg.cls_loss_weight * s["cls_num"] / avg[0].clamp(min=eps)
+    lm = world * cfg.mask_loss_weight * s["mask_num"] / avg[1].clamp(min=eps)
+    ld = world * cfg.dice_loss_weight * s["dice_num"] / avg[2].clamp(min=eps)
     L = lc.shape[0]
     losses: Dict[str, torch.Tensor] = {}
     for l in range(L):

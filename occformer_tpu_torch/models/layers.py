@@ -11,7 +11,8 @@ composite bricks, named as the reference's checkpoints name them:
   and ``out_proj``, computed as plain matmuls and a float32 softmax;
 * ``Mlp``, ``SELayer`` and ``BasicBlock2D`` of the DepthNet;
 * the train-mode pieces: ``BatchNorm1d`` / ``BatchNorm2d`` with flax's
-  running-statistics update, ``DropPath`` drawing from an explicit
+  running-statistics update (over the global batch under data
+  parallelism), ``DropPath`` drawing from an explicit
   generator (``drop_path_generator``), and ``checkpoint``, gradient
   checkpointing that replays those draws when it recomputes;
 * ``Conv3dFixedOrderBackward``: an ``nn.Conv3d`` whose backward on the card
@@ -27,12 +28,14 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Optional
+from typing import Optional, Sequence
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 import torch.utils.checkpoint
+
+from ..parallel.distributed import global_rows, world_size
 
 
 class _FlaxBatchNorm:
@@ -40,18 +43,51 @@ class _FlaxBatchNorm:
     statistics and move the running mean and variance toward them by
     ``momentum`` (flax ``momentum=0.9`` is torch 0.1).  Torch's own update
     uses the unbiased variance, n / (n - 1) times larger: over the DepthNet's
-    camera batch of 6 rows that is 20%.  Eval mode is torch's."""
+    camera batch of 6 rows that is 20%.  Eval mode is torch's.
+
+    While a process group of more than one process is active, the statistics
+    are those of the global batch, as the JAX package's SPMD step computes
+    them: each rank's count, sum and sum of squared deviations are summed
+    over ranks by an all-reduce that autograd differentiates
+    (``torch.distributed.nn.functional.all_reduce``).  ``nn.SyncBatchNorm``
+    does not serve: it runs on CUDA only and moves the running variance
+    toward the unbiased one."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
         dims = [0] + list(range(2, x.dim()))
+        if world_size() > 1:
+            return self._global_forward(x, dims)
         with torch.no_grad():
             var, mean = torch.var_mean(x.float(), dim=dims, unbiased=False)
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked.add_(1)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+
+    def _global_forward(self, x, dims):
+        from torch.distributed.nn.functional import all_reduce
+
+        xf = x.float()
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        count = torch.full((1,), xf.numel() // xf.shape[1], dtype=torch.float32,
+                           device=x.device)
+        # two passes (the mean, then the squared deviations from it): no
+        # cancellation of E[x^2] - mean^2
+        sums = all_reduce(torch.cat([xf.sum(dims), count]))
+        n = sums[-1]
+        mean = sums[:-1] / n
+        dev = xf - mean.view(shape)
+        var = all_reduce((dev * dev).sum(dims)) / n
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.detach().to(self.running_mean.dtype), self.momentum)
+            self.running_var.lerp_(var.detach().to(self.running_var.dtype), self.momentum)
+            self.num_batches_tracked.add_(1)
+        y = dev * torch.rsqrt(var + self.eps).view(shape)
+        if self.weight is not None:
+            y = y * self.weight.float().view(shape) + self.bias.float().view(shape)
+        return y.to(x.dtype)
 
 
 class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
@@ -80,19 +116,34 @@ def drop_path_generator(generator: Optional[torch.Generator]):
 class DropPath(nn.Module):
     """Per-sample stochastic depth (timm; JAX ``layers.py:216-231``): in
     train mode each entry of the leading axis is kept with probability
-    1 - rate and scaled by 1 / (1 - rate), else zeroed."""
+    1 - rate and scaled by 1 / (1 - rate), else zeroed.
+
+    ``segments`` says how the leading axis holds the batch: blocks one after
+    the other, block j holding ``segments[j]`` rows a sample, sample-major
+    (the default ``(1,)``: one row a sample).  Under data parallelism each
+    rank draws the masks of the global batch's rows, laid out the same way,
+    and keeps its own samples' rows: the ranks' masks are one process's on
+    the global batch."""
 
     def __init__(self, rate: float = 0.0):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x):
+    def forward(self, x, segments: Sequence[int] = (1,)):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
         g = _DROP_PATH_GENERATOR
-        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        world = world_size()
+        shape = (x.shape[0] * world,) + (1,) * (x.dim() - 1)
         u = torch.rand(shape, generator=g, device=g.device if g is not None else x.device)
+        if world > 1:
+            B = x.shape[0] // sum(segments)
+            rows, start = [], 0
+            for s in segments:
+                rows.append(torch.arange(start, start + world * B * s)[global_rows(B * s)])
+                start += world * B * s
+            u = u[torch.cat(rows).to(u.device)]
         mask = u.to(x.device) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from ..ops.geometry import compute_voxel_coords, create_frustum, gen_dx_bx, get_geometry
 from ..ops.scatter import voxel_scatter_lifted
+from ..parallel.distributed import all_reduce_sum, world_size
 from .depthnet import DepthNet, get_mlp_input
 
 
@@ -42,7 +43,10 @@ def downsampled_gt_depth(gt_depths: torch.Tensor, grid_config: Dict, downsample:
 def depth_bce_loss(gt_depths: torch.Tensor, depth_prob: torch.Tensor, grid_config: Dict,
                    downsample: int, weight: float = 1.0) -> torch.Tensor:
     """BCE depth loss over the cells with a target, float32 (reference
-    ViewTransformerLSSVoxel.py:54-75); ``depth_prob`` [..., D]."""
+    ViewTransformerLSSVoxel.py:54-75); ``depth_prob`` [..., D].  Under data
+    parallelism the count of cells with a target is summed over ranks and
+    the loss scaled as ``losses/mask2former_loss.py:_layer_losses`` scales
+    its own."""
     D = depth_prob.shape[-1]
     labels = downsampled_gt_depth(gt_depths, grid_config, downsample, D)
     preds = depth_prob.reshape(-1, D).float()
@@ -51,7 +55,7 @@ def depth_bce_loss(gt_depths: torch.Tensor, depth_prob: torch.Tensor, grid_confi
     bce = -(labels * torch.log(preds.clamp(min=eps))
             + (1.0 - labels) * torch.log((1.0 - preds).clamp(min=eps)))
     per_cell = bce.clamp(0.0, 100.0).sum(dim=1) * fg
-    return weight * per_cell.sum() / fg.sum().clamp(min=1.0)
+    return world_size() * weight * per_cell.sum() / all_reduce_sum(fg.sum()).clamp(min=1.0)
 
 
 class ViewTransformerLiftSplatShootVoxel(nn.Module):

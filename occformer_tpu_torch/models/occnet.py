@@ -52,7 +52,7 @@ class DualpathTransformerBlock(nn.Module):
         # [BEV] ++ [z-slices, b-major] as one channels-last batch
         y_bev = y.mean(dim=4).permute(0, 2, 3, 1)  # [B, X, Y, C]
         slices = y.permute(0, 4, 2, 3, 1).reshape(B * Z, X, Y, C)
-        both = self.bev_encoder(torch.cat([y_bev, slices], dim=0))
+        both = self.bev_encoder(torch.cat([y_bev, slices], dim=0), segments=(1, Z))
         y_bev = both[:B].permute(0, 3, 1, 2)  # [B, C, X, Y]
         y = both[B:].reshape(B, Z, X, Y, C).permute(0, 4, 2, 3, 1)
 

@@ -12,6 +12,7 @@ Tensors are channels-last ``[B, H, W, C]``.
 from __future__ import annotations
 
 from functools import lru_cache
+from typing import Sequence
 
 import numpy as np
 import torch
@@ -142,6 +143,8 @@ class SwinBlock(nn.Module):
         self.drop_path1 = DropPath(drop_path_rate)
         self.drop_path2 = DropPath(drop_path_rate)
 
-    def forward(self, x):
-        x = x + self.drop_path1(self.attn(self.norm1(x)))
-        return x + self.drop_path2(self.ffn(self.norm2(x)))
+    def forward(self, x, segments: Sequence[int] = (1,)):
+        """``segments``: how the leading axis holds the batch
+        (``layers.py:DropPath``)."""
+        x = x + self.drop_path1(self.attn(self.norm1(x)), segments)
+        return x + self.drop_path2(self.ffn(self.norm2(x)), segments)

@@ -20,7 +20,10 @@ the IoU table by class name, and one JSON line of results.
 ``lidarseg/test/<token>_lidarseg.bin`` of uint8 labels per sample (its
 valid points) and ``test/submission.json``.  SemanticKITTI configs and the
 panoptic head wait for their slices.  It runs on ``cuda``, and on the CPU
-only with ``--cpu``.
+only with ``--cpu``.  Under ``torchrun --nproc_per_node=N`` each rank
+evaluates its shard of the split on ``cuda:LOCAL_RANK`` (``--max-samples``
+caps each rank's share), the counters are summed over ranks
+(``parallel/distributed.py:host_allreduce_sum``) and rank 0 prints.
 """
 from __future__ import annotations
 
@@ -32,6 +35,7 @@ import sys
 import time
 from typing import List, Optional
 
+import numpy as np
 import torch
 
 from ..config import load_config, parse_cfg_options
@@ -41,8 +45,15 @@ from ..engine.eval import evaluate, format_iou_table
 from ..engine.pretrained import format_report, partial_load_torch
 from ..models.detector import build_model
 from ..ops import launch_counts
+from ..parallel.distributed import (
+    host_allreduce_sum,
+    is_main_process,
+    maybe_init_distributed,
+    rank,
+    world_size,
+)
 from ..utils.semkitti_io import write_nusc_lidarseg_bin
-from .train import pick_device
+from .train import log, pick_device
 
 
 def parse_args(argv=None):
@@ -59,6 +70,16 @@ def parse_args(argv=None):
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     device = pick_device(args.cpu)
+    owned = not torch.distributed.is_initialized()
+    maybe_init_distributed(args.cpu)
+    try:
+        return _test(args, device)
+    finally:
+        if owned and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _test(args, device: torch.device) -> int:
     cfg = load_config(args.config, parse_cfg_options(args.cfg_options))
     if "SemanticKITTI" in cfg["data"]["test"]["type"]:
         raise NotImplementedError("SemanticKITTI evaluation (SSC metrics, .label "
@@ -68,12 +89,14 @@ def main(argv: Optional[List[str]] = None) -> int:
     model = build_model(m, device=device, dtype=torch.float32, seed=0)
     if args.checkpoint and os.path.isdir(args.checkpoint):
         step = load_checkpoint(args.checkpoint, model)
-        print(f"loaded {args.checkpoint} (step {step})")
+        log(f"loaded {args.checkpoint} (step {step})")
     elif args.checkpoint:
-        print(format_report(partial_load_torch(model, args.checkpoint)))
+        report = partial_load_torch(model, args.checkpoint)
+        log(format_report(report))
 
     dataset = build_dataset(cfg["data"]["test"], test_mode=True)
     loader = build_dataloader(dataset, samples_per_gpu=1, shuffle=False,
+                              num_hosts=world_size(), host_id=rank(),
                               max_points=cfg.get("max_lidar_points", 35000))
     n = len(loader) if args.max_samples is None else min(len(loader), args.max_samples)
 
@@ -93,6 +116,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                        compute_dtype=compute_dtype,
                        panoptic=m["pts_bbox_head"].get("type") == "Mask2FormerNuscPanopticOccHead")
     seconds = time.perf_counter() - t0
+    n = int(host_allreduce_sum({"samples": np.int64(n)})["samples"])
+    if not is_main_process():
+        return 0
     if args.test_save:
         meta_file = os.path.join(args.test_save, "test", "submission.json")
         os.makedirs(os.path.dirname(meta_file), exist_ok=True)

@@ -18,11 +18,20 @@ step (``engine/train.py:build_train_step``), with the same behaviour:
   ``strict=False`` does, with a report of what was loaded, skipped and
   kept; a missing file keeps the random init with a warning;
 * auto-resume from the newest ``work_dir/ckpts/step_{N}`` (or
-  ``--resume-from``), at the start of the epoch that holds step N, as the
-  JAX CLI resumes; a ``--load-from`` checkpoint of this CLI loads its
-  weights strictly, with the step at 0;
+  ``--resume-from``) at the batch after step N: the resumed epoch skips
+  its first ``N % steps_per_epoch`` batches without building them, so a
+  resumed run takes the uninterrupted run's steps, schedule included (the
+  JAX CLI restarts the epoch instead); a ``--load-from`` checkpoint of this
+  CLI loads its weights strictly, with the step at 0;
 * a checkpoint at each epoch's end and at ``--max-steps``, and on SIGTERM
   or SIGINT a checkpoint and a clean exit;
+* data parallelism under ``torchrun --nproc_per_node=N -m
+  occformer_tpu_torch.tools.train ...`` (``parallel/distributed.py``):
+  each rank on ``cuda:LOCAL_RANK`` (gloo on the CPU with ``--cpu``), its
+  shard of each epoch, the model in ``DistributedDataParallel``, the step
+  the one-process step on the global batch of ``N * samples_per_gpu``
+  (``engine/train.py:build_train_step``); rank 0 prints and writes the
+  checkpoints, every rank loads them;
 * with ``evaluation.interval``, evaluation on ``data.val`` every that many
   epochs (not with ``--max-steps``) and ``evaluation.save_best`` kept under
   ``work_dir/best``;
@@ -37,12 +46,12 @@ flagship's ``CustomNuScenesOccLSSDataset`` and its pipeline
 (``data.train.data_root``, ``data.train.ann_file`` and the annotation
 step's ``data.train.pipeline.2.data_root``), or ``SyntheticOccDataset``.
 The random draws of step k (drop-path masks, the loss's point draws) come
-from a ``torch.Generator`` seeded from (seed, k) alone, so a resumed run
-draws what an uninterrupted one draws; the pipeline's augmentation draws
-come from its steps' own ``RandomState`` (unseeded, as in the JAX CLI).
-It runs on ``cuda``, and on the CPU only with ``--cpu``.  Not ported yet:
-the mmcls EfficientNet-B7 init, data parallelism and the SemanticKITTI
-pipeline.
+from a ``torch.Generator`` seeded from (seed, k) alone, and the pipeline's
+augmentation draws of sample i in epoch e from a ``RandomState`` addressed
+by (seed, e, i) (``data/nuscenes.py:sample_rng``; the JAX pipeline's are
+unseeded), so a rerun or a resumed run draws what an uninterrupted one
+draws.  It runs on ``cuda``, and on the CPU only with ``--cpu``.  Not
+ported yet: the mmcls EfficientNet-B7 init and the SemanticKITTI pipeline.
 """
 from __future__ import annotations
 
@@ -63,9 +72,17 @@ from ..engine.checkpoint import latest_checkpoint, load_checkpoint, save_checkpo
 from ..engine.eval import evaluate, format_iou_table
 from ..engine.optim import build_optimizer_from_config
 from ..engine.pretrained import format_report, init_from_pretrained
-from ..engine.train import build_loss_cfg, build_train_step
+from ..engine.train import build_loss_cfg, build_train_step, wrap_ddp
 from ..models.detector import build_model
 from ..ops import launch_counts
+from ..parallel.distributed import (
+    any_rank,
+    is_main_process,
+    local_rank,
+    maybe_init_distributed,
+    rank,
+    world_size,
+)
 
 
 def parse_args(argv=None):
@@ -82,12 +99,13 @@ def parse_args(argv=None):
 
 
 def pick_device(cpu: bool) -> torch.device:
-    """``cuda``, or the CPU when asked; no card without ``--cpu`` raises."""
+    """``cuda`` (``cuda:LOCAL_RANK`` under torchrun), or the CPU when asked;
+    no card without ``--cpu`` raises."""
     if cpu:
         return torch.device("cpu")
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass --cpu to run on the CPU")
-    return torch.device("cuda")
+    return torch.device("cuda", local_rank())
 
 
 def step_generator(seed: int, step: int, device: torch.device) -> torch.Generator:
@@ -96,9 +114,25 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     return torch.Generator(device=device).manual_seed(s)
 
 
+def log(*args, **kwargs):
+    """``print`` on rank 0 only."""
+    if is_main_process():
+        print(*args, **kwargs)
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
     device = pick_device(args.cpu)
+    owned = not torch.distributed.is_initialized()
+    maybe_init_distributed(args.cpu)
+    try:
+        return _train(args, device)
+    finally:
+        if owned and torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device: torch.device) -> int:
     cfg = load_config(args.config, parse_cfg_options(args.cfg_options))
     work_dir = args.work_dir or os.path.join(
         "work_dirs", os.path.splitext(os.path.basename(args.config))[0])
@@ -108,35 +142,43 @@ def main(argv: Optional[List[str]] = None) -> int:
     compute_dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
     m = cfg["model"]
 
-    dataset = build_dataset(cfg["data"]["train"])
+    train_cfg = dict(cfg["data"]["train"])
+    train_cfg.setdefault("seed", args.seed)  # the pipeline's augmentation draws
+    dataset = build_dataset(train_cfg)
     loader = build_dataloader(dataset, samples_per_gpu=cfg["data"].get("samples_per_gpu", 1),
-                              seed=args.seed, max_points=cfg.get("max_lidar_points", 35000))
+                              seed=args.seed, num_hosts=world_size(), host_id=rank(),
+                              max_points=cfg.get("max_lidar_points", 35000))
     steps_per_epoch = len(loader)
     max_epochs = cfg.get("runner", {}).get("max_epochs", 24)
 
     model = build_model(m, device=device, dtype=torch.float32, seed=args.seed).train()
     load_from = args.load_from or cfg.get("load_from")
     for report in init_from_pretrained(model, m, load_from=load_from):
-        print(format_report(report))
+        log(format_report(report))
     if load_from and not str(load_from).endswith((".pth", ".pt")):
         lf = latest_checkpoint(load_from) or load_from
         if os.path.isdir(lf):
             load_checkpoint(lf, model)
-            print(f"loaded model weights from {lf}")
+            log(f"loaded model weights from {lf}")
         else:
-            print(f"WARNING: load_from={load_from} not found; training from random init")
+            log(f"WARNING: load_from={load_from} not found; training from random init")
 
     optimizer = build_optimizer_from_config(model, cfg, steps_per_epoch)
     step = 0
     resume = args.resume_from or latest_checkpoint(ckpt_dir)
     if resume:
         step = load_checkpoint(resume, model, optimizer)
-        print(f"resumed from {resume} at step {step}")
+    # the step's epoch, and the batches of it that ran before the checkpoint
+    first_epoch, start_batch = divmod(step, max(steps_per_epoch, 1))
+    if resume:
+        log(f"resumed from {resume} at step {step} (epoch {first_epoch} from batch "
+            f"{start_batch})")
 
     # mmcv GradientCumulativeOptimizerHook: optimizer_config.cumulative_iters
     accum = int(cfg.get("optimizer_config", {}).get("cumulative_iters", 1))
     train_step = build_train_step(
-        model, optimizer, build_loss_cfg(m["pts_bbox_head"], m.get("train_cfg", {}).get("pts")),
+        wrap_ddp(model) if world_size() > 1 else model, optimizer,
+        build_loss_cfg(m["pts_bbox_head"], m.get("train_cfg", {}).get("pts")),
         device=device, compute_dtype=compute_dtype, accum_steps=accum)
 
     # per-epoch evaluation and the best checkpoint (reference OccDistEvalHook,
@@ -152,6 +194,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             return None
         val_loader = build_dataloader(build_dataset(val_cfg, test_mode=True),
                                       samples_per_gpu=1, shuffle=False,
+                                      num_hosts=world_size(), host_id=rank(),
                                       max_points=cfg.get("max_lidar_points", 35000))
         model.eval()
         results = evaluate(model, val_loader, tuple(cfg.get("occ_size", (32, 32, 16))),
@@ -160,7 +203,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                            panoptic=m["pts_bbox_head"].get("type")
                            == "Mask2FormerNuscPanopticOccHead", compute_dtype=compute_dtype)
         model.train()
-        print(format_iou_table(results))
+        log(format_iou_table(results))
         return results
 
     # preemption: SIGTERM / SIGINT ask for a checkpoint and a clean exit
@@ -177,13 +220,15 @@ def main(argv: Optional[List[str]] = None) -> int:
             pass  # not the main thread
     try:
         log_every = cfg.get("log_config", {}).get("interval", 50)
-        for epoch in range(step // max(steps_per_epoch, 1), max_epochs):
-            loader.set_epoch(epoch)
+        for epoch in range(first_epoch, max_epochs):
+            loader.set_epoch(epoch, start_batch if epoch == first_epoch else 0)
             t0 = time.time()
             for batch in prefetch_to_device(loader, device):
-                if stop_requested["flag"]:
+                # every rank stops at the same step (the signal may reach
+                # the ranks between two of them)
+                if any_rank(stop_requested["flag"]):
                     save_checkpoint(ckpt_dir, model, optimizer, step, max_keep)
-                    print(f"preempted: checkpoint saved at step {step}", flush=True)
+                    log(f"preempted: checkpoint saved at step {step}", flush=True)
                     return 0
                 metrics = train_step(batch, step_generator(args.seed, step, device))
                 step += 1
@@ -191,8 +236,8 @@ def main(argv: Optional[List[str]] = None) -> int:
                     m_host = {k: float(v) for k, v in metrics.items()}
                     dt = (time.time() - t0) / log_every
                     t0 = time.time()
-                    print(json.dumps({"step": step, "epoch": epoch, "sec/iter": dt, **m_host}),
-                          flush=True)
+                    log(json.dumps({"step": step, "epoch": epoch, "sec/iter": dt, **m_host}),
+                        flush=True)
                 if args.max_steps and step >= args.max_steps:
                     break
             save_checkpoint(ckpt_dir, model, optimizer, step, max_keep)
@@ -202,14 +247,14 @@ def main(argv: Optional[List[str]] = None) -> int:
                         and results[save_best_key] > best_metric:
                     best_metric = results[save_best_key]
                     save_checkpoint(os.path.join(work_dir, "best"), model, optimizer, step, 1)
-                    print(f"new best {save_best_key}={best_metric:.4f}")
+                    log(f"new best {save_best_key}={best_metric:.4f}")
             if args.max_steps and step >= args.max_steps:
                 break
     finally:
         for sig, handler in previous.items():
             signal.signal(sig, handler)
-    print(json.dumps({"kernel_launches": launch_counts()}))
-    print("training done at step", step, flush=True)
+    log(json.dumps({"kernel_launches": launch_counts()}))
+    log("training done at step", step, flush=True)
     return 0
 
 

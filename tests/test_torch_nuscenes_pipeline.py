@@ -29,7 +29,7 @@ from occformer_tpu_torch.config import load_config
 from occformer_tpu_torch.data import native
 from occformer_tpu_torch.data.fixtures import make_nuscenes_tree, nuscenes_cfg_options
 from occformer_tpu_torch.data.loader import build_dataset, collate_batch
-from occformer_tpu_torch.data.nuscenes import CustomNuScenesOccLSSDataset
+from occformer_tpu_torch.data.nuscenes import CustomNuScenesOccLSSDataset, sample_rng
 from occformer_tpu_torch.data.transforms import zbuffer_depth_plain
 from occformer_tpu_torch.data.voxelize import majority_vote_plain, majority_vote_voxelize
 from test_dataset_fixture import _make_nusc_tree
@@ -122,9 +122,12 @@ def test_collated_batch_equals_jax(tmp_path, max_points):
     assert got["lidar_xyz"].shape == (1, max_points, 3)
 
 
-def test_corrupt_sample_retry_equals_jax(tmp_path):
+def test_corrupt_sample_retry_equals_jax(tmp_path, monkeypatch):
     """Train mode replaces a sample whose image is truncated by a random
-    other one, drawn as the JAX dataset draws it; test mode raises."""
+    other one.  The port draws the replacements from the failed sample's
+    stream (``sample_rng(seed, epoch, index, stream=1)``), the JAX dataset
+    from the global ``np.random``; given the port's draws, the JAX dataset
+    builds the same sample.  Test mode raises."""
     root, ann_file = _tree(tmp_path, "rig")
     with open(ann_file, "rb") as f:
         infos = pickle.load(f)["infos"]
@@ -132,9 +135,9 @@ def test_corrupt_sample_retry_equals_jax(tmp_path):
     with open(bad, "wb") as f:
         f.write(b"\xff\xd8\xff\xe0 not a jpeg")
     mine, theirs = _datasets(root, ann_file, train=True)
-    np.random.seed(0)
     got = mine[1]
-    np.random.seed(0)
+    retry = sample_rng(mine.seed, mine.epoch, 1, stream=1)
+    monkeypatch.setattr(np.random, "randint", lambda n: retry.randint(n))
     ref = theirs[1]
     assert got["sample_idx"] == "sample0000"
     _assert_same(got, ref)

@@ -117,11 +117,12 @@ Phases, each printing one JSON line:
                  equal bit for bit; tools.test on step_6 over 2 samples with
                  its per-class IoU table; one skipped-batch restart of the
                  loader timed.
-  11. soak:      tools/soak.py: 40 flagship steps on the default route with
-                 the checkpoint at step 20 (the reloaded state bit-equal,
-                 training going on from it), then the same 40 steps without
+  11. soak:      tools/soak.py: 24 flagship steps on the default route with
+                 the checkpoint at step 12 (the reloaded state bit-equal,
+                 training going on from it), then the same 24 steps without
                  it: equal trajectories and final states, a falling loss;
-                 p50 / p95 s/step and the peak.
+                 p50 / p95 s/step and the peak (40 steps before the KITTI
+                 phases came; tools/soak.py runs 120).
   12. learn:     the tiny held-out learnability run (300 steps on 12 box
                  scenes, 4 held out; data/geo_scenes.py) on the card: SC
                  IoU > 0.15 and class mIoU > 0.08.
@@ -129,14 +130,40 @@ Phases, each printing one JSON line:
                  flagship steps repeat the plain steps' losses, grad_norm
                  and every gradient bit for bit, no parameter without a
                  gradient.
-In phases 0, 2, 6, 7, 8, 11, 12 and 13 and in the K4 parity gate every
+  14-17. SemanticKITTI (occformer_kitti: EfficientNet-B7 at 384x1280, one
+                 camera, the 128x128x16 grid, the frequency-sampled grid
+                 loss, 256x256x32 output) on a tree that
+                 data/fixtures.py:make_kitti_tree writes from a seed (two
+                 frames of sequence 00, two of the val sequence 08):
+  14. kitti_kernels (run after phase 3, the tree written first): every
+                 kernel of the KITTI path held against its plain
+                 version at the shapes the path gives it and timed beside
+                 its bound and library call: K1 / K1-bwd at the pixel
+                 decoder's pyramid, K2 at the matching readout (C = 100) and
+                 the candidates (C = 1), K2-bwd's narrow path at the
+                 supervision points, K4 / K4-bwd at the one-camera DCN, S1
+                 at the tree's camera.
+  15. kitti_serve: the full-width model, random weights from a seeded
+                 torch.Generator, float32 parameters under bf16 autocast, 4
+                 served val frames (voxel_pred [1, 256, 256, 32] uint8),
+                 ms per frame, the peak, a profiled frame.
+  16. kitti_train: 4 train steps with with_cp on pipeline batches of the
+                 train frames: s/step, the peak, the losses, a profiled
+                 step; then pairs of reloaded steps whose losses, grad_norm
+                 and every gradient must be bit-equal (the flagship's
+                 settings: cuDNN's TF32 on, no global deterministic mode).
+  17. kitti_cli: tools.train for 2 steps on the tree, tools.test on step_2
+                 with --test-save: semkitti_SC_IoU and semkitti_SSC_mIoU,
+                 and a .label per val frame read back by utils/semkitti_io.
+In phases 0, 2, 6, 7, 8, 11, 12, 13, 15 and 16 and in the K4 parity gate every
 kernel's launch count is set to 0 just before the path is driven and read
 just after; each must match its per-frame, per-step or per-run count (the
 learn phase: launched).  The CLIs report their own counts, which must show
 their kernels.  A ``wall`` line gives each phase's seconds.  Then the card's name and power
 limit (nvidia-smi), one JSON line of kernel records (K1's, K2's and K2-bwd's
 two paths as two records each; S1, the LSS splat, which has no Pallas
-original, last), and last ``{"ok": true, "device": {...}}``.  Any
+original, last; each kernel of the KITTI path with its KITTI-shape record
+under ``kitti``), and last ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
 """
@@ -188,6 +215,20 @@ TRAIN_LAUNCHES = {"off": dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 
 # backward each; the probe: P1 and P2 once
 K4_GATE_LAUNCHES = dict(_NONE, **{"K4": 3, "K4.row": 3, "K4-bwd": 3})
 PROBE_LAUNCHES = dict(_NONE, P1=1, P2=1)
+# SemanticKITTI (occformer_kitti): one camera, so a frame launches what a
+# flagship frame does; a train step the flagship's per-layer counts but for
+# the grid loss's K2: per supervised layer (10) the matching voxels on the
+# [X, Y, Z, 100] float32 query volume (whole 16-byte vectors: the row-wide
+# path), the candidates and the supervision points on the slots' C = 1
+# volumes (the narrow path), the last differentiated (K2-bwd's narrow path)
+KITTI_CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_kitti.py")
+KITTI_SERVE_LAUNCHES = SERVE_LAUNCHES
+KITTI_TRAIN_LAUNCHES = dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 30,
+                                              "K2.row": 10, "K2-bwd": 10, "K2-bwd.narrow": 10,
+                                              "S1": 1})
+# the DepthNet's deformable convolution at SemanticKITTI: one camera, 512
+# channels on the 24 x 80 feature map
+KITTI_DCN_SHAPE = (1, 512, 24, 80)
 # the pyramid of the deformable attention, largest level first, as bench.py
 # (tools/time_backwards.py:K4_PYRAMID)
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
@@ -225,10 +266,13 @@ def nbytes(*tensors):
 
 def device_ms(fn, iters=20):
     """Device ms per call of ``fn()`` from the profiler
-    (``utils/timing.py:device_ms``)."""
+    (``utils/timing.py:device_ms``); fails when the profiler caught no
+    device activity, so that a dropped trace cannot stand as a time."""
     from occformer_tpu_torch.utils.timing import device_ms as on_device
 
-    return on_device(fn, iters)
+    ms = on_device(fn, iters)
+    check(ms > 0, "the profiler caught no device activity")
+    return ms
 
 
 def bound(n_bytes, flops):
@@ -954,10 +998,11 @@ def phase_k4():
     return rec
 
 
-def phase_k4_dcn():
+def phase_k4_dcn(shape=None):
     """K4 and K4-bwd as the DepthNet's deformable convolution runs them
     (``tools/time_backwards.py:dcn_inputs``: one level of Z = 1, [6, 704,
-    512], 6336 taps a camera, align_corners=True): held against the plain
+    512] at the flagship, 6336 taps a camera, align_corners=True; ``shape``
+    [B, C, H, W] another map, SemanticKITTI's): held against the plain
     version in bf16 (1e-2) and float32 (1e-5 values, 1e-4 gradients), two
     K4-bwd calls bit-equal; then K4, K4-bwd (its workspace and d_coords
     included, and without d_coords), the plain version and its autograd
@@ -970,11 +1015,12 @@ def phase_k4_dcn():
     from occformer_tpu_torch.ops import trilerp_fused as k4
     from occformer_tpu_torch.tools.time_backwards import dcn_inputs
 
-    tables, coords, C, spatials = dcn_inputs()
+    at = {} if shape is None else {"shape": shape}
+    tables, coords, C, spatials = dcn_inputs(**at)
     rec = {"shapes": {"table": list(tables[0].shape), "coords": list(coords[0].shape),
                       "spatials": spatials},
            "bf16": k4_check(tables, coords, C, True, "DCN bf16", spatials)}
-    t32, c32, _, _ = dcn_inputs(torch.float32)
+    t32, c32, _, _ = dcn_inputs(torch.float32, **at)
     rec["f32"] = k4_check(t32, c32, C, True, "DCN f32", spatials)
     check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == "row",
           "K4 DCN: not the row-wide path")
@@ -1362,6 +1408,73 @@ def backward_repeats(captured, repeats=6):
                 r.get(f"{how}_varies") for how in ("module", "default", "deterministic"))}}
 
 
+def atomic_scatter(depth, ctx, coords, valid, nx):
+    """The LSS scatter through its plain version: atomic index_add_."""
+    import numpy as np
+
+    from occformer_tpu_torch.ops import scatter
+
+    B, n_rows = depth.shape[0], depth.shape[0] * int(np.prod(nx))
+    return scatter.voxel_scatter_plain(depth, ctx, scatter.voxel_rows(coords, valid, nx),
+                                       n_rows).reshape(B, *nx, -1).to(depth.dtype)
+
+
+def s1_check(depth, ctx, coords, valid, nx, label):
+    """S1 against its plain version (the atomic index_add_), two calls
+    bit-equal, both timed in turns, beside one index_add_ of the whole
+    lift (the library call); its backward (plain gathers of the volume's
+    gradient, one per train step) alone; the sort's segment sizes."""
+    import torch
+
+    from occformer_tpu_torch.ops import scatter
+    from occformer_tpu_torch.tools.time_backwards import segment_stats
+
+    got = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+    again = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
+    ref = atomic_scatter(depth.float(), ctx.float(), coords, valid, nx)
+    s1 = compare(got, ref, 1e-5 if got.dtype == torch.float32 else 1e-2, f"S1 {label}")
+    check(torch.equal(got, again), f"S1 {label}: two calls differ")
+    s1["bit_identical_calls"] = True
+    s1["dtypes"] = [str(depth.dtype), str(ctx.dtype), str(coords.dtype),
+                    str(valid.dtype), str(got.dtype)]
+    s1["shapes"] = [list(a.shape) for a in (depth, ctx, coords, valid)]
+    s1.update(segment_stats(coords, valid, nx))
+    del again, ref
+    ms = {"atomic_scatter": [], "deterministic_scatter": []}
+    with torch.no_grad():
+        for name in ("atomic_scatter", "deterministic_scatter", "deterministic_scatter",
+                     "atomic_scatter"):
+            fn = atomic_scatter if name == "atomic_scatter" else scatter.voxel_scatter_lifted
+            ms[name].append(time_cuda(lambda: fn(depth, ctx, coords, valid, nx)))
+        rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
+        lift = (depth[..., None] * ctx[:, :, None]).reshape(rows.shape[0], -1).float()
+        vol = torch.zeros((depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2]) + 1,
+                           lift.shape[1]), device=lift.device)
+        s1["library_ms"] = time_cuda(lambda: vol.index_add_(0, rows, lift))
+        del rows, lift, vol
+        # the kernels alone, the sort's included
+        s1["device_ms"] = device_ms(lambda: scatter.voxel_scatter_lifted(
+            depth, ctx, coords, valid, nx))
+    d_leaf, c_leaf = (t.detach().clone().requires_grad_(True) for t in (depth, ctx))
+    vol = scatter.voxel_scatter_lifted(d_leaf, c_leaf, coords, valid, nx)
+    g_vol = torch.randn(vol.shape, device=vol.device, dtype=vol.dtype)
+
+    def s1_backward():
+        return torch.autograd.grad(vol, (d_leaf, c_leaf), g_vol, retain_graph=True)
+
+    s1["backward_ms"] = time_cuda(s1_backward, iters=10)
+    s1["backward_device_ms"] = device_ms(s1_backward, iters=10)
+    del d_leaf, c_leaf, vol, g_vol
+    s1["ms_in_turns"] = ms
+    s1["kernel_ms"] = sum(ms["deterministic_scatter"]) / 2
+    s1["plain_ms"] = sum(ms["atomic_scatter"]) / 2
+    # the function's inputs read once and its volume written once; a
+    # product and an add per (valid point, channel)
+    s1.update(bound(nbytes(depth, ctx, coords, valid, got),
+                    s1["points_valid"] * ctx.shape[-1] * 2))
+    return s1
+
+
 def phase_determinism():
     """Whether a reloaded train step on the card repeats itself bit for bit
     on the port's default settings (no torch deterministic mode, no global
@@ -1429,19 +1542,13 @@ def phase_determinism():
         topks.append(sel.clone())
         return sel
 
-    def rec_loss(cls_preds, mask_embeds, mask_feature, *rest):
+    def rec_loss(cls_preds, mask_embeds, mask_feature, *rest, **kwargs):
         for name, t in (("cls_preds", cls_preds), ("mask_embeds", mask_embeds),
                         ("mask_feature", mask_feature)):
             if t.requires_grad:
                 t.register_hook(lambda g, name=name: loss_grads.__setitem__(
                     name, g.detach().clone()))
-        return orig_loss(cls_preds, mask_embeds, mask_feature, *rest)
-
-    def atomic_scatter(depth, ctx, coords, valid, nx):
-        """The scatter through its plain version: atomic index_add_."""
-        B, n_rows = depth.shape[0], depth.shape[0] * int(np.prod(nx))
-        return scatter.voxel_scatter_plain(depth, ctx, scatter.voxel_rows(coords, valid, nx),
-                                           n_rows).reshape(B, *nx, -1).to(depth.dtype)
+        return orig_loss(cls_preds, mask_embeds, mask_feature, *rest, **kwargs)
 
     mode = {"atomic": False}
 
@@ -1604,56 +1711,6 @@ def phase_determinism():
         torch.backends.cudnn.allow_tf32 = tf32
     free_memory()
 
-    def s1_check(depth, ctx, coords, valid, nx, label):
-        """S1 against its plain version (the atomic index_add_), two calls
-        bit-equal, both timed in turns, beside one index_add_ of the whole
-        lift (the library call); its backward (plain gathers of the volume's
-        gradient, one per train step) alone; the sort's segment sizes."""
-        got = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
-        again = scatter.voxel_scatter_lifted(depth, ctx, coords, valid, nx)
-        ref = atomic_scatter(depth.float(), ctx.float(), coords, valid, nx)
-        s1 = compare(got, ref, 1e-5 if got.dtype == torch.float32 else 1e-2, f"S1 {label}")
-        check(torch.equal(got, again), f"S1 {label}: two calls differ")
-        s1["bit_identical_calls"] = True
-        s1["dtypes"] = [str(depth.dtype), str(ctx.dtype), str(coords.dtype),
-                        str(valid.dtype), str(got.dtype)]
-        s1["shapes"] = [list(a.shape) for a in (depth, ctx, coords, valid)]
-        s1.update(segment_stats(coords, valid, nx))
-        del again, ref
-        ms = {"atomic_scatter": [], "deterministic_scatter": []}
-        with torch.no_grad():
-            for name in ("atomic_scatter", "deterministic_scatter", "deterministic_scatter",
-                         "atomic_scatter"):
-                fn = atomic_scatter if name == "atomic_scatter" else scatter.voxel_scatter_lifted
-                ms[name].append(time_cuda(lambda: fn(depth, ctx, coords, valid, nx)))
-            rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
-            lift = (depth[..., None] * ctx[:, :, None]).reshape(rows.shape[0], -1).float()
-            vol = torch.zeros((depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2]) + 1,
-                               lift.shape[1]), device=lift.device)
-            s1["library_ms"] = time_cuda(lambda: vol.index_add_(0, rows, lift))
-            del rows, lift, vol
-            # the kernels alone, the sort's included
-            s1["device_ms"] = device_ms(lambda: scatter.voxel_scatter_lifted(
-                depth, ctx, coords, valid, nx))
-        d_leaf, c_leaf = (t.detach().clone().requires_grad_(True) for t in (depth, ctx))
-        vol = scatter.voxel_scatter_lifted(d_leaf, c_leaf, coords, valid, nx)
-        g_vol = torch.randn(vol.shape, device=vol.device, dtype=vol.dtype)
-
-        def s1_backward():
-            return torch.autograd.grad(vol, (d_leaf, c_leaf), g_vol, retain_graph=True)
-
-        s1["backward_ms"] = time_cuda(s1_backward, iters=10)
-        s1["backward_device_ms"] = device_ms(s1_backward, iters=10)
-        del d_leaf, c_leaf, vol, g_vol
-        s1["ms_in_turns"] = ms
-        s1["kernel_ms"] = sum(ms["deterministic_scatter"]) / 2
-        s1["plain_ms"] = sum(ms["atomic_scatter"]) / 2
-        # the function's inputs read once and its volume written once; a
-        # product and an add per (valid point, channel)
-        s1.update(bound(nbytes(depth, ctx, coords, valid, got),
-                        s1["points_valid"] * ctx.shape[-1] * 2))
-        return s1
-
     # S1 on the flagship's captured depth and context, at a forward-looking
     # nuScenes rig's voxel coordinates (S1's record) and at those the
     # captured step saw
@@ -1743,7 +1800,7 @@ def phase_serve():
     rec["finite"] = finite
     rec["shapes"] = {k: list(v.shape) for k, v in raw.items()}
     check(all(finite.values()), f"non-finite outputs: {finite}")
-    rec["profile"] = profile(lambda: step(batch), SERVE_STAGES)
+    rec["profile"] = profile(lambda: step(batch), SERVE_STAGES, SERVE_LAUNCHES)
 
     # the route served before: the same weights, every tensor in bf16
     pred = out["point_pred"].clone()
@@ -1834,7 +1891,8 @@ def phase_train(mxu_readout="off"):
            "loss_points": {"matching": loss_cfg.num_match_points,
                            "candidates": loss_cfg.num_candidates,
                            "supervised": loss_cfg.num_points}}
-    rec["profile"] = profile(lambda: step(batch, g), TRAIN_STAGES)
+    rec["profile"] = profile(lambda: step(batch, g), TRAIN_STAGES,
+                             TRAIN_LAUNCHES[mxu_readout])
     if loss_cfg.batched_readout:
         rec["routes"] = compare_routes(model, batch, loss_cfg)
     emit(rec)
@@ -2288,12 +2346,12 @@ def same_metrics(a, b):
         a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
 
 
-def cli_run(module, *args, options=(), timeout=600):
-    """``python3 -m occformer_tpu_torch.tools.<module> CONFIG *args
+def cli_run(module, *args, options=(), timeout=600, config=CONFIG):
+    """``python3 -m occformer_tpu_torch.tools.<module> config *args
     --cfg-options *options`` from the repo: (stdout, its JSON lines, the
     seconds it took); a non-zero exit fails the run."""
     t = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}", CONFIG,
+    r = subprocess.run([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}", config,
                         *args, "--cfg-options", *options],
                        cwd=REPO, capture_output=True, text=True, timeout=timeout)
     seconds = time.perf_counter() - t
@@ -2397,7 +2455,488 @@ def phase_resume(nusc_root, nusc_ann):
     return total
 
 
-def phase_soak(steps=40):
+# ---------------------------------------------------------------------------
+# SemanticKITTI (occformer_kitti): EfficientNet-B7, one camera, the grid loss
+# ---------------------------------------------------------------------------
+
+def kitti_cfg(tree):
+    """The occformer_kitti config pointed at a tree of
+    ``data/fixtures.py:make_kitti_tree``."""
+    from occformer_tpu_torch.config import load_config, parse_cfg_options
+    from occformer_tpu_torch.data.fixtures import kitti_cfg_options
+
+    return load_config(KITTI_CONFIG, parse_cfg_options(kitti_cfg_options(tree)))
+
+
+def kitti_batches(cfg, split):
+    """The split's batches of the tree, in order (test mode for val), host
+    keys dropped."""
+    from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
+
+    train = split == "train"
+    out = []
+    for b in build_dataloader(build_dataset(cfg["data"][split], test_mode=not train),
+                              shuffle=train, seed=0):
+        b.pop("_meta")
+        out.append(b)
+    return out
+
+
+def phase_kitti_kernels(tree):
+    """Every kernel of the SemanticKITTI path held against its plain version
+    at the shapes that path gives it, and timed (CUDA events, median of 30;
+    the profiler's device time beside), with its bound and the one PyTorch
+    call that computes the same function:
+
+    * K1 / K1-bwd: the pixel decoder's pyramid, the occupancy encoder's three
+      coarsest scales of the 128 x 128 x 16 LSS volume, which is the
+      flagship's: (16, 16, 2), (32, 32, 4), (64, 64, 8), bf16 (checked
+      equal, then held and timed here at it);
+    * K2 at C = 100: the matching readout, the [1, 128, 128, 16, 100]
+      float32 query volume at 50176 GT voxels of the 256 x 256 x 32 grid,
+      ``idx / (size - 1)``, align_corners=True, zeros (the row-wide path);
+    * K2 at C = 1: the 20 slot volumes [20, 128, 128, 16, 1] at 150528
+      candidates each (the narrow path);
+    * K2-bwd narrow: the supervision's 50176 points a slot, d_table against
+      the plain version's autograd, two calls bit-equal;
+    * K4 / K4-bwd: the DepthNet DCN on one camera, [1, 512, 24, 80]
+      (``phase_k4_dcn``);
+    * S1: the LSS splat at the tree's camera (P2 and Tr of a KITTI
+      sequence) over the 112 x 24 x 80 frustum, bf16 depth and context.
+    Tolerances relative to max |plain|: float32 1e-5 forward and 1e-4
+    backward, bf16 1e-2."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.losses.point_sampling import voxel_points
+    from occformer_tpu_torch.ops import trilerp as k2
+    from occformer_tpu_torch.ops import trilerp_fused as k1
+    from occformer_tpu_torch.ops.geometry import (compute_voxel_coords, create_frustum,
+                                                  gen_dx_bx, get_geometry)
+    from occformer_tpu_torch.tools.time_backwards import flagship_gather_inputs
+
+    cfg = kitti_cfg(tree)
+    m = cfg["model"]
+    vt = m["img_view_transformer"]
+    gc = vt["grid_config"]
+    _, _, nx = gen_dx_bx(gc["xbound"], gc["ybound"], gc["zbound"])
+    nx = tuple(int(n) for n in nx)
+    enc = m["img_bev_encoder_backbone"]
+    scales, size = [], np.asarray(nx)
+    for stride in enc["block_strides"]:
+        size = size // stride
+        scales.append(tuple(int(v) for v in size))
+    levels = sorted(scales[-m["img_bev_encoder_neck"]["encoder"]["transformerlayers"][
+        "attn_cfgs"]["num_levels"]:])
+    rec = {"phase": "kitti_kernels", "config": "occformer_kitti", "lss_grid": nx,
+           "pixel_decoder_levels": levels}
+
+    # K1 and K1-bwd at the pixel decoder's pyramid
+    value, shapes, locs, w = flagship_gather_inputs(torch.bfloat16, local=False)
+    check(sorted(tuple(s) for s in shapes) == levels,
+          f"K1: the KITTI levels {levels} are not {shapes}")
+    got = k1.ms_deform_gather_3d(value, shapes, locs, w)
+    r = compare(got, k1.ms_deform_gather_3d_plain(value.float(), shapes, locs, w.float()),
+                1e-2, "K1 KITTI")
+    B, Nq, H, L, P = w.shape
+    hd = value.shape[-1]
+    r.update(kernel_ms=time_cuda(lambda: k1.ms_deform_gather_3d(value, shapes, locs, w)),
+             device_ms=device_ms(lambda: k1.ms_deform_gather_3d(value, shapes, locs, w)),
+             plain_ms=time_cuda(lambda: k1.ms_deform_gather_3d_plain(value, shapes, locs, w),
+                                iters=20), library_ms=None)
+    r.update(bound(nbytes(value, locs, w, got), B * Nq * H * L * P * hd * 8 * 2))
+    rec["K1"] = r
+    gout = torch.randn(got.shape, device="cuda", generator=torch.Generator(
+        device="cuda").manual_seed(1)).to(torch.bfloat16)
+    k_leaves = [t.detach().clone().requires_grad_(True) for t in (value, locs, w)]
+    k1.ms_deform_gather_3d(k_leaves[0], shapes, k_leaves[1], k_leaves[2]).backward(gout)
+    leaves = [t.detach().float().requires_grad_(True) for t in (value, locs, w)]
+    refs = torch.autograd.grad(k1.ms_deform_gather_3d_plain(leaves[0], shapes, leaves[1],
+                                                            leaves[2]), leaves, gout.float())
+    again = k1._launch_bwd(value, shapes, locs, w, gout)
+    rb = {}
+    for name, a, b, c in zip(("d_value", "d_locs", "d_weights"), k_leaves, refs, again):
+        rb[name] = compare(a.grad, b, 1e-2, f"K1-bwd KITTI {name}")
+        check(torch.equal(a.grad, c), f"K1-bwd KITTI {name}: two calls differ")
+    rb["max_abs_err"] = max(v["max_abs_err"] for v in rb.values())
+    rb["kernel_ms"] = time_cuda(lambda: k1._launch_bwd(value, shapes, locs, w, gout))
+    rb["device_ms"] = device_ms(lambda: k1._launch_bwd(value, shapes, locs, w, gout))
+    p_out = k1.ms_deform_gather_3d_plain(leaves[0], shapes, leaves[1], leaves[2])
+    rb["plain_ms"] = time_cuda(lambda: torch.autograd.grad(p_out, leaves, gout.float(),
+                                                           retain_graph=True), iters=10)
+    rb["library_ms"] = None
+    rb.update(bound(nbytes(value, locs, w, gout, value, locs, w),
+                    B * Nq * H * L * P * hd * 8 * 4))
+    rec["K1-bwd"] = rb
+    del value, locs, w, got, gout, k_leaves, leaves, refs, again, p_out
+    free_memory()
+
+    # K2 on the grid loss's readouts (align_corners=True, zeros)
+    g = torch.Generator(device="cuda").manual_seed(21)
+    X, Y, Z = nx
+    gt = tuple(cfg["occ_size"])
+    tl = m["train_cfg"]["pts"]
+    n_match, n_cand = tl["num_points"], int(tl["num_points"] * tl["oversample_ratio"])
+    Q, G = m["pts_bbox_head"]["num_queries"], m["pts_bbox_head"]["num_occupancy_classes"]
+
+    def gt_coords(rows, n):
+        idx = torch.randint(0, int(np.prod(gt)), (rows, n), device="cuda", generator=g)
+        return (voxel_points(idx, gt) * 2.0 - 1.0).contiguous()
+
+    def k2_record(table, coords, name, path):
+        check(k2.fwd_path(table.shape, table.dtype, table.data_ptr()) == path,
+              f"K2 {name}: not the {path} path")
+        got = k2.trilerp_sample(table, coords, True, "zeros")
+        r = compare(got, k2.trilerp_sample_plain(table, coords, True, "zeros"), 1e-5,
+                    f"K2 {name}")
+        vol = table.permute(0, 4, 1, 2, 3).contiguous()  # the library call's layout
+        grid = coords.flip(-1).reshape(coords.shape[0], -1, 1, 1, 3)
+
+        def library():
+            return F.grid_sample(vol, grid, mode="bilinear", padding_mode="zeros",
+                                 align_corners=True)
+
+        r.update(path=path, table=list(table.shape), points=list(coords.shape),
+                 kernel_ms=time_cuda(lambda: k2.trilerp_sample(table, coords, True, "zeros")),
+                 device_ms=device_ms(lambda: k2.trilerp_sample(table, coords, True, "zeros")),
+                 plain_ms=time_cuda(lambda: k2.trilerp_sample_plain(table, coords, True,
+                                                                    "zeros"), iters=10),
+                 library_ms=time_cuda(library), library_device_ms=device_ms(library))
+        r.update(bound(nbytes(table, coords, got),
+                       coords.shape[0] * coords.shape[1] * table.shape[-1] * 8 * 2))
+        return r
+
+    q_vol = torch.randn((1, X, Y, Z, Q), device="cuda", generator=g)
+    rec["K2_matching"] = k2_record(q_vol, gt_coords(1, n_match), "KITTI matching C=100", "row")
+    del q_vol
+    slots = torch.randn((G, X, Y, Z, 1), device="cuda", generator=g)
+    rec["K2_candidates"] = k2_record(slots, gt_coords(G, n_cand), "KITTI candidates C=1",
+                                     "scalar")
+    # the supervision points: K2 and K2-bwd's narrow path through the autograd
+    # Function the loss runs
+    coords = gt_coords(G, n_match)
+    check(k2.bwd_path(slots.shape, n_match) == "narrow", "K2-bwd KITTI: not the narrow path")
+    leaf = slots.detach().clone().requires_grad_(True)
+    out = k2.trilerp_sample(leaf, coords, True, "zeros")
+    gout = torch.randn(out.shape, device="cuda", generator=g)
+    out.backward(gout)
+    pl = slots.detach().clone().requires_grad_(True)
+    p_out = k2.trilerp_sample_plain(pl, coords, True, "zeros")
+    (ref,) = torch.autograd.grad(p_out, (pl,), gout, retain_graph=True)
+    rb = compare(leaf.grad, ref, 1e-4, "K2-bwd KITTI supervision")
+    a, _ = k2._launch_bwd(slots, coords, gout, True, "zeros", want_coords=False)
+    b, _ = k2._launch_bwd(slots, coords, gout, True, "zeros", want_coords=False)
+    check(torch.equal(a, b) and torch.equal(a, leaf.grad), "K2-bwd KITTI: two calls differ")
+    vl = slots.permute(0, 4, 1, 2, 3).contiguous().requires_grad_(True)
+    lib_out = F.grid_sample(vl, coords.flip(-1).reshape(G, -1, 1, 1, 3), mode="bilinear",
+                            padding_mode="zeros", align_corners=True)
+    lib_gout = gout.reshape(G, -1, 1).permute(0, 2, 1).reshape(lib_out.shape).contiguous()
+    rb.update(path="narrow", table=list(slots.shape), points=list(coords.shape),
+              bit_identical_calls=True,
+              kernel_ms=time_cuda(lambda: k2._launch_bwd(slots, coords, gout, True, "zeros",
+                                                         want_coords=False)),
+              device_ms=device_ms(lambda: k2._launch_bwd(slots, coords, gout, True, "zeros",
+                                                         want_coords=False)),
+              plain_ms=time_cuda(lambda: torch.autograd.grad(p_out, (pl,), gout,
+                                                             retain_graph=True), iters=10),
+              library_ms=time_cuda(lambda: torch.autograd.grad(lib_out, (vl,), lib_gout,
+                                                               retain_graph=True), iters=10))
+    rb.update(bound(nbytes(gout, coords, slots), G * n_match * 8 * 2))
+    rec["K2-bwd"] = rb
+    del slots, coords, leaf, out, gout, pl, p_out, ref, a, b, vl, lib_out, lib_gout
+    free_memory()
+
+    # K4 and K4-bwd at the DepthNet DCN of one camera
+    dcn = phase_k4_dcn(KITTI_DCN_SHAPE)
+    rec["K4"], rec["K4-bwd"] = dcn.pop("K4"), dcn.pop("K4-bwd")
+    rec["K4_dcn"] = dcn
+    free_memory()
+
+    # S1 at the tree's camera (a val frame: no augmentation)
+    frame = kitti_batches(cfg, "val")[0]
+    cams = [torch.from_numpy(frame[k]).cuda()
+            for k in ("rots", "trans", "intrins", "post_rots", "post_trans", "bda")]
+    frustum = create_frustum(gc, tuple(vt["data_config"]["input_size"]), 16)
+    dx, bx, _ = gen_dx_bx(gc["xbound"], gc["ybound"], gc["zbound"])
+    coords, valid = compute_voxel_coords(
+        get_geometry(torch.from_numpy(frustum).cuda(), *cams), dx, bx, nx)
+    D, fH, fW = frustum.shape[:3]
+    depth = torch.softmax(torch.randn((1, 1, D, fH, fW), device="cuda", generator=g), 2)
+    ctx = torch.randn((1, 1, fH, fW, vt["numC_Trans"]), device="cuda", generator=g)
+    rec["S1"] = dict(s1_check(depth.to(torch.bfloat16), ctx.to(torch.bfloat16), coords, valid,
+                              nx, "kitti camera"),
+                     geometry="data/fixtures.py:KITTI_P2, KITTI_TR (a val frame)")
+    emit(rec)
+    return rec
+
+
+def kitti_reload_pairs(model, opt, step, batch, n_pairs=2):
+    """Pairs of KITTI train steps from one reloaded state (model and
+    optimizer), one step seed, on the port's default settings: every loss,
+    grad_norm and every parameter's gradient before the clip compared bit
+    for bit (``phase_determinism``'s check, on the KITTI step).  Where a
+    pair differs, the convolutions whose gradients differed are replayed at
+    their step's inputs (``backward_repeats``) to name the ones whose
+    backward varies."""
+    import copy
+
+    import torch
+
+    state = copy.deepcopy((model.state_dict(), opt.state_dict()))
+    names = [k for k, _ in model.named_parameters()]
+
+    def run():
+        model.load_state_dict(state[0])
+        opt.load_state_dict(state[1])
+        grads = []
+
+        def opt_step():
+            grads.extend(None if p.grad is None else p.grad.detach().clone()
+                         for p in model.parameters())
+            return type(opt).step(opt)
+
+        opt.step = opt_step
+        try:
+            metrics = step(batch, torch.Generator(device="cuda").manual_seed(1))
+        finally:
+            del opt.step
+        return {k: float(v) for k, v in metrics.items()}, grads
+
+    rec = {"pairs": n_pairs, "losses_differ": 0, "grad_norm_differs": 0,
+           "param_grads_differ": 0, "param_grads": 0}
+    differing = set()
+    for _ in range(n_pairs):
+        (ma, ga), (mb, gb) = run(), run()
+        rec["losses_differ"] += any(ma[k] != mb[k] for k in ma if "loss" in k)
+        rec["grad_norm_differs"] += ma["grad_norm"] != mb["grad_norm"]
+        pair = {k for k, a, b in zip(names, ga, gb) if a is not None and not torch.equal(a, b)}
+        rec["param_grads_differ"] += len(pair)
+        rec["param_grads"] = sum(a is not None for a in ga)
+        differing |= pair
+        del ga, gb
+    rec["param_grads_differing"] = sorted(differing)[:40]
+    if differing:
+        owners = {k.rsplit(".", 1)[0] for k in differing}
+        convs, hooks = {}, []
+        for name, mod in model.named_modules():
+            if name in owners and isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d,
+                                                   torch.nn.ConvTranspose2d)):
+                def keep(mod, args, kwargs, name=name):
+                    if name not in convs:
+                        convs[name] = (mod, [a.detach().clone().requires_grad_(a.requires_grad)
+                                             if torch.is_tensor(a) else a for a in args],
+                                       dict(kwargs),
+                                       torch.get_autocast_dtype("cuda")
+                                       if torch.is_autocast_enabled("cuda") else None)
+                hooks.append(mod.register_forward_pre_hook(keep, with_kwargs=True))
+        run()
+        for h in hooks:
+            h.remove()
+        rec["modules"] = backward_repeats(convs)
+    return rec
+
+
+def phase_kitti_serve(tree):
+    """The SemanticKITTI config at full width (EfficientNet-B7 at 384 x 1280,
+    the 128 x 128 x 16 grid, 100 queries, 9 decoder layers), random weights
+    from a seeded torch.Generator, float32 parameters under bf16 autocast,
+    serving the tree's two val frames twice (the first a warm-up): ms per
+    frame, the peak, ``voxel_pred`` [1, 256, 256, 32] uint8, and a
+    torch.profiler summary of one more frame."""
+    import torch
+
+    from occformer_tpu_torch.engine.eval import build_eval_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    cfg = kitti_cfg(tree)
+    dtype = getattr(torch, cfg["compute_dtype"])
+    t0 = time.perf_counter()
+    model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    frames = kitti_batches(cfg, "val")
+    for f in frames:
+        f.pop("gt_occ")
+    occ_size, n_cls = tuple(cfg["occ_size"]), cfg["num_class"]
+    step = build_eval_step(model, occ_size, n_cls, dtype)
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()  # the main path's run starts here
+    frames_ms = []
+    for i in range(4):
+        t = time.perf_counter()
+        out = step(frames[i % len(frames)])
+        torch.cuda.synchronize()
+        frames_ms.append((time.perf_counter() - t) * 1e3)
+    n = launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * len(frames_ms) for k, v in KITTI_SERVE_LAUNCHES.items()}
+    check(n == want, f"kitti_serve launches {n} in {len(frames_ms)} frames, want {want}")
+    vp = out["voxel_pred"]
+    check(list(vp.shape) == [1, *occ_size] and vp.dtype == torch.uint8,
+          f"kitti voxel_pred {list(vp.shape)} {vp.dtype}")
+    check(int(vp.max()) < n_cls, "kitti: predicted labels out of range")
+    with torch.inference_mode(), torch.autocast("cuda", dtype=dtype):
+        raw = model({k: torch.as_tensor(v).cuda() for k, v in frames[0].items()})
+    finite = {k: bool(torch.isfinite(v.float()).all()) for k, v in raw.items()}
+    check(all(finite.values()), f"kitti: non-finite outputs {finite}")
+    rec = {"phase": "kitti_serve", "config": "occformer_kitti", "param_dtype": "float32",
+           "autocast": cfg["compute_dtype"], "model_build_s": build_s,
+           "params": sum(p.numel() for p in model.parameters()),
+           "warmup_frame_ms": frames_ms[0], "frame_ms": frames_ms[1:],
+           "frames_run": len(frames_ms), "launches": n, "peak_memory_bytes": peak,
+           "resident_bytes_at_start": resident, "voxel_pred": list(vp.shape),
+           "classes_predicted": len(torch.unique(vp)), "finite": finite,
+           "shapes": {k: list(v.shape) for k, v in raw.items()}}
+    rec["profile"] = profile(lambda: step(frames[0]), SERVE_STAGES,
+                             KITTI_SERVE_LAUNCHES)
+    emit(rec)
+    return n
+
+
+def phase_kitti_train(tree):
+    """The SemanticKITTI config's train step at full width with ``with_cp``
+    on (the EfficientNet's and the occupancy encoder's recomputation), float32
+    parameters under bf16 autocast, batch 1, on the tree's train frames
+    through the pipeline (4 steps over them, the first a warm-up): s/step,
+    the peak, the losses, a torch.profiler summary of one more step; then
+    ``kitti_reload_pairs`` on the settings ``phase_determinism`` uses
+    (cuDNN's TF32 on, no global deterministic mode), which must repeat every
+    loss, grad_norm and gradient."""
+    import torch
+
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    cfg = kitti_cfg(tree)
+    m = cfg["model"]
+    t0 = time.perf_counter()
+    model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
+    check(model.img_backbone.with_cp and model.img_bev_encoder_backbone.with_cp,
+          "kitti_train: with_cp is off")
+    loss_cfg = build_loss_cfg(m["pts_bbox_head"], m["train_cfg"]["pts"])
+    check(not loss_cfg.use_lidar_points, "kitti_train: not the grid loss")
+    opt = build_optimizer_from_config(model, cfg, 3834)  # SemanticKITTI's train frames
+    step = build_train_step(model, opt, loss_cfg, device="cuda",
+                            compute_dtype=getattr(torch, cfg["compute_dtype"]))
+    batches = kitti_batches(cfg, "train")
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    watch = {k: p.detach().clone() for k, p in model.named_parameters()
+             if k in ("img_backbone.layers.0.conv.weight",
+                      "img_backbone.layers.5.0.depthwise_conv.conv.weight",
+                      "img_bev_encoder_neck.encoder.layers.0.attentions.0.value_proj.weight",
+                      "pts_bbox_head.query_feat.weight")}
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()  # the main path's run starts here
+    steps_s, history = [], []
+    for i in range(4):
+        t = time.perf_counter()
+        metrics = step(batches[i % len(batches)], g)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t)
+        history.append({k: float(v) for k, v in metrics.items()})
+    n = launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * len(steps_s) for k, v in KITTI_TRAIN_LAUNCHES.items()}
+    check(n == want, f"kitti_train launches {n} in {len(steps_s)} steps, want {want}")
+    for h in history:
+        check(all(v == v and abs(v) != float("inf") for v in h.values()),
+              f"kitti_train: non-finite metrics {h}")
+    moved = {k: (p.detach() - watch[k]).abs().max().item()
+             for k, p in model.named_parameters() if k in watch}
+    check(len(moved) == 4 and all(v > 0 for v in moved.values()),
+          f"kitti_train: parameters did not move: {moved}")
+    rec = {"phase": "kitti_train", "config": "occformer_kitti", "param_dtype": "float32",
+           "autocast": cfg["compute_dtype"], "with_cp": True,
+           "params": sum(p.numel() for p in model.parameters()), "setup_s": setup_s,
+           "warmup_step_s": steps_s[0], "step_s": steps_s[1:], "steps_run": len(steps_s),
+           "launches": n, "peak_memory_bytes": peak, "resident_bytes_at_start": resident,
+           "metrics": history, "max_param_change": moved,
+           "loss_points": {"matching": loss_cfg.num_match_points,
+                           "candidates": loss_cfg.num_candidates,
+                           "supervised": loss_cfg.num_points}}
+    rec["profile"] = profile(lambda: step(batches[0], g), TRAIN_STAGES,
+                             KITTI_TRAIN_LAUNCHES)
+    free_memory()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the port's default settings
+    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+          and not torch.are_deterministic_algorithms_enabled(),
+          "kitti reload: a global determinism switch is on")
+    try:
+        rec["reload_determinism"] = r = kitti_reload_pairs(model, opt, step, batches[0])
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    emit(rec)
+    check(r["losses_differ"] == r["grad_norm_differs"] == r["param_grads_differ"] == 0
+          and r["param_grads"] > 0, f"kitti reload_determinism: a pair differs: {r}")
+    return n
+
+
+def phase_kitti_cli(tree):
+    """The train and test CLIs on the SemanticKITTI config at full width over
+    the tree, as subprocesses in a temporary work directory: tools.train to
+    step 2, then tools.test on step_2 over the val frames with
+    ``--test-save``: its SSC metrics (``semkitti_SC_IoU``,
+    ``semkitti_SSC_mIoU``) and a ``.label`` file per frame, read back by
+    ``utils/semkitti_io.py``."""
+    import numpy as np
+
+    from occformer_tpu_torch.data.fixtures import kitti_cfg_options
+    from occformer_tpu_torch.utils.semkitti_io import read_label_voxels
+
+    opts = kitti_cfg_options(tree) + ["log_config.interval=1"]
+    work = tempfile.mkdtemp(prefix="occformer_kitti_cli_")
+    rec = {"phase": "kitti_cli", "config": "occformer_kitti", "cfg_options": opts}
+    try:
+        out1, logs1, rec["train_to_2_s"] = cli_run(
+            "train", "--work-dir", work, "--max-steps", "2", options=opts, config=KITTI_CONFIG)
+        check("training done at step 2" in out1, f"kitti train to step 2:\n{out1[-2000:]}")
+        steps = [ln for ln in logs1 if "step" in ln]
+        check([ln["step"] for ln in steps] == [1, 2], f"kitti steps {steps}")
+        for ln in steps:
+            check(all(v == v and abs(v) != float("inf") for k, v in ln.items() if k != "epoch"),
+                  f"kitti train CLI: non-finite log {ln}")
+        rec["sec_per_iter"] = [ln["sec/iter"] for ln in steps]
+        rec["total_loss"] = [ln["total_loss"] for ln in steps]
+        rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 if "kernel_launches" in ln]
+        check(all(n[k] > 0 for n in rec["train_launches"]
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+              f"kitti train CLI launches {rec['train_launches']}")
+        save = os.path.join(work, "save")
+        out2, logs2, rec["test_s"] = cli_run(
+            "test", "--checkpoint", os.path.join(work, "ckpts", "step_2"), "--test-save", save,
+            options=opts, config=KITTI_CONFIG)
+        timing, results = logs2[0], logs2[-1]
+        rec["test_sec_per_sample"] = timing["sec/sample"]
+        rec["test_launches"] = timing["kernel_launches"]
+        rec["test_results"] = results
+        check(timing["samples"] == 2 and timing["kernel_launches"]["K1"] == 2 * 6,
+              f"kitti test CLI: {timing}")
+        for k in ("semkitti_SC_IoU", "semkitti_SSC_mIoU"):
+            check(k in results and (results[k] != results[k] or 0.0 <= results[k] <= 1.0),
+                  f"kitti test CLI results {results}")
+        labels = sorted(os.listdir(os.path.join(save, "sequences", "08", "predictions")))
+        check(labels == ["000000.label", "000001.label"], f"kitti submissions {labels}")
+        vox = read_label_voxels(os.path.join(save, "sequences", "08", "predictions",
+                                             labels[0]))
+        check(vox.shape == (256, 256, 32) and int(vox.max()) < 20,
+              f"kitti .label {vox.shape} max {int(vox.max())}")
+        rec["label_classes"] = int(len(np.unique(vox)))
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(rec)
+    return rec
+
+
+def phase_soak(steps=24):
     """``tools/soak.py`` at the flagship's full width on the default loss
     route: ``steps`` steps on one fixed batch with the checkpoint at the
     middle step (saved, loaded into a fresh model and optimizer, every
@@ -2610,12 +3149,27 @@ def port_kernel_ms(kernels):
     return {"by_kernel": by_kernel, "by_function": by_function}
 
 
-def profile(run, outer, top=12):
+def traced_launches(by_kernel):
+    """``port_kernel_ms``'s launches by kernel in the keys of the launch
+    counts (SERVE_LAUNCHES): "K1", "K2", "K2-bwd" and "K4" count both of
+    their paths, K2's forward summed over its template instances."""
+    n = dict(_NONE)
+    for key, r in by_kernel.items():
+        name = key.split(" ")[0]
+        n[name] += r["launches"]
+        if name in ("K1.row", "K2.row", "K4.row", "K2-bwd.narrow"):
+            n[name.split(".")[0]] += r["launches"]
+    return n
+
+
+def profile(run, outer, want, top=12):
     """torch.profiler over one more call of ``run``: host and device time of
     each ``stage:*`` range (``outer`` names the outermost ones, which must
     all appear), device time by kernel name and by operator and input shape,
     and the device's busy share of the call's wall time (the profiler's own
-    overhead included)."""
+    overhead included).  The port's kernel launches in the trace must equal
+    ``want``, one call's counts, so that a trace that dropped events fails
+    here rather than feed a busy share or a stage's time."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
@@ -2648,6 +3202,9 @@ def profile(run, outer, top=12):
     # the train step, the backward's, which autograd launches from its own
     # thread
     outside = device_ms - sum(stages[k]["device_ms"] for k in outer if k in stages)
+    port = port_kernel_ms(kernels)
+    traced = traced_launches(port["by_kernel"])
+    check(traced == want, f"profiled port-kernel launches {traced}, want {want}")
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "stages": stages, "device_ms_outside_outer_stages": outside,
@@ -2657,10 +3214,10 @@ def profile(run, outer, top=12):
             "top_ops": [{"name": e.key, "shapes": str(e.input_shapes)[:120],
                          "calls": e.count, "device_ms": e.self_device_time_total / 1e3}
                         for e in ops[:top]],
-            "port_kernels": port_kernel_ms(kernels)}
+            "port_kernels": port}
 
 
-def kernel_records(kern, probe, det, paths):
+def kernel_records(kern, probe, det, paths, kitti):
     """One record per kernel path; ``paths`` maps each driven path (serve,
     train, train_batched, the pipeline-fed train steps and frames, the K4
     gate, the probe) to its launch counts, and
@@ -2672,7 +3229,10 @@ def kernel_records(kern, probe, det, paths):
     no driven path either, and K4's and K4-bwd's records are at the DepthNet
     DCN's shapes, the main path's, with the deformable attention's under
     ``attention_shapes``.  Records carry the profiler's device ms beside
-    the event times where the kernels phase took them."""
+    the event times where the kernels phase took them, and under ``kitti``
+    the kernel at the SemanticKITTI path's shapes (``phase_kitti_kernels``;
+    K2's narrow record at the candidates, with the matching readout under
+    K2's row-wide record)."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
     paths = {p: dict(n, **{"K1.scalar": n["K1"] - n["K1.row"],
@@ -2722,6 +3282,12 @@ def kernel_records(kern, probe, det, paths):
         ("voxel_scatter_lifted", "", "S1", src + "voxel_splat.cu",
          "occformer_tpu/ops/scatter.py:55", det["S1"]),
     ]
+    at_kitti = {"K1.row": kitti["K1"], "K1-bwd": kitti["K1-bwd"],
+                "K2.row": kitti["K2_matching"], "K2.scalar": kitti["K2_candidates"],
+                "K2-bwd.narrow": kitti["K2-bwd"], "K4.row": kitti["K4"],
+                "K4-bwd": kitti["K4-bwd"], "S1": kitti["S1"]}
+    kitti_keys = ("max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                  "library_ms", "table", "points")
     return [{"name": name + (f".{path}" if path else ""), "path": path or None, "route": "cuda",
              "source": source, "replaces": replaces,
              "launches": sum(n[key] for n in paths.values()),
@@ -2731,7 +3297,9 @@ def kernel_records(kern, probe, det, paths):
              "library_ms": r.get("library_ms"),
              **{k: r[k] for k in ("device_ms", "library_device_ms", "random_order_ms",
                                   "random_order_device_ms", "readouts", "attention_shapes",
-                                  "launch_floor_ms", "bound_with_floor_ms") if k in r}}
+                                  "launch_floor_ms", "bound_with_floor_ms") if k in r},
+             **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
+                if key in at_kitti else {})}
             for name, path, key, source, replaces, r in rows]
 
 
@@ -2768,25 +3336,41 @@ def main():
         free_memory()
         return out
 
-    serve_n = timed("serve", phase_serve)
-    kern = timed("kernels", phase_kernels)
-    timed("tiny", phase_tiny)
-    timed("tiny_train", phase_tiny_train, "off")
-    timed("tiny_train_batched", phase_tiny_train, "on")
-    timed("tiny_train_accum", phase_tiny_train, "on", accum_steps=2)
-    det = timed("reload_determinism", phase_determinism)
-    train_n = timed("train", phase_train, "off")
-    train_batched_n = timed("train_batched", phase_train, "on")
-    tree = tempfile.mkdtemp(prefix="occformer_nusc_")
+    # the SemanticKITTI tree serves every KITTI phase; its kernels phase runs
+    # beside the flagship's (late in a long process the profiler has dropped
+    # some runs' device events), the rest after the flagship's paths
+    from occformer_tpu_torch.data.fixtures import make_kitti_tree
+
+    kitti_root = tempfile.mkdtemp(prefix="occformer_kitti_")
     try:
-        data, ann = timed("data", phase_data, tree)
-        timed("cli", phase_cli)
-        resume_n = timed("resume", phase_resume, tree, ann)
+        t = time.perf_counter()
+        make_kitti_tree(kitti_root)
+        wall["kitti_tree"] = time.perf_counter() - t
+        serve_n = timed("serve", phase_serve)
+        kern = timed("kernels", phase_kernels)
+        kitti_kern = timed("kitti_kernels", phase_kitti_kernels, kitti_root)
+        timed("tiny", phase_tiny)
+        timed("tiny_train", phase_tiny_train, "off")
+        timed("tiny_train_batched", phase_tiny_train, "on")
+        timed("tiny_train_accum", phase_tiny_train, "on", accum_steps=2)
+        det = timed("reload_determinism", phase_determinism)
+        train_n = timed("train", phase_train, "off")
+        train_batched_n = timed("train_batched", phase_train, "on")
+        tree = tempfile.mkdtemp(prefix="occformer_nusc_")
+        try:
+            data, ann = timed("data", phase_data, tree)
+            timed("cli", phase_cli)
+            resume_n = timed("resume", phase_resume, tree, ann)
+        finally:
+            shutil.rmtree(tree, ignore_errors=True)
+        soak_n = timed("soak", phase_soak)
+        learn_n = timed("learn", phase_learn)
+        ddp_n = timed("ddp", phase_ddp)
+        kitti_serve_n = timed("kitti_serve", phase_kitti_serve, kitti_root)
+        kitti_train_n = timed("kitti_train", phase_kitti_train, kitti_root)
+        timed("kitti_cli", phase_kitti_cli, kitti_root)
     finally:
-        shutil.rmtree(tree, ignore_errors=True)
-    soak_n = timed("soak", phase_soak)
-    learn_n = timed("learn", phase_learn)
-    ddp_n = timed("ddp", phase_ddp)
+        shutil.rmtree(kitti_root, ignore_errors=True)
     emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2798,7 +3382,8 @@ def main():
         "data_train": data["train_pipeline"]["launches"],
         "data_serve": data["serve_pipeline"]["launches"],
         "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"],
-        "resume": resume_n, "soak": soak_n, "learn": learn_n, "ddp": ddp_n})})
+        "resume": resume_n, "soak": soak_n, "learn": learn_n, "ddp": ddp_n,
+        "kitti_serve": kitti_serve_n, "kitti_train": kitti_train_n}, kitti_kern)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -204,3 +204,166 @@ def nuscenes_cfg_options(cfg, root: str, ann_file: str):
             if step["type"] == "LoadNuscOccupancyAnnotations":
                 opts.append(f"data.{split}.pipeline.{i}.data_root={root}")
     return opts
+
+
+# ---------------------------------------------------------------------------
+# SemanticKITTI
+# ---------------------------------------------------------------------------
+
+# an HDL-64E 1.73 m above the road; the velodyne frame: x forward, y left, z up
+KITTI_SENSOR_HEIGHT = 1.73
+KITTI_BEAMS = np.linspace(2.0, -24.8, 64)  # elevation of the 64 beams, degrees
+# P2 and Tr of a KITTI odometry sequence (the left colour camera 0.27 m ahead
+# of the scanner and 0.08 m below it; P2's fourth column its offset from cam0)
+KITTI_P2 = np.array([[718.856, 0.0, 607.1928, 45.38225],
+                     [0.0, 718.856, 185.2157, -0.1130887],
+                     [0.0, 0.0, 1.0, 0.003779761]])
+KITTI_TR = np.array([[0.0, -1.0, 0.0, 0.0], [0.0, 0.0, -1.0, -0.08],
+                     [1.0, 0.0, 0.0, -0.27]])
+KITTI_IMAGE = (370, 1226)
+# SemanticKITTI train ids of what the scene holds
+K_CAR, K_ROAD, K_SIDEWALK, K_BUILDING, K_VEGETATION, K_TERRAIN, K_POLE = 1, 9, 11, 13, 15, 17, 18
+KITTI_PC_RANGE = (0.0, -25.6, -2.0, 51.2, 25.6, 4.4)
+KITTI_GRID = (256, 256, 32)
+
+
+def _street(rng):
+    """One street scene: the wall offsets left and right (y), the cars as
+    boxes [n, 6] (x0, y0, z0, x1, y1, z1) and the poles as boxes, in the
+    velodyne frame."""
+    left, right = rng.uniform(8.0, 14.0), -rng.uniform(8.0, 14.0)
+    n = rng.randint(4, 9)
+    x = rng.uniform(6.0, 48.0, n)
+    y = rng.choice([-2.0, 2.0], n) + rng.uniform(-0.5, 0.5, n)
+    length, width = rng.uniform(3.8, 4.8, n), rng.uniform(1.6, 1.9, n)
+    ground = -KITTI_SENSOR_HEIGHT
+    cars = np.stack([x - length / 2, y - width / 2, np.full(n, ground),
+                     x + length / 2, y + width / 2, ground + rng.uniform(1.4, 1.7, n)], 1)
+    px = rng.uniform(5.0, 50.0, 3)
+    py = np.where(rng.rand(3) < 0.5, left - 1.5, right + 1.5)
+    poles = np.stack([px - 0.15, py - 0.15, np.full(3, ground),
+                      px + 0.15, py + 0.15, np.full(3, ground + 5.0)], 1)
+    return left, right, cars, poles
+
+
+def _street_scan(rng, street, n_azimuth=2048):
+    """The HDL-64E's sweep of a street: points [n, 4] float32 (x, y, z,
+    reflectance), 64 x 2048 rays cast against the road, the two walls (4.5 m
+    high), the cars and the poles; rays that hit nothing within 80 m give no
+    return, and 2 cm of range noise."""
+    left, right, cars, poles = street
+    az = (np.arange(n_azimuth) + rng.uniform(0, 1, n_azimuth)) * (2 * np.pi / n_azimuth)
+    el = np.radians(KITTI_BEAMS)
+    az_g, el_g = np.meshgrid(az, el, indexing="ij")
+    d = np.stack([np.cos(el_g) * np.cos(az_g), np.cos(el_g) * np.sin(az_g),
+                  np.sin(el_g)], -1).reshape(-1, 3)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = np.where(d[:, 2] < 0, -KITTI_SENSOR_HEIGHT / d[:, 2], np.inf)
+        for wall_y in (left, right):
+            tw = wall_y / d[:, 1]
+            zw = tw * d[:, 2]
+            ok = (tw > 0) & (zw >= -KITTI_SENSOR_HEIGHT) & (zw <= 4.5 - KITTI_SENSOR_HEIGHT)
+            t = np.where(ok & (tw < t), tw, t)
+        inv = 1.0 / np.where(np.abs(d) > 1e-12, d, 1e-12)
+        for box in np.concatenate([cars, poles]):
+            t0, t1 = box[:3] * inv, box[3:] * inv
+            near = np.minimum(t0, t1).max(1)
+            far = np.maximum(t0, t1).min(1)
+            t = np.where((near <= far) & (near > 0) & (near < t), near, t)
+    keep = np.isfinite(t) & (t < 80.0)
+    r = t[keep] + rng.normal(0, 0.02, int(keep.sum()))
+    xyz = d[keep] * r[:, None]
+    return np.concatenate([xyz, rng.uniform(0, 1, (len(xyz), 1))], 1).astype(np.float32)
+
+
+def _street_labels(street) -> np.ndarray:
+    """The street's SemanticKITTI voxel labels [256, 256, 32] (uint8 train
+    ids) over the KITTI range at 0.2 m: the ground layer (road within 4 m of
+    the centre line, sidewalk to 7 m, terrain beyond), the walls (building
+    on the left, vegetation on the right), the cars and the poles; empty (0)
+    in the open street, and 255 (unobserved) behind the walls."""
+    left, right, cars, poles = street
+    X, Y, Z = KITTI_GRID
+    pcr = np.asarray(KITTI_PC_RANGE)
+    size = (pcr[3:] - pcr[:3]) / np.asarray(KITTI_GRID)
+    cx = pcr[0] + (np.arange(X) + 0.5) * size[0]
+    cy = pcr[1] + (np.arange(Y) + 0.5) * size[1]
+    cz = pcr[2] + (np.arange(Z) + 0.5) * size[2]
+    gx, gy, gz = np.meshgrid(cx, cy, cz, indexing="ij")
+    labels = np.zeros(KITTI_GRID, np.uint8)
+    ground = (gz >= -KITTI_SENSOR_HEIGHT - size[2]) & (gz < -KITTI_SENSOR_HEIGHT)
+    ay = np.abs(gy)
+    labels[ground] = np.where(ay[ground] < 4.0, K_ROAD,
+                              np.where(ay[ground] < 7.0, K_SIDEWALK, K_TERRAIN))
+    walls = (gz >= -KITTI_SENSOR_HEIGHT) & (gz < 4.5 - KITTI_SENSOR_HEIGHT)
+    labels[walls & (gy >= left) & (gy < left + 0.6)] = K_BUILDING
+    labels[walls & (gy <= right) & (gy > right - 0.6)] = K_VEGETATION
+    labels[(gy >= left + 0.6) | (gy <= right - 0.6)] = 255
+    for boxes, label in ((cars, K_CAR), (poles, K_POLE)):
+        for b in boxes:
+            inside = ((gx >= b[0]) & (gx < b[3]) & (gy >= b[1]) & (gy < b[4])
+                      & (gz >= b[2]) & (gz < b[5]))
+            labels[inside] = label
+    return labels
+
+
+def make_kitti_tree(root: str, frames: Optional[dict] = None, seed: int = 0) -> str:
+    """Write a SemanticKITTI tree under ``root`` (``frames``: sequence ->
+    frame count; by default two frames of the train sequence 00 and two of
+    the val sequence 08): per sequence ``calib.txt`` (P0-P3 and Tr of a
+    KITTI odometry sequence), and per frame a 370 x 1226 PNG in
+    ``image_2``, the velodyne scan (about 130,000 returns of an HDL-64E:
+    x, y, z, reflectance), the raw voxel files of ``voxels`` (the packed
+    occupancy ``.bin``, the raw-id ``.label``, the packed ``.invalid``) and
+    the preprocessed train labels ``labels/<seq>/<frame>_1_1.npy``
+    (``tools/kitti_preprocess.py``); a test-submit sequence (11-21) gets
+    its occupancy ``.bin`` and no labels, as SemanticKITTI's.  Every other
+    sequence of the splits gets its ``calib.txt`` and no frames, so that
+    each split loads (the dataset raises on a sequence it lacks).  Every frame
+    is a street (road, sidewalks, a building and a hedge, cars, poles) made
+    from ``numpy.random.RandomState(seed)``.  Returns the label root, the
+    configs' ``ann_file`` (their default, ``root/labels``)."""
+    from PIL import Image
+
+    from ..tools.kitti_preprocess import process_frame
+    from ..utils.semkitti_io import learning_map_inv_lut, learning_map_lut
+    from .semantic_kitti import SPLITS
+
+    rng = np.random.RandomState(seed)
+    frames = {"00": 2, "08": 2} if frames is None else frames
+    inv = learning_map_inv_lut()
+    label_root = os.path.join(root, "labels")
+    empty = {seq: 0 for split in SPLITS.values() for seq in split if seq not in frames}
+    for seq, n in dict(frames, **empty).items():
+        seq_dir = os.path.join(root, "dataset", "sequences", seq)
+        for d in ("image_2", "velodyne", "voxels"):
+            os.makedirs(os.path.join(seq_dir, d), exist_ok=True)
+        if int(seq) <= 10:
+            os.makedirs(os.path.join(label_root, seq), exist_ok=True)
+        with open(os.path.join(seq_dir, "calib.txt"), "w") as f:
+            for key, m in (("P0", KITTI_P2 * [1, 1, 1, 0]), ("P1", KITTI_P2 * [1, 1, 1, 0]),
+                           ("P2", KITTI_P2), ("P3", KITTI_P2), ("Tr", KITTI_TR)):
+                f.write(f"{key}: " + " ".join(f"{v:.12e}" for v in m.reshape(-1)) + "\n")
+        for i in range(n):
+            fid = f"{i:06d}"
+            street = _street(rng)
+            Image.fromarray(_image(rng, KITTI_IMAGE)).save(
+                os.path.join(seq_dir, "image_2", fid + ".png"))
+            _street_scan(rng, street).tofile(os.path.join(seq_dir, "velodyne", fid + ".bin"))
+            labels = _street_labels(street)
+            vox = os.path.join(seq_dir, "voxels", fid)
+            np.packbits((labels > 0) & (labels < 255)).tofile(vox + ".bin")
+            if int(seq) > 10:  # the test-submit sequences come without labels
+                continue
+            inv[np.where(labels == 255, 0, labels)].astype(np.uint16).tofile(vox + ".label")
+            np.packbits(labels == 255).tofile(vox + ".invalid")
+            process_frame(os.path.join(seq_dir, "voxels"), fid,
+                          os.path.join(label_root, seq), learning_map_lut(), scales=(1,))
+    return label_root
+
+
+def kitti_cfg_options(root: str):
+    """The ``--cfg-options`` that point a SemanticKITTI config's train, val
+    and test splits at a tree (each split's ``data_root``; the labels under
+    ``root/labels``)."""
+    return [f"data.{split}.data_root={root}" for split in ("train", "val", "test")]

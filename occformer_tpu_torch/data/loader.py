@@ -17,7 +17,7 @@ run saw.
 ``prefetch_to_mesh``: batch i+1 goes from pinned host buffers to the card by
 ``non_blocking`` copies on a copy stream while step i runs.  ``build_dataset``
 builds a config's dataset from the registry (``data/nuscenes.py``,
-``data/synthetic.py``).
+``data/semantic_kitti.py``, ``data/synthetic.py``).
 """
 from __future__ import annotations
 
@@ -300,8 +300,8 @@ def build_dataset(cfg: Dict[str, Any], test_mode: bool = False):
         cfg["test_mode"] = True
     if cfg.get("type") not in DATASETS:
         raise NotImplementedError(
-            f"dataset {cfg.get('type')!r} is not ported yet: the SemanticKITTI pipeline "
-            "waits for its slice; the port builds CustomNuScenesOccLSSDataset and "
+            f"dataset {cfg.get('type')!r} is not ported: the port builds "
+            "CustomNuScenesOccLSSDataset, CustomSemanticKITTILssDataset and "
             "SyntheticOccDataset")
     return build_from_cfg(cfg, DATASETS)
 

@@ -8,8 +8,9 @@ seeded step gives the JAX package's sample bit for bit.  The resize / crop /
 flip / rotate augmentation is tracked as a 2D homography (post_rot,
 post_tran) so the LSS geometry can undo it on the card.  The depth maps are
 z-buffered by the native library (``data/native.py``); ``zbuffer_depth_plain``
-is the JAX package's numpy formulation, the plain version.  The KITTI loader
-comes with the SemanticKITTI slice.
+is the JAX package's numpy formulation, the plain version.  SemanticKITTI's
+monocular loader (``LoadMultiViewImageFromFiles_SemanticKitti``) keeps its
+3x4 P2 as the intrinsics.
 
 Outputs use the batch conventions of the model: images are channels-last
 float32 [N, H, W, 3]; geometry arrays match ``ops/geometry.py:get_geometry``.
@@ -197,6 +198,46 @@ class LoadMultiViewImageFromFiles_OccFormer:
         results["post_rots"] = np.stack(post_rots)
         results["post_trans"] = np.stack(post_trans)
         results["sensor2sensors"] = np.stack(sensor2sensors)
+        return results
+
+
+@PIPELINES.register_module()
+class LoadMultiViewImageFromFiles_SemanticKitti:
+    """Monocular KITTI image loading (loading_kitti_imgs.py:12-145): the
+    extrinsics from lidar2cam, the intrinsics the 3x4 P2 matrix.  The draws
+    come from ``step_rng``: the sample's RandomState, or the step's own where
+    ``seed`` gives one."""
+
+    def __init__(self, data_config, is_train=False, img_norm_cfg=None,
+                 seed: Optional[int] = None):
+        self.data_config = dict(data_config)
+        self.is_train = is_train
+        self.img_norm_cfg = img_norm_cfg
+        self.rng = None if seed is None else np.random.RandomState(seed)
+
+    def __call__(self, results: Dict) -> Dict:
+        img = Image.open(results["img_filename"]).convert("RGB")
+        lidar2cam = np.asarray(results["lidar2cam"], np.float64)
+        cam2lidar = np.linalg.inv(lidar2cam).astype(np.float32)
+        intrin = np.asarray(results["cam_intrinsic"], np.float32)  # 3x4 P2
+
+        resize, resize_dims, crop, flip, rotate = sample_augmentation(
+            self.data_config, img.height, img.width, self.is_train,
+            step_rng(self, results) if self.is_train else None)
+        img = img_transform_core(img, resize_dims, crop, flip, rotate)
+        pr2, pt2 = img_transform_matrices(resize, crop, flip, rotate)
+        post_rot = np.eye(3, dtype=np.float32)
+        post_tran = np.zeros(3, dtype=np.float32)
+        post_rot[:2, :2] = pr2
+        post_tran[:2] = pt2
+
+        results["imgs"] = mmlab_normalize(img, self.img_norm_cfg)[None]
+        results["rots"] = cam2lidar[None, :3, :3]
+        results["trans"] = cam2lidar[None, :3, 3]
+        results["intrins"] = intrin[None, :3, :4]
+        results["post_rots"] = post_rot[None]
+        results["post_trans"] = post_tran[None]
+        results["sensor2sensors"] = cam2lidar[None]
         return results
 
 

@@ -6,8 +6,9 @@ steps.  Majority voting runs in the native library (``data/native.py``,
 the reference's numba kernel, loading_nusc_occ.py:122-138);
 ``majority_vote_plain`` is the JAX package's vectorized numpy groupby
 (lexsort by (voxel, -count, label), first per voxel), the plain version with
-the same tie-breaking (smallest label id wins).  The SemanticKITTI and
-panoptic annotation loaders come with their slices.
+the same tie-breaking (smallest label id wins).  ``LoadSemKittiAnnotation``
+loads SemanticKITTI's preprocessed voxel labels and flips them about the
+range's centre (a 4x4 BDA).  The panoptic loader waits for its slice.
 """
 from __future__ import annotations
 
@@ -239,5 +240,44 @@ class LoadNuscOccupancyAnnotations:
         results["gt_occ"] = vox
         results["points_occ"] = lidarseg.astype(np.float32)
         results["points_lidar"] = points.astype(np.float32)
+        results["bda"] = bda
+        return results
+
+
+@PIPELINES.register_module()
+class LoadSemKittiAnnotation:
+    """The preprocessed 1_1 voxel labels and the BDA flips about the range's
+    centre (loading_kitti_occ.py:8-54): KITTI's x range starts at 0, so the
+    4x4 BDA is ``denorm @ flip @ rot @ norm`` about ``transform_center``.
+    The test-submit split has no labels: ``gt_occ`` None and the identity.
+    The draws come from ``step_rng``: the sample's RandomState, or the
+    step's own where ``seed`` gives one."""
+
+    def __init__(self, is_train=False, point_cloud_range=None, bda_aug_conf=None,
+                 seed: Optional[int] = None):
+        self.is_train = is_train
+        self.bda_aug_conf = bda_aug_conf
+        pcr = np.asarray(point_cloud_range if point_cloud_range is not None
+                         else [0, -25.6, -2, 51.2, 25.6, 4.4], np.float32)
+        self.transform_center = (pcr[:3] + pcr[3:]) / 2
+        self.rng = None if seed is None else np.random.RandomState(seed)
+
+    def __call__(self, results: Dict) -> Dict:
+        gt_occ = results.get("gt_occ_1_1", results.get("gt_occ"))
+        if gt_occ is None and results.get("voxel_label_path"):
+            gt_occ = np.load(results["voxel_label_path"])
+        if gt_occ is None:  # the test-submit split has no labels
+            results["gt_occ"] = None
+            results["bda"] = np.eye(4, dtype=np.float32)
+            return results
+        if self.is_train:
+            rot, scale, fdx, fdy, fdz = sample_3d_augmentation(self.bda_aug_conf,
+                                                               step_rng(self, results))
+            gt_occ, bda = voxel_transform(np.asarray(gt_occ), rot, scale, fdx, fdy, fdz,
+                                          transform_center=self.transform_center)
+        else:
+            bda = np.eye(4, dtype=np.float32)
+            gt_occ = np.asarray(gt_occ).astype(np.int64)
+        results["gt_occ"] = gt_occ
         results["bda"] = bda
         return results

@@ -313,6 +313,58 @@ def _stack_trees(trees):
     return np.stack(trees, axis=0)
 
 
+def convert_efficientnet(tb: TreeBuilder, sd, tp: str, dst: str):
+    """CustomEfficientNet (reference efficientnet.py:275-533; mmcv
+    ConvModule naming): ``layers.0`` the stem, ``layers.{L}.{B}`` the blocks
+    (InvertedResidual: expand_conv?/depthwise_conv/se/linear_conv;
+    EdgeResidual: conv1/se/conv2), an optional trailing final 1x1
+    ConvModule.  The JAX modules hold their raw ``nn.Conv``s directly under
+    their names (no Conv_0 wrapper); the SE convolutions carry biases."""
+
+    def conv(t, d):
+        tb.p(d + "/kernel", t2f_conv(sd[t + ".weight"]))
+        if t + ".bias" in sd:
+            tb.p(d + "/bias", sd[t + ".bias"])
+
+    pre = tp + "." if tp else ""
+    conv(f"{pre}layers.0.conv", f"{dst}/stem_conv")
+    tb.bn(sd, f"{pre}layers.0.bn", f"{dst}/stem_bn")
+    L = 1
+    while True:
+        base = f"{pre}layers.{L}"
+        if f"{base}.conv.weight" in sd:  # the trailing final 1x1 ConvModule
+            conv(f"{base}.conv", f"{dst}/final_conv")
+            tb.bn(sd, f"{base}.bn", f"{dst}/final_bn")
+            break
+        if f"{base}.0.depthwise_conv.conv.weight" not in sd and \
+                f"{base}.0.conv1.conv.weight" not in sd:
+            break
+        B = 0
+        while True:
+            bb = f"{base}.{B}"
+            dd = f"{dst}/layer{L}_block{B}"
+            if f"{bb}.depthwise_conv.conv.weight" in sd:  # InvertedResidual
+                if f"{bb}.expand_conv.conv.weight" in sd:
+                    conv(f"{bb}.expand_conv.conv", f"{dd}/expand_conv")
+                    tb.bn(sd, f"{bb}.expand_conv.bn", f"{dd}/expand_bn")
+                conv(f"{bb}.depthwise_conv.conv", f"{dd}/dw_conv")
+                tb.bn(sd, f"{bb}.depthwise_conv.bn", f"{dd}/dw_bn")
+                project = "linear_conv"
+            elif f"{bb}.conv1.conv.weight" in sd:  # EdgeResidual
+                conv(f"{bb}.conv1.conv", f"{dd}/expand_conv")
+                tb.bn(sd, f"{bb}.conv1.bn", f"{dd}/expand_bn")
+                project = "conv2"
+            else:
+                break
+            if f"{bb}.se.conv1.conv.weight" in sd:
+                conv(f"{bb}.se.conv1.conv", f"{dd}/se/reduce")
+                conv(f"{bb}.se.conv2.conv", f"{dd}/se/expand")
+            conv(f"{bb}.{project}.conv", f"{dd}/project_conv")
+            tb.bn(sd, f"{bb}.{project}.bn", f"{dd}/project_bn")
+            B += 1
+        L += 1
+
+
 def convert_swin_block(tb: TreeBuilder, sd, tp: str, dst: str):
     tb.ln(sd, tp + ".norm1", dst + "/norm1")
     tb.p(dst + "/attn/w_msa/relative_position_bias_table",
@@ -344,10 +396,13 @@ def convert_occformer(sd: Dict[str, np.ndarray],
     """Full reference checkpoint -> {'params': ..., 'batch_stats': ...}."""
     tb = TreeBuilder()
 
-    # ---- image backbone (ResNet naming) ----
-    rp, rs = convert_resnet(sd, "img_backbone.")
-    tb.params["backbone"] = rp
-    tb.stats["backbone"] = rs
+    # ---- image backbone (ResNet or EfficientNet naming) ----
+    if "img_backbone.layers.0.conv.weight" in sd:
+        convert_efficientnet(tb, sd, "img_backbone", "backbone")
+    else:
+        rp, rs = convert_resnet(sd, "img_backbone.")
+        tb.params["backbone"] = rp
+        tb.stats["backbone"] = rs
 
     # ---- SECONDFPN ----
     i = 0

@@ -1,13 +1,14 @@
 """Evaluation: the serving step of the flagship and the split evaluation.
 
-Port of ``occformer_tpu/engine/eval.py``, lidarseg branch:
+Port of ``occformer_tpu/engine/eval.py``, lidarseg and SSC branches:
 ``build_eval_step`` and ``lidarseg_point_logits`` (voxel class scores
 upsampled to the occupancy grid (argmax), per-point predicted labels, and
 the lidarseg confusion matrix; reference apis/test.py:22-105,
 mask2former_nusc_occ.py:505-542), and ``evaluate``, ``metrics_from_state``
-and ``format_iou_table`` (the confusion matrix summed over a split, the
-per-class IoU table; reference apis/test.py:107-212).  The SSC (KITTI) and
-panoptic branches wait for their slices.
+and ``format_iou_table`` (the confusion matrix and, for SemanticKITTI, the
+semantic scene completion counters of ``utils/metrics.py:SSCMetrics``
+summed over a split; the per-class IoU table and SC IoU / SSC mIoU;
+reference apis/test.py:107-212).  The panoptic branch waits for its slice.
 """
 from __future__ import annotations
 
@@ -20,7 +21,7 @@ from torch.profiler import record_function
 from ..models.mask2former_head import format_results, mask_logits_from_embeds
 from ..ops.sampling import grid_sample_3d, resize_trilinear
 from ..parallel.distributed import host_allreduce_sum
-from ..utils.metrics import cm_to_ious
+from ..utils.metrics import SSCMetrics, cm_to_ious
 
 
 def lidarseg_point_logits(voxel_scores: torch.Tensor, lidar_xyz01: torch.Tensor,
@@ -86,9 +87,11 @@ def metrics_from_state(state: Dict[str, np.ndarray], num_classes: int,
                        class_names=None) -> Dict[str, Any]:
     """The metric table of (already reduced) counters: ``confusion``, the
     lidarseg confusion matrix, gives ``nuScenes_lidarseg_<class>`` for the
-    foreground classes and ``nuScenes_lidarseg_mean``.  All entries are
-    sums, so summing per-process states first equals one pass over the
-    whole split."""
+    foreground classes and ``nuScenes_lidarseg_mean``; the ``ssc_*``
+    counters (present where SSC was computed) give ``semkitti_SC_IoU``,
+    ``semkitti_SSC_mIoU``, ``SSC_precision`` and ``SSC_recall``.  All
+    entries are sums, so summing per-process states first equals one pass
+    over the whole split."""
     results: Dict[str, Any] = {}
     cm = np.asarray(state["confusion"])
     if cm.sum() > 0:
@@ -98,15 +101,26 @@ def metrics_from_state(state: Dict[str, np.ndarray], num_classes: int,
         for i, iou in enumerate(ious):
             results[f"nuScenes_lidarseg_{names[i + 1]}"] = float(iou)
         results["nuScenes_lidarseg_mean"] = float(np.nanmean(ious))
+    if "ssc_tps" in state:
+        ssc = SSCMetrics(num_classes)
+        ssc.set_state(state)
+        m = ssc.compute()
+        results["semkitti_SC_IoU"] = float(m["sc_iou"])
+        results["semkitti_SSC_mIoU"] = float(m["ssc_miou"])
+        results["SSC_precision"] = float(m["precision"])
+        results["SSC_recall"] = float(m["recall"])
     return results
 
 
 def evaluate(model, loader, occ_size, num_classes: int, class_names=None,
              compute_ssc: bool = False, save_cb: Optional[Callable] = None,
-             panoptic: bool = False, all_reduce: Optional[Callable] = None,
+             panoptic: bool = False,
+             all_reduce: Optional[Callable] = None,
              compute_dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
     """Full-split evaluation of ``model`` (on its device, in eval mode)
-    through ``build_eval_step(..., compute_dtype)``: the lidarseg IoU table.
+    through ``build_eval_step(..., compute_dtype)``: the lidarseg IoU table
+    and, with ``compute_ssc``, the SSC metrics of ``voxel_pred`` against the
+    batch's ``gt_occ`` (label 255 ignored).
 
     ``save_cb(out, meta_list, batch)`` runs per batch on the host (the
     submission writers, reference apis/test.py:161-167).  ``all_reduce``
@@ -114,23 +128,27 @@ def evaluate(model, loader, occ_size, num_classes: int, class_names=None,
     (default: ``parallel/distributed.py:host_allreduce_sum``, the identity
     for one process), the analogue of the reference's
     ``dist.all_reduce(evaluation_semantic)`` (apis/test.py:209)."""
-    if compute_ssc:
-        raise NotImplementedError("SSC metrics come with the SemanticKITTI slice")
     if panoptic:
         raise NotImplementedError("panoptic evaluation comes with the panoptic slice")
     all_reduce = all_reduce or host_allreduce_sum
     step = build_eval_step(model, occ_size, num_classes, compute_dtype)
     cm = np.zeros((num_classes, num_classes), np.int64)
+    ssc = SSCMetrics(num_classes) if compute_ssc else None
     for batch in loader:
         batch = dict(batch)  # host-only keys popped locally, the caller's dict untouched
-        batch.pop("gt_occ", None)
+        gt_occ = batch.pop("gt_occ", None)
         meta = batch.pop("_meta", None)
         out = step(batch)
         if save_cb is not None:
             save_cb(out, meta, batch)
         if "confusion" in out:
             cm += out["confusion"].cpu().numpy()
-    state = all_reduce({"confusion": cm})
+        if ssc is not None and gt_occ is not None:
+            ssc.update(out["voxel_pred"].cpu().numpy(), torch.as_tensor(gt_occ).cpu().numpy())
+    state = {"confusion": cm}
+    if ssc is not None:
+        state.update(ssc.state())
+    state = all_reduce(state)
     return metrics_from_state(state, num_classes, class_names=class_names)
 
 

@@ -1,13 +1,19 @@
 """Pretrained init from torch checkpoints: the backbone's ``pretrained`` and
 mmcv's non-strict ``load_from``.
 
-Port of ``occformer_tpu/engine/pretrained.py`` for the two cases of the
-flagship and the R101 config:
+Port of ``occformer_tpu/engine/pretrained.py`` for the three cases of the
+reference's configs:
 
 * ``img_backbone.pretrained`` (a torchvision ResNet file, e.g.
   ``ckpts/resnet50-0676ba61.pth``): ``load_backbone_pretrained`` loads its
   keys into ``model.img_backbone``; the classifier's ``fc.*`` stays unused,
   as mmcv's ``strict=False`` leaves it.
+* ``img_backbone.init_cfg=dict(type="Pretrained", checkpoint=...,
+  prefix="backbone")`` (SemanticKITTI's mmcls EfficientNet-B7 classifier):
+  the same, on the file's keys under ``prefix + "."`` with the prefix
+  stripped (mmcv's ``init_cfg.prefix``); the classifier's ``head.*`` falls
+  outside it, and stages past ``max(out_indices)``, which the backbone
+  does not build, are reported unused (reference efficientnet.py:455).
 * ``load_from=<raw .pth>`` (e.g. the FCOS3D R101 file, ``img_backbone.*``
   plus an FPN ``img_neck.*``): ``partial_load_torch`` loads every top-level
   subtree whose keys name-match the model and skips the rest, as mmcv's
@@ -20,8 +26,7 @@ model's keys in a loaded subtree that the file did not fill, a key whose
 shape differs among them) and ``unused_keys`` (the file's keys that filled
 nothing).  ``init_from_pretrained`` applies what a config declares; a
 missing file gives a ``found: False`` report and keeps the random init.
-Nothing is downloaded.  The mmcls EfficientNet-B7 init (``init_cfg`` with a
-``prefix``) waits for the KITTI slice.
+Nothing is downloaded.
 """
 from __future__ import annotations
 
@@ -62,16 +67,24 @@ def _load_matching(module: torch.nn.Module, state_dict: Dict[str, Any], prefix: 
 
 
 def load_backbone_pretrained(model: torch.nn.Module, ckpt_path: str,
-                             state_dict: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
-    """Initialize ``model.img_backbone`` from a standalone torchvision-keyed
-    backbone checkpoint (``conv1.weight``, ``layer1.0.bn1.running_mean``,
-    ...); the file's other keys (the classifier's ``fc.*``) are reported as
-    unused."""
+                             state_dict: Optional[Dict[str, Any]] = None,
+                             prefix: Optional[str] = None) -> Dict[str, Any]:
+    """Initialize ``model.img_backbone`` from a standalone backbone
+    checkpoint: torchvision-keyed (``conv1.weight``,
+    ``layer1.0.bn1.running_mean``, ...) or, with ``prefix``, the keys under
+    ``prefix + "."`` with the prefix stripped (an mmcls classifier's
+    ``backbone.*``; none there raises).  The file's other keys (a
+    classifier's ``fc.*``) are reported as unused."""
     if state_dict is None:
         state_dict = load_torch_state_dict(ckpt_path)
+    if prefix:
+        p = prefix.rstrip(".") + "."
+        state_dict = {k[len(p):]: v for k, v in state_dict.items() if k.startswith(p)}
+        if not state_dict:
+            raise ValueError(f"prefix {prefix!r} matched no keys in {ckpt_path}")
     kept, unused = _load_matching(model.img_backbone, state_dict)
     return {"source": ckpt_path, "kind": "backbone_init",
-            "backbone_type": type(model.img_backbone).__name__,
+            "backbone_type": type(model.img_backbone).__name__, "prefix": prefix,
             "kept_init": kept, "unused_keys": unused}
 
 
@@ -109,18 +122,25 @@ def init_from_pretrained(model: torch.nn.Module, model_cfg: Dict,
                          load_from: Optional[str] = None,
                          base_dir: str = ".") -> List[Dict[str, Any]]:
     """Apply every pretrained init the config declares, in mmcv's order:
-    ``img_backbone.pretrained`` (or the model's ``pretrained``), then
+    ``img_backbone.init_cfg`` (``type="Pretrained"``, its ``checkpoint``
+    and ``prefix``) or ``img_backbone.pretrained`` (or the model's
+    ``pretrained``), then
     ``load_from`` when it names a raw torch file (``.pth`` / ``.pt``; a
     ``step_N`` directory of the train CLI is a checkpoint, loaded strictly
     by ``engine/checkpoint.py``).  Returns one report per declared file; a
     missing file gives ``{"source", "kind", "found": False}``."""
     reports: List[Dict[str, Any]] = []
     bb = dict(model_cfg.get("img_backbone") or {})
-    if bb.get("init_cfg"):
-        raise NotImplementedError("img_backbone.init_cfg (the mmcls EfficientNet-B7 "
-                                  "init) comes with the KITTI slice")
-    ckpt = bb.get("pretrained") or model_cfg.get("pretrained")
-    for source, kind, fn in ((ckpt, "backbone_init", load_backbone_pretrained),
+    init_cfg = dict(bb.get("init_cfg") or {})
+    if init_cfg and init_cfg.get("type") != "Pretrained":
+        raise NotImplementedError(f"img_backbone.init_cfg of type {init_cfg.get('type')!r}")
+    ckpt = init_cfg.get("checkpoint") or bb.get("pretrained") or model_cfg.get("pretrained")
+    prefix = init_cfg.get("prefix")
+
+    def backbone_init(m, path):
+        return load_backbone_pretrained(m, path, prefix=prefix)
+
+    for source, kind, fn in ((ckpt, "backbone_init", backbone_init),
                              (load_from if str(load_from).endswith((".pth", ".pt")) else None,
                               "partial_load", partial_load_torch)):
         if not source:

@@ -1,4 +1,4 @@
-"""Training step of the flagship.
+"""Training step of the flagship and of the SemanticKITTI configuration.
 
 Port of ``occformer_tpu/engine/train.py`` (``build_loss_cfg``,
 ``build_train_step`` with gradient accumulation, the train-time point mIoU).
@@ -27,29 +27,40 @@ from ..models.lss import depth_bce_loss
 from ..models.mask2former_head import format_results, mask_logits_from_embeds
 from ..ops.sampling import grid_sample_3d
 from ..parallel.distributed import all_reduce_sum, world_size
+from ..utils.semkitti import kitti_class_weights, kitti_sample_weights
 from .eval import to_device_batch
 from .optim import TrainOptimizer
 
 
 def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
     """The loss config of a head config and its ``train_cfg.pts`` (JAX
-    ``build_loss_cfg``).  nuScenes heads keep the config's class weights and
-    sample at LiDAR points with ``align_corners=False``.  ``mxu_readout``
-    picks the loss route as in JAX (default ``"auto"``, the per-layer route;
-    ``"on"`` the all-layer batched one).  The JAX package's other TPU knobs
-    (``gt_chunks``, ``point_chunks``, ``feature_readout``,
+    ``build_loss_cfg``).  nuScenes heads (``Mask2FormerNusc*``) keep the
+    config's class weights and sample at LiDAR points with
+    ``align_corners=False``; ``mxu_readout`` picks their loss route as in JAX
+    (default ``"auto"``, the per-layer route; ``"on"`` the all-layer batched
+    one).  The SemanticKITTI head samples GT voxels by class frequency
+    (``kitti_sample_weights``) and reads with ``align_corners=True``; its
+    class weights are 1/log(frequency) with the config's background weight
+    last (reference mask2former_occ.py:133-150).  The JAX package's other
+    TPU knobs (``gt_chunks``, ``point_chunks``, ``feature_readout``,
     ``shared_candidate_readout``, ``gt_label_kernel``) are not read: the port
-    always reads features with shared candidates, and its batched route
-    always reads the GT with K3; none of them changes the function.  The
-    KITTI branch (frequency sampling and class weights) is not ported yet."""
+    always reads the LiDAR branch's features with shared candidates, and its
+    batched route always reads the GT with K3; none of them changes the
+    function."""
     head_cfg = dict(head_cfg)
     train_cfg = dict(train_cfg or {})
     num_classes = head_cfg.get("num_occupancy_classes", 20)
-    if not head_cfg.get("type", "").startswith("Mask2FormerNusc"):
-        raise NotImplementedError("only the nuScenes (LiDAR-point) heads are ported")
     if head_cfg.get("type") == "Mask2FormerNuscPanopticOccHead":
         raise NotImplementedError("the panoptic loss is not ported yet")
+    is_nusc = head_cfg.get("type", "").startswith("Mask2FormerNusc")
     loss_cls = dict(head_cfg.get("loss_cls") or {})
+    if is_nusc:
+        class_weight = tuple(loss_cls.get("class_weight", (1.0,) * num_classes + (0.1,)))
+        sample_weights = None
+    else:
+        bg = loss_cls.get("class_weight", [1.0] * num_classes + [0.1])[-1]
+        class_weight = tuple(kitti_class_weights(bg).tolist())
+        sample_weights = tuple(kitti_sample_weights().tolist())
     assigner = dict(train_cfg.get("assigner") or {})
     return MaskLossConfig(
         num_classes=num_classes,
@@ -63,9 +74,12 @@ def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
         mask_cost_weight=(assigner.get("mask_cost") or {}).get("weight", 5.0),
         dice_cost_weight=(assigner.get("dice_cost") or {}).get("weight", 5.0),
         dice_eps=(head_cfg.get("loss_dice") or {}).get("eps", 1.0),
-        class_weight=tuple(loss_cls.get("class_weight", (1.0,) * num_classes + (0.1,))),
+        class_weight=class_weight,
         match_num_points=train_cfg.get("match_num_points"),
         mxu_readout=str(head_cfg.get("mxu_readout", "auto")),
+        use_lidar_points=is_nusc,
+        sample_weights=sample_weights,
+        sample_weight_gamma=head_cfg.get("sample_weight_gamma", 0.25),
     )
 
 
@@ -124,14 +138,16 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
     """Returns ``train_step(batch, generator, draws=None) -> metrics``.
 
     ``batch``: numpy arrays or tensors, the model's inputs plus ``gt_occ``
-    [B, X, Y, Z], ``gt_depth`` [B, N, H, W], ``lidar_xyz`` [B, P, 3] in
-    [0, 1], ``lidar_valid`` [B, P] and, for the point mIoU, ``lidar_label``.
+    [B, X, Y, Z], ``gt_depth`` [B, N, H, W] and, for the LiDAR loss branch,
+    ``lidar_xyz`` [B, P, 3] in [0, 1], ``lidar_valid`` [B, P] and, for the
+    point mIoU, ``lidar_label``.
     ``metrics``: every loss (``d{i}.loss_*``, ``loss_*``, ``loss_depth``),
     ``total_loss`` (the sum of the keys holding ``loss``), ``grad_norm``,
     ``unassigned_gt`` and ``point_mean_iou``, as device scalars.  ``draws``
     replaces the loss's draws (``make_loss_draws``) with given ones, e.g.
     the JAX package's in a parity test: one dict, or a list with one dict
-    per micro-batch.
+    per micro-batch (the grid branch draws from ``generator`` layer by
+    layer while the loss runs, unless they are given).
 
     ``accum_steps > 1`` accumulates gradients as JAX's step does: the
     batch's leading axis (``accum_steps * micro_B``) splits into micro-batches
@@ -185,12 +201,12 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
             out = model(batch)
         with record_function("stage:loss"):
             L = out["cls_preds"].shape[0]
-            if draws is None:
+            if draws is None and loss_cfg.use_lidar_points:
                 draws = make_loss_draws(generator, loss_cfg, batch["lidar_valid"], L)
             losses = mask2former_loss(
                 out["cls_preds"], out["mask_embeds"], out["mask_feature"],
-                batch["gt_occ"], loss_cfg, batch["lidar_xyz"], batch["lidar_valid"],
-                draws)
+                batch["gt_occ"], loss_cfg, batch.get("lidar_xyz"), batch.get("lidar_valid"),
+                draws, generator=generator)
             losses["loss_depth"] = depth_bce_loss(
                 batch["gt_depth"], out["depth_prob"], vt.grid_config, vt.downsample,
                 vt.loss_depth_weight)

@@ -1,12 +1,13 @@
 """Mask2Former occupancy training loss with deep supervision.
 
 Port of ``occformer_tpu/losses/mask2former_loss.py`` (reference
-mask2former/mask2former_occ.py:224-444 and mask2former_nusc_occ.py:196-455),
-the branch the flagship trains with: LiDAR-point supervision
-(``use_lidar_points``) with the feature-space point readout and the shared
-candidate readout (``feature_readout=True``, ``shared_candidate_readout=True``).
-Two routes compute the same function; ``MaskLossConfig.mxu_readout`` picks
-one, with the JAX package's values:
+mask2former/mask2former_occ.py:224-444 and mask2former_nusc_occ.py:196-455).
+Two branches, as ``MaskLossConfig.use_lidar_points`` says:
+
+**LiDAR points** (nuScenes, the flagship): the feature-space point readout
+and the shared candidate readout (JAX ``feature_readout=True``,
+``shared_candidate_readout=True``).  Two routes compute the same function;
+``MaskLossConfig.mxu_readout`` picks one, with the JAX package's values:
 
 * ``"off"`` and ``"auto"``: the per-layer route (JAX ``:723-906`` and
   ``:1032-1141``), a loop over (layer, sample) that reads the feature volume
@@ -21,22 +22,39 @@ one, with the JAX package's values:
   ``point_sample(emb . feature, p) == emb . point_sample(feature, p)``, so
   the two routes agree to float32 rounding.
 
+**The GT grid** (SemanticKITTI, ``_grid_loss``; JAX ``:252-262`` and
+``:908-950``, per layer, as JAX runs it): the points are GT voxels drawn in
+proportion to their class's sample weight (``sample_with_frequencies``),
+and the predictions are the mask VOLUMES ``emb . feature`` read there
+(align_corners=True, zeros padding) or, where the prediction grid is the GT
+grid, gathered.  Matching reads the [X, Y, Z, Q] query volume at the
+matching voxels (K2 at C = Q); supervision reads each matched slot's volume
+at its frequency-drawn candidates (K2's narrow path at C = 1), keeps the
+uncertainty top-k, adds voxels drawn uniformly from the labelled ones, and
+reads the volumes there with gradient (K2-bwd's narrow path).  The targets
+are gathered from the GT grid exactly; the BCE weights every point by its
+slot's class weight.  Its draws (Gumbel noise over the GT grid's voxels,
+[X*Y*Z] for the matching and [G, X*Y*Z] twice for the supervision, per
+(layer, sample)) are taken layer by layer from the step's generator, all
+the matching draws first: up front they would take about 3.4 GB at
+SemanticKITTI's 256 x 256 x 32 grid.  A test passes them instead.
+
 Every point readout goes through K2 (``ops/trilerp.py``) on the card.  On
-the CPU both routes run the plain versions.
+the CPU both branches and both routes run the plain versions.
 
 * GT is one mask slot per class (``preprocess_gt``), a validity bit per slot.
 * Matching is detached: per (layer, sample) the cost at the matching points,
   then scipy's ``linear_sum_assignment`` on the host for all layers at once.
-* The loss's random draws come in as an argument (``make_loss_draws`` makes
-  them from a ``torch.Generator``): torch cannot reproduce ``jax.random``, so
-  the parity tests build the same arrays from the JAX key tree.  Both routes
-  take the same draws.
+* The LiDAR branch's random draws come in as an argument
+  (``make_loss_draws`` makes them from a ``torch.Generator``): torch cannot
+  reproduce ``jax.random``, so the parity tests build the same arrays from
+  the JAX key tree.  Both routes take the same draws.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -44,14 +62,21 @@ from ..ops.loss_gather import sample_id_masks, sort_points_by_row
 from ..parallel.distributed import all_reduce_sum, global_rows, world_size
 from ..ops.sampling import point_sample_3d
 from .matching import hungarian_match, mask_matching_cost
-from .point_sampling import gumbel_noise, gumbel_topk_sample, uncertainty_topk
+from .point_sampling import (
+    gumbel_noise,
+    gumbel_topk_sample,
+    sample_with_frequencies,
+    uncertainty_topk,
+)
 from .seg_losses import bce_elem
 
-# every point readout of the nuScenes loss: torch's default align_corners
+# every point readout of the LiDAR branch: torch's default align_corners
 # (reference mask2former_nusc_occ.py:244-250, :404-410) and border padding;
-# KITTI's grid branch, which reads with align_corners=True, is not ported
+# the grid branch's: align_corners (reference mask2former_occ.py:264) and zeros
 ALIGN_CORNERS = False
 PADDING = "border"
+GRID_ALIGN_CORNERS = True
+GRID_PADDING = "zeros"
 
 MXU_READOUT = ("auto", "on", "off", "interpret")
 
@@ -75,11 +100,19 @@ class MaskLossConfig:
     match_num_points: Optional[int] = None
     # the loss route: "on" / "interpret" batched, "off" / "auto" per layer
     mxu_readout: str = "auto"
+    # the branch: LiDAR points (nuScenes) or frequency-drawn GT voxels (KITTI)
+    use_lidar_points: bool = True
+    # the grid branch's per-class sampling weights, raised to the power
+    # sample_weight_gamma
+    sample_weights: Optional[Tuple[float, ...]] = None
+    sample_weight_gamma: float = 0.25
 
     def __post_init__(self):
         if self.mxu_readout not in MXU_READOUT:
             raise ValueError(f"mxu_readout must be one of {MXU_READOUT}; "
                              f"got {self.mxu_readout!r}")
+        if not self.use_lidar_points and self.sample_weights is None:
+            raise ValueError("the grid branch needs sample_weights")
 
     @property
     def num_match_points(self) -> int:
@@ -95,8 +128,9 @@ class MaskLossConfig:
 
     @property
     def batched_readout(self) -> bool:
-        """Whether the loss takes the all-layer batched route."""
-        return self.mxu_readout in ("on", "interpret")
+        """Whether the loss takes the all-layer batched route (the LiDAR
+        branch's; the grid branch runs per layer, as in JAX)."""
+        return self.use_lidar_points and self.mxu_readout in ("on", "interpret")
 
 
 def preprocess_gt(gt_occ: torch.Tensor, num_classes: int):
@@ -447,6 +481,141 @@ def _batched_loss(cfg, cls_preds, mask_embeds, feature, read_gt, gt_labels, gt_v
     return _layer_losses(cfg, s, assigns, gt_valid)
 
 
+# ---------------------------------------------------------------------------
+# the grid branch (SemanticKITTI)
+# ---------------------------------------------------------------------------
+
+def resolve_sample_weights(cfg: MaskLossConfig, device) -> torch.Tensor:
+    """The per-class sampling weights ``sample_weights ** gamma`` (JAX
+    ``_resolve_sample_weights``; reference mask2former_occ.py:160-166)."""
+    base = torch.tensor(cfg.sample_weights, dtype=torch.float32, device=device)
+    return base ** float(cfg.sample_weight_gamma)
+
+
+def _grid_drawer(draws: Optional[Dict[str, torch.Tensor]],
+                 generator: Optional[torch.Generator], B: int, device) -> Callable:
+    """``draw(name, layer, shape) -> [B, *shape]`` Gumbel noise of one layer:
+    from ``draws[name][layer]`` where given (a test's), else from
+    ``generator`` in call order, the global batch's rows drawn and this
+    rank's kept under data parallelism."""
+    if draws is not None:
+        return lambda name, l, shape: draws[name][l].to(device)
+    if generator is None:
+        raise ValueError("the grid branch draws from a generator or takes draws")
+    rows = global_rows(B)
+
+    def draw(name, l, shape):
+        return gumbel_noise((B * world_size(),) + tuple(shape), generator)[rows].to(device)
+    return draw
+
+
+def _read_grid(vol: torch.Tensor, idx: torch.Tensor, pts: torch.Tensor, gt_shape):
+    """Values of channels-last volumes ``vol [K, X, Y, Z, C]`` at GT voxels
+    (flat ``idx [K, P]``, [0, 1] ``pts [K, P, 3]``): gathered where the grids
+    are one, else read trilinearly at the points (reference
+    mmdet_utils.py:214-217).  -> [K, P, C]."""
+    K, X, Y, Z, C = vol.shape
+    if (X, Y, Z) == tuple(gt_shape):
+        return torch.gather(vol.reshape(K, X * Y * Z, C), 1,
+                            idx[..., None].expand(*idx.shape, C))
+    return point_sample_3d(vol, pts, GRID_ALIGN_CORNERS, GRID_PADDING)
+
+
+def _grid_assign(cfg, cls_preds, mask_embeds, feature, gt_occ, gt_labels, gt_valid, sw,
+                 draw):
+    """The grid branch's matching, detached: per (layer, sample) the query
+    volume read at ``num_match_points`` frequency-drawn GT voxels, the GT
+    there exactly.  -> [L, B, G]"""
+    L, B, Q = cls_preds.shape[:3]
+    gt_shape = tuple(gt_occ.shape[1:])
+    N = gt_occ[0].numel()
+    flat_gt = gt_occ.reshape(B, N).long()
+    with torch.no_grad():
+        costs = []
+        for l in range(L):
+            idx, pts = sample_with_frequencies(gt_occ, sw, cfg.num_match_points,
+                                               draw("match", l, (N,)))  # [B, Pm]
+            for b in range(B):
+                with _full_float32(feature.device.type):
+                    vol = _slot_volumes(mask_embeds[l:l + 1, b:b + 1].detach(),
+                                        feature[b:b + 1].detach(), torch.float32)
+                mask_pts = _read_grid(vol, idx[b:b + 1], pts[b:b + 1], gt_shape)[0].T
+                del vol
+                gt_pts = (flat_gt[b, idx[b]][None] == gt_labels[b][:, None]).float()
+                costs.append(mask_matching_cost(
+                    cls_preds[l, b], mask_pts, gt_labels[b], gt_pts, gt_valid[b],
+                    cls_weight=cfg.cls_cost_weight, mask_weight=cfg.mask_cost_weight,
+                    dice_weight=cfg.dice_cost_weight, dice_eps=cfg.dice_eps))
+        cost = torch.stack(costs).reshape(L, B, Q, -1)
+        return hungarian_match(cost, gt_valid.expand(L, B, -1))
+
+
+def _grid_loss(cfg, cls_preds, mask_embeds, feature, gt_occ, gt_labels, gt_valid, assigns,
+               sw, class_weight, draw):
+    """The grid branch's differentiated losses given the assignments, layer
+    by layer (JAX ``_loss_single_sample`` :908-950): per matched slot its
+    mask volume, ``num_candidates`` voxels drawn by frequency and read
+    without gradient, their uncertainty top-k (``uncertainty_select``'s tie
+    rule), ``num_points - num_uncertain`` voxels drawn uniformly from the
+    labelled ones, the supervision points read with gradient; the targets
+    gathered exactly.  Mask loss: the BCE weighted per point by the slot's
+    class weight, over ``sum(gt_w) * num_points``."""
+    L, B, Q = cls_preds.shape[:3]
+    G = gt_labels.shape[1]
+    C = feature.shape[-1]
+    gt_shape = tuple(gt_occ.shape[1:])
+    N = gt_occ[0].numel()
+    flat_gt = gt_occ.reshape(B, N).long()
+    X, Y, Z = feature.shape[1:4]
+    feat = feature.float().reshape(B, X * Y * Z, C)  # one float32 copy for every layer
+    uniform = torch.ones_like(sw)  # the fill: every labelled voxel alike
+    n_unc = cfg.num_uncertain
+    n_rand = cfg.num_points - n_unc
+    sums = []
+    for l in range(L):
+        cand_g = draw("cand", l, (G, N))                                 # [B, G, N]
+        fill_g = draw("fill", l, (G, N)) if n_rand > 0 else None
+        parts = []
+        for b in range(B):
+            assign = assigns[l, b]
+            cls_num, cls_avg, gt_w = _cls_terms(cls_preds[l, b], assign, gt_labels[b],
+                                                gt_valid[b], class_weight, cfg.num_classes)
+            emb = mask_embeds[l, b][assign.clamp(0, Q - 1)].float()      # [G, C]
+            with _full_float32(feature.device.type):
+                vol = (emb @ feat[b].T).reshape(G, X, Y, Z, 1)            # slot-major volumes
+            cand, cand_pts = sample_with_frequencies(gt_occ[b], sw, cfg.num_candidates,
+                                                     cand_g[b])           # [G, S]
+            with torch.no_grad():
+                cand_logits = _read_grid(vol, cand, cand_pts, gt_shape)[..., 0]
+            sel = uncertainty_select(cand_logits, n_unc)
+            top = torch.sort(sel, dim=-1, descending=True, stable=True).indices[:, :n_unc]
+            sup = cand.gather(1, top)
+            sup_pts = cand_pts.gather(1, top[..., None].expand(-1, -1, 3))
+            if n_rand > 0:
+                fill, fill_pts = sample_with_frequencies(gt_occ[b], uniform, n_rand, fill_g[b])
+                sup, sup_pts = torch.cat([sup, fill], 1), torch.cat([sup_pts, fill_pts], 1)
+            sup_pred = _read_grid(vol, sup, sup_pts, gt_shape)[..., 0]
+            sup_tgt = (flat_gt[b][sup] == gt_labels[b][:, None]).float()
+            pred_sig = torch.sigmoid(sup_pred)
+            a = (pred_sig * sup_tgt).sum(-1)
+            den = pred_sig.sum(-1) + sup_tgt.sum(-1)
+            dice_rows = 1.0 - (2 * a + cfg.dice_eps) / (den + cfg.dice_eps)
+            parts.append(dict(cls_num=cls_num, cls_avg=cls_avg,
+                              mask_num=(bce_elem(sup_pred, sup_tgt) * gt_w[:, None]).sum(),
+                              mask_avg=gt_w.sum() * cfg.num_points,
+                              dice_num=(dice_rows * gt_w).sum(), dice_avg=gt_w.sum()))
+        sums.append({k: sum(p[k] for p in parts) for k in parts[0]})
+    s = {k: torch.stack([x[k] for x in sums]) for k in sums[0]}
+    return _layer_losses(cfg, s, assigns, gt_valid)
+
+
+def _grid_prepare(cls_preds, gt_occ, cfg, draws, generator):
+    _, gt_labels, gt_valid = preprocess_gt(gt_occ, cfg.num_classes)
+    dev = cls_preds.device
+    return (gt_labels, gt_valid, resolve_sample_weights(cfg, dev),
+            _grid_drawer(draws, generator, gt_occ.shape[0], dev))
+
+
 def _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws):
     """What both routes and both phases read: the GT slots, the feature,
     the draws on the loss's device and the loss points."""
@@ -472,10 +641,16 @@ def _assign(cfg, p, cls_preds, mask_embeds, gt_occ):
 
 
 def match_assignments(cls_preds, mask_embeds, mask_feature, gt_occ, cfg: MaskLossConfig,
-                      lidar_xyz, lidar_valid, draws) -> torch.Tensor:
+                      lidar_xyz=None, lidar_valid=None, draws=None,
+                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """The Hungarian assignment [L, B, G] (query per GT slot, -1 for invalid
-    slots) that ``mask2former_loss`` computes on ``cfg``'s route from the same
-    arguments."""
+    slots) that ``mask2former_loss`` computes on ``cfg``'s branch and route
+    from the same arguments."""
+    if not cfg.use_lidar_points:
+        gt_labels, gt_valid, sw, draw = _grid_prepare(cls_preds, gt_occ, cfg, draws,
+                                                      generator)
+        return _grid_assign(cfg, cls_preds, mask_embeds, mask_feature.contiguous(), gt_occ,
+                            gt_labels, gt_valid, sw, draw)
     p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws)
     return _assign(cfg, p, cls_preds, mask_embeds, gt_occ)[0]
 
@@ -486,18 +661,31 @@ def mask2former_loss(
     mask_feature: torch.Tensor,  # [B, X, Y, Z, Cout]
     gt_occ: torch.Tensor,        # [B, X', Y', Z'] int labels
     cfg: MaskLossConfig,
-    lidar_xyz: torch.Tensor,     # [B, P, 3] in [0, 1]
-    lidar_valid: torch.Tensor,   # [B, P] bool
-    draws: Dict[str, torch.Tensor],
+    lidar_xyz: Optional[torch.Tensor] = None,    # [B, P, 3] in [0, 1]
+    lidar_valid: Optional[torch.Tensor] = None,  # [B, P] bool
+    draws: Optional[Dict[str, torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
 ) -> Dict[str, torch.Tensor]:
     """Deep-supervision loss over all decoder layers: ``d{i}.loss_*`` for the
     intermediate layers, ``loss_*`` for the last, and the metric
     ``unassigned_gt`` (valid GT slots left unassigned over all layers; always
-    0 with scipy's assignment).  ``cfg.mxu_readout`` picks the route."""
-    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws)
-    assigns, gt = _assign(cfg, p, cls_preds, mask_embeds, gt_occ)
+    0 with scipy's assignment).  The LiDAR branch takes its ``draws``
+    (``make_loss_draws``) and ``cfg.mxu_readout`` picks its route; the grid
+    branch draws from ``generator`` unless ``draws`` holds its Gumbel noise
+    (``"match"`` [L, B, N], ``"cand"`` and ``"fill"`` [L, B, G, N] over the
+    N voxels of the GT grid)."""
     class_weight = torch.tensor(cfg.class_weight, dtype=torch.float32,
                                 device=cls_preds.device)
+    if not cfg.use_lidar_points:
+        feature = mask_feature.contiguous()
+        gt_labels, gt_valid, sw, draw = _grid_prepare(cls_preds, gt_occ, cfg, draws,
+                                                      generator)
+        assigns = _grid_assign(cfg, cls_preds, mask_embeds, feature, gt_occ, gt_labels,
+                               gt_valid, sw, draw)
+        return _grid_loss(cfg, cls_preds, mask_embeds, feature, gt_occ, gt_labels, gt_valid,
+                          assigns, sw, class_weight, draw)
+    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws)
+    assigns, gt = _assign(cfg, p, cls_preds, mask_embeds, gt_occ)
     if cfg.batched_readout:
         return _batched_loss(cfg, cls_preds, mask_embeds, p["feature"], gt, p["gt_labels"],
                              p["gt_valid"], assigns, p["cand_pts"], p["rand_fill"],

@@ -108,20 +108,25 @@ class DepthNet(nn.Module):
 
 
 def get_mlp_input(rots, trans, intrins, post_rots, post_trans, bda):
-    """Flatten nuScenes camera parameters (3x3 intrinsics and BDA) into the
-    27-dim DepthNet embedding [B, N, 27] (reference
-    ViewTransformerLSSBEVDepth.py:591-646).  KITTI's 3x4 intrinsics and 4x4
-    BDA are not ported yet."""
+    """Flatten the camera parameters into the DepthNet embedding (reference
+    ViewTransformerLSSBEVDepth.py:591-646): nuScenes' 3x3 intrinsics and
+    BDA give [B, N, 27]; KITTI's 3x4 P2 adds its shift column (30) and a
+    4x4 BDA its translation (33)."""
     B, N = rots.shape[:2]
-    bda_exp = bda[:, None].expand(B, N, 3, 3)
-    feats = [
-        intrins[:, :, 0, 0], intrins[:, :, 1, 1],
-        intrins[:, :, 0, 2], intrins[:, :, 1, 2],
+    bda_tran = bda[:, :3, 3] if bda.shape[-1] == 4 else None
+    bda_exp = bda[:, None, :3, :3].expand(B, N, 3, 3)
+    feats = [intrins[:, :, 0, 0], intrins[:, :, 1, 1],
+             intrins[:, :, 0, 2], intrins[:, :, 1, 2]]
+    if intrins.shape[-1] == 4:
+        feats += [intrins[:, :, 0, 3], intrins[:, :, 1, 3], intrins[:, :, 2, 3]]
+    feats += [
         post_rots[:, :, 0, 0], post_rots[:, :, 0, 1], post_trans[:, :, 0],
         post_rots[:, :, 1, 0], post_rots[:, :, 1, 1], post_trans[:, :, 1],
         bda_exp[:, :, 0, 0], bda_exp[:, :, 0, 1],
         bda_exp[:, :, 1, 0], bda_exp[:, :, 1, 1], bda_exp[:, :, 2, 2],
     ]
     mlp = torch.stack(feats, dim=-1)
+    if intrins.shape[-1] == 4 and bda_tran is not None:
+        mlp = torch.cat([mlp, bda_tran[:, None].expand(B, N, 3)], dim=-1)
     sensor2ego = torch.cat([rots, trans.reshape(B, N, 3, 1)], dim=-1).reshape(B, N, 12)
     return torch.cat([mlp, sensor2ego], dim=-1)

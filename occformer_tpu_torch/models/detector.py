@@ -1,11 +1,13 @@
 """OccupancyFormer: the full model, config-driven.
 
 Port of ``occformer_tpu/models/detector.py`` (reference
-detectors/occupancyformer.py:14-237): multi-camera images + geometry ->
-ResNet + SECONDFPN -> LSS lift/splat -> dual-path 3D encoder -> deformable
-pixel decoder -> Mask2Former head.  ``model.eval()`` is the serving forward;
+detectors/occupancyformer.py:14-237): camera images + geometry -> image
+backbone (a ResNet; SemanticKITTI's EfficientNet) + SECONDFPN -> LSS
+lift/splat -> dual-path 3D encoder -> deformable pixel decoder ->
+Mask2Former head.  ``model.eval()`` is the serving forward;
 ``model.train()`` turns on BatchNorm batch statistics, drop-path in the 3D
-encoder, gradient checkpointing (``with_cp``) and the frozen image stem
+encoder and the EfficientNet, gradient checkpointing (``with_cp``) and the
+frozen image stem
 (``frozen_stages``), as the JAX package's ``train=True`` does.
 
 ``translate_cfg`` maps a component's ``type`` straight to its class and
@@ -28,7 +30,8 @@ from .dcn import DeformConv2d
 from .deform_attn import MultiScaleDeformableAttention3D
 from .layers import MultiheadAttention
 from .lss import ViewTransformerLiftSplatShootVoxel
-from .mask2former_head import Mask2FormerNuscOccHead
+from .efficientnet import CustomEfficientNet
+from .mask2former_head import Mask2FormerNuscOccHead, Mask2FormerOccHead
 from .occnet import OccupancyEncoder
 from .pixel_decoder import MSDeformAttnPixelDecoder3D
 from .resnet import ResNet
@@ -45,6 +48,11 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
                             out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
                             frozen_stages=cfg.get("frozen_stages", -1),
                             norm_eval=cfg.get("norm_eval", False))
+    if t == "CustomEfficientNet":
+        return CustomEfficientNet, dict(arch=cfg.get("arch", "b0"),
+                                        out_indices=tuple(cfg.get("out_indices", (6,))),
+                                        drop_path_rate=cfg.get("drop_path_rate", 0.0),
+                                        with_cp=cfg.get("with_cp", True))
     if t == "SECONDFPN":
         return SECONDFPN, dict(in_channels=tuple(cfg["in_channels"]),
                                out_channels=tuple(cfg["out_channels"]),
@@ -87,7 +95,8 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
         dec = cfg.get("transformer_decoder", {}) or {}
         layers = dec.get("transformerlayers", {}) or {}
         attn = layers.get("attn_cfgs", {}) or {}
-        return Mask2FormerNuscOccHead, dict(
+        cls = Mask2FormerOccHead if t == "Mask2FormerOccHead" else Mask2FormerNuscOccHead
+        return cls, dict(
             feat_channels=cfg["feat_channels"], out_channels=cfg["out_channels"],
             num_occupancy_classes=cfg.get("num_occupancy_classes", 20),
             num_queries=cfg.get("num_queries", 100), num_heads=attn.get("num_heads", 8),

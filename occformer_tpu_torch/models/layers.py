@@ -64,6 +64,16 @@ class _FlaxBatchNorm:
             self.running_mean.lerp_(mean.to(self.running_mean.dtype), self.momentum)
             self.running_var.lerp_(var.to(self.running_var.dtype), self.momentum)
             self.num_batches_tracked.add_(1)
+        if x.numel() == x.shape[1]:
+            # one value a channel (SemanticKITTI's camera embedding at batch 1,
+            # one camera): flax normalizes it to 0, leaving the bias; torch's
+            # batch_norm refuses it
+            shape = [1, -1] + [1] * (x.dim() - 2)
+            dev = x.float() - x.float().mean(dims, keepdim=True)
+            y = dev * torch.rsqrt((dev * dev).mean(dims, keepdim=True) + self.eps)
+            if self.weight is not None:
+                y = y * self.weight.float().view(shape) + self.bias.float().view(shape)
+            return y.to(x.dtype)
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
 
     def _global_forward(self, x, dims):

@@ -83,10 +83,12 @@ def format_results(cls_logits: torch.Tensor, mask_logits: torch.Tensor) -> torch
         return torch.einsum("bqc,bqxyz->bxyzc", cls_prob, mask_prob)
 
 
-class Mask2FormerNuscOccHead(nn.Module):
+class Mask2FormerOccHead(nn.Module):
     """voxel_feats [mask_feature, fine..coarse] (channels-first) ->
     (cls [L+1, B, Q, C+1], mask_embeds [L+1, B, Q, Cout],
-    mask_feature [B, X, Y, Z, Cout])."""
+    mask_feature [B, X, Y, Z, Cout]).  The SemanticKITTI head; the
+    nuScenes one is the same decoder (their losses differ:
+    ``engine/train.py:build_loss_cfg``)."""
 
     def __init__(self, feat_channels: int, out_channels: int,
                  num_occupancy_classes: int = 20, num_queries: int = 100,
@@ -161,3 +163,7 @@ class Mask2FormerNuscOccHead(nn.Module):
             emb_list.append(emb)
         return (torch.stack(cls_list), torch.stack(emb_list),
                 mask_feature.permute(0, 2, 3, 4, 1))
+
+
+class Mask2FormerNuscOccHead(Mask2FormerOccHead):
+    """The nuScenes head: the same decoder, supervised at LiDAR points."""

@@ -53,9 +53,10 @@ def get_geometry(
 ) -> torch.Tensor:
     """Ego-frame xyz of every frustum point: ``[B, N, D, fH, fW, 3]``.
 
-    frustum [D, fH, fW, 3]; rots/intrins/post_rots [B, N, 3, 3];
-    trans/post_trans [B, N, 3]; bda [B, 3, 3].  All in float32.  (KITTI's
-    3x4 intrinsics and 4x4 BDA are not ported yet.)
+    frustum [D, fH, fW, 3]; rots/post_rots [B, N, 3, 3]; intrins
+    [B, N, 3, 3] or KITTI's P2 [B, N, 3, 4], whose shift column is taken off
+    the lifted points before the inverse; trans/post_trans [B, N, 3]; bda
+    [B, 3, 3] or an affine [B, 4, 4].  All in float32.
     """
     pts = frustum[None, None] - post_trans[:, :, None, None, None, :]
     inv_post = torch.linalg.inv(post_rots)
@@ -63,9 +64,15 @@ def get_geometry(
 
     # (u, v, d) -> (u*d, v*d, d)
     pts = torch.cat([pts[..., :2] * pts[..., 2:3], pts[..., 2:3]], dim=-1)
+    if intrins.shape[-1] == 4:
+        pts = pts - intrins[:, :, None, None, None, :3, 3]
+        intrins = intrins[..., :3, :3]
     combine = torch.einsum("bnij,bnjk->bnik", rots, torch.linalg.inv(intrins))
     pts = torch.einsum("bnij,bndhwj->bndhwi", combine, pts)
     pts = pts + trans[:, :, None, None, None, :]
+    if bda.shape[-1] == 4:
+        return torch.einsum("bij,bndhwj->bndhwi", bda[:, :3, :3], pts) \
+            + bda[:, None, None, None, None, :3, 3]
     return torch.einsum("bij,bndhwj->bndhwi", bda, pts)
 
 

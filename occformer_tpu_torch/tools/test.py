@@ -3,8 +3,8 @@
     python3 -m occformer_tpu_torch.tools.test <config> [--checkpoint CKPT]
         [--test-save DIR] [--max-samples N] [--cfg-options a.b=value ...] [--cpu]
 
-The port of ``tools/test.py`` (reference tools/test.py + apis/test.py),
-lidarseg branch: float32 parameters, the forward under bf16 autocast when
+The port of ``tools/test.py`` (reference tools/test.py + apis/test.py):
+float32 parameters, the forward under bf16 autocast when
 the config's ``compute_dtype`` is ``bfloat16`` (as the JAX package serves,
 and as the train CLI's per-epoch evaluation runs), its weights from
 ``--checkpoint`` (a ``step_{N}`` directory of the train CLI, loaded
@@ -12,14 +12,19 @@ strictly, or a reference ``.pth``, loaded as mmcv's ``strict=False`` with a
 report; random weights without it, for debugging), evaluated over
 ``data.test`` in order: the flagship's ``CustomNuScenesOccLSSDataset`` on
 a nuScenes tree that ``--cfg-options`` points at (``data.test.data_root``,
-``data.test.ann_file`` and ``data.test.pipeline.1.data_root``), or
-``SyntheticOccDataset``.  It prints one JSON line with the sample count,
-the seconds per sample and the launches of each CUDA kernel of the port,
-the IoU table by class name, and one JSON line of results.
-``--test-save`` writes the nuScenes lidarseg submission: one
+``data.test.ann_file`` and ``data.test.pipeline.1.data_root``), a
+SemanticKITTI config's ``CustomSemanticKITTILssDataset`` on a KITTI tree
+(``data.test.data_root``; its SSC metrics, ``semkitti_SC_IoU`` and
+``semkitti_SSC_mIoU``, from the 256 x 256 x 32 ``voxel_pred``, label 255
+ignored), or ``SyntheticOccDataset``.  It prints one JSON line with the
+sample count, the seconds per sample and the launches of each CUDA kernel
+of the port, the IoU table, and one JSON line of results.
+``--test-save`` writes the submission: for nuScenes one
 ``lidarseg/test/<token>_lidarseg.bin`` of uint8 labels per sample (its
-valid points) and ``test/submission.json``.  SemanticKITTI configs and the
-panoptic head wait for their slices.  It runs on ``cuda``, and on the CPU
+valid points) and ``test/submission.json``; for SemanticKITTI one
+``sequences/<seq>/predictions/<frame>.label`` of raw uint16 ids per frame
+(``occformer_kitti_submit.py`` runs the unlabelled test-submit split).  The
+panoptic head waits for its slice.  It runs on ``cuda``, and on the CPU
 only with ``--cpu``.  Under ``torchrun --nproc_per_node=N`` each rank
 evaluates its shard of the split on ``cuda:LOCAL_RANK`` (``--max-samples``
 caps each rank's share), the counters are summed over ranks
@@ -52,7 +57,7 @@ from ..parallel.distributed import (
     rank,
     world_size,
 )
-from ..utils.semkitti_io import write_nusc_lidarseg_bin
+from ..utils.semkitti_io import write_nusc_lidarseg_bin, write_submission_label
 from .train import log, pick_device
 
 
@@ -81,9 +86,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
 def _test(args, device: torch.device) -> int:
     cfg = load_config(args.config, parse_cfg_options(args.cfg_options))
-    if "SemanticKITTI" in cfg["data"]["test"]["type"]:
-        raise NotImplementedError("SemanticKITTI evaluation (SSC metrics, .label "
-                                  "submissions) comes with the KITTI slice")
+    is_kitti = "SemanticKITTI" in cfg["data"]["test"]["type"]
     m = cfg["model"]
     compute_dtype = torch.bfloat16 if cfg.get("compute_dtype") == "bfloat16" else None
     model = build_model(m, device=device, dtype=torch.float32, seed=0)
@@ -104,6 +107,11 @@ def _test(args, device: torch.device) -> int:
     if args.test_save:
         def save_cb(out, meta, batch):
             for bi, mt in enumerate(meta or []):
+                if is_kitti:
+                    write_submission_label(out["voxel_pred"][bi].cpu().numpy(), os.path.join(
+                        args.test_save, "sequences", mt.get("sequence", "00"), "predictions",
+                        mt.get("frame_id", "000000") + ".label"))
+                    continue
                 token = mt.get("lidar_token", mt.get("sample_idx", f"s{bi}"))
                 valid = torch.as_tensor(batch["lidar_valid"][bi]).cpu().numpy()
                 preds = out["point_pred"][bi].cpu().numpy()[valid]
@@ -112,14 +120,14 @@ def _test(args, device: torch.device) -> int:
 
     t0 = time.perf_counter()
     results = evaluate(model, itertools.islice(loader, n), tuple(cfg["occ_size"]),
-                       cfg["num_class"], class_names=cfg.get("class_names"), save_cb=save_cb,
-                       compute_dtype=compute_dtype,
+                       cfg["num_class"], class_names=cfg.get("class_names"),
+                       compute_ssc=is_kitti, save_cb=save_cb, compute_dtype=compute_dtype,
                        panoptic=m["pts_bbox_head"].get("type") == "Mask2FormerNuscPanopticOccHead")
     seconds = time.perf_counter() - t0
     n = int(host_allreduce_sum({"samples": np.int64(n)})["samples"])
     if not is_main_process():
         return 0
-    if args.test_save:
+    if args.test_save and not is_kitti:
         meta_file = os.path.join(args.test_save, "test", "submission.json")
         os.makedirs(os.path.dirname(meta_file), exist_ok=True)
         with open(meta_file, "w") as f:

@@ -13,8 +13,10 @@ step (``engine/train.py:build_train_step``), with the same behaviour:
 * float32 parameters, the forward under bf16 autocast when
   ``compute_dtype`` is ``bfloat16``;
 * the pretrained init the config declares (``engine/pretrained.py``):
-  ``img_backbone.pretrained`` (the torchvision R50 file) and a raw ``.pth``
-  ``--load-from`` (or ``load_from``), loaded non-strictly as mmcv's
+  ``img_backbone.pretrained`` (the torchvision R50 file),
+  ``img_backbone.init_cfg`` (SemanticKITTI's mmcls EfficientNet-B7
+  classifier, its ``backbone.*`` keys) and a raw ``.pth`` ``--load-from``
+  (or ``load_from``), loaded non-strictly as mmcv's
   ``strict=False`` does, with a report of what was loaded, skipped and
   kept; a missing file keeps the random init with a warning;
 * auto-resume from the newest ``work_dir/ckpts/step_{N}`` (or
@@ -34,7 +36,8 @@ step (``engine/train.py:build_train_step``), with the same behaviour:
   checkpoints, every rank loads them;
 * with ``evaluation.interval``, evaluation on ``data.val`` every that many
   epochs (not with ``--max-steps``) and ``evaluation.save_best`` kept under
-  ``work_dir/best``;
+  ``work_dir/best`` (SemanticKITTI's ``semkitti_SSC_mIoU`` turns on the SSC
+  metrics);
 * one JSON line per ``log_config.interval`` steps with ``sec/iter`` and the
   step's metrics; at the end one JSON line with the launches of each CUDA
   kernel of the port in this run (all 0 on the CPU) and ``training done at
@@ -44,14 +47,15 @@ The data come from the config's ``data.train`` through the registry: the
 flagship's ``CustomNuScenesOccLSSDataset`` and its pipeline
 (``data/nuscenes.py``) on a nuScenes tree that ``--cfg-options`` points at
 (``data.train.data_root``, ``data.train.ann_file`` and the annotation
-step's ``data.train.pipeline.2.data_root``), or ``SyntheticOccDataset``.
+step's ``data.train.pipeline.2.data_root``), SemanticKITTI's
+``CustomSemanticKITTILssDataset`` (``data/semantic_kitti.py``) on a KITTI
+tree (``data.train.data_root``), or ``SyntheticOccDataset``.
 The random draws of step k (drop-path masks, the loss's point draws) come
 from a ``torch.Generator`` seeded from (seed, k) alone, and the pipeline's
 augmentation draws of sample i in epoch e from a ``RandomState`` addressed
 by (seed, e, i) (``data/nuscenes.py:sample_rng``; the JAX pipeline's are
 unseeded), so a rerun or a resumed run draws what an uninterrupted one
-draws.  It runs on ``cuda``, and on the CPU only with ``--cpu``.  Not
-ported yet: the mmcls EfficientNet-B7 init and the SemanticKITTI pipeline.
+draws.  It runs on ``cuda``, and on the CPU only with ``--cpu``.
 """
 from __future__ import annotations
 

@@ -107,8 +107,8 @@ def test_build_dataset_names_what_is_not_ported():
     cfg = load_config(os.path.join(REPO, "occformer_tpu_torch", TINY))
     ds = build_dataset(cfg["data"]["test"], test_mode=True)
     assert isinstance(ds, SyntheticOccDataset) and len(ds) == 16
-    with pytest.raises(NotImplementedError, match="SemanticKITTI"):
-        build_dataset({"type": "CustomSemanticKITTILssDataset", "data_root": "x"})
+    with pytest.raises(NotImplementedError, match="CustomSemanticKITTILssDataset"):
+        build_dataset({"type": "CustomWaymoOccDataset", "data_root": "x"})
 
 
 def test_config_overrides_equal_jax():

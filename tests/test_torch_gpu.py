@@ -891,10 +891,10 @@ def test_batched_train_step_repeats_its_losses_and_loss_gradients(cuda):
     def run():
         grads = {}
 
-        def loss(*args):
+        def loss(*args, **kwargs):
             for name, t in zip(("cls_preds", "mask_embeds", "mask_feature"), args[:3]):
                 t.register_hook(lambda g, name=name: grads.__setitem__(name, g.clone()))
-            return orig(*args)
+            return orig(*args, **kwargs)
 
         model.load_state_dict(state[0])
         opt.load_state_dict(state[1])

@@ -53,7 +53,15 @@ def test_package_and_tiny_model_load_without_jax():
         "import occformer_tpu_torch.data.synthetic, occformer_tpu_torch.config\n"
         "import occformer_tpu_torch.engine.train, occformer_tpu_torch.engine.optim\n"
         "import occformer_tpu_torch.losses.mask2former_loss, occformer_tpu_torch.ops.trilerp\n"
+        "import occformer_tpu_torch.models.efficientnet, occformer_tpu_torch.data.semantic_kitti\n"
+        "import occformer_tpu_torch.data.fixtures, occformer_tpu_torch.engine.pretrained\n"
+        "import occformer_tpu_torch.utils.semkitti, occformer_tpu_torch.utils.semkitti_io\n"
+        "import occformer_tpu_torch.utils.metrics, occformer_tpu_torch.tools.kitti_preprocess\n"
+        "import occformer_tpu_torch.tools.train, occformer_tpu_torch.tools.test\n"
         "from occformer_tpu_torch.models.detector import build_model\n"
+        "kitti = occformer_tpu_torch.config.load_config("
+        "'occformer_tpu_torch/configs/occformer_kitti.py')\n"
+        "assert len(build_model(kitti['model'], device='meta').state_dict()) == 1983\n"
         "torch.set_num_threads(1)\n"
         "m = build_model(tiny_cfg.model_cfg(), device='cpu')\n"
         "b = {k: torch.from_numpy(v) for k, v in tiny_cfg.make_batch(np.random.RandomState(0)).items()}\n"

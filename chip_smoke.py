@@ -117,12 +117,13 @@ Phases, each printing one JSON line:
                  equal bit for bit; tools.test on step_6 over 2 samples with
                  its per-class IoU table; one skipped-batch restart of the
                  loader timed.
-  11. soak:      tools/soak.py: 24 flagship steps on the default route with
-                 the checkpoint at step 12 (the reloaded state bit-equal,
-                 training going on from it), then the same 24 steps without
+  11. soak:      tools/soak.py: 8 flagship steps on the default route with
+                 the checkpoint at step 4 (the reloaded state bit-equal,
+                 training going on from it), then the same 8 steps without
                  it: equal trajectories and final states, a falling loss;
                  p50 / p95 s/step and the peak (40 steps before the KITTI
-                 phases came; tools/soak.py runs 120).
+                 phases came, 24 before the R101-DCN phases; tools/soak.py
+                 runs 120).
   12. learn:     the tiny held-out learnability run (300 steps on 12 box
                  scenes, 4 held out; data/geo_scenes.py) on the card: SC
                  IoU > 0.15 and class mIoU > 0.08.
@@ -149,13 +150,35 @@ Phases, each printing one JSON line:
                  ms per frame, the peak, a profiled frame.
   16. kitti_train: 4 train steps with with_cp on pipeline batches of the
                  train frames: s/step, the peak, the losses, a profiled
-                 step; then pairs of reloaded steps whose losses, grad_norm
+                 step; then a pair of reloaded steps whose losses, grad_norm
                  and every gradient must be bit-equal (the flagship's
-                 settings: cuDNN's TF32 on, no global deterministic mode).
+                 settings: cuDNN's TF32 on, no global deterministic mode;
+                 two pairs before the R101-DCN phases came).
   17. kitti_cli: tools.train for 2 steps on the tree, tools.test on step_2
                  with --test-save: semkitti_SC_IoU and semkitti_SSC_mIoU,
                  and a .label per val frame read back by utils/semkitti_io.
-In phases 0, 2, 6, 7, 8, 11, 12, 13, 15 and 16 and in the K4 parity gate every
+  18-21. R101-DCN 896x1600 (occformer_nusc_r101_896x1600: the caffe-style
+                 ResNet-101 with DCNv2 in layer3 and layer4, with_cp,
+                 frozen_stages=1, norm_eval, 6 cameras at 896x1600) on the
+                 data phase's nuScenes tree but for phase 18:
+  18. r101_kernels (run after phase 14, on a one-sample tree of its own):
+                 K4 and K4-bwd at the three DCN
+                 maps of the path (layer3's [6, 256, 56, 100], layer4's [6,
+                 512, 28, 50], the DepthNet's [6, 512, 56, 100]) and S1 at
+                 the 896 x 1600 frustum (3,763,200 points), each held
+                 against its plain version and timed beside its bound and
+                 library call.
+  19. r101_serve (after phase 10): the config's test pipeline, 4 served
+                 frames (K4 27 times a frame), the peak, a profiled frame.
+  20. r101_train: 4 train steps on the per-layer route with with_cp (K4 53
+                 times a step, K4-bwd 27), the frozen stem and layer1 and
+                 every BatchNorm statistic unmoved, a profiled step, one
+                 reloaded pair bit for bit.
+  21. r101_cli:  tools.train for 2 steps with --load-from a synthetic FCOS3D
+                 file (only its img_neck.* unused), then tools.test with the
+                 _trainval config (placeholder labels) on step_2 over 2
+                 samples with --test-save.
+In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19 and 20 and in the K4 parity gate every
 kernel's launch count is set to 0 just before the path is driven and read
 just after; each must match its per-frame, per-step or per-run count (the
 learn phase: launched).  The CLIs report their own counts, which must show
@@ -163,7 +186,8 @@ their kernels.  A ``wall`` line gives each phase's seconds.  Then the card's nam
 limit (nvidia-smi), one JSON line of kernel records (K1's, K2's and K2-bwd's
 two paths as two records each; S1, the LSS splat, which has no Pallas
 original, last; each kernel of the KITTI path with its KITTI-shape record
-under ``kitti``), and last ``{"ok": true, "device": {...}}``.  Any
+under ``kitti``, each kernel's R101-DCN record under ``r101``), and last
+``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
 """
@@ -229,6 +253,21 @@ KITTI_TRAIN_LAUNCHES = dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 6,
 # the DepthNet's deformable convolution at SemanticKITTI: one camera, 512
 # channels on the 24 x 80 feature map
 KITTI_DCN_SHAPE = (1, 512, 24, 80)
+# R101-DCN 896x1600 (occformer_nusc_r101_896x1600): the caffe-style
+# ResNet-101's 26 DCNv2 (layer3's 23 blocks, layer4's 3) and the DepthNet's
+# DCN each read their taps through K4's row-wide path (bf16 rows of 256 or
+# 512 channels) once a frame; a train step recomputes each of the 26 in the
+# backward (with_cp) and differentiates all 27 (layer3 and layer4 are not
+# frozen): K4 53 times, K4-bwd 27; the rest as the flagship's per-layer route
+R101_CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs",
+                           "occformer_nusc_r101_896x1600.py")
+R101_TRAINVAL = os.path.join(REPO, "occformer_tpu_torch", "configs",
+                             "occformer_nusc_r101_896x1600_trainval.py")
+R101_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **{"K4": 27, "K4.row": 27})
+R101_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES["off"], **{"K4": 53, "K4.row": 53, "K4-bwd": 27})
+# the maps the deformable convolutions sample at 896 x 1600 ([B*N, C, H, W])
+R101_DCN_SHAPES = {"layer3": (6, 256, 56, 100), "layer4": (6, 512, 28, 50),
+                   "depthnet": (6, 512, 56, 100)}
 # the pyramid of the deformable attention, largest level first, as bench.py
 # (tools/time_backwards.py:K4_PYRAMID)
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
@@ -264,15 +303,22 @@ def nbytes(*tensors):
     return total(*tensors)
 
 
+TRACE_ATTEMPTS = 3
+
+
 def device_ms(fn, iters=20):
     """Device ms per call of ``fn()`` from the profiler
-    (``utils/timing.py:device_ms``); fails when the profiler caught no
-    device activity, so that a dropped trace cannot stand as a time."""
+    (``utils/timing.py:device_ms``); a trace that caught no device activity
+    is taken again, up to ``TRACE_ATTEMPTS`` traces, and the run fails if
+    none caught any, so that a dropped trace cannot stand as a time (CUPTI
+    dropped a whole trace once early in a run, PR 13's final call)."""
     from occformer_tpu_torch.utils.timing import device_ms as on_device
 
-    ms = on_device(fn, iters)
-    check(ms > 0, "the profiler caught no device activity")
-    return ms
+    for _ in range(TRACE_ATTEMPTS):
+        ms = on_device(fn, iters)
+        if ms > 0:
+            return ms
+    check(False, f"the profiler caught no device activity in {TRACE_ATTEMPTS} traces")
 
 
 def bound(n_bytes, flops):
@@ -2871,7 +2917,8 @@ def phase_kitti_train(tree):
           and not torch.are_deterministic_algorithms_enabled(),
           "kitti reload: a global determinism switch is on")
     try:
-        rec["reload_determinism"] = r = kitti_reload_pairs(model, opt, step, batches[0])
+        rec["reload_determinism"] = r = kitti_reload_pairs(model, opt, step, batches[0],
+                                                           n_pairs=1)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     emit(rec)
@@ -2936,7 +2983,345 @@ def phase_kitti_cli(tree):
     return rec
 
 
-def phase_soak(steps=24):
+# ---------------------------------------------------------------------------
+# R101-DCN 896x1600 (occformer_nusc_r101_896x1600): the caffe-style
+# ResNet-101 with DCNv2 in layer3 / layer4, with_cp, the FCOS3D init
+# ---------------------------------------------------------------------------
+
+def r101_cfg(tree, ann, config=R101_CONFIG):
+    """An R101-DCN config pointed at a tree of
+    ``data/fixtures.py:make_nuscenes_tree``."""
+    from occformer_tpu_torch.config import load_config, parse_cfg_options
+    from occformer_tpu_torch.data.fixtures import nuscenes_cfg_options
+
+    return load_config(config, parse_cfg_options(nuscenes_cfg_options(load_config(config),
+                                                                      tree, ann)))
+
+
+def r101_batches(cfg, split, n):
+    """The first ``n`` batches of the split on the tree (test mode but for
+    the train split), host keys dropped."""
+    from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
+
+    train = split == "train"
+    out = []
+    for b in build_dataloader(build_dataset(cfg["data"][split], test_mode=not train),
+                              shuffle=train, seed=0, max_points=cfg["max_lidar_points"]):
+        b.pop("_meta")
+        out.append(b)
+        if len(out) == n:
+            break
+    return out
+
+
+def phase_r101_kernels(tree, ann):
+    """Every kernel the R101-DCN path runs at new shapes, held against its
+    plain version and timed (CUDA events, median of 30; the profiler's
+    device time beside), with its bound and the one PyTorch call that
+    computes the same function:
+
+    * K4 / K4-bwd as the deformable convolutions send them
+      (``phase_k4_dcn``: bf16 1e-2, float32 1e-5 values and 1e-4 gradients,
+      two K4-bwd calls bit-equal, ``F.grid_sample`` 2-D forward and its
+      autograd beside): layer3's DCNv2 [6, 56*100, 256] (23 blocks), layer4's
+      [6, 28*50, 512] (3 blocks) and the DepthNet's DCN [6, 56*100, 512];
+    * S1 at the R101 frustum: 6 cameras x 112 depth bins x 56 x 100 =
+      3,763,200 points, the geometry of the tree's first test frame (the
+      nuScenes rig, no augmentation), bf16 depth and context (two calls
+      bit-equal, one ``index_add_`` beside)."""
+    import torch
+
+    from occformer_tpu_torch.ops.geometry import (compute_voxel_coords, create_frustum,
+                                                  gen_dx_bx, get_geometry)
+
+    rec = {"phase": "r101_kernels", "config": "occformer_nusc_r101_896x1600"}
+    for name, shape in R101_DCN_SHAPES.items():
+        rec[f"K4_dcn_{name}"] = phase_k4_dcn(shape)
+        free_memory()
+    cfg = r101_cfg(tree, ann)
+    vt = cfg["model"]["img_view_transformer"]
+    gc = vt["grid_config"]
+    dx, bx, nx = gen_dx_bx(gc["xbound"], gc["ybound"], gc["zbound"])
+    nx = tuple(int(n) for n in nx)
+    frame = r101_batches(cfg, "test", 1)[0]
+    cams = [torch.from_numpy(frame[k]).cuda()
+            for k in ("rots", "trans", "intrins", "post_rots", "post_trans", "bda")]
+    frustum = create_frustum(gc, tuple(vt["data_config"]["input_size"]),
+                             vt.get("downsample", 16))
+    coords, valid = compute_voxel_coords(
+        get_geometry(torch.from_numpy(frustum).cuda(), *cams), dx, bx, nx)
+    D, fH, fW = frustum.shape[:3]
+    N = cams[0].shape[1]
+    g = torch.Generator(device="cuda").manual_seed(31)
+    depth = torch.softmax(torch.randn((1, N, D, fH, fW), device="cuda", generator=g), 2)
+    ctx = torch.randn((1, N, fH, fW, vt["numC_Trans"]), device="cuda", generator=g)
+    check(N * D * fH * fW == 3763200, f"the R101 frustum has {N * D * fH * fW} points")
+    rec["S1"] = dict(s1_check(depth.to(torch.bfloat16), ctx.to(torch.bfloat16), coords, valid,
+                              nx, "R101 frustum"),
+                     geometry="data/fixtures.py:make_nuscenes_tree's rig (its first test frame)")
+    del depth, ctx, coords, valid
+    emit(rec)
+    return rec
+
+
+def phase_r101_serve(tree, ann):
+    """The R101-DCN config at full width and depth (ResNet-101 caffe with 26
+    DCNv2 blocks at 6 x 896 x 1600), random weights from a seeded
+    torch.Generator, float32 parameters under bf16 autocast, serving the
+    config's own test pipeline on the tree: 3 frames built first, then 4
+    served (the first a warm-up; ms per frame, the peak, the launch counts),
+    the outputs finite, and a profiled frame (its K4 launches those of the
+    backbone's 26 DCNv2 and the DepthNet's DCN; no 2-D ``grid_sample``).
+    Returns (launch counts, the model) for ``phase_r101_train``."""
+    import torch
+
+    from occformer_tpu_torch.engine.eval import build_eval_step
+    from occformer_tpu_torch.models.detector import build_model
+
+    cfg = r101_cfg(tree, ann)
+    dtype = getattr(torch, cfg["compute_dtype"])
+    t0 = time.perf_counter()
+    model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=0)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    frames = r101_batches(cfg, "test", 3)
+    pipeline_s = time.perf_counter() - t0
+    for f in frames:  # a served frame has no GT
+        f.pop("gt_occ")
+    occ_size, n_cls = tuple(cfg["occ_size"]), cfg["num_class"]
+    step = build_eval_step(model, occ_size, n_cls, dtype)
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()  # the main path's run starts here
+    frames_ms = []
+    for i in range(4):
+        t = time.perf_counter()
+        out = step(frames[i % len(frames)])
+        torch.cuda.synchronize()
+        frames_ms.append((time.perf_counter() - t) * 1e3)
+    n = launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * len(frames_ms) for k, v in R101_SERVE_LAUNCHES.items()}
+    check(n == want, f"r101_serve launches {n} in {len(frames_ms)} frames, want {want}")
+    P = frames[0]["lidar_xyz"].shape[1]
+    check(list(out["voxel_pred"].shape) == [1, *occ_size]
+          and list(out["point_pred"].shape) == [1, P], "r101_serve: output shapes")
+    check(int(out["voxel_pred"].max()) < n_cls and int(out["point_pred"].min()) >= 1,
+          "r101_serve: predicted labels out of range")
+    with torch.inference_mode(), torch.autocast("cuda", dtype=dtype):
+        raw = model({k: torch.as_tensor(v).cuda() for k, v in frames[0].items()})
+    finite = {k: bool(torch.isfinite(v.float()).all()) for k, v in raw.items()}
+    check(all(finite.values()), f"r101_serve: non-finite outputs {finite}")
+    rec = {"phase": "r101_serve", "config": "occformer_nusc_r101_896x1600",
+           "param_dtype": "float32", "autocast": cfg["compute_dtype"], "model_build_s": build_s,
+           "pipeline_s_for_3_frames": pipeline_s,
+           "params": sum(p.numel() for p in model.parameters()),
+           "images": list(frames[0]["imgs"].shape),
+           "warmup_frame_ms": frames_ms[0], "frame_ms": frames_ms[1:],
+           "frames_run": len(frames_ms), "launches": n, "peak_memory_bytes": peak,
+           "resident_bytes_at_start": resident, "finite": finite,
+           "shapes": {k: list(v.shape) for k, v in raw.items()}}
+    del raw, out
+    rec["profile"] = profile(lambda: step(frames[0]), SERVE_STAGES, R101_SERVE_LAUNCHES,
+                             forbid=("aten::grid_sampler_2d",))
+    emit(rec)
+    return n, model
+
+
+def phase_r101_train(tree, ann, model):
+    """The R101-DCN config's train step at full width and depth on the
+    per-layer loss route, float32 parameters under bf16 autocast, batch 1,
+    on the config's own train pipeline over the tree, ``with_cp`` (each
+    trained ResNet block recomputed in the backward: K4 twice for each of
+    the 26 DCNv2), ``frozen_stages=1`` (the stem and layer1 run without
+    gradient) and ``norm_eval`` (no BatchNorm statistic moves): 4 steps (the
+    first a warm-up; s/step, the peak, the losses), a profiled step, then one
+    reloaded pair (``kitti_reload_pairs``: every loss, grad_norm and gradient
+    bit-equal; the port's default settings: TF32 on, no global deterministic
+    mode)."""
+    import torch
+
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+
+    cfg = r101_cfg(tree, ann)
+    m = cfg["model"]
+    t0 = time.perf_counter()
+    model.train()
+    bb = model.img_backbone
+    check(bb.with_cp and bb.frozen_stages == 1 and bb.norm_eval
+          and not any(x.training for x in bb.modules() if isinstance(x, torch.nn.BatchNorm2d)),
+          "r101_train: the backbone is not with_cp / frozen_stages=1 / norm_eval")
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="off"), m["train_cfg"]["pts"])
+    opt = build_optimizer_from_config(model, cfg, 28130)  # nuScenes' train samples
+    step = build_train_step(model, opt, loss_cfg, device="cuda",
+                            compute_dtype=getattr(torch, cfg["compute_dtype"]))
+    batches = r101_batches(cfg, "train", 2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    names = ("img_backbone.conv1.weight", "img_backbone.layer1.0.conv2.weight",
+             "img_backbone.layer2.0.conv1.weight", "img_backbone.layer3.0.conv2.weight",
+             "img_backbone.layer3.5.conv2.conv_offset.weight",
+             "img_backbone.layer4.2.conv2.conv_offset.bias", "img_backbone.layer3.0.bn2.weight",
+             "img_bev_encoder_neck.encoder.layers.0.attentions.0.value_proj.weight")
+    watch = {k: p.detach().clone() for k, p in model.named_parameters() if k in names}
+    stats = {k: v.clone() for k, v in bb.state_dict().items() if "running" in k}
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    reset_launches()  # the main path's run starts here
+    steps_s, history = [], []
+    for i in range(4):
+        t = time.perf_counter()
+        metrics = step(batches[i % len(batches)], g)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t)
+        history.append({k: float(v) for k, v in metrics.items()})
+    n = launches()  # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: v * len(steps_s) for k, v in R101_TRAIN_LAUNCHES.items()}
+    check(n == want, f"r101_train launches {n} in {len(steps_s)} steps, want {want}")
+    for h in history:
+        check(all(v == v and abs(v) != float("inf") for k, v in h.items()
+                  if k != "point_mean_iou"), f"r101_train: non-finite metrics {h}")
+    moved = {k: (p.detach() - watch[k]).abs().max().item()
+             for k, p in model.named_parameters() if k in watch}
+    frozen = ("img_backbone.conv1.weight", "img_backbone.layer1.0.conv2.weight",
+              "img_backbone.layer3.0.bn2.weight")
+    check(len(moved) == len(names) and all((moved[k] == 0) == (k in frozen) for k in moved),
+          f"r101_train: frozen parameters moved or trained ones did not: {moved}")
+    stats_moved = [k for k, v in bb.state_dict().items() if "running" in k
+                   and not torch.equal(v, stats[k])]
+    check(not stats_moved, f"r101_train: BatchNorm statistics moved under norm_eval: "
+          f"{stats_moved[:5]}")
+    rec = {"phase": "r101_train", "config": "occformer_nusc_r101_896x1600",
+           "param_dtype": "float32", "autocast": cfg["compute_dtype"], "with_cp": True,
+           "frozen_stages": 1, "norm_eval": True, "route": "per-layer",
+           "params": sum(p.numel() for p in model.parameters()), "setup_s": setup_s,
+           "warmup_step_s": steps_s[0], "step_s": steps_s[1:], "steps_run": len(steps_s),
+           "launches": n, "peak_memory_bytes": peak, "resident_bytes_at_start": resident,
+           "metrics": history, "max_param_change": moved}
+    rec["profile"] = profile(lambda: step(batches[0], g), TRAIN_STAGES, R101_TRAIN_LAUNCHES,
+                             forbid=("aten::grid_sampler_2d",))
+    free_memory()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the port's default settings
+    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+          and not torch.are_deterministic_algorithms_enabled(),
+          "r101 reload: a global determinism switch is on")
+    try:
+        rec["reload_determinism"] = r = kitti_reload_pairs(model, opt, step, batches[0],
+                                                           n_pairs=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    emit(rec)
+    check(r["losses_differ"] == r["grad_norm_differs"] == r["param_grads_differ"] == 0
+          and r["param_grads"] > 0, f"r101 reload_determinism: the pair differs: {r}")
+    return n
+
+
+def fcos3d_pth(path):
+    """A synthetic FCOS3D ``load_from`` file: the keys and shapes of
+    ``tests/fixtures/key_manifests/init_r101_dcn_fcos3d.json`` (676
+    ``img_backbone.*`` and 18 ``img_neck.*``), drawn on the card from a
+    seeded generator (weights scaled by 1/sqrt(fan_in), BatchNorm scales
+    near 1 and variances in [0.5, 2], so that the deep backbone stays
+    finite), saved as ``{"state_dict": ...}``."""
+    import torch
+
+    with open(os.path.join(REPO, "tests", "fixtures", "key_manifests",
+                           "init_r101_dcn_fcos3d.json")) as f:
+        keys = json.load(f)["keys"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    sd = {}
+    for k, shape in keys.items():
+        if k.endswith("num_batches_tracked"):
+            sd[k] = torch.zeros(shape, dtype=torch.int64, device="cuda")
+        elif k.endswith("running_var"):
+            sd[k] = 0.5 + 1.5 * torch.rand(shape, device="cuda", generator=g)
+        elif len(shape) == 1 and k.endswith("weight"):
+            sd[k] = 0.5 + torch.rand(shape, device="cuda", generator=g)
+        elif len(shape) > 1:
+            fan_in = float(np.prod(shape[1:]))
+            sd[k] = torch.randn(shape, device="cuda", generator=g) / fan_in ** 0.5
+        else:
+            sd[k] = 0.1 * torch.randn(shape, device="cuda", generator=g)
+    torch.save({"state_dict": sd, "meta": {"source": "synthetic"}}, path)
+    return keys
+
+
+def phase_r101_cli(tree, ann):
+    """The CLIs on the R101-DCN configs at full width over the tree, as
+    subprocesses in a temporary work directory: tools.train to step 2 with
+    ``--load-from`` a synthetic FCOS3D file (``fcos3d_pth``), whose report
+    must load ``img_backbone`` whole (no key kept at its init) and leave
+    only the 18 ``img_neck.*`` keys unused; then tools.test with the
+    ``_trainval`` config (its test pipeline's placeholder labels,
+    ``is_test_submit``) on step_2 over 2 samples with ``--test-save``: a
+    lidarseg ``.bin`` per sample and the submission's ``submission.json``."""
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.fixtures import nuscenes_cfg_options
+
+    work = tempfile.mkdtemp(prefix="occformer_r101_cli_")
+    rec = {"phase": "r101_cli", "config": "occformer_nusc_r101_896x1600"}
+    try:
+        pth = os.path.join(work, "r101_dcn_fcos3d_pretrain.pth")
+        t = time.perf_counter()
+        keys = fcos3d_pth(pth)
+        rec["fcos3d_keys"] = len(keys)
+        rec["fcos3d_build_s"] = time.perf_counter() - t
+        neck = sorted(k for k in keys if k.startswith("img_neck."))
+        opts = nuscenes_cfg_options(load_config(R101_CONFIG), tree, ann) + [
+            "log_config.interval=1"]
+        out1, logs1, rec["train_to_2_s"] = cli_run(
+            "train", "--work-dir", work, "--max-steps", "2", "--load-from", pth,
+            options=opts, config=R101_CONFIG)
+        report = next((ln for ln in out1.splitlines() if ln.startswith("pretrained init from")),
+                      "")
+        rec["load_from_report"] = report
+        check(f"pretrained init from {pth} (partial_load): loaded ['img_backbone'], "
+              f"skipped ['img_neck'], kept_init=0, unused_keys={len(neck)}" in report
+              and len(neck) == 18, f"r101 load_from report:\n{out1[-3000:]}")
+        check("training done at step 2" in out1, f"r101 train to step 2:\n{out1[-2000:]}")
+        steps = [ln for ln in logs1 if "step" in ln]
+        check([ln["step"] for ln in steps] == [1, 2], f"r101 steps {steps}")
+        for ln in steps:
+            check(all(v == v and abs(v) != float("inf") for k, v in ln.items()
+                      if k not in ("point_mean_iou", "epoch")), f"r101 train CLI log {ln}")
+        rec["sec_per_iter"] = [ln["sec/iter"] for ln in steps]
+        rec["total_loss"] = [ln["total_loss"] for ln in steps]
+        rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 if "kernel_launches" in ln]
+        check(all(n[k] > 0 for n in rec["train_launches"]
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+              f"r101 train CLI launches {rec['train_launches']}")
+        save = os.path.join(work, "save")
+        topts = nuscenes_cfg_options(load_config(R101_TRAINVAL), tree, ann)
+        out2, logs2, rec["test_s"] = cli_run(
+            "test", "--checkpoint", os.path.join(work, "ckpts", "step_2"), "--max-samples", "2",
+            "--test-save", save, options=topts, config=R101_TRAINVAL)
+        timing, results = logs2[0], logs2[-1]
+        rec["test_sec_per_sample"] = timing["sec/sample"]
+        rec["test_launches"] = timing["kernel_launches"]
+        rec["test_results_mean"] = results.get("nuScenes_lidarseg_mean")
+        check(timing["samples"] == 2 and timing["kernel_launches"]["K4"] == 2 * 27
+              and timing["kernel_launches"]["K1"] == 2 * 6, f"r101 test CLI: {timing}")
+        bins = sorted(os.listdir(os.path.join(save, "lidarseg", "test")))
+        check(len(bins) == 2 and all(b.endswith("_lidarseg.bin") for b in bins)
+              and os.path.isfile(os.path.join(save, "test", "submission.json")),
+              f"r101 test CLI submission files {bins}")
+        rec["submission_bins"] = bins
+        rec["submission_bytes"] = [os.path.getsize(os.path.join(save, "lidarseg", "test", b))
+                                   for b in bins]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(rec)
+    return rec
+
+
+def phase_soak(steps=8):
     """``tools/soak.py`` at the flagship's full width on the default loss
     route: ``steps`` steps on one fixed batch with the checkpoint at the
     middle step (saved, loaded into a fresh model and optimizer, every
@@ -3162,26 +3547,32 @@ def traced_launches(by_kernel):
     return n
 
 
-def profile(run, outer, want, top=12):
+def profile(run, outer, want, top=12, forbid=()):
     """torch.profiler over one more call of ``run``: host and device time of
     each ``stage:*`` range (``outer`` names the outermost ones, which must
     all appear), device time by kernel name and by operator and input shape,
     and the device's busy share of the call's wall time (the profiler's own
     overhead included).  The port's kernel launches in the trace must equal
-    ``want``, one call's counts, so that a trace that dropped events fails
-    here rather than feed a busy share or a stage's time."""
+    ``want``, one call's counts, so that a trace that dropped events cannot
+    feed a busy share or a stage's time: such a trace is taken again, up to
+    ``TRACE_ATTEMPTS`` traces, and the run fails if none holds them all; no
+    operator named in ``forbid`` may appear."""
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     run()
     torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                       record_shapes=True) as prof:
-        t = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t) * 1e3
-    events = prof.key_averages()
+    for _ in range(TRACE_ATTEMPTS):
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                           record_shapes=True) as prof:
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        events = prof.key_averages()
+        if traced_launches(port_kernel_ms(
+                [e for e in events if e.device_type.name == "CUDA"])["by_kernel"]) == want:
+            break
     stages = {e.key[len("stage:"):]: {"host_ms": e.cpu_time_total / 1e3,
                                       "device_ms": e.device_time_total / 1e3}
               for e in events
@@ -3197,6 +3588,8 @@ def profile(run, outer, want, top=12):
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
            if e.device_type.name == "CPU" and e.key.startswith("aten::")]
+    seen = sorted({e.key for e in ops} & set(forbid))
+    check(not seen, f"profiled operators {seen} are not on this path")
     ops.sort(key=lambda e: e.self_device_time_total, reverse=True)
     # kernels that no outermost stage launched from the calling thread: for
     # the train step, the backward's, which autograd launches from its own
@@ -3217,7 +3610,7 @@ def profile(run, outer, want, top=12):
             "port_kernels": port}
 
 
-def kernel_records(kern, probe, det, paths, kitti):
+def kernel_records(kern, probe, det, paths, kitti, r101):
     """One record per kernel path; ``paths`` maps each driven path (serve,
     train, train_batched, the pipeline-fed train steps and frames, the K4
     gate, the probe) to its launch counts, and
@@ -3232,7 +3625,11 @@ def kernel_records(kern, probe, det, paths, kitti):
     the event times where the kernels phase took them, and under ``kitti``
     the kernel at the SemanticKITTI path's shapes (``phase_kitti_kernels``;
     K2's narrow record at the candidates, with the matching readout under
-    K2's row-wide record)."""
+    K2's row-wide record), and under ``r101`` the kernel at the R101-DCN
+    path's shapes (``phase_r101_kernels``: K4 and K4-bwd at layer3's DCNv2,
+    layer4's and the DepthNet's under ``layer4`` / ``depthnet``; S1 at the
+    896 x 1600 frustum; the other kernels run at the flagship's shapes
+    there)."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
     paths = {p: dict(n, **{"K1.scalar": n["K1"] - n["K1.row"],
@@ -3288,6 +3685,25 @@ def kernel_records(kern, probe, det, paths, kitti):
                 "K4-bwd": kitti["K4-bwd"], "S1": kitti["S1"]}
     kitti_keys = ("max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "table", "points")
+
+    def at_r101(key):
+        if key == "S1":
+            return {k: r101["S1"][k] for k in kitti_keys + ("points_valid", "shapes")
+                    if k in r101["S1"]}
+        if key not in ("K4.row", "K4-bwd"):
+            return {"shapes": "the flagship's (the same pixel decoder, LSS grid and loss)"}
+        k = key.split(".")[0]
+        out = {}
+        for name, shape in R101_DCN_SHAPES.items():
+            r = {f: r101[f"K4_dcn_{name}"][k][f] for f in kitti_keys
+                 if f in r101[f"K4_dcn_{name}"][k]}
+            r["map"] = list(shape)
+            if name == "layer3":
+                out.update(r)
+            else:
+                out[name] = r
+        return out
+
     return [{"name": name + (f".{path}" if path else ""), "path": path or None, "route": "cuda",
              "source": source, "replaces": replaces,
              "launches": sum(n[key] for n in paths.values()),
@@ -3299,7 +3715,8 @@ def kernel_records(kern, probe, det, paths, kitti):
                                   "random_order_device_ms", "readouts", "attention_shapes",
                                   "launch_floor_ms", "bound_with_floor_ms") if k in r},
              **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
-                if key in at_kitti else {})}
+                if key in at_kitti else {}),
+             "r101": at_r101(key)}
             for name, path, key, source, replaces, r in rows]
 
 
@@ -3338,17 +3755,24 @@ def main():
 
     # the SemanticKITTI tree serves every KITTI phase; its kernels phase runs
     # beside the flagship's (late in a long process the profiler has dropped
-    # some runs' device events), the rest after the flagship's paths
-    from occformer_tpu_torch.data.fixtures import make_kitti_tree
+    # some runs' device events), the rest after the flagship's paths; so does
+    # the R101-DCN's, on a one-sample nuScenes tree of its own (its other
+    # phases use the data phase's)
+    from occformer_tpu_torch.data.fixtures import make_kitti_tree, make_nuscenes_tree
 
     kitti_root = tempfile.mkdtemp(prefix="occformer_kitti_")
+    r101_root = tempfile.mkdtemp(prefix="occformer_r101_")
     try:
         t = time.perf_counter()
         make_kitti_tree(kitti_root)
         wall["kitti_tree"] = time.perf_counter() - t
+        t = time.perf_counter()
+        r101_ann = make_nuscenes_tree(r101_root, n_samples=1, n_points=34000, seed=0)
+        wall["r101_tree"] = time.perf_counter() - t
         serve_n = timed("serve", phase_serve)
         kern = timed("kernels", phase_kernels)
         kitti_kern = timed("kitti_kernels", phase_kitti_kernels, kitti_root)
+        r101_kern = timed("r101_kernels", phase_r101_kernels, r101_root, r101_ann)
         timed("tiny", phase_tiny)
         timed("tiny_train", phase_tiny_train, "off")
         timed("tiny_train_batched", phase_tiny_train, "on")
@@ -3361,6 +3785,11 @@ def main():
             data, ann = timed("data", phase_data, tree)
             timed("cli", phase_cli)
             resume_n = timed("resume", phase_resume, tree, ann)
+            r101_serve_n, r101_model = timed("r101_serve", phase_r101_serve, tree, ann)
+            r101_train_n = timed("r101_train", phase_r101_train, tree, ann, r101_model)
+            del r101_model
+            free_memory()
+            timed("r101_cli", phase_r101_cli, tree, ann)
         finally:
             shutil.rmtree(tree, ignore_errors=True)
         soak_n = timed("soak", phase_soak)
@@ -3371,6 +3800,7 @@ def main():
         timed("kitti_cli", phase_kitti_cli, kitti_root)
     finally:
         shutil.rmtree(kitti_root, ignore_errors=True)
+        shutil.rmtree(r101_root, ignore_errors=True)
     emit({"phase": "wall", "seconds": wall, "total_s": time.perf_counter() - start})
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3383,7 +3813,8 @@ def main():
         "data_serve": data["serve_pipeline"]["launches"],
         "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"],
         "resume": resume_n, "soak": soak_n, "learn": learn_n, "ddp": ddp_n,
-        "kitti_serve": kitti_serve_n, "kitti_train": kitti_train_n}, kitti_kern)})
+        "kitti_serve": kitti_serve_n, "kitti_train": kitti_train_n,
+        "r101_serve": r101_serve_n, "r101_train": r101_train_n}, kitti_kern, r101_kern)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -508,11 +508,14 @@ def _walk_leaves(conv_node, tgt_node, path, out):
                 out[path + "/" + k] = v
 
 
-def build_export_permutation(manifest: Dict[str, Any], variables: Dict):
+def build_export_permutation(manifest: Dict[str, Any], variables: Dict,
+                             convert=convert_occformer):
     """For each flax leaf, the flat torch-buffer indices its elements came
     from.  ``manifest`` maps torch key -> shape (the released-checkpoint key
     space, see tests/fixtures/key_manifests); ``variables`` is the model tree
-    (concrete arrays or ShapeDtypeStructs).  Returns
+    (concrete arrays or ShapeDtypeStructs); ``convert`` the forward
+    conversion of a state dict to ``{'params', 'batch_stats'}`` (the whole
+    model's by default).  Returns
     (index_map {flax_path: int64 array}, offsets {torch_key: (start, shape)},
     total_elements)."""
     probe: Dict[str, np.ndarray] = {}
@@ -525,7 +528,7 @@ def build_export_permutation(manifest: Dict[str, Any], variables: Dict):
         offsets[k] = (total, shape)
         total += n
 
-    conv = convert_occformer(probe)
+    conv = convert(probe)
     leaves: Dict[str, np.ndarray] = {}
     _walk_leaves(conv.get("params", {}), variables.get("params", {}),
                  "params", leaves)
@@ -543,23 +546,34 @@ def _to_numpy_tree(node):
     return np.asarray(node)
 
 
+def resnet_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """``convert_resnet`` as a ``convert`` of ``flax_to_torch_state_dict``:
+    a standalone ResNet's state dict -> ``{'params', 'batch_stats'}``."""
+    params, stats = convert_resnet(sd)
+    return {"params": params, "batch_stats": stats}
+
+
 def flax_to_torch_state_dict(variables: Dict, model, manifest: Optional[Dict] = None,
-                             window_size: int = 7) -> Dict[str, "torch.Tensor"]:
+                             window_size: int = 7,
+                             convert=convert_occformer) -> Dict[str, "torch.Tensor"]:
     """JAX package ``{'params', 'batch_stats'}`` (numpy arrays) -> the port
     model's ``state_dict`` in the reference key space.
 
     ``manifest`` maps key -> shape; by default it is the port ``model``'s own
-    ``state_dict()`` shapes.  Keys the converter never consumes are
-    synthesized as the exporter does: ``num_batches_tracked`` zeros, the Swin
-    ``relative_position_index``, and the view transformer's ``dx/bx/nx`` from
-    the model's grid config.  Raises if any other key stays unfilled.
+    ``state_dict()`` shapes.  ``convert`` is the forward conversion whose
+    permutation is inverted: the whole model's (``convert_occformer``) or a
+    part's (``resnet_tree`` for a ``models/resnet.py:ResNet``).  Keys the
+    converter never consumes are synthesized as the exporter does:
+    ``num_batches_tracked`` zeros, the Swin ``relative_position_index``, and
+    the view transformer's ``dx/bx/nx`` from the model's grid config.  Raises
+    if any other key stays unfilled.
     """
     import torch
 
     variables = _to_numpy_tree(variables)
     if manifest is None:
         manifest = {k: tuple(v.shape) for k, v in model.state_dict().items()}
-    index_map, offsets, total = build_export_permutation(manifest, variables)
+    index_map, offsets, total = build_export_permutation(manifest, variables, convert)
 
     def tree_get(root, path):
         node = root
@@ -574,10 +588,12 @@ def flax_to_torch_state_dict(variables: Dict, model, manifest: Optional[Dict] = 
         flat[idx.ravel()] = leaf.ravel()
         filled[idx.ravel()] = True
 
-    grid = model.img_view_transformer.grid_config
-    dx, bx, nx = gen_dx_bx(grid["xbound"], grid["ybound"], grid["zbound"])
-    grid_consts = {"img_view_transformer.dx": dx, "img_view_transformer.bx": bx,
-                   "img_view_transformer.nx": nx.astype(np.float32)}
+    grid_consts = {}
+    if hasattr(model, "img_view_transformer"):
+        grid = model.img_view_transformer.grid_config
+        dx, bx, nx = gen_dx_bx(grid["xbound"], grid["ybound"], grid["zbound"])
+        grid_consts = {"img_view_transformer.dx": dx, "img_view_transformer.bx": bx,
+                       "img_view_transformer.nx": nx.astype(np.float32)}
     out: Dict[str, np.ndarray] = {}
     missing = []
     for k, (start, shape) in offsets.items():

@@ -88,10 +88,13 @@ def wrap_ddp(model: torch.nn.Module) -> DistributedDataParallel:
     as ``build_train_step`` runs it under an active process group.
 
     * ``find_unused_parameters=True``: the image backbone's frozen stages
-      get no gradient (``models/resnet.py`` detaches their output in
+      get no gradient (``models/resnet.py`` runs them without gradient in
       training; at the flagship's ``frozen_stages=0`` the stem's conv1 and
-      bn1), and without the search DDP waits for them and fails the next
-      step.  The search walks the step's autograd graph once a step.  The
+      bn1, at the R101-DCN's ``frozen_stages=1`` also layer1), and without
+      the search DDP waits for them and fails the next step.  (The
+      R101-DCN's BatchNorm affines, frozen by ``norm_cfg.requires_grad=False``
+      in the optimizer, do get a gradient, as JAX's do, and count in
+      ``grad_norm``.)  The search walks the step's autograd graph once a step.  The
       occupancy encoder's ``with_cp`` recomputation is the non-reentrant
       checkpoint, whose gradients reach DDP's hooks once each, so it needs
       nothing more.

@@ -11,7 +11,10 @@ frozen image stem
 (``frozen_stages``), as the JAX package's ``train=True`` does.
 
 ``translate_cfg`` maps a component's ``type`` straight to its class and
-picks the keys the port uses.  The shared configs also carry TPU-only knobs
+picks the keys the port uses (for the image ResNet also the R101-DCN's
+``style``, ``dcn``, ``stage_with_dcn`` and ``with_cp``; its
+``norm_cfg.requires_grad=False`` is the optimizer's freeze,
+``engine/optim.py:backbone_freeze_mask``).  The shared configs also carry TPU-only knobs
 (``gather_impl``, ``gather_window``, ``gather_s_block``, ``gather_fused``,
 ``query_chunks``, ``gt_label_kernel``, ``pack_windows``, ``scan_layers``,
 ``spatial_shard_axis``) and loss settings (among them ``mxu_readout``, which
@@ -42,12 +45,19 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
     """Map an mmdet-style component config onto a port class + kwargs."""
     t = cfg["type"]
     if t == "ResNet":
-        if cfg.get("dcn") or cfg.get("style", "pytorch") != "pytorch":
-            raise NotImplementedError("deformable or caffe-style ResNets are not ported yet")
+        dcn = cfg.get("dcn")
+        if dcn and (dcn.get("type") != "DCNv2" or dcn.get("deform_groups", 1) != 1):
+            raise NotImplementedError(f"backbone dcn {dcn}: only mmdet's DCNv2 with one "
+                                      "deform group is ported")
+        stage_with_dcn = cfg.get("stage_with_dcn", (False, False, True, True))
         return ResNet, dict(depth=cfg.get("depth", 50),
                             out_indices=tuple(cfg.get("out_indices", (0, 1, 2, 3))),
                             frozen_stages=cfg.get("frozen_stages", -1),
-                            norm_eval=cfg.get("norm_eval", False))
+                            norm_eval=cfg.get("norm_eval", False),
+                            style=cfg.get("style", "pytorch"),
+                            dcn_stages=(tuple(i for i, f in enumerate(stage_with_dcn) if f)
+                                        if dcn else ()),
+                            with_cp=cfg.get("with_cp", False))
     if t == "CustomEfficientNet":
         return CustomEfficientNet, dict(arch=cfg.get("arch", "b0"),
                                         out_indices=tuple(cfg.get("out_indices", (6,))),

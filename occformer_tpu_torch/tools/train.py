@@ -11,7 +11,10 @@ step (``engine/train.py:build_train_step``), with the same behaviour:
   decay and freeze masks and the gradient clip of ``optimizer_config``;
   ``optimizer_config.cumulative_iters`` as ``accum_steps``;
 * float32 parameters, the forward under bf16 autocast when
-  ``compute_dtype`` is ``bfloat16``;
+  ``compute_dtype`` is ``bfloat16``; a config's ``fp16`` (the R101-DCN's
+  ``loss_scale="dynamic"``, the reference's fp16 training) is not read: bf16
+  has float32's exponent range and the gradients are float32, so no loss
+  scaler is needed;
 * the pretrained init the config declares (``engine/pretrained.py``):
   ``img_backbone.pretrained`` (the torchvision R50 file),
   ``img_backbone.init_cfg`` (SemanticKITTI's mmcls EfficientNet-B7

@@ -3,8 +3,8 @@
 K1 (``ms_deform_gather_3d``) and its backward K1-bwd, K2 (``trilerp_sample``)
 and its backward K2-bwd, K3 (``sample_id_masks``), K4
 (``fused_multilevel_gather``) and its backward K4-bwd (also as the
-DepthNet's deformable convolution runs them, and that module on the card
-against itself on the CPU), the convolutions and the attention whose
+DepthNet's and the R101-DCN backbone's deformable convolutions run them,
+and those modules on the card against themselves on the CPU), the convolutions and the attention whose
 backward the port sums in a fixed order, the probe's P1
 (``add_one``) and P2 (``row_gather``), the LSS splat S1
 (``voxel_scatter_lifted``), the all-layer batched loss on the card (K2,
@@ -936,14 +936,16 @@ def test_probe_kernels_match_plain_exactly(cuda):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_k4_at_the_dcn_shapes(cuda, dtype):
-    """K4 and K4-bwd as the DepthNet's deformable convolution runs them: one
-    level of Z = 1 [6, 16*44, 512], 9 * 704 taps a camera at offsets of up
-    to 1.5 pixels, align_corners=True; two K4-bwd calls bit-equal."""
+@pytest.mark.parametrize("shape", [(6, 512, 16, 44), (6, 256, 56, 100), (6, 512, 28, 50)])
+def test_k4_at_the_dcn_shapes(cuda, dtype, shape):
+    """K4 and K4-bwd as the deformable convolutions run them: one level of
+    Z = 1, 9 taps a pixel at offsets of up to 1.5 pixels, align_corners=True;
+    the flagship DepthNet's [6, 16*44, 512], the R101-DCN's layer3 [6,
+    56*100, 256] and layer4 [6, 28*50, 512]; two K4-bwd calls bit-equal."""
     from occformer_tpu_torch.tools.time_backwards import dcn_inputs
 
     dt = getattr(torch, dtype)
-    tables, coords, C, spatials = dcn_inputs(dt)
+    tables, coords, C, spatials = dcn_inputs(dt, shape=shape)
     _k4_against_plain(tables, coords, spatials, C, True, dt)
 
 
@@ -987,6 +989,69 @@ def test_dcn_on_k4_matches_its_plain_version(cuda, shape):
         again, _ = run(gpu, cuda)
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
+    ref, none = run(cpu, "cpu")
+    assert launched == (1, 1) and none == (0, 0)
+    for name, g, a, r in zip(("output", "d_input", "d_offset_weight", "d_offset_bias",
+                              "d_weight"), got, again, ref):
+        assert torch.equal(g, a), f"{name}: two calls differ"
+        _close(g, r, 1e-5 if name == "output" else 1e-4, name)
+
+
+@pytest.mark.parametrize("shape,stride,deform_groups,cudnn_default", [
+    ((2, 64, 9, 11), 2, 2, False), ((2, 64, 9, 11), 1, 1, False),
+    ((2, 256, 28, 50), 1, 1, True)])
+def test_dcnv2_on_k4_matches_its_plain_version(cuda, shape, stride, deform_groups,
+                                               cudnn_default):
+    """The R101-DCN backbone's modulated convolution (``models/dcn.py`` with
+    ``modulated=True``: K4's samples scaled by the mask's sigmoid) on the
+    card against the same module on the CPU, float32, at stride 1 and 2 and
+    at 1 and 2 deform groups (the batch of K4's one call is (image, group)),
+    and at half the layer3 map of the R101's cameras: outputs within 1e-5
+    and the gradients in the input, the offsets' and mask's conv and the
+    weight within 1e-4 of max |CPU|; one K4 and one K4-bwd a call; two
+    backwards bit-equal.  Without TF32, as a float32 reference must run.
+    The small maps run cuDNN's deterministic algorithms: there cuDNN's
+    default backward for the offsets' 27-channel convolution adds the
+    input's gradient in an order that varies from call to call (64 channels
+    at 9 x 11, stride 1: 3 of 3 repeats differed on an H100 80GB HBM3 at
+    700 W); at the R101's maps its default repeats (ROADMAP C, the note on
+    cuDNN's defaults), so the R101-width case runs on the defaults."""
+    from occformer_tpu_torch.models.dcn import DeformConv2d
+
+    B, C, H, W = shape
+    torch.manual_seed(0)
+    cpu = DeformConv2d(C, C, 3, stride=stride, padding=1, deform_groups=deform_groups,
+                       modulated=True)
+    with torch.no_grad():
+        cpu.conv_offset.weight.uniform_(-0.02, 0.02)
+        cpu.conv_offset.bias.uniform_(-1.5, 1.5)
+    gpu = DeformConv2d(C, C, 3, stride=stride, padding=1, deform_groups=deform_groups,
+                       modulated=True).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(1)
+    x = torch.from_numpy(rng.randn(*shape).astype(np.float32))
+    oh, ow = (H - 1) // stride + 1, (W - 1) // stride + 1
+    gout = torch.from_numpy(rng.randn(B, C, oh, ow).astype(np.float32))
+
+    def run(module, dev):
+        module.zero_grad()
+        xl = x.to(dev).requires_grad_(True)
+        before = (k1.MULTI_LAUNCHES, k1.MULTI_BWD_LAUNCHES)
+        out = module(xl)
+        out.backward(gout.to(dev))
+        launched = (k1.MULTI_LAUNCHES - before[0], k1.MULTI_BWD_LAUNCHES - before[1])
+        return [t.detach().cpu() for t in (out, xl.grad, module.conv_offset.weight.grad,
+                                           module.conv_offset.bias.grad, module.weight.grad)], \
+            launched
+
+    tf32, det = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = not cudnn_default
+    try:
+        got, launched = run(gpu, cuda)
+        again, _ = run(gpu, cuda)
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = tf32, det
     ref, none = run(cpu, "cpu")
     assert launched == (1, 1) and none == (0, 0)
     for name, g, a, r in zip(("output", "d_input", "d_offset_weight", "d_offset_bias",

@@ -7,9 +7,9 @@ manifests (tests/fixtures/key_manifests/init_*.json):
 
 1. the torchvision R50 file fills every tensor of the flagship's backbone
    and leaves only the classifier's ``fc.*`` unused;
-2. the FCOS3D R101-DCN ``load_from`` file fills every tensor of an R101
-   backbone; its FPN ``img_neck.*`` is skipped, and its DCN offset convs
-   stay unused until the R101-DCN slice ports deformable stages;
+2. the FCOS3D R101-DCN ``load_from`` file fills every tensor of the
+   config's caffe-style R101 backbone with DCNv2 stages, the offset convs
+   included; only its FPN ``img_neck.*`` is skipped and unused;
 3. a partial ``.pth`` with ``img_backbone.*`` plus extra keys loads through
    the train CLI without raising and reports the extras; a name-matching
    key of another shape keeps its init and is reported;
@@ -101,16 +101,17 @@ def test_r50_torchvision_init_fills_the_flagship_backbone():
 @META
 def test_r101_fcos3d_partial_load_fills_the_backbone_and_skips_the_fpn():
     with torch.device("meta"):
-        model = _Holder(img_backbone=ResNet(depth=101), img_neck=torch.nn.Conv2d(8, 8, 1))
+        model = _Holder(img_backbone=ResNet(depth=101, style="caffe", dcn_stages=(2, 3)),
+                        img_neck=torch.nn.Conv2d(8, 8, 1))
     sd = _manifest_sd("init_r101_dcn_fcos3d")
     rep = partial_load_torch(model, "r101_dcn_fcos3d_pretrain.pth", state_dict=sd)
     assert rep["loaded_subtrees"] == ["img_backbone"]
     assert rep["skipped_subtrees"] == ["img_neck"]
     assert rep["kept_init"] == []
-    # the FPN, and the DCN stages' offset convs (deformable stages wait for
-    # the R101-DCN slice)
-    assert all(k.startswith("img_neck.") or ".conv2.conv_offset." in k
-               for k in rep["unused_keys"]), rep["unused_keys"][:10]
+    # the FPN alone; the DCN stages' offset convs are filled
+    assert rep["unused_keys"] and all(k.startswith("img_neck.") for k in rep["unused_keys"]), \
+        rep["unused_keys"][:10]
+    assert sum(".conv2.conv_offset." in k for k in model.img_backbone.state_dict()) == 52
 
 
 def test_partial_pth_with_extras_loads_through_the_train_cli(tmp_path, capsys):

@@ -96,7 +96,8 @@ Phases, each printing one JSON line:
                  with one set of draws.
   8. data:       the flagship's nuScenes pipeline on a tree that
                  data/fixtures.py:make_nuscenes_tree writes (8 samples at a
-                 forward-looking camera rig, 34000 LiDAR points): the host
+                 forward-looking camera rig, 34000 LiDAR points, with the
+                 panoptic sidecars phases 23-25 read): the host
                  ms per sample of the train and test pipelines by step, the
                  loader's rate alone and beside train steps, then the
                  flagship's train step over the epoch of pipeline batches and
@@ -178,7 +179,31 @@ Phases, each printing one JSON line:
                  file (only its img_neck.* unused), then tools.test with the
                  _trainval config (placeholder labels) on step_2 over 2
                  samples with --test-save.
-In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19 and 20 and in the K4 parity gate every
+  22-25. panoptic (occformer_nusc_panoptic_r50_256x704: the flagship's
+                 model with 150 queries and with_cp, GT slots of panoptic
+                 segments, class * 1000 + instance, padded to 100, PQ / SQ /
+                 RQ) on the data phase's nuScenes tree, whose panoptic
+                 sidecars make its boxes the instances, but for phase 22:
+  22. pan_kernels (run after phase 18, on its one-sample tree, which has
+                 the sidecars too): K2 and K2-bwd at the per-layer
+                 route's random fill (1,254,400 rows of the bf16 mask
+                 feature), K2 at the 100-slot bool GT table (candidates,
+                 matching points), K3 at the panoptic ids (shared [10,
+                 150528], per-slot [10, 100, 12544], bit for bit), each
+                 against its plain version and timed beside its bound and
+                 library call.
+  23. pan_serve (after phase 21): 4 frames of the test pipeline through
+                 build_eval_step(panoptic=True) (the per-query point masks
+                 through one more K2), each frame's host formatting into PQ
+                 counters timed apart, evaluate(panoptic=True) over the
+                 frames, the peak, a profiled frame.
+  24. pan_train: 3 steps on the per-layer route with with_cp and the
+                 config's grad clip, a profiled step, one reloaded pair bit
+                 for bit, both routes' losses and assignments on one step's
+                 outputs, one batched-route step (K3 at the panoptic ids).
+  25. pan_cli:   tools.train for 2 steps on the tree, then tools.test on
+                 step_2 over 2 samples, printing PQ / SQ / RQ.
+In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19, 20, 23 and 24 and in the K4 parity gate every
 kernel's launch count is set to 0 just before the path is driven and read
 just after; each must match its per-frame, per-step or per-run count (the
 learn phase: launched).  The CLIs report their own counts, which must show
@@ -186,7 +211,8 @@ their kernels.  A ``wall`` line gives each phase's seconds.  Then the card's nam
 limit (nvidia-smi), one JSON line of kernel records (K1's, K2's and K2-bwd's
 two paths as two records each; S1, the LSS splat, which has no Pallas
 original, last; each kernel of the KITTI path with its KITTI-shape record
-under ``kitti``, each kernel's R101-DCN record under ``r101``), and last
+under ``kitti``, each kernel's R101-DCN record under ``r101``, its
+panoptic record under ``pan``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
@@ -200,6 +226,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -268,6 +295,18 @@ R101_TRAIN_LAUNCHES = dict(TRAIN_LAUNCHES["off"], **{"K4": 53, "K4.row": 53, "K4
 # the maps the deformable convolutions sample at 896 x 1600 ([B*N, C, H, W])
 R101_DCN_SHAPES = {"layer3": (6, 256, 56, 100), "layer4": (6, 512, 28, 50),
                    "depthnet": (6, 512, 56, 100)}
+# the panoptic configuration (occformer_nusc_panoptic_r50_256x704): the
+# flagship's model with 150 queries; a served frame also reads the bf16 mask
+# feature at the LiDAR points (K2's row-wide path) for the per-query point
+# masks; a train step launches what the flagship's does on either route (the
+# same readouts, at 100 GT slots), but that the batched route's candidate
+# readout of the [10, 128, 128, 16, 100] float32 slot volumes takes K2's
+# row-wide path (100 channels are whole 16-byte vectors; 17 are not)
+PAN_CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs",
+                          "occformer_nusc_panoptic_r50_256x704.py")
+PAN_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **{"K2": 1, "K2.row": 1})
+PAN_TRAIN_LAUNCHES = TRAIN_LAUNCHES["off"]
+PAN_TRAIN_LAUNCHES_BATCHED = dict(TRAIN_LAUNCHES["on"], **{"K2.row": 1})
 # the pyramid of the deformable attention, largest level first, as bench.py
 # (tools/time_backwards.py:K4_PYRAMID)
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
@@ -279,8 +318,28 @@ SERVE_STAGES = ("upload", "image_encoder", "view_transformer", "occupancy_encode
 TRAIN_STAGES = ("forward", "loss", "backward", "optimizer")
 
 
+_STDOUT = threading.Lock()  # phases that run side by side write whole lines
+
+
 def emit(obj):
-    print(json.dumps(obj), flush=True)
+    say(json.dumps(obj))
+
+
+def say(line):
+    with _STDOUT:
+        sys.stdout.write(line + "\n")
+        sys.stdout.flush()
+
+
+def side_by_side(*calls):
+    """Each ``(fn, *args)`` in a thread of its own, all at once (phases that
+    only drive CLI processes); their results in order once all have ended,
+    the first failure raised then."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(calls)) as pool:
+        futures = [pool.submit(fn, *args) for fn, *args in calls]
+    return [f.result() for f in futures]
 
 
 def check(cond, msg):
@@ -1901,26 +1960,8 @@ def phase_train(mxu_readout="off"):
                       "img_bev_encoder_neck.encoder.layers.0.attentions.0.value_proj.weight",
                       "pts_bbox_head.query_feat.weight")}
     g = torch.Generator(device="cuda").manual_seed(0)
-
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    reset_launches()  # the main path's run starts here
-    steps_s, history = [], []
-    for _ in range(4):  # 1 warm-up + 3 timed
-        t = time.perf_counter()
-        metrics = step(batch, g)
-        torch.cuda.synchronize()
-        steps_s.append(time.perf_counter() - t)
-        history.append({k: float(v) for k, v in metrics.items()})
-    n = launches()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
-
     name = "train" if mxu_readout == "off" else "train_batched"
-    want = {k: v * len(steps_s) for k, v in TRAIN_LAUNCHES[mxu_readout].items()}
-    check(n == want, f"{name} launches {n} in {len(steps_s)} steps, want {want}")
-    for h in history:
-        check(all(v == v and abs(v) != float("inf") for k, v in h.items()
-                  if k != "point_mean_iou"), f"non-finite train metrics {h}")
+    run = train_phase(name, step, [batch], TRAIN_LAUNCHES[mxu_readout], 4, g)
     moved = {k: (p.detach() - watch[k]).abs().max().item()
              for k, p in model.named_parameters() if k in watch}
     check(moved["img_backbone.conv1.weight"] == 0.0, "the frozen stem moved")
@@ -1929,11 +1970,8 @@ def phase_train(mxu_readout="off"):
     rec = {"phase": name, "mxu_readout": mxu_readout,
            "config": "occformer_nusc_r50_256x704",
            "param_dtype": "float32", "autocast": cfg["compute_dtype"],
-           "params": sum(p.numel() for p in model.parameters()),
-           "setup_s": build_s, "warmup_step_s": steps_s[0], "step_s": steps_s[1:],
-           "steps_run": len(steps_s), "launches": n, "peak_memory_bytes": peak,
-           "resident_bytes_at_start": resident,
-           "metrics": history, "max_param_change": moved,
+           "params": sum(p.numel() for p in model.parameters()), "setup_s": build_s,
+           **run, "max_param_change": moved,
            "loss_points": {"matching": loss_cfg.num_match_points,
                            "candidates": loss_cfg.num_candidates,
                            "supervised": loss_cfg.num_points}}
@@ -1942,7 +1980,7 @@ def phase_train(mxu_readout="off"):
     if loss_cfg.batched_readout:
         rec["routes"] = compare_routes(model, batch, loss_cfg)
     emit(rec)
-    return n
+    return run["launches"]
 
 
 def compare_routes(model, batch, loss_cfg):
@@ -1972,16 +2010,19 @@ def compare_routes(model, batch, loss_cfg):
         out = model(b)
     out = {k: out[k].float() for k in ("cls_preds", "mask_embeds", "mask_feature")}
     L = out["cls_preds"].shape[0]
+    # the panoptic head's GT slots, as the train step passes them
+    gt = dict(panoptic_ids=b["panoptic_ids"]) if loss_cfg.panoptic else {}
     draws = make_loss_draws(torch.Generator(device="cuda").manual_seed(7), loss_cfg,
-                            b["lidar_valid"], L)
+                            b["lidar_valid"], L,
+                            b["panoptic_ids"].shape[1] if loss_cfg.panoptic else None)
     args = (out["cls_preds"], out["mask_embeds"], out["mask_feature"], b["gt_occ"])
     res = {}
     for route in ("off", "on"):
         cfg = dataclasses.replace(loss_cfg, mxu_readout=route)
         rest = (cfg, b["lidar_xyz"], b["lidar_valid"], draws)
         with torch.no_grad():
-            losses = {k: float(v) for k, v in mask2former_loss(*args, *rest).items()}
-            res[route] = (losses, match_assignments(*args, *rest).cpu())
+            losses = {k: float(v) for k, v in mask2former_loss(*args, *rest, **gt).items()}
+            res[route] = (losses, match_assignments(*args, *rest, **gt).cpu())
     (ref, a_ref), (got, a_got) = res["off"], res["on"]
     differ = (a_ref != a_got).nonzero().tolist()  # [layer, sample, slot]
     layers_differ = sorted({d[0] for d in differ})
@@ -2109,7 +2150,9 @@ def phase_data(root):
 
     rec = {"phase": "data", "cpu_count": os.cpu_count(), "samples": 8, "lidar_points": 34000}
     t = time.perf_counter()
-    ann = make_nuscenes_tree(root, n_samples=8, n_points=34000, seed=0)
+    # the panoptic sidecars for the panoptic phases; the rest of the tree is
+    # the same without them
+    ann = make_nuscenes_tree(root, n_samples=8, n_points=34000, seed=0, panoptic=True)
     rec["tree_build_s"] = time.perf_counter() - t
     jpg = os.path.join(root, "samples", "CAM_FRONT", "sample0000.jpg")
     noise = os.path.join(root, "noise.jpg")
@@ -2392,19 +2435,42 @@ def same_metrics(a, b):
         a[k] == b[k] or (a[k] != a[k] and b[k] != b[k]) for k in a)
 
 
-def cli_run(module, *args, options=(), timeout=600, config=CONFIG):
-    """``python3 -m occformer_tpu_torch.tools.<module> config *args
-    --cfg-options *options`` from the repo: (stdout, its JSON lines, the
-    seconds it took); a non-zero exit fails the run."""
+def cli_runs(*runs, timeout=600):
+    """CLI commands side by side, each ``(module, args, options, config)``:
+    ``python3 -m occformer_tpu_torch.tools.<module> config *args
+    --cfg-options *options`` from the repo.  Once all have ended (one still
+    running at ``timeout`` is killed): per command (stdout, its JSON lines,
+    the seconds it took); a non-zero exit fails the run."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t = time.perf_counter()
-    r = subprocess.run([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}", config,
-                        *args, "--cfg-options", *options],
-                       cwd=REPO, capture_output=True, text=True, timeout=timeout)
-    seconds = time.perf_counter() - t
-    check(r.returncode == 0, f"tools.{module} {' '.join(args)} exited {r.returncode}:\n"
-          f"{r.stdout[-3000:]}\n{r.stderr[-3000:]}")
-    lines = [json.loads(ln) for ln in r.stdout.splitlines() if ln.startswith("{")]
-    return r.stdout, lines, seconds
+    procs = [subprocess.Popen([sys.executable, "-m", f"occformer_tpu_torch.tools.{module}",
+                               config, *args, "--cfg-options", *options], cwd=REPO,
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+             for module, args, options, config in runs]
+
+    def wait(p):
+        try:
+            out, err = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        return out, err, time.perf_counter() - t
+
+    with ThreadPoolExecutor(len(procs)) as pool:
+        ended = list(pool.map(wait, procs))
+    results = []
+    for (module, args, _, _), p, (out, err, seconds) in zip(runs, procs, ended):
+        check(p.returncode == 0, f"tools.{module} {' '.join(args)} exited {p.returncode}:\n"
+              f"{out[-3000:]}\n{err[-3000:]}")
+        results.append((out, [json.loads(ln) for ln in out.splitlines() if ln.startswith("{")],
+                        seconds))
+    return results
+
+
+def cli_run(module, *args, options=(), timeout=600, config=CONFIG):
+    """One command of ``cli_runs``: (stdout, its JSON lines, seconds)."""
+    return cli_runs((module, args, options, config), timeout=timeout)[0]
 
 
 def phase_resume(nusc_root, nusc_ann):
@@ -2436,14 +2502,17 @@ def phase_resume(nusc_root, nusc_ann):
                 for ln in lines if "step" in ln}
 
     try:
-        out_w, lines_w, rec["whole_s"] = cli_run(
-            "train", "--work-dir", os.path.join(work, "whole"), "--max-steps", "6",
-            options=opts)
         split = os.path.join(work, "split")
-        out_a, lines_a, rec["to_3_s"] = cli_run("train", "--work-dir", split, "--max-steps",
-                                                "3", options=opts)
-        out_b, lines_b, rec["resumed_3_to_6_s"] = cli_run(
-            "train", "--work-dir", split, "--max-steps", "6", options=opts)
+        # side by side: the run to 6 and the run to 3; then the resumed run
+        # beside the test of the first run's step_6
+        (out_w, lines_w, rec["whole_s"]), (out_a, lines_a, rec["to_3_s"]) = cli_runs(
+            ("train", ("--work-dir", os.path.join(work, "whole"), "--max-steps", "6"), opts,
+             CONFIG),
+            ("train", ("--work-dir", split, "--max-steps", "3"), opts, CONFIG))
+        (out_b, lines_b, rec["resumed_3_to_6_s"]), (out_t, lines_t, rec["test_s"]) = cli_runs(
+            ("train", ("--work-dir", split, "--max-steps", "6"), opts, CONFIG),
+            ("test", ("--checkpoint", os.path.join(work, "whole", "ckpts", "step_6"),
+                      "--max-samples", "2"), opts, CONFIG))
         check("at step 3 (epoch 0 from batch 3)" in out_b, f"resume:\n{out_b[-2000:]}")
         whole, resumed = steps(lines_w), {**steps(lines_a), **steps(lines_b)}
         check(sorted(whole) == sorted(resumed) == [1, 2, 3, 4, 5, 6],
@@ -2464,9 +2533,6 @@ def phase_resume(nusc_root, nusc_ann):
                   for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
               f"train CLI launches {rec['launches']}")
 
-        out_t, lines_t, rec["test_s"] = cli_run(
-            "test", "--checkpoint", os.path.join(work, "whole", "ckpts", "step_6"),
-            "--max-samples", "2", options=opts)
         timing, results = lines_t[0], lines_t[-1]
         rec["test_sec_per_sample"] = timing["sec/sample"]
         rec["test_launches"] = timing["kernel_launches"]
@@ -2783,74 +2849,132 @@ def kitti_reload_pairs(model, opt, step, batch, n_pairs=2):
     return rec
 
 
-def phase_kitti_serve(tree):
-    """The SemanticKITTI config at full width (EfficientNet-B7 at 384 x 1280,
-    the 128 x 128 x 16 grid, 100 queries, 9 decoder layers), random weights
-    from a seeded torch.Generator, float32 parameters under bf16 autocast,
-    serving the tree's two val frames twice (the first a warm-up): ms per
-    frame, the peak, ``voxel_pred`` [1, 256, 256, 32] uint8, and a
-    torch.profiler summary of one more frame."""
+def main_path_run(name, call, items, per_call, n):
+    """The main path's run of a serving or training phase: ``n`` calls of
+    ``call(item)`` over ``items`` in turn (the first a warm-up), each
+    synchronised and timed.  The launch counts are set to 0 just before the
+    run and read just after, and must be ``per_call`` times ``n``.  Returns
+    (the seconds of each call, the launches, the peak bytes, the resident
+    bytes at the start, the outputs)."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    secs, outs = [], []
+    reset_launches()  # the main path's run starts here
+    for i in range(n):
+        t = time.perf_counter()
+        outs.append(call(items[i % len(items)]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+    got = launches()  # ... and ends here
+    want = {k: v * n for k, v in per_call.items()}
+    check(got == want, f"{name} launches {got} in {n} calls, want {want}")
+    return secs, got, torch.cuda.max_memory_allocated(), resident, outs
+
+
+def serve_phase(name, config, cfg, frames, per_frame, panoptic=False, forbid=()):
+    """A configuration served at full width and depth: its model (random
+    weights from a seeded torch.Generator, float32 parameters under the
+    config's autocast) through ``build_eval_step(..., panoptic)``, 4 frames
+    over ``frames`` (``main_path_run``; the first a warm-up: ms a frame, the
+    peak, the launches), every output of the model finite on the first
+    frame, and a profiled frame.  Returns (the record, the model, the step,
+    the outputs)."""
     import torch
 
     from occformer_tpu_torch.engine.eval import build_eval_step
     from occformer_tpu_torch.models.detector import build_model
 
-    cfg = kitti_cfg(tree)
     dtype = getattr(torch, cfg["compute_dtype"])
     t0 = time.perf_counter()
     model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=0)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
-    frames = kitti_batches(cfg, "val")
-    for f in frames:
-        f.pop("gt_occ")
-    occ_size, n_cls = tuple(cfg["occ_size"]), cfg["num_class"]
-    step = build_eval_step(model, occ_size, n_cls, dtype)
-
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    reset_launches()  # the main path's run starts here
-    frames_ms = []
-    for i in range(4):
-        t = time.perf_counter()
-        out = step(frames[i % len(frames)])
-        torch.cuda.synchronize()
-        frames_ms.append((time.perf_counter() - t) * 1e3)
-    n = launches()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: v * len(frames_ms) for k, v in KITTI_SERVE_LAUNCHES.items()}
-    check(n == want, f"kitti_serve launches {n} in {len(frames_ms)} frames, want {want}")
-    vp = out["voxel_pred"]
-    check(list(vp.shape) == [1, *occ_size] and vp.dtype == torch.uint8,
-          f"kitti voxel_pred {list(vp.shape)} {vp.dtype}")
-    check(int(vp.max()) < n_cls, "kitti: predicted labels out of range")
+    step = build_eval_step(model, tuple(cfg["occ_size"]), cfg["num_class"], dtype,
+                           panoptic=panoptic)
+    secs, n, peak, resident, outs = main_path_run(name, step, frames, per_frame, 4)
     with torch.inference_mode(), torch.autocast("cuda", dtype=dtype):
         raw = model({k: torch.as_tensor(v).cuda() for k, v in frames[0].items()})
     finite = {k: bool(torch.isfinite(v.float()).all()) for k, v in raw.items()}
-    check(all(finite.values()), f"kitti: non-finite outputs {finite}")
-    rec = {"phase": "kitti_serve", "config": "occformer_kitti", "param_dtype": "float32",
+    check(all(finite.values()), f"{name}: non-finite outputs {finite}")
+    rec = {"phase": name, "config": config, "param_dtype": "float32",
            "autocast": cfg["compute_dtype"], "model_build_s": build_s,
            "params": sum(p.numel() for p in model.parameters()),
-           "warmup_frame_ms": frames_ms[0], "frame_ms": frames_ms[1:],
-           "frames_run": len(frames_ms), "launches": n, "peak_memory_bytes": peak,
-           "resident_bytes_at_start": resident, "voxel_pred": list(vp.shape),
-           "classes_predicted": len(torch.unique(vp)), "finite": finite,
+           "warmup_frame_ms": secs[0] * 1e3, "frame_ms": [s * 1e3 for s in secs[1:]],
+           "frames_run": len(secs), "launches": n, "peak_memory_bytes": peak,
+           "resident_bytes_at_start": resident, "finite": finite,
            "shapes": {k: list(v.shape) for k, v in raw.items()}}
-    rec["profile"] = profile(lambda: step(frames[0]), SERVE_STAGES,
-                             KITTI_SERVE_LAUNCHES)
+    del raw
+    rec["profile"] = profile(lambda: step(frames[0]), SERVE_STAGES, per_frame, forbid=forbid)
+    return rec, model, step, outs
+
+
+def train_phase(name, step, batches, per_step, steps, generator):
+    """``steps`` train steps over ``batches`` (``main_path_run``; the first a
+    warm-up), every metric finite but the point mIoU (NaN where no class
+    was predicted).  Returns the record's part of them."""
+    secs, n, peak, resident, outs = main_path_run(name, lambda b: step(b, generator),
+                                                  batches, per_step, steps)
+    history = [{k: float(v) for k, v in m.items()} for m in outs]
+    for h in history:
+        check(all(v == v and abs(v) != float("inf") for k, v in h.items()
+                  if k != "point_mean_iou"), f"{name}: non-finite metrics {h}")
+    return {"warmup_step_s": secs[0], "step_s": secs[1:], "steps_run": len(secs),
+            "launches": n, "peak_memory_bytes": peak, "resident_bytes_at_start": resident,
+            "metrics": history}
+
+
+def profile_and_reload(rec, name, model, opt, step, batch, per_step, generator, forbid=()):
+    """A profiled step, then one reloaded pair (``kitti_reload_pairs``) on
+    the port's default settings (cuDNN's TF32 on, no global deterministic
+    mode), which must repeat every loss, grad_norm and gradient."""
+    import torch
+
+    rec["profile"] = profile(lambda: step(batch, generator), TRAIN_STAGES, per_step,
+                             forbid=forbid)
+    free_memory()
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the port's default settings
+    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
+          and not torch.are_deterministic_algorithms_enabled(),
+          f"{name} reload: a global determinism switch is on")
+    try:
+        rec["reload_determinism"] = r = kitti_reload_pairs(model, opt, step, batch, n_pairs=1)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    check(r["losses_differ"] == r["grad_norm_differs"] == r["param_grads_differ"] == 0
+          and r["param_grads"] > 0, f"{name} reload_determinism: the pair differs: {r}")
+
+
+def phase_kitti_serve(tree):
+    """The SemanticKITTI config at full width (EfficientNet-B7 at 384 x 1280,
+    the 128 x 128 x 16 grid, 100 queries, 9 decoder layers) served over the
+    tree's two val frames (``serve_phase``): ``voxel_pred`` [1, 256, 256,
+    32] uint8."""
+    import torch
+
+    cfg = kitti_cfg(tree)
+    frames = kitti_batches(cfg, "val")
+    for f in frames:
+        f.pop("gt_occ")
+    rec, _, _, outs = serve_phase("kitti_serve", "occformer_kitti", cfg, frames,
+                                  KITTI_SERVE_LAUNCHES)
+    vp = outs[-1]["voxel_pred"]
+    check(list(vp.shape) == [1, *cfg["occ_size"]] and vp.dtype == torch.uint8,
+          f"kitti voxel_pred {list(vp.shape)} {vp.dtype}")
+    check(int(vp.max()) < cfg["num_class"], "kitti: predicted labels out of range")
+    rec.update(voxel_pred=list(vp.shape), classes_predicted=len(torch.unique(vp)))
     emit(rec)
-    return n
+    return rec["launches"]
 
 
 def phase_kitti_train(tree):
     """The SemanticKITTI config's train step at full width with ``with_cp``
     on (the EfficientNet's and the occupancy encoder's recomputation), float32
     parameters under bf16 autocast, batch 1, on the tree's train frames
-    through the pipeline (4 steps over them, the first a warm-up): s/step,
-    the peak, the losses, a torch.profiler summary of one more step; then
-    ``kitti_reload_pairs`` on the settings ``phase_determinism`` uses
-    (cuDNN's TF32 on, no global deterministic mode), which must repeat every
-    loss, grad_norm and gradient."""
+    through the pipeline: 4 steps (``train_phase``), the parameters moved,
+    then ``profile_and_reload``."""
     import torch
 
     from occformer_tpu_torch.engine.optim import build_optimizer_from_config
@@ -2877,54 +3001,21 @@ def phase_kitti_train(tree):
                       "img_bev_encoder_neck.encoder.layers.0.attentions.0.value_proj.weight",
                       "pts_bbox_head.query_feat.weight")}
     g = torch.Generator(device="cuda").manual_seed(0)
-
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    reset_launches()  # the main path's run starts here
-    steps_s, history = [], []
-    for i in range(4):
-        t = time.perf_counter()
-        metrics = step(batches[i % len(batches)], g)
-        torch.cuda.synchronize()
-        steps_s.append(time.perf_counter() - t)
-        history.append({k: float(v) for k, v in metrics.items()})
-    n = launches()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: v * len(steps_s) for k, v in KITTI_TRAIN_LAUNCHES.items()}
-    check(n == want, f"kitti_train launches {n} in {len(steps_s)} steps, want {want}")
-    for h in history:
-        check(all(v == v and abs(v) != float("inf") for v in h.values()),
-              f"kitti_train: non-finite metrics {h}")
+    run = train_phase("kitti_train", step, batches, KITTI_TRAIN_LAUNCHES, 4, g)
     moved = {k: (p.detach() - watch[k]).abs().max().item()
              for k, p in model.named_parameters() if k in watch}
     check(len(moved) == 4 and all(v > 0 for v in moved.values()),
           f"kitti_train: parameters did not move: {moved}")
     rec = {"phase": "kitti_train", "config": "occformer_kitti", "param_dtype": "float32",
            "autocast": cfg["compute_dtype"], "with_cp": True,
-           "params": sum(p.numel() for p in model.parameters()), "setup_s": setup_s,
-           "warmup_step_s": steps_s[0], "step_s": steps_s[1:], "steps_run": len(steps_s),
-           "launches": n, "peak_memory_bytes": peak, "resident_bytes_at_start": resident,
-           "metrics": history, "max_param_change": moved,
+           "params": sum(p.numel() for p in model.parameters()), "setup_s": setup_s, **run,
+           "max_param_change": moved,
            "loss_points": {"matching": loss_cfg.num_match_points,
                            "candidates": loss_cfg.num_candidates,
                            "supervised": loss_cfg.num_points}}
-    rec["profile"] = profile(lambda: step(batches[0], g), TRAIN_STAGES,
-                             KITTI_TRAIN_LAUNCHES)
-    free_memory()
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True  # the port's default settings
-    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
-          and not torch.are_deterministic_algorithms_enabled(),
-          "kitti reload: a global determinism switch is on")
-    try:
-        rec["reload_determinism"] = r = kitti_reload_pairs(model, opt, step, batches[0],
-                                                           n_pairs=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+    profile_and_reload(rec, "kitti", model, opt, step, batches[0], KITTI_TRAIN_LAUNCHES, g)
     emit(rec)
-    check(r["losses_differ"] == r["grad_norm_differs"] == r["param_grads_differ"] == 0
-          and r["param_grads"] > 0, f"kitti reload_determinism: a pair differs: {r}")
-    return n
+    return run["launches"]
 
 
 def phase_kitti_cli(tree):
@@ -3066,68 +3157,29 @@ def phase_r101_kernels(tree, ann):
 
 def phase_r101_serve(tree, ann):
     """The R101-DCN config at full width and depth (ResNet-101 caffe with 26
-    DCNv2 blocks at 6 x 896 x 1600), random weights from a seeded
-    torch.Generator, float32 parameters under bf16 autocast, serving the
-    config's own test pipeline on the tree: 3 frames built first, then 4
-    served (the first a warm-up; ms per frame, the peak, the launch counts),
-    the outputs finite, and a profiled frame (its K4 launches those of the
-    backbone's 26 DCNv2 and the DepthNet's DCN; no 2-D ``grid_sample``).
+    DCNv2 blocks at 6 x 896 x 1600) serving the config's own test pipeline
+    on the tree (``serve_phase`` over 3 frames built first): predicted
+    labels in range, and no 2-D ``grid_sample`` in the profiled frame (its
+    K4 launches those of the backbone's 26 DCNv2 and the DepthNet's DCN).
     Returns (launch counts, the model) for ``phase_r101_train``."""
-    import torch
-
-    from occformer_tpu_torch.engine.eval import build_eval_step
-    from occformer_tpu_torch.models.detector import build_model
-
     cfg = r101_cfg(tree, ann)
-    dtype = getattr(torch, cfg["compute_dtype"])
-    t0 = time.perf_counter()
-    model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=0)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     frames = r101_batches(cfg, "test", 3)
     pipeline_s = time.perf_counter() - t0
     for f in frames:  # a served frame has no GT
         f.pop("gt_occ")
-    occ_size, n_cls = tuple(cfg["occ_size"]), cfg["num_class"]
-    step = build_eval_step(model, occ_size, n_cls, dtype)
-
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    reset_launches()  # the main path's run starts here
-    frames_ms = []
-    for i in range(4):
-        t = time.perf_counter()
-        out = step(frames[i % len(frames)])
-        torch.cuda.synchronize()
-        frames_ms.append((time.perf_counter() - t) * 1e3)
-    n = launches()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: v * len(frames_ms) for k, v in R101_SERVE_LAUNCHES.items()}
-    check(n == want, f"r101_serve launches {n} in {len(frames_ms)} frames, want {want}")
-    P = frames[0]["lidar_xyz"].shape[1]
-    check(list(out["voxel_pred"].shape) == [1, *occ_size]
-          and list(out["point_pred"].shape) == [1, P], "r101_serve: output shapes")
-    check(int(out["voxel_pred"].max()) < n_cls and int(out["point_pred"].min()) >= 1,
+    rec, model, _, outs = serve_phase("r101_serve", "occformer_nusc_r101_896x1600", cfg,
+                                      frames, R101_SERVE_LAUNCHES,
+                                      forbid=("aten::grid_sampler_2d",))
+    out = outs[-1]
+    check(list(out["voxel_pred"].shape) == [1, *cfg["occ_size"]]
+          and list(out["point_pred"].shape) == [1, frames[0]["lidar_xyz"].shape[1]],
+          "r101_serve: output shapes")
+    check(int(out["voxel_pred"].max()) < cfg["num_class"] and int(out["point_pred"].min()) >= 1,
           "r101_serve: predicted labels out of range")
-    with torch.inference_mode(), torch.autocast("cuda", dtype=dtype):
-        raw = model({k: torch.as_tensor(v).cuda() for k, v in frames[0].items()})
-    finite = {k: bool(torch.isfinite(v.float()).all()) for k, v in raw.items()}
-    check(all(finite.values()), f"r101_serve: non-finite outputs {finite}")
-    rec = {"phase": "r101_serve", "config": "occformer_nusc_r101_896x1600",
-           "param_dtype": "float32", "autocast": cfg["compute_dtype"], "model_build_s": build_s,
-           "pipeline_s_for_3_frames": pipeline_s,
-           "params": sum(p.numel() for p in model.parameters()),
-           "images": list(frames[0]["imgs"].shape),
-           "warmup_frame_ms": frames_ms[0], "frame_ms": frames_ms[1:],
-           "frames_run": len(frames_ms), "launches": n, "peak_memory_bytes": peak,
-           "resident_bytes_at_start": resident, "finite": finite,
-           "shapes": {k: list(v.shape) for k, v in raw.items()}}
-    del raw, out
-    rec["profile"] = profile(lambda: step(frames[0]), SERVE_STAGES, R101_SERVE_LAUNCHES,
-                             forbid=("aten::grid_sampler_2d",))
+    rec.update(pipeline_s_for_3_frames=pipeline_s, images=list(frames[0]["imgs"].shape))
     emit(rec)
-    return n, model
+    return rec["launches"], model
 
 
 def phase_r101_train(tree, ann, model):
@@ -3136,11 +3188,8 @@ def phase_r101_train(tree, ann, model):
     on the config's own train pipeline over the tree, ``with_cp`` (each
     trained ResNet block recomputed in the backward: K4 twice for each of
     the 26 DCNv2), ``frozen_stages=1`` (the stem and layer1 run without
-    gradient) and ``norm_eval`` (no BatchNorm statistic moves): 4 steps (the
-    first a warm-up; s/step, the peak, the losses), a profiled step, then one
-    reloaded pair (``kitti_reload_pairs``: every loss, grad_norm and gradient
-    bit-equal; the port's default settings: TF32 on, no global deterministic
-    mode)."""
+    gradient) and ``norm_eval`` (no BatchNorm statistic moves): 4 steps
+    (``train_phase``), then ``profile_and_reload``."""
     import torch
 
     from occformer_tpu_torch.engine.optim import build_optimizer_from_config
@@ -3169,24 +3218,7 @@ def phase_r101_train(tree, ann, model):
     watch = {k: p.detach().clone() for k, p in model.named_parameters() if k in names}
     stats = {k: v.clone() for k, v in bb.state_dict().items() if "running" in k}
     g = torch.Generator(device="cuda").manual_seed(0)
-
-    torch.cuda.reset_peak_memory_stats()
-    resident = torch.cuda.memory_allocated()
-    reset_launches()  # the main path's run starts here
-    steps_s, history = [], []
-    for i in range(4):
-        t = time.perf_counter()
-        metrics = step(batches[i % len(batches)], g)
-        torch.cuda.synchronize()
-        steps_s.append(time.perf_counter() - t)
-        history.append({k: float(v) for k, v in metrics.items()})
-    n = launches()  # ... and ends here
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: v * len(steps_s) for k, v in R101_TRAIN_LAUNCHES.items()}
-    check(n == want, f"r101_train launches {n} in {len(steps_s)} steps, want {want}")
-    for h in history:
-        check(all(v == v and abs(v) != float("inf") for k, v in h.items()
-                  if k != "point_mean_iou"), f"r101_train: non-finite metrics {h}")
+    run = train_phase("r101_train", step, batches, R101_TRAIN_LAUNCHES, 4, g)
     moved = {k: (p.detach() - watch[k]).abs().max().item()
              for k, p in model.named_parameters() if k in watch}
     frozen = ("img_backbone.conv1.weight", "img_backbone.layer1.0.conv2.weight",
@@ -3200,27 +3232,12 @@ def phase_r101_train(tree, ann, model):
     rec = {"phase": "r101_train", "config": "occformer_nusc_r101_896x1600",
            "param_dtype": "float32", "autocast": cfg["compute_dtype"], "with_cp": True,
            "frozen_stages": 1, "norm_eval": True, "route": "per-layer",
-           "params": sum(p.numel() for p in model.parameters()), "setup_s": setup_s,
-           "warmup_step_s": steps_s[0], "step_s": steps_s[1:], "steps_run": len(steps_s),
-           "launches": n, "peak_memory_bytes": peak, "resident_bytes_at_start": resident,
-           "metrics": history, "max_param_change": moved}
-    rec["profile"] = profile(lambda: step(batches[0], g), TRAIN_STAGES, R101_TRAIN_LAUNCHES,
-                             forbid=("aten::grid_sampler_2d",))
-    free_memory()
-    tf32 = torch.backends.cudnn.allow_tf32
-    torch.backends.cudnn.allow_tf32 = True  # the port's default settings
-    check(not torch.backends.cudnn.deterministic and not torch.backends.cudnn.benchmark
-          and not torch.are_deterministic_algorithms_enabled(),
-          "r101 reload: a global determinism switch is on")
-    try:
-        rec["reload_determinism"] = r = kitti_reload_pairs(model, opt, step, batches[0],
-                                                           n_pairs=1)
-    finally:
-        torch.backends.cudnn.allow_tf32 = tf32
+           "params": sum(p.numel() for p in model.parameters()), "setup_s": setup_s, **run,
+           "max_param_change": moved}
+    profile_and_reload(rec, "r101", model, opt, step, batches[0], R101_TRAIN_LAUNCHES, g,
+                       forbid=("aten::grid_sampler_2d",))
     emit(rec)
-    check(r["losses_differ"] == r["grad_norm_differs"] == r["param_grads_differ"] == 0
-          and r["param_grads"] > 0, f"r101 reload_determinism: the pair differs: {r}")
-    return n
+    return run["launches"]
 
 
 def fcos3d_pth(path):
@@ -3315,6 +3332,368 @@ def phase_r101_cli(tree, ann):
         rec["submission_bins"] = bins
         rec["submission_bytes"] = [os.path.getsize(os.path.join(save, "lidarseg", "test", b))
                                    for b in bins]
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    emit(rec)
+    return rec
+
+
+# ---------------------------------------------------------------------------
+# panoptic (occformer_nusc_panoptic_r50_256x704): 150 queries, GT slots of
+# panoptic segments (class * 1000 + instance) padded to 100, PQ / SQ / RQ
+# ---------------------------------------------------------------------------
+
+def pan_cfg(tree, ann):
+    """The panoptic config pointed at a ``make_nuscenes_tree(...,
+    panoptic=True)`` tree."""
+    return r101_cfg(tree, ann, config=PAN_CONFIG)
+
+
+def pan_record(run, plain, library, got, ref, tol, n_bytes, flops, name, exact=False):
+    """One kernel's record at a panoptic shape: ``got`` held to ``ref`` (the
+    plain version's) within ``tol`` of max|ref| or, ``exact``, bit for bit;
+    CUDA-event ms of ``run``, ``plain`` and ``library``, the profiler's device
+    ms of ``run`` and ``library``, and the bound of ``n_bytes`` and ``flops``."""
+    import torch
+
+    if exact:
+        check(torch.equal(got, ref), f"{name}: not the plain version's bits")
+        r = {"max_abs_err": 0.0, "max_abs_plain": ref.abs().max().item(), "limit": 0.0,
+             "bit_equal": True}
+    else:
+        r = compare(got, ref, tol, name)
+    r.update(kernel_ms=time_cuda(run), device_ms=device_ms(run),
+             plain_ms=time_cuda(plain, iters=10), library_ms=time_cuda(library, iters=10),
+             library_device_ms=device_ms(library, iters=10))
+    r.update(bound(n_bytes, flops))
+    return r
+
+
+def cells_read(spatial, pts01):
+    """How many distinct cells of a [X, Y, Z] grid the trilinear reads at
+    ``pts01`` [..., 3] in [0, 1] (border, align_corners=False) touch: each
+    read's 8 corners, counted once (``ops/loss_gather.py:_corner_weights``).
+    A bound counts these cells of a table read at scattered points, not the
+    whole table."""
+    import torch
+
+    from occformer_tpu_torch.ops.loss_gather import _corner_weights
+
+    _, idx = _corner_weights(pts01, tuple(spatial), False, "border")
+    return int(torch.unique(idx).numel())
+
+
+def phase_pan_kernels(tree, ann):
+    """The kernels the panoptic configuration runs at shapes no other path
+    gives them, held against their plain versions and timed (CUDA events;
+    the profiler's device time beside), with the bound (the table cells the
+    reads touch (``cells_read``), the other inputs read and the outputs
+    written once, over 3.35 TB/s, or float32 operations over 67 TFLOP/s)
+    and the one PyTorch call that computes the same function:
+
+    * K2 and K2-bwd at the per-layer route's random fill: the bf16 mask
+      feature [1, 128, 128, 16, 192] read at 100 slots x 12544 points
+      (1,254,400 rows, border, align_corners=False; bf16 1e-2, two K2-bwd
+      calls bit-equal, K2-bwd on its segmented path); ``F.grid_sample`` and
+      autograd through it beside;
+    * K2 at the 100-slot GT table [1, 256, 256, 32, 100] bool (the first
+      test frame's ``gt_occ == panoptic_ids``) at the 150528 candidates and
+      the 50176 matching points (the narrow path; float32 1e-5);
+      ``F.grid_sample`` over the float one-hot beside;
+    * K3 at the frame's panoptic ids (the id grid, 100 slots with -1 after
+      the frame's ids): shared at [10, 150528] and per-slot at [10, 100,
+      12544], bit for bit against the plain version on the card;
+      ``F.grid_sample`` over the float one-hot [1, 100, 256, 256, 32]
+      beside (its build not timed); and the shared read's largest gap to
+      K2's read of the GT table at the same points (the one-hot read JAX's
+      route makes), recorded, not held: the two form the coordinate from
+      points in [0, 1] and in [-1, 1], which round apart by up to about
+      half a grid width times 2^-24."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import loss_gather as k3
+    from occformer_tpu_torch.ops import trilerp as k2
+
+    cfg = pan_cfg(tree, ann)
+    frame = r101_batches(cfg, "test", 1)[0]
+    grid = torch.from_numpy(frame["gt_occ"]).cuda().to(torch.int32).contiguous()
+    ids = torch.from_numpy(frame["panoptic_ids"]).cuda().to(torch.int32).contiguous()
+    G = ids.shape[1]
+    n_ids = int((ids >= 0).sum())
+    rec = {"phase": "pan_kernels", "config": "occformer_nusc_panoptic_r50_256x704",
+           "gt_grid": list(grid.shape), "slots": G, "real_slots": n_ids,
+           "noise_voxels": int((grid == 65535).sum()), "ids_min": int(ids[ids >= 0].min()),
+           "ids_max": int(ids.max())}
+    check(G == 100 and 0 < n_ids <= G, f"pan_kernels: the id table {G} / {n_ids}")
+    tl = cfg["model"]["train_cfg"]["pts"]
+    n_pts = tl["num_points"]
+    n_cand = int(n_pts * tl["oversample_ratio"])
+    n_rand = n_pts - int(tl["importance_sample_ratio"] * n_pts)
+    g = torch.Generator(device="cuda").manual_seed(41)
+
+    # K2 / K2-bwd at the random fill
+    feat = torch.randn((1, 128, 128, 16, 192), device="cuda", generator=g).to(torch.bfloat16)
+    coords = (torch.rand((1, G * n_rand, 3), device="cuda", generator=g) * 2 - 1).contiguous()
+    check(k2.fwd_path(feat.shape, feat.dtype, feat.data_ptr()) == "row"
+          and k2.bwd_path(feat.shape, G * n_rand) == "segmented",
+          "pan K2 random fill: not the row-wide forward / segmented backward")
+    got = k2.trilerp_sample(feat, coords, False, "border")
+    vol = feat.permute(0, 4, 1, 2, 3).contiguous()  # the library call's layout and dtype
+    lib_grid = coords.flip(-1).reshape(1, -1, 1, 1, 3).to(feat.dtype)
+
+    def lib_fwd():
+        return F.grid_sample(vol, lib_grid, mode="bilinear", padding_mode="border",
+                             align_corners=False)
+
+    cells = cells_read(feat.shape[1:4], (coords + 1) / 2)
+    rec["K2_random_fill"] = dict(pan_record(
+        lambda: k2.trilerp_sample(feat, coords, False, "border"),
+        lambda: k2.trilerp_sample_plain(feat, coords, False, "border"), lib_fwd, got,
+        k2.trilerp_sample_plain(feat.float(), coords, False, "border"), 1e-2,
+        cells * 192 * feat.element_size() + nbytes(coords, got), coords.shape[1] * 192 * 8 * 2,
+        "pan K2 random fill"), table=list(feat.shape), points=list(coords.shape), path="row",
+        table_cells_read=cells)
+    gout = torch.randn(got.shape, device="cuda", generator=g).to(torch.bfloat16)
+    del got
+    leaf = feat.detach().clone().requires_grad_(True)
+    k2.trilerp_sample(leaf, coords, False, "border").backward(gout)
+    pl = feat.detach().float().requires_grad_(True)
+    p_out = k2.trilerp_sample_plain(pl, coords, False, "border")
+    (ref,) = torch.autograd.grad(p_out, (pl,), gout.float(), retain_graph=True)
+    a, _ = k2._launch_bwd(feat, coords, gout, False, "border", want_coords=False)
+    b, _ = k2._launch_bwd(feat, coords, gout, False, "border", want_coords=False)
+    check(torch.equal(a, b) and torch.equal(a, leaf.grad), "pan K2-bwd: two calls differ")
+    vl = vol.detach().clone().requires_grad_(True)
+    lib_out = F.grid_sample(vl, lib_grid, mode="bilinear", padding_mode="border",
+                            align_corners=False)
+    lib_gout = gout.reshape(1, -1, 192).permute(0, 2, 1).reshape(lib_out.shape).contiguous()
+    rec["K2-bwd_random_fill"] = dict(pan_record(
+        lambda: k2._launch_bwd(feat, coords, gout, False, "border", want_coords=False),
+        lambda: torch.autograd.grad(p_out, (pl,), gout.float(), retain_graph=True),
+        lambda: torch.autograd.grad(lib_out, (vl,), lib_gout, retain_graph=True),
+        leaf.grad, ref, 1e-2, nbytes(gout, coords, feat), coords.shape[1] * 192 * 8 * 2,
+        "pan K2-bwd random fill"), table=list(feat.shape), points=list(coords.shape),
+        path="segmented", bit_identical_calls=True)
+    del feat, coords, gout, leaf, pl, p_out, ref, a, b, vol, vl, lib_out, lib_gout, lib_grid
+    free_memory()
+
+    # K2 at the 100-slot GT table
+    table = (grid[:, None] == ids[:, :, None, None, None]).permute(0, 2, 3, 4, 1).contiguous()
+    onehot = table.permute(0, 4, 1, 2, 3).float().contiguous()  # [1, G, X, Y, Z]
+    check(k2.fwd_path(table.shape, table.dtype, table.data_ptr()) == "scalar",
+          "pan K2 GT table: not the narrow path")
+    for name, n in (("candidates", n_cand), ("matching", n_pts)):
+        c = (torch.rand((1, n, 3), device="cuda", generator=g) * 2 - 1).contiguous()
+        lg = c.flip(-1).reshape(1, -1, 1, 1, 3)
+        got = k2.trilerp_sample(table, c, False, "border")
+        cells = cells_read(table.shape[1:4], (c + 1) / 2)
+        rec[f"K2_gt_table_{name}"] = dict(pan_record(
+            lambda: k2.trilerp_sample(table, c, False, "border"),
+            lambda: k2.trilerp_sample_plain(table, c, False, "border"),
+            lambda: F.grid_sample(onehot, lg, mode="bilinear", padding_mode="border",
+                                  align_corners=False),
+            got, k2.trilerp_sample_plain(table, c, False, "border"), 1e-5,
+            cells * G * table.element_size() + nbytes(c, got), n * G * 8 * 2,
+            f"pan K2 GT table {name}"),
+            table=list(table.shape), points=list(c.shape), path="scalar", table_cells_read=cells)
+        del got
+    free_memory()
+
+    # K3 at the panoptic ids
+    N = cfg["model"]["pts_bbox_head"]["transformer_decoder"]["num_layers"] + 1
+    for name, shape in (("shared", (N, n_cand, 3)), ("per_slot", (N, G, n_rand, 3))):
+        pts = torch.rand(shape, device="cuda", generator=g)
+        got = k3.sample_id_masks(grid, ids, pts, False, "border")
+        if pts.dim() == 3:  # every layer's points in one grid
+            lib_in, lg = onehot, (pts.reshape(1, -1, 1, 1, 3) * 2 - 1).flip(-1).contiguous()
+        else:               # slot g's volume at slot g's points of every layer
+            lib_in = onehot.transpose(0, 1)
+            lg = (pts.transpose(0, 1).reshape(G, -1, 1, 1, 3) * 2 - 1).flip(-1).contiguous()
+        cells = cells_read(grid.shape[1:], pts)
+        rec[f"K3_{name}"] = r = dict(pan_record(
+            lambda: k3.sample_id_masks(grid, ids, pts, False, "border"),
+            lambda: k3.sample_id_masks_plain(grid, ids, pts, False, "border"),
+            lambda: F.grid_sample(lib_in, lg, mode="bilinear", padding_mode="border",
+                                  align_corners=False),
+            got, k3.sample_id_masks_plain(grid, ids, pts, False, "border"), 0.0,
+            cells * grid.element_size() + nbytes(pts, ids, got), got.numel() * 16,
+            f"pan K3 {name}", exact=True), points=list(pts.shape), grid_cells_read=cells)
+        if pts.dim() == 3:
+            one_hot = k2.trilerp_sample(table, (pts.reshape(1, -1, 3) * 2 - 1).contiguous(),
+                                        False, "border")
+            r["max_abs_gap_to_k2_one_hot_read"] = (
+                got.transpose(1, 2).reshape(one_hot.shape) - one_hot).abs().max().item()
+            del one_hot
+        del pts, got, lib_in, lg
+    del onehot, table
+    free_memory()
+    emit(rec)
+    return rec
+
+
+def phase_pan_serve(tree, ann):
+    """The panoptic config at full width and depth (150 queries) serving the
+    config's test pipeline on the tree through ``build_eval_step(...,
+    panoptic=True)`` (``serve_phase``: its launches the flagship frame's and
+    one K2 for the mask feature at the LiDAR points); each served frame's
+    host formatting into PQ counters (``engine/eval.py:add_panoptic``:
+    ``format_panoptic_results`` and ``PanopticEval.add_batch`` over the
+    valid points) timed apart, ``point_mask`` [1, 150, P]; then
+    ``evaluate(panoptic=True)`` over the frames (PQ / SQ / RQ finite, in
+    [0, 1]).  Returns (launch counts, the model)."""
+    import torch
+
+    from occformer_tpu_torch.engine.eval import (PANOPTIC_IGNORE, PANOPTIC_MIN_POINTS,
+                                                  add_panoptic, evaluate)
+    from occformer_tpu_torch.utils.panoptic import PanopticEval
+
+    cfg = pan_cfg(tree, ann)
+    head = cfg["model"]["pts_bbox_head"]
+    things = head["thing_indices"]
+    occ_size, n_cls = tuple(cfg["occ_size"]), cfg["num_class"]
+    t0 = time.perf_counter()
+    frames = r101_batches(cfg, "test", 3)
+    pipeline_s = time.perf_counter() - t0
+    for f in frames:  # a served frame keeps its panoptic LiDAR labels, not its GT grid
+        f.pop("gt_occ")
+    rec, model, _, outs = serve_phase("pan_serve", "occformer_nusc_panoptic_r50_256x704", cfg,
+                                      frames, PAN_SERVE_LAUNCHES, panoptic=True,
+                                      forbid=("aten::grid_sampler_2d",))
+    pan = PanopticEval(n_cls, ignore=PANOPTIC_IGNORE, min_points=PANOPTIC_MIN_POINTS)
+    host_ms = []
+    for i, out in enumerate(outs):  # the host's share of each served frame
+        t = time.perf_counter()
+        add_panoptic(pan, out, frames[i % len(frames)], things)
+        host_ms.append((time.perf_counter() - t) * 1e3)
+    out = outs[-1]
+    P, Q = frames[0]["lidar_xyz"].shape[1], head["num_queries"]
+    check(list(out["point_mask"].shape) == [1, Q, P] and list(out["point_cls"].shape)
+          == [1, Q, n_cls + 1] and bool(out["point_mask"].isfinite().all()),
+          f"pan_serve: point_mask {list(out['point_mask'].shape)}")
+    last = frames[(len(outs) - 1) % len(frames)]
+    check(int(out["confusion"].sum()) == int(last["lidar_valid"].sum()),
+          "pan_serve: the confusion matrix lost points")
+    t = time.perf_counter()
+    results = evaluate(model, frames, occ_size, n_cls, class_names=cfg["class_names"],
+                       panoptic=True, thing_indices=things,
+                       compute_dtype=getattr(torch, cfg["compute_dtype"]))
+    eval_s = time.perf_counter() - t
+    pq = {k: results[k] for k in ("nuScenes_panoptic_PQ", "nuScenes_panoptic_SQ",
+                                  "nuScenes_panoptic_RQ")}
+    check(all(0.0 <= v <= 1.0 for v in pq.values()), f"pan_serve: PQ/SQ/RQ {pq}")
+    rec.update(pipeline_s_for_3_frames=pipeline_s, queries=Q, lidar_points=P,
+               valid_points=int(frames[0]["lidar_valid"].sum()), host_format_ms=host_ms,
+               panoptic_counters_over_4_frames={k: v.tolist() for k, v in pan.state().items()},
+               evaluate_s_for_3_frames=eval_s, panoptic=pq,
+               lidarseg_mean=results.get("nuScenes_lidarseg_mean"))
+    emit(rec)
+    return rec["launches"], model
+
+
+def phase_pan_train(tree, ann, model):
+    """The panoptic config's train step at full width and depth on the
+    per-layer loss route (150 queries against the frame's 100 padded GT
+    slots, 50,176 loss points, the random fill of 100 x 12,544 points a
+    layer), float32 parameters under bf16 autocast, batch 1, ``with_cp``,
+    the config's grad clip (0.01), on the train pipeline over the tree: 3
+    steps (``train_phase``; no ``point_mean_iou``), ``profile_and_reload``;
+    both routes' losses and Hungarian assignments on one float32 copy of a
+    step's outputs with one set of draws (``compare_routes``, the panoptic
+    slots); then one step on the batched route (K3 at the panoptic ids).
+    Returns the per-layer and the batched step's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+
+    cfg = pan_cfg(tree, ann)
+    m = cfg["model"]
+    t0 = time.perf_counter()
+    model.train()
+    check(model.img_backbone.with_cp, "pan_train: the image backbone is not with_cp")
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="off"),
+                              m["train_cfg"]["pts"])
+    check(loss_cfg.panoptic and loss_cfg.num_points == 50176, "pan_train: the loss config")
+    opt = build_optimizer_from_config(model, cfg, 28130)  # nuScenes' train samples
+    check(opt.grad_clip == 0.01, f"pan_train: grad clip {opt.grad_clip}")
+    dtype = getattr(torch, cfg["compute_dtype"])
+    step = build_train_step(model, opt, loss_cfg, device="cuda", compute_dtype=dtype)
+    batches = r101_batches(cfg, "train", 2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(0)
+    run = train_phase("pan_train", step, batches, PAN_TRAIN_LAUNCHES, 3, g)
+    for h in run["metrics"]:
+        check("point_mean_iou" not in h and h["unassigned_gt"] == 0.0 and h["loss_mask"] > 0,
+              f"pan_train: metrics {h}")
+    rec = {"phase": "pan_train", "config": "occformer_nusc_panoptic_r50_256x704",
+           "param_dtype": "float32", "autocast": cfg["compute_dtype"], "with_cp": True,
+           "route": "per-layer", "real_slots": [int((b["panoptic_ids"] >= 0).sum())
+                                                for b in batches],
+           "setup_s": setup_s, **run}
+    profile_and_reload(rec, "pan", model, opt, step, batches[0], PAN_TRAIN_LAUNCHES, g,
+                       forbid=("aten::grid_sampler_2d",))
+    free_memory()
+    rec["routes"] = compare_routes(model, batches[0], loss_cfg)
+    free_memory()
+    bstep = build_train_step(model, opt, dataclasses.replace(loss_cfg, mxu_readout="on"),
+                             device="cuda", compute_dtype=dtype)
+    secs, nb, rec["batched_peak_memory_bytes"], _, outs = main_path_run(
+        "pan batched step", lambda b: bstep(b, g), batches[1:], PAN_TRAIN_LAUNCHES_BATCHED, 1)
+    rec.update(batched_step_s=secs[0], batched_launches=nb,
+               batched_metrics={k: float(v) for k, v in outs[0].items()})
+    check(all(v == v and abs(v) != float("inf") for v in rec["batched_metrics"].values()),
+          f"pan batched step metrics {rec['batched_metrics']}")
+    emit(rec)
+    return run["launches"], nb
+
+
+def phase_pan_cli(tree, ann):
+    """The CLIs on the panoptic config at full width over the tree, as
+    subprocesses in a temporary work directory: tools.train to step 2 (the
+    config's ``evaluation.interval=999``: no evaluation), then tools.test
+    on step_2 over 2 samples: ``nuScenes_panoptic_PQ``, ``_SQ`` and
+    ``_RQ`` in its results line."""
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.fixtures import nuscenes_cfg_options
+
+    opts = nuscenes_cfg_options(load_config(PAN_CONFIG), tree, ann) + ["log_config.interval=1"]
+    work = tempfile.mkdtemp(prefix="occformer_pan_cli_")
+    rec = {"phase": "pan_cli", "config": "occformer_nusc_panoptic_r50_256x704"}
+    try:
+        out1, logs1, rec["train_to_2_s"] = cli_run(
+            "train", "--work-dir", work, "--max-steps", "2", options=opts, config=PAN_CONFIG)
+        check("training done at step 2" in out1, f"pan train to step 2:\n{out1[-2000:]}")
+        steps = [ln for ln in logs1 if "step" in ln]
+        check([ln["step"] for ln in steps] == [1, 2], f"pan steps {steps}")
+        for ln in steps:
+            check("point_mean_iou" not in ln and all(
+                v == v and abs(v) != float("inf") for k, v in ln.items() if k != "epoch"),
+                f"pan train CLI log {ln}")
+        rec["sec_per_iter"] = [ln["sec/iter"] for ln in steps]
+        rec["total_loss"] = [ln["total_loss"] for ln in steps]
+        rec["grad_norm"] = [ln.get("grad_norm") for ln in steps]
+        rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 if "kernel_launches" in ln]
+        check(all(n[k] > 0 for n in rec["train_launches"]
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+              f"pan train CLI launches {rec['train_launches']}")
+        out2, logs2, rec["test_s"] = cli_run(
+            "test", "--checkpoint", os.path.join(work, "ckpts", "step_2"), "--max-samples", "2",
+            options=opts, config=PAN_CONFIG)
+        timing, results = logs2[0], logs2[-1]
+        rec["test_sec_per_sample"] = timing["sec/sample"]
+        rec["test_launches"] = timing["kernel_launches"]
+        rec["test_results"] = {k: v for k, v in results.items()
+                               if "panoptic" in k or k == "nuScenes_lidarseg_mean"}
+        check(timing["samples"] == 2 and timing["kernel_launches"]["K2"] == 2,
+              f"pan test CLI: {timing}")
+        for k in ("nuScenes_panoptic_PQ", "nuScenes_panoptic_SQ", "nuScenes_panoptic_RQ"):
+            check(k in results and 0.0 <= results[k] <= 1.0, f"pan test CLI results {results}")
+        say(f"pan_cli: PQ {results['nuScenes_panoptic_PQ']} SQ "
+            f"{results['nuScenes_panoptic_SQ']} RQ {results['nuScenes_panoptic_RQ']}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit(rec)
@@ -3610,7 +3989,7 @@ def profile(run, outer, want, top=12, forbid=()):
             "port_kernels": port}
 
 
-def kernel_records(kern, probe, det, paths, kitti, r101):
+def kernel_records(kern, probe, det, paths, kitti, r101, pan):
     """One record per kernel path; ``paths`` maps each driven path (serve,
     train, train_batched, the pipeline-fed train steps and frames, the K4
     gate, the probe) to its launch counts, and
@@ -3629,7 +4008,12 @@ def kernel_records(kern, probe, det, paths, kitti, r101):
     path's shapes (``phase_r101_kernels``: K4 and K4-bwd at layer3's DCNv2,
     layer4's and the DepthNet's under ``layer4`` / ``depthnet``; S1 at the
     896 x 1600 frustum; the other kernels run at the flagship's shapes
-    there)."""
+    there), and under ``pan`` the kernel at the panoptic path's shapes
+    (``phase_pan_kernels``: K2's row-wide record and K2-bwd's segmented one
+    at the random fill of 100 slots, K2's narrow record at the 100-slot GT
+    table (candidates; the matching points under ``matching``), K3 at the
+    panoptic ids (shared; per-slot under ``per_slot``); the other kernels
+    run at the flagship's shapes there)."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
     paths = {p: dict(n, **{"K1.scalar": n["K1"] - n["K1.row"],
@@ -3704,6 +4088,25 @@ def kernel_records(kern, probe, det, paths, kitti, r101):
                 out[name] = r
         return out
 
+    at_pan = {"K2.row": pan["K2_random_fill"],
+              "K2.scalar": dict(pan["K2_gt_table_candidates"],
+                                matching={k: pan["K2_gt_table_matching"][k]
+                                          for k in kitti_keys + ("device_ms",)
+                                          if k in pan["K2_gt_table_matching"]}),
+              "K2-bwd.segmented": pan["K2-bwd_random_fill"],
+              "K3": dict(pan["K3_shared"], per_slot={k: pan["K3_per_slot"][k]
+                                                     for k in kitti_keys + ("device_ms",)
+                                                     if k in pan["K3_per_slot"]})}
+
+    def at_panoptic(key):
+        if key in ("P1", "P2"):
+            return {"shapes": "not on this path"}
+        if key not in at_pan:
+            return {"shapes": "the flagship's (the same model but for 150 queries)"}
+        r = at_pan[key]
+        return {k: r[k] for k in kitti_keys + ("device_ms", "library_device_ms", "matching",
+                                               "per_slot") if k in r}
+
     return [{"name": name + (f".{path}" if path else ""), "path": path or None, "route": "cuda",
              "source": source, "replaces": replaces,
              "launches": sum(n[key] for n in paths.values()),
@@ -3716,7 +4119,7 @@ def kernel_records(kern, probe, det, paths, kitti, r101):
                                   "launch_floor_ms", "bound_with_floor_ms") if k in r},
              **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
                 if key in at_kitti else {}),
-             "r101": at_r101(key)}
+             "r101": at_r101(key), "pan": at_panoptic(key)}
             for name, path, key, source, replaces, r in rows]
 
 
@@ -3755,9 +4158,10 @@ def main():
 
     # the SemanticKITTI tree serves every KITTI phase; its kernels phase runs
     # beside the flagship's (late in a long process the profiler has dropped
-    # some runs' device events), the rest after the flagship's paths; so does
-    # the R101-DCN's, on a one-sample nuScenes tree of its own (its other
-    # phases use the data phase's)
+    # some runs' device events), the rest after the flagship's paths; so do
+    # the R101-DCN's and the panoptic one's, on a one-sample nuScenes tree
+    # with panoptic sidecars (their other phases use the data phase's tree,
+    # which has the sidecars too)
     from occformer_tpu_torch.data.fixtures import make_kitti_tree, make_nuscenes_tree
 
     kitti_root = tempfile.mkdtemp(prefix="occformer_kitti_")
@@ -3767,12 +4171,15 @@ def main():
         make_kitti_tree(kitti_root)
         wall["kitti_tree"] = time.perf_counter() - t
         t = time.perf_counter()
-        r101_ann = make_nuscenes_tree(r101_root, n_samples=1, n_points=34000, seed=0)
+        # with panoptic sidecars: pan_kernels reads its first frame's GT too
+        r101_ann = make_nuscenes_tree(r101_root, n_samples=1, n_points=34000, seed=0,
+                                      panoptic=True)
         wall["r101_tree"] = time.perf_counter() - t
         serve_n = timed("serve", phase_serve)
         kern = timed("kernels", phase_kernels)
         kitti_kern = timed("kitti_kernels", phase_kitti_kernels, kitti_root)
         r101_kern = timed("r101_kernels", phase_r101_kernels, r101_root, r101_ann)
+        pan_kern = timed("pan_kernels", phase_pan_kernels, r101_root, r101_ann)
         timed("tiny", phase_tiny)
         timed("tiny_train", phase_tiny_train, "off")
         timed("tiny_train_batched", phase_tiny_train, "on")
@@ -3789,15 +4196,22 @@ def main():
             r101_train_n = timed("r101_train", phase_r101_train, tree, ann, r101_model)
             del r101_model
             free_memory()
-            timed("r101_cli", phase_r101_cli, tree, ann)
+            pan_serve_n, pan_model = timed("pan_serve", phase_pan_serve, tree, ann)
+            pan_train_n, pan_batched_n = timed("pan_train", phase_pan_train, tree, ann,
+                                               pan_model)
+            del pan_model
+            free_memory()
+            soak_n = timed("soak", phase_soak)
+            learn_n = timed("learn", phase_learn)
+            ddp_n = timed("ddp", phase_ddp)
+            kitti_serve_n = timed("kitti_serve", phase_kitti_serve, kitti_root)
+            kitti_train_n = timed("kitti_train", phase_kitti_train, kitti_root)
+            # the three configurations' CLI phases run side by side: each is
+            # two CLI processes, most of whose time is start-up on the host
+            timed("r101_pan_kitti_cli", side_by_side, (phase_r101_cli, tree, ann),
+                  (phase_pan_cli, tree, ann), (phase_kitti_cli, kitti_root))
         finally:
             shutil.rmtree(tree, ignore_errors=True)
-        soak_n = timed("soak", phase_soak)
-        learn_n = timed("learn", phase_learn)
-        ddp_n = timed("ddp", phase_ddp)
-        kitti_serve_n = timed("kitti_serve", phase_kitti_serve, kitti_root)
-        kitti_train_n = timed("kitti_train", phase_kitti_train, kitti_root)
-        timed("kitti_cli", phase_kitti_cli, kitti_root)
     finally:
         shutil.rmtree(kitti_root, ignore_errors=True)
         shutil.rmtree(r101_root, ignore_errors=True)
@@ -3814,7 +4228,9 @@ def main():
         "k4_gate": kern["K4_gate"]["launches"], "probe": probe["launches"],
         "resume": resume_n, "soak": soak_n, "learn": learn_n, "ddp": ddp_n,
         "kitti_serve": kitti_serve_n, "kitti_train": kitti_train_n,
-        "r101_serve": r101_serve_n, "r101_train": r101_train_n}, kitti_kern, r101_kern)})
+        "r101_serve": r101_serve_n, "r101_train": r101_train_n,
+        "pan_serve": pan_serve_n, "pan_train": pan_train_n,
+        "pan_train_batched": pan_batched_n}, kitti_kern, r101_kern, pan_kern)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

@@ -21,6 +21,13 @@ on a real frame of the same sizes; its scores mean nothing.
   kept, in scan order, with 2 cm of range noise.  Labels follow what was
   hit (driveable surface near the car, sidewalk and terrain further out,
   car and truck boxes, man-made and vegetation walls) and 2% are noise (0).
+* **Panoptic labels** (``panoptic=True``): beside each lidarseg file, the
+  nuScenes panoptic sidecar ``panoptic/v1.0-trainval/<token>_panoptic.npz``
+  (uint16 ``data``, ``class * 1000 + instance`` over the same 32 classes):
+  the returns of the k-th box are instance k of its class, every other
+  return (ground, walls, noise) instance 0.  Its class part is the lidarseg
+  file's label of each point.  The sidecars draw nothing from the seed, so
+  the rest of the tree is the same with or without them.
 * **Images** are smooth, as photos are: a vertical gradient (sky above
   the horizon, road below), random colour fields at three scales
   (9 x 16, 57 x 100 and 225 x 400 cells, bicubically upsampled) and a
@@ -75,7 +82,8 @@ def _boxes(rng, n=10):
 
 
 def _sweep(rng, n_points):
-    """One ray-cast sweep: (points [n_points, 5] float32, labels uint8)."""
+    """One ray-cast sweep: (points [n_points, 5] float32, labels uint8,
+    instances int64: k for a return of the k-th box, else 0)."""
     boxes, box_labels = _boxes(rng)
     wall_phase = rng.uniform(0, 2 * np.pi, 3)
     n_az = int(np.ceil(n_points / len(BEAMS) * 1.5))
@@ -89,6 +97,7 @@ def _sweep(rng, n_points):
         horiz = np.hypot(d[:, 0], d[:, 1])
         a = az_g.reshape(-1)
         label = np.zeros(len(d), np.uint8)
+        inst = np.zeros(len(d), np.int64)
         # the ground
         down = d[:, 2] < 0
         t = np.where(down, -SENSOR_HEIGHT / np.where(down, d[:, 2], -1.0), np.inf)
@@ -103,7 +112,7 @@ def _sweep(rng, n_points):
         label = np.where(hit_wall, wall_label, label)
         # the vehicles: slab test per box
         inv = 1.0 / np.where(np.abs(d) > 1e-12, d, 1e-12)
-        for box, box_label in zip(boxes, box_labels):
+        for k, (box, box_label) in enumerate(zip(boxes, box_labels), 1):
             t0 = (box[:3] - o) * inv
             t1 = (box[3:] - o) * inv
             near = np.minimum(t0, t1).max(1)
@@ -111,6 +120,7 @@ def _sweep(rng, n_points):
             hit = (near <= far) & (near > 0) & (near < t)
             t = np.where(hit, near, t)
             label = np.where(hit, box_label, label)
+            inst = np.where(hit, k, inst)
         ground = np.isfinite(t) & (label == 0)
         r_ground = t * horiz
         label = np.where(ground, np.where(r_ground < 15, GROUND_NEAR,
@@ -125,10 +135,11 @@ def _sweep(rng, n_points):
     xyz[:, 2] = np.maximum(xyz[:, 2], 0.0)
     labels = label[keep].astype(np.uint8)
     labels[rng.rand(n_points) < 0.02] = 0
+    instances = np.where(labels > 0, inst[keep], 0)
     ring = np.broadcast_to(np.arange(len(BEAMS)), az_g.shape).reshape(-1)[keep]
     pts = np.stack([xyz[:, 0], xyz[:, 1], xyz[:, 2], rng.uniform(0, 100, n_points),
                     ring.astype(np.float64)], 1).astype(np.float32)
-    return pts, labels
+    return pts, labels, instances
 
 
 def _image(rng, size=(900, 1600)):
@@ -150,10 +161,12 @@ def _image(rng, size=(900, 1600)):
 
 
 def make_nuscenes_tree(root: str, n_samples: int = 8, n_points: int = 34000, seed: int = 0,
-                       rig: Optional[Sequence] = None, image_size=(900, 1600)) -> str:
+                       rig: Optional[Sequence] = None, image_size=(900, 1600),
+                       panoptic: bool = False) -> str:
     """Write ``n_samples`` samples under ``root`` in the nuScenes layout
     (``samples/CAM_*/<token>.jpg``, ``samples/LIDAR_TOP/<token>.bin``,
-    ``lidarseg/v1.0-trainval/<token>_lidarseg.bin``) and one info pickle of
+    ``lidarseg/v1.0-trainval/<token>_lidarseg.bin`` and, with ``panoptic``,
+    ``panoptic/v1.0-trainval/<token>_panoptic.npz``) and one info pickle of
     them all, paths under ``./data/nuscenes`` as the nuScenes tools write
     them (the dataset maps them onto its ``data_root``).  Returns the info
     pickle's path: the configs' ``ann_file``, with ``data_root`` = ``root``
@@ -166,16 +179,21 @@ def make_nuscenes_tree(root: str, n_samples: int = 8, n_points: int = 34000, see
     poses = _camera_poses(rig)
     H, W = image_size
     for d in [os.path.join("samples", name) for name, *_ in poses] + [
-            os.path.join("samples", "LIDAR_TOP"), os.path.join("lidarseg", "v1.0-trainval")]:
+            os.path.join("samples", "LIDAR_TOP"), os.path.join("lidarseg", "v1.0-trainval")] + (
+            [os.path.join("panoptic", "v1.0-trainval")] if panoptic else []):
         os.makedirs(os.path.join(root, d), exist_ok=True)
     infos = []
     for i in range(n_samples):
         token = f"sample{i:04d}"
         lidar_rel = f"samples/LIDAR_TOP/{token}.bin"
         seg_rel = f"lidarseg/v1.0-trainval/{token}_lidarseg.bin"
-        pts, labels = _sweep(rng, n_points)
+        pts, labels, instances = _sweep(rng, n_points)
         pts.tofile(os.path.join(root, lidar_rel))
         labels.tofile(os.path.join(root, seg_rel))
+        if panoptic:
+            np.savez_compressed(
+                os.path.join(root, "panoptic", "v1.0-trainval", f"{token}_panoptic.npz"),
+                data=(labels.astype(np.int64) * 1000 + instances).astype(np.uint16))
         cams = {}
         for name, rot, pos, f in poses:
             img_rel = f"samples/{name}/{token}.jpg"
@@ -201,7 +219,8 @@ def nuscenes_cfg_options(cfg, root: str, ann_file: str):
     for split in ("train", "val", "test"):
         opts += [f"data.{split}.data_root={root}", f"data.{split}.ann_file={ann_file}"]
         for i, step in enumerate(cfg["data"][split]["pipeline"]):
-            if step["type"] == "LoadNuscOccupancyAnnotations":
+            if step["type"] in ("LoadNuscOccupancyAnnotations",
+                                "LoadNuscPanopticOccupancyAnnotations"):
                 opts.append(f"data.{split}.pipeline.{i}.data_root={root}")
     return opts
 

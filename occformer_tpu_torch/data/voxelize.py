@@ -8,7 +8,9 @@ the reference's numba kernel, loading_nusc_occ.py:122-138);
 (lexsort by (voxel, -count, label), first per voxel), the plain version with
 the same tie-breaking (smallest label id wins).  ``LoadSemKittiAnnotation``
 loads SemanticKITTI's preprocessed voxel labels and flips them about the
-range's centre (a 4x4 BDA).  The panoptic loader waits for its slice.
+range's centre (a 4x4 BDA).  ``LoadNuscPanopticOccupancyAnnotations`` loads
+the panoptic labels (``class * 1000 + instance``) and votes them into the
+grid with noise suppressed.
 """
 from __future__ import annotations
 
@@ -279,5 +281,88 @@ class LoadSemKittiAnnotation:
             bda = np.eye(4, dtype=np.float32)
             gt_occ = np.asarray(gt_occ).astype(np.int64)
         results["gt_occ"] = gt_occ
+        results["bda"] = bda
+        return results
+
+
+@PIPELINES.register_module()
+class LoadNuscPanopticOccupancyAnnotations:
+    """Panoptic labels ``class * 1000 + instance`` from the sample's ``.npz``
+    sidecar (``panoptic/<version>/<token>_panoptic.npz``, beside the
+    lidarseg file), the learning map applied to the class part, BDA,
+    majority voting with noise suppressed (reference
+    loading_nusc_panoptic_occ.py:33-170): noise (0) becomes 65535, empty
+    voxels 0.  Also the padded table of the sample's panoptic ids the loss
+    reads (``losses/mask2former_loss.py:preprocess_panoptic_gt``):
+    ``panoptic_ids [max_instances]``, the first ``max_instances`` ids of the
+    grid in ascending order (stuff ``class * 1000`` included), -1 after
+    them; with more segments than that the largest ids (the stuff classes
+    11-16) are dropped, as in the JAX package.  The BDA draws come from
+    ``step_rng``: the sample's RandomState, or the step's own where ``seed``
+    gives one."""
+
+    def __init__(self, data_root="data/nuscenes", is_train=False,
+                 is_test_submit=False, grid_size=None, point_cloud_range=None,
+                 bda_aug_conf=None, unoccupied_id=17, max_instances=100,
+                 cls_metas=None, seed: Optional[int] = None):
+        self.data_root = data_root
+        self.is_train = is_train
+        self.is_test_submit = is_test_submit
+        self.grid_size = np.asarray(grid_size)
+        self.point_cloud_range = np.asarray(point_cloud_range, np.float64)
+        self.bda_aug_conf = bda_aug_conf
+        self.unoccupied_id = unoccupied_id
+        self.max_instances = max_instances
+        self.rng = None if seed is None else np.random.RandomState(seed)
+        self.learning_map = NUSC_LEARNING_MAP
+
+    def __call__(self, results: Dict) -> Dict:
+        points = np.fromfile(results["pts_filename"], dtype=np.float32).reshape(-1, 5)[:, :3]
+        if self.is_test_submit:
+            results["bda"] = np.eye(3, dtype=np.float32)
+            results["points_occ"] = np.concatenate(
+                [points, np.zeros((points.shape[0], 1), np.float32)], axis=-1)
+            results["points_lidar"] = points
+            return results
+
+        pan_file = results["lidarseg"].replace("lidarseg", "panoptic").replace(".bin", ".npz")
+        panoptic = np.load(os.path.join(self.data_root, pan_file))["data"].astype(np.int64)
+        semantic = panoptic // 1000
+        # the class part through the learning map, the instance part kept
+        for sem_id in np.unique(semantic):
+            m = semantic == sem_id
+            mapped = self.learning_map[int(sem_id)]
+            panoptic[m] = mapped * 1000 + (panoptic[m] - sem_id * 1000)
+            semantic[m] = mapped
+
+        if self.is_train:
+            rot, scale, fdx, fdy, fdz = sample_3d_augmentation(self.bda_aug_conf,
+                                                               step_rng(self, results))
+            bda = bda_matrix(rot, fdx, fdy, fdz)
+        else:
+            bda = np.eye(3, dtype=np.float32)
+        points = points @ bda.T
+        lidarseg = np.concatenate(
+            [points, panoptic.reshape(-1, 1).astype(np.float32)], axis=-1)
+
+        empty_id = self.unoccupied_id * 1000
+        vox = majority_vote_voxelize(
+            points, panoptic, self.grid_size, self.point_cloud_range,
+            empty_id=empty_id, label_space=65536, suppress_zero=True,
+        ).astype(np.int64)
+        vox[vox == 0] = 65535        # noise: ignored
+        vox[vox == empty_id] = 0     # empty: 0
+
+        # the padded id table: static shapes for the loss's GT slots
+        ids = np.unique(vox)
+        ids = ids[(ids > 0) & (ids < self.unoccupied_id * 1000)]
+        ids = ids[: self.max_instances]
+        pad = np.full(self.max_instances, -1, np.int64)
+        pad[: len(ids)] = ids
+
+        results["gt_occ"] = vox
+        results["panoptic_ids"] = pad
+        results["points_occ"] = lidarseg.astype(np.float32)
+        results["points_lidar"] = points.astype(np.float32)
         results["bda"] = bda
         return results

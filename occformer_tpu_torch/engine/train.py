@@ -1,4 +1,5 @@
-"""Training step of the flagship and of the SemanticKITTI configuration.
+"""Training step of the nuScenes configurations (semantic and panoptic) and
+of the SemanticKITTI one.
 
 Port of ``occformer_tpu/engine/train.py`` (``build_loss_cfg``,
 ``build_train_step`` with gradient accumulation, the train-time point mIoU).
@@ -41,17 +42,18 @@ def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
     one).  The SemanticKITTI head samples GT voxels by class frequency
     (``kitti_sample_weights``) and reads with ``align_corners=True``; its
     class weights are 1/log(frequency) with the config's background weight
-    last (reference mask2former_occ.py:133-150).  The JAX package's other
-    TPU knobs (``gt_chunks``, ``point_chunks``, ``feature_readout``,
-    ``shared_candidate_readout``, ``gt_label_kernel``) are not read: the port
-    always reads the LiDAR branch's features with shared candidates, and its
-    batched route always reads the GT with K3; none of them changes the
-    function."""
+    last (reference mask2former_occ.py:133-150).  The panoptic head
+    (``Mask2FormerNuscPanopticOccHead``) sets ``panoptic``: its GT slots are
+    the batch's panoptic segments.  The JAX package's other TPU knobs
+    (``gt_chunks``, ``point_chunks``, ``feature_readout``,
+    ``shared_candidate_readout``, ``gt_label_kernel``; the panoptic config
+    sets ``feature_readout=True`` and ``point_chunks=8``) are not read: the
+    port always reads the LiDAR branch's features with shared candidates,
+    and its batched route always reads the GT with K3; none of them changes
+    the function."""
     head_cfg = dict(head_cfg)
     train_cfg = dict(train_cfg or {})
     num_classes = head_cfg.get("num_occupancy_classes", 20)
-    if head_cfg.get("type") == "Mask2FormerNuscPanopticOccHead":
-        raise NotImplementedError("the panoptic loss is not ported yet")
     is_nusc = head_cfg.get("type", "").startswith("Mask2FormerNusc")
     loss_cls = dict(head_cfg.get("loss_cls") or {})
     if is_nusc:
@@ -80,6 +82,7 @@ def build_loss_cfg(head_cfg: Dict, train_cfg: Optional[Dict]) -> MaskLossConfig:
         use_lidar_points=is_nusc,
         sample_weights=sample_weights,
         sample_weight_gamma=head_cfg.get("sample_weight_gamma", 0.25),
+        panoptic=head_cfg.get("type") == "Mask2FormerNuscPanopticOccHead",
     )
 
 
@@ -143,10 +146,12 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
     ``batch``: numpy arrays or tensors, the model's inputs plus ``gt_occ``
     [B, X, Y, Z], ``gt_depth`` [B, N, H, W] and, for the LiDAR loss branch,
     ``lidar_xyz`` [B, P, 3] in [0, 1], ``lidar_valid`` [B, P] and, for the
-    point mIoU, ``lidar_label``.
+    point mIoU, ``lidar_label``; for the panoptic head ``panoptic_ids`` [B,
+    S], each sample's padded table of panoptic ids (JAX :171-176).
     ``metrics``: every loss (``d{i}.loss_*``, ``loss_*``, ``loss_depth``),
     ``total_loss`` (the sum of the keys holding ``loss``), ``grad_norm``,
-    ``unassigned_gt`` and ``point_mean_iou``, as device scalars.  ``draws``
+    ``unassigned_gt`` and, but for the panoptic head, whose LiDAR labels are
+    panoptic ids (JAX :197-200), ``point_mean_iou``, as device scalars.  ``draws``
     replaces the loss's draws (``make_loss_draws``) with given ones, e.g.
     the JAX package's in a parity test: one dict, or a list with one dict
     per micro-batch (the grid branch draws from ``generator`` layer by
@@ -204,12 +209,14 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
             out = model(batch)
         with record_function("stage:loss"):
             L = out["cls_preds"].shape[0]
+            ids = batch["panoptic_ids"] if loss_cfg.panoptic else None
             if draws is None and loss_cfg.use_lidar_points:
-                draws = make_loss_draws(generator, loss_cfg, batch["lidar_valid"], L)
+                draws = make_loss_draws(generator, loss_cfg, batch["lidar_valid"], L,
+                                        None if ids is None else ids.shape[1])
             losses = mask2former_loss(
                 out["cls_preds"], out["mask_embeds"], out["mask_feature"],
                 batch["gt_occ"], loss_cfg, batch.get("lidar_xyz"), batch.get("lidar_valid"),
-                draws, generator=generator)
+                draws, generator=generator, panoptic_ids=ids)
             losses["loss_depth"] = depth_bce_loss(
                 batch["gt_depth"], out["depth_prob"], vt.grid_config, vt.downsample,
                 vt.loss_depth_weight)
@@ -218,7 +225,7 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
             total.backward()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
-        if "lidar_label" in batch:
+        if "lidar_label" in batch and not loss_cfg.panoptic:
             metrics["point_mean_iou"] = train_point_miou(
                 {k: v.detach() for k, v in out.items()}, batch, loss_cfg.num_classes)
         return metrics

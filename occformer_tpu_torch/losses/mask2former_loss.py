@@ -43,6 +43,17 @@ Every point readout goes through K2 (``ops/trilerp.py``) on the card.  On
 the CPU both branches and both routes run the plain versions.
 
 * GT is one mask slot per class (``preprocess_gt``), a validity bit per slot.
+  The panoptic head's GT is one slot per panoptic segment instead
+  (``preprocess_panoptic_gt``: voxel ids ``class * 1000 + instance``, the
+  slots the batch's padded ``panoptic_ids`` table, which the loss takes and
+  turns into the slots JAX passes as ``gt_override``).  Both routes read
+  these slots as they read class slots: the per-layer route their masks as
+  the GT table, the batched route the ids through K3 (slot s is the
+  indicator of ``gt_occ == panoptic_ids[s]``, whose trilinear read is K3's
+  ``sum_k w_k * (label_k == id)``).  JAX reads panoptic GT through one-hot
+  mask volumes instead, because its label kernel keeps ids in a bf16 slab,
+  exact only under 256 (JAX :1018); the port's K3 compares int32 ids, so
+  ids of 1000 and above, and the padding id -1, read exactly.
 * Matching is detached: per (layer, sample) the cost at the matching points,
   then scipy's ``linear_sum_assignment`` on the host for all layers at once.
 * The LiDAR branch's random draws come in as an argument
@@ -106,6 +117,9 @@ class MaskLossConfig:
     # sample_weight_gamma
     sample_weights: Optional[Tuple[float, ...]] = None
     sample_weight_gamma: float = 0.25
+    # the panoptic head: GT slots are panoptic segments (preprocess_panoptic_gt)
+    # and the train step computes no point mIoU
+    panoptic: bool = False
 
     def __post_init__(self):
         if self.mxu_readout not in MXU_READOUT:
@@ -144,10 +158,30 @@ def preprocess_gt(gt_occ: torch.Tensor, num_classes: int):
     return masks, classes.expand(B, num_classes), valid
 
 
+def preprocess_panoptic_gt(gt_occ: torch.Tensor, panoptic_ids: torch.Tensor,
+                           num_classes: int):
+    """Panoptic GT slots (JAX ``preprocess_panoptic_gt``, reference
+    base/mmdet_utils.py:383-424): ``gt_occ [B, X, Y, Z]`` voxel ids
+    ``class * 1000 + instance`` (65535 noise), ``panoptic_ids [B, S]`` the
+    batch's padded id table (-1 an empty slot) -> (masks [B, S, X, Y, Z]
+    bool, labels [B, S] int64, valid [B, S] bool).  Slot s is ``gt_occ ==
+    panoptic_ids[:, s]``, its label ``max(id // 1000, 0)``; it is valid iff
+    its id is not negative, its label is a class and its mask is not
+    empty.  Noise falls in no slot."""
+    ids = panoptic_ids.to(gt_occ.dtype)
+    masks = gt_occ[:, None] == ids[:, :, None, None, None]
+    labels = torch.div(panoptic_ids.long(), 1000, rounding_mode="floor")
+    valid = (panoptic_ids >= 0) & (labels < num_classes) & masks.flatten(2).any(-1)
+    return masks, labels.clamp(min=0), valid
+
+
 def make_loss_draws(generator: torch.Generator, cfg: MaskLossConfig,
-                    lidar_valid: torch.Tensor, num_layers: int) -> Dict[str, torch.Tensor]:
+                    lidar_valid: torch.Tensor, num_layers: int,
+                    num_slots: Optional[int] = None) -> Dict[str, torch.Tensor]:
     """Every random draw of one loss call, from ``generator`` (on its device),
-    stacked over [layer, sample]:
+    stacked over [layer, sample], for ``num_slots`` GT slots (G, by default
+    ``cfg.num_classes``; the panoptic id table's width for the panoptic
+    head):
 
     * ``match_perm`` [L, B, Pm // 2]: Gumbel top-k of ``lidar_valid`` (the
       matching LiDAR points), ``match_rand1`` [L, B, Pm // 2, 3] (their fill
@@ -165,7 +199,7 @@ def make_loss_draws(generator: torch.Generator, cfg: MaskLossConfig,
     B, P = lidar_valid.shape
     rows = global_rows(B)
     Bg = B * world_size()
-    G = cfg.num_classes
+    G = num_slots or cfg.num_classes
     n_match = cfg.num_match_points
     k1 = n_match // 2
     n_cand = min(cfg.num_candidates, P)
@@ -361,16 +395,17 @@ def _slot_volumes(emb, feature, dtype):
     return vol.reshape(L * B, X, Y, Z, K).contiguous()
 
 
-def _gt_reader(gt_occ, gt_masks, gt_labels, num_classes, L):
+def _gt_reader(gt_occ, gt_masks, slot_ids, L):
     """``read_gt(points)``: [L, B, S, 3] shared or [L, B, G, P, 3] per-slot
-    points -> [L, B, G, S] or [L, B, G, P] soft GT masks, detached.  While
-    the slots are class ids (``num_classes < 256``, JAX's gate :1018) the
-    label gather (K3) reads the label grid; else trilinear reads (K2) of the
+    points -> [L, B, G, S] or [L, B, G, P] soft GT masks, detached.  Where
+    each slot is one id of ``gt_occ`` (``slot_ids [B, G]``: the class ids
+    while ``num_classes < 256``, JAX's gate :1018, or the panoptic ids) the
+    label gather (K3) reads the id grid; else trilinear reads (K2) of the
     one-hot masks, one per layer or (layer, sample)."""
     B = gt_occ.shape[0]
-    if num_classes < 256:
+    if slot_ids is not None:
         id_grid = gt_occ.to(torch.int32).contiguous()
-        slot_ids = gt_labels.to(torch.int32).contiguous()
+        slot_ids = slot_ids.to(torch.int32).contiguous()
 
         def read_gt(points):
             out = sample_id_masks(id_grid, slot_ids, points.reshape(L * B, *points.shape[2:]),
@@ -616,23 +651,34 @@ def _grid_prepare(cls_preds, gt_occ, cfg, draws, generator):
             _grid_drawer(draws, generator, gt_occ.shape[0], dev))
 
 
-def _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws):
-    """What both routes and both phases read: the GT slots, the feature,
-    the draws on the loss's device and the loss points."""
+def _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws,
+             panoptic_ids):
+    """What both routes and both phases read: the GT slots (one per panoptic
+    id, else one per class) and the ids that name them in ``gt_occ`` (None:
+    read them as one-hot masks), the feature, the draws on the loss's device
+    and the loss points."""
     dev = cls_preds.device
     draws = {k: v.to(dev) for k, v in draws.items()}
-    gt_masks, gt_labels, gt_valid = preprocess_gt(gt_occ, cfg.num_classes)
+    if panoptic_ids is not None:
+        gt_masks, gt_labels, gt_valid = preprocess_panoptic_gt(gt_occ, panoptic_ids,
+                                                               cfg.num_classes)
+        # an invalid slot's label may lie past the classes (a panoptic id's);
+        # every table the labels index ends at the background class
+        gt_labels = gt_labels.clamp(max=cfg.num_classes)
+        slot_ids = panoptic_ids
+    else:
+        gt_masks, gt_labels, gt_valid = preprocess_gt(gt_occ, cfg.num_classes)
+        slot_ids = gt_labels if cfg.num_classes < 256 else None
     match_pts, cand_pts = _loss_points(draws, lidar_xyz, lidar_valid.bool())
     return dict(gt_masks=gt_masks, gt_labels=gt_labels, gt_valid=gt_valid,
-                feature=mask_feature.contiguous(), match_pts=match_pts, cand_pts=cand_pts,
-                rand_fill=draws["rand_fill"])
+                slot_ids=slot_ids, feature=mask_feature.contiguous(), match_pts=match_pts,
+                cand_pts=cand_pts, rand_fill=draws["rand_fill"])
 
 
 def _assign(cfg, p, cls_preds, mask_embeds, gt_occ):
     """(assignments [L, B, G], the route's GT reader or table)."""
     if cfg.batched_readout:
-        read_gt = _gt_reader(gt_occ, p["gt_masks"], p["gt_labels"], cfg.num_classes,
-                             cls_preds.shape[0])
+        read_gt = _gt_reader(gt_occ, p["gt_masks"], p["slot_ids"], cls_preds.shape[0])
         return _batched_assign(cfg, cls_preds, mask_embeds, p["feature"], read_gt,
                                p["gt_labels"], p["gt_valid"], p["match_pts"]), read_gt
     gt_table = p["gt_masks"].permute(0, 2, 3, 4, 1).contiguous()  # [B, X, Y, Z, G]
@@ -640,18 +686,26 @@ def _assign(cfg, p, cls_preds, mask_embeds, gt_occ):
                              p["gt_labels"], p["gt_valid"], p["match_pts"]), gt_table
 
 
+def _check_panoptic(cfg, panoptic_ids):
+    if panoptic_ids is not None and not cfg.use_lidar_points:
+        raise ValueError("the panoptic slots need the LiDAR branch")
+
+
 def match_assignments(cls_preds, mask_embeds, mask_feature, gt_occ, cfg: MaskLossConfig,
                       lidar_xyz=None, lidar_valid=None, draws=None,
-                      generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                      generator: Optional[torch.Generator] = None,
+                      panoptic_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The Hungarian assignment [L, B, G] (query per GT slot, -1 for invalid
     slots) that ``mask2former_loss`` computes on ``cfg``'s branch and route
     from the same arguments."""
+    _check_panoptic(cfg, panoptic_ids)
     if not cfg.use_lidar_points:
         gt_labels, gt_valid, sw, draw = _grid_prepare(cls_preds, gt_occ, cfg, draws,
                                                       generator)
         return _grid_assign(cfg, cls_preds, mask_embeds, mask_feature.contiguous(), gt_occ,
                             gt_labels, gt_valid, sw, draw)
-    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws)
+    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws,
+                 panoptic_ids)
     return _assign(cfg, p, cls_preds, mask_embeds, gt_occ)[0]
 
 
@@ -665,6 +719,7 @@ def mask2former_loss(
     lidar_valid: Optional[torch.Tensor] = None,  # [B, P] bool
     draws: Optional[Dict[str, torch.Tensor]] = None,
     generator: Optional[torch.Generator] = None,
+    panoptic_ids: Optional[torch.Tensor] = None,  # [B, S] the panoptic head's
 ) -> Dict[str, torch.Tensor]:
     """Deep-supervision loss over all decoder layers: ``d{i}.loss_*`` for the
     intermediate layers, ``loss_*`` for the last, and the metric
@@ -673,9 +728,15 @@ def mask2former_loss(
     (``make_loss_draws``) and ``cfg.mxu_readout`` picks its route; the grid
     branch draws from ``generator`` unless ``draws`` holds its Gumbel noise
     (``"match"`` [L, B, N], ``"cand"`` and ``"fill"`` [L, B, G, N] over the
-    N voxels of the GT grid)."""
+    N voxels of the GT grid).
+
+    ``panoptic_ids`` (the panoptic head's padded id table [B, S]; the LiDAR
+    branch) replaces the class slots with ``preprocess_panoptic_gt``'s, the
+    GT JAX passes as ``gt_override``; the batched route reads them through
+    K3 at these ids."""
     class_weight = torch.tensor(cfg.class_weight, dtype=torch.float32,
                                 device=cls_preds.device)
+    _check_panoptic(cfg, panoptic_ids)
     if not cfg.use_lidar_points:
         feature = mask_feature.contiguous()
         gt_labels, gt_valid, sw, draw = _grid_prepare(cls_preds, gt_occ, cfg, draws,
@@ -684,7 +745,8 @@ def mask2former_loss(
                                gt_valid, sw, draw)
         return _grid_loss(cfg, cls_preds, mask_embeds, feature, gt_occ, gt_labels, gt_valid,
                           assigns, sw, class_weight, draw)
-    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws)
+    p = _prepare(cls_preds, mask_feature, gt_occ, cfg, lidar_xyz, lidar_valid, draws,
+                 panoptic_ids)
     assigns, gt = _assign(cfg, p, cls_preds, mask_embeds, gt_occ)
     if cfg.batched_readout:
         return _batched_loss(cfg, cls_preds, mask_embeds, p["feature"], gt, p["gt_labels"],

@@ -11,7 +11,8 @@ frozen image stem
 (``frozen_stages``), as the JAX package's ``train=True`` does.
 
 ``translate_cfg`` maps a component's ``type`` straight to its class and
-picks the keys the port uses (for the image ResNet also the R101-DCN's
+picks the keys the port uses (for the panoptic head its ``stuff_indices``
+and ``thing_indices``; for the image ResNet also the R101-DCN's
 ``style``, ``dcn``, ``stage_with_dcn`` and ``with_cp``; its
 ``norm_cfg.requires_grad=False`` is the optimizer's freeze,
 ``engine/optim.py:backbone_freeze_mask``).  The shared configs also carry TPU-only knobs
@@ -34,12 +35,20 @@ from .deform_attn import MultiScaleDeformableAttention3D
 from .layers import MultiheadAttention
 from .lss import ViewTransformerLiftSplatShootVoxel
 from .efficientnet import CustomEfficientNet
-from .mask2former_head import Mask2FormerNuscOccHead, Mask2FormerOccHead
+from .mask2former_head import (Mask2FormerNuscOccHead, Mask2FormerNuscPanopticOccHead,
+                               Mask2FormerOccHead)
 from .occnet import OccupancyEncoder
 from .pixel_decoder import MSDeformAttnPixelDecoder3D
 from .resnet import ResNet
 from .second_fpn import SECONDFPN
 from .swin import WindowMSA
+
+# the heads by config type; they share one decoder (the panoptic head also
+# keeps its stuff and thing classes)
+HEADS = {"Mask2FormerOccHead": Mask2FormerOccHead,
+         "Mask2FormerNuscOccHead": Mask2FormerNuscOccHead,
+         "Mask2FormerNuscPanopticOccHead": Mask2FormerNuscPanopticOccHead}
+
 
 def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
     """Map an mmdet-style component config onto a port class + kwargs."""
@@ -99,20 +108,23 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
             feedforward_channels=layers.get("feedforward_channels"),
             pos_num_feats=int(cfg.get("positional_encoding", {}).get("num_feats", 0)) or None,
             num_groups=(cfg.get("norm_cfg") or {}).get("num_groups", 32))
-    if t in ("Mask2FormerOccHead", "Mask2FormerNuscOccHead"):
+    if t in HEADS:
         if not cfg.get("pooling_attn_mask", True):
             raise NotImplementedError("trilinear attention masks are not ported yet")
         dec = cfg.get("transformer_decoder", {}) or {}
         layers = dec.get("transformerlayers", {}) or {}
         attn = layers.get("attn_cfgs", {}) or {}
-        cls = Mask2FormerOccHead if t == "Mask2FormerOccHead" else Mask2FormerNuscOccHead
-        return cls, dict(
+        kwargs = dict(
             feat_channels=cfg["feat_channels"], out_channels=cfg["out_channels"],
             num_occupancy_classes=cfg.get("num_occupancy_classes", 20),
             num_queries=cfg.get("num_queries", 100), num_heads=attn.get("num_heads", 8),
             num_decoder_layers=dec.get("num_layers", 9),
             feedforward_channels=layers.get("feedforward_channels"),
             pos_num_feats=int(cfg.get("positional_encoding", {}).get("num_feats", 0)) or None)
+        if t == "Mask2FormerNuscPanopticOccHead":
+            kwargs.update(stuff_indices=cfg.get("stuff_indices"),
+                          thing_indices=cfg.get("thing_indices"))
+        return HEADS[t], kwargs
     raise KeyError(f"no translation for component type {t}")
 
 

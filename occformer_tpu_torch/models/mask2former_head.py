@@ -167,3 +167,19 @@ class Mask2FormerOccHead(nn.Module):
 
 class Mask2FormerNuscOccHead(Mask2FormerOccHead):
     """The nuScenes head: the same decoder, supervised at LiDAR points."""
+
+
+class Mask2FormerNuscPanopticOccHead(Mask2FormerNuscOccHead):
+    """The panoptic head (reference mask2former_nusc_panoptic_occ.py:25-835):
+    the nuScenes decoder, with more queries in its config (150).  What
+    differs lives outside it: the GT slots are panoptic segments
+    (``losses/mask2former_loss.py:preprocess_panoptic_gt``) and serving
+    formats the queries into instances on the host
+    (``utils/panoptic.py:format_panoptic_results``).  ``stuff_indices`` and
+    ``thing_indices`` are kept for that formatting, as JAX keeps them."""
+
+    def __init__(self, *args, stuff_indices: Optional[Sequence[int]] = None,
+                 thing_indices: Optional[Sequence[int]] = None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.stuff_indices = tuple(stuff_indices or ())
+        self.thing_indices = tuple(thing_indices or ())

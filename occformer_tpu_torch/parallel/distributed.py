@@ -111,14 +111,16 @@ def host_allreduce_sum(state: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
     counts over its shard of the split, and the counters are summed before
     the metrics are derived.  The identity for one process.  Arrays travel
     in their own dtype, so int64 / float64 counters past 2**31 stay exact
-    (the JAX package sends them as uint32 pairs, ``mesh.py:67-104``)."""
+    (the JAX package sends them as uint32 pairs, ``mesh.py:67-104``).  The
+    caller's arrays are left as they were (under gloo a tensor made from
+    them would share their memory, and the sum lands in place)."""
     if world_size() == 1:
         return state
     dev = _device()
     out = {}
     for k in sorted(state):  # one order on every rank
         v = np.asarray(state[k])
-        t = torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+        t = torch.from_numpy(np.array(v, order="C", copy=True)).to(dev)
         dist.all_reduce(t)
         out[k] = t.cpu().numpy().reshape(v.shape).astype(v.dtype, copy=False)
     return out

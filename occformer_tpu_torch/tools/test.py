@@ -24,7 +24,10 @@ of the port, the IoU table, and one JSON line of results.
 valid points) and ``test/submission.json``; for SemanticKITTI one
 ``sequences/<seq>/predictions/<frame>.label`` of raw uint16 ids per frame
 (``occformer_kitti_submit.py`` runs the unlabelled test-submit split).  The
-panoptic head waits for its slice.  It runs on ``cuda``, and on the CPU
+panoptic configuration (``LoadNuscPanopticOccupancyAnnotations``'s panoptic
+LiDAR labels) also gets ``nuScenes_panoptic_PQ``, ``_SQ`` and ``_RQ``, its
+head's ``thing_indices`` naming the classes whose queries become
+instances.  It runs on ``cuda``, and on the CPU
 only with ``--cpu``.  Under ``torchrun --nproc_per_node=N`` each rank
 evaluates its shard of the split on ``cuda:LOCAL_RANK`` (``--max-samples``
 caps each rank's share), the counters are summed over ranks
@@ -122,7 +125,8 @@ def _test(args, device: torch.device) -> int:
     results = evaluate(model, itertools.islice(loader, n), tuple(cfg["occ_size"]),
                        cfg["num_class"], class_names=cfg.get("class_names"),
                        compute_ssc=is_kitti, save_cb=save_cb, compute_dtype=compute_dtype,
-                       panoptic=m["pts_bbox_head"].get("type") == "Mask2FormerNuscPanopticOccHead")
+                       panoptic=m["pts_bbox_head"].get("type") == "Mask2FormerNuscPanopticOccHead",
+                       thing_indices=m["pts_bbox_head"].get("thing_indices"))
     seconds = time.perf_counter() - t0
     n = int(host_allreduce_sum({"samples": np.int64(n)})["samples"])
     if not is_main_process():

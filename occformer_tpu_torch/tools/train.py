@@ -208,7 +208,9 @@ def _train(args, device: torch.device) -> int:
                            cfg.get("num_class", 17), class_names=cfg.get("class_names"),
                            compute_ssc="semkitti" in str(save_best_key).lower(),
                            panoptic=m["pts_bbox_head"].get("type")
-                           == "Mask2FormerNuscPanopticOccHead", compute_dtype=compute_dtype)
+                           == "Mask2FormerNuscPanopticOccHead",
+                           thing_indices=m["pts_bbox_head"].get("thing_indices"),
+                           compute_dtype=compute_dtype)
         model.train()
         log(format_iou_table(results))
         return results

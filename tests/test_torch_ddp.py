@@ -13,7 +13,13 @@ for two cards; each takes its rank's rows of the global batch.  The port of
 * each host's shard of a grouped epoch is group-pure, and the shards are
   disjoint up to the group padding;
 * ``evaluate`` over two ranks' shards of an odd split (its counters summed
-  by ``host_allreduce_sum``) equals the one-process result exactly;
+  by ``host_allreduce_sum``) equals the one-process result exactly; with
+  ``panoptic=True`` (the tiny model with the panoptic head, each sample's
+  panoptic LiDAR labels its own formatted prediction with every third point
+  moved) the summed ``pan_*`` counters are the two ranks' local counters
+  added exactly (int64 and float64 carried in their dtype), the integer
+  ones equal one process's, the float64 IoU sums and PQ / SQ / RQ within
+  1e-12 relative of it (the same float64 terms added in another order);
 * ``host_allreduce_sum`` keeps int64 counters past 2**31 and float64 sums
   exact.
 """
@@ -29,11 +35,12 @@ import torch.distributed as dist
 import tiny_cfg
 from occformer_tpu_torch.data.loader import ShardedLoader, build_dataloader
 from occformer_tpu_torch.data.synthetic import SyntheticOccDataset
-from occformer_tpu_torch.engine.eval import evaluate
+from occformer_tpu_torch.engine.eval import build_eval_step, evaluate
 from occformer_tpu_torch.engine.optim import build_optimizer, step_lr_schedule
 from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step, wrap_ddp
 from occformer_tpu_torch.models.detector import build_model
 from occformer_tpu_torch.parallel.distributed import host_allreduce_sum
+from occformer_tpu_torch.utils.panoptic import format_panoptic_results
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORLD = 2
@@ -105,6 +112,42 @@ def _evaluate(loader):
     return evaluate(model, loader, tuple(tiny_cfg.OCC_SIZE), tiny_cfg.NUM_CLASSES)
 
 
+THINGS = [1, 2]
+
+
+def _panoptic_evaluate(loader):
+    """``evaluate(panoptic=True)`` of the tiny panoptic model over ``loader``,
+    each batch's LiDAR labels replaced by panoptic ids: the sample's own
+    formatted prediction, every third point moved to another id.  Returns
+    (metrics, local counters, reduced counters)."""
+    cfg = tiny_cfg.model_cfg()
+    cfg["pts_bbox_head"] = dict(cfg["pts_bbox_head"], type="Mask2FormerNuscPanopticOccHead",
+                                stuff_indices=[0, 3, 4], thing_indices=THINGS)
+    model = build_model(cfg, device="cpu", seed=0)
+    occ, n = tuple(tiny_cfg.OCC_SIZE), tiny_cfg.NUM_CLASSES
+    step = build_eval_step(model, occ, n, panoptic=True)
+    batches = []
+    for b in loader:
+        b = dict(b)
+        out = step({k: v for k, v in b.items() if k not in ("_meta", "gt_occ")})
+        _, pan = format_panoptic_results(out["point_cls"][0].numpy(),
+                                         out["point_mask"][0].numpy(), THINGS)
+        idx = np.arange(pan.size)
+        pan[idx % 3 == 0] = ((idx[idx % 3 == 0] % (n - 1)) + 1) * 1000
+        b["lidar_label"] = pan[None].astype(np.int32)
+        batches.append(b)
+    seen = {}
+
+    def reduce(state):
+        seen["local"] = state
+        seen["reduced"] = host_allreduce_sum(state)
+        return seen["reduced"]
+
+    metrics = evaluate(model, batches, occ, n, panoptic=True, thing_indices=THINGS,
+                       all_reduce=reduce)
+    return metrics, seen["local"], seen["reduced"]
+
+
 def _worker(mode, rank, init, out):
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=init, rank=rank, world_size=WORLD)
@@ -113,6 +156,8 @@ def _worker(mode, rank, init, out):
             result = _train(rows=slice(rank, rank + 1))
         elif mode == "eval":
             result = _evaluate(_eval_loader(WORLD, rank))
+        elif mode == "pan_eval":
+            result = _panoptic_evaluate(_eval_loader(WORLD, rank))
         else:  # allreduce
             big = np.int64(2 ** 31 + 12345)
             result = host_allreduce_sum({
@@ -209,6 +254,29 @@ def test_two_process_evaluate_equals_one_process(tmp_path):
         assert got.keys() == single.keys() and "nuScenes_lidarseg_mean" in got
         for k in single:
             assert got[k] == single[k] or (np.isnan(got[k]) and np.isnan(single[k])), k
+
+
+def test_two_process_panoptic_evaluate_equals_one_process(tmp_path):
+    ranks = _run_ranks("pan_eval", tmp_path)
+    single, _, one = _panoptic_evaluate(_eval_loader())
+    keys = ("pan_tp", "pan_fp", "pan_fn", "pan_iou")
+    assert one["pan_tp"].sum() > 0 and one["pan_fp"].sum() + one["pan_fn"].sum() > 0
+    for got, local, reduced in ranks:
+        for k in keys:
+            assert reduced[k].dtype == one[k].dtype == (np.float64 if k == "pan_iou"
+                                                       else np.int64)
+            np.testing.assert_array_equal(reduced[k], ranks[0][1][k] + ranks[1][1][k])
+            if k == "pan_iou":
+                np.testing.assert_allclose(reduced[k], one[k], rtol=1e-12, atol=0)
+            else:
+                np.testing.assert_array_equal(reduced[k], one[k])
+        assert got.keys() == single.keys() and "nuScenes_panoptic_PQ" in got
+        for k in got:
+            if "panoptic" in k:
+                np.testing.assert_allclose(got[k], single[k], rtol=1e-12, atol=0, err_msg=k)
+            else:
+                assert got[k] == single[k] or (np.isnan(got[k]) and np.isnan(single[k])), k
+    assert 0.0 < single["nuScenes_panoptic_PQ"] < 1.0
 
 
 def test_host_allreduce_sum_keeps_64bit_counters_exact(tmp_path):

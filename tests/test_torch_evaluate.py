@@ -87,11 +87,15 @@ def test_evaluate_matches_jax():
 
 
 def test_evaluate_raises_for_branches_of_later_slices():
+    """Every branch is ported now: an empty split gives each branch's keys
+    (the SSC branch is held to JAX's in tests/test_torch_kitti_pipeline.py,
+    the panoptic one in tests/test_torch_panoptic_eval.py)."""
     cfg = load_config(os.path.join(REPO, "occformer_tpu_torch", TINY))
     model = build_model(cfg["model"], device="cpu")
-    # the SSC branch is ported (tests/test_torch_kitti_pipeline.py holds it
-    # to JAX's): an empty split gives its keys
     got = evaluate(model, [], tuple(cfg["occ_size"]), cfg["num_class"], compute_ssc=True)
     assert got["semkitti_SC_IoU"] == 0.0 and "semkitti_SSC_mIoU" in got
-    with pytest.raises(NotImplementedError, match="panoptic"):
-        evaluate(model, [], tuple(cfg["occ_size"]), cfg["num_class"], panoptic=True)
+    got = evaluate(model, [], tuple(cfg["occ_size"]), cfg["num_class"], panoptic=True,
+                   thing_indices=[1, 2])
+    assert {k for k in got if "panoptic" in k} == {
+        "nuScenes_panoptic_PQ", "nuScenes_panoptic_SQ", "nuScenes_panoptic_RQ"}
+    assert got["nuScenes_panoptic_PQ"] == 0.0

@@ -8,7 +8,10 @@ and those modules on the card against themselves on the CPU), the convolutions a
 backward the port sums in a fixed order, the probe's P1
 (``add_one``) and P2 (``row_gather``), the LSS splat S1
 (``voxel_scatter_lifted``), the all-layer batched loss on the card (K2,
-K2-bwd, K3) against the same loss on the CPU, and a checkpoint round trip
+K2-bwd, K3) against the same loss on the CPU, the panoptic shapes (K3 at
+panoptic ids over 100 slots, K2 and K2-bwd at a random fill of many slots,
+the 100-slot GT table, the panoptic loss on both routes against the CPU),
+and a checkpoint round trip
 of a model and optimizer on the card.  These
 tests need a CUDA device and skip without one; the kernels have no CPU mode.
 The file imports no JAX, so it also runs where JAX is absent:
@@ -614,6 +617,128 @@ def test_batched_loss_on_the_card_matches_the_cpu(cuda, B):
         assert abs(got[k] - r) <= 1e-4 * abs(r) + 1e-6, (k, got[k], r)
     for k, r in ref_g.items():
         _close(got_g[k], r, 1e-3, f"batched loss d_{k}")
+
+
+def _panoptic_grid(rng, B, spatial, G=100):
+    """Panoptic ids (``class * 1000 + instance``: stuff 11000-16000, 40
+    instances of the thing classes, 0 empty, 65535 noise) on ``spatial`` and
+    each sample's [G] id table, -1 after its ids."""
+    ids = np.concatenate([np.arange(11, 17) * 1000,
+                          (rng.randint(1, 11, 40) * 1000 + rng.randint(1, 999, 40))])
+    vals = np.concatenate([[0, 65535], np.unique(ids)])
+    grid = vals[rng.randint(0, len(vals), (B, *spatial))].astype(np.int32)
+    table = np.full((B, G), -1, np.int32)
+    for b in range(B):
+        present = np.unique(grid[b])
+        present = present[(present > 0) & (present < 17000)][:G]
+        table[b, :len(present)] = present
+    return grid, table
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("padding_mode", ["zeros", "border"])
+def test_k3_at_panoptic_ids_is_the_plain_version(cuda, align_corners, padding_mode):
+    """K3 reads panoptic ids (1000 and above, -1 padding slots, 65535
+    noise) over 100 slots: the shared and the per-slot kernel equal the
+    plain version on the card bit for bit and on the CPU within 1e-6, and
+    equal the trilinear read of each slot's one-hot mask (K2) within 1e-5:
+    K2 takes the points as 2 * p - 1, whose rounding moves a coordinate by
+    up to about half the grid's width times 2^-24 (20 x 2^-24 here), and
+    the two kernels form the corner weights in another order."""
+    rng = np.random.RandomState(3)
+    grid, table = _panoptic_grid(rng, 2, (40, 24, 12))
+    grid, table = torch.from_numpy(grid).to(cuda), torch.from_numpy(table).to(cuda)
+    shared = (torch.rand((4, 3001, 3), device=cuda) * 1.3 - 0.15).contiguous()
+    per_slot = (torch.rand((4, 100, 257, 3), device=cuda) * 1.3 - 0.15).contiguous()
+    for pts in (shared, per_slot):
+        before = k3.LAUNCHES
+        got = k3.sample_id_masks(grid, table, pts, align_corners, padding_mode)
+        torch.cuda.synchronize()
+        assert k3.LAUNCHES == before + 1
+        assert torch.equal(got, k3.sample_id_masks_plain(grid, table, pts, align_corners,
+                                                         padding_mode))
+        ref = k3.sample_id_masks_plain(grid.cpu(), table.cpu(), pts.cpu(), align_corners,
+                                       padding_mode)
+        assert (got.cpu() - ref).abs().max().item() <= 1e-6
+    masks = (grid[:, None] == table[:, :, None, None, None]).permute(0, 2, 3, 4, 1)
+    one_hot = k2.trilerp_sample(masks.repeat(2, 1, 1, 1, 1).contiguous(), shared * 2 - 1,
+                                align_corners, padding_mode)
+    got = k3.sample_id_masks(grid, table, shared, align_corners, padding_mode)
+    assert (got.transpose(1, 2) - one_hot).abs().max().item() <= 1e-5
+    for n in range(4):  # a padding slot's id (-1) is nowhere in the grid
+        assert got[n, table[n % 2] < 0].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_k2_at_a_panoptic_random_fill(cuda, dtype):
+    """The per-layer route's random-fill readout at the panoptic slot count
+    (100 slots x 784 points, a sixteenth of 12544, on a [1, 32, 32, 8, 192]
+    feature): K2 against its plain version, K2-bwd's segmented path against
+    plain autograd and two of its calls bit-equal; and K2's narrow path at a
+    100-slot bool GT table [1, 64, 64, 16, 100] against its plain version."""
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    table = torch.randn((1, 32, 32, 8, 192), device=cuda, generator=gen).to(dt)
+    coords = torch.rand((1, 100 * 784, 3), device=cuda, generator=gen) * 2 - 1
+    gout = torch.randn((1, 100 * 784, 192), device=cuda, generator=gen).to(dt)
+    ref = k2.trilerp_sample_plain(table.float(), coords, False, "border")
+    _close(k2.trilerp_sample(table, coords, False, "border"), ref, _tol(dt), "K2 random fill")
+    d_ref = _k2_plain_d_table(table, coords, gout)
+    seg, n_seg = _k2_bwd_on("segmented", table, coords, gout)
+    seg2, _ = _k2_bwd_on("segmented", table, coords, gout)
+    assert n_seg == (1, 0) and torch.equal(seg, seg2)
+    _close(seg, d_ref, _tol(dt, grad=True), "K2-bwd random fill")
+    rng = np.random.RandomState(8)
+    grid, ids = _panoptic_grid(rng, 1, (64, 64, 16))
+    gt = torch.from_numpy(grid).to(cuda)
+    gt_table = (gt[:, None] == torch.from_numpy(ids).to(cuda)[:, :, None, None, None])
+    gt_table = gt_table.permute(0, 2, 3, 4, 1).contiguous()
+    pts = torch.rand((1, 5000, 3), device=cuda, generator=gen) * 2 - 1
+    assert k2.fwd_path(tuple(gt_table.shape), gt_table.dtype, gt_table.data_ptr()) == "scalar"
+    got = k2.trilerp_sample(gt_table, pts, False, "border")
+    _close(got, k2.trilerp_sample_plain(gt_table, pts, False, "border"), 1e-5, "K2 GT table")
+
+
+@pytest.mark.parametrize("route", ["off", "on"])
+def test_panoptic_loss_on_the_card_matches_the_cpu(cuda, route):
+    """The panoptic loss (150 queries, 100 slots of panoptic ids, the GT as
+    the override; on the batched route read through K3 at the ids) on the
+    card against the CPU on the same inputs and draws, float32: losses to
+    1e-4 relative, gradients to 1e-3 of their max, the assignments equal."""
+    rng = np.random.RandomState(0)
+    B, L, Q, nc, C, P = 1, 2, 150, 17, 24, 100
+    grid, table = _panoptic_grid(rng, B, (32, 32, 16))
+    x = dict(cls_preds=rng.randn(L, B, Q, nc + 1), mask_embeds=0.4 * rng.randn(L, B, Q, C),
+             mask_feature=0.4 * rng.randn(B, 16, 16, 8, C))
+    lidar_xyz = torch.from_numpy(rng.uniform(-0.1, 1.1, (B, P, 3)).astype(np.float32))
+    lidar_valid = torch.from_numpy(np.arange(P)[None].repeat(B, 0) < 80)
+    cfg = MaskLossConfig(num_classes=nc, num_points=64, oversample_ratio=2.0,
+                         class_weight=(1.0,) * nc + (0.1,), mxu_readout=route, panoptic=True)
+    draws = make_loss_draws(torch.Generator().manual_seed(1), cfg, lidar_valid, L,
+                            num_slots=100)
+
+    def run(dev):
+        gt, ids = torch.from_numpy(grid).to(dev), torch.from_numpy(table).to(dev)
+        leaves = {k: torch.from_numpy(v.astype(np.float32)).to(dev).requires_grad_(True)
+                  for k, v in x.items()}
+        losses = mask2former_loss(leaves["cls_preds"], leaves["mask_embeds"],
+                                  leaves["mask_feature"], gt, cfg, lidar_xyz.to(dev),
+                                  lidar_valid.to(dev), draws,
+                                  panoptic_ids=ids)
+        sum(v for k, v in losses.items() if "loss" in k).backward()
+        return ({k: float(v.detach()) for k, v in losses.items()},
+                {k: t.grad.cpu() for k, t in leaves.items()})
+
+    before = k3.LAUNCHES
+    got, got_g = run(cuda)
+    torch.cuda.synchronize()
+    assert k3.LAUNCHES - before == (3 if route == "on" else 0)
+    ref, ref_g = run("cpu")
+    assert ref["unassigned_gt"] == got["unassigned_gt"] == 0.0
+    for k, r in ref.items():
+        assert abs(got[k] - r) <= 1e-4 * abs(r) + 1e-6, (k, got[k], r)
+    for k, r in ref_g.items():
+        _close(got_g[k], r, 1e-3, f"panoptic loss d_{k}")
 
 
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]

@@ -52,10 +52,11 @@ def _one_thread():
     torch.set_num_threads(n)
 
 
-def jax_loss_draws(loss_rng, cfg, lidar_valid, L):
-    """The JAX loss's draws, from its key tree, in the port's layout."""
+def jax_loss_draws(loss_rng, cfg, lidar_valid, L, num_slots=None):
+    """The JAX loss's draws, from its key tree, in the port's layout, for
+    ``num_slots`` GT slots (default: one per class)."""
     B, P = lidar_valid.shape
-    G = cfg.num_classes
+    G = num_slots or cfg.num_classes
     n_match = cfg.match_num_points or cfg.num_points
     k1 = n_match // 2
     num_sampled = int(cfg.num_points * cfg.oversample_ratio)

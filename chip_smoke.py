@@ -203,7 +203,34 @@ Phases, each printing one JSON line:
                  outputs, one batched-route step (K3 at the panoptic ids).
   25. pan_cli:   tools.train for 2 steps on the tree, then tools.test on
                  step_2 over 2 samples, printing PQ / SQ / RQ.
-In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19, 20, 23 and 24 and in the K4 parity gate every
+  26-29. temporal (no released config: the JAX package has no two-frame
+                 pipeline and no temporal config; the batches are built here):
+  26. stereo_kernels (run after phase 22, on its one-sample tree): K4 and
+                 K4-bwd as BEVStereo sends them, held against the plain
+                 version and timed beside their bounds, F.grid_sample 2-D
+                 and its autograd: the stereo warp ([6, 64*176, 256] bf16 at
+                 6 x 33,792 points from models/bevstereo.py:warp_grid on the
+                 tree's rig, K4-bwd without d_coords), the mask warp ([6,
+                 704, 112]) and DepthNetStereo's DCN.
+  27. t4d_serve (after phase 25): the flagship's model as
+                 OccupancyFormer4D (the occupancy encoder's input 256
+                 channels) on two-frame batches of the test pipeline (sample
+                 i the key frame, i + 1 the previous, 12 camera slots
+                 interleaved per camera): 4 frames, K4 and S1 twice a frame,
+                 the peak, a profiled frame.
+  28. t4d_train: 3 steps on the per-layer route (every image and camera
+                 BatchNorm moved twice a step), a profiled step, one
+                 reloaded pair bit for bit, one batched-route step.
+  29. stereo:    models/bevstereo.py's ViewTransformerLSSBEVStereo at full
+                 width (512 / 128 channels, D = 112 in 4 ranges, 3 EM
+                 steps, 2 sweeps of 6 cameras, stereo features [6, 256, 64,
+                 176]) on phase 26's rig: 4 forwards (DepthNetStereo, the EM
+                 stereo depth, the fusion, the splat into the flagship's
+                 grid; K4 18 times, S1 once), then a fixed random weighting
+                 of the fused depth differentiated twice from one state:
+                 every gradient bit-equal.
+In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19, 20, 23, 24, 27, 28 and 29
+and in the K4 parity gate every
 kernel's launch count is set to 0 just before the path is driven and read
 just after; each must match its per-frame, per-step or per-run count (the
 learn phase: launched).  The CLIs report their own counts, which must show
@@ -212,7 +239,8 @@ limit (nvidia-smi), one JSON line of kernel records (K1's, K2's and K2-bwd's
 two paths as two records each; S1, the LSS splat, which has no Pallas
 original, last; each kernel of the KITTI path with its KITTI-shape record
 under ``kitti``, each kernel's R101-DCN record under ``r101``, its
-panoptic record under ``pan``), and last
+panoptic record under ``pan``, K4's and K4-bwd's BEVStereo records under
+``stereo``), and last
 ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
@@ -307,6 +335,25 @@ PAN_CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs",
 PAN_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **{"K2": 1, "K2.row": 1})
 PAN_TRAIN_LAUNCHES = TRAIN_LAUNCHES["off"]
 PAN_TRAIN_LAUNCHES_BATCHED = dict(TRAIN_LAUNCHES["on"], **{"K2.row": 1})
+# the temporal configuration: the flagship's model as OccupancyFormer4D (the
+# occupancy encoder's input doubled to 256 channels), 12 camera slots (key
+# and previous frame interleaved per camera); each frame runs the image
+# encoder, the DepthNet (its DCN: K4) and the splat (S1), the previous one
+# without gradient: K4 and S1 twice a frame and a step, K4-bwd once a step
+_TWO_FRAMES = {"K4": 2, "K4.row": 2, "S1": 2}
+T4D_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **_TWO_FRAMES)
+T4D_TRAIN_LAUNCHES = {route: dict(n, **_TWO_FRAMES) for route, n in TRAIN_LAUNCHES.items()}
+# BEVStereo at the flagship's grid (4 ranges over dbound [2, 58, 0.5]: D = 112,
+# 3 EM steps, 3 samples, 8 groups, 2 sweeps of 6 cameras): a forward runs the
+# two sweeps' DepthNetStereo DCNs, 4 x 3 stereo warps of the 256-channel
+# features and 4 mask warps of the 112-bin mono depth, all on K4's row-wide
+# path, and one splat; the backward of the fused depth K4-bwd for the 12
+# stereo warps and the key sweep's DCN (the other sweep's DepthNet reaches
+# the depth only through the mask's detached input)
+STEREO_LAUNCHES = dict(_NONE, **{"K4": 18, "K4.row": 18, "S1": 1})
+STEREO_BWD_LAUNCHES = dict(STEREO_LAUNCHES, **{"K4-bwd": 13})
+STEREO_FEATURES = (6, 256, 64, 176)  # a ResNet-50 layer1's width at 1/4 of 256 x 704
+STEREO_IMAGE_FEATURES = (6, 512, 16, 44)
 # the pyramid of the deformable attention, largest level first, as bench.py
 # (tools/time_backwards.py:K4_PYRAMID)
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
@@ -1107,82 +1154,100 @@ def phase_k4_dcn(shape=None):
     """K4 and K4-bwd as the DepthNet's deformable convolution runs them
     (``tools/time_backwards.py:dcn_inputs``: one level of Z = 1, [6, 704,
     512] at the flagship, 6336 taps a camera, align_corners=True; ``shape``
-    [B, C, H, W] another map, SemanticKITTI's): held against the plain
-    version in bf16 (1e-2) and float32 (1e-5 values, 1e-4 gradients), two
-    K4-bwd calls bit-equal; then K4, K4-bwd (its workspace and d_coords
-    included, and without d_coords), the plain version and its autograd
-    timed, beside the library's call on the parent's route: ``F.grid_sample``
-    2-D (bilinear, zeros, align_corners=True) on the float32 channels-first
-    map, forward and its backward in the map and the grid."""
+    [B, C, H, W] another map, SemanticKITTI's), through ``k4_record``."""
+    from occformer_tpu_torch.tools.time_backwards import dcn_inputs
+
+    at = {} if shape is None else {"shape": shape}
+    return k4_record(lambda dtype=None: dcn_inputs(dtype, **at), "DCN", True)
+
+
+def k4_record(inputs, name, align_corners, coords_grad=True):
+    """K4 and K4-bwd at ``inputs(dtype)``'s (tables, coords, C, spatials), bf16
+    by default: held against the plain version in bf16 (1e-2) and float32
+    (1e-5 values, 1e-4 gradients), two K4-bwd calls bit-equal; then K4,
+    K4-bwd (its workspace and d_coords included, and without d_coords), the
+    plain version and its autograd timed, beside the library's call on the
+    parent's route: ``F.grid_sample`` 2-D (bilinear, zeros) on the float32
+    channels-first map, forward and its backward in the map and, with
+    ``coords_grad``, the grid.  Without ``coords_grad`` (a grid that carries
+    no gradient, as the warps') the backward's record is K4-bwd without
+    d_coords, its bound and library call without the grid's gradient."""
     import torch
     import torch.nn.functional as F
 
     from occformer_tpu_torch.ops import trilerp_fused as k4
-    from occformer_tpu_torch.tools.time_backwards import dcn_inputs
 
-    at = {} if shape is None else {"shape": shape}
-    tables, coords, C, spatials = dcn_inputs(**at)
+    tables, coords, C, spatials = inputs()
     rec = {"shapes": {"table": list(tables[0].shape), "coords": list(coords[0].shape),
                       "spatials": spatials},
-           "bf16": k4_check(tables, coords, C, True, "DCN bf16", spatials)}
-    t32, c32, _, _ = dcn_inputs(torch.float32, **at)
-    rec["f32"] = k4_check(t32, c32, C, True, "DCN f32", spatials)
+           "bf16": k4_check(tables, coords, C, align_corners, f"{name} bf16", spatials)}
+    t32, c32, _, _ = inputs(torch.float32)
+    rec["f32"] = k4_check(t32, c32, C, align_corners, f"{name} f32", spatials)
+    del t32, c32
     check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == "row",
-          "K4 DCN: not the row-wide path")
-    outs = k4._launch_multi_fwd(tables, spatials, C, coords, True)
+          f"K4 {name}: not the row-wide path")
+    outs = k4._launch_multi_fwd(tables, spatials, C, coords, align_corners)
     g = torch.Generator(device="cuda").manual_seed(9)
     gouts = [torch.randn(o.shape, device="cuda", generator=g).to(o.dtype) for o in outs]
-    a = k4._launch_multi_bwd(tables, spatials, C, coords, gouts, True, True)
-    b = k4._launch_multi_bwd(tables, spatials, C, coords, gouts, True, True)
+    a = k4._launch_multi_bwd(tables, spatials, C, coords, gouts, align_corners, True)
+    b = k4._launch_multi_bwd(tables, spatials, C, coords, gouts, align_corners, True)
+    c = k4._launch_multi_bwd(tables, spatials, C, coords, gouts, align_corners, False)
     check(all(torch.equal(x, y) for x, y in zip(a[0] + a[1], b[0] + b[1])),
-          "K4-bwd DCN: two calls differ")
-    del a, b
+          f"K4-bwd {name}: two calls differ")
+    check(all(torch.equal(x, y) for x, y in zip(a[0], c[0])),
+          f"K4-bwd {name}: d_tables without d_coords differ")
+    del a, b, c
     G, S = coords[0].shape[:2]
     fwd = {"max_abs_err": max(r["max_abs_err"] for r in rec["bf16"]["values"]),
            "kernel_ms": time_cuda(lambda: k4._launch_multi_fwd(tables, spatials, C, coords,
-                                                                True)),
+                                                                align_corners)),
            "device_ms": device_ms(lambda: k4._launch_multi_fwd(tables, spatials, C, coords,
-                                                                True)),
+                                                                align_corners)),
            "plain_ms": time_cuda(lambda: k4.fused_multilevel_gather_plain(
-               tables, spatials, C, coords, True), iters=10)}
-    bwd = {"max_abs_err": max(r["max_abs_err"] for k in ("d_tables", "d_coords")
-                              for r in rec["bf16"][k]),
-           "bit_identical_calls": True,
+               tables, spatials, C, coords, align_corners), iters=10)}
+    bwd_keys = ("d_tables", "d_coords") if coords_grad else ("d_tables",)
+    bwd = {"max_abs_err": max(r["max_abs_err"] for k in bwd_keys for r in rec["bf16"][k]),
+           "bit_identical_calls": True, "with_d_coords": coords_grad,
            "kernel_ms": time_cuda(lambda: k4._launch_multi_bwd(
-               tables, spatials, C, coords, gouts, True, True)),
+               tables, spatials, C, coords, gouts, align_corners, coords_grad)),
            "device_ms": device_ms(lambda: k4._launch_multi_bwd(
-               tables, spatials, C, coords, gouts, True, True)),
-           "kernel_ms_without_d_coords": time_cuda(lambda: k4._launch_multi_bwd(
-               tables, spatials, C, coords, gouts, True, False)),
+               tables, spatials, C, coords, gouts, align_corners, coords_grad)),
            "workspace_bytes": 4 * int(k4._multi_fn("multilevel_gather3d_bwd_workspace")(
                1, k4._multi_dims(spatials, coords), G))}
+    other = "kernel_ms_without_d_coords" if coords_grad else "kernel_ms_with_d_coords"
+    bwd[other] = time_cuda(lambda: k4._launch_multi_bwd(
+        tables, spatials, C, coords, gouts, align_corners, not coords_grad))
     pl = [t.detach().clone().requires_grad_(True) for t in tables]
-    pc = [c.detach().clone().requires_grad_(True) for c in coords]
-    p_out = k4.fused_multilevel_gather_plain(pl, spatials, C, pc, True)
-    bwd["plain_ms"] = time_cuda(lambda: torch.autograd.grad(p_out, pl + pc, gouts,
+    pc = [c.detach().clone().requires_grad_(coords_grad) for c in coords]
+    p_out = k4.fused_multilevel_gather_plain(pl, spatials, C, pc, align_corners)
+    want = pl + (pc if coords_grad else [])
+    bwd["plain_ms"] = time_cuda(lambda: torch.autograd.grad(p_out, want, gouts,
                                                             retain_graph=True), iters=10)
-    del p_out, pl, pc
+    del p_out, pl, pc, want
     # the parent's route: the float32 channels-first map, the grid (x, y)
     (H, W, _), = spatials
     vol = tables[0].float().reshape(G, H, W, C).permute(0, 3, 1, 2).contiguous()
     grid = coords[0][..., :2].flip(-1).reshape(G, S, 1, 2).contiguous()
-    fwd["library_ms"] = time_cuda(lambda: F.grid_sample(
-        vol, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
-    fwd["library_device_ms"] = device_ms(lambda: F.grid_sample(
-        vol, grid, mode="bilinear", padding_mode="zeros", align_corners=True))
-    vl, gl = vol.requires_grad_(True), grid.requires_grad_(True)
-    lib_out = F.grid_sample(vl, gl, mode="bilinear", padding_mode="zeros", align_corners=True)
+    lib = lambda v, gr: F.grid_sample(v, gr, mode="bilinear", padding_mode="zeros",
+                                      align_corners=align_corners)
+    fwd["library_ms"] = time_cuda(lambda: lib(vol, grid))
+    fwd["library_device_ms"] = device_ms(lambda: lib(vol, grid))
+    vl, gl = vol.requires_grad_(True), grid.requires_grad_(coords_grad)
+    lib_out = lib(vl, gl)
     lib_gout = gouts[0].float().reshape(lib_out.shape)
-    bwd["library_ms"] = time_cuda(lambda: torch.autograd.grad(lib_out, (vl, gl), lib_gout,
+    lib_in = (vl, gl) if coords_grad else (vl,)
+    bwd["library_ms"] = time_cuda(lambda: torch.autograd.grad(lib_out, lib_in, lib_gout,
                                                               retain_graph=True), iters=10)
     bwd["library_device_ms"] = device_ms(lambda: torch.autograd.grad(
-        lib_out, (vl, gl), lib_gout, retain_graph=True), iters=10)
+        lib_out, lib_in, lib_gout, retain_graph=True), iters=10)
     bwd["library_calls"] = fwd["library_calls"] = 1
-    del vol, grid, vl, gl, lib_out, lib_gout
+    del vol, grid, vl, gl, lib_out, lib_gout, lib_in
     # every input read once, every output written once; 8 corner FMAs per
-    # (sample, channel) forward, 8 x 4 operations backward (k4_check's count)
+    # (sample, channel) forward, 8 x 4 operations backward with d_coords and
+    # 8 x 2 without (k4_check's count)
     fwd.update(bound(nbytes(*tables, *coords, *outs), G * S * C * 8 * 2))
-    bwd.update(bound(nbytes(*tables, *coords, *gouts, *tables, *coords), G * S * C * 8 * 4))
+    read = (*tables, *coords, *gouts, *tables) + ((*coords,) if coords_grad else ())
+    bwd.update(bound(nbytes(*read), G * S * C * 8 * (4 if coords_grad else 2)))
     for r in (fwd, bwd):
         r["roofline_share"] = r["bound_ms"] / r["kernel_ms"]
     rec["K4"], rec["K4-bwd"] = fwd, bwd
@@ -2829,24 +2894,33 @@ def kitti_reload_pairs(model, opt, step, batch, n_pairs=2):
         del ga, gb
     rec["param_grads_differing"] = sorted(differing)[:40]
     if differing:
-        owners = {k.rsplit(".", 1)[0] for k in differing}
-        convs, hooks = {}, []
-        for name, mod in model.named_modules():
-            if name in owners and isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d,
-                                                   torch.nn.ConvTranspose2d)):
-                def keep(mod, args, kwargs, name=name):
-                    if name not in convs:
-                        convs[name] = (mod, [a.detach().clone().requires_grad_(a.requires_grad)
-                                             if torch.is_tensor(a) else a for a in args],
-                                       dict(kwargs),
-                                       torch.get_autocast_dtype("cuda")
-                                       if torch.is_autocast_enabled("cuda") else None)
-                hooks.append(mod.register_forward_pre_hook(keep, with_kwargs=True))
-        run()
-        for h in hooks:
-            h.remove()
-        rec["modules"] = backward_repeats(convs)
+        rec["modules"] = varying_convolutions(model, differing, run)
     return rec
+
+
+def varying_convolutions(model, differing, run):
+    """The convolutions of ``model`` that own the ``differing`` parameters,
+    their inputs captured during one more ``run()``, replayed there by
+    ``backward_repeats`` to name those whose backward varies."""
+    import torch
+
+    owners = {k.rsplit(".", 1)[0] for k in differing}
+    convs, hooks = {}, []
+    for name, mod in model.named_modules():
+        if name in owners and isinstance(mod, (torch.nn.Conv2d, torch.nn.Conv3d,
+                                               torch.nn.ConvTranspose2d)):
+            def keep(mod, args, kwargs, name=name):
+                if name not in convs:
+                    convs[name] = (mod, [a.detach().clone().requires_grad_(a.requires_grad)
+                                         if torch.is_tensor(a) else a for a in args],
+                                   dict(kwargs),
+                                   torch.get_autocast_dtype("cuda")
+                                   if torch.is_autocast_enabled("cuda") else None)
+            hooks.append(mod.register_forward_pre_hook(keep, with_kwargs=True))
+    run()
+    for h in hooks:
+        h.remove()
+    return backward_repeats(convs)
 
 
 def main_path_run(name, call, items, per_call, n):
@@ -3700,6 +3774,327 @@ def phase_pan_cli(tree, ann):
     return rec
 
 
+def t4d_cfg(tree, ann):
+    """The flagship config on the tree, its model made ``OccupancyFormer4D``
+    (the occupancy encoder's input 2 * numC_Trans = 256 channels); no
+    config file of its own, as the JAX package has none."""
+    cfg = r101_cfg(tree, ann, config=CONFIG)
+    m = cfg["model"]
+    m["type"] = "OccupancyFormer4D"
+    m["img_bev_encoder_backbone"]["in_channels"] = 2 * m["img_view_transformer"]["numC_Trans"]
+    return cfg
+
+
+FRAME_KEYS = ("imgs", "rots", "trans", "intrins", "post_rots", "post_trans")
+
+
+def two_frames(key, prev):
+    """A 4D batch: the two samples' cameras interleaved, frame axis minor
+    ([cam0 key, cam0 previous, cam1 key, ...]); the rest (bda, GT, LiDAR)
+    the key frame's."""
+    out = dict(key)
+    for k in FRAME_KEYS:
+        a = key[k]
+        out[k] = np.stack([a, prev[k]], axis=2).reshape(a.shape[0], 2 * a.shape[1],
+                                                        *a.shape[2:])
+    return out
+
+
+def t4d_batches(cfg, split, n):
+    """``n`` 4D batches of the split: sample i the key frame, i + 1 the
+    previous one."""
+    samples = r101_batches(cfg, split, n + 1)
+    return [two_frames(samples[i], samples[i + 1]) for i in range(n)]
+
+
+def phase_t4d_serve(tree, ann):
+    """The 4D model at full width and depth (the flagship's, two frames)
+    serving 4D batches of the test pipeline over the tree (``serve_phase``:
+    12 camera slots at 256 x 704; K4 and S1 twice a frame): output shapes,
+    predicted labels in range, a profiled frame with both frames inside its
+    image encoder and view transformer stages.  Returns (launch counts, the
+    model)."""
+    from occformer_tpu_torch.models.detector import OccupancyFormer4D
+
+    cfg = t4d_cfg(tree, ann)
+    t0 = time.perf_counter()
+    frames = t4d_batches(cfg, "test", 3)
+    pipeline_s = time.perf_counter() - t0
+    for f in frames:  # a served frame has no GT
+        f.pop("gt_occ")
+    check(list(frames[0]["imgs"].shape) == [1, 12, 256, 704, 3],
+          f"t4d_serve: images {list(frames[0]['imgs'].shape)}")
+    rec, model, _, outs = serve_phase("t4d_serve", "occformer_nusc_r50_256x704 as "
+                                      "OccupancyFormer4D", cfg, frames, T4D_SERVE_LAUNCHES,
+                                      forbid=("aten::grid_sampler_2d",))
+    check(type(model) is OccupancyFormer4D, f"t4d_serve: built {type(model).__name__}")
+    out = outs[-1]
+    check(list(out["voxel_pred"].shape) == [1, *cfg["occ_size"]]
+          and list(out["point_pred"].shape) == [1, frames[0]["lidar_xyz"].shape[1]],
+          "t4d_serve: output shapes")
+    check(int(out["voxel_pred"].max()) < cfg["num_class"] and int(out["point_pred"].min()) >= 1,
+          "t4d_serve: predicted labels out of range")
+    check(rec["shapes"]["depth_prob"][0] == 6, f"t4d_serve: depth {rec['shapes']['depth_prob']}")
+    rec.update(pipeline_s_for_4_samples=pipeline_s, images=list(frames[0]["imgs"].shape))
+    emit(rec)
+    return rec["launches"], model
+
+
+def phase_t4d_train(tree, ann, model):
+    """The 4D model's train step at full width and depth, float32 parameters
+    under bf16 autocast, batch 1, on 4D batches of the train pipeline over
+    the tree: 3 steps on the per-layer route (``train_phase``; every image
+    BatchNorm and the DepthNet's camera BatchNorm move twice a step, key
+    frame then previous), ``profile_and_reload`` (a profiled step, one
+    reloaded pair bit for bit), then one step on the batched route.
+    Returns the per-layer and the batched step's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+
+    cfg = t4d_cfg(tree, ann)
+    m = cfg["model"]
+    t0 = time.perf_counter()
+    model.train()
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="off"), m["train_cfg"]["pts"])
+    opt = build_optimizer_from_config(model, cfg, 28130)  # nuScenes' train samples
+    dtype = getattr(torch, cfg["compute_dtype"])
+    step = build_train_step(model, opt, loss_cfg, device="cuda", compute_dtype=dtype)
+    batches = t4d_batches(cfg, "train", 2)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    bns = ("img_backbone.layer1.0.bn1.num_batches_tracked",
+           "img_view_transformer.depth_net.bn.num_batches_tracked")
+    counted = {k: int(model.state_dict()[k]) for k in bns}
+    g = torch.Generator(device="cuda").manual_seed(0)
+    run = train_phase("t4d_train", step, batches, T4D_TRAIN_LAUNCHES["off"], 3, g)
+    moved = {k: int(model.state_dict()[k]) - counted[k] for k in bns}
+    check(all(v == 2 * 3 for v in moved.values()),
+          f"t4d_train: BatchNorm updates in 3 steps {moved}, want 2 a step")
+    rec = {"phase": "t4d_train", "config": "occformer_nusc_r50_256x704 as OccupancyFormer4D",
+           "param_dtype": "float32", "autocast": cfg["compute_dtype"], "route": "per-layer",
+           "images": list(batches[0]["imgs"].shape), "batchnorm_updates_in_3_steps": moved,
+           "params": sum(p.numel() for p in model.parameters()), "setup_s": setup_s, **run}
+    profile_and_reload(rec, "t4d", model, opt, step, batches[0], T4D_TRAIN_LAUNCHES["off"], g,
+                       forbid=("aten::grid_sampler_2d",))
+    free_memory()
+    bstep = build_train_step(model, opt, dataclasses.replace(loss_cfg, mxu_readout="on"),
+                             device="cuda", compute_dtype=dtype)
+    secs, nb, rec["batched_peak_memory_bytes"], _, outs = main_path_run(
+        "t4d batched step", lambda b: bstep(b, g), batches[1:], T4D_TRAIN_LAUNCHES["on"], 1)
+    rec.update(batched_step_s=secs[0], batched_launches=nb,
+               batched_metrics={k: float(v) for k, v in outs[0].items()})
+    check(all(v == v and abs(v) != float("inf") for k, v in rec["batched_metrics"].items()
+              if k != "point_mean_iou"), f"t4d batched step metrics {rec['batched_metrics']}")
+    emit(rec)
+    return run["launches"], nb
+
+
+def stereo_inputs(tree, ann):
+    """BEVStereo's full-width inputs on the card: the flagship's grid and
+    image size, two sweeps of the tree's first test frame's six cameras (the
+    nuScenes rig; the sweep taken after the ego moved 0.5 m forward), and
+    per sweep seeded random bf16 features (stereo [6, 256, 64, 176], image
+    [6, 512, 16, 44]) and the camera embedding; the key frame's cameras for
+    the splat.  Returns (the view transformer's config, the inputs)."""
+    import torch
+
+    from occformer_tpu_torch.models.depthnet import get_mlp_input
+
+    cfg = r101_cfg(tree, ann, config=CONFIG)
+    vt = cfg["model"]["img_view_transformer"]
+    frame = r101_batches(cfg, "test", 1)[0]
+    cams = [torch.from_numpy(frame[k]).cuda()
+            for k in ("rots", "trans", "intrins", "post_rots", "post_trans", "bda")]
+    rots, trans, intrins, post_rots, post_trans, _ = (c[0] for c in cams)
+    N = rots.shape[0]
+    eye = torch.eye(4, device="cuda").repeat(N, 1, 1)
+    cam2ego, intrin, ida = eye.clone(), eye.clone(), eye.clone()
+    cam2ego[:, :3, :3], cam2ego[:, :3, 3] = rots, trans
+    intrin[:, :3, :3] = intrins
+    ida[:, :3, :3], ida[:, :3, 3] = post_rots, post_trans
+    shift = torch.eye(4, device="cuda")
+    shift[0, 3] = -0.5  # key ego -> the sweep's ego, 0.5 m further forward
+    s2s = torch.stack([eye, torch.linalg.inv(cam2ego) @ shift @ cam2ego], 1)
+    mats = {"intrin_mats": torch.stack([intrin, intrin], 1),
+            "ida_mats": torch.stack([ida, ida], 1), "sensor2sensor_mats": s2s}
+    g = torch.Generator(device="cuda").manual_seed(41)
+    feat = lambda shape: torch.randn(shape, device="cuda", generator=g).to(torch.bfloat16)
+    mlp = get_mlp_input(*cams).reshape(N, -1)
+    return vt, {"xs": [feat(STEREO_IMAGE_FEATURES) for _ in range(2)], "mlps": [mlp, mlp],
+                "feats": [feat(STEREO_FEATURES) for _ in range(2)], "mats": mats,
+                "cams": cams}
+
+
+def phase_stereo_kernels(tree, ann):
+    """K4 and K4-bwd as BEVStereo sends them (``k4_record``: held against the
+    plain version in bf16 and float32, two K4-bwd calls bit-equal, timed
+    beside their bounds and ``F.grid_sample`` 2-D and its autograd):
+
+    * the stereo warp: a sweep's [6, 64*176, 256] bf16 features at 3 depth
+      hypotheses a pixel, 6 x 33,792 points, (y, x, 0) from
+      ``models/bevstereo.py:warp_grid`` on ``stereo_inputs``' rig at depths
+      mu + sigma * k (mu in [2, 58], sigma in [0.5, 3]), align_corners=False;
+      the backward without d_coords, as the warp's grid has no gradient;
+    * the mask warp: the [6, 16*44, 112] mono depth at one hypothesis a
+      pixel of 1/16 (K4 alone on the path: the mask's inputs are detached);
+    * DepthNetStereo's DCN: the flagship DepthNet's [6, 704, 512]
+      (``phase_k4_dcn``)."""
+    import torch
+
+    from occformer_tpu_torch.models.bevstereo import (create_depth_sample_frustum,
+                                                      depth_sampling_k_list, warp_grid)
+
+    _, inp = stereo_inputs(tree, ann)
+    mats = inp["mats"]
+    geo = (mats["intrin_mats"][:, 0], mats["intrin_mats"][:, 1], mats["sensor2sensor_mats"][:, 1],
+           mats["ida_mats"][:, 0], mats["ida_mats"][:, 1])
+    g = torch.Generator(device="cuda").manual_seed(43)
+    N, C, Hs, Ws = STEREO_FEATURES
+    mu = 2 + 56 * torch.rand((N, 1, Hs, Ws), device="cuda", generator=g)
+    sigma = 0.5 + 2.5 * torch.rand((N, 1, Hs, Ws), device="cuda", generator=g)
+    ds = torch.cat([mu + sigma * float(k) for k in depth_sampling_k_list(3.0, 3)], 1)
+    grid = warp_grid(*geo, ds, create_depth_sample_frustum(ds, (256, 704), 4), (Hs, Ws), 4)
+    fH, fW, D = 16, 44, 112
+    ds_m = 2 + 56 * torch.rand((N, 1, fH, fW), device="cuda", generator=g)
+    grid_m = warp_grid(*geo, ds_m, create_depth_sample_frustum(ds_m, (256, 704), 16),
+                       (fH, fW), 16)
+
+    def warp(table_shape, coords, hw):
+        def inputs(dtype=None):
+            gen = torch.Generator(device="cuda").manual_seed(45)
+            t = torch.randn(table_shape, device="cuda", generator=gen)
+            return [t.to(dtype or torch.bfloat16)], [coords], table_shape[-1], [(*hw, 1)]
+        return inputs
+
+    inside = lambda gr: float(((gr[..., :2].abs() <= 1).all(-1)).float().mean())
+    rec = {"phase": "stereo_kernels",
+           "stereo_warp": k4_record(warp((N, Hs * Ws, C), grid, (Hs, Ws)), "stereo warp",
+                                    False, coords_grad=False),
+           "mask_warp": k4_record(warp((N, fH * fW, D), grid_m, (fH, fW)), "mask warp",
+                                  False, coords_grad=False),
+           "points_inside": {"stereo": inside(grid), "mask": inside(grid_m)}}
+    free_memory()
+    rec["dcn"] = phase_k4_dcn()
+    emit(rec)
+    return rec
+
+
+def stereo_forward(module, inp):
+    """Each sweep's DepthNetStereo, ``forward_stereo`` (sweep 0 the key),
+    ``fuse_depth`` and the splat of the key sweep's context."""
+    outs = [module.depth_net(x, m) for x, m in zip(inp["xs"], inp["mlps"])]
+    _, ctxs, mus, sigmas, rss, monos = (list(o) for o in zip(*outs))
+    sd, ms = module.forward_stereo(0, inp["feats"], monos, inp["mats"], mus, sigmas, rss)
+    prob = module.fuse_depth(monos[0], sd, ms)
+    N, _, fH, fW = ctxs[0].shape
+    vol = module(ctxs[0].reshape(1, N, -1, fH, fW), prob, *inp["cams"])
+    return sd, ms, prob, vol
+
+
+def phase_stereo(tree, ann):
+    """``models/bevstereo.py:ViewTransformerLSSBEVStereo`` at full width
+    (numC_input 512, numC_Trans 128, the module's defaults: 4 ranges over
+    dbound [2, 58, 0.5], D = 112, 3 EM steps, 3 samples, 8 groups, stereo
+    factor 4, the mask on) on ``stereo_inputs``, seeded random weights,
+    float32 parameters under bf16 autocast: 4 forwards in eval mode (the
+    first a warm-up; ``main_path_run``: K4 18 times a forward, S1 once):
+    each sweep's DepthNetStereo -> ``forward_stereo`` -> ``fuse_depth`` ->
+    the splat into the flagship's [1, 128, 128, 16, 128] voxel grid (depth
+    probabilities summing to 1, the mask in [0, 1], the volume finite and
+    not empty); then, in train mode on the port's default settings (cuDNN's
+    TF32 on), the backward of a fixed random weighting of ``fuse_depth``'s
+    output, twice from the same parameters: every gradient (the parameters'
+    and the stereo features') bit-equal, else the convolutions whose backward
+    varies are named (``varying_convolutions``)."""
+    import torch
+
+    from occformer_tpu_torch.models.bevstereo import ViewTransformerLSSBEVStereo
+    from occformer_tpu_torch.models.detector import init_weights
+
+    vt, inp = stereo_inputs(tree, ann)
+    t0 = time.perf_counter()
+    with torch.device("cuda"):
+        module = ViewTransformerLSSBEVStereo(vt["grid_config"], vt["data_config"],
+                                             numC_input=512, numC_Trans=128)
+    init_weights(module, torch.Generator(device="cuda").manual_seed(0))
+    module.eval()
+    build_s = time.perf_counter() - t0
+    check(module.D == 112 and len(module.ranges) == 4, f"stereo: D {module.D}")
+
+    def serve(_):
+        with torch.inference_mode(), torch.autocast("cuda", dtype=torch.bfloat16):
+            return stereo_forward(module, inp)
+
+    secs, n, peak, resident, outs = main_path_run("stereo", serve, [None], STEREO_LAUNCHES, 4)
+    sd, ms, prob, vol = outs[-1]
+    sums = prob.sum(1)
+    check(bool(torch.isfinite(prob).all()) and float((sums - 1).abs().max()) < 1e-4,
+          "stereo: depth probabilities")
+    check(float(ms.min()) >= 0 and float(ms.max()) <= 1.0 and
+          bool(torch.isfinite(sd).all()) and float(sd.min()) >= 0, "stereo: stereo depth, mask")
+    check(list(vol.shape) == [1, 128, 128, 16, 128] and bool(torch.isfinite(vol.float()).all())
+          and float(vol.float().abs().max()) > 0, f"stereo: volume {list(vol.shape)}")
+    rec = {"phase": "stereo", "param_dtype": "float32", "autocast": "bfloat16",
+           "model_build_s": build_s, "params": sum(p.numel() for p in module.parameters()),
+           "stereo_features": list(STEREO_FEATURES), "image_features": list(STEREO_IMAGE_FEATURES),
+           "warmup_forward_ms": secs[0] * 1e3, "forward_ms": [x * 1e3 for x in secs[1:]],
+           "launches": n, "peak_memory_bytes": peak, "resident_bytes_at_start": resident,
+           "shapes": {"stereo_depth": list(sd.shape), "mask_score": list(ms.shape),
+                      "depth_prob": list(prob.shape), "volume": list(vol.shape)}}
+    del outs, sd, ms, prob, vol
+    free_memory()
+
+    module.train()
+    names = [k for k, _ in module.named_parameters()]
+    w = torch.randn((6, 112, 16, 44), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(47))
+
+    def backward():
+        module.zero_grad(set_to_none=True)
+        feats = [f.detach().requires_grad_(True) for f in inp["feats"]]
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            prob = stereo_forward(module, dict(inp, feats=feats))[2]
+        (prob * w).sum().backward()
+        return [None if p.grad is None else p.grad.clone() for p in module.parameters()] + \
+            [f.grad for f in feats]
+
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True  # the port's default settings
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # the backward's run starts here
+        times = []
+        grads = []
+        for _ in range(2):
+            t = time.perf_counter()
+            grads.append(backward())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        got = launches()  # ... and ends here
+        want = {k: 2 * v for k, v in STEREO_BWD_LAUNCHES.items()}
+        check(got == want, f"stereo backward launches {got}, want {want}")
+        keys = names + ["stereo_feature_0", "stereo_feature_1"]
+        differ = [k for k, a, b in zip(keys, *grads) if a is not None and not torch.equal(a, b)]
+        rec.update(backward_s=times, backward_launches=got,
+                   backward_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   grads=sum(a is not None for a in grads[0]), grads_differ=len(differ),
+                   grads_differing=differ[:40])
+        check(grads[0][-1] is not None and float(grads[0][-1].float().abs().max()) > 0,
+              "stereo: the previous sweep's features got no gradient through the warp")
+        if differ:
+            rec["modules"] = varying_convolutions(module, differ, backward)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    emit(rec)
+    check(not differ, f"stereo: the repeated backward differs in {len(differ)} gradients")
+    return rec["launches"], rec["backward_launches"]
+
+
 def phase_soak(steps=8):
     """``tools/soak.py`` at the flagship's full width on the default loss
     route: ``steps`` steps on one fixed batch with the checkpoint at the
@@ -3989,7 +4384,7 @@ def profile(run, outer, want, top=12, forbid=()):
             "port_kernels": port}
 
 
-def kernel_records(kern, probe, det, paths, kitti, r101, pan):
+def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo):
     """One record per kernel path; ``paths`` maps each driven path (serve,
     train, train_batched, the pipeline-fed train steps and frames, the K4
     gate, the probe) to its launch counts, and
@@ -4013,7 +4408,11 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan):
     at the random fill of 100 slots, K2's narrow record at the 100-slot GT
     table (candidates; the matching points under ``matching``), K3 at the
     panoptic ids (shared; per-slot under ``per_slot``); the other kernels
-    run at the flagship's shapes there)."""
+    run at the flagship's shapes there), and under ``stereo`` K4's and
+    K4-bwd's records at BEVStereo's shapes (``phase_stereo_kernels``: the
+    stereo warp, its backward without d_coords, with the mask warp and the
+    DepthNetStereo's DCN under ``mask_warp`` / ``dcn``; the 4D model runs
+    every kernel at the flagship's shapes)."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
     paths = {p: dict(n, **{"K1.scalar": n["K1"] - n["K1.row"],
@@ -4107,6 +4506,22 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan):
         return {k: r[k] for k in kitti_keys + ("device_ms", "library_device_ms", "matching",
                                                "per_slot") if k in r}
 
+    def at_stereo(key):
+        if key not in ("K4.row", "K4-bwd"):
+            return {"shapes": "the flagship's (the 4D model); not on BEVStereo's path"
+                    if key != "S1" else "the flagship's grid and frustum"}
+        k = key.split(".")[0]
+        out = {f: stereo["stereo_warp"][k][f] for f in kitti_keys + ("device_ms", "with_d_coords")
+               if f in stereo["stereo_warp"][k]}
+        out["table"] = stereo["stereo_warp"]["shapes"]["table"]
+        for name in ("mask_warp", "dcn"):
+            if k == "K4-bwd" and name == "mask_warp":
+                continue  # the mask's inputs are detached: no K4-bwd on the path
+            r = stereo[name][k]
+            out[name] = dict({f: r[f] for f in kitti_keys + ("device_ms",) if f in r},
+                             table=stereo[name]["shapes"]["table"])
+        return out
+
     return [{"name": name + (f".{path}" if path else ""), "path": path or None, "route": "cuda",
              "source": source, "replaces": replaces,
              "launches": sum(n[key] for n in paths.values()),
@@ -4119,7 +4534,7 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan):
                                   "launch_floor_ms", "bound_with_floor_ms") if k in r},
              **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
                 if key in at_kitti else {}),
-             "r101": at_r101(key), "pan": at_panoptic(key)}
+             "r101": at_r101(key), "pan": at_panoptic(key), "stereo": at_stereo(key)}
             for name, path, key, source, replaces, r in rows]
 
 
@@ -4180,6 +4595,7 @@ def main():
         kitti_kern = timed("kitti_kernels", phase_kitti_kernels, kitti_root)
         r101_kern = timed("r101_kernels", phase_r101_kernels, r101_root, r101_ann)
         pan_kern = timed("pan_kernels", phase_pan_kernels, r101_root, r101_ann)
+        stereo_kern = timed("stereo_kernels", phase_stereo_kernels, r101_root, r101_ann)
         timed("tiny", phase_tiny)
         timed("tiny_train", phase_tiny_train, "off")
         timed("tiny_train_batched", phase_tiny_train, "on")
@@ -4201,6 +4617,12 @@ def main():
                                                pan_model)
             del pan_model
             free_memory()
+            t4d_serve_n, t4d_model = timed("t4d_serve", phase_t4d_serve, tree, ann)
+            t4d_train_n, t4d_batched_n = timed("t4d_train", phase_t4d_train, tree, ann,
+                                               t4d_model)
+            del t4d_model
+            free_memory()
+            stereo_n, stereo_bwd_n = timed("stereo", phase_stereo, r101_root, r101_ann)
             soak_n = timed("soak", phase_soak)
             learn_n = timed("learn", phase_learn)
             ddp_n = timed("ddp", phase_ddp)
@@ -4230,7 +4652,10 @@ def main():
         "kitti_serve": kitti_serve_n, "kitti_train": kitti_train_n,
         "r101_serve": r101_serve_n, "r101_train": r101_train_n,
         "pan_serve": pan_serve_n, "pan_train": pan_train_n,
-        "pan_train_batched": pan_batched_n}, kitti_kern, r101_kern, pan_kern)})
+        "pan_train_batched": pan_batched_n, "t4d_serve": t4d_serve_n,
+        "t4d_train": t4d_train_n, "t4d_train_batched": t4d_batched_n,
+        "stereo": stereo_n, "stereo_backward": stereo_bwd_n},
+        kitti_kern, r101_kern, pan_kern, stereo_kern)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

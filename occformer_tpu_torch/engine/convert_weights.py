@@ -553,6 +553,57 @@ def resnet_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return {"params": params, "batch_stats": stats}
 
 
+def convert_bevstereo(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """``models/bevstereo.py:ViewTransformerLSSBEVStereo``'s state dict ->
+    ``{'params', 'batch_stats'}`` of the JAX package's module of that name
+    (``occformer_tpu/models/bevstereo.py:203``), as a ``convert`` of
+    ``flax_to_torch_state_dict``.  The port's modules carry JAX's names; the
+    transposed convolutions' kernels flip (``t2f_deconv``) and sit directly
+    under ``msr_up{i}``."""
+    tb = TreeBuilder()
+    dn, dst = "depth_net", "depth_net"
+    tb.bn(sd, dn + ".bn_cam", dst + "/bn_cam")
+    tb.conv(sd, dn + ".reduce_conv", dst + "/reduce_conv")
+    tb.bn(sd, dn + ".reduce_bn", dst + "/reduce_bn")
+
+    def lin1x1(t, d):  # torch 1x1 Conv2d (O, I, 1, 1) -> flax Dense (I, O)
+        tb.p(d + "/Dense_0/kernel", t2f_linear(sd[t + ".weight"][:, :, 0, 0]))
+        tb.p(d + "/Dense_0/bias", sd[t + ".bias"])
+
+    def block(t, d):
+        for i in (1, 2):
+            tb.conv(sd, f"{t}.conv{i}", f"{d}/conv{i}")
+            tb.bn(sd, f"{t}.bn{i}", f"{d}/bn{i}")
+
+    for branch in ("context", "depth"):
+        tb.linear(sd, f"{dn}.{branch}_mlp.fc1", f"{dst}/{branch}_mlp/fc1")
+        tb.linear(sd, f"{dn}.{branch}_mlp.fc2", f"{dst}/{branch}_mlp/fc2")
+        lin1x1(f"{dn}.{branch}_se.conv_reduce", f"{dst}/{branch}_se/conv_reduce")
+        lin1x1(f"{dn}.{branch}_se.conv_expand", f"{dst}/{branch}_se/conv_expand")
+    tb.conv(sd, dn + ".context_conv", dst + "/context_conv")
+    for name in ("depth_block0", "depth_block1", "mono_block", "msr_block"):
+        block(f"{dn}.{name}", f"{dst}/{name}")
+    convert_aspp2d(tb, sd, dn + ".aspp", dst + "/aspp", norm="bn")
+    convert_dcn(tb, sd, dn + ".dcn", dst + "/dcn")
+    for name in ("mono_pred", "msr_pred"):
+        tb.conv(sd, f"{dn}.{name}", f"{dst}/{name}")
+    for i in range(2):
+        tb.p(f"{dst}/msr_up{i}/kernel", t2f_deconv(sd[f"{dn}.msr_up{i}.weight"]))
+        tb.p(f"{dst}/msr_up{i}/bias", sd[f"{dn}.msr_up{i}.bias"])
+        tb.bn(sd, f"{dn}.msr_up_bn{i}", f"{dst}/msr_up_bn{i}")
+    for name in ("sim_conv1", "sim_conv2", "sim_out", "dds_conv1", "dds_conv2", "dds_out",
+                 "mask_conv", "mask_out"):
+        if name + ".weight" in sd:
+            tb.conv(sd, name, name)
+    for name in ("sim_bn1", "sim_bn2", "dds_bn1", "dds_bn2", "mask_bn"):
+        if name + ".weight" in sd:
+            tb.bn(sd, name, name)
+    for name in ("mask_block0", "mask_block1"):
+        if name + ".conv1.weight" in sd:
+            block(name, name)
+    return {"params": tb.params, "batch_stats": tb.stats}
+
+
 def flax_to_torch_state_dict(variables: Dict, model, manifest: Optional[Dict] = None,
                              window_size: int = 7,
                              convert=convert_occformer) -> Dict[str, "torch.Tensor"]:
@@ -562,7 +613,8 @@ def flax_to_torch_state_dict(variables: Dict, model, manifest: Optional[Dict] = 
     ``manifest`` maps key -> shape; by default it is the port ``model``'s own
     ``state_dict()`` shapes.  ``convert`` is the forward conversion whose
     permutation is inverted: the whole model's (``convert_occformer``) or a
-    part's (``resnet_tree`` for a ``models/resnet.py:ResNet``).  Keys the
+    part's (``resnet_tree`` for a ``models/resnet.py:ResNet``,
+    ``convert_bevstereo`` for a ``models/bevstereo.py`` view transformer).  Keys the
     converter never consumes are synthesized as the exporter does:
     ``num_batches_tracked`` zeros, the Swin ``relative_position_index``, and
     the view transformer's ``dx/bx/nx`` from the model's grid config.  Raises

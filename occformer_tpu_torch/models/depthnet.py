@@ -91,20 +91,20 @@ class DepthNet(nn.Module):
             nn.Conv2d(mid_channels, depth_channels, 1, dtype=dtype))
 
     def forward(self, x, mlp_input):
-        # BatchNorm1d over the camera embedding, kept in float32 (reference
-        # :469); in train mode over the batch's B * N cameras
-        bn = self.bn
-        if bn.training:
-            mlp_input = bn(mlp_input.float())
-        else:
-            mlp_input = F.batch_norm(
-                mlp_input.float(), bn.running_mean.float(), bn.running_var.float(),
-                bn.weight.float(), bn.bias.float(), False, 0.0, bn.eps)
-        mlp_input = mlp_input.to(x.dtype)
+        mlp_input = camera_embedding(self.bn, mlp_input).to(x.dtype)
         y = self.reduce_conv(x)
         ctx = self.context_conv(self.context_se(y, self.context_mlp(mlp_input)))
         dep = self.depth_se(y, self.depth_mlp(mlp_input))
         return self.depth_conv(dep), ctx
+
+
+def camera_embedding(bn: BatchNorm1d, mlp_input: torch.Tensor) -> torch.Tensor:
+    """The camera embedding through ``bn`` (BatchNorm1d) in float32, whatever
+    the autocast (reference :469); in train mode over the batch's cameras."""
+    if bn.training:
+        return bn(mlp_input.float())
+    return F.batch_norm(mlp_input.float(), bn.running_mean.float(), bn.running_var.float(),
+                        bn.weight.float(), bn.bias.float(), False, 0.0, bn.eps)
 
 
 def get_mlp_input(rots, trans, intrins, post_rots, post_trans, bda):

@@ -4,7 +4,9 @@ Port of ``occformer_tpu/models/detector.py`` (reference
 detectors/occupancyformer.py:14-237): camera images + geometry -> image
 backbone (a ResNet; SemanticKITTI's EfficientNet) + SECONDFPN -> LSS
 lift/splat -> dual-path 3D encoder -> deformable pixel decoder ->
-Mask2Former head.  ``model.eval()`` is the serving forward;
+Mask2Former head; ``OccupancyFormer4D`` runs the image encoder and the view
+transformer once per frame of a two-frame batch.  ``model.eval()`` is the
+serving forward;
 ``model.train()`` turns on BatchNorm batch statistics, drop-path in the 3D
 encoder and the EfficientNet, gradient checkpointing (``with_cp``) and the
 frozen image stem
@@ -161,14 +163,18 @@ class OccupancyFormer(nn.Module):
         x = self.img_neck(list(self.img_backbone(x)))
         return x.reshape(B, N, *x.shape[1:])
 
-    def forward(self, batch):
-        # each stage is a named range for torch.profiler (chip_smoke.py reads them)
+    def extract_volume(self, batch):
+        """(volume [B, X, Y, Z, C], depth_prob [B*N, fH, fW, D])."""
         with record_function("stage:image_encoder"):
             x = self.image_encoder(batch["imgs"])
         with record_function("stage:view_transformer"):
-            volume, depth_prob = self.img_view_transformer(
+            return self.img_view_transformer(
                 x, batch["rots"], batch["trans"], batch["intrins"],
                 batch["post_rots"], batch["post_trans"], batch["bda"])
+
+    def forward(self, batch):
+        # each stage is a named range for torch.profiler (chip_smoke.py reads them)
+        volume, depth_prob = self.extract_volume(batch)
         with record_function("stage:occupancy_encoder"):
             scales = self.img_bev_encoder_backbone(volume.permute(0, 4, 1, 2, 3))
         with record_function("stage:pixel_decoder"):
@@ -177,6 +183,53 @@ class OccupancyFormer(nn.Module):
             cls_preds, mask_embeds, mask_feature = self.pts_bbox_head(voxel_feats)
         return {"cls_preds": cls_preds, "mask_embeds": mask_embeds,
                 "mask_feature": mask_feature, "depth_prob": depth_prob}
+
+
+class OccupancyFormer4D(OccupancyFormer):
+    """The two-frame temporal variant (JAX ``models/detector.py:254-288``,
+    reference occupancyformer.py:256-312).
+
+    ``batch["imgs"]`` holds 2N camera slots with the frame axis minor,
+    ``[cam0 key, cam0 previous, cam1 key, ...]``, and so do ``rots``,
+    ``trans``, ``intrins``, ``post_rots`` and ``post_trans``; ``bda`` is
+    shared.  Each frame runs the image encoder and the view transformer with
+    its own cameras, the key frame (0) first, then the previous one (1)
+    without gradient (JAX's ``stop_gradient``): in train mode each
+    BatchNorm sees the key frame's batch, then the previous frame's, as
+    flax's updates run in call order, and the DepthNet normalises each
+    frame's N camera embeddings apart.  The two volumes concatenate on
+    channels (key first) into the occupancy encoder, whose input convolutions
+    take ``2 * numC_Trans`` channels; ``depth_prob`` is the key frame's.
+    (The JAX docstring says the key frame's sensor2ego feeds both frames'
+    camera embeddings; its code, which this follows, gives each frame its
+    own: ROADMAP §C.)"""
+
+    def extract_volume(self, batch):
+        B, N2 = batch["imgs"].shape[:2]
+        N = N2 // 2
+
+        def frame(key, i):
+            a = batch[key]
+            return a.reshape(B, N, 2, *a.shape[2:])[:, :, i]
+
+        def view_transformer(x, i):
+            cams = [frame(k, i) for k in ("rots", "trans", "intrins", "post_rots",
+                                         "post_trans")]
+            return self.img_view_transformer(x, *cams, batch["bda"])
+
+        with record_function("stage:image_encoder"):
+            x_key = self.image_encoder(frame("imgs", 0))
+            with torch.no_grad():
+                x_prev = self.image_encoder(frame("imgs", 1))
+        with record_function("stage:view_transformer"):
+            vol_key, depth_prob = view_transformer(x_key, 0)
+            with torch.no_grad():
+                vol_prev, _ = view_transformer(x_prev, 1)
+            return torch.cat([vol_key, vol_prev], dim=-1), depth_prob
+
+
+# the detectors by config type (the JAX package's DETECTORS registry)
+DETECTORS = {"OccupancyFormer": OccupancyFormer, "OccupancyFormer4D": OccupancyFormer4D}
 
 
 @torch.no_grad()
@@ -222,7 +275,8 @@ def init_weights(model: nn.Module, generator: torch.Generator) -> nn.Module:
 
 def build_model(model_cfg: Dict, device: Union[str, torch.device, None] = None,
                 dtype: torch.dtype = torch.float32, seed: int = 0) -> OccupancyFormer:
-    """The port model of a config's ``model`` dict, in eval mode, on ``device``.
+    """The port model of a config's ``model`` dict, in eval mode, on ``device``:
+    the ``DETECTORS`` class its ``type`` names (a ``KeyError`` for any other).
 
     ``device`` is ``cuda`` by default, and a CUDA device without a card
     raises: nothing falls back to the CPU unless the caller passes
@@ -233,9 +287,12 @@ def build_model(model_cfg: Dict, device: Union[str, torch.device, None] = None,
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is available; pass device='cpu' to run "
                            "the port's plain PyTorch path on the CPU")
+    if model_cfg["type"] not in DETECTORS:
+        raise KeyError(f"no detector of type {model_cfg['type']!r}; the port builds "
+                       f"{sorted(DETECTORS)}")
     cfg = {k: v for k, v in model_cfg.items() if k != "type"}
     with dev:
-        model = OccupancyFormer(**cfg, dtype=dtype)
+        model = DETECTORS[model_cfg["type"]](**cfg, dtype=dtype)
     model = model.to(dev)  # buffers made from numpy constants start on the host
     if dev.type != "meta":
         init_weights(model, torch.Generator(device=dev).manual_seed(seed))

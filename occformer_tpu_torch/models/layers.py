@@ -10,7 +10,7 @@ composite bricks, named as the reference's checkpoints name them:
 * ``MultiheadAttention``: torch's packed ``in_proj_weight`` / ``in_proj_bias``
   and ``out_proj``, computed as plain matmuls and a float32 softmax;
 * ``Mlp``, ``SELayer`` and ``BasicBlock2D`` of the DepthNet;
-* the train-mode pieces: ``BatchNorm1d`` / ``BatchNorm2d`` with flax's
+* the train-mode pieces: ``BatchNorm1d`` / ``2d`` / ``3d`` with flax's
   running-statistics update (over the global batch under data
   parallelism), ``DropPath`` drawing from an explicit
   generator (``drop_path_generator``), and ``checkpoint``, gradient
@@ -105,6 +105,10 @@ class BatchNorm1d(_FlaxBatchNorm, nn.BatchNorm1d):
 
 
 class BatchNorm2d(_FlaxBatchNorm, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_FlaxBatchNorm, nn.BatchNorm3d):
     pass
 
 

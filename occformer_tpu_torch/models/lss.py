@@ -3,7 +3,8 @@
 Port of ``occformer_tpu/models/lss.py:ViewTransformerLiftSplatShootVoxel``
 (reference ViewTransformerLSSVoxel.py:12-121): DepthNet -> float32 depth
 softmax -> frustum geometry -> fused depth x context scatter into a
-``[B, X, Y, Z, C]`` volume; and the depth supervision
+``[B, X, Y, Z, C]`` volume; the temporal BEV alignment ``shift_feature``;
+and the depth supervision
 (``downsampled_gt_depth``, ``depth_bce_loss``, JAX ``:91-123``).  The reference's ``dx/bx/nx`` grid constants are
 registered as buffers so its checkpoints load unchanged; the forward reads
 float32 copies of them, whatever dtype the module was cast to.
@@ -19,8 +20,40 @@ import torch.nn.functional as F
 
 from ..ops.geometry import compute_voxel_coords, create_frustum, gen_dx_bx, get_geometry
 from ..ops.scatter import voxel_scatter_lifted
+from ..ops.trilerp_fused import fused_multilevel_gather
 from ..parallel.distributed import all_reduce_sum, world_size
 from .depthnet import DepthNet, get_mlp_input
+
+
+def shift_feature(feat: torch.Tensor, curr2prev: torch.Tensor, bx, dx) -> torch.Tensor:
+    """Align a previous frame's BEV feature map to the current ego frame
+    (JAX ``models/lss.py:64-88``, reference BEVDet4D.shift_feature
+    detectors/bevdepth.py:180-298): each current cell centre goes through
+    the 4x4 ``curr2prev`` into the previous frame, where ``feat`` is read
+    bilinearly (``align_corners=True`` over the cell centres, zeros outside).
+    feat [B, X, Y, C] channels-last; bx / dx the first centre and the cell
+    size in (x, y).  Returns [B, X, Y, C] in feat's dtype.
+
+    The read is ``fused_multilevel_gather`` over one level of Z = 1 (the
+    DCN's route, ``models/dcn.py``): K4 on the card, whose backward K4-bwd
+    sums each cell's gradient in a fixed order; its plain version
+    (``F.grid_sample``) on the CPU."""
+    B, X, Y, C = feat.shape
+    dev = feat.device
+    with torch.autocast(dev.type, enabled=False):  # the coordinates in float32
+        xs = torch.arange(X, dtype=torch.float32, device=dev) * float(dx[0]) + float(bx[0])
+        ys = torch.arange(Y, dtype=torch.float32, device=dev) * float(dx[1]) + float(bx[1])
+        gx, gy = torch.meshgrid(xs, ys, indexing="ij")
+        pts = torch.stack([gx, gy, torch.zeros_like(gx), torch.ones_like(gx)], -1)  # [X, Y, 4]
+        prev = torch.einsum("bij,xyj->bxyi", curr2prev.float(), pts)
+        u = (prev[..., 0] - float(bx[0])) / float(dx[0])
+        v = (prev[..., 1] - float(bx[1])) / float(dx[1])
+        nu = u / (X - 1) * 2 - 1 if X > 1 else torch.zeros_like(u)
+        nv = v / (Y - 1) * 2 - 1 if Y > 1 else torch.zeros_like(v)
+        coords = torch.stack([nu, nv, torch.zeros_like(nu)], -1).reshape(B, X * Y, 3)
+    out = fused_multilevel_gather([feat.reshape(B, X * Y, C).contiguous()], [(X, Y, 1)], C,
+                                  [coords.contiguous()], align_corners=True)[0]
+    return out.transpose(1, 2).reshape(B, X, Y, C)
 
 
 def downsampled_gt_depth(gt_depths: torch.Tensor, grid_config: Dict, downsample: int,

@@ -56,8 +56,16 @@ def get_geometry(
     frustum [D, fH, fW, 3]; rots/post_rots [B, N, 3, 3]; intrins
     [B, N, 3, 3] or KITTI's P2 [B, N, 3, 4], whose shift column is taken off
     the lifted points before the inverse; trans/post_trans [B, N, 3]; bda
-    [B, 3, 3] or an affine [B, 4, 4].  All in float32.
+    [B, 3, 3] or an affine [B, 4, 4].  All in float32, autocast or not
+    (under bf16 autocast the products would run in bf16 and move points by
+    up to 2^-9 of their range across voxel borders; ROADMAP §C).
     """
+    with torch.autocast(frustum.device.type, enabled=False):
+        return _geometry(frustum.float(), rots.float(), trans.float(), intrins.float(),
+                         post_rots.float(), post_trans.float(), bda.float())
+
+
+def _geometry(frustum, rots, trans, intrins, post_rots, post_trans, bda):
     pts = frustum[None, None] - post_trans[:, :, None, None, None, :]
     inv_post = torch.linalg.inv(post_rots)
     pts = torch.einsum("bnij,bndhwj->bndhwi", inv_post, pts)

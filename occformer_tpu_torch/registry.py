@@ -4,8 +4,10 @@ The port's copy of ``occformer_tpu/registry.py`` (reference
 mmdetection3d/mmdet3d/models/builder.py): the ``dict(type='Name', **kwargs)``
 config convention, so that the reference's config files map 1:1 onto the
 port.  The port builds its models with ``models/detector.py:translate_cfg``;
-datasets (``DATASETS``, used by the CLIs) and the steps of their data
-pipelines (``PIPELINES``) go through a registry.
+datasets (``DATASETS``, used by the CLIs), the steps of their data pipelines
+(``PIPELINES``) and the view transformers no config builds
+(``NECKS``: BEVStereo's, registered where the JAX package registers it) go
+through a registry.
 """
 from __future__ import annotations
 
@@ -80,3 +82,5 @@ def build_from_cfg(cfg: Dict[str, Any], registry: Registry, **default_args) -> A
 DATASETS = Registry("datasets")
 # the steps of a dataset's ``pipeline`` (``data/transforms.py``, ``data/voxelize.py``)
 PIPELINES = Registry("pipelines")
+# ``models/bevstereo.py:ViewTransformerLSSBEVStereo``
+NECKS = Registry("necks")

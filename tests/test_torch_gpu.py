@@ -1286,3 +1286,198 @@ def test_checkpoint_round_trip_on_the_card(cuda, tmp_path):
     m2 = step2(batch, torch.Generator(device=cuda).manual_seed(1))
     for k, v in m1.items():
         assert float(m2[k]) == float(v), k
+
+
+# ---------------------------------------------------------------------------
+# the temporal slice: BEVStereo's warps and shift_feature through K4, the
+# "SAME" transposed convolution, BEVStereo on the card
+# ---------------------------------------------------------------------------
+
+# [G, H, W, C, hypotheses a pixel]: the stereo warp of a ResNet layer1's
+# features at 1/4 of 256 x 704 (6 cameras, 3 depth samples), the mask's warp
+# of the 112-bin mono depth at 1/16, shift_feature over a 128 x 128 BEV map
+WARP_SHAPES = {"stereo": (6, 64, 176, 256, 3), "mask": (6, 16, 44, 112, 1),
+               "bev": (1, 128, 128, 128, 1)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("align_corners", [False, True])
+@pytest.mark.parametrize("case", list(WARP_SHAPES))
+def test_k4_at_the_warp_and_shift_shapes(cuda, case, align_corners, dtype):
+    """K4 and K4-bwd as ``models/bevstereo.py``'s warps and
+    ``models/lss.py:shift_feature`` run them: one level of Z = 1, the
+    channels-last table [G, H*W, C] (C = 256 and 112 on the row-wide path),
+    (y, x, 0) coordinates uniform in [-1.15, 1.15] (points off the image),
+    against the plain version and its autograd; then K4-bwd without
+    d_coords (the warp's grid carries no gradient) gives the same d_table
+    bits."""
+    G, H, W, C, S = WARP_SHAPES[case]
+    dt = getattr(torch, dtype)
+    rng = np.random.RandomState(3)
+    table = torch.from_numpy(rng.randn(G, H * W, C).astype(np.float32)).to(cuda, dt)
+    yx = rng.uniform(-1.15, 1.15, (G, S * H * W, 2)).astype(np.float32)
+    coords = torch.from_numpy(np.concatenate([yx, np.zeros_like(yx[..., :1])], -1)).to(cuda)
+    spatials = [(H, W, 1)]
+    assert k1.multi_fwd_path(C, dt, [table.data_ptr()]) == "row"
+    _k4_against_plain([table], [coords], spatials, C, align_corners, dt)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    gout = [torch.randn((G, C, S * H * W), device=cuda, generator=gen).to(dt)]
+    with_coords, _ = k1._launch_multi_bwd([table], spatials, C, [coords], gout, align_corners,
+                                          True)
+    without, none = k1._launch_multi_bwd([table], spatials, C, [coords], gout, align_corners,
+                                         False)
+    assert none is None and torch.equal(with_coords[0], without[0])
+
+
+def test_same_conv_transpose_on_the_card(cuda):
+    """``models/bevstereo.py:_SameConvTranspose2d`` (flax's stride-2 "SAME"
+    transposed convolution) on the card against the CPU, float32 without
+    TF32, on odd and even sides: output 2x the input, within 1e-5 of max
+    |CPU|, the input's, weight's and bias's gradients within 1e-4."""
+    from occformer_tpu_torch.models.bevstereo import _SameConvTranspose2d
+
+    torch.manual_seed(0)
+    cpu = _SameConvTranspose2d(64)
+    gpu = _SameConvTranspose2d(64).to(cuda)
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.RandomState(4)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        for hw in ((16, 44), (5, 7)):
+            x = torch.from_numpy(rng.randn(2, 64, *hw).astype(np.float32))
+            gout = torch.from_numpy(rng.randn(2, 64, 2 * hw[0], 2 * hw[1]).astype(np.float32))
+            res = []
+            for module, dev in ((gpu, cuda), (cpu, "cpu")):
+                module.zero_grad()
+                xl = x.to(dev).requires_grad_(True)
+                out = module(xl)
+                out.backward(gout.to(dev))
+                res.append([t.detach().cpu() for t in (out, xl.grad, module.weight.grad,
+                                                        module.bias.grad)])
+            assert res[0][0].shape == (2, 64, 2 * hw[0], 2 * hw[1])
+            for name, g, r, rel in zip(("output", "d_input", "d_weight", "d_bias"), *res,
+                                       (1e-5, 1e-4, 1e-4, 1e-4)):
+                _close(g, r, rel, f"{name} at {hw}")
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+
+
+def _stereo_case(dev, seed=0):
+    """The tiny BEVStereo of tests/test_torch_bevstereo.py (64 x 96 image, 16
+    depth bins in two ranges, two EM steps, four groups) with a seeded
+    init, and two sweeps' inputs: image features, camera embeddings, stereo
+    features, matrices, the lift-splat's cameras."""
+    from occformer_tpu_torch.models.bevstereo import ViewTransformerLSSBEVStereo
+    from occformer_tpu_torch.models.detector import init_weights
+
+    grid = {"xbound": [-8.0, 8.0, 2.0], "ybound": [-8.0, 8.0, 2.0],
+            "zbound": [-2.0, 2.0, 1.0], "dbound": [2.0, 10.0, 0.5]}
+    module = ViewTransformerLSSBEVStereo(
+        grid, {"input_size": (64, 96)}, numC_input=16, numC_Trans=8, num_ranges=2,
+        range_list=((2.0, 6.0), (6.0, 10.0)), em_iteration=2, num_groups=4)
+    init_weights(module, torch.Generator().manual_seed(seed))
+    rng = np.random.RandomState(seed)
+    bn = 2
+    t = lambda *shape: torch.from_numpy(rng.randn(*shape).astype(np.float32))
+
+    def mats():
+        intrin = np.tile(np.eye(4, dtype=np.float32), (bn, 1, 1))
+        intrin[:, 0, 0] = intrin[:, 1, 1] = 40.0
+        intrin[:, 0, 2], intrin[:, 1, 2] = 48.0, 32.0
+        ida = np.tile(np.eye(4, dtype=np.float32), (bn, 1, 1))
+        ida[:, :2, 3] = rng.uniform(-1, 1, (bn, 2))
+        s2s = np.tile(np.eye(4, dtype=np.float32), (bn, 1, 1))
+        s2s[:, :3, 3] = rng.uniform(-0.15, 0.15, (bn, 3))
+        return intrin, ida, s2s
+
+    ints, idas, s2ss = zip(*(mats() for _ in range(2)))
+    fwd = np.array([[0, 0, 1], [-1, 0, 0], [0, -1, 0]], np.float32)
+    rots = np.stack([fwd, np.diag([-1.0, -1.0, 1.0]).astype(np.float32) @ fwd])[None]
+    intrins = np.tile(np.diag([40.0, 40.0, 1.0]).astype(np.float32), (1, 2, 1, 1))
+    intrins[..., 0, 2], intrins[..., 1, 2] = 48.0, 32.0
+    eye = np.tile(np.eye(3, dtype=np.float32), (1, 2, 1, 1))
+    cams = [rots, np.zeros((1, 2, 3), np.float32), intrins, eye, np.zeros((1, 2, 3), np.float32),
+            np.eye(3, dtype=np.float32)[None]]
+    inputs = {"xs": [t(bn, 16, 4, 6) for _ in range(2)], "mlps": [t(bn, 27) for _ in range(2)],
+              "feats": [t(bn, 8, 16, 24) for _ in range(2)],
+              "mats": {"intrin_mats": np.stack(ints, 1), "ida_mats": np.stack(idas, 1),
+                       "sensor2sensor_mats": np.stack(s2ss, 1)},
+              "cams": cams, "w": t(bn, 16, 4, 6)}
+    return module.to(dev).train(), inputs
+
+
+def _stereo_run(module, inputs, dev):
+    """Each sweep's DepthNet, ``forward_stereo``, ``fuse_depth``, the splat;
+    the backward of a fixed weighting of the depth probabilities.  Returns
+    the outputs, the inputs' and parameters' gradients, the K4 / K4-bwd / S1
+    launches."""
+    from occformer_tpu_torch.ops import scatter
+
+    module.zero_grad()
+    to = lambda a: torch.as_tensor(a).to(dev)
+    xs = [to(x).requires_grad_(True) for x in inputs["xs"]]
+    feats = [to(f).requires_grad_(True) for f in inputs["feats"]]
+    mlps = [to(m) for m in inputs["mlps"]]
+    mats = {k: to(v) for k, v in inputs["mats"].items()}
+    before = (k1.MULTI_LAUNCHES, k1.MULTI_BWD_LAUNCHES, scatter.LAUNCHES)
+    outs = [module.depth_net(x, m) for x, m in zip(xs, mlps)]
+    _, ctxs, mus, sigmas, rss, monos = (list(o) for o in zip(*outs))
+    sd, ms = module.forward_stereo(0, feats, monos, mats, mus, sigmas, rss)
+    prob = module.fuse_depth(monos[0], sd, ms)
+    vol = module(ctxs[0].reshape(1, 2, 8, 4, 6), prob, *[to(c) for c in inputs["cams"]])
+    (prob * to(inputs["w"])).sum().backward()
+    launched = (k1.MULTI_LAUNCHES - before[0], k1.MULTI_BWD_LAUNCHES - before[1],
+                scatter.LAUNCHES - before[2])
+    grads = {"feat0": feats[0].grad, "feat1": feats[1].grad, "x0": xs[0].grad}
+    grads.update({k: p.grad for k, p in module.named_parameters() if p.grad is not None})
+    cpu = lambda d: {k: v.detach().cpu() for k, v in d.items()}
+    return cpu({"stereo_depth": sd, "mask_score": ms, "depth_prob": prob, "volume": vol}), \
+        cpu(grads), launched
+
+
+def test_bevstereo_on_the_card_matches_the_cpu(cuda):
+    """The tiny BEVStereo in train mode on the card (its warps and DCN
+    through K4, their gradients through K4-bwd, the splat through S1)
+    against the same module on the CPU (the plain versions), float32 without
+    TF32: outputs within 1e-4 of max |CPU|, every gradient within 1e-3 (two
+    EM steps of softmaxes; those that are 0 up to rounding within 1e-5 of the
+    largest, as tests/test_torch_bevstereo.py holds them); K4 8 times (4 stereo warps, 2 mask warps, 2
+    DCNs), K4-bwd 5 (the stereo warps and the key sweep's DCN: the other
+    sweep's DepthNet reaches the depth only through the mask's detached
+    input), S1 once.  Then two runs with cuDNN's deterministic algorithms
+    repeat every output and gradient bit for bit: the port's own sums
+    (K4-bwd, S1, the reductions) repeat.  (At these tiny shapes cuDNN's
+    default backward of the mask net's 64-channel convolutions varies, TF32
+    on or off, ROADMAP §C; at full width ``chip_smoke.py``'s ``stereo``
+    phase holds the port's default settings bit for bit.)"""
+    tf32, det = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        gpu, inputs = _stereo_case(cuda)
+        out, grads, launched = _stereo_run(gpu, inputs, cuda)
+        torch.backends.cudnn.deterministic = True
+        runs = [_stereo_run(_stereo_case(cuda)[0], inputs, cuda)[:2] for _ in range(2)]
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = tf32, det
+    cpu, _ = _stereo_case("cpu")
+    ref, ref_grads, none = _stereo_run(cpu, inputs, "cpu")
+    assert launched == (8, 5, 1) and none == (0, 0, 0)
+    for k, r in ref.items():
+        _close(out[k], r, 1e-4, k)
+    assert set(grads) == set(ref_grads) and len(grads) > 60
+    # gradients that are 0 up to rounding (the similarity's output bias: the
+    # softmax over the samples ignores a constant; the biases of the
+    # convolutions a train-mode BatchNorm follows) within 1e-5 of the largest
+    flat = {f"{m}.bias" for m in ("sim_out", "depth_net.reduce_conv", "depth_net.msr_up0",
+                                  "depth_net.msr_up1", "dds_conv1", "dds_conv2", "mask_conv")}
+    top = max(r.abs().max().item() for r in ref_grads.values())
+    for k, r in ref_grads.items():
+        if k in flat:
+            assert max(grads[k].abs().max().item(), r.abs().max().item()) <= 1e-5 * top, k
+        else:
+            _close(grads[k], r, 1e-3, f"d {k}")
+    (a, da), (b, db) = runs
+    differ = [k for k in a if not torch.equal(a[k], b[k])] + \
+        [f"d {k}" for k in da if not torch.equal(da[k], db[k])]
+    assert not differ, f"two runs differ in {differ}"

@@ -58,7 +58,11 @@ def test_package_and_tiny_model_load_without_jax():
         "import occformer_tpu_torch.utils.semkitti, occformer_tpu_torch.utils.semkitti_io\n"
         "import occformer_tpu_torch.utils.metrics, occformer_tpu_torch.tools.kitti_preprocess\n"
         "import occformer_tpu_torch.tools.train, occformer_tpu_torch.tools.test\n"
-        "from occformer_tpu_torch.models.detector import build_model\n"
+        "import occformer_tpu_torch.models.bevstereo\n"
+        "from occformer_tpu_torch.models.lss import shift_feature\n"
+        "from occformer_tpu_torch.models.detector import OccupancyFormer4D, build_model\n"
+        "cfg4d = dict(tiny_cfg.model_cfg(), type='OccupancyFormer4D')\n"
+        "assert isinstance(build_model(cfg4d, device='meta'), OccupancyFormer4D)\n"
         "kitti = occformer_tpu_torch.config.load_config("
         "'occformer_tpu_torch/configs/occformer_kitti.py')\n"
         "assert len(build_model(kitti['model'], device='meta').state_dict()) == 1983\n"

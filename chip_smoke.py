@@ -229,8 +229,34 @@ Phases, each printing one JSON line:
                  grid; K4 18 times, S1 once), then a fixed random weighting
                  of the fused depth differentiated twice from one state:
                  every gradient bit-equal.
-In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19, 20, 23, 24, 27, 28 and 29
-and in the K4 parity gate every
+  30. voxnet_kernels (run after phase 26, on its one-sample tree): S1-rows
+                 (ops/scatter.py:voxel_scatter, the use_voxel_net splat) at
+                 the flagship's shapes, B = 1, P = 6 * 16 * 44 * 112 =
+                 473,088 rows of 128 channels into 128 x 128 x 16 at the
+                 nuScenes rig's coordinates, float32 and bf16: within 1e-5 /
+                 1e-2 of the plain version (atomic on the card), bit for bit
+                 the plain version's on the CPU, two calls bit-equal, its
+                 backward bit-equal to the plain gather; timed beside the
+                 plain version, one index_add_ and its bound.
+  31. voxnet_serve (after phase 28): the flagship with use_voxel_net and
+                 pooling_attn_mask=False at full width and depth (3 frames
+                 of the test pipeline; DepthAggregation over the lift, S1-rows
+                 in place of S1, no adaptive_max_pool3d), its profiled frame's
+                 view-transformer and stage:depth_aggregation device ms.
+  32. voxnet_train: 3 steps on the per-layer route, a profiled step, one
+                 reloaded pair bit for bit, one batched-route step.
+  33. pointcloud (right after phase 30: the profiler has dropped a late
+                 phase's device events): ops/pointcloud.py and ops/spconv.py
+                 at their users' sizes
+                 (phase_pointcloud): every op once, FPS (its one kernel)
+                 launched once; FPS held to its plain version (indices
+                 equal, also with invalid points), each op timed, the
+                 sparse convs' gather backend held to the dense one at
+                 [128, 128, 16].
+The cli phase (9) also fuses step_2 (tools/fuse_conv_bn.py) and serves one
+frame from the fused checkpoint, within 1e-4 of the unfused one's.
+In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19, 20, 23, 24, 27, 28, 29, 31,
+32 and 33 and in the K4 parity gate every
 kernel's launch count is set to 0 just before the path is driven and read
 just after; each must match its per-frame, per-step or per-run count (the
 learn phase: launched).  The CLIs report their own counts, which must show
@@ -240,7 +266,8 @@ two paths as two records each; S1, the LSS splat, which has no Pallas
 original, last; each kernel of the KITTI path with its KITTI-shape record
 under ``kitti``, each kernel's R101-DCN record under ``r101``, its
 panoptic record under ``pan``, K4's and K4-bwd's BEVStereo records under
-``stereo``), and last
+``stereo``; then S1-rows and FPS, which have no Pallas original either),
+and last
 ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
 without the package beside this file, it exits non-zero and prints no result.
@@ -276,7 +303,7 @@ CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r5
 # frame and a step, and K4-bwd once a step
 _NONE = {"K1": 0, "K1.row": 0, "K1-bwd": 0, "K2": 0, "K2.row": 0, "K2-bwd": 0,
          "K2-bwd.narrow": 0, "K3": 0, "K4": 0, "K4.row": 0, "K4-bwd": 0, "P1": 0, "P2": 0,
-         "S1": 0}
+         "S1": 0, "S1-rows": 0, "FPS": 0}
 # "K1.row": the deformable attention's hd = 24 rows take K1's row-wide path
 SERVE_LAUNCHES = dict(_NONE, **{"K1": 6, "K1.row": 6, "K4": 1, "K4.row": 1, "S1": 1})
 # "K2.row": the per-layer route's 30 readouts of the bf16 C = 192 feature
@@ -343,6 +370,14 @@ PAN_TRAIN_LAUNCHES_BATCHED = dict(TRAIN_LAUNCHES["on"], **{"K2.row": 1})
 _TWO_FRAMES = {"K4": 2, "K4.row": 2, "S1": 2}
 T4D_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **_TWO_FRAMES)
 T4D_TRAIN_LAUNCHES = {route: dict(n, **_TWO_FRAMES) for route, n in TRAIN_LAUNCHES.items()}
+# the flagship with use_voxel_net and trilinear attention masks: the refined
+# lift splats through S1-rows in place of S1, once a frame and a step; the
+# rest is the flagship's
+_ROWS = {"S1": 0, "S1-rows": 1}
+VOXNET_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **_ROWS)
+VOXNET_TRAIN_LAUNCHES = {route: dict(n, **_ROWS) for route, n in TRAIN_LAUNCHES.items()}
+# the point-cloud surface's run: every op once, FPS its one kernel
+POINTCLOUD_LAUNCHES = dict(_NONE, FPS=1)
 # BEVStereo at the flagship's grid (4 ranges over dbound [2, 58, 0.5]: D = 112,
 # 3 EM steps, 3 samples, 8 groups, 2 sweeps of 6 cameras): a forward runs the
 # two sweeps' DepthNetStereo DCNs, 4 x 3 stereo warps of the 256-channel
@@ -412,19 +447,31 @@ def nbytes(*tensors):
 TRACE_ATTEMPTS = 3
 
 
-def device_ms(fn, iters=20):
+def device_ms(fn, iters=20, warmup=3):
     """Device ms per call of ``fn()`` from the profiler
-    (``utils/timing.py:device_ms``); a trace that caught no device activity
-    is taken again, up to ``TRACE_ATTEMPTS`` traces, and the run fails if
-    none caught any, so that a dropped trace cannot stand as a time (CUPTI
-    dropped a whole trace once early in a run, PR 13's final call)."""
-    from occformer_tpu_torch.utils.timing import device_ms as on_device
+    (``utils/timing.py:device_trace``, whose trace opens with a lead-in the
+    profiler may drop in place of the calls' records).  The trace must show
+    device activity and every port-kernel launch of its ``iters`` calls
+    (the launch counts' rise over the warm-up and traced calls, pro rata);
+    one that does not is taken again, up to ``TRACE_ATTEMPTS`` traces, and
+    the run fails if none does, so that a dropped or partial trace cannot
+    stand as a time (CUPTI dropped a whole trace once early in a run, PR
+    13's final call; late in a run it drops a trace's first records, which
+    took every launch of 7.7 ms FPS kernels in a trace of three)."""
+    from occformer_tpu_torch.utils.timing import device_trace
 
+    calls = warmup + iters
     for _ in range(TRACE_ATTEMPTS):
-        ms = on_device(fn, iters)
-        if ms > 0:
+        before = launches()
+        ms, kernels = device_trace(fn, iters, warmup)
+        ran = {k: v - before[k] for k, v in launches().items()}
+        want = {k: v * iters // calls for k, v in ran.items()}
+        traced = traced_launches(port_kernel_ms(kernels)["by_kernel"])
+        if ms > 0 and traced == want:
             return ms
-    check(False, f"the profiler caught no device activity in {TRACE_ATTEMPTS} traces")
+    check(False, f"the profiler's device time: {TRACE_ATTEMPTS} traces, the last with "
+          f"{ms} ms a call and port-kernel launches {traced}, want {want}")
+    return ms
 
 
 def bound(n_bytes, flops):
@@ -2157,17 +2204,17 @@ def busy_share(run):
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from occformer_tpu_torch.utils.timing import device_kernels, lead_in
+
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+        lead_in()
         t = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t) * 1e3
     t = time.perf_counter()
-    events = prof.key_averages()
-    ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
-    dev_ms = sum(e.self_device_time_total for e in events if e.device_type.name == "CUDA"
-                 and not (e.is_user_annotation or e.key in ranges)) / 1e3
+    dev_ms = sum(e.self_device_time_total for e in device_kernels(prof.key_averages())) / 1e3
     return {"wall_ms": wall_ms, "device_ms": dev_ms, "device_busy_share": dev_ms / wall_ms,
             "trace_read_s": time.perf_counter() - t}
 
@@ -2461,6 +2508,7 @@ def phase_cli():
         t = time.perf_counter()
         save_checkpoint(os.path.join(work, "save_timing"), model, opt, 2)
         rec["save_s"] = time.perf_counter() - t
+        rec["fused"] = fused_frame(cfg, model, step2, os.path.join(work, "fused", "step_2"))
         del saved, model, opt, o_got
         free_memory()
 
@@ -2490,6 +2538,34 @@ def phase_cli():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     emit(rec)
+    return rec
+
+
+def fused_frame(cfg, model, step_dir, fused_dir):
+    """``tools/fuse_conv_bn.py`` on the train CLI's checkpoint: the fused
+    checkpoint loaded strictly into a fresh model serves one flagship frame
+    in float32 (no autocast, no TF32), held to ``model``'s (the unfused
+    checkpoint's) frame within 1e-4 relative."""
+    import torch
+
+    from occformer_tpu_torch.data.synthetic import make_serving_batch
+    from occformer_tpu_torch.engine.checkpoint import load_checkpoint
+    from occformer_tpu_torch.models.detector import build_model
+    from occformer_tpu_torch.tools.fuse_conv_bn import fuse_checkpoint
+
+    t = time.perf_counter()
+    report = fuse_checkpoint(cfg, step_dir, fused_dir)
+    rec = {"fuse_s": time.perf_counter() - t, "fused_pairs": report["fused_pairs"],
+           "unpaired_convs": len(report["unpaired_convs"])}
+    fused = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=2)
+    check(load_checkpoint(fused_dir, fused) == 2, "fused checkpoint step")
+    frame = {k: torch.as_tensor(v).cuda() for k, v in make_serving_batch(cfg, seed=0).items()}
+    model.eval()
+    with torch.no_grad():
+        ref, got = model(frame), fused(frame)
+    rec["outputs"] = {k: compare(got[k], ref[k], 1e-4, f"fused {k}")
+                      for k in ("cls_preds", "mask_embeds", "mask_feature", "depth_prob")}
+    del fused, ref, got
     return rec
 
 
@@ -4095,6 +4171,398 @@ def phase_stereo(tree, ann):
     return rec["launches"], rec["backward_launches"]
 
 
+def voxnet_cfg(tree, ann):
+    """The flagship config on the tree with both branches the port used to
+    refuse: ``use_voxel_net`` (the lift refined by DepthAggregation, splat
+    by S1-rows) and ``pooling_attn_mask=False`` (trilinear attention
+    masks); no released config sets either."""
+    cfg = r101_cfg(tree, ann, config=CONFIG)
+    cfg["model"]["img_view_transformer"]["use_voxel_net"] = True
+    cfg["model"]["pts_bbox_head"]["pooling_attn_mask"] = False
+    return cfg
+
+
+def voxnet_points(tree, ann):
+    """The use_voxel_net splat's coordinates at the flagship's shapes: the
+    frustum of the tree's first test frame (the nuScenes rig of
+    ``make_nuscenes_tree``, the data phase's), its points in the order the
+    view transformer sends them (camera, row, column, depth bin): coords
+    int32 [1, P, 3], valid [1, P], the grid (X, Y, Z)."""
+    import torch
+
+    from occformer_tpu_torch.ops.geometry import (
+        compute_voxel_coords,
+        create_frustum,
+        gen_dx_bx,
+        get_geometry,
+    )
+
+    cfg = r101_cfg(tree, ann, config=CONFIG)
+    vt = cfg["model"]["img_view_transformer"]
+    frame = r101_batches(cfg, "test", 1)[0]
+    cams = [torch.from_numpy(frame[k]).cuda()
+            for k in ("rots", "trans", "intrins", "post_rots", "post_trans", "bda")]
+    grid = vt["grid_config"]
+    dx, bx, nx = gen_dx_bx(grid["xbound"], grid["ybound"], grid["zbound"])
+    frustum = torch.from_numpy(create_frustum(grid, tuple(vt["data_config"]["input_size"]),
+                                              vt.get("downsample", 16))).cuda()
+    coords, valid = compute_voxel_coords(get_geometry(frustum, *cams), dx, bx, nx)
+    order = (0, 1, 3, 4, 2)  # [B, N, D, fH, fW] -> (camera, row, column, depth bin)
+    coords = coords.permute(*order, 5).reshape(1, -1, 3).to(torch.int32).contiguous()
+    valid = valid.permute(*order).reshape(1, -1).contiguous()
+    return coords, valid, tuple(int(n) for n in nx)
+
+
+def s1_rows_record(feats, coords, valid, nx, label):
+    """S1-rows against its plain version (one index_add_ into float32 rows,
+    atomic on the card) and against the plain version on the CPU (the same
+    order: equal bit for bit), two calls bit-equal, its backward bit-equal
+    to the plain gather, timed in turns with the plain version, the kernels'
+    device ms, one index_add_ in feats' dtype (the library call) and the
+    bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import scatter
+
+    B, P, C = feats.shape
+    n_rows = B * nx[0] * nx[1] * nx[2]
+    rows = scatter.voxel_rows(coords, valid, nx)
+
+    def plain():
+        return scatter.voxel_scatter_plain_rows(feats, rows, n_rows).to(feats.dtype)
+
+    def kernel():
+        return scatter.voxel_scatter(feats, coords, valid, nx)
+
+    got, again = kernel(), kernel()
+    check(torch.equal(got, again), f"S1-rows {label}: two calls differ")
+    rec = compare(got.reshape(n_rows, C), plain(), 1e-5 if feats.dtype == torch.float32
+                  else 1e-2, f"S1-rows {label}")
+    cpu = scatter.voxel_scatter_plain_rows(feats.cpu(), rows.cpu(), n_rows).to(feats.dtype)
+    rec["equal_to_cpu_plain"] = bool(torch.equal(got.reshape(n_rows, C).cpu(), cpu))
+    check(rec["equal_to_cpu_plain"], f"S1-rows {label}: not the CPU plain version's bits")
+    leaf = feats.detach().clone().requires_grad_(True)
+    vol = scatter.voxel_scatter(leaf, coords, valid, nx)
+    g = torch.randn(vol.shape, device=vol.device, generator=torch.Generator(
+        device="cuda").manual_seed(7)).to(vol.dtype)
+    (d_feats,) = torch.autograd.grad(vol, leaf, g)
+    want = F.pad(g.reshape(n_rows, C), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
+    check(torch.equal(d_feats.reshape(-1, C), want), f"S1-rows {label}: backward")
+    rec.update(bit_identical_calls=True, backward_bit_equal_to_gather=True,
+               dtype=str(feats.dtype), rows=[B, P, C], grid=list(nx),
+               points_valid=int(valid.sum()))
+    del again, leaf, vol, g, d_feats, want, cpu
+    ms = {"plain": [], "kernel": []}
+    with torch.no_grad():
+        for name in ("plain", "kernel", "kernel", "plain"):
+            ms[name].append(time_cuda(plain if name == "plain" else kernel))
+        lib = torch.zeros((n_rows + 1, C), dtype=feats.dtype, device=feats.device)
+        flat_rows, flat = rows.reshape(-1), feats.reshape(-1, C)
+        rec["library_ms"] = time_cuda(lambda: lib.index_add_(0, flat_rows, flat))
+        rec["device_ms"] = device_ms(kernel)
+    rec.update(ms_in_turns=ms, kernel_ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2)
+    # what the splat must move: valid read in full, the coordinates and the
+    # row of feats of each valid point (RowKeys drops an invalid point before
+    # it reads either), the volume written once; an add per (valid point,
+    # channel)
+    n_valid = rec["points_valid"]
+    moved = (nbytes(valid, got) + n_valid * 3 * coords.element_size()
+             + n_valid * C * feats.element_size())
+    rec.update(bound(moved, n_valid * C))
+    return rec
+
+
+def phase_voxnet_kernels(tree, ann):
+    """S1-rows as the use_voxel_net flagship sends it: B = 1, P = 6 * 16 *
+    44 * 112 = 473,088 rows of C = 128 (seeded random features: the refined
+    lift's shape) into the 128 x 128 x 16 grid, at the nuScenes rig's
+    coordinates (``voxnet_points``), in float32 and bf16
+    (``s1_rows_record``).  Returns the records."""
+    import torch
+
+    coords, valid, nx = voxnet_points(tree, ann)
+    check(coords.shape[1] == 473088, f"voxnet_kernels: {coords.shape[1]} points")
+    feats = torch.randn((1, coords.shape[1], 128), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(5))
+    rec = {"phase": "voxnet_kernels"}
+    for dtype in (torch.float32, torch.bfloat16):
+        rec[str(dtype).split(".")[1]] = s1_rows_record(feats.to(dtype), coords, valid, nx,
+                                                       str(dtype))
+        free_memory()
+    emit(rec)
+    return rec
+
+
+def phase_voxnet_serve(tree, ann):
+    """The flagship with use_voxel_net and trilinear attention masks at full
+    width and depth, serving the test pipeline over the tree
+    (``serve_phase``): output shapes, predicted labels in range, and the
+    profiled frame's view-transformer device ms beside DepthAggregation's
+    (its ``stage:depth_aggregation``).  Returns (launch counts, the
+    model)."""
+    cfg = voxnet_cfg(tree, ann)
+    frames = r101_batches(cfg, "test", 3)
+    for f in frames:  # a served frame has no GT
+        f.pop("gt_occ")
+    rec, model, _, outs = serve_phase("voxnet_serve", "occformer_nusc_r50_256x704 with "
+                                      "use_voxel_net, pooling_attn_mask=False", cfg, frames,
+                                      VOXNET_SERVE_LAUNCHES,
+                                      forbid=("aten::adaptive_max_pool3d",))
+    check(hasattr(model.img_view_transformer, "depth_aggregation_net")
+          and not model.pts_bbox_head.pooling_attn_mask, "voxnet_serve: the branches")
+    out = outs[-1]
+    check(list(out["voxel_pred"].shape) == [1, *cfg["occ_size"]]
+          and int(out["voxel_pred"].max()) < cfg["num_class"]
+          and int(out["point_pred"].min()) >= 1, "voxnet_serve: outputs")
+    st = rec["profile"]["stages"]
+    rec["view_transformer_device_ms"] = st["view_transformer"]["device_ms"]
+    rec["depth_aggregation_device_ms"] = st["depth_aggregation"]["device_ms"]
+    emit(rec)
+    return rec["launches"], model
+
+
+def phase_voxnet_train(tree, ann, model):
+    """The use_voxel_net / trilinear-mask flagship's train step at full width
+    and depth, float32 parameters under bf16 autocast, batch 1, on the
+    train pipeline over the tree: 3 steps on the per-layer route
+    (``train_phase``; DepthAggregation's kernels and BatchNorm statistics
+    move), ``profile_and_reload`` (a reloaded pair repeats every loss and
+    gradient bit for bit), then one step on the batched route.  Returns
+    the per-layer and the batched step's launch counts."""
+    import dataclasses
+
+    import torch
+
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+
+    cfg = voxnet_cfg(tree, ann)
+    m = cfg["model"]
+    model.train()
+    loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="off"),
+                              m["train_cfg"]["pts"])
+    opt = build_optimizer_from_config(model, cfg, 28130)  # nuScenes' train samples
+    dtype = getattr(torch, cfg["compute_dtype"])
+    step = build_train_step(model, opt, loss_cfg, device="cuda", compute_dtype=dtype)
+    batches = r101_batches(cfg, "train", 2)
+    da = model.img_view_transformer.depth_aggregation_net
+    before = da.conv1.weight.detach().clone()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    run = train_phase("voxnet_train", step, batches, VOXNET_TRAIN_LAUNCHES["off"], 3, g)
+    check(not torch.equal(da.conv1.weight, before) and int(da.bn1.num_batches_tracked) == 3,
+          "voxnet_train: DepthAggregation did not train")
+    rec = {"phase": "voxnet_train", "config": "occformer_nusc_r50_256x704 with use_voxel_net, "
+           "pooling_attn_mask=False", "param_dtype": "float32", "autocast": cfg["compute_dtype"],
+           "route": "per-layer", **run}
+    profile_and_reload(rec, "voxnet", model, opt, step, batches[0],
+                       VOXNET_TRAIN_LAUNCHES["off"], g, forbid=("aten::adaptive_max_pool3d",))
+    free_memory()
+    bstep = build_train_step(model, opt, dataclasses.replace(loss_cfg, mxu_readout="on"),
+                             device="cuda", compute_dtype=dtype)
+    secs, nb, rec["batched_peak_memory_bytes"], _, outs = main_path_run(
+        "voxnet batched step", lambda b: bstep(b, g), batches[1:],
+        VOXNET_TRAIN_LAUNCHES["on"], 1)
+    rec.update(batched_step_s=secs[0], batched_launches=nb,
+               batched_metrics={k: float(v) for k, v in outs[0].items()})
+    check(all(v == v and abs(v) != float("inf") for k, v in rec["batched_metrics"].items()
+              if k != "point_mean_iou"), f"voxnet batched step {rec['batched_metrics']}")
+    emit(rec)
+    return run["launches"], nb
+
+
+# the point-cloud surface at sizes its users run (the first three from the
+# public configs named in phase_pointcloud's docstring)
+PC_NUSC_POINTS = 300000
+PC_VOXEL = dict(voxel_size=[0.25, 0.25, 8], pc_range=[-50, -50, -5, 50, 50, 3],
+                max_points=64, max_voxels=30000)
+PC_FPS = (8, 20000, 2048)
+PC_BOXES = 4096
+PC_POOL_BOXES = 200
+SPCONV_GRID = (1408, 1600, 41)
+SPCONV_SITES = 20000
+SPCONV_CHECK_GRID = (128, 128, 16)
+
+
+def pc_inputs():
+    """Seeded inputs on the card: a 10-sweep nuScenes-size cloud (x, y
+    spread around the ego, denser near it; z near the ground; intensity;
+    the sweep's time lag), ScanNet-size scenes for FPS (8 rooms of 8 x 8 x
+    3 m), boxes with their scores."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    dev = "cuda"
+    n = PC_NUSC_POINTS
+    r = 1.0 + 59.0 * torch.rand(n, device=dev, generator=g) ** 2
+    a = 2 * torch.pi * torch.rand(n, device=dev, generator=g)
+    cloud = torch.stack([r * torch.cos(a), r * torch.sin(a),
+                         -1.8 + 2.5 * torch.rand(n, device=dev, generator=g),
+                         torch.rand(n, device=dev, generator=g),
+                         0.5 * torch.randint(0, 10, (n,), device=dev, generator=g).float()], -1)
+    B, N, _ = PC_FPS
+    rooms = torch.rand((B, N, 3), device=dev, generator=g) * torch.tensor([8.0, 8.0, 3.0],
+                                                                          device=dev)
+
+    def boxes(m):
+        ctr = (torch.rand((m, 3), device=dev, generator=g) - 0.5) * torch.tensor(
+            [100.0, 100.0, 2.0], device=dev)
+        dims = 0.5 + 4.0 * torch.rand((m, 3), device=dev, generator=g)
+        yaw = (torch.rand((m, 1), device=dev, generator=g) - 0.5) * 2 * torch.pi
+        return torch.cat([ctr, dims, yaw], -1)
+
+    return {"cloud": cloud, "rooms": rooms, "boxes": boxes(PC_BOXES),
+            "scores": torch.rand(PC_BOXES, device=dev, generator=g),
+            "pool_boxes": boxes(PC_POOL_BOXES), "g": g}
+
+
+def spconv_sites(grid, n, C, g):
+    """``n`` distinct active sites of ``grid`` (seeded) with C features."""
+    import torch
+
+    X, Y, Z = grid
+    lin = torch.randperm(X * Y * Z, device="cuda", generator=g)[:n] if X * Y * Z < 2 ** 24 \
+        else torch.unique(torch.randint(0, X * Y * Z, (2 * n,), device="cuda",
+                                        generator=g))[:n]
+    lin = lin[torch.randperm(lin.shape[0], device="cuda", generator=g)]
+    coords = torch.stack([lin // (Y * Z), (lin // Z) % Y, lin % Z], -1).to(torch.int32)
+    feats = torch.randn((n, C), device="cuda", generator=g)
+    return feats, coords, torch.ones(n, dtype=torch.bool, device="cuda")
+
+
+def phase_pointcloud():
+    """The point-cloud ops and sparse convolutions on the card at the sizes
+    their users run: hard voxelization of a 10-sweep nuScenes cloud of
+    300,000 points x 5 features (voxel [0.25, 0.25, 8], range [-50, -50,
+    -5, 50, 50, 3], 64 points, 30,000 voxels: mmdetection3d's
+    hv_pointpillars_fpn_nus config); FPS [8, 20000, 3] -> 2048 (VoteNet's
+    PointNet++ SA1 on ScanNet), ball_query (radius 0.2, 64 samples) and
+    group_points on those centres, three_nn / three_interpolate from 2048 to
+    20,000 points; SubMConv3d 16 -> 16 and a strided SparseConv3d 16 -> 32
+    on the gather backend at SECOND's KITTI grid (1408, 1600, 41) with
+    20,000 active sites (SECOND's middle encoder); boxes_iou_bev and nms_bev
+    on 4,096 boxes, points_in_boxes of the 300,000 points in 200 boxes and
+    roiaware_pool3d (T = 7) there.  The main path's run: every op once with
+    the launch counts set to 0 before and read after (FPS once, nothing
+    else).  Then FPS held to its plain version (indices equal, also with
+    invalid points), timed beside it and its bound; each op timed; the
+    sparse convs' gather backend held to the dense one at [128, 128, 16]."""
+    import torch
+
+    from occformer_tpu_torch.ops import pointcloud as pc
+    from occformer_tpu_torch.ops import spconv
+
+    inp = pc_inputs()
+    g = inp["g"]
+    cloud, rooms = inp["cloud"], inp["rooms"]
+    B, N, npoint = PC_FPS
+    valid_cloud = torch.ones(cloud.shape[0], dtype=torch.bool, device="cuda")
+    room_feats = torch.cat([rooms, rooms[..., 2:3]], -1)  # xyz and height
+    fp_feats = torch.randn((B, npoint, 256), device="cuda", generator=g)
+    sub = spconv.SubMConv3d(16, 16, backend="gather").cuda()
+    # room for every output site: an active input feeds up to 8 at stride 2
+    down = spconv.SparseConv3d(16, 32, stride=2, max_out_sites=8 * SPCONV_SITES,
+                               backend="gather").cuda()
+    sp_feats, sp_coords, sp_valid = spconv_sites(SPCONV_GRID, SPCONV_SITES, 16, g)
+    pool_feats = torch.randn((cloud.shape[0], 16), device="cuda", generator=g)
+    bev = inp["boxes"][:, [0, 1, 3, 4, 6]]
+    state = {}
+
+    def fps():
+        state["idx"] = pc.furthest_point_sample(rooms, npoint)
+        state["centres"] = pc.gather_points(rooms, state["idx"])
+        return state["idx"]
+
+    def ball():
+        state["ball"] = pc.ball_query(rooms, state["centres"], 0.2, 64)
+        return state["ball"]
+
+    def nn3():
+        state["nn"] = pc.three_nn(rooms, state["centres"])
+        return state["nn"]
+
+    ops = {
+        "hard_voxelize": lambda: pc.hard_voxelize(cloud, valid_cloud, **PC_VOXEL),
+        "furthest_point_sample": fps,
+        "ball_query": ball,
+        "group_points": lambda: pc.group_points(room_feats, state["ball"]),
+        "three_nn": nn3,
+        "three_interpolate": lambda: pc.three_interpolate(
+            fp_feats, state["nn"][1], torch.full_like(state["nn"][0], 1.0 / 3)),
+        "subm_conv3d_gather": lambda: sub(sp_feats, sp_coords, sp_valid, SPCONV_GRID),
+        "sparse_conv3d_gather": lambda: down(sp_feats, sp_coords, sp_valid, SPCONV_GRID),
+        "boxes_iou_bev": lambda: pc.boxes_iou_bev(bev, bev),
+        "nms_bev": lambda: pc.nms_bev(bev, inp["scores"], 0.2),
+        "points_in_boxes": lambda: pc.points_in_boxes(cloud[None, :, :3],
+                                                      inp["pool_boxes"][None]),
+        "roiaware_pool3d": lambda: pc.roiaware_pool3d(cloud[:, :3], pool_feats,
+                                                      inp["pool_boxes"], 7, "max"),
+    }
+    rec = {"phase": "pointcloud"}
+    with torch.no_grad():
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()  # the main path's run starts here
+        outs = {}
+        for name, fn in ops.items():
+            outs[name] = fn()
+        torch.cuda.synchronize()
+        n = launches()  # ... and ends here
+        check(n == POINTCLOUD_LAUNCHES, f"pointcloud launches {n}, want {POINTCLOUD_LAUNCHES}")
+        rec["launches"] = n
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        vox, vcoords, nump = outs["hard_voxelize"]
+        rec["hard_voxelize_voxels"] = int((nump > 0).sum())
+        rec["hard_voxelize_points_kept"] = int(nump.sum())
+        rec["nms_kept"] = int(outs["nms_bev"].sum())
+        rec["points_in_boxes"] = int(outs["points_in_boxes"].sum())
+        check(bool(torch.isfinite(outs["three_interpolate"]).all())
+              and bool(torch.isfinite(outs["roiaware_pool3d"]).all())
+              and bool(torch.isfinite(outs["boxes_iou_bev"]).all()), "pointcloud: non-finite")
+        check(int(outs["sparse_conv3d_gather"][2].sum()) > 0, "pointcloud: no strided sites")
+        rec["sparse_conv3d_out_sites"] = int(outs["sparse_conv3d_gather"][2].sum())
+        del outs, vox
+
+        # FPS: the kernel against its plain version, indices equal
+        idx = pc.furthest_point_sample(rooms, npoint)
+        plain_idx = pc.furthest_point_sample_plain(rooms, npoint)
+        check(torch.equal(idx, plain_idx), "FPS: indices differ from the plain version")
+        vmask = torch.rand((B, N), device="cuda", generator=g) > 0.3
+        check(torch.equal(pc.furthest_point_sample(rooms, npoint, vmask),
+                          pc.furthest_point_sample_plain(rooms, npoint, vmask)),
+              "FPS: indices differ from the plain version with invalid points")
+        ms = {"plain": [], "kernel": []}
+        for name in ("plain", "kernel", "kernel", "plain"):
+            fn = pc.furthest_point_sample_plain if name == "plain" else pc.furthest_point_sample
+            ms[name].append(time_cuda(lambda: fn(rooms, npoint), iters=2, warmup=1))
+        fps = {"max_abs_err": 0.0, "indices_equal": True, "indices_equal_with_invalid": True,
+               "shapes": [B, N, npoint], "ms_in_turns": ms, "kernel_ms": sum(ms["kernel"]) / 2,
+               "plain_ms": sum(ms["plain"]) / 2, "library_ms": None}
+        fps["device_ms"] = device_ms(lambda: pc.furthest_point_sample(rooms, npoint), 10)
+        # 9 float32 operations a point a step (csrc/furthest_point_sample.cu)
+        fps.update(bound(nbytes(rooms, idx), 9 * B * N * (npoint - 1)))
+        rec["FPS"] = fps
+
+        # every op's time (median of CUDA-event timed calls)
+        rec["ms"] = {name: time_cuda(fn, iters=2, warmup=1) for name, fn in ops.items()}
+
+        # the gather backend against the dense one where densifying is cheap
+        f, c, v = spconv_sites(SPCONV_CHECK_GRID, SPCONV_SITES, 16, g)
+        sub_d = spconv.SubMConv3d(16, 16).cuda()
+        sub_d.load_state_dict(sub.state_dict())
+        down_d = spconv.SparseConv3d(16, 32, stride=2, max_out_sites=8 * SPCONV_SITES).cuda()
+        down_d.load_state_dict(down.state_dict())
+        rec["subm_conv3d_gather_vs_dense"] = compare(
+            sub(f, c, v, SPCONV_CHECK_GRID)[0], sub_d(f, c, v, SPCONV_CHECK_GRID)[0], 1e-5,
+            "SubMConv3d gather vs dense")
+        a, b = down(f, c, v, SPCONV_CHECK_GRID), down_d(f, c, v, SPCONV_CHECK_GRID)
+        check(torch.equal(a[1], b[1]) and torch.equal(a[2], b[2]),
+              "SparseConv3d: the backends' active sets differ")
+        rec["sparse_conv3d_gather_vs_dense"] = compare(a[0], b[0], 1e-5,
+                                                       "SparseConv3d gather vs dense")
+    emit(rec)
+    return rec, n
+
+
 def phase_soak(steps=8):
     """``tools/soak.py`` at the flagship's full width on the default loss
     route: ``steps`` steps on one fixed batch with the checkpoint at the
@@ -4263,7 +4731,8 @@ PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kern
                 "multilevel_fwd_kernel": "K4", "multilevel_fwd_rows_kernel": "K4.row",
                 "multilevel_bwd_coords_kernel": "K4-bwd",
                 "add_one_kernel": "P1", "row_gather_kernel": "P2",
-                "voxel_splat_kernel": "S1", "voxel_splat_heavy_kernel": "S1"}
+                "voxel_splat_kernel": "S1", "voxel_splat_heavy_kernel": "S1",
+                "fps_kernel": "FPS"}
 _UNCOUNTED = {"voxel_splat_heavy_kernel", "ms_deform_bwd_samples_kernel",
               "multilevel_bwd_coords_kernel"}
 _SORT_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
@@ -4272,6 +4741,7 @@ _SORT_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
                "heavy_bins_kernel", "entry_scale_kernel", "corner_reduce_kernel"}
 _COUNTED_STEPS = {"corner_reduce_kernel"}
 _SORT_KEYS = {"CornerKeys": "K2-bwd", "ColumnKeys": "K2-bwd.narrow", "SplatKeys": "S1",
+              "RowKeys": "S1-rows",
               "K1Keys": "K1-bwd", "K1Geo": "K1-bwd", "K4Keys": "K4-bwd", "K4Geo": "K4-bwd"}
 
 
@@ -4296,6 +4766,8 @@ def port_kernel_ms(kernels):
             name = PORT_KERNELS.get(m.group(1))
             if name and m.group(1).startswith("trilerp_fwd"):
                 name += " " + m.group(2)
+            if name == "S1" and re.search(r",\s*1>$", m.group(2) or ""):
+                name = "S1-rows"  # the splat kernels' last template argument
         if name is None:
             continue
         counted = m.group(1) in _COUNTED_STEPS or (m.group(1) not in _SORT_STEPS
@@ -4334,11 +4806,14 @@ def profile(run, outer, want, top=12, forbid=()):
     import torch
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
+    from occformer_tpu_torch.utils.timing import device_kernels, lead_in
+
     run()
     torch.cuda.synchronize()
     for _ in range(TRACE_ATTEMPTS):
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                            record_shapes=True) as prof:
+            lead_in()
             t = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -4354,10 +4829,9 @@ def profile(run, outer, want, top=12, forbid=()):
     missing = [k for k in outer if k not in stages]
     check(not missing, f"profiled stages {sorted(stages)} lack {missing}")
     # device rows of annotated ranges (the stages, torch.optim's
-    # ``Optimizer.step#...``) span kernels; they are not kernels
-    ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
-    kernels = [e for e in events if e.device_type.name == "CUDA"
-               and not (e.is_user_annotation or e.key in ranges)]
+    # ``Optimizer.step#...``) span kernels; they are not kernels, nor is the
+    # lead-in
+    kernels = device_kernels(events)
     device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     ops = [e for e in prof.key_averages(group_by_input_shape=True)
@@ -4384,7 +4858,7 @@ def profile(run, outer, want, top=12, forbid=()):
             "port_kernels": port}
 
 
-def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo):
+def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, pointcloud):
     """One record per kernel path; ``paths`` maps each driven path (serve,
     train, train_batched, the pipeline-fed train steps and frames, the K4
     gate, the probe) to its launch counts, and
@@ -4412,7 +4886,11 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo):
     K4-bwd's records at BEVStereo's shapes (``phase_stereo_kernels``: the
     stereo warp, its backward without d_coords, with the mask warp and the
     DepthNetStereo's DCN under ``mask_warp`` / ``dcn``; the 4D model runs
-    every kernel at the flagship's shapes)."""
+    every kernel at the flagship's shapes).  S1-rows' record is at the
+    use_voxel_net flagship's shapes in bf16 (``phase_voxnet_kernels``; the
+    float32 one under ``float32``), FPS's at VoteNet's SA1
+    (``phase_pointcloud``); neither runs on the other configurations'
+    paths."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
     paths = {p: dict(n, **{"K1.scalar": n["K1"] - n["K1.row"],
@@ -4461,7 +4939,15 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo):
         # not a Pallas kernel's port: the JAX package leaves the splat to XLA
         ("voxel_scatter_lifted", "", "S1", src + "voxel_splat.cu",
          "occformer_tpu/ops/scatter.py:55", det["S1"]),
+        # nor these: XLA's segment_sum and a fori_loop in the JAX package
+        ("voxel_scatter", "", "S1-rows", src + "voxel_splat.cu",
+         "occformer_tpu/ops/scatter.py:20", dict(voxnet["bfloat16"], float32={
+             k: voxnet["float32"][k] for k in ("max_abs_err", "kernel_ms", "device_ms",
+                                               "plain_ms", "bound_ms", "library_ms")})),
+        ("furthest_point_sample", "", "FPS", src + "furthest_point_sample.cu",
+         "occformer_tpu/ops/pointcloud.py:161", pointcloud["FPS"]),
     ]
+    new_keys = ("S1-rows", "FPS")
     at_kitti = {"K1.row": kitti["K1"], "K1-bwd": kitti["K1-bwd"],
                 "K2.row": kitti["K2_matching"], "K2.scalar": kitti["K2_candidates"],
                 "K2-bwd.narrow": kitti["K2-bwd"], "K4.row": kitti["K4"],
@@ -4534,7 +5020,9 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo):
                                   "launch_floor_ms", "bound_with_floor_ms") if k in r},
              **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
                 if key in at_kitti else {}),
-             "r101": at_r101(key), "pan": at_panoptic(key), "stereo": at_stereo(key)}
+             **({"float32": r["float32"]} if "float32" in r else {}),
+             **({} if key in new_keys else {"r101": at_r101(key), "pan": at_panoptic(key),
+                                            "stereo": at_stereo(key)})}
             for name, path, key, source, replaces, r in rows]
 
 
@@ -4596,6 +5084,8 @@ def main():
         r101_kern = timed("r101_kernels", phase_r101_kernels, r101_root, r101_ann)
         pan_kern = timed("pan_kernels", phase_pan_kernels, r101_root, r101_ann)
         stereo_kern = timed("stereo_kernels", phase_stereo_kernels, r101_root, r101_ann)
+        voxnet_kern = timed("voxnet_kernels", phase_voxnet_kernels, r101_root, r101_ann)
+        pc_rec, pc_n = timed("pointcloud", phase_pointcloud)
         timed("tiny", phase_tiny)
         timed("tiny_train", phase_tiny_train, "off")
         timed("tiny_train_batched", phase_tiny_train, "on")
@@ -4621,6 +5111,11 @@ def main():
             t4d_train_n, t4d_batched_n = timed("t4d_train", phase_t4d_train, tree, ann,
                                                t4d_model)
             del t4d_model
+            free_memory()
+            voxnet_serve_n, voxnet_model = timed("voxnet_serve", phase_voxnet_serve, tree, ann)
+            voxnet_train_n, voxnet_batched_n = timed("voxnet_train", phase_voxnet_train, tree,
+                                                     ann, voxnet_model)
+            del voxnet_model
             free_memory()
             stereo_n, stereo_bwd_n = timed("stereo", phase_stereo, r101_root, r101_ann)
             soak_n = timed("soak", phase_soak)
@@ -4654,8 +5149,10 @@ def main():
         "pan_serve": pan_serve_n, "pan_train": pan_train_n,
         "pan_train_batched": pan_batched_n, "t4d_serve": t4d_serve_n,
         "t4d_train": t4d_train_n, "t4d_train_batched": t4d_batched_n,
-        "stereo": stereo_n, "stereo_backward": stereo_bwd_n},
-        kitti_kern, r101_kern, pan_kern, stereo_kern)})
+        "stereo": stereo_n, "stereo_backward": stereo_bwd_n, "voxnet_serve": voxnet_serve_n,
+        "voxnet_train": voxnet_train_n, "voxnet_train_batched": voxnet_batched_n,
+        "pointcloud": pc_n},
+        kitti_kern, r101_kern, pan_kern, stereo_kern, voxnet_kern, pc_rec)})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

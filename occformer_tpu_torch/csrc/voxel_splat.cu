@@ -1,5 +1,5 @@
 // The LSS voxel splat (S1): the lifted depth x context features summed by
-// voxel, in a fixed order.
+// voxel, in a fixed order; and S1-rows, the same sum of given feature rows.
 //
 // Port of occformer_tpu/ops/scatter.py:voxel_scatter_lifted (:55), which
 // the JAX package leaves to XLA's scatter-add (no Pallas kernel; its sums
@@ -45,6 +45,29 @@
 //        near a camera do not serialise a group.
 // No float atomics: the same bits on every run.  The backward is gathers
 // (ops/scatter.py).
+//
+// S1-rows (voxel_splat_rows below) is the port of
+// occformer_tpu/ops/scatter.py:voxel_scatter (:20), a segment_sum of given
+// rows that the JAX package leaves to XLA (no Pallas kernel), used by the
+// view transformer's use_voxel_net branch, whose DepthAggregation convs
+// leave no depth x context product to fuse:
+//
+//   out[r, c] = sum over the valid points p in voxel r of feats[p, c]
+//
+// with feats [B * P, C], coords int32 [B * P, 3] and valid [B * P].  It
+// runs the same sort with RowKeys, whose entry is (p, 1.0f): the splat
+// kernels then read point p's row of feats and add it in float32 (fmaf(1,
+// v, acc) rounds as v + acc does), each voxel's points in ascending point
+// order, the order of the plain version's index_add_ on the CPU, so the two
+// agree bit for bit.  The light/heavy voxel split is S1's.  Its backward is
+// a gather, d_feats[p] = g[row p] (ops/scatter.py).
+//
+// Bound on an H100 SXM at the use_voxel_net flagship (B = 1, P = 6 * 112 *
+// 16 * 44 = 473,088 rows of C = 128 in bf16, 128 x 128 x 16 voxels, the
+// nuScenes rig's 278,782 valid points): valid 0.47 MB read in full, the
+// valid points' coords 3.35 MB and rows of feats 71.4 MB (RowKeys drops an
+// invalid point before it reads either), the volume 67.1 MB written, 142.3
+// MB, 0.042 ms at 3.35 TB/s (float32: 280.8 MB, 0.084 ms).
 //
 // Measured (tools/time_backwards.py --only S1, H100 80GB HBM3 at 700 W,
 // device ms of the splat kernels, in turns in one call, the volume's bits
@@ -101,6 +124,27 @@ struct SplatKeys {
   }
 };
 
+// The sort key of row p of S1-rows: its voxel row b * X*Y*Z + (x * Y + y) *
+// Z + z when valid, none otherwise; its entry (p, 1.0f as a float's bits).
+struct RowKeys {
+  using Entry = int2;
+  const int* coords;
+  const uint8_t* valid;
+  int X, Y, Z, P;
+  template <typename Fn>
+  __device__ __forceinline__ void operator()(int64_t i, Fn fn) const {
+    const int p = (int)i;
+    if (!valid[p]) return;
+    const int x = min(max(coords[3 * p + 0], 0), X - 1);
+    const int y = min(max(coords[3 * p + 1], 0), Y - 1);
+    const int z = min(max(coords[3 * p + 2], 0), Z - 1);
+    fn((int64_t)(p / P) * X * Y * Z + (x * Y + y) * Z + z);
+  }
+  __device__ __forceinline__ int2 entry(int64_t i) const {
+    return make_int2((int)i, __float_as_int(1.0f));
+  }
+};
+
 // Entries whose context loads a lane issues before their FMAs.
 constexpr int SPLAT_INFLIGHT = 16;
 constexpr int SPLAT_GROUP = 16;
@@ -137,7 +181,8 @@ __device__ __forceinline__ void splat_run(const Tc* __restrict__ ctx,
   }
 }
 
-template <typename Td, typename Tc, int VEC>
+// ROWS: 0 for S1, 1 for S1-rows (only the kernels' names differ)
+template <typename Td, typename Tc, int VEC, int ROWS>
 __global__ void __launch_bounds__(256)
 voxel_splat_kernel(const Tc* __restrict__ ctx, const int* __restrict__ offs,
                    const int2* __restrict__ sorted, Td* __restrict__ out,
@@ -212,7 +257,7 @@ voxel_splat_kernel(const Tc* __restrict__ ctx, const int* __restrict__ offs,
   }
 }
 
-template <typename Td, typename Tc, int VEC>
+template <typename Td, typename Tc, int VEC, int ROWS>
 __global__ void __launch_bounds__(256)
 voxel_splat_heavy_kernel(const Tc* __restrict__ ctx, const int* __restrict__ offs,
                          const int2* __restrict__ sorted, Td* __restrict__ out,
@@ -237,28 +282,31 @@ voxel_splat_heavy_kernel(const Tc* __restrict__ ctx, const int* __restrict__ off
   }
 }
 
-template <typename Td, typename Tc, int VEC>
+template <typename Td, typename Tc, int VEC, int ROWS>
 static void launch_splat_vec(const void* ctx, const int* offs, const int2* sorted, void* out,
                              int* heavy_list, int* n_heavy, int64_t n_rows, int C,
                              cudaStream_t st) {
   const int threads = 256;
-  voxel_splat_kernel<Td, Tc, VEC>
+  voxel_splat_kernel<Td, Tc, VEC, ROWS>
       <<<grid_blocks((n_rows + SPLAT_GROUP - 1) / SPLAT_GROUP * 32, threads), threads, 0, st>>>(
           (const Tc*)ctx, offs, sorted, (Td*)out, heavy_list, n_heavy, n_rows, C);
-  voxel_splat_heavy_kernel<Td, Tc, VEC><<<SPLAT_HEAVY_BLOCKS, threads, 0, st>>>(
+  voxel_splat_heavy_kernel<Td, Tc, VEC, ROWS><<<SPLAT_HEAVY_BLOCKS, threads, 0, st>>>(
       (const Tc*)ctx, offs, sorted, (Td*)out, heavy_list, n_heavy, C);
 }
 
-template <typename Td, typename Tc>
+template <typename Td, typename Tc, int ROWS = 0>
 static void launch_splat(const void* ctx, const int* offs, const int2* sorted, void* out,
                          int* heavy_list, int* n_heavy, int64_t n_rows, int C, int vec,
                          cudaStream_t st) {
   if (vec == 4)
-    launch_splat_vec<Td, Tc, 4>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C, st);
+    launch_splat_vec<Td, Tc, 4, ROWS>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C,
+                                      st);
   else if (vec == 2)
-    launch_splat_vec<Td, Tc, 2>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C, st);
+    launch_splat_vec<Td, Tc, 2, ROWS>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C,
+                                      st);
   else
-    launch_splat_vec<Td, Tc, 1>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C, st);
+    launch_splat_vec<Td, Tc, 1, ROWS>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C,
+                                      st);
 }
 
 // Int32s of voxel_splat's workspace for B * X*Y*Z voxel rows and n_pts
@@ -315,5 +363,43 @@ extern "C" int voxel_splat(const void* depth, const void* ctx, const void* coord
   else
     launch_splat<__nv_bfloat16, __nv_bfloat16>(ctx, s.offs, s.sorted, out, heavy_list, n_heavy,
                                                n_rows, C, vec, st);
+  return (int)cudaGetLastError();
+}
+
+// S1-rows, plain C entry point, loaded with ctypes.  feats [B * P, C] float32
+// (dtype 0) or bfloat16 (dtype 1); coords int32 [B * P, 3]; valid bool
+// [B * P]; out [B * X * Y * Z, C] in feats' dtype, written in full;
+// workspace voxel_splat_workspace(B * X * Y * Z, B * P) int32s, 8-byte
+// aligned.  The rows and voxels below 2^31.  Launches on `stream` and
+// returns the first CUDA error, or cudaErrorInvalidValue for anything else.
+extern "C" int voxel_splat_rows(const void* feats, const void* coords, const void* valid,
+                                void* out, void* workspace, int B, int P, int X, int Y,
+                                int Z, int C, int dtype, void* stream) {
+  const int64_t n_pts = (int64_t)B * P;
+  const int64_t n_rows = (int64_t)B * X * Y * Z;
+  if (dtype < 0 || dtype > 1 || n_pts >= ((int64_t)1 << 31) ||
+      n_rows + 1 >= ((int64_t)1 << 31) || (uintptr_t)workspace % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_rows == 0 || C == 0) return 0;
+  const int size = dtype ? 2 : 4;
+  int vec = 4;
+  while (vec > 1 && (C % vec != 0 || (uintptr_t)feats % (vec * size) != 0 ||
+                     (uintptr_t)out % (vec * size) != 0))
+    vec /= 2;
+  cudaStream_t st = (cudaStream_t)stream;
+  const auto s = segment_sort_space<int2>(workspace, n_rows, n_pts);
+  const RowKeys keys{(const int*)coords, (const uint8_t*)valid, X, Y, Z, P};
+  cudaError_t err = segment_sort(keys, n_pts, n_rows, s, st);
+  if (err != cudaSuccess) return (int)err;
+  int* heavy_list = reinterpret_cast<int*>(workspace) + segment_sort_ints(n_rows, n_pts, 2);
+  int* n_heavy = heavy_list + n_rows;
+  err = cudaMemsetAsync(n_heavy, 0, sizeof(int), st);
+  if (err != cudaSuccess) return (int)err;
+  if (dtype == 0)
+    launch_splat<float, float, 1>(feats, s.offs, s.sorted, out, heavy_list, n_heavy, n_rows, C,
+                                  vec, st);
+  else
+    launch_splat<__nv_bfloat16, __nv_bfloat16, 1>(feats, s.offs, s.sorted, out, heavy_list,
+                                                  n_heavy, n_rows, C, vec, st);
   return (int)cudaGetLastError();
 }

@@ -253,6 +253,15 @@ def convert_depthnet(tb: TreeBuilder, sd, tp: str, dst: str):
         tb.conv(sd, tp + ".depth_conv.4", dst + "/depth_pred")
 
 
+def convert_depth_aggregation(tb: TreeBuilder, sd, tp: str, dst: str):
+    """The ``use_voxel_net`` DepthAggregation (ViewTransformerLSSBEVDepth.py:
+    506-561): three 3x3 conv + BatchNorm pairs and the out conv."""
+    for conv, bn in (("reduce_conv", "reduce_bn"), ("conv1", "bn1"), ("conv2", "bn2")):
+        tb.conv(sd, f"{tp}.{conv}", f"{dst}/{conv}")
+        tb.bn(sd, f"{tp}.{bn}", f"{dst}/{bn}")
+    tb.conv(sd, tp + ".out_conv", dst + "/out_conv")
+
+
 def convert_resnet(sd: Dict[str, np.ndarray], prefix: str = "") -> Tuple[Dict, Dict]:
     """torchvision/mmdet ResNet state dict -> (params, batch_stats) for
     models/resnet.py.  Handles bottleneck + basic blocks and downsample."""
@@ -425,6 +434,9 @@ def convert_occformer(sd: Dict[str, np.ndarray],
     # ---- view transformer ----
     convert_depthnet(tb, sd, "img_view_transformer.depth_net",
                      "view_transformer/depth_net")
+    if "img_view_transformer.depth_aggregation_net.reduce_conv.weight" in sd:
+        convert_depth_aggregation(tb, sd, "img_view_transformer.depth_aggregation_net",
+                                  "view_transformer/depth_aggregation_net")
 
     # ---- 3D encoder ----
     pat = re.compile(r"^img_bev_encoder_backbone\.layers\.(\d+)\.(\d+)\.")
@@ -553,6 +565,17 @@ def resnet_tree(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
     return {"params": params, "batch_stats": stats}
 
 
+def convert_spconv(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
+    """``ops/spconv.py:SubMConv3d`` or ``SparseConv3d``'s state dict ->
+    ``{'params'}`` of the JAX package's module of that name (either
+    backend: both keep the dense ``Conv``'s tree, ``conv/Conv_0/kernel``
+    [k, k, k, C, D] and ``bias``), as a ``convert`` of
+    ``flax_to_torch_state_dict``."""
+    tb = TreeBuilder()
+    tb.conv(sd, "conv", "conv")
+    return {"params": tb.params, "batch_stats": tb.stats}
+
+
 def convert_bevstereo(sd: Dict[str, np.ndarray]) -> Dict[str, Any]:
     """``models/bevstereo.py:ViewTransformerLSSBEVStereo``'s state dict ->
     ``{'params', 'batch_stats'}`` of the JAX package's module of that name
@@ -614,7 +637,8 @@ def flax_to_torch_state_dict(variables: Dict, model, manifest: Optional[Dict] = 
     ``state_dict()`` shapes.  ``convert`` is the forward conversion whose
     permutation is inverted: the whole model's (``convert_occformer``) or a
     part's (``resnet_tree`` for a ``models/resnet.py:ResNet``,
-    ``convert_bevstereo`` for a ``models/bevstereo.py`` view transformer).  Keys the
+    ``convert_bevstereo`` for a ``models/bevstereo.py`` view transformer,
+    ``convert_spconv`` for an ``ops/spconv.py`` sparse conv).  Keys the
     converter never consumes are synthesized as the exporter does:
     ``num_batches_tracked`` zeros, the Swin ``relative_position_index``, and
     the view transformer's ``dx/bx/nx`` from the model's grid config.  Raises

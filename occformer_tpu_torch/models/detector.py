@@ -79,13 +79,12 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
                                out_channels=tuple(cfg["out_channels"]),
                                upsample_strides=tuple(cfg["upsample_strides"]))
     if t == "ViewTransformerLiftSplatShootVoxel":
-        if cfg.get("use_voxel_net"):
-            raise NotImplementedError("use_voxel_net is not ported yet")
         return ViewTransformerLiftSplatShootVoxel, dict(
             grid_config=dict(cfg["grid_config"]), data_config=dict(cfg["data_config"]),
             numC_input=cfg.get("numC_input", 512), numC_Trans=cfg.get("numC_Trans", 128),
             downsample=cfg.get("downsample", 16), cam_channels=cfg.get("cam_channels", 27),
-            loss_depth_weight=cfg.get("loss_depth_weight", 1.0))
+            loss_depth_weight=cfg.get("loss_depth_weight", 1.0),
+            use_voxel_net=bool(cfg.get("use_voxel_net", False)))
     if t == "OccupancyEncoder":
         norm = cfg.get("norm_cfg")
         return OccupancyEncoder, dict(
@@ -111,8 +110,6 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
             pos_num_feats=int(cfg.get("positional_encoding", {}).get("num_feats", 0)) or None,
             num_groups=(cfg.get("norm_cfg") or {}).get("num_groups", 32))
     if t in HEADS:
-        if not cfg.get("pooling_attn_mask", True):
-            raise NotImplementedError("trilinear attention masks are not ported yet")
         dec = cfg.get("transformer_decoder", {}) or {}
         layers = dec.get("transformerlayers", {}) or {}
         attn = layers.get("attn_cfgs", {}) or {}
@@ -122,7 +119,8 @@ def translate_cfg(cfg: Dict) -> Tuple[type, Dict[str, Any]]:
             num_queries=cfg.get("num_queries", 100), num_heads=attn.get("num_heads", 8),
             num_decoder_layers=dec.get("num_layers", 9),
             feedforward_channels=layers.get("feedforward_channels"),
-            pos_num_feats=int(cfg.get("positional_encoding", {}).get("num_feats", 0)) or None)
+            pos_num_feats=int(cfg.get("positional_encoding", {}).get("num_feats", 0)) or None,
+            pooling_attn_mask=bool(cfg.get("pooling_attn_mask", True)))
         if t == "Mask2FormerNuscPanopticOccHead":
             kwargs.update(stuff_indices=cfg.get("stuff_indices"),
                           thing_indices=cfg.get("thing_indices"))

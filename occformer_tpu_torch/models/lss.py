@@ -3,7 +3,9 @@
 Port of ``occformer_tpu/models/lss.py:ViewTransformerLiftSplatShootVoxel``
 (reference ViewTransformerLSSVoxel.py:12-121): DepthNet -> float32 depth
 softmax -> frustum geometry -> fused depth x context scatter into a
-``[B, X, Y, Z, C]`` volume; the temporal BEV alignment ``shift_feature``;
+``[B, X, Y, Z, C]`` volume (with ``use_voxel_net``, the lifted product is
+materialized, refined by ``DepthAggregation`` and splatted by rows); the
+temporal BEV alignment ``shift_feature``;
 and the depth supervision
 (``downsampled_gt_depth``, ``depth_bce_loss``, JAX ``:91-123``).  The reference's ``dx/bx/nx`` grid constants are
 registered as buffers so its checkpoints load unchanged; the forward reads
@@ -17,12 +19,44 @@ import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from ..ops.geometry import compute_voxel_coords, create_frustum, gen_dx_bx, get_geometry
-from ..ops.scatter import voxel_scatter_lifted
+from ..ops.scatter import voxel_scatter, voxel_scatter_lifted
 from ..ops.trilerp_fused import fused_multilevel_gather
 from ..parallel.distributed import all_reduce_sum, world_size
 from .depthnet import DepthNet, get_mlp_input
+from .layers import BatchNorm2d
+
+
+class DepthAggregation(nn.Module):
+    """Refinement of the lifted volume (JAX ``models/lss.py:27-61``,
+    reference ViewTransformerLSSBEVDepth.py:506-561): a 3x3 reduce conv,
+    BatchNorm and ReLU, a residual pair of 3x3 conv, BatchNorm and ReLU, and
+    a 3x3 out conv with bias, over planes [n, C, W, D] (one per camera and
+    feature row).  Only built with ``use_voxel_net``; no released config
+    sets it."""
+
+    def __init__(self, in_channels: int, mid_channels: int, out_channels: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.reduce_conv = nn.Conv2d(in_channels, mid_channels, 3, padding=1, bias=False,
+                                     dtype=dtype)
+        self.reduce_bn = BatchNorm2d(mid_channels, dtype=dtype)
+        self.conv1 = nn.Conv2d(mid_channels, mid_channels, 3, padding=1, bias=False,
+                               dtype=dtype)
+        self.bn1 = BatchNorm2d(mid_channels, dtype=dtype)
+        self.conv2 = nn.Conv2d(mid_channels, mid_channels, 3, padding=1, bias=False,
+                               dtype=dtype)
+        self.bn2 = BatchNorm2d(mid_channels, dtype=dtype)
+        self.out_conv = nn.Conv2d(mid_channels, out_channels, 3, padding=1, bias=True,
+                                  dtype=dtype)
+
+    def forward(self, x):
+        y = F.relu(self.reduce_bn(self.reduce_conv(x)))
+        z = F.relu(self.bn1(self.conv1(y)))
+        z = F.relu(self.bn2(self.conv2(z)))
+        return self.out_conv(y + z)
 
 
 def shift_feature(feat: torch.Tensor, curr2prev: torch.Tensor, bx, dx) -> torch.Tensor:
@@ -93,11 +127,20 @@ def depth_bce_loss(gt_depths: torch.Tensor, depth_prob: torch.Tensor, grid_confi
 
 class ViewTransformerLiftSplatShootVoxel(nn.Module):
     """forward(x [B, N, Cin, fH, fW], rots, trans, intrins, post_rots,
-    post_trans, bda) -> (volume [B, X, Y, Z, C], depth_prob [B*N, fH, fW, D])."""
+    post_trans, bda) -> (volume [B, X, Y, Z, C], depth_prob [B*N, fH, fW, D]).
+
+    With ``use_voxel_net`` the lift depth x context is materialized as
+    planes [B*N*fH, C, fW, D] (channels-last in memory: each (camera, row,
+    column, depth bin) point's C features contiguous), refined by
+    ``depth_aggregation_net`` and summed into the volume by
+    ``ops/scatter.py:voxel_scatter`` (S1-rows on the card), its points in
+    (camera, row, column, depth bin) order (JAX ``models/lss.py:193-210``,
+    whose points run (camera, depth bin, row, column))."""
 
     def __init__(self, grid_config: Dict, data_config: Dict, numC_input: int = 512,
                  numC_Trans: int = 128, downsample: int = 16, cam_channels: int = 27,
-                 loss_depth_weight: float = 1.0, dtype: torch.dtype = torch.float32):
+                 loss_depth_weight: float = 1.0, use_voxel_net: bool = False,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.grid_config = dict(grid_config)
         self.downsample = downsample
@@ -113,6 +156,10 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
         self.D = self._frustum.shape[0]
         self.depth_net = DepthNet(numC_input, numC_Trans, self.D,
                                   cam_channels=cam_channels, dtype=dtype)
+        self.use_voxel_net = use_voxel_net
+        if use_voxel_net:
+            self.depth_aggregation_net = DepthAggregation(numC_Trans, numC_Trans, numC_Trans,
+                                                          dtype=dtype)
 
     def forward(self, x, rots, trans, intrins, post_rots, post_trans, bda):
         B, N, Cin, fH, fW = x.shape
@@ -128,5 +175,22 @@ class ViewTransformerLiftSplatShootVoxel(nn.Module):
 
         depth_bn = depth_prob.reshape(B, N, self.D, fH, fW).to(x.dtype)
         ctx = ctx.reshape(B, N, self.numC_Trans, fH, fW).permute(0, 1, 3, 4, 2)
-        volume = voxel_scatter_lifted(depth_bn, ctx, coords, valid, self._nx)
+        if self.use_voxel_net:
+            volume = self._voxel_net_splat(depth_bn, ctx, coords, valid)
+        else:
+            volume = voxel_scatter_lifted(depth_bn, ctx, coords, valid, self._nx)
         return volume, depth_prob.permute(0, 2, 3, 1)
+
+    def _voxel_net_splat(self, depth, ctx, coords, valid):
+        """depth [B, N, D, fH, fW], ctx [B, N, fH, fW, C] -> the refined lift
+        summed into [B, X, Y, Z, C]."""
+        B, N, D, fH, fW = depth.shape
+        C = ctx.shape[-1]
+        lifted = depth.permute(0, 1, 3, 4, 2)[..., None] * ctx[:, :, :, :, None, :]
+        planes = lifted.reshape(B * N * fH, fW, D, C).permute(0, 3, 1, 2)  # channels-last
+        with record_function("stage:depth_aggregation"):
+            planes = self.depth_aggregation_net(planes)        # [B*N*fH, C, fW, D]
+        rows = planes.permute(0, 2, 3, 1).reshape(B, N * fH * fW * D, C)
+        order = (0, 1, 3, 4, 2)                               # points as (n, h, w, d)
+        return voxel_scatter(rows, coords.permute(*order, 5).reshape(B, -1, 3),
+                             valid.permute(*order).reshape(B, -1), self._nx)

@@ -6,8 +6,10 @@ forward, with the checkpoint's names.  Learnable queries run through the
 DETR decoder layers (masked cross-attn -> self-attn -> FFN) cycling over the
 3 coarse voxel scales; after every layer a head gives class logits and mask
 embeddings, and the next layer's attention mask is the max-pooled,
-thresholded mask prediction ("preserve pooling", :477-486).  True means
-masked out; rows masked everywhere reset to attend everywhere (:636).
+thresholded mask prediction ("preserve pooling", :477-486), or with
+``pooling_attn_mask=False`` the prediction resized trilinearly
+(``align_corners=True``, JAX ``:161-165``).  True means masked out; rows
+masked everywhere reset to attend everywhere (:636).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.sampling import resize_trilinear
 from .layers import FFN, MultiheadAttention
 from .pos_embed import sine_positional_encoding_3d
 
@@ -94,10 +97,11 @@ class Mask2FormerOccHead(nn.Module):
                  num_occupancy_classes: int = 20, num_queries: int = 100,
                  num_heads: int = 8, num_decoder_layers: int = 9,
                  feedforward_channels: Optional[int] = None,
-                 pos_num_feats: Optional[int] = None,
+                 pos_num_feats: Optional[int] = None, pooling_attn_mask: bool = True,
                  dtype: torch.dtype = torch.float32):
         super().__init__()
         C = feat_channels
+        self.pooling_attn_mask = pooling_attn_mask
         self.feat_channels = C
         self.nlvl = NUM_FEAT_LEVELS
         self.pos_num_feats = pos_num_feats or C // 3
@@ -134,7 +138,11 @@ class Mask2FormerOccHead(nn.Module):
         with _no_autocast(emb):
             mask = torch.einsum("bqc,bcxyz->bqxyz", emb,
                                 mask_feature.to(emb.dtype)).float()
-        pooled = F.adaptive_max_pool3d(mask, tuple(target_size))
+        if self.pooling_attn_mask:
+            pooled = F.adaptive_max_pool3d(mask, tuple(target_size))
+        else:  # the mask carries no gradient
+            pooled = resize_trilinear(mask.detach().permute(0, 2, 3, 4, 1), target_size,
+                                      align_corners=True).permute(0, 4, 1, 2, 3)
         attn_mask = torch.sigmoid(pooled.flatten(2)) < 0.5  # [B, Q, K], True = masked
         return cls_pred, emb, attn_mask
 

@@ -1,8 +1,9 @@
 """Ops of the port; the hand-written CUDA kernels sit behind the wrappers in
 ``trilerp_fused`` (K1, K1-bwd, K4, K4-bwd), ``trilerp`` (K2, K2-bwd),
 ``loss_gather`` (K3) and ``probe`` (P1, P2), the ports of the JAX package's
-Pallas kernels, and ``scatter`` (S1, the LSS splat, which the JAX package
-leaves to XLA).
+Pallas kernels, ``scatter`` (S1, the LSS splat, and S1-rows, the splat of
+given rows, which the JAX package leaves to XLA) and ``pointcloud`` (FPS,
+furthest-point sampling, a ``fori_loop`` in the JAX package).
 
 Each wrapper counts its kernel's launches in a module-level integer
 ("K1", "K2" and "K2-bwd" count both paths of their kernel, "K1.row",
@@ -22,7 +23,8 @@ _COUNTERS = {"K1": ("trilerp_fused", "LAUNCHES"), "K1.row": ("trilerp_fused", "R
              "K4.row": ("trilerp_fused", "MULTI_ROW_LAUNCHES"),
              "K4-bwd": ("trilerp_fused", "MULTI_BWD_LAUNCHES"),
              "P1": ("probe", "ADD_ONE_LAUNCHES"), "P2": ("probe", "ROW_GATHER_LAUNCHES"),
-             "S1": ("scatter", "LAUNCHES")}
+             "S1": ("scatter", "LAUNCHES"), "S1-rows": ("scatter", "ROWS_LAUNCHES"),
+             "FPS": ("pointcloud", "FPS_LAUNCHES")}
 
 
 def _module(name):

@@ -28,7 +28,8 @@ SOURCES = {"probe": "probe.cu",
            "trilerp_sample3d": "trilerp_sample3d.cu",
            "label_gather3d": "label_gather3d.cu",
            "multilevel_gather3d": "multilevel_gather3d.cu",
-           "voxel_splat": "voxel_splat.cu"}
+           "voxel_splat": "voxel_splat.cu",
+           "furthest_point_sample": "furthest_point_sample.cu"}
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]

@@ -17,6 +17,15 @@ plain version, ``voxel_scatter_plain`` (one ``index_add_`` per camera over
 ``voxel_rows``, sequential on the CPU, atomic on the card).  Its backward
 is gathers, deterministic too.  ``segments`` states the order S1's sort
 gives (a stable sort of ``voxel_rows``).  ``LAUNCHES`` counts S1's launches.
+
+``voxel_scatter`` (port of ``occformer_tpu/ops/scatter.py:voxel_scatter``,
+the view transformer's ``use_voxel_net`` splat) sums given feature rows
+[B, P, C] by voxel: S1-rows on the card (the same sort and splat kernels,
+each entry reading its point's row), ``voxel_scatter_plain_rows`` (one
+``index_add_`` into float32 rows, in point order on the CPU, so the two
+agree bit for bit) for CPU tensors.  Its backward is a gather, d_feats[p] =
+g[row p], 0 for an invalid point.  ``ROWS_LAUNCHES`` counts S1-rows'
+launches.
 """
 from __future__ import annotations
 
@@ -28,24 +37,26 @@ import torch.nn.functional as F
 
 from . import cuda_build
 
-# launches of the splat kernel; a caller may reset it to 0
+# launches of the splat kernels (S1, S1-rows); a caller may reset them to 0
 LAUNCHES = 0
+ROWS_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
 
 
 def voxel_rows(coords: torch.Tensor, valid: torch.Tensor, nx: Sequence[int]) -> torch.Tensor:
-    """Each frustum point's row of the ``B * X * Y * Z + 1`` row sum: its
-    voxel (coordinates clamped into the grid), or the dummy last row when
-    invalid.  coords [B, N, D, fH, fW, 3], valid [B, N, D, fH, fW] -> int64."""
+    """Each point's row of the ``B * X * Y * Z + 1`` row sum: its voxel
+    (coordinates clamped into the grid), or the dummy last row when invalid.
+    coords [B, ..., 3], valid [B, ...] (frustum points [B, N, D, fH, fW] or
+    rows [B, P]) -> int64 [B, ...]."""
     B = coords.shape[0]
     X, Y, Z = int(nx[0]), int(nx[1]), int(nx[2])
     nvox = X * Y * Z
     hi = torch.tensor([X - 1, Y - 1, Z - 1], dtype=coords.dtype, device=coords.device)
     coords = torch.minimum(coords.clamp(min=0), hi)
     lin = (coords[..., 0].long() * Y + coords[..., 1]) * Z + coords[..., 2]
-    batch_off = (torch.arange(B, device=lin.device) * nvox).view(B, 1, 1, 1, 1)
+    batch_off = (torch.arange(B, device=lin.device) * nvox).view(B, *[1] * (lin.dim() - 1))
     return torch.where(valid, lin + batch_off, torch.full_like(lin, B * nvox))
 
 
@@ -67,6 +78,9 @@ def _kernel_fn(name: str = "voxel_splat"):
         fn = getattr(cuda_build.load("voxel_splat"), name)
         if name == "voxel_splat_workspace":  # rows, points -> int32s
             fn.argtypes, fn.restype = [ctypes.c_longlong] * 2, ctypes.c_longlong
+        elif name == "voxel_splat_rows":
+            fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         else:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
             fn.restype = ctypes.c_int
@@ -166,3 +180,85 @@ def voxel_scatter_lifted(
                         f"{valid.device}")
     out = _Splat.apply(depth.contiguous(), ctx.contiguous(), coords, valid, (X, Y, Z))
     return out.reshape(B, X, Y, Z, C).to(depth.dtype)
+
+
+def voxel_scatter_plain_rows(feats: torch.Tensor, rows: torch.Tensor,
+                             n_rows: int) -> torch.Tensor:
+    """Plain PyTorch version of S1-rows: one ``index_add_`` of the rows
+    [B * P, C] into float32 rows (the dummy row last).  -> [n_rows, C]
+    float32."""
+    out = torch.zeros((n_rows + 1, feats.shape[-1]), dtype=torch.float32, device=feats.device)
+    out.index_add_(0, rows.reshape(-1), feats.reshape(-1, feats.shape[-1]).float())
+    return out[:n_rows]
+
+
+def _launch_rows(feats, coords, valid, nx):
+    """S1-rows: feats [B, P, C] summed by voxel -> [B * X * Y * Z, C] in
+    feats' dtype."""
+    global ROWS_LAUNCHES
+    B, P, C = feats.shape
+    X, Y, Z = (int(n) for n in nx)
+    n_rows = B * X * Y * Z
+    coords = coords.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    out = torch.empty((n_rows, C), dtype=feats.dtype, device=feats.device)
+    ws = torch.empty(_kernel_fn("voxel_splat_workspace")(n_rows, B * P),
+                     dtype=torch.int32, device=feats.device)
+    with torch.cuda.device(feats.device):
+        stream = torch.cuda.current_stream(feats.device).cuda_stream
+        rc = _kernel_fn("voxel_splat_rows")(feats.data_ptr(), coords.data_ptr(),
+                                            valid.data_ptr(), out.data_ptr(), ws.data_ptr(),
+                                            B, P, X, Y, Z, C, _DTYPE_CODE[feats.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"voxel_splat_rows launch failed: cudaError {rc}")
+    ROWS_LAUNCHES += 1
+    return out
+
+
+class _SplatRows(torch.autograd.Function):
+    """S1-rows forward (the plain version for CPU tensors); the backward
+    gathers each point's row of the output gradient, d_feats[p] = g[row p]
+    (0 for an invalid point)."""
+
+    @staticmethod
+    def forward(ctx_, feats, coords, valid, nx):
+        ctx_.save_for_backward(coords, valid)
+        ctx_.nx, ctx_.dtype = nx, feats.dtype
+        if feats.is_cuda:
+            return _launch_rows(feats, coords, valid, nx)
+        n_rows = feats.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2])
+        return voxel_scatter_plain_rows(feats, voxel_rows(coords, valid, nx), n_rows)
+
+    @staticmethod
+    def backward(ctx_, gout):
+        coords, valid = ctx_.saved_tensors
+        rows = voxel_rows(coords, valid, ctx_.nx)
+        g = F.pad(gout, (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
+        return g.view(*rows.shape, gout.shape[-1]).to(ctx_.dtype), None, None, None
+
+
+def voxel_scatter(feats: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+                  nx: Sequence[int]) -> torch.Tensor:
+    """Sum point features into a dense voxel grid.
+
+    Args:
+      feats:  [B, P, C] per-point features
+      coords: [B, P, 3] integer voxel indices (x, y, z), clamped into the
+              grid; may be garbage where ``valid`` is False
+      valid:  [B, P] bool
+      nx:     (X, Y, Z)
+
+    Returns [B, X, Y, Z, C] in ``feats.dtype`` (zeros where no point
+    landed), each sum kept in float32 and rounded once.  CUDA tensors
+    (float32 or bfloat16 feats, all three on one device) run S1-rows, CPU
+    tensors the plain version.
+    """
+    B, P, C = feats.shape
+    X, Y, Z = int(nx[0]), int(nx[1]), int(nx[2])
+    if feats.is_cuda and not (feats.dtype in _DTYPE_CODE
+                              and feats.device == coords.device == valid.device):
+        raise TypeError(f"feats must be float32 or bfloat16 and lie with coords and valid on "
+                        f"one device; got {feats.dtype} on {feats.device}, coords on "
+                        f"{coords.device}, valid on {valid.device}")
+    out = _SplatRows.apply(feats.contiguous(), coords, valid, (X, Y, Z))
+    return out.reshape(B, X, Y, Z, C).to(feats.dtype)

@@ -1481,3 +1481,154 @@ def test_bevstereo_on_the_card_matches_the_cpu(cuda):
     differ = [k for k in a if not torch.equal(a[k], b[k])] + \
         [f"d {k}" for k in da if not torch.equal(da[k], db[k])]
     assert not differ, f"two runs differ in {differ}"
+
+
+def _rows_inputs(dev, dtype, C=128, seed=0):
+    """S1-rows' inputs: rows [2, 900, C], a third of them in one hot voxel
+    (its heavy path), coordinates outside the grid (clamped), a fifth
+    invalid, most voxels empty."""
+    rng = np.random.RandomState(seed)
+    B, P, nx = 2, 900, (6, 5, 4)
+    feats = torch.from_numpy(rng.randn(B, P, C).astype(np.float32))
+    coords = rng.randint(-1, 7, (B, P, 3))
+    coords[:, ::3] = (2, 3, 1)
+    valid = rng.rand(B, P) > 0.2
+    return (feats.to(dev, getattr(torch, dtype)),
+            torch.from_numpy(coords.astype(np.int32)).to(dev), torch.from_numpy(valid).to(dev),
+            nx)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [128, 40, 7])
+def test_splat_rows_matches_plain_and_repeats_itself(cuda, dtype, C):
+    """S1-rows (``voxel_scatter``, the use_voxel_net splat) equals its plain
+    version run on the CPU bit for bit (one index_add_ into float32 rows in
+    point order: the kernel's order), is within tolerance of the plain
+    version on the card (atomic), repeats itself over two calls, and its
+    backward is the plain gather d_feats[p] = g[row p] bit for bit."""
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import scatter
+
+    feats, coords, valid, nx = _rows_inputs(cuda, dtype, C)
+    n_rows = feats.shape[0] * int(np.prod(nx))
+    rows = scatter.voxel_rows(coords, valid, nx)
+    g = torch.randn((feats.shape[0], *nx, C), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(3)).to(feats.dtype)
+    runs = []
+    for _ in range(2):
+        f = feats.detach().clone().requires_grad_(True)
+        before = scatter.ROWS_LAUNCHES
+        out = scatter.voxel_scatter(f, coords, valid, nx)
+        (d,) = torch.autograd.grad(out, f, g)
+        torch.cuda.synchronize()
+        assert scatter.ROWS_LAUNCHES == before + 1 and out.dtype == feats.dtype
+        runs.append((out, d))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    cpu = scatter.voxel_scatter_plain_rows(feats.cpu(), rows.cpu(), n_rows).to(feats.dtype)
+    assert torch.equal(runs[0][0].reshape(n_rows, C).cpu(), cpu)
+    on_card = scatter.voxel_scatter_plain_rows(feats, rows, n_rows)
+    _close(runs[0][0].reshape(n_rows, C), on_card, _tol(feats.dtype), "S1-rows volume")
+    want = F.pad(g.reshape(n_rows, C), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
+    assert torch.equal(runs[0][1].reshape(-1, C), want)
+    assert not runs[0][1][~valid].any()
+
+
+@pytest.mark.parametrize("N", [100, 3000, 40000])
+def test_fps_matches_plain(cuda, N):
+    """FPS against its plain version, indices equal: clouds that fit one
+    point a thread, several a thread (registers) and more than 32 a thread
+    (the global workspace); with a third of the points invalid (never taken
+    while a valid one is left); on a lattice, whose equal distances are
+    ties that go to the lowest index; more samples than valid points."""
+    from occformer_tpu_torch.ops import pointcloud as pc
+
+    gen = torch.Generator(device=cuda).manual_seed(N)
+    xyz = torch.rand((3, N, 3), device=cuda, generator=gen) * 4
+    valid = torch.rand((3, N), device=cuda, generator=gen) > 0.33
+    npoint = min(N, 256)
+    for v in (None, valid):
+        before = pc.FPS_LAUNCHES
+        got = pc.furthest_point_sample(xyz, npoint, v)
+        assert pc.FPS_LAUNCHES == before + 1 and got.dtype == torch.int32
+        assert torch.equal(got, pc.furthest_point_sample_plain(xyz, npoint, v))
+        assert torch.equal(got, pc.furthest_point_sample_plain(xyz.cpu(), npoint,
+                                                               None if v is None else v.cpu())
+                           .to(cuda))
+    taken = torch.gather(valid, 1, got.long()[:, 1:])
+    assert taken.all()
+    side = max(2, round(N ** (1 / 3)))
+    r = torch.arange(side, device=cuda, dtype=torch.float32)
+    lattice = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(1, -1, 3)
+    n = lattice.shape[1]
+    few = torch.zeros((1, n), dtype=torch.bool, device=cuda)
+    few[0, ::7] = True
+    for v in (None, few):
+        k = min(n, 300)
+        assert torch.equal(pc.furthest_point_sample(lattice, k, v),
+                           pc.furthest_point_sample_plain(lattice, k, v))
+
+
+def test_voxnet_tiny_train_step_repeats_itself(cuda):
+    """The tiny CLI model with use_voxel_net and trilinear attention masks:
+    its train step on the per-layer route takes S1-rows (no S1), and two
+    steps from one state give every loss and every parameter's gradient bit
+    for bit (cuDNN's deterministic algorithms, as the other tiny-width
+    repeats here: at tiny widths some convolutions' default backward varies,
+    ROADMAP §C)."""
+    import copy
+    import os
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.loader import build_dataloader, build_dataset
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+    from occformer_tpu_torch.ops import scatter
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "occformer_tpu_torch", "configs", "synthetic_tiny.py"),
+                      {"model.img_view_transformer.use_voxel_net": True,
+                       "model.pts_bbox_head.pooling_attn_mask": False})
+    m = cfg["model"]
+    batch = next(iter(build_dataloader(build_dataset(cfg["data"]["train"]), max_points=512)))
+    batch.pop("_meta")
+    model = build_model(m, device=cuda, seed=0).train()
+    opt = build_optimizer_from_config(model, cfg, 16)
+    step = build_train_step(model, opt, build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout="off"),
+                                                       m["train_cfg"]["pts"]), device=cuda)
+    state = copy.deepcopy((model.state_dict(), opt.state_dict()))
+
+    def run():
+        model.load_state_dict(state[0])
+        opt.load_state_dict(state[1])
+        grads = []
+        orig = opt.step
+
+        def keep_grads():
+            grads.extend(p.grad.detach().clone() for p in model.parameters()
+                         if p.grad is not None)
+            return orig()
+
+        opt.step = keep_grads
+        before = (scatter.LAUNCHES, scatter.ROWS_LAUNCHES)
+        try:
+            metrics = step(batch, torch.Generator(device=cuda).manual_seed(1))
+        finally:
+            del opt.step
+        assert (scatter.LAUNCHES, scatter.ROWS_LAUNCHES) == (before[0], before[1] + 1)
+        return {k: float(v) for k, v in metrics.items() if "loss" in k}, grads
+
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        (la, ga), (lb, gb) = run(), run()
+    finally:
+        torch.backends.cudnn.deterministic = det
+    assert la == lb and all(v == v for v in la.values())
+    assert len(ga) == len(gb) > 0
+    da = model.img_view_transformer.depth_aggregation_net
+    assert da.reduce_conv.weight.grad is not None
+    for a, b in zip(ga, gb):
+        assert torch.equal(a, b)

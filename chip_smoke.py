@@ -237,7 +237,8 @@ Phases, each printing one JSON line:
                  1e-2 of the plain version (atomic on the card), bit for bit
                  the plain version's on the CPU, two calls bit-equal, its
                  backward bit-equal to the plain gather; timed beside the
-                 plain version, one index_add_ and its bound.
+                 plain version, one index_add_ and its bound, its device
+                 time also by kernel.
   31. voxnet_serve (after phase 28): the flagship with use_voxel_net and
                  pooling_attn_mask=False at full width and depth (3 frames
                  of the test pipeline; DepthAggregation over the lift, S1-rows
@@ -250,7 +251,8 @@ Phases, each printing one JSON line:
                  at their users' sizes
                  (phase_pointcloud): every op once, FPS (its one kernel)
                  launched once; FPS held to its plain version (indices
-                 equal, also with invalid points), each op timed, the
+                 equal, also with invalid points), its microseconds a step
+                 and the thread-block cluster it took, each op timed, the
                  sparse convs' gather backend held to the dense one at
                  [128, 128, 16].
 The cli phase (9) also fuses step_2 (tools/fuse_conv_bn.py) and serves one
@@ -447,7 +449,7 @@ def nbytes(*tensors):
 TRACE_ATTEMPTS = 3
 
 
-def device_ms(fn, iters=20, warmup=3):
+def device_ms(fn, iters=20, warmup=3, by_kernel=False):
     """Device ms per call of ``fn()`` from the profiler
     (``utils/timing.py:device_trace``, whose trace opens with a lead-in the
     profiler may drop in place of the calls' records).  The trace must show
@@ -457,7 +459,9 @@ def device_ms(fn, iters=20, warmup=3):
     the run fails if none does, so that a dropped or partial trace cannot
     stand as a time (CUPTI dropped a whole trace once early in a run, PR
     13's final call; late in a run it drops a trace's first records, which
-    took every launch of 7.7 ms FPS kernels in a trace of three)."""
+    took every launch of 7.7 ms FPS kernels in a trace of three).
+    ``by_kernel``: also the device ms per call of each kernel, copy and fill
+    (by the first 80 characters of its name)."""
     from occformer_tpu_torch.utils.timing import device_trace
 
     calls = warmup + iters
@@ -468,6 +472,9 @@ def device_ms(fn, iters=20, warmup=3):
         want = {k: v * iters // calls for k, v in ran.items()}
         traced = traced_launches(port_kernel_ms(kernels)["by_kernel"])
         if ms > 0 and traced == want:
+            if by_kernel:
+                return ms, {e.key[:80]: e.self_device_time_total / 1e3 / iters
+                            for e in kernels}
             return ms
     check(False, f"the profiler's device time: {TRACE_ATTEMPTS} traces, the last with "
           f"{ms} ms a call and port-kernel launches {traced}, want {want}")
@@ -4218,7 +4225,8 @@ def s1_rows_record(feats, coords, valid, nx, label):
     atomic on the card) and against the plain version on the CPU (the same
     order: equal bit for bit), two calls bit-equal, its backward bit-equal
     to the plain gather, timed in turns with the plain version, the kernels'
-    device ms, one index_add_ in feats' dtype (the library call) and the
+    device ms (also by kernel: the memset, count, scan, fill, rank and
+    splat), one index_add_ in feats' dtype (the library call) and the
     bound."""
     import torch
     import torch.nn.functional as F
@@ -4260,12 +4268,11 @@ def s1_rows_record(feats, coords, valid, nx, label):
         lib = torch.zeros((n_rows + 1, C), dtype=feats.dtype, device=feats.device)
         flat_rows, flat = rows.reshape(-1), feats.reshape(-1, C)
         rec["library_ms"] = time_cuda(lambda: lib.index_add_(0, flat_rows, flat))
-        rec["device_ms"] = device_ms(kernel)
+        rec["device_ms"], rec["device_ms_by_kernel"] = device_ms(kernel, by_kernel=True)
     rec.update(ms_in_turns=ms, kernel_ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2)
     # what the splat must move: valid read in full, the coordinates and the
-    # row of feats of each valid point (RowKeys drops an invalid point before
-    # it reads either), the volume written once; an add per (valid point,
-    # channel)
+    # row of feats of each valid point (an invalid point needs neither), the
+    # volume written once; an add per (valid point, channel)
     n_valid = rec["points_valid"]
     moved = (nbytes(valid, got) + n_valid * 3 * coords.element_size()
              + n_valid * C * feats.element_size())
@@ -4445,7 +4452,8 @@ def phase_pointcloud():
     roiaware_pool3d (T = 7) there.  The main path's run: every op once with
     the launch counts set to 0 before and read after (FPS once, nothing
     else).  Then FPS held to its plain version (indices equal, also with
-    invalid points), timed beside it and its bound; each op timed; the
+    invalid points), timed beside it and its bound, its microseconds a step
+    and its cluster size; each op timed; the
     sparse convs' gather backend held to the dense one at [128, 128, 16]."""
     import torch
 
@@ -4538,6 +4546,9 @@ def phase_pointcloud():
                "shapes": [B, N, npoint], "ms_in_turns": ms, "kernel_ms": sum(ms["kernel"]) / 2,
                "plain_ms": sum(ms["plain"]) / 2, "library_ms": None}
         fps["device_ms"] = device_ms(lambda: pc.furthest_point_sample(rooms, npoint), 10)
+        # the steps depend on each other: a step's latency is FPS's yardstick
+        fps["us_per_step"] = fps["device_ms"] * 1e3 / (npoint - 1)
+        fps["cluster_ctas"] = pc.FPS_CLUSTER
         # 9 float32 operations a point a step (csrc/furthest_point_sample.cu)
         fps.update(bound(nbytes(rooms, idx), 9 * B * N * (npoint - 1)))
         rec["FPS"] = fps
@@ -4720,7 +4731,8 @@ def phase_ddp():
 # template argument); the path's
 # gather, splat or corner reduce (one per launch) counts the launches; S1's
 # second splat kernel (its heavy voxels) runs beside it, K1-bwd's
-# sample-major kernel and K4-bwd's coordinate kernel before the binning
+# sample-major kernel and K4-bwd's coordinate kernel before the binning;
+# S1-rows' count, scan, fill and rank kernels before its splat
 PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kernel": "K1.row",
                 "ms_deform_bwd_samples_kernel": "K1-bwd",
                 "trilerp_fwd_narrow_kernel": "K2", "trilerp_fwd_rows_kernel": "K2.row",
@@ -4732,16 +4744,18 @@ PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kern
                 "multilevel_bwd_coords_kernel": "K4-bwd",
                 "add_one_kernel": "P1", "row_gather_kernel": "P2",
                 "voxel_splat_kernel": "S1", "voxel_splat_heavy_kernel": "S1",
-                "fps_kernel": "FPS"}
+                "rows_count_kernel": "S1-rows", "rows_scan_kernel": "S1-rows",
+                "rows_fill_kernel": "S1-rows", "rows_rank_kernel": "S1-rows",
+                "rows_splat_kernel": "S1-rows", "fps_kernel": "FPS"}
 _UNCOUNTED = {"voxel_splat_heavy_kernel", "ms_deform_bwd_samples_kernel",
-              "multilevel_bwd_coords_kernel"}
+              "multilevel_bwd_coords_kernel", "rows_count_kernel", "rows_scan_kernel",
+              "rows_fill_kernel", "rows_rank_kernel"}
 _SORT_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
                "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel",
                "seg_fill_entries_kernel", "span_sort_warp_kernel", "span_sort_block_kernel",
                "heavy_bins_kernel", "entry_scale_kernel", "corner_reduce_kernel"}
 _COUNTED_STEPS = {"corner_reduce_kernel"}
 _SORT_KEYS = {"CornerKeys": "K2-bwd", "ColumnKeys": "K2-bwd.narrow", "SplatKeys": "S1",
-              "RowKeys": "S1-rows",
               "K1Keys": "K1-bwd", "K1Geo": "K1-bwd", "K4Keys": "K4-bwd", "K4Geo": "K4-bwd"}
 
 
@@ -4750,8 +4764,9 @@ def port_kernel_ms(kernels):
     events, by kernel (K2's forward apart by path and table type: the bf16
     feature on the row-wide path, the bool GT, float32 volumes; K2-bwd's two
     paths and S1 each summed over their sort's six functions and their gather
-    or splat, K1-bwd and K4-bwd over their sample kernel and the steps of
-    csrc/ordered_rows.cuh) and by CUDA function."""
+    or splat, S1-rows over its five kernels, K1-bwd and K4-bwd over their
+    sample kernel and the steps of csrc/ordered_rows.cuh) and by CUDA
+    function."""
     import re
 
     by_kernel, by_function = {}, {}
@@ -4766,8 +4781,6 @@ def port_kernel_ms(kernels):
             name = PORT_KERNELS.get(m.group(1))
             if name and m.group(1).startswith("trilerp_fwd"):
                 name += " " + m.group(2)
-            if name == "S1" and re.search(r",\s*1>$", m.group(2) or ""):
-                name = "S1-rows"  # the splat kernels' last template argument
         if name is None:
             continue
         counted = m.group(1) in _COUNTED_STEPS or (m.group(1) not in _SORT_STEPS
@@ -5017,7 +5030,9 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
              "library_ms": r.get("library_ms"),
              **{k: r[k] for k in ("device_ms", "library_device_ms", "random_order_ms",
                                   "random_order_device_ms", "readouts", "attention_shapes",
-                                  "launch_floor_ms", "bound_with_floor_ms") if k in r},
+                                  "launch_floor_ms", "bound_with_floor_ms",
+                                  "device_ms_by_kernel", "us_per_step", "cluster_ctas")
+                if k in r},
              **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
                 if key in at_kitti else {}),
              **({"float32": r["float32"]} if "float32" in r else {}),

@@ -46,29 +46,6 @@
 // No float atomics: the same bits on every run.  The backward is gathers
 // (ops/scatter.py).
 //
-// S1-rows (voxel_splat_rows below) is the port of
-// occformer_tpu/ops/scatter.py:voxel_scatter (:20), a segment_sum of given
-// rows that the JAX package leaves to XLA (no Pallas kernel), used by the
-// view transformer's use_voxel_net branch, whose DepthAggregation convs
-// leave no depth x context product to fuse:
-//
-//   out[r, c] = sum over the valid points p in voxel r of feats[p, c]
-//
-// with feats [B * P, C], coords int32 [B * P, 3] and valid [B * P].  It
-// runs the same sort with RowKeys, whose entry is (p, 1.0f): the splat
-// kernels then read point p's row of feats and add it in float32 (fmaf(1,
-// v, acc) rounds as v + acc does), each voxel's points in ascending point
-// order, the order of the plain version's index_add_ on the CPU, so the two
-// agree bit for bit.  The light/heavy voxel split is S1's.  Its backward is
-// a gather, d_feats[p] = g[row p] (ops/scatter.py).
-//
-// Bound on an H100 SXM at the use_voxel_net flagship (B = 1, P = 6 * 112 *
-// 16 * 44 = 473,088 rows of C = 128 in bf16, 128 x 128 x 16 voxels, the
-// nuScenes rig's 278,782 valid points): valid 0.47 MB read in full, the
-// valid points' coords 3.35 MB and rows of feats 71.4 MB (RowKeys drops an
-// invalid point before it reads either), the volume 67.1 MB written, 142.3
-// MB, 0.042 ms at 3.35 TB/s (float32: 280.8 MB, 0.084 ms).
-//
 // Measured (tools/time_backwards.py --only S1, H100 80GB HBM3 at 700 W,
 // device ms of the splat kernels, in turns in one call, the volume's bits
 // unchanged throughout), at a forward-looking nuScenes rig (278,782 valid
@@ -88,6 +65,69 @@
 // MB, 0.0225 ms at 3.35 TB/s.  The sort's int32 workspace (offsets and
 // cursor 1 MB each, 4 bytes of item index and 8 of entry a point, the
 // heavy voxels' list 1 MB) adds traffic the bound does not count.
+//
+// S1-rows (voxel_splat_rows below) is the port of
+// occformer_tpu/ops/scatter.py:voxel_scatter (:20), a segment_sum of given
+// rows that the JAX package leaves to XLA (no Pallas kernel), used by the
+// view transformer's use_voxel_net branch, whose DepthAggregation convs
+// leave no depth x context product to fuse:
+//
+//   out[r, c] = sum over the valid points p in voxel r of feats[p, c]
+//
+// with feats [B * P, C], coords int32 [B * P, 3] and valid [B * P], each
+// voxel's rows added in float32 in ascending point order (no float
+// atomics), the order of the plain version's index_add_ on the CPU, so the
+// two agree bit for bit and two calls give the same bits.  Its backward is
+// a gather, d_feats[p] = g[row p] (ops/scatter.py).
+//
+// Bound on an H100 SXM at the use_voxel_net flagship (B = 1, P = 6 * 112 *
+// 16 * 44 = 473,088 rows of C = 128 in bf16, 128 x 128 x 16 voxels, the
+// nuScenes rig's 278,782 valid points): valid 0.47 MB read in full, the
+// valid points' coords 3.35 MB and rows of feats 71.4 MB, the volume 67.1 MB
+// written, 142.3 MB, 0.042 ms at 3.35 TB/s (float32: 280.8 MB, 0.084 ms).
+//
+// Its first design ran S1's sort and splat with an entry (p, 1.0f), ten
+// launches; at that shape, bf16 (tools/time_backwards.py --only S1-rows,
+// H100 80GB HBM3 at 700 W, device us): the offsets' memset 2.1, count 6.6,
+// the scan's three launches 7.6, fill 9.6, the O(L^2) rank 11.9, the splat
+// 90.9 and its heavy-voxel kernel 27.7: 157 us, 76% of it the splat, whose
+// warps waited on three dependent loads (offsets, entries, 16 rows at a
+// time) for a few rows each, and on one warp for each voxel of over 32
+// rows.  Now six launches (rows_* below), all with 4-byte entries:
+//   1. one memset: the counts, the scan's tile words and ticket, the splat
+//      blocks' first voxels;
+//   2. rows_count_kernel: a thread per point stores its key (voxel row, or
+//      -1 when invalid) and counts it, one int32 atomic per group of equal
+//      keys in the warp (__match_any_sync: consecutive depth bins of a ray
+//      mostly share a voxel);
+//   3. rows_scan_kernel: the exclusive scan of the counts in one launch,
+//      decoupled look-back over SCAN_TILE-count tiles, also the fill's
+//      cursor;
+//   4. rows_fill_kernel: a thread per point takes a slot of its voxel's span
+//      by one atomic per group of equal keys (a group's slots ascend with
+//      its points, the groups' order is the atomics'); a thread per voxel
+//      marks where each splat block starts (below);
+//   5. rows_rank_kernel: a thread per valid point counts its span's points
+//      below it and writes itself at that rank (O(L^2) over a span of L,
+//      mostly L1 hits; writing the spans that are one warp group's straight
+//      from the fill saved nothing);
+//   6. rows_splat_kernel: the voxels cut into runs of at most ROWS_MAX_COST
+//      voxels plus rows (so a hot voxel shares no block with many others and
+//      empty stretches share theirs), a block of ROWS_THREADS per run.  The
+//      run's rows are one stretch of the sorted entries, gathered in stages
+//      of ROWS_STAGE rows by 16-byte cp.async (other rows by plain loads)
+//      into a ring of ROWS_STAGES stages in shared memory, the next stage in
+//      flight while the warps add the current one.  Each warp owns groups
+//      of 32 voxels, one voxel's span a lane, and adds each voxel's rows
+//      from shared memory in entry order, ROWS_UNROLL at a time; it stores
+//      each row once, an empty voxel's as zeros.  A voxel whose rows span
+//      stages keeps its sum in registers, so a hot voxel needs no second
+//      kernel.
+// Two splats lost to this one on the card: a block per 64 voxels gathering
+// each row by one cp.async.bulk, its warps walking every voxel, and a block
+// per SM over long runs with a deeper ring, which got slower as the ring
+// deepened (the next stage's cp.async stalled on the memory system while
+// the current one's rows were long in).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -121,27 +161,6 @@ struct SplatKeys {
     const float d = depth_bf16 ? __bfloat162float(static_cast<const __nv_bfloat16*>(depth)[p])
                                : static_cast<const float*>(depth)[p];
     return make_int2(p / (D * HW) * HW + p % HW, __float_as_int(d));
-  }
-};
-
-// The sort key of row p of S1-rows: its voxel row b * X*Y*Z + (x * Y + y) *
-// Z + z when valid, none otherwise; its entry (p, 1.0f as a float's bits).
-struct RowKeys {
-  using Entry = int2;
-  const int* coords;
-  const uint8_t* valid;
-  int X, Y, Z, P;
-  template <typename Fn>
-  __device__ __forceinline__ void operator()(int64_t i, Fn fn) const {
-    const int p = (int)i;
-    if (!valid[p]) return;
-    const int x = min(max(coords[3 * p + 0], 0), X - 1);
-    const int y = min(max(coords[3 * p + 1], 0), Y - 1);
-    const int z = min(max(coords[3 * p + 2], 0), Z - 1);
-    fn((int64_t)(p / P) * X * Y * Z + (x * Y + y) * Z + z);
-  }
-  __device__ __forceinline__ int2 entry(int64_t i) const {
-    return make_int2((int)i, __float_as_int(1.0f));
   }
 };
 
@@ -181,8 +200,7 @@ __device__ __forceinline__ void splat_run(const Tc* __restrict__ ctx,
   }
 }
 
-// ROWS: 0 for S1, 1 for S1-rows (only the kernels' names differ)
-template <typename Td, typename Tc, int VEC, int ROWS>
+template <typename Td, typename Tc, int VEC>
 __global__ void __launch_bounds__(256)
 voxel_splat_kernel(const Tc* __restrict__ ctx, const int* __restrict__ offs,
                    const int2* __restrict__ sorted, Td* __restrict__ out,
@@ -257,7 +275,7 @@ voxel_splat_kernel(const Tc* __restrict__ ctx, const int* __restrict__ offs,
   }
 }
 
-template <typename Td, typename Tc, int VEC, int ROWS>
+template <typename Td, typename Tc, int VEC>
 __global__ void __launch_bounds__(256)
 voxel_splat_heavy_kernel(const Tc* __restrict__ ctx, const int* __restrict__ offs,
                          const int2* __restrict__ sorted, Td* __restrict__ out,
@@ -282,31 +300,28 @@ voxel_splat_heavy_kernel(const Tc* __restrict__ ctx, const int* __restrict__ off
   }
 }
 
-template <typename Td, typename Tc, int VEC, int ROWS>
+template <typename Td, typename Tc, int VEC>
 static void launch_splat_vec(const void* ctx, const int* offs, const int2* sorted, void* out,
                              int* heavy_list, int* n_heavy, int64_t n_rows, int C,
                              cudaStream_t st) {
   const int threads = 256;
-  voxel_splat_kernel<Td, Tc, VEC, ROWS>
+  voxel_splat_kernel<Td, Tc, VEC>
       <<<grid_blocks((n_rows + SPLAT_GROUP - 1) / SPLAT_GROUP * 32, threads), threads, 0, st>>>(
           (const Tc*)ctx, offs, sorted, (Td*)out, heavy_list, n_heavy, n_rows, C);
-  voxel_splat_heavy_kernel<Td, Tc, VEC, ROWS><<<SPLAT_HEAVY_BLOCKS, threads, 0, st>>>(
+  voxel_splat_heavy_kernel<Td, Tc, VEC><<<SPLAT_HEAVY_BLOCKS, threads, 0, st>>>(
       (const Tc*)ctx, offs, sorted, (Td*)out, heavy_list, n_heavy, C);
 }
 
-template <typename Td, typename Tc, int ROWS = 0>
+template <typename Td, typename Tc>
 static void launch_splat(const void* ctx, const int* offs, const int2* sorted, void* out,
                          int* heavy_list, int* n_heavy, int64_t n_rows, int C, int vec,
                          cudaStream_t st) {
   if (vec == 4)
-    launch_splat_vec<Td, Tc, 4, ROWS>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C,
-                                      st);
+    launch_splat_vec<Td, Tc, 4>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C, st);
   else if (vec == 2)
-    launch_splat_vec<Td, Tc, 2, ROWS>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C,
-                                      st);
+    launch_splat_vec<Td, Tc, 2>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C, st);
   else
-    launch_splat_vec<Td, Tc, 1, ROWS>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C,
-                                      st);
+    launch_splat_vec<Td, Tc, 1>(ctx, offs, sorted, out, heavy_list, n_heavy, n_rows, C, st);
 }
 
 // Int32s of voxel_splat's workspace for B * X*Y*Z voxel rows and n_pts
@@ -366,12 +381,396 @@ extern "C" int voxel_splat(const void* depth, const void* ctx, const void* coord
   return (int)cudaGetLastError();
 }
 
+// ---- S1-rows ----
+
+constexpr int ROWS_THREADS = 64;           // a splat block's threads (2 warps)
+constexpr int ROWS_STAGES = 2;             // the ring's stages: 1 in flight
+constexpr int ROWS_STAGE = 32;             // rows a stage gathers at most
+constexpr int ROWS_RING_BYTES = 16 * 1024; // the ring's rows at most
+constexpr int ROWS_MAX_COST = 128;         // a splat block's voxels + rows at most
+constexpr int ROWS_MAX_PASSES = 8;         // passes of 32 lanes x VEC channels
+static_assert(ROWS_STAGE <= ROWS_THREADS, "a thread loads each entry of a stage");
+
+// 2. a thread per point: its key, counted once per group of equal keys in
+// the warp
+__global__ void __launch_bounds__(256)
+rows_count_kernel(const int* __restrict__ coords, const uint8_t* __restrict__ valid, int n,
+                  int P, int X, int Y, int Z, int* __restrict__ keys, int* __restrict__ counts) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  int key = -1;
+  if (p < n && valid[p]) {
+    const int x = min(max(coords[3 * (int64_t)p + 0], 0), X - 1);
+    const int y = min(max(coords[3 * (int64_t)p + 1], 0), Y - 1);
+    const int z = min(max(coords[3 * (int64_t)p + 2], 0), Z - 1);
+    key = (p / P) * (X * Y * Z) + (x * Y + y) * Z + z;
+  }
+  if (p < n) keys[p] = key;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  if (key >= 0 && (int)(threadIdx.x & 31) == __ffs(peers) - 1)
+    atomicAdd(counts + key, __popc(peers));
+}
+
+// 3. in place: data[0, n) becomes its exclusive scan, cursor[0, n - 1) a
+// copy; a block per SCAN_TILE counts, in the order of `ticket`, each tile's
+// sum published in status[tile] as (1 << 32 | sum), its inclusive prefix as
+// (2 << 32 | prefix), the predecessors' read back, 32 at a time, to the
+// nearest prefix
+__global__ void __launch_bounds__(SCAN_THREADS)
+rows_scan_kernel(int* __restrict__ data, int64_t n, int* __restrict__ cursor,
+                 unsigned long long* __restrict__ status, int* __restrict__ ticket) {
+  __shared__ int s_tile, s_prefix;
+  if (threadIdx.x == 0) s_tile = atomicAdd(ticket, 1);
+  __syncthreads();
+  const int tile = s_tile;
+  const int64_t base = (int64_t)tile * SCAN_TILE + threadIdx.x * SCAN_ITEMS;
+  int v[SCAN_ITEMS];
+  int sum = 0;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    v[k] = base + k < n ? data[base + k] : 0;
+    sum += v[k];
+  }
+  int total;
+  int run = block_exclusive_scan(sum, &total);
+  if (threadIdx.x < 32) {
+    const int lane = threadIdx.x;
+    int prefix = 0;
+    if (tile > 0) {
+      if (lane == 0) atomicExch(status + tile, (1ull << 32) | (unsigned)total);
+      for (int j0 = tile - 1;; j0 -= 32) {
+        const int j = j0 - lane;
+        unsigned long long w = 2ull << 32;  // before tile 0: a prefix of 0
+        if (j >= 0) {
+          do {
+            w = atomicAdd(status + j, 0ull);
+          } while ((w >> 32) == 0);
+        }
+        const unsigned done = __ballot_sync(0xffffffffu, (w >> 32) == 2);
+        const int stop = done ? __ffs(done) - 1 : 31;
+        prefix += __reduce_add_sync(0xffffffffu, lane <= stop ? (int)(unsigned)w : 0);
+        if (done) break;
+      }
+    }
+    if (lane == 0) {
+      atomicExch(status + tile, (2ull << 32) | (unsigned)(prefix + total));
+      s_prefix = prefix;
+    }
+  }
+  __syncthreads();
+  run += s_prefix;
+#pragma unroll
+  for (int k = 0; k < SCAN_ITEMS; ++k) {
+    if (base + k < n) {
+      data[base + k] = run;
+      if (base + k < n - 1) cursor[base + k] = run;
+    }
+    run += v[k];
+  }
+}
+
+// The splat's work is cut by cost: voxel v's rows and v itself (its store)
+// cost offs[v] + v up to it, cost(n_rows) in all; block b of n_units takes
+// the voxels [start[b], start[b + 1]), start[b] the first voxel whose cost
+// reaches b * unit (n_rows past the total), unit = ceil(total / n_units).
+__device__ __forceinline__ int64_t rows_unit(const int* offs, int64_t n_rows, int n_units) {
+  return ((int64_t)offs[n_rows] + n_rows + n_units - 1) / n_units;
+}
+
+// 4. a thread per point: a slot of its voxel's span, one atomic per group of
+// equal keys in the warp, the group's slots in point order; and a thread
+// per voxel: the splat blocks that start after it
+__global__ void __launch_bounds__(256)
+rows_fill_kernel(const int* __restrict__ keys, int n, int* __restrict__ cursor,
+                 int* __restrict__ unsorted, const int* __restrict__ offs, int64_t n_rows,
+                 int* __restrict__ start, int n_units) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int key = i < n ? keys[i] : -1;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int leader = __ffs(peers) - 1;
+  int base = 0;
+  if (key >= 0 && lane == leader) base = atomicAdd(cursor + key, __popc(peers));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (key >= 0) unsorted[base + __popc(peers & ((1u << lane) - 1u))] = (int)i;
+  if (i < n_rows) {
+    const int64_t unit = rows_unit(offs, n_rows, n_units);
+    const int64_t c0 = offs[i] + i, c1 = offs[i + 1] + i + 1;
+    for (int64_t b = c0 / unit + 1; b <= c1 / unit; ++b) start[b] = (int)(i + 1);
+  }
+}
+
+// 5. a thread per valid point: its rank among its span's points
+__global__ void __launch_bounds__(256)
+rows_rank_kernel(const int* __restrict__ keys, int n, const int* __restrict__ offs,
+                 const int* __restrict__ unsorted, int* __restrict__ sorted) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const int key = keys[p];
+  if (key < 0) return;
+  const int beg = offs[key], end = offs[key + 1];
+  int r = 0;
+  for (int j = beg; j < end; ++j) r += __ldg(unsorted + j) < p;
+  sorted[beg + r] = p;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (uint32_t)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's copies have landed but those of its last ROWS_STAGES - 1
+// committed groups
+__device__ __forceinline__ void cp_async_wait_stage() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(ROWS_STAGES - 1) : "memory");
+}
+
+// 6. a block per unit of the splat's work (rows_unit): its voxels' rows, one
+// run of the sorted entries, gathered in stages of nb rows (`rs` bytes apart
+// in shared memory; by 16-byte cp.async when `vec16`) into a ring of
+// ROWS_STAGES, added in entry order by each voxel's warp, each voxel's row
+// stored once
+template <typename T, int VEC, int MAXP>
+__global__ void __launch_bounds__(ROWS_THREADS)
+rows_splat_kernel(const T* __restrict__ feats, const int* __restrict__ offs,
+                  const int* __restrict__ sorted, const int* __restrict__ start,
+                  T* __restrict__ out, int64_t n_rows, int C, int nb, int rs, int vec16) {
+  using RawT = typename Raw<VEC * sizeof(T)>::T;
+  constexpr int W = ROWS_THREADS / 32;
+  constexpr int R = ROWS_STAGES;
+  extern __shared__ __align__(128) unsigned char rows_smem[];
+  unsigned char* ring = rows_smem;                                // [R][nb][rs]
+  int* ent = reinterpret_cast<int*>(ring + R * (size_t)nb * rs);  // [R][nb]
+  int* off = ent + R * nb;                                        // [ROWS_MAX_COST + 1]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int64_t unit = rows_unit(offs, n_rows, gridDim.x);
+  const int64_t total = (int64_t)offs[n_rows] + n_rows;
+  const int64_t b = blockIdx.x;
+  const int64_t v0 = b * unit > total ? n_rows : start[b];
+  const int64_t v1 = (b + 1) * unit > total ? n_rows : start[b + 1];
+  const int tv = (int)(v1 - v0);
+  if (tv <= 0) return;
+  const int rb = C * (int)sizeof(T);
+  for (int i = tid; i <= tv; i += ROWS_THREADS) off[i] = offs[v0 + i];
+  __syncthreads();
+  const int E0 = off[0], E1 = off[tv];
+  const int n_st = max(1, (E1 - E0 + nb - 1) / nb);
+  auto stage_n = [&](int k) { return max(0, min(nb, E1 - E0 - k * nb)); };
+  auto entry = [&](int k) { return tid < stage_n(k) ? sorted[E0 + k * nb + tid] : 0; };
+  // stage k's rows (its entries in ent[k % R]) into ring[k % R]
+  auto issue = [&](int k) {
+    const int n = stage_n(k);
+    const int* e = ent + (k % R) * nb;
+    unsigned char* dst = ring + (size_t)(k % R) * nb * rs;
+    if (vec16) {
+      const int cpr = rb >> 4;  // 16-byte chunks a row
+      for (int i = tid; i < n * cpr; i += ROWS_THREADS) {
+        const int j = i / cpr, q = i - j * cpr;
+        cp_async16(dst + (size_t)j * rs + q * 16,
+                   reinterpret_cast<const unsigned char*>(feats) + (int64_t)e[j] * rb + q * 16);
+      }
+    } else {
+      for (int i = tid; i < n * C; i += ROWS_THREADS) {
+        const int j = i / C, c = i - j * C;
+        reinterpret_cast<T*>(dst + (size_t)j * rs)[c] = feats[(int64_t)e[j] * C + c];
+      }
+    }
+  };
+  // the first R - 1 stages in flight
+  for (int k = 0; k < R - 1; ++k) {
+    const int e = entry(k);
+    if (tid < nb) ent[k * nb + tid] = e;
+  }
+  int e_next = entry(R - 1);
+  __syncthreads();
+  for (int k = 0; k < R - 1; ++k) {
+    if (k < n_st) issue(k);
+    cp_async_commit();
+  }
+  const int passes = (C + 32 * VEC - 1) / (32 * VEC);
+  constexpr int ROWS_UNROLL = MAXP >= 8 ? 2 : MAXP >= 4 ? 4 : 8;  // rows read, then added
+  float acc[MAXP][VEC];
+#pragma unroll
+  for (int q = 0; q < MAXP; ++q)
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) acc[q][i] = 0.f;
+  // warp w owns the groups of 32 voxels w, w + W, ...; lane l holds voxel
+  // g * 32 + l's span [lo, hi); vi is the group's first voxel not stored yet
+  int g = warp, vi = 0, lo = E1, hi = E1;
+  auto load_group = [&]() {
+    const int v = g * 32 + lane;
+    lo = v <= tv ? off[v] : E1;
+    hi = v + 1 <= tv ? off[v + 1] : E1;
+  };
+  load_group();
+  for (int k = 0; k < n_st; ++k) {
+    const int kn = k + R - 1;  // the stage to put in flight
+    if (tid < nb) ent[(kn % R) * nb + tid] = e_next;
+    __syncthreads();  // stage k - 1's rows are added: its ring slot is free
+    if (kn < n_st) issue(kn);
+    cp_async_commit();
+    e_next = entry(kn + 1);
+    cp_async_wait_stage();
+    __syncthreads();  // stage k's rows are in
+    const int S = E0 + k * nb, end = S + stage_n(k);
+    const unsigned char* rows = ring + (size_t)(k % R) * nb * rs;
+    // this warp's voxels that take rows from this stage or end in it, in order
+    while (g * 32 < tv) {
+      if (vi == 32 || g * 32 + vi >= tv) {
+        g += W;
+        vi = 0;
+        load_group();
+        continue;
+      }
+      const int ou = __shfl_sync(0xffffffffu, lo, vi), ou1 = __shfl_sync(0xffffffffu, hi, vi);
+      if (ou == ou1 ? ou > end : ou >= end) break;  // its rows come in a later stage
+      for (int t0 = max(ou, S); t0 < min(ou1, end); t0 += ROWS_UNROLL) {
+        const int tn = min(ou1, end) - t0;
+        RawT r[ROWS_UNROLL][MAXP];
+#pragma unroll
+        for (int i = 0; i < ROWS_UNROLL; ++i)
+#pragma unroll
+          for (int q = 0; q < MAXP; ++q) {
+            const int c = (q * 32 + lane) * VEC;
+            r[i][q] = i < tn && q < passes && c < C
+                          ? *reinterpret_cast<const RawT*>(
+                                reinterpret_cast<const T*>(rows + (size_t)(t0 - S + i) * rs) + c)
+                          : RawT{};
+          }
+#pragma unroll
+        for (int i = 0; i < ROWS_UNROLL; ++i) {
+          if (i >= tn) break;
+#pragma unroll
+          for (int q = 0; q < MAXP; ++q) {
+            float f[VEC];
+            chunk_floats<T, VEC>(f, r[i][q]);
+#pragma unroll
+            for (int e = 0; e < VEC; ++e) acc[q][e] = __fadd_rn(acc[q][e], f[e]);
+          }
+        }
+      }
+      if (ou1 > end) break;  // its rows go on in the next stage
+#pragma unroll
+      for (int q = 0; q < MAXP; ++q) {
+        const int c = (q * 32 + lane) * VEC;
+        if (q < passes && c < C) store_chunk<T, VEC>(out + (v0 + g * 32 + vi) * C + c, acc[q]);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[q][e] = 0.f;
+      }
+      ++vi;
+    }
+  }
+}
+
+static inline size_t rows_splat_smem(int nb, int rs) {
+  return ROWS_STAGES * ((size_t)nb * rs + (size_t)nb * sizeof(int)) +
+         (ROWS_MAX_COST + 1) * sizeof(int);
+}
+
+template <typename T, int VEC, int MAXP>
+static cudaError_t launch_rows_splat(const void* feats, const int* offs, const int* sorted,
+                                     const int* start, int n_units, void* out, int64_t n_rows,
+                                     int C, int nb, int rs, int vec16, cudaStream_t st) {
+  auto kernel = rows_splat_kernel<T, VEC, MAXP>;
+  const size_t smem = rows_splat_smem(nb, rs);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(unsigned)n_units, ROWS_THREADS, smem, st>>>((const T*)feats, offs, sorted, start,
+                                                        (T*)out, n_rows, C, nb, rs, vec16);
+  return cudaGetLastError();
+}
+
+template <typename T, int VEC>
+static cudaError_t rows_splat_vec(int passes, const void* feats, const int* offs,
+                                  const int* sorted, const int* start, int n_units, void* out,
+                                  int64_t n_rows, int C, int nb, int rs, int vec16,
+                                  cudaStream_t st) {
+  if (passes <= 1)
+    return launch_rows_splat<T, VEC, 1>(feats, offs, sorted, start, n_units, out, n_rows, C,
+                                        nb, rs, vec16, st);
+  if (passes <= 2)
+    return launch_rows_splat<T, VEC, 2>(feats, offs, sorted, start, n_units, out, n_rows, C,
+                                        nb, rs, vec16, st);
+  if (passes <= 4)
+    return launch_rows_splat<T, VEC, 4>(feats, offs, sorted, start, n_units, out, n_rows, C,
+                                        nb, rs, vec16, st);
+  return launch_rows_splat<T, VEC, 8>(feats, offs, sorted, start, n_units, out, n_rows, C, nb,
+                                      rs, vec16, st);
+}
+
+template <typename T>
+static cudaError_t rows_splat(int vec, int passes, const void* feats, const int* offs,
+                              const int* sorted, const int* start, int n_units, void* out,
+                              int64_t n_rows, int C, int nb, int rs, int vec16,
+                              cudaStream_t st) {
+  if (vec == 4)
+    return rows_splat_vec<T, 4>(passes, feats, offs, sorted, start, n_units, out, n_rows, C,
+                                nb, rs, vec16, st);
+  if (vec == 2)
+    return rows_splat_vec<T, 2>(passes, feats, offs, sorted, start, n_units, out, n_rows, C,
+                                nb, rs, vec16, st);
+  return rows_splat_vec<T, 1>(passes, feats, offs, sorted, start, n_units, out, n_rows, C, nb,
+                              rs, vec16, st);
+}
+
+// The S1-rows workspace's parts: from its start, the part the memset zeroes
+// (the scan's tile words, its ticket, the counts that become the offsets,
+// the splat blocks' first voxels), then the fill's cursor, the keys, the
+// filled and the sorted spans.
+struct RowsSpace {
+  unsigned long long* status;  // [scan tiles]
+  int* ticket;                 // [2]
+  int* offs;                   // [n_rows + 1]
+  int* start;                  // [n_units + 1]
+  int64_t zeroed_ints;
+  int* cursor;                 // [n_rows]
+  int* keys;                   // [n_pts]
+  int* unsorted;               // [n_pts]
+  int* sorted;                 // [n_pts]
+};
+
+// The splat's blocks: enough that no block's share of the cost exceeds
+// ROWS_MAX_COST (every row of feats counted, valid or not)
+static inline int64_t rows_units(int64_t n_rows, int64_t n_pts) {
+  return (n_rows + n_pts + ROWS_MAX_COST - 1) / ROWS_MAX_COST;
+}
+
+static inline RowsSpace rows_space(void* workspace, int64_t n_rows, int64_t n_pts) {
+  RowsSpace s;
+  const int64_t tiles = scan_tile_count(n_rows + 1);
+  s.status = (unsigned long long*)workspace;
+  s.ticket = (int*)(s.status + tiles);
+  s.offs = s.ticket + 2;
+  s.start = s.offs + n_rows + 1;
+  s.zeroed_ints = 2 * tiles + 2 + n_rows + 1 + rows_units(n_rows, n_pts) + 1;
+  s.cursor = s.start + rows_units(n_rows, n_pts) + 1;
+  s.keys = s.cursor + n_rows;
+  s.unsorted = s.keys + n_pts;
+  s.sorted = s.unsorted + n_pts;
+  return s;
+}
+
+// Int32s of voxel_splat_rows' workspace for n_rows voxel rows and n_pts rows
+// of feats.
+extern "C" long long voxel_splat_rows_workspace(long long n_rows, long long n_pts) {
+  return 2 * scan_tile_count(n_rows + 1) + 2 + 2 * n_rows + 1 + rows_units(n_rows, n_pts) +
+         1 + 3 * n_pts;
+}
+
 // S1-rows, plain C entry point, loaded with ctypes.  feats [B * P, C] float32
 // (dtype 0) or bfloat16 (dtype 1); coords int32 [B * P, 3]; valid bool
 // [B * P]; out [B * X * Y * Z, C] in feats' dtype, written in full;
-// workspace voxel_splat_workspace(B * X * Y * Z, B * P) int32s, 8-byte
-// aligned.  The rows and voxels below 2^31.  Launches on `stream` and
-// returns the first CUDA error, or cudaErrorInvalidValue for anything else.
+// workspace voxel_splat_rows_workspace(B * X * Y * Z, B * P) int32s, 8-byte
+// aligned.  The rows and voxels below 2^31; C at most ROWS_MAX_PASSES
+// passes of 32 lanes (a row of at most ROWS_RING_BYTES / ROWS_STAGES bytes).
+// Launches on `stream` and returns the first CUDA error, or
+// cudaErrorInvalidValue for anything else.
 extern "C" int voxel_splat_rows(const void* feats, const void* coords, const void* valid,
                                 void* out, void* workspace, int B, int P, int X, int Y,
                                 int Z, int C, int dtype, void* stream) {
@@ -382,24 +781,36 @@ extern "C" int voxel_splat_rows(const void* feats, const void* coords, const voi
     return (int)cudaErrorInvalidValue;
   if (n_rows == 0 || C == 0) return 0;
   const int size = dtype ? 2 : 4;
+  // the splat's lane chunks as wide as the row and out's alignment allow
   int vec = 4;
-  while (vec > 1 && (C % vec != 0 || (uintptr_t)feats % (vec * size) != 0 ||
-                     (uintptr_t)out % (vec * size) != 0))
-    vec /= 2;
+  while (vec > 1 && (C % vec != 0 || (uintptr_t)out % (vec * size) != 0)) vec /= 2;
+  const int passes = (C + 32 * vec - 1) / (32 * vec);
+  const int rb = C * size, rs = (rb + 15) / 16 * 16;
+  const int nb = min(ROWS_STAGE, ROWS_RING_BYTES / (ROWS_STAGES * rs));
+  if (passes > ROWS_MAX_PASSES || nb < 1) return (int)cudaErrorInvalidValue;
+  const int vec16 = rb % 16 == 0 && (uintptr_t)feats % 16 == 0;
   cudaStream_t st = (cudaStream_t)stream;
-  const auto s = segment_sort_space<int2>(workspace, n_rows, n_pts);
-  const RowKeys keys{(const int*)coords, (const uint8_t*)valid, X, Y, Z, P};
-  cudaError_t err = segment_sort(keys, n_pts, n_rows, s, st);
+  const RowsSpace s = rows_space(workspace, n_rows, n_pts);
+  const int n_units = (int)rows_units(n_rows, n_pts);
+  cudaError_t err = cudaMemsetAsync(workspace, 0, s.zeroed_ints * sizeof(int), st);
   if (err != cudaSuccess) return (int)err;
-  int* heavy_list = reinterpret_cast<int*>(workspace) + segment_sort_ints(n_rows, n_pts, 2);
-  int* n_heavy = heavy_list + n_rows;
-  err = cudaMemsetAsync(n_heavy, 0, sizeof(int), st);
+  const int threads = 256;
+  if (n_pts > 0)
+    rows_count_kernel<<<(unsigned)((n_pts + threads - 1) / threads), threads, 0, st>>>(
+        (const int*)coords, (const uint8_t*)valid, (int)n_pts, P, X, Y, Z, s.keys, s.offs);
+  rows_scan_kernel<<<(unsigned)scan_tile_count(n_rows + 1), SCAN_THREADS, 0, st>>>(
+      s.offs, n_rows + 1, s.cursor, s.status, s.ticket);
+  const int64_t fill_threads = n_pts > n_rows ? n_pts : n_rows;
+  rows_fill_kernel<<<(unsigned)((fill_threads + threads - 1) / threads), threads, 0, st>>>(
+      s.keys, (int)n_pts, s.cursor, s.unsorted, s.offs, n_rows, s.start, n_units);
+  if (n_pts > 0)
+    rows_rank_kernel<<<(unsigned)((n_pts + threads - 1) / threads), threads, 0, st>>>(
+        s.keys, (int)n_pts, s.offs, s.unsorted, s.sorted);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  if (dtype == 0)
-    launch_splat<float, float, 1>(feats, s.offs, s.sorted, out, heavy_list, n_heavy, n_rows, C,
-                                  vec, st);
-  else
-    launch_splat<__nv_bfloat16, __nv_bfloat16, 1>(feats, s.offs, s.sorted, out, heavy_list,
-                                                  n_heavy, n_rows, C, vec, st);
-  return (int)cudaGetLastError();
+  err = dtype ? rows_splat<__nv_bfloat16>(vec, passes, feats, s.offs, s.sorted, s.start, n_units,
+                                          out, n_rows, C, nb, rs, vec16, st)
+              : rows_splat<float>(vec, passes, feats, s.offs, s.sorted, s.start, n_units, out,
+                                  n_rows, C, nb, rs, vec16, st);
+  return (int)err;
 }

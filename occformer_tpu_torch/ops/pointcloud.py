@@ -6,8 +6,9 @@ for "none"; indices and coordinates are int32, as the JAX package returns
 them.  Every op is plain PyTorch on any device but one:
 ``furthest_point_sample``, whose loop of ``npoint`` steps is several
 launches a step in plain PyTorch, runs ``csrc/furthest_point_sample.cu``
-(FPS) for CUDA tensors and ``furthest_point_sample_plain`` for CPU tensors.
-``FPS_LAUNCHES`` counts the kernel's launches.
+(FPS, a thread-block cluster a cloud) for CUDA tensors and
+``furthest_point_sample_plain`` for CPU tensors.  ``FPS_LAUNCHES`` counts
+the kernel's launches, ``FPS_CLUSTER`` is the cluster size of the last.
 
 Ops: hard/dynamic voxelization (ops/voxel), ball_query, knn,
 gather_points, group_points, furthest_point_sample,
@@ -32,6 +33,8 @@ BIG = 1e10
 
 # launches of the FPS kernel; a caller may reset it to 0
 FPS_LAUNCHES = 0
+# the CTAs a cloud took (the thread-block cluster's size) in the last launch
+FPS_CLUSTER = 0
 
 _FNS = {}
 
@@ -188,14 +191,18 @@ def _fps_fn(name: str):
         if name == "furthest_point_sample_workspace":
             fn.argtypes, fn.restype = [ctypes.c_int] * 2, ctypes.c_longlong
         else:
-            fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
+                           + [ctypes.POINTER(ctypes.c_int), ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
 
 
-def _launch_fps(xyz, npoint, valid):
-    global FPS_LAUNCHES
+def _launch_fps(xyz, npoint, valid, cluster=0):
+    """The FPS kernel on a CUDA tensor; ``cluster`` the CTAs a cloud takes
+    (1, 2, 4, 8 or 16; 0: the kernel's launcher chooses), passed to the
+    kernel's entry point."""
+    global FPS_LAUNCHES, FPS_CLUSTER
     B, N, _ = xyz.shape
     xyz = xyz.float().contiguous()
     out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
@@ -205,14 +212,17 @@ def _launch_fps(xyz, npoint, valid):
         valid = valid.to(device=xyz.device, dtype=torch.bool).contiguous()
     n_ws = _fps_fn("furthest_point_sample_workspace")(B, N)
     ws = torch.empty(n_ws, dtype=torch.float32, device=xyz.device) if n_ws else None
+    took = ctypes.c_int(0)
     with torch.cuda.device(xyz.device):
         stream = torch.cuda.current_stream(xyz.device).cuda_stream
         rc = _fps_fn("furthest_point_sample")(
             xyz.data_ptr(), None if valid is None else valid.data_ptr(), out.data_ptr(),
-            None if ws is None else ws.data_ptr(), B, N, npoint, stream)
+            None if ws is None else ws.data_ptr(), B, N, npoint, cluster, ctypes.byref(took),
+            stream)
     if rc != 0:
         raise RuntimeError(f"furthest_point_sample launch failed: cudaError {rc}")
     FPS_LAUNCHES += 1
+    FPS_CLUSTER = took.value
     return out
 
 

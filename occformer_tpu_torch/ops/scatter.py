@@ -20,8 +20,9 @@ gives (a stable sort of ``voxel_rows``).  ``LAUNCHES`` counts S1's launches.
 
 ``voxel_scatter`` (port of ``occformer_tpu/ops/scatter.py:voxel_scatter``,
 the view transformer's ``use_voxel_net`` splat) sums given feature rows
-[B, P, C] by voxel: S1-rows on the card (the same sort and splat kernels,
-each entry reading its point's row), ``voxel_scatter_plain_rows`` (one
+[B, P, C] by voxel: S1-rows on the card (its own sort of the valid points
+by voxel and a splat that gathers each voxel's rows into shared memory and
+adds them in point order), ``voxel_scatter_plain_rows`` (one
 ``index_add_`` into float32 rows, in point order on the CPU, so the two
 agree bit for bit) for CPU tensors.  Its backward is a gather, d_feats[p] =
 g[row p], 0 for an invalid point.  ``ROWS_LAUNCHES`` counts S1-rows'
@@ -76,7 +77,8 @@ def voxel_scatter_plain(depth: torch.Tensor, ctx: torch.Tensor, rows: torch.Tens
 def _kernel_fn(name: str = "voxel_splat"):
     if name not in _FNS:
         fn = getattr(cuda_build.load("voxel_splat"), name)
-        if name == "voxel_splat_workspace":  # rows, points -> int32s
+        # rows, points -> int32s
+        if name in ("voxel_splat_workspace", "voxel_splat_rows_workspace"):
             fn.argtypes, fn.restype = [ctypes.c_longlong] * 2, ctypes.c_longlong
         elif name == "voxel_splat_rows":
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
@@ -202,7 +204,7 @@ def _launch_rows(feats, coords, valid, nx):
     coords = coords.to(torch.int32).contiguous()
     valid = valid.to(torch.bool).contiguous()
     out = torch.empty((n_rows, C), dtype=feats.dtype, device=feats.device)
-    ws = torch.empty(_kernel_fn("voxel_splat_workspace")(n_rows, B * P),
+    ws = torch.empty(_kernel_fn("voxel_splat_rows_workspace")(n_rows, B * P),
                      dtype=torch.int32, device=feats.device)
     with torch.cuda.device(feats.device):
         stream = torch.cuda.current_stream(feats.device).cuda_stream

@@ -44,9 +44,18 @@ versions can be timed in turns on one card:
 
     for r in parent . . parent; do python3 .../time_backwards.py --root $r; done
 
+S1-rows (``ops/scatter.py:voxel_scatter``, the use_voxel_net splat, sort
+included) at the use_voxel_net flagship's shapes, [1, 473,088, 128] rows in
+bf16 and float32 at ``NUSCENES_RIG`` (``rows_inputs``), with a digest of
+its volume, two calls compared bit for bit, its device time by kernel and
+its peak memory beyond its inputs; FPS (``ops/pointcloud.py:
+furthest_point_sample``) at VoteNet's SA1 size [8, 20000, 3] -> 2048
+(``fps_inputs``), with and without invalid points: a digest of its indices,
+its device ms, its microseconds a step and the cluster size it took.
+
 ``--only`` names the groups to time (K1, K1-bwd, K2-bwd, K2-bwd.narrow,
-S1, K2, K3, K4, K4-bwd, step; all by default), and the sweeps of those
-groups.
+S1, S1-rows, FPS, K2, K3, K4, K4-bwd, step; all by default), and the sweeps
+of those groups.
 
 ``--sweep`` also times both of K2-bwd's paths, and both of K2's forward
 paths, at the candidate readout's shape over row widths C = 8 ... 192, in
@@ -59,13 +68,16 @@ points per lane (``NARROW_CHUNKS_PER_LANE``, ``NARROW_POINTS_PER_LANE``),
 K2-bwd's narrow path over its lanes per column (``column_lanes``),
 and K1's row-wide path over its lanes per row and samples per lane at the
 uniform and local locations in bf16 and float32 (``ROW_LANES``,
-``ROW_SAMPLES_PER_LANE``; it needs a checkout with those paths).  It prints
+``ROW_SAMPLES_PER_LANE``; it needs a checkout with those paths), and FPS at
+each cluster size its launcher can take, forced (1, 2, 4, 8, 16 CTAs a
+cloud; it needs a checkout whose ``_launch_fps`` takes ``cluster``).  It prints
 one JSON line and exits 2 without a CUDA device.
 """
 from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import sys
@@ -344,7 +356,9 @@ def k1_row_sweep(lanes=LANE_SWEEP, samples=SAMPLES_SWEEP):
 def device_ms_by_kernel(fn, iters=20):
     """Device ms per call of ``fn()`` by kernel name (its first 80
     characters), from the profiler, as ``utils/timing.py:device_ms`` sums
-    them (kept here: ``--root`` may import a checkout without it)."""
+    them, the trace opened by eight spin kernels of about 4 ms that the sums
+    leave out, as ``utils/timing.py:lead_in`` does (kept here: ``--root``
+    may import a checkout without either)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -352,13 +366,17 @@ def device_ms_by_kernel(fn, iters=20):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(8):
+            torch.cuda._sleep(8_000_000)
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     ranges = {e.key for e in events if e.device_type.name == "CPU" and e.is_user_annotation}
     return {e.key[:80]: e.self_device_time_total / 1e3 / iters for e in events
-            if e.device_type.name == "CUDA" and not (e.is_user_annotation or e.key in ranges)}
+            if e.device_type.name == "CUDA" and not (e.is_user_annotation or e.key in ranges
+                                                     or "spin_kernel" in e.key)}
 
 
 # A forward-looking six-camera rig in nuScenes' layout, in the flagship's
@@ -450,6 +468,40 @@ def s1_inputs(rig="nuscenes", seed=0):
     depth = torch.softmax(torch.randn((1, N, D, fH, fW), device="cuda", generator=g), 2)
     ctx = torch.randn((1, N, fH, fW, 128), device="cuda", generator=g)
     return depth.to(torch.bfloat16), ctx.to(torch.bfloat16), coords, valid, nx
+
+
+def rows_inputs(dtype, seed=5):
+    """S1-rows' inputs as the use_voxel_net flagship sends them
+    (``chip_smoke.py:phase_voxnet_kernels``): the ``NUSCENES_RIG`` frustum's
+    473,088 points in the view transformer's order (camera, row, column,
+    depth bin), coords int32 [1, P, 3] and valid [1, P], and seeded random
+    rows [1, P, 128] in ``dtype``.  Returns (feats, coords, valid, nx)."""
+    import torch
+
+    coords, valid, nx, _ = s1_geometry("nuscenes")
+    order = (0, 1, 3, 4, 2)  # [B, N, D, fH, fW] -> (camera, row, column, depth bin)
+    coords = coords.permute(*order, 5).reshape(1, -1, 3).to(torch.int32).contiguous()
+    valid = valid.permute(*order).reshape(1, -1).contiguous()
+    feats = torch.randn((1, coords.shape[1], 128), device="cuda",
+                        generator=torch.Generator(device="cuda").manual_seed(seed))
+    return feats.to(dtype), coords, valid, nx
+
+
+# FPS at VoteNet's PointNet++ SA1 on ScanNet (chip_smoke.py:PC_FPS): 8 rooms
+# of 20,000 points in 8 x 8 x 3 m, 2048 samples each
+FPS_SIZE = (8, 20000, 2048)
+
+
+def fps_inputs(seed=3):
+    """FPS's inputs at ``FPS_SIZE`` on the card: seeded uniform rooms
+    [8, 20000, 3] and a mask with about 30% of the points invalid."""
+    import torch
+
+    B, N, _ = FPS_SIZE
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rooms = torch.rand((B, N, 3), device="cuda", generator=g) * torch.tensor(
+        [8.0, 8.0, 3.0], device="cuda")
+    return rooms, torch.rand((B, N), device="cuda", generator=g) > 0.3
 
 
 def segment_stats(coords, valid, nx):
@@ -660,10 +712,12 @@ def main(argv=None) -> int:
     p.add_argument("--label", default=None, help="a name for the run in the output")
     p.add_argument("--sweep", action="store_true",
                    help="also time both paths of K2-bwd and of K2 over row widths 8-192, "
-                        "and the lane groups of K2's, K2-bwd's narrow and K1's paths")
+                        "the lane groups of K2's, K2-bwd's narrow and K1's paths, and FPS's "
+                        "cluster sizes")
     p.add_argument("--only", default=None,
                    help="comma-separated groups to time (K1, K1-bwd, K2-bwd, K2, K3, K4, "
-                        "K4-bwd, S1, K2-bwd.narrow, step, serve); all by default")
+                        "K4-bwd, S1, S1-rows, FPS, K2-bwd.narrow, step, serve); all by "
+                        "default")
     args = p.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -783,6 +837,55 @@ def main(argv=None) -> int:
             rec[f"{key}_peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
         rec[f"{key}_segments"] = segment_stats(coords, valid, nx)
         del depth, ctx, coords, valid, vol
+    if want("S1-rows"):
+        from occformer_tpu_torch.ops import scatter
+
+        for dtype in (torch.bfloat16, torch.float32):
+            feats, coords, valid, nx = rows_inputs(dtype)
+            key = f"S1-rows_{str(dtype)[6:]}"
+
+            def call():
+                return scatter.voxel_scatter(feats, coords, valid, nx)
+
+            with torch.no_grad():
+                vol = call()
+                rec[f"{key}_volume_sha256"] = hashlib.sha256(
+                    vol.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+                rec[f"{key}_bit_equal_calls"] = bool(torch.equal(vol, call()))
+                rec[f"{key}_ms"] = time_cuda(call)
+                rec[f"{key}_device_ms"] = device_ms(call)
+                rec[f"{key}_device_ms_by_kernel"] = device_ms_by_kernel(call)
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                call()
+                rec[f"{key}_peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
+            rec["S1-rows_segments"] = segment_stats(coords, valid, nx)
+            del feats, coords, valid, vol
+    if want("FPS"):
+        from occformer_tpu_torch.ops import pointcloud as pc
+
+        rooms, vmask = fps_inputs()
+        npoint = FPS_SIZE[2]
+        for name, v in (("", None), ("_with_invalid", vmask)):
+            def call():
+                return pc.furthest_point_sample(rooms, npoint, v)
+
+            idx = call()
+            rec[f"FPS{name}_indices_sha256"] = hashlib.sha256(
+                idx.cpu().numpy().tobytes()).hexdigest()
+            rec[f"FPS{name}_ms"] = time_cuda(call, iters=10, warmup=2)
+            rec[f"FPS{name}_device_ms"] = device_ms(call, 10)
+            rec[f"FPS{name}_us_per_step"] = rec[f"FPS{name}_device_ms"] * 1e3 / (npoint - 1)
+            rec[f"FPS{name}_cluster"] = getattr(pc, "FPS_CLUSTER", None)
+        rec["FPS_device_ms_by_kernel"] = device_ms_by_kernel(
+            lambda: pc.furthest_point_sample(rooms, npoint), 10)
+        if args.sweep and "cluster" in inspect.signature(pc._launch_fps).parameters:
+            rec["FPS_cluster_sweep"] = {}
+            for cl in (1, 2, 4, 8, 16):
+                ms = device_ms(lambda: pc._launch_fps(rooms, npoint, None, cl), 10)
+                rec["FPS_cluster_sweep"][cl] = {"device_ms": ms,
+                                               "us_per_step": ms * 1e3 / (npoint - 1)}
+        del rooms, vmask
     if want("step"):
         rec.update(step_profile("on"))
         rec.update(step_profile("off"))

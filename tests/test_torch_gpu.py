@@ -1570,6 +1570,101 @@ def test_fps_matches_plain(cuda, N):
                            pc.furthest_point_sample_plain(lattice, k, v))
 
 
+# (clouds, points, samples) of the FPS kernel's edges: one point and one
+# sample; fewer points than a cluster's CTAs have threads (CTAs with no
+# points); a count no cluster size splits evenly; VoteNet's SA1 size; more
+# clouds than the card holds clusters at once (waves)
+FPS_EDGES = [(1, 1, 1), (2, 5, 8), (3, 1003, 64), (8, 20000, 256), (40, 3000, 32)]
+
+
+@pytest.mark.parametrize("cluster", [0, 1, 2, 4, 8, 16])
+def test_fps_cluster_sizes_match_plain(cuda, cluster):
+    """The FPS kernel at each thread-block cluster size its launcher can take
+    (forced through the kernel entry point's ``cluster`` argument; 0: the
+    launcher's choice) equals the plain version, with and without invalid
+    points, at the edges of ``FPS_EDGES`` (40 clouds of 16-CTA clusters are
+    640 CTAs, about five waves), with more samples than valid points, on a
+    cloud with no valid point and on a lattice (ties)."""
+    from occformer_tpu_torch.ops import pointcloud as pc
+
+    gen = torch.Generator(device=cuda).manual_seed(cluster)
+    cases = []
+    for B, N, npoint in FPS_EDGES:
+        xyz = torch.rand((B, N, 3), device=cuda, generator=gen) * 4
+        cases.append((xyz, npoint, None))
+        cases.append((xyz, npoint, torch.rand((B, N), device=cuda, generator=gen) > 0.33))
+    xyz = torch.rand((2, 300, 3), device=cuda, generator=gen)
+    few = torch.zeros((2, 300), dtype=torch.bool, device=cuda)
+    few[0, [5, 77, 210]] = True  # 8 samples of 3 valid points; no valid point in cloud 1
+    cases.append((xyz, 8, few))
+    r = torch.arange(9, device=cuda, dtype=torch.float32)
+    lattice = torch.stack(torch.meshgrid(r, r, r, indexing="ij"), -1).reshape(1, -1, 3)
+    cases.append((lattice, 200, None))
+    cases.append((lattice, 200, torch.arange(729, device=cuda)[None] % 5 != 2))
+    for xyz, npoint, v in cases:
+        before = pc.FPS_LAUNCHES
+        got = pc._launch_fps(xyz, npoint, v, cluster)
+        assert pc.FPS_LAUNCHES == before + 1 and got.dtype == torch.int32
+        assert pc.FPS_CLUSTER == cluster or (cluster == 0 and pc.FPS_CLUSTER in (1, 2, 4, 8, 16))
+        want = pc.furthest_point_sample_plain(xyz, npoint, v)
+        assert torch.equal(got, want), (tuple(xyz.shape), npoint, v is not None)
+    assert (got[:, 1:] % 5 != 2).all()
+
+
+def test_fps_large_cloud_path_matches_plain(cuda):
+    """Clouds whose slices exceed what a thread keeps in registers (over
+    16 x 8192 points, or over 8192 at a forced cluster of one CTA) keep their
+    distances in the global workspace: the same indices as the plain
+    version."""
+    from occformer_tpu_torch.ops import pointcloud as pc
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    xyz = torch.rand((2, 140000, 3), device=cuda, generator=gen) * 10
+    valid = torch.rand((2, 140000), device=cuda, generator=gen) > 0.5
+    for v in (None, valid):
+        assert torch.equal(pc.furthest_point_sample(xyz, 48, v),
+                           pc.furthest_point_sample_plain(xyz, 48, v))
+        small = xyz[:, :9000].contiguous()
+        sv = None if v is None else v[:, :9000].contiguous()
+        assert torch.equal(pc._launch_fps(small, 48, sv, 1),
+                           pc.furthest_point_sample_plain(small, 48, sv))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [128, 40, 7])
+def test_splat_rows_edges_match_cpu_plain(cuda, dtype, C):
+    """S1-rows bit for bit the plain version on the CPU, two calls bit-equal,
+    at a voxel of more than 1,024 rows (its rows span many of the splat's
+    stages), over two batch items, with every row invalid (a volume of
+    zeros), and with rows not 16-byte aligned in memory (gathered by plain
+    loads instead of bulk copies)."""
+    from occformer_tpu_torch.ops import scatter
+
+    rng = np.random.RandomState(C)
+    dt = getattr(torch, dtype)
+    B, P, nx = 2, 3000, (8, 6, 5)
+    coords = rng.randint(-1, 9, (B, P, 3))
+    coords[0, :2500] = (3, 2, 1)
+    coords = torch.from_numpy(coords.astype(np.int32)).to(cuda)
+    valid = torch.from_numpy(rng.rand(B, P) > 0.1).to(cuda)
+    feats = torch.from_numpy(rng.randn(B, P, C).astype(np.float32)).to(cuda, dt)
+    unaligned = torch.empty(feats.numel() + 1, dtype=dt, device=cuda)[1:].view_as(feats)
+    unaligned.copy_(feats)
+    n_rows = B * int(np.prod(nx))
+    for f, v in ((feats, valid), (feats, torch.zeros_like(valid)), (unaligned, valid)):
+        rows = scatter.voxel_rows(coords, v, nx)
+        assert int(torch.bincount(rows.reshape(-1)).max()) > 1024 or not v.any()
+        before = scatter.ROWS_LAUNCHES
+        a = scatter.voxel_scatter(f, coords, v, nx)
+        b = scatter.voxel_scatter(f, coords, v, nx)
+        torch.cuda.synchronize()
+        assert scatter.ROWS_LAUNCHES == before + 2 and torch.equal(a, b)
+        cpu = scatter.voxel_scatter_plain_rows(f.cpu(), rows.cpu(), n_rows).to(dt)
+        assert torch.equal(a.reshape(n_rows, C).cpu(), cpu)
+        if not v.any():
+            assert not a.any()
+
+
 def test_voxnet_tiny_train_step_repeats_itself(cuda):
     """The tiny CLI model with use_voxel_net and trilinear attention masks:
     its train step on the per-layer route takes S1-rows (no S1), and two

@@ -23,10 +23,14 @@ Phases, each printing one JSON line:
                  ranges, kernels, operators); then, once, the route served
                  before (every tensor cast to bf16) on the same weights: its
                  frames, peak, point-prediction agreement and largest score
-                 gap.  It runs before any backward: a backward leaves the
-                 cuBLAS workspaces of autograd's threads resident (65 MiB),
-                 which a serving process never holds and its peak would
-                 count.
+                 gap; the analytic FLOP count of a frame
+                 (tools/model_analysis.py:forward_flops) on the card, held
+                 equal to the count of the same config's model on the CPU
+                 (the plain versions), and the MFU of the median frame
+                 against the dense bf16 peak.  It runs before any
+                 backward: a backward leaves the cuBLAS workspaces of
+                 autograd's threads resident (65 MiB), which a serving
+                 process never holds and its peak would count.
   3. kernels:    hold each kernel against its plain PyTorch version at the
                  shapes the flagship's main paths give it, and time both (CUDA
                  events, median of 30 after warm-up) beside the one PyTorch
@@ -36,8 +40,10 @@ Phases, each printing one JSON line:
                  forwards also by the profiler's device time):
                  K1 (ms_deform_gather_3d) and K1-bwd at the pixel decoder's
                  shapes in float32 and bfloat16, at uniform and at local
-                 locations (K1's row-wide path, two calls held bit-equal,
-                 and its scalar path held and timed beside it); K2
+                 locations (K1's row-wide kernel with 16-byte vectors, two
+                 calls held bit-equal; its other rows, hd 12 and 7 in bf16,
+                 6 and 24 at a misaligned value in float32, held and timed
+                 on the vector width the path picks); K2
                  (trilerp_sample) and K2-bwd at the per-layer loss's
                  candidate readout (bf16 feature table, border,
                  align_corners=False; K2's row-wide path, two calls held
@@ -55,8 +61,10 @@ Phases, each printing one JSON line:
                  (sample_id_masks) at the batched loss's three GT reads and
                  a zeros / align_corners=True case on a 40x24x12 grid; the
                  K4 parity gate, K4 at its small shapes also by device time,
-                 and at the flagship's shapes K4's row-wide path (two calls
-                 bit-equal) beside its scalar path, in bf16 and float32; K4
+                 and at the flagship's shapes K4 with 16-byte vectors (two
+                 calls bit-equal), in bf16 and float32, and its other rows
+                 (C 6 in float32, 12 in bf16, 24 in bf16 at misaligned
+                 tables) beside F.grid_sample; K4
                  and K4-bwd at the DepthNet DCN's shapes (two K4-bwd calls
                  bit-equal) beside F.grid_sample 2-D forward and backward.
   4. tiny:       the tiny test model's forward on the card (kernels) against
@@ -89,7 +97,10 @@ Phases, each printing one JSON line:
                  build_train_step on the per-layer loss route: 1 warm-up
                  step, then 3 timed steps, and a torch.profiler summary of
                  one more step (with each port kernel's device ms and
-                 launches).
+                 launches); the analytic FLOP count of one more step
+                 (utils/flops.py) and the MFU of the median step.  Every
+                 other configuration's serve and train phase adds the same
+                 (serve_phase, profile_and_reload).
   7. train_batched: the same on the all-layer batched loss route
                  (mxu_readout="on"), plus both routes' losses and Hungarian
                  assignments on one float32 copy of a step's model outputs
@@ -110,7 +121,8 @@ Phases, each printing one JSON line:
                  tools.test on step_2 over 2 samples; in process, step_2
                  loaded into a fresh model and optimizer and held bit-equal
                  to the saved file.
-  10. resume:    a resumed run repeats the uninterrupted one (ROADMAP C.9,
+  10. resume:    (beside phase 9, in a thread of its own) a resumed run
+                 repeats the uninterrupted one (ROADMAP C.9,
                  C.10): tools.train at full width on the config's own
                  CustomNuScenesOccLSSDataset over the data phase's tree (8
                  samples an epoch) to step 6 in one go, and to step 3 then
@@ -263,8 +275,10 @@ kernel's launch count is set to 0 just before the path is driven and read
 just after; each must match its per-frame, per-step or per-run count (the
 learn phase: launched).  The CLIs report their own counts, which must show
 their kernels.  A ``wall`` line gives each phase's seconds.  Then the card's name and power
-limit (nvidia-smi), one JSON line of kernel records (K1's, K2's and K2-bwd's
-two paths as two records each; S1, the LSS splat, which has no Pallas
+limit (nvidia-smi), one JSON line of each configuration's analytic TFLOP a
+frame and a step and MFU beside them (``ANALYTIC``), one JSON line of kernel
+records (K2's and K2-bwd's two paths as two records each; K1's and K4's
+other rows under ``other_rows``; S1, the LSS splat, which has no Pallas
 original, last; each kernel of the KITTI path with its KITTI-shape record
 under ``kitti``, each kernel's R101-DCN record under ``r101``, its
 panoptic record under ``pan``, K4's and K4-bwd's BEVStereo records under
@@ -519,11 +533,66 @@ def compare(got, ref, rel, name):
     return {"max_abs_err": err, "max_abs_plain": scale, "limit": limit}
 
 
+# each configuration's analytic count and MFU, for the summary line
+ANALYTIC = {}
+
+
+def _config_of(phase):
+    """The configuration a serve or train phase drives: the flagship's
+    phases are "serve", "train" and "train_batched", the others' are
+    prefixed with the configuration ("kitti_serve", "kitti_train", ...)."""
+    return "flagship" if phase in ("serve", "train", "train_batched") else phase.split("_")[0]
+
+
+def analytic_serve(name, model, batch, compute_dtype, frame_ms):
+    """The analytic FLOP count (``tools/model_analysis.py:forward_flops``:
+    the deployment forward, the model then ``format_results``) of one of the
+    phase's frames, counted on the card, and the MFU of the phase's median
+    frame against the H100 SXM's dense bf16 peak (``utils/flops.py``)."""
+    from occformer_tpu_torch.tools.model_analysis import forward_flops
+    from occformer_tpu_torch.utils.flops import H100_PEAK_BF16, mfu
+
+    f = forward_flops(model, batch, compute_dtype)
+    B = int(np.asarray(batch["imgs"]).shape[0])
+    med = float(np.median(frame_ms))
+    rec = {"analytic_fwd_TFLOP_per_frame": f["total"] / B / 1e12,
+           **{f"analytic_fwd_TFLOP_per_frame/{k}": f[k] / B / 1e12
+              for k in ("conv", "dot", "scatter")},
+           "median_frame_ms": med, "inference_mfu": mfu(f["total"] / B, 1e3 / med),
+           "peak_TFLOPs": H100_PEAK_BF16 / 1e12}
+    check(f["conv"] > 0 and f["dot"] > 0 and f["scatter"] > 0, f"{name}: analytic count {f}")
+    ANALYTIC.setdefault(_config_of(name), {}).update(
+        {k: rec[k] for k in ("analytic_fwd_TFLOP_per_frame", "median_frame_ms", "inference_mfu")})
+    return rec
+
+
+def analytic_train(name, step, batch, generator, step_s):
+    """The analytic FLOP count of one more train step (``utils/flops.py:
+    count_flops`` around ``step``), counted on the card, and the MFU of the
+    phase's median step against the H100 SXM's dense bf16 peak."""
+    from occformer_tpu_torch.utils.flops import H100_PEAK_BF16, count_flops, mfu
+
+    t = count_flops(step, batch, generator)
+    med = float(np.median(step_s))
+    rec = {"analytic_train_TFLOP_per_step": t["total"] / 1e12,
+           **{f"analytic_train_TFLOP_per_step/{k}": t[k] / 1e12
+              for k in ("conv", "dot", "scatter")},
+           "median_step_s": med, "train_mfu": mfu(t["total"], 1.0 / med),
+           "peak_TFLOPs": H100_PEAK_BF16 / 1e12}
+    check(t["conv"] > 0 and t["dot"] > 0, f"{name}: analytic count {t}")
+    ANALYTIC.setdefault(_config_of(name), {}).update(
+        {f"{k}{'_batched' if name.endswith('batched') else ''}": rec[k]
+         for k in ("analytic_train_TFLOP_per_step", "median_step_s", "train_mfu")})
+    return rec
+
+
 def phase_k1():
     """K1 and K1-bwd against the plain version and its autograd, each at the
-    uniform and at the local locations: K1 on its row-wide path (the
-    flagship's), two calls held bit-equal, and on its scalar path beside it,
-    each timed by CUDA events and by the profiler's device time.
+    uniform and at the local locations: K1 with the flagship's 16-byte
+    vectors, two calls held bit-equal, timed by CUDA events and by the
+    profiler's device time; then K1's other rows (``other_rows_record``:
+    hd 12 and 7 in bf16, 6 and 24 at a misaligned value in float32) on the
+    widths the path now picks.
     K1-bwd's two calls are held bit-equal too, at both locations (each
     d_value row summed in ascending sample order), and timed by the
     profiler's device time.  Tolerances relative to max |plain|: float32
@@ -539,10 +608,10 @@ def phase_k1():
     for dtype, name in ((torch.float32, "f32"), (torch.bfloat16, "bf16")):
         value, shapes, locs, w = flagship_gather_inputs(dtype, local=False)
         lv, _, ll, lw = flagship_gather_inputs(dtype, local=True)
-        check(k1.ms_deform_fwd_path(value.shape[-1], dtype, (value.data_ptr(),)) == "row",
-              f"K1 {name}: not the row-wide path")
+        check(k1.ms_deform_fwd_path(value.shape[-1], dtype, (value.data_ptr(),)) == 16,
+              f"K1 {name}: not 16-byte vectors")
         rel = 1e-5 if dtype == torch.float32 else 1e-2
-        r = {"path": "row", "lanes": k1.ROW_LANES, "samples_per_lane": k1.ROW_SAMPLES_PER_LANE}
+        r = {"vector_bytes": 16, "lanes": k1.ROW_LANES}
         for where, (v_, l_, w_) in (("", (value, locs, w)), ("local_locs ", (lv, ll, lw))):
             got = k1.ms_deform_gather_3d(v_, shapes, l_, w_)
             again = k1.ms_deform_gather_3d(v_, shapes, l_, w_)
@@ -550,8 +619,6 @@ def phase_k1():
             check(torch.equal(got, again), f"K1 {name} {where}row path: two calls differ")
             ref = k1.ms_deform_gather_3d_plain(v_.float(), shapes, l_, w_.float())
             r[where + "values"] = compare(got, ref, rel, f"K1 {name} {where}row path")
-            r[where + "scalar_path"] = compare(k1._launch_fwd(v_, shapes, l_, w_, path="scalar"),
-                                               ref, rel, f"K1 {name} {where}scalar path")
             del again, ref
         got = k1.ms_deform_gather_3d(value, shapes, locs, w)
         r["bit_identical_calls"] = True
@@ -562,14 +629,6 @@ def phase_k1():
         r["plain_ms"] = time_cuda(
             lambda: k1.ms_deform_gather_3d_plain(value, shapes, locs, w), iters=20)
         r["kernel_ms_local_locs"] = time_cuda(lambda: k1.ms_deform_gather_3d(lv, shapes, ll, lw))
-        # the scalar path (one thread per output channel, the K1 the
-        # row-wide path replaced here) on the same inputs
-        r["scalar_path_ms"] = time_cuda(lambda: k1._launch_fwd(value, shapes, locs, w,
-                                                               path="scalar"))
-        r["scalar_path_device_ms"] = device_ms(lambda: k1._launch_fwd(value, shapes, locs, w,
-                                                                      path="scalar"))
-        r["scalar_path_ms_local_locs"] = time_cuda(lambda: k1._launch_fwd(lv, shapes, ll, lw,
-                                                                          path="scalar"))
         B, Nq, H, L, P = w.shape
         hd = value.shape[-1]
         # every input read once, the output written once; the function needs
@@ -623,7 +682,28 @@ def phase_k1():
         rb["roofline_share"] = rb["bound_ms"] / rb["kernel_ms"]
         bwd[name] = rb
         del plain_out
+    fwd["other_rows"] = other_rows_record("K1")
     return fwd, bwd
+
+
+def other_rows_record(kernel):
+    """K1's or K4's other rows (``tools/time_backwards.py:K1_OTHER_ROWS`` /
+    ``K4_OTHER_ROWS``: rows that are not whole 16-byte vectors at 16-byte
+    aligned pointers) on the vector width the path picks: each held against
+    the plain version (float32 1e-5, bf16 1e-2 of max |plain|), two calls
+    bit-equal, timed by CUDA events and the profiler's device time beside
+    its bound (K4 beside F.grid_sample; a misaligned input also with its
+    copy to an aligned buffer inside the timed call)."""
+    from occformer_tpu_torch.tools import time_backwards as tb
+
+    recs = (tb.k1_other_rows if kernel == "K1" else tb.k4_other_rows)(device_ms)
+    for name, r in recs.items():
+        rel = 1e-5 if "f32" in name else 1e-2
+        r["limit"] = rel * r["max_abs_plain"]
+        check(r["bit_equal_calls"], f"{kernel} {name}: two calls differ")
+        check(r["max_abs_err"] <= r["limit"],
+              f"{kernel} {name}: max|diff| {r['max_abs_err']} > {r['limit']}")
+    return recs
 
 
 def phase_k2():
@@ -1075,7 +1155,9 @@ def phase_k4():
     the plain version (k4_check); then the times at (b) of K4, K4-bwd, the
     plain version and its autograd, and of the library reference, which
     takes three calls: one F.grid_sample per level on a channels-first copy
-    of the level (bf16 grid), and their backward."""
+    of the level (bf16 grid), and their backward; then K4's other rows
+    (``other_rows_record``: C 6 in float32, 12 in bf16, 24 in bf16 at
+    misaligned tables)."""
     import torch
     import torch.nn.functional as F
 
@@ -1094,8 +1176,8 @@ def phase_k4():
     tables, coords, C = flag
     G = tables[0].shape[0]
     S_tot = sum(c.shape[1] for c in coords)
-    check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == "row",
-          "K4 flagship: not the row-wide path")
+    check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == 16,
+          "K4 flagship: not 16-byte vectors")
     outs = k4.fused_multilevel_gather(tables, K4_PYRAMID, C, coords)
     again = k4.fused_multilevel_gather(tables, K4_PYRAMID, C, coords)
     check(all(torch.equal(a, b) for a, b in zip(outs, again)), "K4 row path: two calls differ")
@@ -1104,16 +1186,9 @@ def phase_k4():
            "bit_identical_calls": True}
     fwd["kernel_ms"] = time_cuda(lambda: k4._launch_multi_fwd(tables, K4_PYRAMID, C, coords,
                                                               False))
-    # the scalar path (the per-channel loop the row-wide path replaced) on
-    # the same inputs, held against the plain version too
-    ref = k4.fused_multilevel_gather_plain(tables, K4_PYRAMID, C, coords)
-    fwd["scalar_path"] = [compare(a, b, 1e-2, f"K4 scalar path level {l}") for l, (a, b) in
-                          enumerate(zip(k4._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False,
-                                                             path="scalar"), ref))]
-    del ref
-    fwd["scalar_path_ms"] = time_cuda(lambda: k4._launch_multi_fwd(
-        tables, K4_PYRAMID, C, coords, False, path="scalar"))
-    # float32 tables at the same shapes: both paths, the plain version and
+    fwd["device_ms"] = device_ms(lambda: k4._launch_multi_fwd(tables, K4_PYRAMID, C, coords,
+                                                              False))
+    # float32 tables at the same shapes: the kernel, the plain version and
     # the library's three calls
     t32, c32, _ = k4_inputs("flagship", torch.float32)
     ref = k4.fused_multilevel_gather_plain(t32, K4_PYRAMID, C, c32)
@@ -1126,8 +1201,6 @@ def phase_k4():
     g32 = [c.flip(-1).reshape(G, -1, 1, 1, 3).contiguous() for c in c32]
     fwd["f32"].update(
         kernel_ms=time_cuda(lambda: k4._launch_multi_fwd(t32, K4_PYRAMID, C, c32, False)),
-        scalar_path_ms=time_cuda(lambda: k4._launch_multi_fwd(t32, K4_PYRAMID, C, c32, False,
-                                                              path="scalar")),
         plain_ms=time_cuda(lambda: k4.fused_multilevel_gather_plain(t32, K4_PYRAMID, C, c32),
                            iters=10),
         library_ms=time_cuda(lambda: [F.grid_sample(v, gr, mode="bilinear",
@@ -1200,6 +1273,7 @@ def phase_k4():
     bwd.update(bound(nbytes(*tables, *coords, *gouts, *tables, *d_coords),
                      G * S_tot * C * 8 * 4))
     bwd["roofline_share"] = bwd["bound_ms"] / bwd["kernel_ms"]
+    fwd["other_rows"] = other_rows_record("K4")
     rec["K4"], rec["K4-bwd"] = fwd, bwd
     return rec
 
@@ -1238,8 +1312,8 @@ def k4_record(inputs, name, align_corners, coords_grad=True):
     t32, c32, _, _ = inputs(torch.float32)
     rec["f32"] = k4_check(t32, c32, C, align_corners, f"{name} f32", spatials)
     del t32, c32
-    check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == "row",
-          f"K4 {name}: not the row-wide path")
+    check(k4.multi_fwd_path(C, tables[0].dtype, [t.data_ptr() for t in tables]) == 16,
+          f"K4 {name}: not 16-byte vectors")
     outs = k4._launch_multi_fwd(tables, spatials, C, coords, align_corners)
     g = torch.Generator(device="cuda").manual_seed(9)
     gouts = [torch.randn(o.shape, device="cuda", generator=g).to(o.dtype) for o in outs]
@@ -2025,6 +2099,17 @@ def phase_serve():
     rec["shapes"] = {k: list(v.shape) for k, v in raw.items()}
     check(all(finite.values()), f"non-finite outputs: {finite}")
     rec["profile"] = profile(lambda: step(batch), SERVE_STAGES, SERVE_LAUNCHES)
+    # the analytic count on the card, with the kernels, and on the CPU with
+    # the plain versions (float32, no autocast): the same count
+    rec["analytic"] = analytic_serve("serve", model, batch, compute_dtype, frames_ms[1:])
+    from occformer_tpu_torch.tools.model_analysis import forward_flops
+
+    card = forward_flops(model, batch, compute_dtype)
+    t0 = time.perf_counter()
+    plain = forward_flops(build_model(cfg["model"], device="cpu", seed=0), batch)
+    check(card == plain, f"serve: analytic count on the card {card} != the plain versions' "
+          f"{plain}")
+    rec["analytic"].update(cpu_plain_versions_equal=True, cpu_count_s=time.perf_counter() - t0)
 
     # the route served before: the same weights, every tensor in bf16
     pred = out["point_pred"].clone()
@@ -2098,6 +2183,7 @@ def phase_train(mxu_readout="off"):
                              TRAIN_LAUNCHES[mxu_readout])
     if loss_cfg.batched_readout:
         rec["routes"] = compare_routes(model, batch, loss_cfg)
+    rec["analytic"] = analytic_train(name, step, batch, g, run["step_s"])
     emit(rec)
     return run["launches"]
 
@@ -3064,6 +3150,7 @@ def serve_phase(name, config, cfg, frames, per_frame, panoptic=False, forbid=())
            "shapes": {k: list(v.shape) for k, v in raw.items()}}
     del raw
     rec["profile"] = profile(lambda: step(frames[0]), SERVE_STAGES, per_frame, forbid=forbid)
+    rec["analytic"] = analytic_serve(name, model, frames[0], dtype, rec["frame_ms"])
     return rec, model, step, outs
 
 
@@ -3102,6 +3189,7 @@ def profile_and_reload(rec, name, model, opt, step, batch, per_step, generator, 
         torch.backends.cudnn.allow_tf32 = tf32
     check(r["losses_differ"] == r["grad_norm_differs"] == r["param_grads_differ"] == 0
           and r["param_grads"] > 0, f"{name} reload_determinism: the pair differs: {r}")
+    rec["analytic"] = analytic_train(f"{name}_train", step, batch, generator, rec["step_s"])
 
 
 def phase_kitti_serve(tree):
@@ -4875,13 +4963,14 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
     """One record per kernel path; ``paths`` maps each driven path (serve,
     train, train_batched, the pipeline-fed train steps and frames, the K4
     gate, the probe) to its launch counts, and
-    a record's ``launches`` sums them.  K1, K2 and K2-bwd each have two
-    paths, two records (K1's scalar path is launched on no driven path: it
-    is held against the plain version and timed in the kernels phase; K2's
-    "scalar" record is its narrow kernel at the GT masks, with the GT table
-    and the batched readouts under ``readouts``); K4's scalar path is launched on
-    no driven path either, and K4's and K4-bwd's records are at the DepthNet
-    DCN's shapes, the main path's, with the deformable attention's under
+    a record's ``launches`` sums them.  K2 and K2-bwd each have two paths,
+    two records (K2's "scalar" record is its narrow kernel at the GT masks,
+    with the GT table and the batched readouts under ``readouts``); K1 and K4
+    are one row-wide kernel each (every launch of either is row-wide: the
+    run fails otherwise), their records at the flagship's 16-byte rows with
+    their other rows, held and timed in the kernels phase, under
+    ``other_rows``; K4's and K4-bwd's records are at the DepthNet DCN's
+    shapes, the main path's, with the deformable attention's under
     ``attention_shapes``.  Records carry the profiler's device ms beside
     the event times where the kernels phase took them, and under ``kitti``
     the kernel at the SemanticKITTI path's shapes (``phase_kitti_kernels``;
@@ -4906,13 +4995,13 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
     paths."""
     src = "occformer_tpu_torch/csrc/"
     timing = probe["timing"]
-    paths = {p: dict(n, **{"K1.scalar": n["K1"] - n["K1.row"],
-                           "K2.scalar": n["K2"] - n["K2.row"],
+    for p, n in paths.items():
+        check(n["K1"] == n["K1.row"] and n["K4"] == n["K4.row"],
+              f"{p}: a K1 or K4 launch that is not row-wide: {n}")
+    paths = {p: dict(n, **{"K2.scalar": n["K2"] - n["K2.row"],
                            "K2-bwd.segmented": n["K2-bwd"] - n["K2-bwd.narrow"]})
              for p, n in paths.items()}
-    k1 = kern["K1"]["bf16"]
-    k1_scalar = dict(k1, max_abs_err=k1["scalar_path"]["max_abs_err"],
-                     kernel_ms=k1["scalar_path_ms"], device_ms=k1["scalar_path_device_ms"])
+    k1 = dict(kern["K1"]["bf16"], other_rows=kern["K1"]["other_rows"])
     readouts = dict(kern["K2"]["batched"], gt_table=kern["K2"]["per_slot_gt"]["gt_table"])
     k2_narrow = dict(kern["K2"]["per_slot_gt"], readouts={
         name: {k: r[k] for k in ("max_abs_err", "kernel_ms", "device_ms", "plain_ms",
@@ -4921,8 +5010,6 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
     rows = [
         ("ms_deform_gather_3d", "row", "K1.row", src + "ms_deform_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:284", k1),
-        ("ms_deform_gather_3d", "scalar", "K1.scalar", src + "ms_deform_gather3d.cu",
-         "occformer_tpu/ops/trilerp_fused.py:284", k1_scalar),
         ("ms_deform_gather_3d_bwd", "", "K1-bwd", src + "ms_deform_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:354", kern["K1-bwd"]["bf16"]),
         ("trilerp_sample", "row", "K2.row", src + "trilerp_sample3d.cu",
@@ -4939,7 +5026,8 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
         # (the K4 gate's flagship case) under "attention_shapes"
         ("fused_multilevel_gather", "row", "K4.row", src + "multilevel_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:495",
-         dict(kern["K4"], attention_shapes=kern["K4_attention"])),
+         dict(kern["K4"], attention_shapes=kern["K4_attention"],
+              other_rows=kern["K4_attention"]["other_rows"])),
         ("fused_multilevel_gather_bwd", "", "K4-bwd", src + "multilevel_gather3d.cu",
          "occformer_tpu/ops/trilerp_fused.py:511",
          dict(kern["K4-bwd"], attention_shapes=kern["K4-bwd_attention"])),
@@ -5030,6 +5118,7 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
              "library_ms": r.get("library_ms"),
              **{k: r[k] for k in ("device_ms", "library_device_ms", "random_order_ms",
                                   "random_order_device_ms", "readouts", "attention_shapes",
+                                  "other_rows",
                                   "launch_floor_ms", "bound_with_floor_ms",
                                   "device_ms_by_kernel", "us_per_step", "cluster_ctas")
                 if k in r},
@@ -5111,8 +5200,11 @@ def main():
         tree = tempfile.mkdtemp(prefix="occformer_nusc_")
         try:
             data, ann = timed("data", phase_data, tree)
-            timed("cli", phase_cli)
-            resume_n = timed("resume", phase_resume, tree, ann)
+            # the CLIs on synthetic data and the resume check on the tree run
+            # side by side: both drive CLI processes, whose start-up on the
+            # host is most of their time
+            _, resume_n = timed("cli_and_resume", side_by_side, (phase_cli,),
+                                (phase_resume, tree, ann))
             r101_serve_n, r101_model = timed("r101_serve", phase_r101_serve, tree, ann)
             r101_train_n = timed("r101_train", phase_r101_train, tree, ann, r101_model)
             del r101_model
@@ -5151,8 +5243,12 @@ def main():
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True)
-    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
-          else f"nvidia-smi: {smi.stderr.strip()}", flush=True)
+    card = (smi.stdout.strip().splitlines()[0] if smi.stdout.strip()
+            else f"nvidia-smi: {smi.stderr.strip()}")
+    print(card, flush=True)
+    # each configuration's analytic TFLOP a frame and a step and its MFU
+    # against the dense bf16 peak, beside the card's name and power limit
+    emit({"analytic": ANALYTIC, "card": card})
     emit({"kernels": kernel_records(kern, probe, det, {
         "serve": serve_n, "train": train_n, "train_batched": train_batched_n,
         "data_train": data["train_pipeline"]["launches"],

@@ -29,23 +29,28 @@
 // Thread mapping: one thread per (g, sample), so that the writes of the
 // channels-first output are coalesced along s (a warp's store of one
 // channel is 32 neighbouring samples: 64 bytes in bf16, 128 in float32).
-// The forward has two paths; ops/trilerp_fused.py:multi_fwd_path picks one
-// by the row width and the tables' alignment:
-// * Row-wide (multilevel_fwd_rows_kernel; rows of whole 16-byte vectors at
-//   16-byte aligned tables, the deformable attention's C = 24 in bf16 and
-//   float32).  The first design's per-channel loop issued one scalar 2-byte
-//   load per corner and channel, 192 dependent-address loads a thread at
-//   C = 24, each touching 32 rows across the warp: 1.79 ms at the flagship
-//   shapes, 2.3x slower than three F.grid_sample calls.  Here each thread
-//   reads its 8 corner rows as 16-byte vectors, 3 of a row per pass (a
-//   whole bf16 row, half a float32 one), issues all 8 x 3 loads of a pass
-//   before any FMA, sums its channels in float32 registers and stores them
-//   channels-first.  A corner outside the level is not loaded.  A
-//   shared-memory transpose tile for wider stores was not needed: the
-//   stores are already 64-byte runs.
-// * Scalar (multilevel_fwd_kernel): any other row width or a misaligned
-//   table: the per-channel loop, each of the 8 corner reads taking C
-//   contiguous channels.
+// The forward is one row-wide kernel (multilevel_fwd_rows_kernel) for every
+// row: each thread reads its 8 corner rows as vectors, VPT of a row a pass
+// (48 bytes: a whole bf16 row of C = 24, half a float32 one; at most 12
+// vectors), issues all 8 x VPT loads of a pass before any FMA, sums its
+// channels in float32 registers and stores them channels-first.  A corner
+// outside the level, and a vector past the row's end, is not loaded (it
+// adds zeros to a sum that is not stored).  The vector width is the widest
+// of 16, 8, 4 and 2 bytes that divides the row's bytes and every table's
+// address (ops/trilerp_fused.py:multi_fwd_path): the deformable attention's
+// C = 24 takes 16 bytes in bf16 and float32, C = 12 in bf16 and C = 6 in
+// float32 8.  A misaligned table is copied once to an aligned buffer by
+// the launcher, not read with the narrower vector its address allows: at
+// the deformable attention's shapes, bf16 C = 24 tables 4 bytes past a
+// 16-byte boundary took 0.456 device ms with 4-byte vectors and 0.294 with
+// the copies and 16-byte vectors (time_backwards.py K4.other, H100 80GB
+// HBM3, 700 W).  A shared-memory transpose tile for wider stores was not
+// needed: the stores are already 64-byte runs.
+// The first design's per-channel loop issued one scalar 2-byte load per
+// corner and channel, 192 dependent-address loads a thread at C = 24, each
+// touching 32 rows across the warp: 1.79 ms at the flagship shapes, 2.3x
+// slower than three F.grid_sample calls.  It took every row but the
+// 16-byte ones (C = 6 in float32, C = 12 in bf16, a misaligned table).
 // The backward (K4-bwd) writes every output once in the table's or float32
 // dtype, with no float atomics, so two calls give the same bits:
 // * d_tables through ordered_rows.cuh, as K1-bwd's d_value
@@ -92,10 +97,6 @@
 
 #define MAX_LEVELS 8
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
@@ -184,67 +185,20 @@ __device__ __forceinline__ Corners make_corners(const Axis& ax, const Axis& ay,
   return k;
 }
 
-template <typename T>
-__global__ void multilevel_fwd_kernel(const Levels lv, int64_t n, int C,
-                                      int align) {
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const Level L = pick(lv, i);
-    const int64_t j = i - L.start;  // g * S + s
-    const int64_t g = j / L.S;
-    const int64_t s = j - g * L.S;
-    const Axis ax = make_axis(L.coords[j * 3 + 0], L.X, align);
-    const Axis ay = make_axis(L.coords[j * 3 + 1], L.Y, align);
-    const Axis az = make_axis(L.coords[j * 3 + 2], L.Z, align);
-    const Corners k = make_corners(ax, ay, az, L.Y, L.Z, C);
-    const T* tb = (const T*)L.table + g * ((int64_t)L.X * L.Y * L.Z * C);
-    T* out = (T*)L.out + g * C * (int64_t)L.S + s;
-    for (int c = 0; c < C; ++c) {
-      float acc = 0.f;
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc += k.w[q] * load_f(tb + k.off[q] + c);
-      store_f(out + (int64_t)c * L.S, acc);
-    }
-  }
-}
+// ---- the row-wide forward: each corner row read as vectors ----
 
-// ---- the row-wide forward: 16-byte vectors of each corner row ----
-
-// One 16-byte vector of a table row: 8 bf16 or 4 float32 channels.
-template <typename T> struct Vec16;
-template <> struct Vec16<__nv_bfloat16> { static constexpr int N = 8; };
-template <> struct Vec16<float> { static constexpr int N = 4; };
-
-// a += w * (the vector's channels, as float)
-__device__ __forceinline__ void fma16(float (&a)[8], const uint4& u, float w) {
-  const unsigned wd[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    __nv_bfloat162 h;
-    *reinterpret_cast<unsigned*>(&h) = wd[k];
-    const float2 f = __bfloat1622float2(h);
-    a[2 * k] = fmaf(w, f.x, a[2 * k]);
-    a[2 * k + 1] = fmaf(w, f.y, a[2 * k + 1]);
-  }
-}
-__device__ __forceinline__ void fma16(float (&a)[4], const uint4& u, float w) {
-  a[0] = fmaf(w, __uint_as_float(u.x), a[0]);
-  a[1] = fmaf(w, __uint_as_float(u.y), a[1]);
-  a[2] = fmaf(w, __uint_as_float(u.z), a[2]);
-  a[3] = fmaf(w, __uint_as_float(u.w), a[3]);
-}
-
-// One thread per (level, g, sample), as the scalar kernel, but each corner
-// row is read as 16-byte vectors: a pass takes VPT vectors (VPT * N
+// One thread per (level, g, sample); each corner row is read as vectors of
+// VB bytes (N = VB / sizeof(T) channels): a pass takes VPT vectors (VPT * N
 // channels) of all 8 corners, issues those 8 * VPT loads before any FMA,
 // sums in float32 registers and stores its channels; the channels-first
 // stores of a warp are runs of 32 neighbouring samples along s.  A corner
-// outside the level is not loaded and has weight 0.
-template <typename T, int VPT>
+// outside the level, and a vector past the row's end, is not loaded (it
+// adds zeros to a sum that is not stored).
+template <typename T, int VB, int VPT>
 __global__ void __launch_bounds__(256)
 multilevel_fwd_rows_kernel(const Levels lv, int64_t n, int C, int align) {
-  constexpr int N = Vec16<T>::N;
+  using R = typename Raw<VB>::T;
+  constexpr int N = VB / sizeof(T);
   const int nvec = C / N;
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
@@ -260,15 +214,14 @@ multilevel_fwd_rows_kernel(const Levels lv, int64_t n, int C, int align) {
     const T* tb = (const T*)L.table + g * ((int64_t)L.X * L.Y * L.Z * C);
     T* out = (T*)L.out + g * C * (int64_t)L.S + s;
     for (int v0 = 0; v0 < nvec; v0 += VPT) {
-      uint4 r[8][VPT];
+      R r[8][VPT];
 #pragma unroll
       for (int q = 0; q < 8; ++q)
 #pragma unroll
         for (int u = 0; u < VPT; ++u)
           r[q][u] = (k.ok[q] && v0 + u < nvec)
-                        ? __ldg(reinterpret_cast<const uint4*>(tb + k.off[q]) +
-                                v0 + u)
-                        : make_uint4(0u, 0u, 0u, 0u);
+                        ? __ldg(reinterpret_cast<const R*>(tb + k.off[q]) + v0 + u)
+                        : R{};
       float acc[VPT][N];
 #pragma unroll
       for (int u = 0; u < VPT; ++u)
@@ -277,7 +230,7 @@ multilevel_fwd_rows_kernel(const Levels lv, int64_t n, int C, int align) {
 #pragma unroll
       for (int q = 0; q < 8; ++q)
 #pragma unroll
-        for (int u = 0; u < VPT; ++u) fma16(acc[u], r[q][u], k.w[q]);
+        for (int u = 0; u < VPT; ++u) fma_vec<T, VB>(acc[u], r[q][u], k.w[q]);
 #pragma unroll
       for (int u = 0; u < VPT; ++u) {
         if (v0 + u >= nvec) break;
@@ -471,62 +424,72 @@ static int64_t make_levels(Levels* lv, int L, const void* const* tables,
   return start;
 }
 
+template <typename T, int VB, int VPT>
+static void launch_rows(const Levels& lv, int64_t n, int C, int align, cudaStream_t st) {
+  const int threads = 256;
+  multilevel_fwd_rows_kernel<T, VB, VPT><<<grid_blocks(n, threads), threads, 0, st>>>(
+      lv, n, C, align);
+}
+
+// VPT for rows of nvec vectors of VB bytes: 16-byte vectors 3 (a pass of 48
+// bytes); narrower ones the next of 1, 2, 3, 4, 6, 8, 12 at or above nvec,
+// at most 48 bytes and 12 vectors a pass.
+template <typename T, int VB>
+static void launch_rows_vpt(const Levels& lv, int64_t n, int C, int align, cudaStream_t st) {
+  constexpr int CAP = 48 / VB < 12 ? 48 / VB : 12;
+  const int nvec = C / (VB / (int)sizeof(T));
+  if constexpr (VB == 16) {
+    launch_rows<T, VB, 3>(lv, n, C, align, st);
+  } else {
+    if (nvec <= 1) launch_rows<T, VB, 1>(lv, n, C, align, st);
+    else if (nvec <= 2) launch_rows<T, VB, 2>(lv, n, C, align, st);
+    else if (nvec <= 3) launch_rows<T, VB, 3>(lv, n, C, align, st);
+    else if (nvec <= 4) launch_rows<T, VB, 4>(lv, n, C, align, st);
+    else if (CAP == 6 || nvec <= 6) launch_rows<T, VB, 6>(lv, n, C, align, st);
+    else if constexpr (CAP >= 12) {
+      if (nvec <= 8) launch_rows<T, VB, 8>(lv, n, C, align, st);
+      else launch_rows<T, VB, 12>(lv, n, C, align, st);
+    }
+  }
+}
+
 // Plain C entry points, loaded with ctypes.  Per level l (L of them, at
 // most MAX_LEVELS): tables[l] a device pointer to [G, X, Y, Z, C], coords[l]
 // to float32 [G, S, 3], outs[l] to [G, C, S]; dims[4 l .. 4 l + 3] = X, Y,
 // Z, S.  dtype: 0 = float32 tables and outputs, 1 = bfloat16.  Each
 // launches on `stream` and returns cudaGetLastError() (0 when the launch was
 // accepted), or cudaErrorInvalidValue for a bad level count or dtype.
-extern "C" int multilevel_gather3d_fwd(int L, const void* const* tables,
-                                       const void* const* coords,
-                                       void* const* outs, const int* dims,
-                                       int G, int C, int align, int dtype,
-                                       void* stream) {
-  Levels lv;
-  const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, dims, G);
-  if (n < 0) return (int)cudaErrorInvalidValue;
-  if (n == 0 || C == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = grid_blocks(n, threads);
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0) {
-    multilevel_fwd_kernel<float><<<blocks, threads, 0, st>>>(lv, n, C, align);
-  } else if (dtype == 1) {
-    multilevel_fwd_kernel<__nv_bfloat16><<<blocks, threads, 0, st>>>(lv, n, C,
-                                                                     align);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// The row-wide forward: as multilevel_gather3d_fwd, for tables and outputs
-// whose pointers are 16-byte aligned and rows of whole 16-byte vectors (C a
-// multiple of 8 in bfloat16, of 4 in float32); cudaErrorInvalidValue for
-// anything else.
+//
+// K4: the tables' rows read as vectors of `vec` bytes (16, 8, 4 or 2; at
+// least one element) that divide C's bytes and every table's address;
+// cudaErrorInvalidValue for any other width.
 extern "C" int multilevel_gather3d_fwd_rows(int L, const void* const* tables,
                                             const void* const* coords,
                                             void* const* outs, const int* dims,
                                             int G, int C, int align, int dtype,
-                                            void* stream) {
-  if ((dtype != 0 && dtype != 1) || C <= 0 || C % (dtype == 1 ? 8 : 4) != 0)
+                                            int vec, void* stream) {
+  const int esize = dtype == 1 ? 2 : 4;
+  if ((dtype != 0 && dtype != 1) || C <= 0 ||
+      (vec != 16 && vec != 8 && vec != 4 && vec != 2) || vec < esize || (C * esize) % vec != 0)
     return (int)cudaErrorInvalidValue;
   for (int l = 0; l < L && l < MAX_LEVELS; ++l)
-    if (((uintptr_t)tables[l] | (uintptr_t)outs[l]) % 16 != 0)
-      return (int)cudaErrorInvalidValue;
+    if ((uintptr_t)tables[l] % vec != 0) return (int)cudaErrorInvalidValue;
   Levels lv;
   const int64_t n = make_levels(&lv, L, tables, coords, outs, nullptr, dims, G);
   if (n < 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
-  const int threads = 256;
-  const unsigned blocks = grid_blocks(n, threads);
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    multilevel_fwd_rows_kernel<float, 3><<<blocks, threads, 0, st>>>(lv, n, C,
-                                                                    align);
-  else
-    multilevel_fwd_rows_kernel<__nv_bfloat16, 3><<<blocks, threads, 0, st>>>(
-        lv, n, C, align);
+  if (dtype == 0) {
+    if (vec == 16) launch_rows_vpt<float, 16>(lv, n, C, align, st);
+    else if (vec == 8) launch_rows_vpt<float, 8>(lv, n, C, align, st);
+    else launch_rows_vpt<float, 4>(lv, n, C, align, st);
+  } else {
+    using T = __nv_bfloat16;
+    if (vec == 16) launch_rows_vpt<T, 16>(lv, n, C, align, st);
+    else if (vec == 8) launch_rows_vpt<T, 8>(lv, n, C, align, st);
+    else if (vec == 4) launch_rows_vpt<T, 4>(lv, n, C, align, st);
+    else launch_rows_vpt<T, 2>(lv, n, C, align, st);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -36,6 +36,7 @@ import torch.nn.functional as F
 import torch.utils.checkpoint
 
 from ..parallel.distributed import global_rows, world_size
+from ..utils import flops
 
 
 class _FlaxBatchNorm:
@@ -387,15 +388,20 @@ class _Conv2dIm2colBackward(torch.autograd.Function):
         kh, kw = weight.shape[2:]
         I = weight.shape[1]
         dx = dw = db = None
-        if ctx.needs_input_grad[0]:
-            w_t = weight.flip(2, 3).transpose(0, 1).reshape(I, O * kh * kw)
-            cols = F.unfold(gout, (kh, kw), dilation=dilation, padding=padding)
-            dx = torch.matmul(w_t, cols).reshape(B, I, H, W)
-        if ctx.needs_input_grad[1]:
-            cols = F.unfold(x, (kh, kw), dilation=dilation, padding=padding)  # [B, I*kh*kw, HW]
-            g = gout.reshape(B, O, H * W).transpose(0, 1).reshape(O, B * H * W)
-            dw = torch.matmul(g, cols.transpose(1, 2).reshape(B * H * W, I * kh * kw))
-            dw = dw.reshape(O, I, kh, kw)
+        need = ctx.needs_input_grad
+        # the analytic count sees a convolution's backward, as on the CPU
+        flops.add("conv", flops.convolution_backward_flops(
+            gout.shape, x.shape, weight.shape, False, 1, need[0], need[1]))
+        with flops.uncounted():
+            if need[0]:
+                w_t = weight.flip(2, 3).transpose(0, 1).reshape(I, O * kh * kw)
+                cols = F.unfold(gout, (kh, kw), dilation=dilation, padding=padding)
+                dx = torch.matmul(w_t, cols).reshape(B, I, H, W)
+            if need[1]:
+                cols = F.unfold(x, (kh, kw), dilation=dilation, padding=padding)  # [B, I*kh*kw, HW]
+                g = gout.reshape(B, O, H * W).transpose(0, 1).reshape(O, B * H * W)
+                dw = torch.matmul(g, cols.transpose(1, 2).reshape(B * H * W, I * kh * kw))
+                dw = dw.reshape(O, I, kh, kw)
         if has_bias and ctx.needs_input_grad[2]:
             db = gout.sum((0, 2, 3))
         return dx, dw, db, None, None

@@ -6,8 +6,9 @@ given rows, which the JAX package leaves to XLA) and ``pointcloud`` (FPS,
 furthest-point sampling, a ``fori_loop`` in the JAX package).
 
 Each wrapper counts its kernel's launches in a module-level integer
-("K1", "K2" and "K2-bwd" count both paths of their kernel, "K1.row",
-"K2.row", "K2-bwd.narrow" and "K4.row" one path alone);
+("K2" and "K2-bwd" count both paths of their kernel, "K2.row" and
+"K2-bwd.narrow" one path alone; "K1.row" and "K4.row" count the row-wide
+kernel, which every launch of K1 and K4 takes);
 ``launch_counts`` reads them all by kernel name and ``reset_launch_counts``
 sets them to 0.
 """

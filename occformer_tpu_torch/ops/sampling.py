@@ -22,6 +22,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
 from .trilerp import trilerp_sample
 
 
@@ -103,7 +104,9 @@ def _interp_matrix(n_in: int, n_out: int, align_corners: bool, device) -> torch.
 class _TrilinearResize(torch.autograd.Function):
     """``F.interpolate(mode="trilinear")`` on ``[B, C, X, Y, Z]`` float32;
     its backward contracts the gradient with the three axes' interpolation
-    matrices (z, then y, then x), matrix products in a fixed order."""
+    matrices (z, then y, then x), matrix products in a fixed order, which
+    the analytic count (``utils/flops.py``) holds out: an interpolation's
+    backward, elementwise in the JAX package, not a product of the model."""
 
     @staticmethod
     def forward(ctx, x, size, align_corners):
@@ -112,11 +115,12 @@ class _TrilinearResize(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        mx, my, mz = (_interp_matrix(n, m, ctx.align_corners, g.device)
-                      for n, m in zip(ctx.in_size, g.shape[2:]))
-        g = torch.einsum("bcijk,kz->bcijz", g, mz)
-        g = torch.einsum("bcijz,jy->bciyz", g, my)
-        g = torch.einsum("bciyz,ix->bcxyz", g, mx)
+        with flops.uncounted():
+            mx, my, mz = (_interp_matrix(n, m, ctx.align_corners, g.device)
+                          for n, m in zip(ctx.in_size, g.shape[2:]))
+            g = torch.einsum("bcijk,kz->bcijz", g, mz)
+            g = torch.einsum("bcijz,jy->bciyz", g, my)
+            g = torch.einsum("bciyz,ix->bcxyz", g, mx)
         return g.contiguous(), None, None
 
 

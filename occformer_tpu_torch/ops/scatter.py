@@ -36,6 +36,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
 from . import cuda_build
 
 # launches of the splat kernels (S1, S1-rows); a caller may reset them to 0
@@ -136,6 +137,8 @@ class _Splat(torch.autograd.Function):
         ctx_.save_for_backward(depth, ctx, coords, valid)
         ctx_.nx = nx
         if depth.is_cuda:
+            # the analytic count: the plain version's index_add_ updates
+            flops.add("scatter", depth.numel() * ctx.shape[-1])
             return _launch(depth, ctx, coords, valid, nx)
         n_rows = depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2])
         return voxel_scatter_plain(depth, ctx, voxel_rows(coords, valid, nx), n_rows)
@@ -227,6 +230,7 @@ class _SplatRows(torch.autograd.Function):
         ctx_.save_for_backward(coords, valid)
         ctx_.nx, ctx_.dtype = nx, feats.dtype
         if feats.is_cuda:
+            flops.add("scatter", feats.numel())  # the plain version's index_add_ updates
             return _launch_rows(feats, coords, valid, nx)
         n_rows = feats.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2])
         return voxel_scatter_plain_rows(feats, voxel_rows(coords, valid, nx), n_rows)

@@ -13,14 +13,15 @@ sum that ``models/deform_attn.py`` does after the call folded in:
 d_weights), and runs the plain version, ``ms_deform_gather_3d_plain``
 (``F.grid_sample`` per level plus the weighted sum, differentiated by
 autograd), for CPU tensors.  A CUDA tensor never takes the plain version: the
-kernel launches or the call raises.  K1 has two paths, picked by
-``ms_deform_fwd_path``: rows of whole 16-byte vectors at a 16-byte aligned
-value and output (the flagship's hd = 24, bf16 and float32) take the
-row-wide kernel, a group of ``ROW_LANES`` lanes per output row (b, q, h)
-whose lanes own whole samples and read each corner row as 16-byte loads;
-the rest keep one thread per output channel.  ``LAUNCHES`` and
-``BWD_LAUNCHES`` count the two kernels' launches (K1 over both of its
-paths), ``ROW_LAUNCHES`` K1's row-wide path alone.  K1-bwd writes every
+kernel launches or the call raises.  K1 is one row-wide kernel for every
+row: a group of ``ROW_LANES`` lanes per output row (b, q, h) whose lanes own
+whole samples and read each corner row as vectors of the width
+``ms_deform_fwd_path`` picks, the widest of 16, 8, 4 and 2 bytes that
+divides the row and the value's and output's addresses (the flagship's
+hd = 24: 16 bytes; a misaligned value is copied to an aligned buffer
+first).  ``LAUNCHES`` and ``BWD_LAUNCHES`` count the two
+kernels' launches, ``ROW_LAUNCHES`` K1's row-wide ones (every launch of
+K1).  K1-bwd writes every
 gradient once in its dtype with no float atomics: d_value's rows are summed
 in a fixed order (``csrc/ordered_rows.cuh``: samples binned by their lower
 corner, each row's terms corner by corner, each corner's in ascending sample
@@ -32,13 +33,18 @@ order), so two calls give the same bits.
 channels-first, in one launch of ``csrc/multilevel_gather3d.cu`` (K4), with
 K4-bwd as its autograd backward (d_tables, and d_coords when the
 coordinates require grad), which sums d_tables in the same fixed order as
-K1-bwd's d_value.  K4 has two paths, picked by ``multi_fwd_path``:
-rows of whole 16-byte vectors at 16-byte aligned tables (the deformable
-attention's C = 24, bf16 and float32) take the row-wide kernel, which reads
-each corner row as 16-byte loads; the rest keep the per-channel scalar
-loop.  Its plain version is ``fused_multilevel_gather_plain``;
-``MULTI_LAUNCHES`` and ``MULTI_BWD_LAUNCHES`` count the two kernels'
-launches, ``MULTI_ROW_LAUNCHES`` K4's row-wide path alone.
+K1-bwd's d_value.  K4 is one row-wide kernel for every row, which reads
+each corner row as vectors of the width ``multi_fwd_path`` picks (the
+deformable attention's C = 24: 16 bytes; a misaligned table is copied to an
+aligned buffer first).  Its plain version is
+``fused_multilevel_gather_plain``; ``MULTI_LAUNCHES`` and
+``MULTI_BWD_LAUNCHES`` count the two kernels' launches,
+``MULTI_ROW_LAUNCHES`` K4's row-wide ones (every launch of K4).
+
+The analytic count (``utils/flops.py``) sees no kernel: K1's wrapper
+reports on the card the matrix products its plain version's weighted sum
+runs (the einsum over the P samples, in the forward and in the backward),
+so that a count does not depend on the route.
 """
 from __future__ import annotations
 
@@ -48,27 +54,39 @@ from typing import List, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils import flops
 from . import cuda_build
 
-# launches of the forward (K1, both paths) and backward (K1-bwd) kernels,
-# and of K1's row-wide path alone; a caller may reset them to 0
+# launches of the forward (K1) and backward (K1-bwd) kernels, and of K1's
+# row-wide kernel (every K1 launch); a caller may reset them to 0
 LAUNCHES = 0
 BWD_LAUNCHES = 0
 ROW_LAUNCHES = 0
-# K1's row-wide path: lanes per output row and samples a lane loads at a
-# time; the chip measurements behind them are in
+# K1's lanes per output row; the chip measurements behind it are in
 # csrc/ms_deform_gather3d.cu's header
 ROW_LANES = 2
-ROW_SAMPLES_PER_LANE = 1
-# launches of K4 (both paths) and K4-bwd, and of K4's row-wide path alone
+# launches of K4 and K4-bwd, and of K4's row-wide kernel (every K4 launch)
 MULTI_LAUNCHES = 0
 MULTI_BWD_LAUNCHES = 0
 MULTI_ROW_LAUNCHES = 0
 MAX_LEVELS = 8  # csrc/multilevel_gather3d.cu:MAX_LEVELS
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_VEC_CHANNELS = {torch.float32: 4, torch.bfloat16: 8}  # per 16-byte vector
 _FNS = {}
+
+
+def _vector_bytes(channels: int, dtype, data_ptrs) -> int:
+    """The widest of 16, 8, 4 and 2 bytes that divides a row of
+    ``channels`` elements of ``dtype`` (float32 or bfloat16) and every
+    address in ``data_ptrs``."""
+    if dtype not in _DTYPE_CODE:
+        raise TypeError(f"the kernel takes float32 or bfloat16 rows; got {dtype}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    for vb in (16, 8, 4, 2):
+        if vb >= esize and (channels * esize) % vb == 0 and all(p % vb == 0 for p in data_ptrs):
+            return vb
+    raise ValueError(f"no vector width takes {channels} channels of {dtype} at "
+                     f"{[p % 16 for p in data_ptrs]} bytes past 16-byte boundaries")
 
 
 def ms_deform_gather_3d_plain(
@@ -102,7 +120,7 @@ def ms_deform_gather_3d_plain(
 
 
 def _kernel_fn(name: str):
-    """The C entry point ``ms_deform_gather3d_{fwd,fwd_rows,bwd,bwd_workspace}``
+    """The C entry point ``ms_deform_gather3d_{fwd_rows,bwd,bwd_workspace}``
     with its argtypes."""
     if name not in _FNS:
         fn = getattr(cuda_build.load("ms_deform_gather3d"), name)
@@ -111,7 +129,7 @@ def _kernel_fn(name: str):
             fn.restype = ctypes.c_longlong
         else:
             n_ptr = 8 if name.endswith("bwd") else 4
-            n_opts = 3 if name.endswith("rows") else 1  # dtype (, lanes, spl)
+            n_opts = 3 if name.endswith("rows") else 1  # dtype (, vec, lanes)
             fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
                            + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * n_opts
                            + [ctypes.c_void_p])
@@ -145,42 +163,39 @@ def _check(value, spatial_shapes, locs, weights):
                          f"need {sum(x * y * z for x, y, z in spatial_shapes)}")
 
 
-def ms_deform_fwd_path(head_dim: int, dtype, data_ptrs=()) -> str:
-    """K1's forward path: "row" for float32 or bfloat16 rows of whole
-    16-byte vectors (``head_dim`` a multiple of 4 or 8) whose value and
-    output lie at 16-byte aligned ``data_ptrs``; else "scalar"."""
-    n = _VEC_CHANNELS.get(dtype)
-    if n and head_dim % n == 0 and all(p % 16 == 0 for p in data_ptrs):
-        return "row"
-    return "scalar"
+def ms_deform_fwd_path(head_dim: int, dtype, data_ptrs=()) -> int:
+    """K1's vector width in bytes: the widest of 16, 8, 4 and 2 that divides
+    a float32 or bfloat16 row of ``head_dim`` channels and the value's and
+    output's ``data_ptrs`` (hd = 24: 16; hd = 12 in bfloat16: 8); raises
+    for another dtype."""
+    return _vector_bytes(head_dim, dtype, data_ptrs)
 
 
-def _launch_fwd(value, spatial_shapes, locs, weights, path=None, lanes=None, samples=None):
-    """K1 on ``path`` ("row" or "scalar"; ``ms_deform_fwd_path``'s choice by
-    default), the row-wide path with ``lanes`` lanes per output row and
-    ``samples`` samples a lane loads at a time (``ROW_LANES``,
-    ``ROW_SAMPLES_PER_LANE`` by default)."""
+def _launch_fwd(value, spatial_shapes, locs, weights, vec=None, lanes=None):
+    """K1 with vectors of ``vec`` bytes and ``lanes`` lanes per output row
+    (``ROW_LANES`` by default).  By default the row's own width
+    (``ms_deform_fwd_path`` of the row alone), a value whose address it does
+    not divide copied once to an aligned buffer first: faster than reading
+    it with the narrower vector its address allows
+    (``csrc/ms_deform_gather3d.cu``'s header)."""
     global LAUNCHES, ROW_LAUNCHES
     B, Nv, H, hd = value.shape
     Nq, L, P = locs.shape[1], locs.shape[3], locs.shape[4]
     out = torch.empty((B, Nq, H, hd), dtype=value.dtype, device=value.device)
-    path = path or ms_deform_fwd_path(hd, value.dtype, (value.data_ptr(), out.data_ptr()))
-    args = (value.data_ptr(), locs.data_ptr(), weights.data_ptr(), out.data_ptr(),
-            B, Nv, Nq, H, hd, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype])
+    if vec is None:
+        vec = ms_deform_fwd_path(hd, value.dtype)
+        if value.data_ptr() % vec:  # misaligned: one copy to an aligned buffer
+            value = value.clone()
     with torch.cuda.device(value.device):
-        stream = torch.cuda.current_stream(value.device).cuda_stream
-        if path == "row":
-            rc = _kernel_fn("ms_deform_gather3d_fwd_rows")(
-                *args, lanes or ROW_LANES, samples or ROW_SAMPLES_PER_LANE, stream)
-        elif path == "scalar":
-            rc = _kernel_fn("ms_deform_gather3d_fwd")(*args, stream)
-        else:
-            raise ValueError(f"path must be 'row' or 'scalar'; got {path!r}")
+        rc = _kernel_fn("ms_deform_gather3d_fwd_rows")(
+            value.data_ptr(), locs.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            B, Nv, Nq, H, hd, L, P, _levels(spatial_shapes), _DTYPE_CODE[value.dtype], vec,
+            lanes or ROW_LANES, torch.cuda.current_stream(value.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"ms_deform_gather3d ({path}) launch failed: cudaError {rc}")
+        raise RuntimeError(f"ms_deform_gather3d ({vec}-byte vectors) launch failed: "
+                           f"cudaError {rc}")
     LAUNCHES += 1
-    if path == "row":
-        ROW_LAUNCHES += 1
+    ROW_LAUNCHES += 1
     return out
 
 
@@ -214,13 +229,22 @@ def _launch_bwd(value, spatial_shapes, locs, weights, gout):
     return d_value, d_locs, d_weights
 
 
+def _weighted_sum_flops(value, weights) -> int:
+    """The plain version's weighted sum over the samples, a batched matrix
+    product of 2 * B * Nq * H * hd * L * P FLOPs (the JAX package's einsum
+    too), which the analytic count would see on the CPU."""
+    return 2 * weights.numel() * value.shape[-1]
+
+
 class _Gather(torch.autograd.Function):
-    """K1 forward, K1-bwd backward."""
+    """K1 forward, K1-bwd backward; each reports to an active analytic count
+    the matrix products that the plain version runs in its place."""
 
     @staticmethod
     def forward(ctx, value, locs, weights, spatial_shapes):
         ctx.spatial_shapes = spatial_shapes
         ctx.save_for_backward(value, locs, weights)
+        flops.add("dot", _weighted_sum_flops(value, weights))
         return _launch_fwd(value, spatial_shapes, locs, weights)
 
     @staticmethod
@@ -229,6 +253,10 @@ class _Gather(torch.autograd.Function):
         d_value, d_locs, d_weights = _launch_bwd(value, ctx.spatial_shapes, locs,
                                                  weights, gout)
         need = ctx.needs_input_grad
+        # the plain version's backward: one product for the samples'
+        # gradient, one for the weights'
+        flops.add("dot", _weighted_sum_flops(value, weights)
+                  * (int(need[0] or need[1]) + int(need[2])))
         return (d_value if need[0] else None, d_locs if need[1] else None,
                 d_weights if need[2] else None, None)
 
@@ -288,7 +316,7 @@ def fused_multilevel_gather_plain(
 
 
 def _multi_fn(name: str):
-    """The C entry point ``multilevel_gather3d_{fwd,fwd_rows,bwd,bwd_workspace}``
+    """The C entry point ``multilevel_gather3d_{fwd_rows,bwd,bwd_workspace}``
     with its argtypes."""
     if name not in _FNS:
         fn = getattr(cuda_build.load("multilevel_gather3d"), name)
@@ -297,24 +325,22 @@ def _multi_fn(name: str):
             fn.restype = ctypes.c_longlong
         else:
             # L, tables, coords, outs (fwd) / gout rows, d_tables, d_coords,
-            # workspace (bwd), dims, G, C, align, dtype, stream
-            n_arrays = 6 if name.endswith("bwd") else 3
-            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * n_arrays
-                           + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * 4
+            # workspace (bwd), dims, G, C, align, dtype (, vec: fwd), stream
+            fwd = name.endswith("rows")
+            fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * (3 if fwd else 6)
+                           + [ctypes.POINTER(ctypes.c_int)] + [ctypes.c_int] * (5 if fwd else 4)
                            + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         _FNS[name] = fn
     return _FNS[name]
 
 
-def multi_fwd_path(channels: int, dtype, data_ptrs=()) -> str:
-    """K4's forward path: "row" for float32 or bfloat16 rows of whole
-    16-byte vectors (``channels`` a multiple of 4 or 8) whose tables all
-    lie at 16-byte aligned ``data_ptrs``; else "scalar"."""
-    n = _VEC_CHANNELS.get(dtype)
-    if n and channels % n == 0 and all(p % 16 == 0 for p in data_ptrs):
-        return "row"
-    return "scalar"
+def multi_fwd_path(channels: int, dtype, data_ptrs=()) -> int:
+    """K4's vector width in bytes: the widest of 16, 8, 4 and 2 that divides
+    a float32 or bfloat16 row of ``channels`` and every table's
+    ``data_ptrs`` (C = 24: 16; C = 6 in float32: 8); raises for another
+    dtype."""
+    return _vector_bytes(channels, dtype, data_ptrs)
 
 
 def _pointers(tensors):
@@ -326,28 +352,27 @@ def _multi_dims(spatials, coords):
     return (ctypes.c_int * len(dims))(*dims)
 
 
-def _launch_multi_fwd(tables, spatials, channels, coords, align_corners, path=None):
-    """K4 on ``path`` ("row" or "scalar"; ``multi_fwd_path``'s choice by
-    default)."""
+def _launch_multi_fwd(tables, spatials, channels, coords, align_corners, vec=None):
+    """K4 with vectors of ``vec`` bytes; by default the row's own width
+    (``multi_fwd_path`` of the row alone), each table whose address it does
+    not divide copied once to an aligned buffer first, as K1's value."""
     global MULTI_LAUNCHES, MULTI_ROW_LAUNCHES
     dev, dtype = tables[0].device, tables[0].dtype
-    path = path or multi_fwd_path(channels, dtype, [t.data_ptr() for t in tables])
-    if path not in ("row", "scalar"):
-        raise ValueError(f"path must be 'row' or 'scalar'; got {path!r}")
+    if vec is None:
+        vec = multi_fwd_path(channels, dtype)
+        tables = [t.clone() if t.data_ptr() % vec else t for t in tables]
     G = tables[0].shape[0]
     outs = [torch.empty((G, channels, c.shape[1]), dtype=dtype, device=dev) for c in coords]
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = _multi_fn("multilevel_gather3d_fwd_rows" if path == "row" else
-                       "multilevel_gather3d_fwd")(
+        rc = _multi_fn("multilevel_gather3d_fwd_rows")(
             len(tables), _pointers(tables), _pointers(coords), _pointers(outs),
             _multi_dims(spatials, coords), G, channels, int(bool(align_corners)),
-            _DTYPE_CODE[dtype], stream)
+            _DTYPE_CODE[dtype], vec, torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
-        raise RuntimeError(f"multilevel_gather3d ({path}) launch failed: cudaError {rc}")
+        raise RuntimeError(f"multilevel_gather3d ({vec}-byte vectors) launch failed: "
+                           f"cudaError {rc}")
     MULTI_LAUNCHES += 1
-    if path == "row":
-        MULTI_ROW_LAUNCHES += 1
+    MULTI_ROW_LAUNCHES += 1
     return outs
 
 

@@ -53,9 +53,17 @@ furthest_point_sample``) at VoteNet's SA1 size [8, 20000, 3] -> 2048
 (``fps_inputs``), with and without invalid points: a digest of its indices,
 its device ms, its microseconds a step and the cluster size it took.
 
-``--only`` names the groups to time (K1, K1-bwd, K2-bwd, K2-bwd.narrow,
-S1, S1-rows, FPS, K2, K3, K4, K4-bwd, step; all by default), and the sweeps
-of those groups.
+K1's and K4's other rows (``K1.other``, ``K4.other``: ``K1_OTHER_ROWS``,
+``K4_OTHER_ROWS``, rows that are not whole 16-byte vectors at 16-byte
+aligned pointers) on the path the checkout picks, by events and device
+time, beside their bounds (K4's beside ``F.grid_sample``), a misaligned
+input also with its copy to an aligned buffer inside the timed call; the
+flagship's K1 and K4 outputs also as digests (two checkouts give the same
+bits when their digests agree) and K4's by device time.
+
+``--only`` names the groups to time (K1, K1.other, K1-bwd, K2-bwd,
+K2-bwd.narrow, S1, S1-rows, FPS, K2, K3, K4, K4.other, K4-bwd, step; all by
+default), and the sweeps of those groups.
 
 ``--sweep`` also times both of K2-bwd's paths, and both of K2's forward
 paths, at the candidate readout's shape over row widths C = 8 ... 192, in
@@ -66,9 +74,8 @@ and the GT table's C = 17 over its lane-group sizes and at C = 1 (the GT
 masks, the random fill) over its
 points per lane (``NARROW_CHUNKS_PER_LANE``, ``NARROW_POINTS_PER_LANE``),
 K2-bwd's narrow path over its lanes per column (``column_lanes``),
-and K1's row-wide path over its lanes per row and samples per lane at the
-uniform and local locations in bf16 and float32 (``ROW_LANES``,
-``ROW_SAMPLES_PER_LANE``; it needs a checkout with those paths), and FPS at
+K1 over its lanes per row at the uniform and local locations in bf16 and
+float32 and at its other rows (``ROW_LANES``), and FPS at
 each cluster size its launcher can take, forced (1, 2, 4, 8, 16 CTAs a
 cloud; it needs a checkout whose ``_launch_fps`` takes ``cluster``).  It prints
 one JSON line and exits 2 without a CUDA device.
@@ -86,25 +93,26 @@ import time
 SWEEP_WIDTHS = (8, 16, 32, 40, 48, 56, 64, 128, 192)
 LANE_SWEEP = (1, 2, 4, 8, 16, 32)
 POINTS_SWEEP = (1, 2, 4)
-SAMPLES_SWEEP = (1, 2, 3)
 # the pyramid of the deformable attention, largest level first, as bench.py
 K4_PYRAMID = [(64, 64, 8), (32, 32, 4), (16, 16, 2)]
 
 
-def flagship_gather_inputs(dtype, local, seed=0):
-    """K1's inputs at the flagship's shapes on the card: B=1, H=8, hd=24,
-    P=4, levels (16,16,2), (32,32,4), (64,64,8), Nq = 37376.  ``local=False``:
-    locations uniform over [-a, 1+a]^3 with a = 0.018, so that about 10% of
-    samples have a coordinate outside [0, 1]; ``local=True``: each query's own
-    grid center plus up to +-2 voxels, the spread of the model's radial
-    offset init.  Returns (value, shapes, locs, weights)."""
+def flagship_gather_inputs(dtype, local, seed=0, hd=24, offset=0):
+    """K1's inputs at the flagship's shapes on the card: B=1, H=8, hd=24 (or
+    ``hd``), P=4, levels (16,16,2), (32,32,4), (64,64,8), Nq = 37376.
+    ``local=False``: locations uniform over [-a, 1+a]^3 with a = 0.018, so
+    that about 10% of samples have a coordinate outside [0, 1];
+    ``local=True``: each query's own grid center plus up to +-2 voxels, the
+    spread of the model's radial offset init.  ``offset``: the value starts
+    that many bytes past a 16-byte boundary (a view into a larger buffer).
+    Returns (value, shapes, locs, weights)."""
     import numpy as np
     import torch
 
     from occformer_tpu_torch.models.pixel_decoder import reference_points
 
     shapes = [(16, 16, 2), (32, 32, 4), (64, 64, 8)]
-    B, H, hd, L, P = 1, 8, 24, 3, 4
+    B, H, L, P = 1, 8, 3, 4
     Nq = sum(x * y * z for x, y, z in shapes)
     rng = np.random.RandomState(seed)
     value = rng.randn(B, Nq, H, hd).astype(np.float32)
@@ -117,23 +125,39 @@ def flagship_gather_inputs(dtype, local, seed=0):
     w = rng.rand(B, Nq, H, L * P)
     w = (w / w.sum(-1, keepdims=True)).reshape(B, Nq, H, L, P)
     dev = torch.device("cuda")
-    return (torch.from_numpy(value).to(dev, dtype), shapes,
+    return (misaligned(torch.from_numpy(value).to(dev, dtype), offset), shapes,
             torch.from_numpy(locs.astype(np.float32)).to(dev),
             torch.from_numpy(w.astype(np.float32)).to(dev, dtype))
 
 
-def k4_inputs(case, dtype=None, seed=6):
+def misaligned(t, offset):
+    """``t``'s values in a view that starts ``offset`` bytes past a 16-byte
+    boundary (``t`` itself for 0)."""
+    import torch
+
+    if offset == 0:
+        return t
+    k = offset // t.element_size()
+    buf = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)
+    out = buf[k:].view(t.shape).copy_(t)
+    assert out.data_ptr() % 16 == offset % 16
+    return out
+
+
+def k4_inputs(case, dtype=None, seed=6, C=24, offset=0):
     """K4's inputs on the card: (a) "gate", bench.py's _kernel_parity shapes:
     G = 8, C = 24, S = 512 per level, coords uniform in [-1.1, 1.1], float32;
-    (b) "flagship", the deformable attention's: G = B * H = 8, C = hd = 24,
-    S_l = Nq * P = 37376 * 4, bf16 tables (or ``dtype``), locations uniform
-    over [-0.018, 1.018] as ``flagship_gather_inputs`` draws them (2 * loc - 1
-    in [-1, 1] terms).  Returns (tables [G, X*Y, Z*C], coords, C)."""
+    (b) "flagship", the deformable attention's: G = B * H = 8, C = hd = 24
+    (or ``C``), S_l = Nq * P = 37376 * 4, bf16 tables (or ``dtype``),
+    locations uniform over [-0.018, 1.018] as ``flagship_gather_inputs`` draws
+    them (2 * loc - 1 in [-1, 1] terms); ``offset``: each table starts that
+    many bytes past a 16-byte boundary.  Returns (tables [G, X*Y, Z*C],
+    coords, C)."""
     import numpy as np
     import torch
 
     rng = np.random.RandomState(seed)
-    G, C = 8, 24
+    G = 8
     if case == "gate":
         S, dtype = 512, dtype or torch.float32
         draw = [rng.uniform(-1.1, 1.1, (G, S, 3)) for _ in K4_PYRAMID]
@@ -141,10 +165,155 @@ def k4_inputs(case, dtype=None, seed=6):
         S, dtype = 37376 * 4, dtype or torch.bfloat16
         draw = [2.0 * rng.uniform(-0.018, 1.018, (G, S, 3)) - 1.0 for _ in K4_PYRAMID]
     dev = torch.device("cuda")
-    tables = [torch.from_numpy(rng.randn(G, X * Y, Z * C).astype(np.float32)).to(dev, dtype)
-              for X, Y, Z in K4_PYRAMID]
+    tables = [misaligned(torch.from_numpy(rng.randn(G, X * Y, Z * C).astype(np.float32)).to(
+        dev, dtype), offset) for X, Y, Z in K4_PYRAMID]
     coords = [torch.from_numpy(c.astype(np.float32)).to(dev) for c in draw]
     return tables, coords, C
+
+
+# K1's and K4's other rows: rows that are not whole 16-byte vectors at 16-byte
+# aligned pointers, at the flagship's pyramid, P and Nq (K1) and at
+# K4_PYRAMID's deformable-attention shapes (K4): (name, dtype name, row
+# width, bytes past a 16-byte boundary)
+K1_OTHER_ROWS = (("hd12_bf16", "bfloat16", 12, 0), ("hd24_f32_off4", "float32", 24, 4),
+                 ("hd6_f32", "float32", 6, 0), ("hd7_bf16", "bfloat16", 7, 0))
+K4_OTHER_ROWS = (("C6_f32", "float32", 6, 0), ("C12_bf16", "bfloat16", 12, 0),
+                 ("C24_bf16_off4", "bfloat16", 24, 4))
+
+
+def k1_other_rows(device_ms):
+    """K1 at ``K1_OTHER_ROWS`` on the path the checkout picks: ms by events
+    and by the profiler's device time, the plain version's ms, the path,
+    the bound (every input read once, the output written once, over 3.35
+    TB/s; 16 float32 operations per (sample, channel) over 67 TFLOP/s), the
+    output's bytes and two calls compared bit for bit; a misaligned value also with the
+    copy to an aligned buffer timed as part of the call and, where the
+    checkout can force a width, read with the narrower vector its address
+    allows (the two ways to take such a value)."""
+    import torch
+
+    from occformer_tpu_torch.ops import trilerp_fused as k1
+    from occformer_tpu_torch.utils.timing import bound, nbytes, time_cuda
+
+    recs = {}
+    for name, dt, hd, offset in K1_OTHER_ROWS:
+        dtype = getattr(torch, dt)
+        value, shapes, locs, w = flagship_gather_inputs(dtype, False, hd=hd, offset=offset)
+
+        def call():
+            return k1._launch_fwd(value, shapes, locs, w)
+
+        out = call()
+        ref = k1.ms_deform_gather_3d_plain(value.float(), shapes, locs, w.float())
+        B, Nq, H, L, P = w.shape
+        rec = {"path": str(k1.ms_deform_fwd_path(hd, dtype, (value.data_ptr(), out.data_ptr()))),
+               "row_path": str(k1.ms_deform_fwd_path(hd, dtype)),
+               "bit_equal_calls": bool(torch.equal(out, call())),
+               "max_abs_err": (out.float() - ref).abs().max().item(),
+               "max_abs_plain": ref.abs().max().item(),
+               "ms": time_cuda(call), "device_ms": device_ms(call),
+               "plain_ms": time_cuda(lambda: k1.ms_deform_gather_3d_plain(value, shapes, locs, w),
+                                     iters=10),
+               "out_bytes": nbytes(out),
+               **bound(nbytes(value, locs, w, out), B * Nq * H * L * P * hd * 8 * 2)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+        del ref
+        if offset:
+            rec["copy_ms"] = time_cuda(lambda: k1._launch_fwd(value.clone(), shapes, locs, w))
+            rec["copy_device_ms"] = device_ms(
+                lambda: k1._launch_fwd(value.clone(), shapes, locs, w))
+            if "vec" in inspect.signature(k1._launch_fwd).parameters:
+                # the other way: the narrower vector the value's address allows
+                rec["narrow_device_ms"] = device_ms(
+                    lambda: k1._launch_fwd(value, shapes, locs, w, vec=int(rec["path"])))
+        recs[name] = rec
+        del value, locs, w, out
+    return recs
+
+
+def k1_other_sweep(device_ms, lanes=(1, 2, 4, 8)):
+    """K1 at ``K1_OTHER_ROWS``' aligned rows over lanes per row, on the
+    row's vector width: device ms twice each, in turns."""
+    import torch
+
+    from occformer_tpu_torch.ops import trilerp_fused as k1
+
+    recs = {}
+    for name, dt, hd, offset in K1_OTHER_ROWS:
+        if offset:
+            continue
+        dtype = getattr(torch, dt)
+        value, shapes, locs, w = flagship_gather_inputs(dtype, False, hd=hd)
+        ms = {str(n): [] for n in lanes}
+        for n in lanes + lanes[::-1]:
+            ms[str(n)].append(device_ms(lambda: k1._launch_fwd(value, shapes, locs, w, lanes=n)))
+        recs[name] = {"device_ms_by_lanes": ms, "default": k1.ROW_LANES}
+        del value, locs, w
+    return recs
+
+
+def k4_other_rows(device_ms):
+    """K4 at ``K4_OTHER_ROWS`` on the path the checkout picks, as
+    ``k1_other_rows`` times K1 (8 FMAs per (sample, channel)), beside the
+    library's three F.grid_sample calls on channels-first copies of the
+    levels (grids in the tables' dtype); misaligned tables also with their
+    copies to aligned buffers timed as part of the call and, where the
+    checkout can force a width, read with the narrower vector."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import trilerp_fused as k4
+    from occformer_tpu_torch.utils.timing import bound, nbytes, time_cuda
+
+    recs = {}
+    for name, dt, C, offset in K4_OTHER_ROWS:
+        dtype = getattr(torch, dt)
+        tables, coords, _ = k4_inputs("flagship", dtype, C=C, offset=offset)
+        G = tables[0].shape[0]
+
+        def call():
+            return k4._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False)
+
+        outs = call()
+        ref = k4.fused_multilevel_gather_plain(tables, K4_PYRAMID, C, coords)
+        S_tot = sum(c.shape[1] for c in coords)
+        rec = {"path": str(k4.multi_fwd_path(C, dtype, [t.data_ptr() for t in tables])),
+               "row_path": str(k4.multi_fwd_path(C, dtype)),
+               "bit_equal_calls": all(torch.equal(a, b) for a, b in zip(outs, call())),
+               "max_abs_err": max((a.float() - b.float()).abs().max().item()
+                                  for a, b in zip(outs, ref)),
+               "max_abs_plain": max(b.float().abs().max().item() for b in ref),
+               "ms": time_cuda(call), "device_ms": device_ms(call),
+               "plain_ms": time_cuda(lambda: k4.fused_multilevel_gather_plain(
+                   tables, K4_PYRAMID, C, coords), iters=10),
+               "out_bytes": nbytes(*outs),
+               **bound(nbytes(*tables, *coords, *outs), G * S_tot * C * 8 * 2)}
+        rec["share_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+        del ref
+        vols = [t.reshape(G, X, Y, Z, C).permute(0, 4, 1, 2, 3).contiguous()
+                for t, (X, Y, Z) in zip(tables, K4_PYRAMID)]
+        grids = [c.flip(-1).reshape(G, -1, 1, 1, 3).to(dtype).contiguous() for c in coords]
+
+        def library():
+            return [F.grid_sample(v, g, mode="bilinear", padding_mode="zeros",
+                                  align_corners=False) for v, g in zip(vols, grids)]
+
+        rec["library_ms"] = time_cuda(library)
+        rec["library_device_ms"] = device_ms(library)
+        del vols, grids
+        if offset:
+            def copied():
+                return k4._launch_multi_fwd([t.clone() for t in tables], K4_PYRAMID, C, coords,
+                                            False)
+
+            rec["copy_ms"] = time_cuda(copied)
+            rec["copy_device_ms"] = device_ms(copied)
+            if "vec" in inspect.signature(k4._launch_multi_fwd).parameters:
+                rec["narrow_device_ms"] = device_ms(lambda: k4._launch_multi_fwd(
+                    tables, K4_PYRAMID, C, coords, False, vec=int(rec["path"])))
+        recs[name] = rec
+        del tables, coords, outs
+    return recs
 
 
 # the flagship DepthNet's deformable convolution: 6 cameras, 512 channels on
@@ -326,10 +495,9 @@ def k2_narrow_sweep(lanes=LANE_SWEEP, points=POINTS_SWEEP):
     return recs
 
 
-def k1_row_sweep(lanes=LANE_SWEEP, samples=SAMPLES_SWEEP):
-    """K1's row-wide path at the flagship's shapes over lanes per row and
-    samples a lane loads at a time, at uniform and local locations, bf16
-    and float32: ms twice each, in turns; and the scalar path once each."""
+def k1_row_sweep(lanes=LANE_SWEEP):
+    """K1 at the flagship's shapes over lanes per row, at uniform and local
+    locations, bf16 and float32: ms twice each, in turns."""
     import torch
 
     from occformer_tpu_torch.ops import trilerp_fused as k1
@@ -339,24 +507,31 @@ def k1_row_sweep(lanes=LANE_SWEEP, samples=SAMPLES_SWEEP):
     for dtype in (torch.bfloat16, torch.float32):
         for where, local in (("uniform", False), ("local", True)):
             value, shapes, locs, w = flagship_gather_inputs(dtype, local)
-            opts = [(n, k) for n in lanes for k in samples]
-            ms = {f"{n}x{k}": [] for n, k in opts}
-            for n, k in opts + opts[::-1]:
-                ms[f"{n}x{k}"].append(time_cuda(lambda: k1._launch_fwd(
-                    value, shapes, locs, w, path="row", lanes=n, samples=k)))
-            recs[f"{str(dtype)[6:]}_{where}"] = {
-                "ms_by_lanes_x_samples": ms,
-                "scalar_ms": time_cuda(lambda: k1._launch_fwd(value, shapes, locs, w,
-                                                              path="scalar"))}
+            ms = {str(n): [] for n in lanes}
+            for n in lanes + lanes[::-1]:
+                ms[str(n)].append(time_cuda(lambda: k1._launch_fwd(value, shapes, locs, w,
+                                                                   lanes=n)))
+            recs[f"{str(dtype)[6:]}_{where}"] = {"ms_by_lanes": ms}
             del value, locs, w
-    recs["default"] = f"{k1.ROW_LANES}x{k1.ROW_SAMPLES_PER_LANE}"
+    recs["default"] = k1.ROW_LANES
     return recs
+
+
+def digest(*tensors):
+    """sha256 of the tensors' bytes: two checkouts' outputs are bit-equal
+    when their digests are."""
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().view(-1).view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def device_ms_by_kernel(fn, iters=20):
     """Device ms per call of ``fn()`` by kernel name (its first 80
     characters), from the profiler, as ``utils/timing.py:device_ms`` sums
-    them, the trace opened by eight spin kernels of about 4 ms that the sums
+    them, the trace opened by 16 spin kernels of about 4 ms that the sums
     leave out, as ``utils/timing.py:lead_in`` does (kept here: ``--root``
     may import a checkout without either)."""
     import torch
@@ -366,7 +541,7 @@ def device_ms_by_kernel(fn, iters=20):
         fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(8):
+        for _ in range(16):
             torch.cuda._sleep(8_000_000)
         torch.cuda.synchronize()
         for _ in range(iters):
@@ -715,9 +890,9 @@ def main(argv=None) -> int:
                         "the lane groups of K2's, K2-bwd's narrow and K1's paths, and FPS's "
                         "cluster sizes")
     p.add_argument("--only", default=None,
-                   help="comma-separated groups to time (K1, K1-bwd, K2-bwd, K2, K3, K4, "
-                        "K4-bwd, S1, S1-rows, FPS, K2-bwd.narrow, step, serve); all by "
-                        "default")
+                   help="comma-separated groups to time (K1, K1.other, K1-bwd, K2-bwd, K2, "
+                        "K3, K4, K4.other, K4-bwd, S1, S1-rows, FPS, K2-bwd.narrow, step, "
+                        "serve); all by default")
     args = p.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -739,6 +914,8 @@ def main(argv=None) -> int:
     for dtype in (torch.bfloat16, torch.float32) if want("K1") else ():
         for where, local in (("uniform", False), ("local", True)):
             value, shapes, locs, w = flagship_gather_inputs(dtype, local)
+            rec[f"K1_{str(dtype)[6:]}_{where}_sha256"] = digest(
+                k1._launch_fwd(value, shapes, locs, w))
             rec[f"K1_{str(dtype)[6:]}_{where}_ms"] = time_cuda(
                 lambda: k1._launch_fwd(value, shapes, locs, w))
             rec[f"K1_{str(dtype)[6:]}_{where}_device_ms"] = device_ms(
@@ -902,11 +1079,19 @@ def main(argv=None) -> int:
     if want("K4"):
         for dtype in (torch.bfloat16, torch.float32):
             tables, coords, C = k4_inputs("flagship", dtype)
+            rec[f"K4_{str(dtype)[6:]}_sha256"] = digest(
+                *k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False))
             rec[f"K4_{str(dtype)[6:]}_ms"] = time_cuda(
+                lambda: k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False))
+            rec[f"K4_{str(dtype)[6:]}_device_ms"] = device_ms(
                 lambda: k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False))
         tables, coords, C = k4_inputs("gate")
         rec["K4_gate_f32_device_ms"] = device_ms(
             lambda: k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False))
+    if want("K1.other"):
+        rec["K1.other"] = k1_other_rows(device_ms)
+    if want("K4.other"):
+        rec["K4.other"] = k4_other_rows(device_ms)
     if args.sweep:
         if want("K2-bwd.narrow") and hasattr(k2, "column_lanes"):
             rec["K2-bwd.narrow_lanes_sweep"] = k2_bwd_narrow_lanes_sweep()
@@ -917,6 +1102,8 @@ def main(argv=None) -> int:
             rec["K2_narrow_sweep"] = k2_narrow_sweep()
         if want("K1"):
             rec["K1_row_sweep"] = k1_row_sweep()
+        if want("K1.other"):
+            rec["K1.other_sweep"] = k1_other_sweep(device_ms)
     print(json.dumps(rec), flush=True)
     return 0
 

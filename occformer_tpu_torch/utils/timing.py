@@ -13,6 +13,7 @@ import statistics
 
 H100_BYTES_PER_S = 3.35e12      # HBM3, H100 SXM data sheet
 H100_F32_FLOP_PER_S = 67e12     # float32 outside the tensor cores
+H100_BF16_FLOP_PER_S = 989.4e12  # dense bf16 on the tensor cores, H100 SXM data sheet
 
 
 def time_cuda(fn, iters: int = 30, warmup: int = 5) -> float:
@@ -37,10 +38,12 @@ def time_cuda(fn, iters: int = 30, warmup: int = 5) -> float:
 # The profiler can lose a trace's first device records: on an H100 machine
 # late in a long process it dropped the first 3-5 kernel records of most
 # traces as outside its capture window (kineto's "Out-of-range" count), the
-# first 30 ms of them in a trace of 7.7 ms kernels.  Every trace therefore
-# opens with LEAD_IN spin kernels of LEAD_IN_CYCLES clock cycles (about 4 ms
-# each at 1.98 GHz) and a synchronize, and its sums leave them out.
-LEAD_IN = 8
+# first 30 ms of them in a trace of 7.7 ms kernels, and on others about 35
+# ms three minutes into a run (one kernel past eight spin kernels of 4 ms).
+# Every trace therefore opens with LEAD_IN spin kernels of LEAD_IN_CYCLES
+# clock cycles (about 4 ms each at 1.98 GHz, 64 ms in all) and a
+# synchronize, and its sums leave them out.
+LEAD_IN = 16
 LEAD_IN_CYCLES = 8_000_000
 LEAD_IN_KERNEL = "spin_kernel"  # torch.cuda._sleep's kernel
 

@@ -17,8 +17,8 @@ The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_gpu.py (skipped without a GPU) and by chip_smoke.py.  Its
 row-wide path's order of sums (lanes owning whole samples, then a shuffle
 butterfly) is emulated here in torch and held to both references, and
-``ms_deform_fwd_path``, the wrapper's choice of path, is tested as the pure
-function it is.
+``ms_deform_fwd_path``, the wrapper's choice of vector width, is tested as
+the pure function it is.
 """
 from functools import partial
 
@@ -259,19 +259,26 @@ def test_fixed_order_d_value_matches_plain_and_pallas_vjp(spill):
 
 
 @pytest.mark.parametrize("hd,dtype,ptrs,want", [
-    (24, torch.bfloat16, (0, 0), "row"),       # the flagship, served under autocast
-    (24, torch.float32, (0, 256), "row"),      # the flagship in float32
-    (12, torch.float32, (0, 0), "row"),        # the tiny test model: 48-byte rows
-    (40, torch.bfloat16, (0, 0), "row"),
-    (8, torch.bfloat16, (0, 0), "row"),        # one vector a row
-    (12, torch.bfloat16, (0, 0), "scalar"),    # 24-byte rows
-    (6, torch.float32, (0, 0), "scalar"),
-    (24, torch.bfloat16, (8, 0), "scalar"),    # a value not 16-byte aligned
-    (24, torch.float32, (0, 4), "scalar"),     # an output not 16-byte aligned
-    (24, torch.float16, (0, 0), "scalar"),     # no kernel dtype
+    (24, torch.bfloat16, (0, 0), 16),          # the flagship, served under autocast
+    (24, torch.float32, (0, 256), 16),         # the flagship in float32
+    (12, torch.float32, (0, 0), 16),           # the tiny test model: 48-byte rows
+    (40, torch.bfloat16, (0, 0), 16),
+    (8, torch.bfloat16, (0, 0), 16),           # one vector a row
+    (12, torch.bfloat16, (0, 0), 8),           # 24-byte rows
+    (6, torch.float32, (0, 0), 8),
+    (7, torch.bfloat16, (0, 0), 2),            # 14-byte rows
+    (3, torch.float32, (0, 0), 4),
+    (24, torch.bfloat16, (8, 0), 8),           # a value 8 bytes past a 16-byte boundary
+    (24, torch.bfloat16, (2, 0), 2),
+    (24, torch.float32, (0, 4), 4),            # an output 4 bytes past one
+    (24, torch.float16, (0, 0), TypeError),    # no kernel dtype
 ])
 def test_ms_deform_fwd_path(hd, dtype, ptrs, want):
-    assert k1.ms_deform_fwd_path(hd, dtype, ptrs) == want
+    if want is TypeError:
+        with pytest.raises(TypeError):
+            k1.ms_deform_fwd_path(hd, dtype, ptrs)
+    else:
+        assert k1.ms_deform_fwd_path(hd, dtype, ptrs) == want
 
 
 def test_wrapper_on_cpu_runs_the_plain_version_without_launching():

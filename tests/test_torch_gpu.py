@@ -94,16 +94,15 @@ def test_kernel_matches_plain(cuda, dtype, hd):
 @pytest.mark.parametrize("lanes", [1, 2, 4, 8, 16, 32])
 def test_k1_row_path_matches_plain(cuda, dtype, hd, lanes):
     """K1's row-wide path (rows of whole 16-byte vectors) against the plain
-    version at every lane count of the sweep and 1-3 samples a lane at a
-    time; hd = 40 in float32 takes passes of 4 vectors.  Two calls of the
-    default are bit-equal and counted on the row path."""
+    version at every lane count of the sweep; hd = 40 in float32 takes
+    passes of 4 vectors.  Two calls of the default are bit-equal and counted
+    on the row path."""
     dt = getattr(torch, dtype)
     value, locs, w = _inputs(cuda, dt, hd=hd, seed=11)
-    assert k1.ms_deform_fwd_path(hd, dt, (value.data_ptr(),)) == "row"
+    assert k1.ms_deform_fwd_path(hd, dt, (value.data_ptr(),)) == 16
     ref = k1.ms_deform_gather_3d_plain(value.float(), SHAPES, locs, w.float())
-    for samples in (1, 2, 3):
-        got = k1._launch_fwd(value, SHAPES, locs, w, path="row", lanes=lanes, samples=samples)
-        _close(got, ref, _tol(dt), f"K1 row path, {lanes} lanes x {samples} samples")
+    got = k1._launch_fwd(value, SHAPES, locs, w, vec=16, lanes=lanes)
+    _close(got, ref, _tol(dt), f"K1 row path, {lanes} lanes")
     before = (k1.LAUNCHES, k1.ROW_LAUNCHES)
     got = k1.ms_deform_gather_3d(value, SHAPES, locs, w)
     again = k1.ms_deform_gather_3d(value, SHAPES, locs, w)
@@ -113,24 +112,59 @@ def test_k1_row_path_matches_plain(cuda, dtype, hd, lanes):
     _close(got, ref, _tol(dt), "K1 row path")
 
 
-def test_k1_scalar_path_for_other_rows(cuda):
-    """hd = 12 in bf16 (24-byte rows) and a float32 value 4 bytes past a
-    16-byte boundary keep one thread per channel."""
-    value, locs, w = _inputs(cuda, torch.bfloat16, hd=12, seed=12)
-    assert k1.ms_deform_fwd_path(12, torch.bfloat16, (value.data_ptr(),)) == "scalar"
-    v32, _, w32 = _inputs(cuda, torch.float32, hd=24, seed=13)
-    odd = torch.empty(v32.numel() + 1, device=cuda)[1:].view(v32.shape).copy_(v32)
-    assert odd.data_ptr() % 16 and k1.ms_deform_fwd_path(24, torch.float32,
-                                                         (odd.data_ptr(),)) == "scalar"
-    for v, ww, rel in ((value, w, 1e-2), (odd, w32, 1e-5)):
+# row widths of K1's and K4's other rows: one to 256 channels, vectors of 2,
+# 4, 8 and 16 bytes, rows of 1 to 256 vectors
+OTHER_WIDTHS = [1, 2, 3, 5, 6, 7, 12, 20, 24, 33, 64, 256]
+OFFSETS = [0, 2, 4, 8]  # bytes past a 16-byte boundary
+
+
+def _offset_copy(t, offset):
+    """``t``'s values in a view ``offset`` bytes past a 16-byte boundary."""
+    k = offset // t.element_size()
+    out = torch.empty(t.numel() + k, dtype=t.dtype, device=t.device)[k:].view(t.shape)
+    assert out.data_ptr() % 16 == offset
+    return out.copy_(t)
+
+
+def _widths(channels, dtype, offset):
+    """Every vector width the kernels take for such rows at such an address."""
+    esize = 2 if dtype == torch.bfloat16 else 4
+    return [vb for vb in (16, 8, 4, 2)
+            if vb >= esize and (channels * esize) % vb == 0 and offset % vb == 0]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", OTHER_WIDTHS)
+def test_k1_other_rows_at_every_vector_width(cuda, dtype, hd):
+    """K1 at every vector width its row and the value's address allow, the
+    value 0, 2 (bf16), 4 and 8 bytes past a 16-byte boundary, against the
+    plain version, two calls bit-equal; the default takes the row's own
+    width (a misaligned value copied to an aligned buffer) and every launch
+    is the row-wide kernel's; a width the row or the address does not take
+    raises."""
+    dt = getattr(torch, dtype)
+    base, locs, w = _inputs(cuda, dt, hd=hd, Nq=120, seed=12)
+    ref = k1.ms_deform_gather_3d_plain(base.float(), SHAPES, locs, w.float())
+    for offset in OFFSETS:
+        if offset % base.element_size():
+            continue
+        value = _offset_copy(base, offset) if offset else base
+        widths = _widths(hd, dt, offset)
+        assert k1.ms_deform_fwd_path(hd, dt, (value.data_ptr(),)) == widths[0]
+        for vb in widths:
+            got = k1._launch_fwd(value, SHAPES, locs, w, vec=vb)
+            again = k1._launch_fwd(value, SHAPES, locs, w, vec=vb)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (offset, vb)
+            _close(got, ref, _tol(dt), f"K1 hd={hd} +{offset} bytes, {vb}-byte vectors")
         before = (k1.LAUNCHES, k1.ROW_LAUNCHES)
-        got = k1.ms_deform_gather_3d(v, SHAPES, locs, ww)
+        got = k1.ms_deform_gather_3d(value, SHAPES, locs, w)
         torch.cuda.synchronize()
-        assert (k1.LAUNCHES - before[0], k1.ROW_LAUNCHES - before[1]) == (1, 0)
-        _close(got, k1.ms_deform_gather_3d_plain(v.float(), SHAPES, locs, ww.float()), rel,
-               "K1 scalar path")
-    with pytest.raises(RuntimeError):  # the row path refuses a misaligned value
-        k1._launch_fwd(odd, SHAPES, locs, w32, path="row")
+        assert (k1.LAUNCHES - before[0], k1.ROW_LAUNCHES - before[1]) == (1, 1)
+        _close(got, ref, _tol(dt), f"K1 hd={hd} +{offset} bytes")
+        for vb in {16, 8, 4, 2} - set(widths):
+            with pytest.raises(RuntimeError):
+                k1._launch_fwd(value, SHAPES, locs, w, vec=vb)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -830,47 +864,61 @@ def test_k4_backward_with_crowded_and_empty_rows(cuda, align_corners, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", ["gate", "flagship", "C8"])
 def test_k4_row_path_matches_plain(cuda, dtype, case):
-    """K4's row-wide forward against the plain version and against the
-    scalar path at bench.py's parity-gate shapes (S = 512, coords in
-    [-1.1, 1.1]), at the flagship's (S_l = 149504) and at C = 8; two calls
-    bit-equal."""
+    """K4's row-wide forward with 16-byte vectors against the plain version
+    at bench.py's parity-gate shapes (S = 512, coords in [-1.1, 1.1]), at the
+    flagship's (S_l = 149504) and at C = 8; two calls bit-equal."""
     dt = getattr(torch, dtype)
     C, S, spill = {"gate": (24, 512, 1.1), "flagship": (24, 149504, 1.036),
                    "C8": (8, 3000, 1.1)}[case]
     tables, coords = _k4_inputs(cuda, dt, K4_PYRAMID, G=8, C=C, S=S, spill=spill)
-    assert k1.multi_fwd_path(C, dt, [t.data_ptr() for t in tables]) == "row"
+    assert k1.multi_fwd_path(C, dt, [t.data_ptr() for t in tables]) == 16
     before = (k1.MULTI_LAUNCHES, k1.MULTI_ROW_LAUNCHES)
     got = k1.fused_multilevel_gather(tables, K4_PYRAMID, C, coords)
     again = k1.fused_multilevel_gather(tables, K4_PYRAMID, C, coords)
     torch.cuda.synchronize()
     assert (k1.MULTI_LAUNCHES - before[0], k1.MULTI_ROW_LAUNCHES - before[1]) == (2, 2)
-    scalar = k1._launch_multi_fwd(tables, K4_PYRAMID, C, coords, False, path="scalar")
     ref = k1.fused_multilevel_gather_plain(tables, K4_PYRAMID, C, coords)
     for l in range(len(K4_PYRAMID)):
         assert got[l].dtype == dt and torch.equal(got[l], again[l])
         _close(got[l], ref[l], _tol(dt), f"K4 row path level {l}")
-        _close(scalar[l], ref[l], _tol(dt), f"K4 scalar path level {l}")
 
 
-def test_k4_scalar_path_for_other_rows(cuda):
-    """Rows that are not 16-byte vectors (C = 6), and a table that is not
-    16-byte aligned, keep the scalar path."""
-    tables, coords = _k4_inputs(cuda, torch.float32, K4_PYRAMID[1:], G=2, C=6, S=300, spill=1.2)
-    assert k1.multi_fwd_path(6, torch.float32) == "scalar"
-    X, Y, Z = K4_PYRAMID[1]
-    odd = torch.empty(2 * X * Y * Z * 8 + 1, device=cuda)[1:].view(2, X * Y, Z * 8)
-    odd.copy_(torch.randn(odd.shape, device=cuda))
-    ok = torch.randn((2, 16 * 16, 2 * 8), device=cuda)
-    assert k1.multi_fwd_path(8, torch.float32, [odd.data_ptr(), ok.data_ptr()]) == "scalar"
-    cases = ((tables, K4_PYRAMID[1:], 6, coords),
-             ([odd, ok], K4_PYRAMID[1:], 8, coords))
-    for tbl, spatials, C, crd in cases:
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", OTHER_WIDTHS)
+def test_k4_other_rows_at_every_vector_width(cuda, dtype, C):
+    """K4 at every vector width its row and the tables' addresses allow, the
+    tables 0, 2 (bf16), 4 and 8 bytes past a 16-byte boundary, against the
+    plain version, two calls bit-equal; the default takes the row's own
+    width (a misaligned table copied to an aligned buffer) and every launch
+    is the row-wide kernel's; a width the row or an address does not take
+    raises."""
+    dt = getattr(torch, dtype)
+    spatials = K4_PYRAMID[1:]
+    base, coords = _k4_inputs(cuda, dt, spatials, G=2, C=C, S=300, spill=1.2)
+    ref = k1.fused_multilevel_gather_plain(base, spatials, C, coords)
+    for offset in OFFSETS:
+        if offset % base[0].element_size():
+            continue
+        # the first table at the offset, the other aligned
+        tables = [_offset_copy(base[0], offset) if offset else base[0], base[1]]
+        widths = _widths(C, dt, offset)
+        assert k1.multi_fwd_path(C, dt, [t.data_ptr() for t in tables]) == widths[0]
+        for vb in widths:
+            got = k1._launch_multi_fwd(tables, spatials, C, coords, False, vec=vb)
+            again = k1._launch_multi_fwd(tables, spatials, C, coords, False, vec=vb)
+            torch.cuda.synchronize()
+            for l, (g, a, r) in enumerate(zip(got, again, ref)):
+                assert torch.equal(g, a), (offset, vb, l)
+                _close(g, r, _tol(dt), f"K4 C={C} +{offset} bytes, {vb}-byte vectors, level {l}")
         before = (k1.MULTI_LAUNCHES, k1.MULTI_ROW_LAUNCHES)
-        got = k1.fused_multilevel_gather(tbl, spatials, C, crd)
+        got = k1.fused_multilevel_gather(tables, spatials, C, coords)
         torch.cuda.synchronize()
-        assert (k1.MULTI_LAUNCHES - before[0], k1.MULTI_ROW_LAUNCHES - before[1]) == (1, 0)
-        for g, r in zip(got, k1.fused_multilevel_gather_plain(tbl, spatials, C, crd)):
-            _close(g, r, 1e-5, f"K4 scalar path C={C}")
+        assert (k1.MULTI_LAUNCHES - before[0], k1.MULTI_ROW_LAUNCHES - before[1]) == (1, 1)
+        for l, (g, r) in enumerate(zip(got, ref)):
+            _close(g, r, _tol(dt), f"K4 C={C} +{offset} bytes, level {l}")
+        for vb in {16, 8, 4, 2} - set(widths):
+            with pytest.raises(RuntimeError):
+                k1._launch_multi_fwd(tables, spatials, C, coords, False, vec=vb)
 
 
 def test_k4_without_coordinate_gradient_and_rejects(cuda):
@@ -1318,7 +1366,7 @@ def test_k4_at_the_warp_and_shift_shapes(cuda, case, align_corners, dtype):
     yx = rng.uniform(-1.15, 1.15, (G, S * H * W, 2)).astype(np.float32)
     coords = torch.from_numpy(np.concatenate([yx, np.zeros_like(yx[..., :1])], -1)).to(cuda)
     spatials = [(H, W, 1)]
-    assert k1.multi_fwd_path(C, dt, [table.data_ptr()]) == "row"
+    assert k1.multi_fwd_path(C, dt, [table.data_ptr()]) == 16
     _k4_against_plain([table], [coords], spatials, C, align_corners, dt)
     gen = torch.Generator(device=cuda).manual_seed(2)
     gout = [torch.randn((G, C, S * H * W), device=cuda, generator=gen).to(dt)]
@@ -1727,3 +1775,38 @@ def test_voxnet_tiny_train_step_repeats_itself(cuda):
     assert da.reduce_conv.weight.grad is not None
     for a, b in zip(ga, gb):
         assert torch.equal(a, b)
+
+
+def test_analytic_count_on_the_card_equals_the_plain_versions(cuda):
+    """``utils/flops.py``'s count of a tiny frame (the deployment forward)
+    and of a tiny train step on the card, with the kernels, equals the count
+    on the CPU with the plain versions: K1 (forward and backward), S1 and
+    the im2col backward of the DepthNet's dilated convolutions report what
+    their plain versions run."""
+    import os
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.synthetic import make_serving_batch, make_train_batch
+    from occformer_tpu_torch.engine.optim import build_optimizer_from_config
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+    from occformer_tpu_torch.tools.model_analysis import forward_flops
+    from occformer_tpu_torch.utils.flops import count_flops
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cfg = load_config(os.path.join(repo, "occformer_tpu_torch", "configs", "synthetic_tiny.py"))
+    m = cfg["model"]
+    counts = {}
+    for dev in (torch.device("cpu"), cuda):
+        before = k1.LAUNCHES
+        model = build_model(m, device=dev, seed=0)
+        fwd = forward_flops(model, make_serving_batch(cfg, seed=0))
+        step = build_train_step(model.train(), build_optimizer_from_config(model, cfg, 16),
+                                build_loss_cfg(m["pts_bbox_head"], m["train_cfg"]["pts"]),
+                                device=dev)
+        train = count_flops(step, make_train_batch(cfg, seed=0),
+                            torch.Generator(device=dev).manual_seed(0))
+        counts[dev.type] = (fwd, train, k1.LAUNCHES - before)
+    assert counts["cpu"][2] == 0 and counts["cuda"][2] > 0  # the kernels ran on the card
+    for i in (0, 1):
+        assert counts["cuda"][i] == counts["cpu"][i] and counts["cpu"][i]["total"] > 0

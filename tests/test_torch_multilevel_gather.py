@@ -202,15 +202,21 @@ def test_probe_plain_versions_pass_the_jax_probe_checks():
 
 
 @pytest.mark.parametrize("C,dtype,ptrs,want", [
-    (24, torch.bfloat16, (0, 256, 512), "row"),    # the deformable attention's, bf16
-    (24, torch.float32, (0, 256, 512), "row"),     # ... and float32
-    (8, torch.bfloat16, (), "row"),
-    (4, torch.float32, (), "row"),
-    (6, torch.float32, (), "scalar"),              # 24-byte rows
-    (17, torch.float32, (), "scalar"),
-    (12, torch.bfloat16, (), "scalar"),
-    (24, torch.float16, (), "scalar"),             # not a dtype of the row path
-    (24, torch.bfloat16, (0, 8, 512), "scalar"),   # a table not 16-byte aligned
+    (24, torch.bfloat16, (0, 256, 512), 16),    # the deformable attention's, bf16
+    (24, torch.float32, (0, 256, 512), 16),     # ... and float32
+    (8, torch.bfloat16, (), 16),
+    (4, torch.float32, (), 16),
+    (6, torch.float32, (), 8),                  # 24-byte rows
+    (17, torch.float32, (), 4),
+    (12, torch.bfloat16, (), 8),
+    (5, torch.bfloat16, (), 2),
+    (24, torch.float16, (), TypeError),         # not a dtype of the kernel
+    (24, torch.bfloat16, (0, 8, 512), 8),       # a table 8 bytes past a 16-byte boundary
+    (24, torch.float32, (0, 4, 512), 4),
 ])
 def test_multi_fwd_path(C, dtype, ptrs, want):
-    assert k4.multi_fwd_path(C, dtype, ptrs) == want
+    if want is TypeError:
+        with pytest.raises(TypeError):
+            k4.multi_fwd_path(C, dtype, ptrs)
+    else:
+        assert k4.multi_fwd_path(C, dtype, ptrs) == want

@@ -267,6 +267,25 @@ Phases, each printing one JSON line:
                  and the thread-block cluster it took, each op timed, the
                  sparse convs' gather backend held to the dense one at
                  [128, 128, 16].
+  34. benchmark, memory (right after phase 7), export (last, in this
+                 process beside the R101, panoptic and KITTI CLI phases, which
+                 launch kernels only in their CLI processes): the JAX package's
+                 last tools on the flagship.  benchmark: tools/benchmark.py
+                 --stage-breakdown (its JSON line; the image encoder, then
+                 the program through the pixel decoder, then the whole
+                 forward, each slower).  memory: tools/memory_analysis.py's
+                 per-layer train step (bytes by component, the peak of each
+                 stage; the step's peak within 3% of phase 6's, every
+                 stage's at or below it).  export: torch.library.opcheck of
+                 every kernel op's CUDA implementation; the serving forward
+                 (tools/export_model.py) exported at a serving frame, its
+                 occformer::* nodes equal by kernel to an eager call's launch
+                 counts and no operator doing a kernel's work beside them;
+                 the archive loaded and run in a fresh process that imports
+                 only occformer_tpu_torch.ops, its scores the eager call's
+                 bit for bit, or within 1e-2 on the bf16 route (largest gap,
+                 argmax agreement); with the serve phase's frames beside the
+                 median frame before the kernels became dispatcher ops.
 The cli phase (9) also fuses step_2 (tools/fuse_conv_bn.py) and serves one
 frame from the fused checkpoint, within 1e-4 of the unfused one's.
 In phases 0, 2, 6, 7, 8, 11, 12, 13, 15, 16, 19, 20, 23, 24, 27, 28, 29, 31,
@@ -429,15 +448,17 @@ def say(line):
         sys.stdout.flush()
 
 
-def side_by_side(*calls):
+def side_by_side(*calls, main=None):
     """Each ``(fn, *args)`` in a thread of its own, all at once (phases that
-    only drive CLI processes); their results in order once all have ended,
-    the first failure raised then."""
+    only drive CLI processes), and ``main``, where given, in this thread
+    meanwhile; their results in order (``main``'s last) once all have
+    ended, the first failure raised then."""
     from concurrent.futures import ThreadPoolExecutor
 
     with ThreadPoolExecutor(len(calls)) as pool:
         futures = [pool.submit(fn, *args) for fn, *args in calls]
-    return [f.result() for f in futures]
+        ran = [main[0](*main[1:])] if main else []
+    return [f.result() for f in futures] + ran
 
 
 def check(cond, msg):
@@ -2073,6 +2094,7 @@ def phase_serve():
     reset_launches()  # the main path's run starts here
     frames_ms, peak, resident, out = serve_frames(step, batch)
     n = launches()  # ... and ends here
+    SERVE_FRAMES_MS[:] = frames_ms[1:]
 
     P = batch["lidar_xyz"].shape[1]
     rec = {"phase": "serve", "config": "occformer_nusc_r50_256x704",
@@ -2166,6 +2188,7 @@ def phase_train(mxu_readout="off"):
     g = torch.Generator(device="cuda").manual_seed(0)
     name = "train" if mxu_readout == "off" else "train_batched"
     run = train_phase(name, step, [batch], TRAIN_LAUNCHES[mxu_readout], 4, g)
+    TRAIN_PEAK[mxu_readout] = run["peak_memory_bytes"]
     moved = {k: (p.detach() - watch[k]).abs().max().item()
              for k, p in model.named_parameters() if k in watch}
     check(moved["img_backbone.conv1.weight"] == 0.0, "the frozen stem moved")
@@ -2186,6 +2209,161 @@ def phase_train(mxu_readout="off"):
     rec["analytic"] = analytic_train(name, step, batch, g, run["step_s"])
     emit(rec)
     return run["launches"]
+
+
+# the serving phase's frames (ms), beside the median frame before the
+# kernels became dispatcher ops (PERF.md section 5: 129.2 ms on an H100 80GB
+# HBM3 at 700 W), so that a slower host path through the dispatcher shows
+SERVE_FRAMES_MS = []
+REFERENCE_MEDIAN_FRAME_MS = 129.2
+# the per-layer train phase's peak bytes, which the memory tool's step repeats
+TRAIN_PEAK = {}
+
+
+def phase_benchmark():
+    """``tools/benchmark.py`` on the flagship with ``--stage-breakdown``:
+    its JSON line, the image encoder faster than the program through the
+    pixel decoder, and that faster than the whole forward."""
+    from occformer_tpu_torch.tools import benchmark
+
+    rec = benchmark.run(CONFIG, stage_breakdown=True)
+    emit({"phase": "benchmark", **rec})
+    check(rec["img_encoder_ms"] < rec["through_neck_ms"] < rec["full_ms"],
+          f"benchmark stages out of order: {rec}")
+
+
+def phase_memory():
+    """``tools/memory_analysis.py`` on the flagship's per-layer train step:
+    its JSON line; the step's peak within 3% of the ``train`` phase's, and
+    every stage's peak at or below that."""
+    from occformer_tpu_torch.tools import memory_analysis
+
+    rec = memory_analysis.analyze(CONFIG, mxu_readout="off")
+    peak = TRAIN_PEAK["off"]
+    gib = 2.0 ** 30
+    rec.update(phase="memory", train_phase_peak_gib=peak / gib)
+    emit(rec)
+    check(abs(rec["total_gib"] * gib - peak) <= 0.03 * peak,
+          f"memory: the step's peak {rec['total_gib']} GiB against the train phase's "
+          f"{peak / gib} GiB")
+    check(all(v * gib <= 1.03 * peak for v in rec["stage_peak_gib"].values()),
+          f"memory: stage peaks {rec['stage_peak_gib']} above the train phase's {peak / gib}")
+
+
+# runs an exported serving program in a process that imports nothing of the
+# port but its ops: argv = archive, batch file, output file
+_LOAD_EXPORTED = """
+import json, sys
+import torch
+sys.path.insert(0, sys.argv[1])
+import occformer_tpu_torch.ops as ops
+extra = {"compute_dtype": ""}
+ep = torch.export.load(sys.argv[2], extra_files=extra)
+name = extra["compute_dtype"]
+batch = torch.load(sys.argv[3])
+ops.reset_launch_counts()
+with torch.no_grad(), torch.autocast("cuda", dtype=getattr(torch, name),
+                                     enabled=name != "float32"):
+    out = ep.module()(batch)
+torch.cuda.synchronize()
+torch.save(out.cpu(), sys.argv[4])
+print(json.dumps({"compute_dtype": name, "launches": ops.launch_counts(),
+                  "modules": sorted(m for m in sys.modules if m.startswith("occformer"))}))
+"""
+
+
+def phase_export():
+    """The flagship's serving function (``tools/export_model.py``) exported
+    on the card at a serving frame: one ``occformer::*`` node per kernel
+    launch of an eager call (launch counts), no operator that does a
+    kernel's work outside them; the archive loaded and run in a fresh
+    process that imports only ``occformer_tpu_torch.ops``, whose scores
+    are the eager call's bit for bit, or within 1e-2 on the bf16 route;
+    ``torch.library.opcheck`` of every op's CUDA implementation."""
+    import torch
+
+    from occformer_tpu_torch.config import load_config
+    from occformer_tpu_torch.data.synthetic import make_serving_batch
+    from occformer_tpu_torch.engine.eval import to_device_batch
+    from occformer_tpu_torch.models.detector import build_model
+    from occformer_tpu_torch.ops import library
+    from occformer_tpu_torch.tools import export_model
+
+    rec = {"phase": "export", "torch": torch.__version__,
+           "serve_frame_ms": SERVE_FRAMES_MS,
+           "serve_median_frame_ms": float(np.median(SERVE_FRAMES_MS)),
+           "reference_median_frame_ms": REFERENCE_MEDIAN_FRAME_MS}
+    cfg = load_config(CONFIG)
+    dtype = export_model.compute_dtype_of(cfg)
+    model = build_model(cfg["model"], device="cuda", dtype=torch.float32, seed=0)
+    frame = make_serving_batch(cfg, seed=0)
+    batch = to_device_batch({k: v for k, v in frame.items() if not k.startswith("lidar")},
+                            torch.device("cuda"))
+    export_model.eager_serving(model, batch, dtype)  # warm-up
+    reset_launches()
+    eager = export_model.eager_serving(model, batch, dtype)
+    torch.cuda.synchronize()
+    eager_launches = {k: launches()[k] for k in library.OPS}
+    check(eager_launches == {k: SERVE_LAUNCHES[k] for k in library.OPS},
+          f"export: an eager call launched {eager_launches}")
+    t0 = time.perf_counter()
+    ep = export_model.export_serving(model, batch, dtype)
+    rec["export_s"] = time.perf_counter() - t0
+    rec["graph_ops"] = library.graph_op_counts(ep.graph_module)
+    check(rec["graph_ops"] == eager_launches,
+          f"export: graph ops {rec['graph_ops']} != eager launches {eager_launches}")
+    plain = sorted({str(n.target) for n in ep.graph.nodes
+                    if any(p in str(n.target) for p in ("grid_sampler", "index_add",
+                                                          "index_put"))})
+    rec["plain_kernel_operators"] = plain
+    check(not plain, f"export: operators that do a kernel's work in the graph: {plain}")
+    same = export_model.run_exported(ep, dtype, batch)
+    rec["in_process_max_abs_gap"] = (same.float() - eager.float()).abs().max().item()
+
+    tmp = tempfile.mkdtemp(prefix="occformer_export_")
+    try:
+        path = os.path.join(tmp, "flagship.pt2")
+        t0 = time.perf_counter()
+        rec["archive_bytes"] = export_model.save_exported(ep, path, dtype)
+        rec["save_s"] = time.perf_counter() - t0
+        torch.save(batch, os.path.join(tmp, "batch.pt"))
+        t0 = time.perf_counter()
+        proc = subprocess.Popen([sys.executable, "-c", _LOAD_EXPORTED, REPO, path,
+                                 os.path.join(tmp, "batch.pt"), os.path.join(tmp, "out.pt")],
+                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        try:
+            # every op's CUDA implementation, while the fresh process starts
+            rec["opcheck"] = {op: library.opcheck(op, device="cuda")
+                              for op in library.OPS.values()}
+            rec["opcheck_s"] = time.perf_counter() - t0
+            out, err = proc.communicate(timeout=600)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        rec["fresh_process_s"] = time.perf_counter() - t0
+        check(all(set(r.values()) == {"SUCCESS"} for r in rec["opcheck"].values()),
+              f"opcheck on the card: {rec['opcheck']}")
+        check(proc.returncode == 0, f"export: the fresh process failed:\n{err[-3000:]}")
+        child = json.loads(out.strip().splitlines()[-1])
+        got = torch.load(os.path.join(tmp, "out.pt")).cuda()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rec["fresh_process"] = child
+    check(not any(m.startswith(("occformer_tpu_torch.models", "occformer_tpu_torch.tools",
+                                "occformer_tpu_torch.engine")) for m in child["modules"]),
+          f"export: the fresh process imported {child['modules']}")
+    check({k: child["launches"][k] for k in library.OPS} == eager_launches,
+          f"export: the loaded program launched {child['launches']}")
+    gap = (got.float() - eager.float()).abs().max().item()
+    rec.update(max_abs_gap=gap, bit_equal=bool(torch.equal(got, eager)),
+               argmax_agreement=(got.argmax(-1) == eager.argmax(-1)).float().mean().item(),
+               shape=list(got.shape), dtype=str(got.dtype))
+    check(got.shape == eager.shape and got.dtype == eager.dtype,
+          f"export: output {got.shape} {got.dtype}, eager {eager.shape} {eager.dtype}")
+    check(rec["bit_equal"] or (dtype is not None and gap <= 1e-2),
+          f"export: the loaded program's scores differ from the eager call's by {gap}")
+    emit(rec)
 
 
 def compare_routes(model, batch, loss_cfg):
@@ -5197,6 +5375,9 @@ def main():
         det = timed("reload_determinism", phase_determinism)
         train_n = timed("train", phase_train, "off")
         train_batched_n = timed("train_batched", phase_train, "on")
+        # the JAX package's last tools on the flagship (the export at the end)
+        timed("benchmark", phase_benchmark)
+        timed("memory", phase_memory)
         tree = tempfile.mkdtemp(prefix="occformer_nusc_")
         try:
             data, ann = timed("data", phase_data, tree)
@@ -5231,9 +5412,12 @@ def main():
             kitti_serve_n = timed("kitti_serve", phase_kitti_serve, kitti_root)
             kitti_train_n = timed("kitti_train", phase_kitti_train, kitti_root)
             # the three configurations' CLI phases run side by side: each is
-            # two CLI processes, most of whose time is start-up on the host
-            timed("r101_pan_kitti_cli", side_by_side, (phase_r101_cli, tree, ann),
-                  (phase_pan_cli, tree, ann), (phase_kitti_cli, kitti_root))
+            # two CLI processes, most of whose time is start-up on the host;
+            # the export phase runs in this process meanwhile, the only one
+            # here that launches kernels in it (its launch counts are its own)
+            timed("r101_pan_kitti_cli_and_export", side_by_side, (phase_r101_cli, tree, ann),
+                  (phase_pan_cli, tree, ann), (phase_kitti_cli, kitti_root),
+                  main=(phase_export,))
         finally:
             shutil.rmtree(tree, ignore_errors=True)
     finally:

@@ -16,7 +16,7 @@ phase is a ``torch.profiler`` range (``stage:forward``, ``stage:loss``,
 from __future__ import annotations
 
 import contextlib
-from typing import Callable, Dict, List, Optional, Union
+from typing import Callable, ContextManager, Dict, List, Optional, Union
 
 import torch
 from torch.nn.parallel import DistributedDataParallel
@@ -140,7 +140,8 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                      loss_cfg: MaskLossConfig,
                      device: Union[str, torch.device, None] = None,
                      compute_dtype: Optional[torch.dtype] = None,
-                     accum_steps: int = 1) -> Callable:
+                     accum_steps: int = 1,
+                     stage_hook: Optional[Callable[[str], ContextManager]] = None) -> Callable:
     """Returns ``train_step(batch, generator, draws=None) -> metrics``.
 
     ``batch``: numpy arrays or tensors, the model's inputs plus ``gt_occ``
@@ -180,7 +181,10 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
     model must already be there.  It does not change the model's mode: call
     ``model.train()`` first for the train-mode forward.  ``compute_dtype``
     (e.g. ``torch.bfloat16``) runs the forward under ``torch.autocast``; the
-    losses always run in float32.
+    losses always run in float32.  ``stage_hook(name)``, where given, is a
+    context the step enters around each of its stages (``forward``,
+    ``loss``, ``backward``, ``optimizer``) inside the stage's profiler
+    range, e.g. ``tools/memory_analysis.py``'s peak by stage.
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
@@ -203,11 +207,17 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
             return contextlib.nullcontext()
         return torch.autocast(dev.type, dtype=compute_dtype)
 
+    @contextlib.contextmanager
+    def stage(name):
+        with record_function(f"stage:{name}"), \
+                (stage_hook(name) if stage_hook is not None else contextlib.nullcontext()):
+            yield
+
     def micro_step(batch, generator, draws):
         """Forward, losses and backward of one micro-batch; its metrics."""
-        with record_function("stage:forward"), autocast(), drop_path_generator(generator):
+        with stage("forward"), autocast(), drop_path_generator(generator):
             out = model(batch)
-        with record_function("stage:loss"):
+        with stage("loss"):
             L = out["cls_preds"].shape[0]
             ids = batch["panoptic_ids"] if loss_cfg.panoptic else None
             if draws is None and loss_cfg.use_lidar_points:
@@ -221,7 +231,7 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
                 batch["gt_depth"], out["depth_prob"], vt.grid_config, vt.downsample,
                 vt.loss_depth_weight)
             total = sum(v for k, v in losses.items() if "loss" in k)
-        with record_function("stage:backward"):
+        with stage("backward"):
             total.backward()
         metrics = {k: v.detach() for k, v in losses.items()}
         metrics["total_loss"] = total.detach()
@@ -264,7 +274,7 @@ def build_train_step(model: torch.nn.Module, optimizer: TrainOptimizer,
             summed = all_reduce_sum(torch.stack([metrics[k].float() for k in keys]))
             metrics.update({k: v if k == "unassigned_gt" else v / world
                             for k, v in zip(keys, summed)})
-        with record_function("stage:optimizer"):
+        with stage("optimizer"):
             metrics["grad_norm"] = optimizer.step()
         return metrics
 

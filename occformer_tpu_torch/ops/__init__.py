@@ -5,7 +5,13 @@ Pallas kernels, ``scatter`` (S1, the LSS splat, and S1-rows, the splat of
 given rows, which the JAX package leaves to XLA) and ``pointcloud`` (FPS,
 furthest-point sampling, a ``fori_loop`` in the JAX package).
 
-Each wrapper counts its kernel's launches in a module-level integer
+Every kernel is a ``torch.library`` custom op in the ``occformer``
+namespace (``library.OPS``), registered when this package is imported: a
+process that loads an exported program imports ``occformer_tpu_torch.ops``
+and nothing else of the port.
+
+Each op's CUDA implementation counts its kernel's launches in a
+module-level integer
 ("K2" and "K2-bwd" count both paths of their kernel, "K2.row" and
 "K2-bwd.narrow" one path alone; "K1.row" and "K4.row" count the row-wide
 kernel, which every launch of K1 and K4 takes);
@@ -13,7 +19,9 @@ kernel, which every launch of K1 and K4 takes);
 sets them to 0.
 """
 
-# kernel name -> (module, counter) of its wrapper
+from . import library, loss_gather, pointcloud, probe, scatter, trilerp, trilerp_fused
+
+# kernel name -> (module, counter) of its op's CUDA implementation
 _COUNTERS = {"K1": ("trilerp_fused", "LAUNCHES"), "K1.row": ("trilerp_fused", "ROW_LAUNCHES"),
              "K1-bwd": ("trilerp_fused", "BWD_LAUNCHES"),
              "K2": ("trilerp", "LAUNCHES"), "K2.row": ("trilerp", "ROW_LAUNCHES"),
@@ -27,18 +35,15 @@ _COUNTERS = {"K1": ("trilerp_fused", "LAUNCHES"), "K1.row": ("trilerp_fused", "R
              "S1": ("scatter", "LAUNCHES"), "S1-rows": ("scatter", "ROWS_LAUNCHES"),
              "FPS": ("pointcloud", "FPS_LAUNCHES")}
 
-
-def _module(name):
-    import importlib
-
-    return importlib.import_module(f"{__name__}.{name}")
+_MODULES = {"trilerp_fused": trilerp_fused, "trilerp": trilerp, "loss_gather": loss_gather,
+            "probe": probe, "scatter": scatter, "pointcloud": pointcloud}
 
 
 def launch_counts() -> dict:
     """Launches of every kernel of the port since the last reset."""
-    return {k: getattr(_module(mod), var) for k, (mod, var) in _COUNTERS.items()}
+    return {k: getattr(_MODULES[mod], var) for k, (mod, var) in _COUNTERS.items()}
 
 
 def reset_launch_counts():
     for mod, var in _COUNTERS.values():
-        setattr(_module(mod), var, 0)
+        setattr(_MODULES[mod], var, 0)

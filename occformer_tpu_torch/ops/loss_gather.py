@@ -31,7 +31,7 @@ from typing import Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, library
 
 # launches of K3; a caller may reset it to 0
 LAUNCHES = 0
@@ -134,6 +134,43 @@ def _kernel_fn(name: str):
     return _FNS[name]
 
 
+@torch.library.custom_op(library.qualname("k3"), mutates_args=(), device_types="cuda")
+def _k3(id_grid: torch.Tensor, slot_ids: torch.Tensor, pts01: torch.Tensor,
+        align_corners: bool, padding_mode: str) -> torch.Tensor:
+    """K3 (the op's CUDA implementation)."""
+    global LAUNCHES
+    per_slot = pts01.dim() == 4
+    B, Xg, Yg, Zg = id_grid.shape
+    G = slot_ids.shape[1]
+    N = pts01.shape[0]
+    S = pts01.shape[-2]
+    out = torch.empty((N, G, S), dtype=torch.float32, device=id_grid.device)
+    name = "label_gather3d_per_slot" if per_slot else "label_gather3d_shared"
+    with torch.cuda.device(id_grid.device):
+        stream = torch.cuda.current_stream(id_grid.device).cuda_stream
+        rc = _kernel_fn(name)(
+            id_grid.data_ptr(), slot_ids.data_ptr(), pts01.data_ptr(), out.data_ptr(),
+            N, S, B, G, Xg, Yg, Zg, int(bool(align_corners)),
+            int(padding_mode == "border"), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
+    LAUNCHES += 1
+    return out
+
+
+@_k3.register_kernel("cpu")
+def _(id_grid, slot_ids, pts01, align_corners, padding_mode):
+    return sample_id_masks_plain(id_grid, slot_ids, pts01, align_corners, padding_mode)
+
+
+@_k3.register_fake
+def _(id_grid, slot_ids, pts01, align_corners, padding_mode):
+    N, G, S = pts01.shape[0], slot_ids.shape[1], pts01.shape[-2]
+    if id_grid.device.type == "cpu" and pts01.dim() == 3:  # the plain version's [N, S, G]
+        return pts01.new_empty((N, S, G), dtype=torch.float32).transpose(1, 2)
+    return pts01.new_empty((N, G, S), dtype=torch.float32)
+
+
 def sample_id_masks(id_grid: torch.Tensor, slot_ids: torch.Tensor,
                     pts01: torch.Tensor, align_corners: bool = False,
                     padding_mode: str = "border") -> torch.Tensor:
@@ -157,7 +194,7 @@ def sample_id_masks(id_grid: torch.Tensor, slot_ids: torch.Tensor,
                          f"{tuple(pts01.shape)}")
     tensors = (id_grid, slot_ids, pts01)
     if all(t.device.type == "cpu" for t in tensors):
-        return sample_id_masks_plain(id_grid, slot_ids, pts01, align_corners, padding_mode)
+        return _k3(id_grid, slot_ids, pts01.detach(), bool(align_corners), padding_mode)
     if not (id_grid.is_cuda and all(t.device == id_grid.device for t in tensors)):
         raise ValueError("id_grid, slot_ids and points must lie on one CUDA device; got "
                          f"{[str(t.device) for t in tensors]}")
@@ -167,20 +204,4 @@ def sample_id_masks(id_grid: torch.Tensor, slot_ids: torch.Tensor,
                         f"{id_grid.dtype}, {slot_ids.dtype} and {pts01.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("id_grid, slot_ids and points must be contiguous")
-    global LAUNCHES
-    B, Xg, Yg, Zg = id_grid.shape
-    G = slot_ids.shape[1]
-    N = pts01.shape[0]
-    S = pts01.shape[-2]
-    out = torch.empty((N, G, S), dtype=torch.float32, device=id_grid.device)
-    name = "label_gather3d_per_slot" if per_slot else "label_gather3d_shared"
-    with torch.cuda.device(id_grid.device):
-        stream = torch.cuda.current_stream(id_grid.device).cuda_stream
-        rc = _kernel_fn(name)(
-            id_grid.data_ptr(), slot_ids.data_ptr(), pts01.data_ptr(), out.data_ptr(),
-            N, S, B, G, Xg, Yg, Zg, int(bool(align_corners)),
-            int(padding_mode == "border"), stream)
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES += 1
-    return out
+    return _k3(id_grid, slot_ids, pts01.detach(), bool(align_corners), padding_mode)

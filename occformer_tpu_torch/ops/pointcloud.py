@@ -27,7 +27,7 @@ from typing import Optional, Sequence, Tuple
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, library
 
 BIG = 1e10
 
@@ -226,16 +226,30 @@ def _launch_fps(xyz, npoint, valid, cluster=0):
     return out
 
 
+@torch.library.custom_op(library.qualname("fps"), mutates_args=(), device_types="cuda")
+def _fps(xyz: torch.Tensor, npoint: int, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """FPS (the op's CUDA implementation)."""
+    return _launch_fps(xyz, npoint, valid)
+
+
+@_fps.register_kernel("cpu")
+def _(xyz, npoint, valid):
+    return furthest_point_sample_plain(xyz, npoint, valid)
+
+
+@_fps.register_fake
+def _(xyz, npoint, valid):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int32)
+
+
 def furthest_point_sample(xyz: torch.Tensor, npoint: int,
                           valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Iterative farthest-point sampling, [B, N, 3] -> [B, npoint] int32
     indices (see ``furthest_point_sample_plain``): the FPS kernel for CUDA
     tensors, the plain version for CPU tensors."""
-    if xyz.is_cuda:
-        if xyz.shape[1] < 1:
-            raise ValueError("furthest_point_sample needs at least one point")
-        return _launch_fps(xyz, npoint, valid)
-    return furthest_point_sample_plain(xyz, npoint, valid)
+    if xyz.is_cuda and xyz.shape[1] < 1:
+        raise ValueError("furthest_point_sample needs at least one point")
+    return _fps(xyz.detach(), int(npoint), None if valid is None else valid.detach())
 
 
 def three_nn(unknown: torch.Tensor, known: torch.Tensor,

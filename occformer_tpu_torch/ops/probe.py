@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from . import cuda_build
+from . import cuda_build, library
 
 # launches of P1 and P2; a caller may reset them to 0
 ADD_ONE_LAUNCHES = 0
@@ -46,14 +46,10 @@ def _stream(dev):
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def add_one(x: torch.Tensor) -> torch.Tensor:
-    """P1: ``x + 1``.  CUDA: contiguous float32 only."""
+@torch.library.custom_op(library.qualname("p1"), mutates_args=(), device_types="cuda")
+def _p1(x: torch.Tensor) -> torch.Tensor:
+    """P1 (the op's CUDA implementation)."""
     global ADD_ONE_LAUNCHES
-    if x.device.type == "cpu":
-        return add_one_plain(x)
-    if not (x.is_cuda and x.dtype == torch.float32 and x.is_contiguous()):
-        raise TypeError(f"add_one takes a contiguous float32 CUDA tensor; got "
-                        f"{x.dtype} on {x.device}")
     y = torch.empty_like(x)
     with torch.cuda.device(x.device):
         rc = _fn("probe_add_one", [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
@@ -65,26 +61,20 @@ def add_one(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
-def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """P2: ``out[s, :] = table[idx[s], :]`` for ``table [N, C]`` and
-    ``idx [S]``.  CUDA: contiguous float32 table and int32 indices on one
-    device; an index outside [0, N) gives a row of zeros there (the kernel
-    cannot raise without a synchronisation), where the plain version
-    raises."""
+@_p1.register_kernel("cpu")
+def _(x):
+    return add_one_plain(x)
+
+
+@_p1.register_fake
+def _(x):
+    return torch.empty_like(x)
+
+
+@torch.library.custom_op(library.qualname("p2"), mutates_args=(), device_types="cuda")
+def _p2(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """P2 (the op's CUDA implementation)."""
     global ROW_GATHER_LAUNCHES
-    if table.dim() != 2 or idx.dim() != 1:
-        raise ValueError(f"expected table [N, C] and idx [S]; got {tuple(table.shape)} "
-                         f"and {tuple(idx.shape)}")
-    if table.device.type == "cpu" and idx.device.type == "cpu":
-        return row_gather_plain(table, idx)
-    if not (table.is_cuda and idx.device == table.device):
-        raise ValueError(f"table and idx must lie on one CUDA device; got {table.device} "
-                         f"and {idx.device}")
-    if table.dtype != torch.float32 or idx.dtype != torch.int32:
-        raise TypeError(f"row_gather takes a float32 table and int32 indices; got "
-                        f"{table.dtype} and {idx.dtype}")
-    if not (table.is_contiguous() and idx.is_contiguous()):
-        raise ValueError("table and idx must be contiguous")
     N, C = table.shape
     out = torch.empty((idx.shape[0], C), dtype=table.dtype, device=table.device)
     with torch.cuda.device(table.device):
@@ -96,6 +86,46 @@ def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         raise RuntimeError(f"probe_row_gather launch failed: cudaError {rc}")
     ROW_GATHER_LAUNCHES += 1
     return out
+
+
+@_p2.register_kernel("cpu")
+def _(table, idx):
+    return row_gather_plain(table, idx)
+
+
+@_p2.register_fake
+def _(table, idx):
+    return table.new_empty((idx.shape[0], table.shape[1]))
+
+
+def add_one(x: torch.Tensor) -> torch.Tensor:
+    """P1: ``x + 1``.  CUDA: contiguous float32 only."""
+    if x.is_cuda and not (x.dtype == torch.float32 and x.is_contiguous()):
+        raise TypeError(f"add_one takes a contiguous float32 CUDA tensor; got "
+                        f"{x.dtype} on {x.device}")
+    return _p1(x)
+
+
+def row_gather(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """P2: ``out[s, :] = table[idx[s], :]`` for ``table [N, C]`` and
+    ``idx [S]``.  CUDA: contiguous float32 table and int32 indices on one
+    device; an index outside [0, N) gives a row of zeros there (the kernel
+    cannot raise without a synchronisation), where the plain version
+    raises."""
+    if table.dim() != 2 or idx.dim() != 1:
+        raise ValueError(f"expected table [N, C] and idx [S]; got {tuple(table.shape)} "
+                         f"and {tuple(idx.shape)}")
+    if table.device.type == "cpu" and idx.device.type == "cpu":
+        return _p2(table, idx)
+    if not (table.is_cuda and idx.device == table.device):
+        raise ValueError(f"table and idx must lie on one CUDA device; got {table.device} "
+                         f"and {idx.device}")
+    if table.dtype != torch.float32 or idx.dtype != torch.int32:
+        raise TypeError(f"row_gather takes a float32 table and int32 indices; got "
+                        f"{table.dtype} and {idx.dtype}")
+    if not (table.is_contiguous() and idx.is_contiguous()):
+        raise ValueError("table and idx must be contiguous")
+    return _p2(table, idx)
 
 
 def empty(device) -> None:

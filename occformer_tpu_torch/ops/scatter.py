@@ -6,14 +6,16 @@ frustum point's depth x context feature summed into its voxel.
 The JAX package's XLA scatter repeats its sums run to run; ``index_add_``
 on the card adds with float atomics in an order that changes from run to
 run, so two identical train steps differed in the last bits of their
-losses (PERF.md).  So ``voxel_scatter_lifted`` runs an autograd
-``Function`` whose forward, for CUDA tensors, is S1 (``csrc/voxel_splat.cu``):
+losses (PERF.md).  So ``voxel_scatter_lifted`` calls the op
+``occformer::s1`` (``ops/library.py``), whose CUDA implementation is S1
+(``csrc/voxel_splat.cu``):
 a counting sort of the valid points by voxel on the card (int32 rows
 computed from ``coords`` and ``valid``, each voxel's points in ascending
 point order) and a splat that takes each voxel's sum in that order, with
 no atomics, no library call and without storing the lift product, and
 writes the volume once in ``depth``'s dtype; for CPU tensors it is the
-plain version, ``voxel_scatter_plain`` (one ``index_add_`` per camera over
+CPU implementation the plain version, ``voxel_scatter_plain`` (one
+``index_add_`` per camera over
 ``voxel_rows``, sequential on the CPU, atomic on the card).  Its backward
 is gathers, deterministic too.  ``segments`` states the order S1's sort
 gives (a stable sort of ``voxel_rows``).  ``LAUNCHES`` counts S1's launches.
@@ -31,13 +33,13 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+from typing import List, Sequence
 
 import torch
 import torch.nn.functional as F
 
 from ..utils import flops
-from . import cuda_build
+from . import cuda_build, library
 
 # launches of the splat kernels (S1, S1-rows); a caller may reset them to 0
 LAUNCHES = 0
@@ -126,32 +128,45 @@ def _launch(depth, ctx, coords, valid, nx):
     return out
 
 
-class _Splat(torch.autograd.Function):
-    """S1 forward (the plain version for CPU tensors); the backward gathers
-    each point's row of the output gradient: d_depth[p] = <g[row p],
-    ctx[pixel p]>, d_ctx[pixel] = sum over the pixel's depth bins of
-    depth[p] * g[row p] (an invalid point's g is 0)."""
+@torch.library.custom_op(library.qualname("s1"), mutates_args=(), device_types="cuda")
+def _s1(depth: torch.Tensor, ctx: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+        nx: List[int]) -> torch.Tensor:
+    """S1 (the op's CUDA implementation)."""
+    return _launch(depth, ctx, coords, valid, nx)
 
-    @staticmethod
-    def forward(ctx_, depth, ctx, coords, valid, nx):
-        ctx_.save_for_backward(depth, ctx, coords, valid)
-        ctx_.nx = nx
-        if depth.is_cuda:
-            # the analytic count: the plain version's index_add_ updates
-            flops.add("scatter", depth.numel() * ctx.shape[-1])
-            return _launch(depth, ctx, coords, valid, nx)
-        n_rows = depth.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2])
-        return voxel_scatter_plain(depth, ctx, voxel_rows(coords, valid, nx), n_rows)
 
-    @staticmethod
-    def backward(ctx_, gout):
-        depth, ctx, coords, valid = ctx_.saved_tensors
-        rows = voxel_rows(coords, valid, ctx_.nx)
-        g = F.pad(gout.float(), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
-        g = g.view(*rows.shape, gout.shape[-1])                 # [B, N, D, fH, fW, C]
-        d_depth = (g * ctx[:, :, None].float()).sum(-1).to(depth.dtype)
-        d_ctx = (g * depth[..., None].float()).sum(2).to(ctx.dtype)
-        return d_depth, d_ctx, None, None, None
+@_s1.register_kernel("cpu")
+def _(depth, ctx, coords, valid, nx):
+    n_rows = depth.shape[0] * nx[0] * nx[1] * nx[2]
+    return voxel_scatter_plain(depth, ctx, voxel_rows(coords, valid, nx),
+                               n_rows).to(depth.dtype)
+
+
+@_s1.register_fake
+def _(depth, ctx, coords, valid, nx):
+    return depth.new_empty((depth.shape[0] * nx[0] * nx[1] * nx[2], ctx.shape[-1]))
+
+
+def _s1_setup(ctx, inputs, output):
+    depth, context, coords, valid, nx = inputs
+    ctx.save_for_backward(depth, context, coords, valid)
+    ctx.nx = nx
+
+
+def _s1_backward(ctx_, gout):
+    """Gathers each point's row of the output gradient: d_depth[p] =
+    <g[row p], ctx[pixel p]>, d_ctx[pixel] = sum over the pixel's depth
+    bins of depth[p] * g[row p] (an invalid point's g is 0)."""
+    depth, ctx, coords, valid = ctx_.saved_tensors
+    rows = voxel_rows(coords, valid, ctx_.nx)
+    g = F.pad(gout.float(), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
+    g = g.view(*rows.shape, gout.shape[-1])                 # [B, N, D, fH, fW, C]
+    d_depth = (g * ctx[:, :, None].float()).sum(-1).to(depth.dtype)
+    d_ctx = (g * depth[..., None].float()).sum(2).to(ctx.dtype)
+    return d_depth, d_ctx, None, None, None
+
+
+_s1.register_autograd(_s1_backward, setup_context=_s1_setup)
 
 
 def voxel_scatter_lifted(
@@ -183,8 +198,11 @@ def voxel_scatter_lifted(
                         f"valid on one device; got {depth.dtype} on {depth.device}, "
                         f"{ctx.dtype} on {ctx.device}, coords on {coords.device}, valid on "
                         f"{valid.device}")
-    out = _Splat.apply(depth.contiguous(), ctx.contiguous(), coords, valid, (X, Y, Z))
-    return out.reshape(B, X, Y, Z, C).to(depth.dtype)
+    # the plain version's index_add_ updates, which the analytic count does
+    # not see inside the op
+    flops.add("scatter", depth.numel() * C)
+    out = _s1(depth.contiguous(), ctx.contiguous(), coords, valid, [X, Y, Z])
+    return out.reshape(B, X, Y, Z, C)
 
 
 def voxel_scatter_plain_rows(feats: torch.Tensor, rows: torch.Tensor,
@@ -220,27 +238,41 @@ def _launch_rows(feats, coords, valid, nx):
     return out
 
 
-class _SplatRows(torch.autograd.Function):
-    """S1-rows forward (the plain version for CPU tensors); the backward
-    gathers each point's row of the output gradient, d_feats[p] = g[row p]
+@torch.library.custom_op(library.qualname("s1_rows"), mutates_args=(), device_types="cuda")
+def _s1_rows(feats: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+             nx: List[int]) -> torch.Tensor:
+    """S1-rows (the op's CUDA implementation)."""
+    return _launch_rows(feats, coords, valid, nx)
+
+
+@_s1_rows.register_kernel("cpu")
+def _(feats, coords, valid, nx):
+    n_rows = feats.shape[0] * nx[0] * nx[1] * nx[2]
+    return voxel_scatter_plain_rows(feats, voxel_rows(coords, valid, nx),
+                                    n_rows).to(feats.dtype)
+
+
+@_s1_rows.register_fake
+def _(feats, coords, valid, nx):
+    return feats.new_empty((feats.shape[0] * nx[0] * nx[1] * nx[2], feats.shape[-1]))
+
+
+def _s1_rows_setup(ctx, inputs, output):
+    feats, coords, valid, nx = inputs
+    ctx.save_for_backward(coords, valid)
+    ctx.nx, ctx.dtype = nx, feats.dtype
+
+
+def _s1_rows_backward(ctx_, gout):
+    """Gathers each point's row of the output gradient, d_feats[p] = g[row p]
     (0 for an invalid point)."""
+    coords, valid = ctx_.saved_tensors
+    rows = voxel_rows(coords, valid, ctx_.nx)
+    g = F.pad(gout, (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
+    return g.view(*rows.shape, gout.shape[-1]).to(ctx_.dtype), None, None, None
 
-    @staticmethod
-    def forward(ctx_, feats, coords, valid, nx):
-        ctx_.save_for_backward(coords, valid)
-        ctx_.nx, ctx_.dtype = nx, feats.dtype
-        if feats.is_cuda:
-            flops.add("scatter", feats.numel())  # the plain version's index_add_ updates
-            return _launch_rows(feats, coords, valid, nx)
-        n_rows = feats.shape[0] * int(nx[0]) * int(nx[1]) * int(nx[2])
-        return voxel_scatter_plain_rows(feats, voxel_rows(coords, valid, nx), n_rows)
 
-    @staticmethod
-    def backward(ctx_, gout):
-        coords, valid = ctx_.saved_tensors
-        rows = voxel_rows(coords, valid, ctx_.nx)
-        g = F.pad(gout, (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
-        return g.view(*rows.shape, gout.shape[-1]).to(ctx_.dtype), None, None, None
+_s1_rows.register_autograd(_s1_rows_backward, setup_context=_s1_rows_setup)
 
 
 def voxel_scatter(feats: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
@@ -266,5 +298,6 @@ def voxel_scatter(feats: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor
         raise TypeError(f"feats must be float32 or bfloat16 and lie with coords and valid on "
                         f"one device; got {feats.dtype} on {feats.device}, coords on "
                         f"{coords.device}, valid on {valid.device}")
-    out = _SplatRows.apply(feats.contiguous(), coords, valid, (X, Y, Z))
-    return out.reshape(B, X, Y, Z, C).to(feats.dtype)
+    flops.add("scatter", feats.numel())  # the plain version's index_add_ updates
+    out = _s1_rows(feats.contiguous(), coords, valid, [X, Y, Z])
+    return out.reshape(B, X, Y, Z, C)

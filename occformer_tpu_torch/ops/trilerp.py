@@ -11,8 +11,10 @@ Port of ``occformer_tpu/ops/trilerp.py:trilerp_gather_slab`` (Pallas
 ``[G, X*Y, Z*C]`` is the same memory as the table here.
 
 For CUDA tensors ``trilerp_sample`` launches the kernels of
-``csrc/trilerp_sample3d.cu`` through an autograd ``Function`` whose backward
-is K2-bwd (d_table, and d_coords when the coordinates require grad).  K2-bwd
+``csrc/trilerp_sample3d.cu`` through the op ``occformer::k2_fwd``
+(``ops/library.py``), whose registered backward is the op
+``occformer::k2_bwd``, K2-bwd (d_table, and d_coords when the coordinates
+require grad).  K2-bwd
 has two paths, picked by ``bwd_path``, both writing d_table once in the
 table's dtype, bit-identical from call to call: wide rows (the per-layer
 loss route's C = 192 feature) take a per-voxel segmented gather; narrow
@@ -37,11 +39,12 @@ over both of its paths), ``ROW_LAUNCHES`` K2's row-wide path alone and
 from __future__ import annotations
 
 import ctypes
+from typing import List
 
 import torch
 import torch.nn.functional as F
 
-from . import cuda_build
+from . import cuda_build, library
 
 # launches of the forward (K2, both paths) and backward (K2-bwd, both
 # paths) kernels, of K2's row-wide path alone and of K2-bwd's narrow path
@@ -259,24 +262,75 @@ def _launch_bwd(table, coords, gout, align_corners, padding_mode, want_coords,
     return d_table, d_coords
 
 
-class _Sample(torch.autograd.Function):
-    """K2 forward, K2-bwd backward."""
+@torch.library.custom_op(library.qualname("k2_fwd"), mutates_args=(), device_types="cuda")
+def _k2_fwd(table: torch.Tensor, coords: torch.Tensor, align_corners: bool,
+            padding_mode: str) -> torch.Tensor:
+    """K2 (the op's CUDA implementation)."""
+    return _launch_fwd(table, coords, align_corners, padding_mode)
 
-    @staticmethod
-    def forward(ctx, table, coords, align_corners, padding_mode):
-        ctx.opts = (align_corners, padding_mode)
-        ctx.save_for_backward(table, coords)
-        return _launch_fwd(table, coords, align_corners, padding_mode)
 
-    @staticmethod
-    def backward(ctx, gout):
-        table, coords = ctx.saved_tensors
-        need_table, need_coords = ctx.needs_input_grad[:2]
-        if not (need_table or need_coords):
-            return None, None, None, None
-        d_table, d_coords = _launch_bwd(table, coords, gout, *ctx.opts,
-                                        want_coords=need_coords)
-        return (d_table if need_table else None, d_coords, None, None)
+@_k2_fwd.register_kernel("cpu")
+def _(table, coords, align_corners, padding_mode):
+    return trilerp_sample_plain(table, coords, align_corners, padding_mode)
+
+
+@_k2_fwd.register_fake
+def _(table, coords, align_corners, padding_mode):
+    G, S, C = coords.shape[0], coords.shape[1], table.shape[-1]
+    if table.device.type == "cpu":  # the plain version's [G, C, S] transposed
+        return table.new_empty((G, C, S), dtype=_out_dtype(table)).transpose(1, 2)
+    return table.new_empty((G, S, C), dtype=_out_dtype(table))
+
+
+@torch.library.custom_op(library.qualname("k2_bwd"), mutates_args=(), device_types="cuda")
+def _k2_bwd(table: torch.Tensor, coords: torch.Tensor, gout: torch.Tensor,
+            align_corners: bool, padding_mode: str,
+            want_coords: bool) -> List[torch.Tensor]:
+    """K2-bwd (the op's CUDA implementation): [d_table], with
+    ``want_coords`` [d_table, d_coords]."""
+    d_table, d_coords = _launch_bwd(table, coords, gout, align_corners, padding_mode,
+                                    want_coords)
+    return [d_table] + ([d_coords] if want_coords else [])
+
+
+@_k2_bwd.register_kernel("cpu")
+def _(table, coords, gout, align_corners, padding_mode, want_coords):
+    grads = library.plain_grads(
+        lambda t, c: trilerp_sample_plain(t, c, align_corners, padding_mode),
+        (table, coords), (table.is_floating_point(), want_coords), (gout,))
+    return grads if want_coords else grads[:1]
+
+
+@_k2_bwd.register_fake
+def _(table, coords, gout, align_corners, padding_mode, want_coords):
+    G, X, Y, Z, C = table.shape
+    if table.device.type == "cpu" and table.is_floating_point():
+        # the plain version's channels-first gradient, permuted
+        d_table = table.new_empty((G, C, X, Y, Z)).permute(0, 2, 3, 4, 1)
+    else:
+        d_table = torch.empty_like(table, memory_format=torch.contiguous_format)
+    return ([d_table]
+            + ([coords.new_empty(coords.shape, dtype=torch.float32)] if want_coords else []))
+
+
+def _k2_setup(ctx, inputs, output):
+    table, coords, align_corners, padding_mode = inputs
+    ctx.save_for_backward(table, coords)
+    ctx.opts = (align_corners, padding_mode)
+    ctx.autocast = library.autocast_state(table.device.type)
+
+
+def _k2_backward(ctx, gout):
+    table, coords = ctx.saved_tensors
+    need_table, need_coords = ctx.needs_input_grad[:2]
+    if not (need_table or need_coords):
+        return None, None, None, None
+    with library.replay_autocast(table.device.type, ctx.autocast):
+        grads = _k2_bwd(table, coords, gout, *ctx.opts, bool(need_coords))
+    return (grads[0] if need_table else None, grads[1] if need_coords else None, None, None)
+
+
+_k2_fwd.register_autograd(_k2_backward, setup_context=_k2_setup)
 
 
 def trilerp_sample(table: torch.Tensor, coords: torch.Tensor,
@@ -297,7 +351,7 @@ def trilerp_sample(table: torch.Tensor, coords: torch.Tensor,
         raise ValueError("expected table [G, X, Y, Z, C] and coords [G, S, 3]; got "
                          f"{tuple(table.shape)} and {tuple(coords.shape)}")
     if table.device.type == "cpu" and coords.device.type == "cpu":
-        return trilerp_sample_plain(table, coords, align_corners, padding_mode)
+        return _k2_fwd(table, coords, bool(align_corners), padding_mode)
     if not (table.is_cuda and coords.device == table.device):
         raise ValueError("table and coords must lie on one CUDA device; got "
                          f"{table.device} and {coords.device}")
@@ -308,4 +362,4 @@ def trilerp_sample(table: torch.Tensor, coords: torch.Tensor,
                         f"float32; got {table.dtype} and {coords.dtype}")
     if not (table.is_contiguous() and coords.is_contiguous()):
         raise ValueError("table and coords must be contiguous")
-    return _Sample.apply(table, coords, bool(align_corners), padding_mode)
+    return _k2_fwd(table, coords, bool(align_corners), padding_mode)

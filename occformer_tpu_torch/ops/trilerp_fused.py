@@ -8,11 +8,12 @@ sum that ``models/deform_attn.py`` does after the call folded in:
                    trilerp_zeros(V_l[b, :, h], 2 * locs[b, q, h, l, p] - 1)
 
 ``ms_deform_gather_3d`` launches the CUDA kernels of
-``csrc/ms_deform_gather3d.cu`` for CUDA tensors, through an autograd
-``Function`` whose backward is the K1-bwd kernel (d_value, d_locs,
-d_weights), and runs the plain version, ``ms_deform_gather_3d_plain``
-(``F.grid_sample`` per level plus the weighted sum, differentiated by
-autograd), for CPU tensors.  A CUDA tensor never takes the plain version: the
+``csrc/ms_deform_gather3d.cu`` for CUDA tensors through the op
+``occformer::k1_fwd`` (``ops/library.py``), whose registered backward is
+the op ``occformer::k1_bwd``, the K1-bwd kernel (d_value, d_locs,
+d_weights); for CPU tensors the same ops run the plain version,
+``ms_deform_gather_3d_plain`` (``F.grid_sample`` per level plus the
+weighted sum), and its gradient by autograd.  A CUDA tensor never takes the plain version: the
 kernel launches or the call raises.  K1 is one row-wide kernel for every
 row: a group of ``ROW_LANES`` lanes per output row (b, q, h) whose lanes own
 whole samples and read each corner row as vectors of the width
@@ -30,8 +31,9 @@ order), so two calls give the same bits.
 ``fused_multilevel_gather`` is the port of the JAX package's unweighted
 ``fused_multilevel_gather`` (Pallas ``call_fwd`` / ``call_bwd``, bodies
 ``_fwd_kernel`` and ``_bwd_kernel``): every level's trilinear samples,
-channels-first, in one launch of ``csrc/multilevel_gather3d.cu`` (K4), with
-K4-bwd as its autograd backward (d_tables, and d_coords when the
+channels-first, in one launch of ``csrc/multilevel_gather3d.cu`` (K4, the
+op ``occformer::k4_fwd``), with K4-bwd (``occformer::k4_bwd``) as its
+registered backward (d_tables, and d_coords when the
 coordinates require grad), which sums d_tables in the same fixed order as
 K1-bwd's d_value.  K4 is one row-wide kernel for every row, which reads
 each corner row as vectors of the width ``multi_fwd_path`` picks (the
@@ -41,10 +43,10 @@ aligned buffer first).  Its plain version is
 ``MULTI_BWD_LAUNCHES`` count the two kernels' launches,
 ``MULTI_ROW_LAUNCHES`` K4's row-wide ones (every launch of K4).
 
-The analytic count (``utils/flops.py``) sees no kernel: K1's wrapper
-reports on the card the matrix products its plain version's weighted sum
-runs (the einsum over the P samples, in the forward and in the backward),
-so that a count does not depend on the route.
+The analytic count (``utils/flops.py``) sees inside no op: K1's wrapper
+and its backward report, on either device, the matrix products its plain
+version's weighted sum runs (the einsum over the P samples, in the forward
+and in the backward), so that a count does not depend on the route.
 """
 from __future__ import annotations
 
@@ -55,7 +57,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils import flops
-from . import cuda_build
+from . import cuda_build, library
 
 # launches of the forward (K1) and backward (K1-bwd) kernels, and of K1's
 # row-wide kernel (every K1 launch); a caller may reset them to 0
@@ -236,29 +238,75 @@ def _weighted_sum_flops(value, weights) -> int:
     return 2 * weights.numel() * value.shape[-1]
 
 
-class _Gather(torch.autograd.Function):
-    """K1 forward, K1-bwd backward; each reports to an active analytic count
-    the matrix products that the plain version runs in its place."""
+def _flat_shapes(spatial_shapes) -> List[int]:
+    return [int(v) for shp in spatial_shapes for v in shp]
 
-    @staticmethod
-    def forward(ctx, value, locs, weights, spatial_shapes):
-        ctx.spatial_shapes = spatial_shapes
-        ctx.save_for_backward(value, locs, weights)
-        flops.add("dot", _weighted_sum_flops(value, weights))
-        return _launch_fwd(value, spatial_shapes, locs, weights)
 
-    @staticmethod
-    def backward(ctx, gout):
-        value, locs, weights = ctx.saved_tensors
-        d_value, d_locs, d_weights = _launch_bwd(value, ctx.spatial_shapes, locs,
-                                                 weights, gout)
-        need = ctx.needs_input_grad
-        # the plain version's backward: one product for the samples'
-        # gradient, one for the weights'
-        flops.add("dot", _weighted_sum_flops(value, weights)
-                  * (int(need[0] or need[1]) + int(need[2])))
-        return (d_value if need[0] else None, d_locs if need[1] else None,
-                d_weights if need[2] else None, None)
+def _shapes(flat: Sequence[int]):
+    return tuple(tuple(flat[i:i + 3]) for i in range(0, len(flat), 3))
+
+
+@torch.library.custom_op(library.qualname("k1_fwd"), mutates_args=(), device_types="cuda")
+def _k1_fwd(value: torch.Tensor, locs: torch.Tensor, weights: torch.Tensor,
+            shapes: List[int]) -> torch.Tensor:
+    """K1 (the op's CUDA implementation)."""
+    return _launch_fwd(value, _shapes(shapes), locs, weights)
+
+
+@_k1_fwd.register_kernel("cpu")
+def _(value, locs, weights, shapes):
+    return ms_deform_gather_3d_plain(value, _shapes(shapes), locs, weights)
+
+
+@_k1_fwd.register_fake
+def _(value, locs, weights, shapes):
+    B, Nv, H, hd = value.shape
+    return value.new_empty((B, locs.shape[1], H, hd))
+
+
+@torch.library.custom_op(library.qualname("k1_bwd"), mutates_args=(), device_types="cuda")
+def _k1_bwd(value: torch.Tensor, locs: torch.Tensor, weights: torch.Tensor,
+            gout: torch.Tensor, shapes: List[int]) -> List[torch.Tensor]:
+    """K1-bwd (the op's CUDA implementation): [d_value, d_locs, d_weights]."""
+    return list(_launch_bwd(value, _shapes(shapes), locs, weights, gout))
+
+
+@_k1_bwd.register_kernel("cpu")
+def _(value, locs, weights, gout, shapes):
+    return library.plain_grads(
+        lambda v, lc, w: ms_deform_gather_3d_plain(v, _shapes(shapes), lc, w),
+        (value, locs, weights), (True, True, True), (gout,))
+
+
+@_k1_bwd.register_fake
+def _(value, locs, weights, gout, shapes):
+    return [torch.empty_like(value, memory_format=torch.contiguous_format),
+            locs.new_empty(locs.shape, dtype=torch.float32),
+            torch.empty_like(weights, memory_format=torch.contiguous_format)]
+
+
+def _k1_setup(ctx, inputs, output):
+    value, locs, weights, shapes = inputs
+    ctx.save_for_backward(value, locs, weights)
+    ctx.shapes = shapes
+    ctx.autocast = library.autocast_state(value.device.type)
+
+
+def _k1_backward(ctx, gout):
+    """K1-bwd; reports to an active analytic count the matrix products that
+    the plain version's backward runs (one for the samples' gradient, one
+    for the weights')."""
+    value, locs, weights = ctx.saved_tensors
+    need = ctx.needs_input_grad
+    flops.add("dot", _weighted_sum_flops(value, weights)
+              * (int(need[0] or need[1]) + int(need[2])))
+    with library.replay_autocast(value.device.type, ctx.autocast):
+        d_value, d_locs, d_weights = _k1_bwd(value, locs, weights, gout, ctx.shapes)
+    return (d_value if need[0] else None, d_locs if need[1] else None,
+            d_weights if need[2] else None, None)
+
+
+_k1_fwd.register_autograd(_k1_backward, setup_context=_k1_setup)
 
 
 def ms_deform_gather_3d(
@@ -278,8 +326,11 @@ def ms_deform_gather_3d(
     spatial_shapes = tuple(tuple(int(s) for s in shp) for shp in spatial_shapes)
     _check(value, spatial_shapes, locs, weights)
     tensors = (value, locs, weights)
+    # the plain version's weighted sum, which the analytic count does not
+    # see inside the op
+    flops.add("dot", _weighted_sum_flops(value, weights))
     if all(t.device.type == "cpu" for t in tensors):
-        return ms_deform_gather_3d_plain(value, spatial_shapes, locs, weights)
+        return _k1_fwd(value, locs, weights, _flat_shapes(spatial_shapes))
     if not all(t.device == value.device and t.is_cuda for t in tensors):
         raise ValueError("value, locs and weights must lie on one CUDA device; got "
                          f"{[str(t.device) for t in tensors]}")
@@ -290,7 +341,7 @@ def ms_deform_gather_3d(
         raise TypeError(f"locs must be float32; got {locs.dtype}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("value, locs and weights must be contiguous")
-    return _Gather.apply(value, locs, weights, spatial_shapes)
+    return _k1_fwd(value, locs, weights, _flat_shapes(spatial_shapes))
 
 
 def fused_multilevel_gather_plain(
@@ -376,6 +427,17 @@ def _launch_multi_fwd(tables, spatials, channels, coords, align_corners, vec=Non
     return outs
 
 
+def _split_rows(d_all, tables):
+    """The rows ``[sum_l G * X_l * Y_l * Z_l, C]`` of every level's d_table
+    as views in the tables' shapes."""
+    d_tables, row = [], 0
+    for t in tables:
+        n = t.numel() // d_all.shape[1]
+        d_tables.append(d_all[row:row + n].view(t.shape))
+        row += n
+    return d_tables
+
+
 def _launch_multi_bwd(tables, spatials, channels, coords, gouts, align_corners,
                       want_coords):
     """K4-bwd: (d_tables in the tables' dtype, each row summed in float32 in
@@ -383,6 +445,15 @@ def _launch_multi_bwd(tables, spatials, channels, coords, gouts, align_corners,
     give the same bits; d_coords float32, or None).  gout is read as rows:
     each level's [G, C, S_l] transposed into its slice of one
     [sum_l G * S_l, C] buffer, in one pass."""
+    d_all, d_coords = _launch_multi_bwd_rows(tables, spatials, channels, coords, gouts,
+                                             align_corners, want_coords)
+    return _split_rows(d_all, tables), d_coords
+
+
+def _launch_multi_bwd_rows(tables, spatials, channels, coords, gouts, align_corners,
+                           want_coords):
+    """K4-bwd as ``_launch_multi_bwd``, every level's d_table in one buffer
+    of rows ``[sum_l G * X_l * Y_l * Z_l, C]``."""
     global MULTI_BWD_LAUNCHES
     dev, dtype = tables[0].device, tables[0].dtype
     C = channels
@@ -393,10 +464,6 @@ def _launch_multi_bwd(tables, spatials, channels, coords, gouts, align_corners,
         gout_rows[row:row + n].view(g.shape[0], g.shape[2], C).copy_(g.transpose(1, 2))
         row += n
     d_all = torch.empty((sum(t.numel() for t in tables) // C, C), dtype=dtype, device=dev)
-    d_tables, row = [], 0
-    for t in tables:
-        d_tables.append(d_all[row:row + t.numel() // C].view(t.shape))
-        row += t.numel() // C
     d_coords = ([torch.empty(c.shape, dtype=torch.float32, device=dev) for c in coords]
                 if want_coords else None)
     dims = _multi_dims(spatials, coords)
@@ -413,36 +480,85 @@ def _launch_multi_bwd(tables, spatials, channels, coords, gouts, align_corners,
     if rc != 0:
         raise RuntimeError(f"multilevel_gather3d_bwd launch failed: cudaError {rc}")
     MULTI_BWD_LAUNCHES += 1
-    return d_tables, d_coords
+    return d_all, d_coords
 
 
-class _MultiGather(torch.autograd.Function):
-    """K4 forward, K4-bwd backward; the tensors are the L tables, then the L
-    coordinate arrays."""
+@torch.library.custom_op(library.qualname("k4_fwd"), mutates_args=(), device_types="cuda")
+def _k4_fwd(tables: List[torch.Tensor], coords: List[torch.Tensor], shapes: List[int],
+            channels: int, align_corners: bool) -> List[torch.Tensor]:
+    """K4 (the op's CUDA implementation)."""
+    return _launch_multi_fwd(tables, _shapes(shapes), channels, coords, align_corners)
 
-    @staticmethod
-    def forward(ctx, spatials, channels, align_corners, *tensors):
-        L = len(spatials)
-        ctx.opts = (spatials, channels, align_corners)
-        ctx.save_for_backward(*tensors)
-        return tuple(_launch_multi_fwd(tensors[:L], spatials, channels, tensors[L:],
-                                       align_corners))
 
-    @staticmethod
-    def backward(ctx, *gouts):
-        spatials, channels, align_corners = ctx.opts
-        L = len(spatials)
-        tensors = ctx.saved_tensors
-        need = ctx.needs_input_grad[3:]
-        if not any(need):
-            return (None,) * (3 + 2 * L)
-        want_coords = any(need[L:])
-        d_tables, d_coords = _launch_multi_bwd(tensors[:L], spatials, channels, tensors[L:],
-                                               gouts, align_corners, want_coords)
-        d_coords = d_coords or [None] * L
-        return (None, None, None,
-                *[d if n else None for d, n in zip(d_tables, need[:L])],
-                *[d if n else None for d, n in zip(d_coords, need[L:])])
+@_k4_fwd.register_kernel("cpu")
+def _(tables, coords, shapes, channels, align_corners):
+    return fused_multilevel_gather_plain(tables, _shapes(shapes), channels, coords,
+                                         align_corners)
+
+
+@_k4_fwd.register_fake
+def _(tables, coords, shapes, channels, align_corners):
+    return [t.new_empty((t.shape[0], channels, c.shape[1])) for t, c in zip(tables, coords)]
+
+
+@torch.library.custom_op(library.qualname("k4_bwd"), mutates_args=(), device_types="cuda")
+def _k4_bwd(tables: List[torch.Tensor], coords: List[torch.Tensor], gouts: List[torch.Tensor],
+            shapes: List[int], channels: int, align_corners: bool,
+            want_coords: bool) -> List[torch.Tensor]:
+    """K4-bwd (the op's CUDA implementation): every level's d_table in one
+    buffer of rows (``_split_rows``: an op's outputs may not share memory),
+    then with ``want_coords`` the L d_coords."""
+    d_all, d_coords = _launch_multi_bwd_rows(tables, _shapes(shapes), channels, coords, gouts,
+                                             align_corners, want_coords)
+    return [d_all] + (d_coords or [])
+
+
+@_k4_bwd.register_kernel("cpu")
+def _(tables, coords, gouts, shapes, channels, align_corners, want_coords):
+    L = len(tables)
+    grads = library.plain_grads(
+        lambda *ts: fused_multilevel_gather_plain(ts[:L], _shapes(shapes), channels, ts[L:],
+                                                  align_corners),
+        tables + coords, [True] * L + [want_coords] * L, gouts)
+    d_all = torch.cat([d.reshape(-1, channels) for d in grads[:L]])
+    return [d_all] + (grads[L:] if want_coords else [])
+
+
+@_k4_bwd.register_fake
+def _(tables, coords, gouts, shapes, channels, align_corners, want_coords):
+    rows = sum(t.numel() for t in tables) // channels
+    return ([tables[0].new_empty((rows, channels))]
+            + ([c.new_empty(c.shape, dtype=torch.float32) for c in coords]
+               if want_coords else []))
+
+
+def _k4_setup(ctx, inputs, output):
+    tables, coords, shapes, channels, align_corners = inputs
+    ctx.save_for_backward(*tables, *coords)
+    ctx.opts = (shapes, channels, align_corners)
+    ctx.autocast = library.autocast_state(tables[0].device.type)
+
+
+def _k4_backward(ctx, gouts):
+    shapes, channels, align_corners = ctx.opts
+    L = len(shapes) // 3
+    tensors = ctx.saved_tensors
+    need_tables, need_coords = ctx.needs_input_grad[:2]  # a flag per level
+    if not any(need_tables) and not any(need_coords):
+        return [None] * L, [None] * L, None, None, None
+    tables, coords = list(tensors[:L]), list(tensors[L:])
+    gouts = [torch.zeros(t.shape[0], channels, c.shape[1], dtype=t.dtype, device=t.device)
+             if g is None else g for g, t, c in zip(gouts, tables, coords)]
+    with library.replay_autocast(tables[0].device.type, ctx.autocast):
+        grads = _k4_bwd(tables, coords, gouts, shapes, channels, align_corners,
+                        any(need_coords))
+    d_tables = _split_rows(grads[0], tables)
+    d_coords = grads[1:] or [None] * L
+    return ([d if n else None for d, n in zip(d_tables, need_tables)],
+            [d if n else None for d, n in zip(d_coords, need_coords)], None, None, None)
+
+
+_k4_fwd.register_autograd(_k4_backward, setup_context=_k4_setup)
 
 
 def fused_multilevel_gather(
@@ -480,7 +596,7 @@ def fused_multilevel_gather(
             raise ValueError(f"level {l}: coords {tuple(c.shape)}, want [{G}, S, 3]")
     tensors = tables + coords
     if all(t.device.type == "cpu" for t in tensors):
-        return fused_multilevel_gather_plain(tables, spatials, C, coords, align_corners)
+        return _k4_fwd(tables, coords, _flat_shapes(spatials), C, bool(align_corners))
     dev = tables[0].device
     if not all(t.is_cuda and t.device == dev for t in tensors):
         raise ValueError("tables and coords must lie on one CUDA device; got "
@@ -495,4 +611,4 @@ def fused_multilevel_gather(
         raise TypeError(f"coords must be float32; got {[c.dtype for c in coords]}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("tables and coords must be contiguous")
-    return list(_MultiGather.apply(spatials, C, bool(align_corners), *tensors))
+    return _k4_fwd(tables, coords, _flat_shapes(spatials), C, bool(align_corners))

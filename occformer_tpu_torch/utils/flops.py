@@ -19,9 +19,10 @@ operator's shapes:
 
 Like JAX's, it counts only the MAC-bearing operators (the MFU convention:
 elementwise, softmax and norm FLOPs are left out).  The count does not
-depend on the route: the port's kernels are ctypes calls that no dispatch
-mode sees, so the wrappers whose plain versions reach a counted operator
-report that operator's count themselves (``add``) and code that runs a
+depend on the route: the port's kernels are ``torch.library`` ops inside
+which no dispatch mode sees (on the card a ctypes launch, on the CPU the
+plain version), so the wrappers whose plain versions reach a counted
+operator report that operator's count themselves (``add``) and code that runs a
 counted operator as an implementation detail of an uncounted function
 holds it out (``uncounted``), so that a call counted on the card with the
 kernels gives the CPU's count with the plain versions.

@@ -59,6 +59,9 @@ def test_package_and_tiny_model_load_without_jax():
         "import occformer_tpu_torch.utils.metrics, occformer_tpu_torch.tools.kitti_preprocess\n"
         "import occformer_tpu_torch.tools.train, occformer_tpu_torch.tools.test\n"
         "import occformer_tpu_torch.models.bevstereo\n"
+        "import occformer_tpu_torch.tools.benchmark, occformer_tpu_torch.tools.memory_analysis\n"
+        "import occformer_tpu_torch.tools.export_model, occformer_tpu_torch.tools.create_data\n"
+        "import occformer_tpu_torch.utils.profiling\n"
         "from occformer_tpu_torch.models.lss import shift_feature\n"
         "from occformer_tpu_torch.models.detector import OccupancyFormer4D, build_model\n"
         "cfg4d = dict(tiny_cfg.model_cfg(), type='OccupancyFormer4D')\n"

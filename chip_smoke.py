@@ -98,7 +98,9 @@ Phases, each printing one JSON line:
                  step, then 3 timed steps, and a torch.profiler summary of
                  one more step (with each port kernel's device ms and
                  launches); the analytic FLOP count of one more step
-                 (utils/flops.py) and the MFU of the median step.  Every
+                 (utils/flops.py) and the MFU of the median step, and the
+                 same step counted again with with_cp off, which must count
+                 the same (the backward's recompute is held out).  Every
                  other configuration's serve and train phase adds the same
                  (serve_phase, profile_and_reload).
   7. train_batched: the same on the all-layer batched loss route
@@ -587,20 +589,50 @@ def analytic_serve(name, model, batch, compute_dtype, frame_ms):
     return rec
 
 
-def analytic_train(name, step, batch, generator, step_s):
+def analytic_train(name, step, batch, generator, step_s, model, opt):
     """The analytic FLOP count of one more train step (``utils/flops.py:
     count_flops`` around ``step``), counted on the card, and the MFU of the
-    phase's median step against the H100 SXM's dense bf16 peak."""
+    phase's median step against the H100 SXM's dense bf16 peak.  Every
+    configuration the smoke trains has a module that recomputes its blocks
+    in the backward (``with_cp``): the same step is counted again from the
+    same model, optimizer and generator state with ``with_cp`` off, then
+    turned back on; the recompute is not model work, so the two counts must
+    be equal in every category."""
+    import copy
+
     from occformer_tpu_torch.utils.flops import H100_PEAK_BF16, count_flops, mfu
 
+    cp = [m for m in model.modules() if getattr(m, "with_cp", False) is True]
+    check(bool(cp), f"{name}: no module of the model recomputes (with_cp)")
+    state = copy.deepcopy((model.state_dict(), opt.state_dict(), generator.get_state()))
+    t0 = time.perf_counter()
     t = count_flops(step, batch, generator)
+    count_s = time.perf_counter() - t0
     med = float(np.median(step_s))
     rec = {"analytic_train_TFLOP_per_step": t["total"] / 1e12,
            **{f"analytic_train_TFLOP_per_step/{k}": t[k] / 1e12
               for k in ("conv", "dot", "scatter")},
            "median_step_s": med, "train_mfu": mfu(t["total"], 1.0 / med),
-           "peak_TFLOPs": H100_PEAK_BF16 / 1e12}
+           "peak_TFLOPs": H100_PEAK_BF16 / 1e12, "count_s": count_s}
     check(t["conv"] > 0 and t["dot"] > 0, f"{name}: analytic count {t}")
+    t0 = time.perf_counter()
+    model.load_state_dict(state[0])
+    opt.load_state_dict(state[1])
+    generator.set_state(state[2])
+    del state
+    for m in cp:
+        m.with_cp = False
+    try:
+        off = count_flops(step, batch, generator)
+    finally:
+        for m in cp:
+            m.with_cp = True
+    rec["with_cp_off_count_s"] = time.perf_counter() - t0
+    rec["with_cp"] = sorted({type(m).__name__ for m in cp})
+    rec["with_cp_off_TFLOP_per_step"] = {k: off[k] / 1e12
+                                         for k in ("conv", "dot", "scatter", "total")}
+    check(all(t[k] == off[k] for k in ("conv", "dot", "scatter")),
+          f"{name}: the step counts {t} with with_cp on and {off} with it off")
     ANALYTIC.setdefault(_config_of(name), {}).update(
         {f"{k}{'_batched' if name.endswith('batched') else ''}": rec[k]
          for k in ("analytic_train_TFLOP_per_step", "median_step_s", "train_mfu")})
@@ -1738,12 +1770,19 @@ def atomic_scatter(depth, ctx, coords, valid, nx):
                                        n_rows).reshape(B, *nx, -1).to(depth.dtype)
 
 
+# S1's backward beside its library call and bound, in the kernels line
+S1_BACKWARD_KEYS = ("backward_ms", "backward_device_ms", "backward_library_ms",
+                    "backward_bound_ms", "backward_bound_by")
+
+
 def s1_check(depth, ctx, coords, valid, nx, label):
     """S1 against its plain version (the atomic index_add_), two calls
     bit-equal, both timed in turns, beside one index_add_ of the whole
     lift (the library call); its backward (plain gathers of the volume's
-    gradient, one per train step) alone; the sort's segment sizes."""
+    gradient, one per train step) alone, beside autograd through the library
+    call, with the backward's own bound; the sort's segment sizes."""
     import torch
+    import torch.nn.functional as F
 
     from occformer_tpu_torch.ops import scatter
     from occformer_tpu_torch.tools.time_backwards import segment_stats
@@ -1783,7 +1822,22 @@ def s1_check(depth, ctx, coords, valid, nx, label):
 
     s1["backward_ms"] = time_cuda(s1_backward, iters=10)
     s1["backward_device_ms"] = device_ms(s1_backward, iters=10)
-    del d_leaf, c_leaf, vol, g_vol
+    # the library call: autograd through one index_add_ of the whole lift
+    rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
+    lift = (d_leaf[..., None] * c_leaf[:, :, None]).reshape(rows.shape[0], -1).float()
+    lib_vol = lift.new_zeros((g_vol[..., 0].numel() + 1, lift.shape[1])).index_add(0, rows, lift)
+    lib_g = F.pad(g_vol.reshape(-1, lift.shape[1]).float(), (0, 0, 0, 1))
+    s1["backward_library_ms"] = time_cuda(lambda: torch.autograd.grad(
+        lib_vol, (d_leaf, c_leaf), lib_g, retain_graph=True), iters=10)
+    # the backward's least work: the gradient volume read at the valid
+    # points' voxels, depth, ctx, coords and valid read once, d_depth and
+    # d_ctx written once; a product and an add per (valid point, channel)
+    # for each of the two gradients
+    b = bound(s1["voxels_filled"] * g_vol.shape[-1] * g_vol.element_size()
+              + nbytes(depth, ctx, coords, valid, depth, ctx),
+              s1["points_valid"] * ctx.shape[-1] * 4)
+    s1.update(backward_bound_ms=b["bound_ms"], backward_bound_by=b["bound_by"])
+    del d_leaf, c_leaf, vol, g_vol, rows, lift, lib_vol, lib_g
     s1["ms_in_turns"] = ms
     s1["kernel_ms"] = sum(ms["deterministic_scatter"]) / 2
     s1["plain_ms"] = sum(ms["atomic_scatter"]) / 2
@@ -2206,7 +2260,7 @@ def phase_train(mxu_readout="off"):
                              TRAIN_LAUNCHES[mxu_readout])
     if loss_cfg.batched_readout:
         rec["routes"] = compare_routes(model, batch, loss_cfg)
-    rec["analytic"] = analytic_train(name, step, batch, g, run["step_s"])
+    rec["analytic"] = analytic_train(name, step, batch, g, run["step_s"], model, opt)
     emit(rec)
     return run["launches"]
 
@@ -3367,7 +3421,8 @@ def profile_and_reload(rec, name, model, opt, step, batch, per_step, generator, 
         torch.backends.cudnn.allow_tf32 = tf32
     check(r["losses_differ"] == r["grad_norm_differs"] == r["param_grads_differ"] == 0
           and r["param_grads"] > 0, f"{name} reload_determinism: the pair differs: {r}")
-    rec["analytic"] = analytic_train(f"{name}_train", step, batch, generator, rec["step_s"])
+    rec["analytic"] = analytic_train(f"{name}_train", step, batch, generator, rec["step_s"],
+                                     model, opt)
 
 
 def phase_kitti_serve(tree):
@@ -5237,7 +5292,7 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
     def at_r101(key):
         if key == "S1":
             return {k: r101["S1"][k] for k in kitti_keys + ("points_valid", "shapes")
-                    if k in r101["S1"]}
+                    + S1_BACKWARD_KEYS if k in r101["S1"]}
         if key not in ("K4.row", "K4-bwd"):
             return {"shapes": "the flagship's (the same pixel decoder, LSS grid and loss)"}
         k = key.split(".")[0]
@@ -5299,7 +5354,7 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
                                   "other_rows",
                                   "launch_floor_ms", "bound_with_floor_ms",
                                   "device_ms_by_kernel", "us_per_step", "cluster_ctas")
-                if k in r},
+                + S1_BACKWARD_KEYS if k in r},
              **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
                 if key in at_kitti else {}),
              **({"float32": r["float32"]} if "float32" in r else {}),

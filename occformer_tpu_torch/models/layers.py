@@ -168,23 +168,28 @@ def checkpoint(fn, *args):
     replays the ``drop_path_generator`` draws when the backward recomputes
     ``fn``: the recomputation starts from the generator state the first run
     started from, and the generator is put back afterwards, so the masks and
-    the rest of the step's draws are those of a run without checkpointing."""
+    the rest of the step's draws are those of a run without checkpointing.
+    The recomputation is held out of the analytic count (``flops.uncounted``),
+    so a step counts the same model FLOPs with checkpointing as without, as
+    the JAX package's count of ``nn.remat`` does."""
     g = _DROP_PATH_GENERATOR
-    if g is None:
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
-    start = g.get_state()
+    start = g.get_state() if g is not None else None
     first = [True]
 
     def run(*a):
         if first[0]:
             first[0] = False
             return fn(*a)
-        live = g.get_state()
-        g.set_state(start)
-        with drop_path_generator(g):
-            out = fn(*a)
-        g.set_state(live)
-        return out
+        with flops.uncounted():
+            if g is None:
+                return fn(*a)
+            live = g.get_state()
+            g.set_state(start)
+            try:
+                with drop_path_generator(g):
+                    return fn(*a)
+            finally:
+                g.set_state(live)
 
     return torch.utils.checkpoint.checkpoint(run, *args, use_reentrant=False)
 

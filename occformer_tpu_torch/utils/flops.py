@@ -25,7 +25,10 @@ plain version), so the wrappers whose plain versions reach a counted
 operator report that operator's count themselves (``add``) and code that runs a
 counted operator as an implementation detail of an uncounted function
 holds it out (``uncounted``), so that a call counted on the card with the
-kernels gives the CPU's count with the plain versions.
+kernels gives the CPU's count with the plain versions.  The forward that
+the backward reruns for a ``with_cp`` block (``models/layers.py:checkpoint``)
+is held out too: a step counts the same model FLOPs with checkpointing as
+without, as JAX's count of ``nn.remat`` does.
 
 Unlike JAX's, which traces, the count runs ``fn``: on the card or the CPU,
 with the inputs' values (a data-dependent shape counts what this call ran).

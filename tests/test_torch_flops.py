@@ -20,7 +20,11 @@ equal, the test names the difference and holds it to what explains it:
   decoder layers (``nn.remat``), so its train step's count repeats their
   forward; the port stores those activations.  The train step is compared
   with JAX's traced with ``nn.remat`` as the identity (the same step
-  without the recompute);
+  without the recompute).  The port's ``with_cp`` blocks (the occupancy
+  encoder's, the ResNet's and the EfficientNet's) do recompute their
+  forward in the backward; ``models/layers.py:checkpoint`` holds that
+  recompute out of the count, so a step counts the same with ``with_cp`` on
+  as off (``test_with_cp_recompute_is_not_counted``);
 * JAX's VJP of every gather (the trilinear corner reads of its XLA
   ``grid_sample_3d`` in the deformable attention and the loss's point
   readouts) is a scatter-add, which JAX counts as updates; the port's
@@ -299,6 +303,105 @@ def test_tiny_train_step_matches_jax(monkeypatch):
     assert got["dot"] == pytest.approx(ref["dot"], rel=1e-2)
     assert 0 < got["scatter"] < ref["scatter"]
     assert got["total"] == pytest.approx(ref["total"], rel=1e-2)
+
+
+# ---------------------------------------------------------------------------
+# with_cp: the backward's recompute is not counted
+# ---------------------------------------------------------------------------
+
+def _train_pass(module, x):
+    """A train-mode forward and backward of ``module`` at ``x``, drop path
+    drawn from one generator state."""
+    from occformer_tpu_torch.models.layers import drop_path_generator
+
+    def run():
+        with drop_path_generator(torch.Generator().manual_seed(7)):
+            outs = module(x)
+            sum((o * (i + 1)).sum() for i, o in enumerate(outs)).backward()
+
+    return run
+
+
+def _module_case(name, monkeypatch):
+    """(the module with ``with_cp`` attributes, a function of it that runs
+    one counted unit of work)."""
+    rng = np.random.RandomState(3)
+    torch.manual_seed(3)
+    if name == "occupancy_encoder":
+        from occformer_tpu_torch.models.occnet import OccupancyEncoder
+
+        module = OccupancyEncoder(in_channels=32, num_stage=4, block_numbers=(1, 1, 1, 1),
+                                  block_inplanes=(32, 32, 64, 64), block_strides=(1, 2, 2, 2),
+                                  num_groups=8, with_cp=True).train()
+        x = torch.from_numpy(rng.randn(2, 32, 10, 10, 4).astype(np.float32))
+        return module, lambda m: _train_pass(m, x)
+    if name == "resnet":
+        from occformer_tpu_torch.models.resnet import ResNet
+
+        module = ResNet(depth=18, with_cp=True).train()
+        x = torch.from_numpy(rng.randn(2, 3, 64, 96).astype(np.float32))
+        return module, lambda m: _train_pass(m, x)
+    if name == "efficientnet":
+        from occformer_tpu_torch.models import efficientnet as effnet
+
+        monkeypatch.setitem(effnet.ARCH_SETTINGS, "bt", (0.25, 0.4))  # a narrow arch
+        module = effnet.CustomEfficientNet(arch="bt", out_indices=(2, 3, 4, 5, 6),
+                                           drop_path_rate=0.2, with_cp=True).train()
+        x = torch.from_numpy(rng.randn(2, 3, 33, 47).astype(np.float32))
+        return module, lambda m: _train_pass(m, x)
+    # the tiny model's whole train step, the occupancy encoder's with_cp on
+    from occformer_tpu_torch.engine.optim import build_optimizer
+    from occformer_tpu_torch.engine.train import build_loss_cfg, build_train_step
+    from occformer_tpu_torch.models.detector import build_model
+    from test_torch_train import TRAIN_PTS, _train_batch
+
+    cfg = tiny_cfg.model_cfg()
+    cfg["img_bev_encoder_backbone"] = dict(cfg["img_bev_encoder_backbone"], with_cp=True)
+    model = build_model(cfg, device="cpu", seed=0).train()
+    batch = _train_batch(rng)
+
+    def step_of(m):
+        step = build_train_step(m, build_optimizer(m, lr=1e-3, grad_clip=5.0),
+                                build_loss_cfg(cfg["pts_bbox_head"], TRAIN_PTS), device="cpu")
+        return lambda: step(batch, torch.Generator().manual_seed(0))
+
+    return model, step_of
+
+
+@pytest.mark.parametrize("name", ["occupancy_encoder", "resnet", "efficientnet",
+                                  "tiny_train_step"])
+def test_with_cp_recompute_is_not_counted(name, monkeypatch):
+    """The same work on the same weights, inputs and generator state counts
+    the same with ``with_cp`` on as off, category by category: the forward
+    that the backward recomputes is not model work (JAX counts ``nn.remat``
+    as the identity).  Every convolution's forward calls show that the
+    recompute ran."""
+    import copy
+
+    module, work = _module_case(name, monkeypatch)
+    off = copy.deepcopy(module)
+    cp_modules = [m for m in off.modules() if getattr(m, "with_cp", False)]
+    assert cp_modules
+    for m in cp_modules:
+        m.with_cp = False
+    counts, conv_calls = [], []
+    for m in (module, off):
+        calls = [0]
+
+        def tally(*_):
+            calls[0] += 1
+
+        hooks = [c.register_forward_pre_hook(tally) for c in m.modules()
+                 if isinstance(c, (torch.nn.Conv2d, torch.nn.Conv3d))]
+        counts.append(count_flops(work(m)))
+        for h in hooks:
+            h.remove()
+        conv_calls.append(calls[0])
+    on, plain = counts
+    assert conv_calls[0] > conv_calls[1] > 0  # the backward recomputed
+    assert on["conv"] > 0
+    for k in ("conv", "dot", "scatter", "total"):
+        assert on[k] == plain[k], (k, on[k], plain[k])
 
 
 @pytest.mark.slow

@@ -282,6 +282,30 @@ def test_checkpoint_replays_the_drop_path_draws():
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+def test_checkpoint_puts_the_generator_back_after_several_blocks():
+    """Three checkpointed blocks that each draw a mask before operators the
+    backward does not need, and a draw between the forward and the backward
+    (the loss's): a recompute that stops once it has what the backward needs
+    still puts the generator back, so the next draws equal a run without
+    checkpointing."""
+    torch.manual_seed(0)
+    blocks = [torch.nn.Sequential(DropPath(0.5), torch.nn.Linear(8, 8), torch.nn.Tanh(),
+                                  torch.nn.Linear(8, 8)).train() for _ in range(3)]
+    x = torch.randn(32, 8)
+
+    def run(use_cp):
+        g = torch.Generator().manual_seed(3)
+        y = x.clone().requires_grad_(True)
+        with drop_path_generator(g):
+            for b in blocks:
+                y = checkpoint(b, y) if use_cp else b(y)
+        w = torch.rand(32, 8, generator=g)
+        (y * w).sum().backward()
+        return torch.rand(4, generator=g)
+
+    assert torch.equal(run(False), run(True))
+
+
 def test_frozen_stem_stops_the_gradient():
     """``frozen_stages=0`` (the flagship): nothing before the first stage is
     differentiated in train mode; ``norm_eval`` keeps the BatchNorms on their

@@ -91,7 +91,9 @@ Phases, each printing one JSON line:
                  cuDNN default backward varies, with and without TF32, are
                  named and timed beside cuDNN's deterministic backward; and
                  S1 against its plain version and the scatter's cost per
-                 step in both modes.
+                 step in both modes, and its backward S1-bwd against its
+                 plain version (the same at the KITTI and R101 kernels
+                 phases; S1-rows-bwd in voxnet_kernels).
   6. train:      the flagship's train step at full width and depth, float32
                  parameters under bfloat16 autocast, batch 1, through
                  build_train_step on the per-layer loss route: 1 warm-up
@@ -300,10 +302,11 @@ limit (nvidia-smi), one JSON line of each configuration's analytic TFLOP a
 frame and a step and MFU beside them (``ANALYTIC``), one JSON line of kernel
 records (K2's and K2-bwd's two paths as two records each; K1's and K4's
 other rows under ``other_rows``; S1, the LSS splat, which has no Pallas
-original, last; each kernel of the KITTI path with its KITTI-shape record
-under ``kitti``, each kernel's R101-DCN record under ``r101``, its
-panoptic record under ``pan``, K4's and K4-bwd's BEVStereo records under
-``stereo``; then S1-rows and FPS, which have no Pallas original either),
+original, and its backward S1-bwd last; each kernel of the KITTI path with
+its KITTI-shape record under ``kitti``, each kernel's R101-DCN record under
+``r101``, its panoptic record under ``pan``, K4's and K4-bwd's BEVStereo
+records under ``stereo``; then S1-rows, S1-rows-bwd and FPS, which have no
+Pallas original either),
 and last
 ``{"ok": true, "device": {...}}``.  Any
 failed check exits non-zero before that line.  Without a CUDA device, or
@@ -337,10 +340,11 @@ CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_nusc_r5
 # C = 1 per-slot volumes the narrow one.  The DepthNet's deformable
 # convolution reads its taps through K4 (one level of Z = 1, its 512 input
 # channels in bf16 rows of whole 16-byte vectors: K4's row-wide path) once a
-# frame and a step, and K4-bwd once a step
+# frame and a step, and K4-bwd once a step; the LSS splat S1 once a frame
+# and a step, its backward S1-bwd once a step
 _NONE = {"K1": 0, "K1.row": 0, "K1-bwd": 0, "K2": 0, "K2.row": 0, "K2-bwd": 0,
          "K2-bwd.narrow": 0, "K3": 0, "K4": 0, "K4.row": 0, "K4-bwd": 0, "P1": 0, "P2": 0,
-         "S1": 0, "S1-rows": 0, "FPS": 0}
+         "S1": 0, "S1-bwd": 0, "S1-rows": 0, "S1-rows-bwd": 0, "FPS": 0}
 # "K1.row": the deformable attention's hd = 24 rows take K1's row-wide path
 SERVE_LAUNCHES = dict(_NONE, **{"K1": 6, "K1.row": 6, "K4": 1, "K4.row": 1, "S1": 1})
 # "K2.row": the per-layer route's 30 readouts of the bf16 C = 192 feature
@@ -349,10 +353,11 @@ SERVE_LAUNCHES = dict(_NONE, **{"K1": 6, "K1.row": 6, "K4": 1, "K4.row": 1, "S1"
 # volumes all take the narrow path
 _DCN = {"K4": 1, "K4.row": 1, "K4-bwd": 1}
 TRAIN_LAUNCHES = {"off": dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 60,
-                                                "K2.row": 30, "K2-bwd": 20, "S1": 1}),
+                                                "K2.row": 30, "K2-bwd": 20, "S1": 1,
+                                                "S1-bwd": 1}),
                   "on": dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 3,
                                                "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3,
-                                               "S1": 1})}
+                                               "S1": 1, "S1-bwd": 1})}
 # the K4 parity gate: bench.py's shapes at both align_corners and the
 # flagship shapes, one forward (the row-wide path: C = 24 rows) and one
 # backward each; the probe: P1 and P2 once
@@ -368,7 +373,7 @@ KITTI_CONFIG = os.path.join(REPO, "occformer_tpu_torch", "configs", "occformer_k
 KITTI_SERVE_LAUNCHES = SERVE_LAUNCHES
 KITTI_TRAIN_LAUNCHES = dict(_NONE, **_DCN, **{"K1": 6, "K1.row": 6, "K1-bwd": 6, "K2": 30,
                                               "K2.row": 10, "K2-bwd": 10, "K2-bwd.narrow": 10,
-                                              "S1": 1})
+                                              "S1": 1, "S1-bwd": 1})
 # the DepthNet's deformable convolution at SemanticKITTI: one camera, 512
 # channels on the 24 x 80 feature map
 KITTI_DCN_SHAPE = (1, 512, 24, 80)
@@ -403,16 +408,19 @@ PAN_TRAIN_LAUNCHES_BATCHED = dict(TRAIN_LAUNCHES["on"], **{"K2.row": 1})
 # occupancy encoder's input doubled to 256 channels), 12 camera slots (key
 # and previous frame interleaved per camera); each frame runs the image
 # encoder, the DepthNet (its DCN: K4) and the splat (S1), the previous one
-# without gradient: K4 and S1 twice a frame and a step, K4-bwd once a step
+# without gradient: K4 and S1 twice a frame and a step, K4-bwd and S1-bwd
+# once a step
 _TWO_FRAMES = {"K4": 2, "K4.row": 2, "S1": 2}
 T4D_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **_TWO_FRAMES)
 T4D_TRAIN_LAUNCHES = {route: dict(n, **_TWO_FRAMES) for route, n in TRAIN_LAUNCHES.items()}
 # the flagship with use_voxel_net and trilinear attention masks: the refined
-# lift splats through S1-rows in place of S1, once a frame and a step; the
-# rest is the flagship's
+# lift splats through S1-rows in place of S1, once a frame and a step, and
+# a step differentiates it through S1-rows-bwd in place of S1-bwd; the rest
+# is the flagship's
 _ROWS = {"S1": 0, "S1-rows": 1}
 VOXNET_SERVE_LAUNCHES = dict(SERVE_LAUNCHES, **_ROWS)
-VOXNET_TRAIN_LAUNCHES = {route: dict(n, **_ROWS) for route, n in TRAIN_LAUNCHES.items()}
+VOXNET_TRAIN_LAUNCHES = {route: dict(n, **_ROWS, **{"S1-bwd": 0, "S1-rows-bwd": 1})
+                         for route, n in TRAIN_LAUNCHES.items()}
 # the point-cloud surface's run: every op once, FPS its one kernel
 POINTCLOUD_LAUNCHES = dict(_NONE, FPS=1)
 # BEVStereo at the flagship's grid (4 ranges over dbound [2, 58, 0.5]: D = 112,
@@ -421,7 +429,9 @@ POINTCLOUD_LAUNCHES = dict(_NONE, FPS=1)
 # features and 4 mask warps of the 112-bin mono depth, all on K4's row-wide
 # path, and one splat; the backward of the fused depth K4-bwd for the 12
 # stereo warps and the key sweep's DCN (the other sweep's DepthNet reaches
-# the depth only through the mask's detached input)
+# the depth only through the mask's detached input); no S1-bwd: the
+# weighting is of the fused depth, upstream of the splat, whose volume no
+# gradient reaches
 STEREO_LAUNCHES = dict(_NONE, **{"K4": 18, "K4.row": 18, "S1": 1})
 STEREO_BWD_LAUNCHES = dict(STEREO_LAUNCHES, **{"K4-bwd": 13})
 STEREO_FEATURES = (6, 256, 64, 176)  # a ResNet-50 layer1's width at 1/4 of 256 x 704
@@ -1602,10 +1612,10 @@ def phase_tiny_train(mxu_readout="off", accum_steps=1):
     # row-wide path) and K4-bwd once each
     per_micro = (dict(_NONE, **_DCN, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 3,
                                         "K2.row": 1, "K2-bwd": 2, "K2-bwd.narrow": 2, "K3": 3,
-                                        "S1": 1})
+                                        "S1": 1, "S1-bwd": 1})
                  if loss_cfg.batched_readout else
                  dict(_NONE, **_DCN, **{"K1": 2, "K1.row": 2, "K1-bwd": 2, "K2": 24,
-                                        "K2.row": 12, "K2-bwd": 8, "S1": 1}))
+                                        "K2.row": 12, "K2-bwd": 8, "S1": 1, "S1-bwd": 1}))
     if n_got != {k: v * accum_steps for k, v in per_micro.items()}:
         failed.append(f"launches {n_got}")
     for k, r in m_ref.items():
@@ -1770,19 +1780,12 @@ def atomic_scatter(depth, ctx, coords, valid, nx):
                                        n_rows).reshape(B, *nx, -1).to(depth.dtype)
 
 
-# S1's backward beside its library call and bound, in the kernels line
-S1_BACKWARD_KEYS = ("backward_ms", "backward_device_ms", "backward_library_ms",
-                    "backward_bound_ms", "backward_bound_by")
-
-
 def s1_check(depth, ctx, coords, valid, nx, label):
     """S1 against its plain version (the atomic index_add_), two calls
     bit-equal, both timed in turns, beside one index_add_ of the whole
-    lift (the library call); its backward (plain gathers of the volume's
-    gradient, one per train step) alone, beside autograd through the library
-    call, with the backward's own bound; the sort's segment sizes."""
+    lift (the library call); the sort's segment sizes; and under
+    ``backward`` S1-bwd (``s1_backward_check``)."""
     import torch
-    import torch.nn.functional as F
 
     from occformer_tpu_torch.ops import scatter
     from occformer_tpu_torch.tools.time_backwards import segment_stats
@@ -1813,31 +1816,6 @@ def s1_check(depth, ctx, coords, valid, nx, label):
         # the kernels alone, the sort's included
         s1["device_ms"] = device_ms(lambda: scatter.voxel_scatter_lifted(
             depth, ctx, coords, valid, nx))
-    d_leaf, c_leaf = (t.detach().clone().requires_grad_(True) for t in (depth, ctx))
-    vol = scatter.voxel_scatter_lifted(d_leaf, c_leaf, coords, valid, nx)
-    g_vol = torch.randn(vol.shape, device=vol.device, dtype=vol.dtype)
-
-    def s1_backward():
-        return torch.autograd.grad(vol, (d_leaf, c_leaf), g_vol, retain_graph=True)
-
-    s1["backward_ms"] = time_cuda(s1_backward, iters=10)
-    s1["backward_device_ms"] = device_ms(s1_backward, iters=10)
-    # the library call: autograd through one index_add_ of the whole lift
-    rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
-    lift = (d_leaf[..., None] * c_leaf[:, :, None]).reshape(rows.shape[0], -1).float()
-    lib_vol = lift.new_zeros((g_vol[..., 0].numel() + 1, lift.shape[1])).index_add(0, rows, lift)
-    lib_g = F.pad(g_vol.reshape(-1, lift.shape[1]).float(), (0, 0, 0, 1))
-    s1["backward_library_ms"] = time_cuda(lambda: torch.autograd.grad(
-        lib_vol, (d_leaf, c_leaf), lib_g, retain_graph=True), iters=10)
-    # the backward's least work: the gradient volume read at the valid
-    # points' voxels, depth, ctx, coords and valid read once, d_depth and
-    # d_ctx written once; a product and an add per (valid point, channel)
-    # for each of the two gradients
-    b = bound(s1["voxels_filled"] * g_vol.shape[-1] * g_vol.element_size()
-              + nbytes(depth, ctx, coords, valid, depth, ctx),
-              s1["points_valid"] * ctx.shape[-1] * 4)
-    s1.update(backward_bound_ms=b["bound_ms"], backward_bound_by=b["bound_by"])
-    del d_leaf, c_leaf, vol, g_vol, rows, lift, lib_vol, lib_g
     s1["ms_in_turns"] = ms
     s1["kernel_ms"] = sum(ms["deterministic_scatter"]) / 2
     s1["plain_ms"] = sum(ms["atomic_scatter"]) / 2
@@ -1845,7 +1823,86 @@ def s1_check(depth, ctx, coords, valid, nx, label):
     # product and an add per (valid point, channel)
     s1.update(bound(nbytes(depth, ctx, coords, valid, got),
                     s1["points_valid"] * ctx.shape[-1] * 2))
+    del got
+    s1["backward"] = s1_backward_check(depth, ctx, coords, valid, nx, label,
+                                       s1["voxels_filled"], s1["points_valid"])
     return s1
+
+
+def s1_backward_check(depth, ctx, coords, valid, nx, label, voxels_filled, points_valid):
+    """S1-bwd (``ops/scatter.py:_launch_bwd``) against its plain version
+    (``voxel_scatter_backward_plain``: float32 gathers of every point's row
+    and two products of the lift's size) on a random volume gradient:
+    d_depth and d_ctx within float32 1e-5 / bf16 1e-2 of max |plain| (each
+    in its own dtype), two calls bit-equal, autograd through S1 one launch
+    of it and its bits, and the same bits from the gradient in the layout
+    the main path hands over (the encoder's permute: a transposed view at
+    batch 1, which the kernel transposes itself); the kernel and the plain
+    backward timed in turns on that layout, the kernel's device ms on it
+    and on rows, autograd through one ``index_add_`` of the whole lift (the
+    library call) and the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from occformer_tpu_torch.ops import scatter
+
+    d_leaf, c_leaf = (t.detach().clone().requires_grad_(True) for t in (depth, ctx))
+    vol = scatter.voxel_scatter_lifted(d_leaf, c_leaf, coords, valid, nx)
+    g_vol = torch.randn(vol.shape, device=vol.device, dtype=vol.dtype,
+                        generator=torch.Generator(device="cuda").manual_seed(17))
+    C = g_vol.shape[-1]
+    gout = g_vol.reshape(-1, C)
+    # as the main path hands it over: the gradient of volume.permute(0, 4, 1, 2, 3)
+    main_gout = g_vol.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1).reshape(-1, C)
+
+    def kernel(g=main_gout):
+        return scatter._launch_bwd(depth, ctx, coords, valid, g, nx)
+
+    def plain():
+        return scatter.voxel_scatter_backward_plain(depth, ctx, coords, valid, main_gout, nx)
+
+    got, again, rows = kernel(), kernel(), kernel(gout)
+    check(all(torch.equal(a, b) and torch.equal(a, c) for a, b, c in zip(got, again, rows)),
+          f"S1-bwd {label}: two calls, or the two gradient layouts, differ")
+    ref = plain()
+    errs = [compare(a, r, 1e-5 if a.dtype == torch.float32 else 1e-2,
+                    f"S1-bwd {label} {name}")
+            for a, r, name in zip(got, ref, ("d_depth", "d_ctx"))]
+    before = launches()["S1-bwd"]
+    auto = torch.autograd.grad(vol, (d_leaf, c_leaf), g_vol, retain_graph=True)
+    check(launches()["S1-bwd"] == before + 1 and all(torch.equal(a, b)
+                                                    for a, b in zip(auto, got)),
+          f"S1-bwd {label}: autograd through S1 is not one launch of S1-bwd with its bits")
+    rec = {"max_abs_err": max(e["max_abs_err"] for e in errs), "d_depth": errs[0],
+           "d_ctx": errs[1], "bit_identical_calls": True, "autograd_bit_equal": True,
+           "dtypes": [str(t.dtype) for t in got],
+           "gradient_transposed": main_gout.stride() == (1, main_gout.shape[0])}
+    del again, rows, ref, auto
+    ms = {"plain": [], "kernel": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        ms[name].append(time_cuda(kernel if name == "kernel" else plain, iters=10))
+    rec.update(ms_in_turns=ms, kernel_ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2,
+               device_ms=device_ms(kernel, iters=10),
+               rows_device_ms=device_ms(lambda: kernel(gout), iters=10))
+    # the library call: autograd through one index_add_ of the whole lift
+    rows = scatter.voxel_rows(coords, valid, nx).reshape(-1)
+    lift = (d_leaf[..., None] * c_leaf[:, :, None]).reshape(rows.shape[0], -1).float()
+    lib_vol = lift.new_zeros((gout.shape[0] + 1, C)).index_add(0, rows, lift)
+    lib_g = F.pad(gout.float(), (0, 0, 0, 1))
+    rec["library_ms"] = time_cuda(lambda: torch.autograd.grad(
+        lib_vol, (d_leaf, c_leaf), lib_g, retain_graph=True), iters=10)
+    # the backward's least work: valid read in full; the gradient's row of
+    # each filled voxel once, the valid points' depth and coords, and ctx's
+    # row of each pixel that holds a valid point (an invalid point needs
+    # none of them); d_depth and d_ctx written once; a product and an add
+    # per (valid point, channel) for each of the two gradients
+    pixels_used = int(valid.any(dim=2).sum())
+    rec.update(bound(nbytes(valid, depth, ctx) + voxels_filled * C * g_vol.element_size()
+                     + points_valid * (depth.element_size() + 3 * coords.element_size())
+                     + pixels_used * C * ctx.element_size(), points_valid * C * 4))
+    rec["pixels_with_a_valid_point"] = pixels_used
+    del d_leaf, c_leaf, vol, g_vol, gout, main_gout, got, rows, lift, lib_vol, lib_g
+    return rec
 
 
 def phase_determinism():
@@ -2847,7 +2904,7 @@ def phase_cli():
         rec["train_launches"] = [ln["kernel_launches"] for ln in logs1
                                  if "kernel_launches" in ln]
         check(all(n[k] > 0 for n in rec["train_launches"]
-                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1", "S1-bwd")),
               f"train CLI launches {rec['train_launches']}")
 
         out3, logs3, rec["test_s"] = run("test", "--checkpoint", step2, "--max-samples", "2")
@@ -2996,7 +3053,7 @@ def phase_resume(nusc_root, nusc_ann):
         rec["launches"] = [ln["kernel_launches"] for ln in lines_w + lines_a + lines_b
                            if "kernel_launches" in ln]
         check(all(n[k] > 0 for n in rec["launches"]
-                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1", "S1-bwd")),
               f"train CLI launches {rec['launches']}")
 
         timing, results = lines_t[0], lines_t[-1]
@@ -3524,7 +3581,7 @@ def phase_kitti_cli(tree):
         rec["total_loss"] = [ln["total_loss"] for ln in steps]
         rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 if "kernel_launches" in ln]
         check(all(n[k] > 0 for n in rec["train_launches"]
-                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1", "S1-bwd")),
               f"kitti train CLI launches {rec['train_launches']}")
         save = os.path.join(work, "save")
         out2, logs2, rec["test_s"] = cli_run(
@@ -3790,7 +3847,7 @@ def phase_r101_cli(tree, ann):
         rec["total_loss"] = [ln["total_loss"] for ln in steps]
         rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 if "kernel_launches" in ln]
         check(all(n[k] > 0 for n in rec["train_launches"]
-                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1", "S1-bwd")),
               f"r101 train CLI launches {rec['train_launches']}")
         save = os.path.join(work, "save")
         topts = nuscenes_cfg_options(load_config(R101_TRAINVAL), tree, ann)
@@ -4156,7 +4213,7 @@ def phase_pan_cli(tree, ann):
         rec["grad_norm"] = [ln.get("grad_norm") for ln in steps]
         rec["train_launches"] = [ln["kernel_launches"] for ln in logs1 if "kernel_launches" in ln]
         check(all(n[k] > 0 for n in rec["train_launches"]
-                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1")),
+                  for k in ("K1", "K1-bwd", "K2", "K2-bwd", "K4", "K4-bwd", "S1", "S1-bwd")),
               f"pan train CLI launches {rec['train_launches']}")
         out2, logs2, rec["test_s"] = cli_run(
             "test", "--checkpoint", os.path.join(work, "ckpts", "step_2"), "--max-samples", "2",
@@ -4548,7 +4605,9 @@ def s1_rows_record(feats, coords, valid, nx, label):
     to the plain gather, timed in turns with the plain version, the kernels'
     device ms (also by kernel: the memset, count, scan, fill, rank and
     splat), one index_add_ in feats' dtype (the library call) and the
-    bound."""
+    bound; under ``backward`` S1-rows-bwd (``_launch_rows_bwd``) bit for bit
+    the plain gather, two calls bit-equal, timed in turns with it, its device
+    ms, autograd through one index_add_ (the library call) and its bound."""
     import torch
     import torch.nn.functional as F
 
@@ -4575,13 +4634,52 @@ def s1_rows_record(feats, coords, valid, nx, label):
     vol = scatter.voxel_scatter(leaf, coords, valid, nx)
     g = torch.randn(vol.shape, device=vol.device, generator=torch.Generator(
         device="cuda").manual_seed(7)).to(vol.dtype)
+    before = launches()["S1-rows-bwd"]
     (d_feats,) = torch.autograd.grad(vol, leaf, g)
+    check(launches()["S1-rows-bwd"] == before + 1,
+          f"S1-rows {label}: the backward is not one launch of S1-rows-bwd")
     want = F.pad(g.reshape(n_rows, C), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
     check(torch.equal(d_feats.reshape(-1, C), want), f"S1-rows {label}: backward")
     rec.update(bit_identical_calls=True, backward_bit_equal_to_gather=True,
                dtype=str(feats.dtype), rows=[B, P, C], grid=list(nx),
                points_valid=int(valid.sum()))
-    del again, leaf, vol, g, d_feats, want, cpu
+    gout = g.reshape(n_rows, C)
+    # as the main path hands it over: the gradient of volume.permute(0, 4, 1, 2, 3)
+    main_gout = g.permute(0, 4, 1, 2, 3).contiguous().permute(0, 2, 3, 4, 1).reshape(-1, C)
+
+    def bwd_kernel(gg=main_gout):
+        return scatter._launch_rows_bwd(gg, coords, valid, nx)
+
+    def bwd_plain():
+        return scatter.voxel_scatter_rows_backward_plain(main_gout, coords, valid, nx)
+
+    first = bwd_kernel()
+    check(torch.equal(first, bwd_kernel()) and torch.equal(first, bwd_kernel(gout))
+          and torch.equal(first.reshape(-1, C), want),
+          f"S1-rows-bwd {label}: two calls, the two gradient layouts or the plain gather differ")
+    del first
+    bwd = {"max_abs_err": 0.0, "bit_equal_to_plain": True, "bit_identical_calls": True,
+           "gradient_transposed": main_gout.stride() == (1, main_gout.shape[0])}
+    ms = {"plain": [], "kernel": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        ms[name].append(time_cuda(bwd_kernel if name == "kernel" else bwd_plain))
+    bwd.update(ms_in_turns=ms, kernel_ms=sum(ms["kernel"]) / 2, plain_ms=sum(ms["plain"]) / 2,
+               device_ms=device_ms(bwd_kernel), rows_device_ms=device_ms(lambda: bwd_kernel(gout)))
+    # the library call: autograd through one index_add_ into the padded rows
+    lib_leaf = feats.detach().reshape(-1, C).clone().requires_grad_(True)
+    lib_vol = lib_leaf.new_zeros((n_rows + 1, C)).index_add(0, rows.reshape(-1), lib_leaf)
+    lib_g = F.pad(gout, (0, 0, 0, 1))
+    bwd["library_ms"] = time_cuda(lambda: torch.autograd.grad(lib_vol, lib_leaf, lib_g,
+                                                              retain_graph=True))
+    # what the copy must move: valid read in full, the coordinates of each
+    # valid point, the gradient's row of each filled voxel once (points of
+    # one voxel share it), d_feats written once; no arithmetic
+    n_valid = rec["points_valid"]
+    filled = int((torch.bincount(rows.reshape(-1), minlength=n_rows + 1)[:n_rows] > 0).sum())
+    bwd.update(bound(nbytes(valid, d_feats) + n_valid * 3 * coords.element_size()
+                     + filled * C * gout.element_size(), 0), voxels_filled=filled)
+    rec["backward"] = bwd
+    del again, leaf, vol, g, gout, main_gout, d_feats, want, cpu, lib_leaf, lib_vol, lib_g
     ms = {"plain": [], "kernel": []}
     with torch.no_grad():
         for name in ("plain", "kernel", "kernel", "plain"):
@@ -4950,7 +5048,7 @@ def phase_learn():
     n = launches()  # ... and ends here
     rec = dict(rec, phase="learn", launches=n,
                launches_per_step={k: v / 300 for k, v in n.items()})
-    check(all(n[k] > 0 for k in ("K1", "K1-bwd", "K2", "K2-bwd", "S1")),
+    check(all(n[k] > 0 for k in ("K1", "K1-bwd", "K2", "K2-bwd", "S1", "S1-bwd")),
           f"learn launches {n}")
     check(rec["heldout_SC_IoU"] > 0.15, f"held-out SC IoU {rec['heldout_SC_IoU']} "
           f"(chance {rec['chance_SC_IoU']})")
@@ -5053,7 +5151,8 @@ def phase_ddp():
 # gather, splat or corner reduce (one per launch) counts the launches; S1's
 # second splat kernel (its heavy voxels) runs beside it, K1-bwd's
 # sample-major kernel and K4-bwd's coordinate kernel before the binning;
-# S1-rows' count, scan, fill and rank kernels before its splat
+# S1-rows' count, scan, fill and rank kernels before its splat; S1-bwd's and
+# S1-rows-bwd's transposes of a transposed gradient before their gathers
 PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kernel": "K1.row",
                 "ms_deform_bwd_samples_kernel": "K1-bwd",
                 "trilerp_fwd_narrow_kernel": "K2", "trilerp_fwd_rows_kernel": "K2.row",
@@ -5065,12 +5164,15 @@ PORT_KERNELS = {"ms_deform_gather3d_kernel": "K1", "ms_deform_gather3d_rows_kern
                 "multilevel_bwd_coords_kernel": "K4-bwd",
                 "add_one_kernel": "P1", "row_gather_kernel": "P2",
                 "voxel_splat_kernel": "S1", "voxel_splat_heavy_kernel": "S1",
+                "voxel_splat_bwd_kernel": "S1-bwd", "s1_bwd_transpose_kernel": "S1-bwd",
+                "rows_bwd_kernel": "S1-rows-bwd", "rows_bwd_transpose_kernel": "S1-rows-bwd",
                 "rows_count_kernel": "S1-rows", "rows_scan_kernel": "S1-rows",
                 "rows_fill_kernel": "S1-rows", "rows_rank_kernel": "S1-rows",
                 "rows_splat_kernel": "S1-rows", "fps_kernel": "FPS"}
 _UNCOUNTED = {"voxel_splat_heavy_kernel", "ms_deform_bwd_samples_kernel",
               "multilevel_bwd_coords_kernel", "rows_count_kernel", "rows_scan_kernel",
-              "rows_fill_kernel", "rows_rank_kernel"}
+              "rows_fill_kernel", "rows_rank_kernel", "s1_bwd_transpose_kernel",
+              "rows_bwd_transpose_kernel"}
 _SORT_STEPS = {"seg_count_kernel", "scan_tiles_kernel", "scan_sums_kernel",
                "add_tile_offsets_kernel", "seg_fill_kernel", "seg_rank_kernel",
                "seg_fill_entries_kernel", "span_sort_warp_kernel", "span_sort_block_kernel",
@@ -5271,28 +5373,38 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
          dict(timing["row_gather"], kernel_ms=timing["row_gather"]["ms"],
               max_abs_err=probe["row_gather_max_abs_err"])),
         # not a Pallas kernel's port: the JAX package leaves the splat to XLA
+        # and its backward to autodiff (a gather of the cotangent)
         ("voxel_scatter_lifted", "", "S1", src + "voxel_splat.cu",
          "occformer_tpu/ops/scatter.py:55", det["S1"]),
+        ("voxel_scatter_lifted_bwd", "", "S1-bwd", src + "voxel_splat.cu",
+         "occformer_tpu/ops/scatter.py:55", det["S1"]["backward"]),
         # nor these: XLA's segment_sum and a fori_loop in the JAX package
         ("voxel_scatter", "", "S1-rows", src + "voxel_splat.cu",
          "occformer_tpu/ops/scatter.py:20", dict(voxnet["bfloat16"], float32={
              k: voxnet["float32"][k] for k in ("max_abs_err", "kernel_ms", "device_ms",
                                                "plain_ms", "bound_ms", "library_ms")})),
+        ("voxel_scatter_bwd", "", "S1-rows-bwd", src + "voxel_splat.cu",
+         "occformer_tpu/ops/scatter.py:20", dict(voxnet["bfloat16"]["backward"], float32={
+             k: voxnet["float32"]["backward"][k] for k in (
+                 "max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms",
+                 "library_ms")})),
         ("furthest_point_sample", "", "FPS", src + "furthest_point_sample.cu",
          "occformer_tpu/ops/pointcloud.py:161", pointcloud["FPS"]),
     ]
-    new_keys = ("S1-rows", "FPS")
+    new_keys = ("S1-rows", "S1-rows-bwd", "FPS")
     at_kitti = {"K1.row": kitti["K1"], "K1-bwd": kitti["K1-bwd"],
                 "K2.row": kitti["K2_matching"], "K2.scalar": kitti["K2_candidates"],
                 "K2-bwd.narrow": kitti["K2-bwd"], "K4.row": kitti["K4"],
-                "K4-bwd": kitti["K4-bwd"], "S1": kitti["S1"]}
+                "K4-bwd": kitti["K4-bwd"], "S1": kitti["S1"],
+                "S1-bwd": kitti["S1"]["backward"]}
     kitti_keys = ("max_abs_err", "kernel_ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
                   "library_ms", "table", "points")
 
     def at_r101(key):
-        if key == "S1":
-            return {k: r101["S1"][k] for k in kitti_keys + ("points_valid", "shapes")
-                    + S1_BACKWARD_KEYS if k in r101["S1"]}
+        if key in ("S1", "S1-bwd"):
+            r = r101["S1"] if key == "S1" else r101["S1"]["backward"]
+            return {k: r[k] for k in kitti_keys + ("device_ms", "points_valid", "shapes")
+                    if k in r}
         if key not in ("K4.row", "K4-bwd"):
             return {"shapes": "the flagship's (the same pixel decoder, LSS grid and loss)"}
         k = key.split(".")[0]
@@ -5354,7 +5466,7 @@ def kernel_records(kern, probe, det, paths, kitti, r101, pan, stereo, voxnet, po
                                   "other_rows",
                                   "launch_floor_ms", "bound_with_floor_ms",
                                   "device_ms_by_kernel", "us_per_step", "cluster_ctas")
-                + S1_BACKWARD_KEYS if k in r},
+                if k in r},
              **({"kitti": {k: at_kitti[key][k] for k in kitti_keys if k in at_kitti[key]}}
                 if key in at_kitti else {}),
              **({"float32": r["float32"]} if "float32" in r else {}),

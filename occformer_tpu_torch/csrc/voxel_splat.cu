@@ -43,8 +43,8 @@
 //        voxel's as zeros.  A heavy voxel goes to a list; a second kernel
 //        gives each listed voxel a warp of its own, so that the hot voxels
 //        near a camera do not serialise a group.
-// No float atomics: the same bits on every run.  The backward is gathers
-// (ops/scatter.py).
+// No float atomics: the same bits on every run.  The backward is S1-bwd
+// (voxel_splat_bwd below).
 //
 // Measured (tools/time_backwards.py --only S1, H100 80GB HBM3 at 700 W,
 // device ms of the splat kernels, in turns in one call, the volume's bits
@@ -78,7 +78,7 @@
 // voxel's rows added in float32 in ascending point order (no float
 // atomics), the order of the plain version's index_add_ on the CPU, so the
 // two agree bit for bit and two calls give the same bits.  Its backward is
-// a gather, d_feats[p] = g[row p] (ops/scatter.py).
+// S1-rows-bwd (voxel_splat_rows_bwd below), a gather d_feats[p] = g[row p].
 //
 // Bound on an H100 SXM at the use_voxel_net flagship (B = 1, P = 6 * 112 *
 // 16 * 44 = 473,088 rows of C = 128 in bf16, 128 x 128 x 16 voxels, the
@@ -813,4 +813,361 @@ extern "C" int voxel_splat_rows(const void* feats, const void* coords, const voi
               : rows_splat<float>(vec, passes, feats, s.offs, s.sorted, s.start, n_units, out,
                                   n_rows, C, nb, rs, vec16, st);
   return (int)err;
+}
+
+// ---- S1-bwd and S1-rows-bwd ----
+//
+// S1-bwd (voxel_splat_bwd) is S1's backward: with g the volume's gradient
+// [B * X*Y*Z, C] (in depth's dtype) and row(p) the voxel of frustum point p
+// (as SplatKeys),
+//
+//   d_depth[p]    = valid[p] ? sum over c of g[row(p), c] * ctx[pixel(p), c] : 0
+//   d_ctx[q, c]   = sum over the pixel's depth bins d of
+//                   (valid[p] ? depth[p] * g[row(p), c] : 0),  p = (q, d)
+//
+// in depth's and ctx's dtypes, each sum kept in float32 and rounded once.
+// The JAX package takes it by autodiff of the XLA scatter-add
+// (occformer_tpu/ops/scatter.py:55, a gather of the cotangent).  Its plain
+// version (ops/scatter.py:voxel_scatter_backward_plain) gathers a float32
+// row of g for every point into a [B, N, D, fH, fW, C] tensor and forms two
+// more of that size; at the R101 frustum (3.76 M points, C = 128) each is
+// 1.93 GB.
+//
+// Bound: valid read in full; the row of g of each filled voxel, the valid
+// points' depth and coords and ctx's row of each pixel holding a valid point
+// read once (an invalid point needs none of them); d_depth and d_ctx written
+// once; a gather, bound by bytes.
+// Its cost is the latency of the scattered row reads, as the forward's.
+//
+// Design: a block of BWD_WARPS warps per pixel, its warps on contiguous
+// chunks of the pixel's depth bins, a lane on VEC channels (as S1's splat:
+// 16-byte-or-less vectors as wide as C and the pointers allow), more passes
+// of 32 * VEC channels where C is wider.  Lane j computes bin d0 + j's voxel
+// row (int32, from coords and valid) and depth for 32 bins at once; the warp
+// broadcasts them by shuffles and each lane issues the g loads of
+// BWD_INFLIGHT bins before their FMAs; an invalid bin issues no load.
+// d_depth: each lane's channels, then a fixed xor-shuffle tree over the
+// lanes, the passes added in order in shared memory, one store a bin.
+// d_ctx: each lane's sums in ascending bin within its warp, the warps'
+// partials added in warp order through shared memory, one store a row.  No
+// atomics, no library call: two calls give the same bits.
+//
+// The gradient's layout: the occupancy encoder reads the volume as
+// volume.permute(0, 4, 1, 2, 3), so at batch 1 its gradient reaches the op
+// as a transposed view ([C, rows] in memory).  PyTorch's strided copy of it
+// into rows (the plain version's F.pad) took 0.35 device ms of a flagship
+// step, five times S1-bwd's gathers (H100 80GB HBM3 at 700 W); both entry
+// points instead take such a gradient with gout_t = 1 and copy it into rows
+// (gbuf) with s1_bwd_transpose_kernel / rows_bwd_transpose_kernel, 32 x 32
+// tiles through shared memory (about 0.09 ms), before their gathers.
+//
+// S1-rows-bwd (voxel_splat_rows_bwd) is S1-rows' backward, a copy:
+//
+//   d_feats[p, :] = valid[p] ? g[row(p), :] : 0
+//
+// in feats' dtype (g has it), equal bit for bit to the plain gather
+// (ops/scatter.py:voxel_scatter_rows_backward_plain, which pads a copy of g
+// with a zero row and index_selects every point).  A thread per (point,
+// vector of VB bytes), VB the widest of 16, 8, 4 and 2 that divides the row
+// and the addresses of g and d_feats; an invalid point reads no coords and
+// no row and stores zeros.  Bound: valid read in full, the valid points'
+// coords and the row of g of each filled voxel read once (the points of a
+// voxel share it), d_feats written once.
+//
+// Measured by chip_smoke.py in one run (H100 80GB HBM3 at 700 W; device ms
+// on rows of g and on the transposed gradient the main path hands over, the
+// transpose included; the plain versions and the library call by CUDA
+// events; PERF.md section 6 keeps each run's figures).  S1-bwd at the
+// nuScenes rig (278,782 of 473,088 points valid, C = 128, bf16): 0.070 on
+// rows, 0.164 transposed, against 1.51 ms for the plain backward on that
+// gradient and 0.95 ms for autograd through one index_add_; bound 0.0105.
+// At SemanticKITTI's 215,040 points 0.030 / 0.125 (bound 0.0056), at the
+// R101-DCN's 3,763,200 0.452 / 0.539 (bound 0.0321).  S1-rows-bwd at the
+// use_voxel_net flagship (473,088 rows of 128, bf16): 0.064 on rows (bound
+// 0.0456), 0.153 transposed, against 0.92 ms for the plain gather.
+
+// out[r, c] = in[c, r]: in [C, R], out [R, C], elements of `Bytes` bytes;
+// a block of 32 x 8 threads per 32 x 32 tile
+template <int Bytes>
+__device__ __forceinline__ void transpose_tile(const void* __restrict__ in_,
+                                               void* __restrict__ out_, int64_t R, int C) {
+  using T = typename Raw<Bytes>::T;
+  const T* in = static_cast<const T*>(in_);
+  T* out = static_cast<T*>(out_);
+  __shared__ T tile[32][33];
+  const int64_t r0 = (int64_t)blockIdx.x * 32;
+  const int c0 = blockIdx.y * 32;
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int c = c0 + j;
+    const int64_t r = r0 + threadIdx.x;
+    if (c < C && r < R) tile[j][threadIdx.x] = in[(int64_t)c * R + r];
+  }
+  __syncthreads();
+  for (int j = threadIdx.y; j < 32; j += 8) {
+    const int64_t r = r0 + j;
+    const int c = c0 + threadIdx.x;
+    if (r < R && c < C) out[r * C + c] = tile[threadIdx.x][j];
+  }
+}
+
+// the two backwards' transposes, apart by name in a profile
+template <int Bytes>
+__global__ void __launch_bounds__(256)
+s1_bwd_transpose_kernel(const void* __restrict__ in, void* __restrict__ out, int64_t R, int C) {
+  transpose_tile<Bytes>(in, out, R, C);
+}
+
+template <int Bytes>
+__global__ void __launch_bounds__(256)
+rows_bwd_transpose_kernel(const void* __restrict__ in, void* __restrict__ out, int64_t R, int C) {
+  transpose_tile<Bytes>(in, out, R, C);
+}
+
+// *gout as rows [R, C]: itself, or (gout_t) its [C, R] transpose copied
+// into gbuf, which *gout then points to (S1-rows-bwd's when `rows`)
+static cudaError_t grad_rows(const void** gout, int gout_t, void* gbuf, int64_t R, int C,
+                             int bytes, bool rows, cudaStream_t st) {
+  if (!gout_t || C == 0) return cudaSuccess;
+  const dim3 grid((unsigned)((R + 31) / 32), (unsigned)((C + 31) / 32)), block(32, 8);
+  if (bytes == 2 && rows)
+    rows_bwd_transpose_kernel<2><<<grid, block, 0, st>>>(*gout, gbuf, R, C);
+  else if (bytes == 2)
+    s1_bwd_transpose_kernel<2><<<grid, block, 0, st>>>(*gout, gbuf, R, C);
+  else if (rows)
+    rows_bwd_transpose_kernel<4><<<grid, block, 0, st>>>(*gout, gbuf, R, C);
+  else
+    s1_bwd_transpose_kernel<4><<<grid, block, 0, st>>>(*gout, gbuf, R, C);
+  *gout = gbuf;
+  return cudaGetLastError();
+}
+
+constexpr int BWD_WARPS = 4;      // a pixel's block: warps over its depth bins
+constexpr int BWD_INFLIGHT = 16;  // bins whose g loads a lane issues before their FMAs
+constexpr int BWD_MAX_D = 8192;   // depth bins at most (their d_depth in shared memory)
+
+template <typename Td, typename Tc, int VEC>
+__global__ void __launch_bounds__(BWD_WARPS * 32)
+voxel_splat_bwd_kernel(const Td* __restrict__ depth, const Tc* __restrict__ ctx,
+                       const int* __restrict__ coords, const uint8_t* __restrict__ valid,
+                       const Td* __restrict__ gout, Td* __restrict__ d_depth,
+                       Tc* __restrict__ d_ctx, int N, int D, int HW, int X, int Y, int Z, int C) {
+  using RawG = typename Raw<VEC * sizeof(Td)>::T;
+  using RawC = typename Raw<VEC * sizeof(Tc)>::T;
+  __shared__ float part[BWD_WARPS - 1][VEC][32];  // warps 1.. d_ctx partials
+  extern __shared__ float dd[];                   // [D]: each bin's d_depth so far
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t q = blockIdx.x;  // the pixel (b * N + n) * HW + hw
+  const int64_t bn = q / HW;
+  const int64_t p0 = bn * D * HW + (q - bn * HW);  // its bin 0; bin d is p0 + d * HW
+  const int64_t base = (bn / N) * X * Y * Z;      // its batch item's first voxel row
+  const int per = (D + BWD_WARPS - 1) / BWD_WARPS;
+  const int d_lo = min(D, warp * per), d_hi = min(D, d_lo + per);
+  const int passes = max(1, (C + 32 * VEC - 1) / (32 * VEC));  // C = 0: d_depth's zeros
+  for (int pass = 0; pass < passes; ++pass) {
+    const int c = (pass * 32 + lane) * VEC;
+    const bool on = c < C;
+    float cv[VEC], acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) cv[e] = acc[e] = 0.f;
+    if (on) chunk_floats<Tc, VEC>(cv, __ldg(reinterpret_cast<const RawC*>(ctx + q * C + c)));
+    for (int d0 = d_lo; d0 < d_hi; d0 += 32) {
+      const int nb = min(32, d_hi - d0);
+      int row = -1;
+      float dep = 0.f;
+      if (lane < nb) {
+        const int64_t p = p0 + (int64_t)(d0 + lane) * HW;
+        if (valid[p]) {
+          const int x = min(max(coords[3 * p + 0], 0), X - 1);
+          const int y = min(max(coords[3 * p + 1], 0), Y - 1);
+          const int z = min(max(coords[3 * p + 2], 0), Z - 1);
+          row = (x * Y + y) * Z + z;
+          dep = to_f(depth[p]);
+        }
+      }
+      float mine = 0.f;  // lane j: bin d0 + j's d_depth over this pass's channels
+      for (int j0 = 0; j0 < nb; j0 += BWD_INFLIGHT) {
+        RawG v[BWD_INFLIGHT];
+        int r[BWD_INFLIGHT];
+        float dj[BWD_INFLIGHT];
+#pragma unroll
+        for (int k = 0; k < BWD_INFLIGHT; ++k) {
+          const int j = j0 + k;
+          r[k] = __shfl_sync(0xffffffffu, row, j & 31);
+          dj[k] = __shfl_sync(0xffffffffu, dep, j & 31);
+          if (j >= nb) r[k] = -1;
+          v[k] = on && r[k] >= 0
+                     ? __ldg(reinterpret_cast<const RawG*>(gout + (base + r[k]) * C + c))
+                     : RawG{};
+        }
+#pragma unroll
+        for (int k = 0; k < BWD_INFLIGHT; ++k) {
+          if (r[k] < 0) continue;  // the same for every lane
+          float g[VEC];
+          chunk_floats<Td, VEC>(g, v[k]);
+          float s = 0.f;
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) {
+            s = fmaf(g[e], cv[e], s);
+            acc[e] = fmaf(dj[k], g[e], acc[e]);
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+          if (lane == j0 + k) mine = s;
+        }
+      }
+      if (lane < nb) dd[d0 + lane] = pass == 0 ? mine : dd[d0 + lane] + mine;
+    }
+    // d_ctx: the warps' sums in warp order
+    if (warp > 0) {
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) part[warp - 1][e][lane] = acc[e];
+    }
+    __syncthreads();
+    if (warp == 0 && on) {
+      for (int w = 0; w < BWD_WARPS - 1; ++w)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) acc[e] += part[w][e][lane];
+      store_chunk<Tc, VEC>(d_ctx + q * C + c, acc);
+    }
+    __syncthreads();
+  }
+  // d_depth: each warp's own bins (its lanes wrote them above)
+  for (int d = d_lo + lane; d < d_hi; d += 32) {
+    Td o;
+    from_f(o, dd[d]);
+    d_depth[p0 + (int64_t)d * HW] = o;
+  }
+}
+
+template <typename Td, typename Tc>
+static cudaError_t launch_splat_bwd(const void* depth, const void* ctx, const void* coords,
+                                    const void* valid, const void* gout, void* d_depth,
+                                    void* d_ctx, int64_t n_pix, int N, int D, int HW, int X,
+                                    int Y, int Z, int C, int vec, cudaStream_t st) {
+  const size_t smem = (size_t)D * sizeof(float);
+#define S1_BWD_ARGS                                                                          \
+  (const Td*)depth, (const Tc*)ctx, (const int*)coords, (const uint8_t*)valid,               \
+      (const Td*)gout, (Td*)d_depth, (Tc*)d_ctx, N, D, HW, X, Y, Z, C
+  if (vec == 4)
+    voxel_splat_bwd_kernel<Td, Tc, 4><<<(unsigned)n_pix, BWD_WARPS * 32, smem, st>>>(S1_BWD_ARGS);
+  else if (vec == 2)
+    voxel_splat_bwd_kernel<Td, Tc, 2><<<(unsigned)n_pix, BWD_WARPS * 32, smem, st>>>(S1_BWD_ARGS);
+  else
+    voxel_splat_bwd_kernel<Td, Tc, 1><<<(unsigned)n_pix, BWD_WARPS * 32, smem, st>>>(S1_BWD_ARGS);
+#undef S1_BWD_ARGS
+  return cudaGetLastError();
+}
+
+// S1-bwd, plain C entry point, loaded with ctypes.  depth [B, N, D, fH, fW]
+// and ctx [B, N, fH, fW, C], each float32 (dtype 0) or bfloat16 (dtype 1);
+// coords int32 [B, N, D, fH, fW, 3]; valid bool [B, N, D, fH, fW]; gout
+// [B * X * Y * Z, C] in depth's dtype, or with gout_t its transpose [C, B *
+// X * Y * Z] and gbuf room for the rows; d_depth like depth and d_ctx like
+// ctx, each written in full.  The points and rows below 2^31, D at most
+// BWD_MAX_D.  Launches on `stream` and returns the first CUDA error, or
+// cudaErrorInvalidValue for anything else.
+extern "C" int voxel_splat_bwd(const void* depth, const void* ctx, const void* coords,
+                               const void* valid, const void* gout, int gout_t, void* gbuf,
+                               void* d_depth, void* d_ctx, int B, int N, int D, int HW, int X,
+                               int Y, int Z, int C, int depth_dtype, int ctx_dtype,
+                               void* stream) {
+  const int64_t n_pix = (int64_t)B * N * HW;
+  const int64_t n_pts = n_pix * D;
+  const int64_t n_rows = (int64_t)B * X * Y * Z;
+  if (depth_dtype < 0 || depth_dtype > 1 || ctx_dtype < 0 || ctx_dtype > 1 || D > BWD_MAX_D ||
+      n_pts >= ((int64_t)1 << 31) || n_rows >= ((int64_t)1 << 31) || X <= 0 || Y <= 0 ||
+      Z <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (n_pts == 0) return 0;
+  const int c_size = ctx_dtype ? 2 : 4, d_size = depth_dtype ? 2 : 4;
+  cudaStream_t st = (cudaStream_t)stream;
+  cudaError_t err = grad_rows(&gout, gout_t, gbuf, n_rows, C, d_size, false, st);
+  if (err != cudaSuccess) return (int)err;
+  // loads and stores as wide as the row and the alignments of ctx, gout and
+  // d_ctx allow
+  int vec = 4;
+  while (vec > 1 && (C % vec != 0 || (uintptr_t)ctx % (vec * c_size) != 0 ||
+                     (uintptr_t)d_ctx % (vec * c_size) != 0 ||
+                     (uintptr_t)gout % (vec * d_size) != 0))
+    vec /= 2;
+  const int code = depth_dtype * 2 + ctx_dtype;
+  if (code == 0)
+    err = launch_splat_bwd<float, float>(depth, ctx, coords, valid, gout, d_depth, d_ctx, n_pix,
+                                         N, D, HW, X, Y, Z, C, vec, st);
+  else if (code == 1)
+    err = launch_splat_bwd<float, __nv_bfloat16>(depth, ctx, coords, valid, gout, d_depth, d_ctx,
+                                                 n_pix, N, D, HW, X, Y, Z, C, vec, st);
+  else if (code == 2)
+    err = launch_splat_bwd<__nv_bfloat16, float>(depth, ctx, coords, valid, gout, d_depth, d_ctx,
+                                                 n_pix, N, D, HW, X, Y, Z, C, vec, st);
+  else
+    err = launch_splat_bwd<__nv_bfloat16, __nv_bfloat16>(depth, ctx, coords, valid, gout,
+                                                         d_depth, d_ctx, n_pix, N, D, HW, X, Y,
+                                                         Z, C, vec, st);
+  return (int)err;
+}
+
+// a thread per (point, VB-byte vector of its row)
+template <int VB>
+__global__ void __launch_bounds__(256)
+rows_bwd_kernel(const unsigned char* __restrict__ gout, const int* __restrict__ coords,
+                const uint8_t* __restrict__ valid, unsigned char* __restrict__ d_feats,
+                int64_t n_vec, int cpr, int P, int X, int Y, int Z) {
+  using R = typename Raw<VB>::T;
+  const int64_t rb = (int64_t)cpr * VB;
+  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n_vec;
+       i += (int64_t)gridDim.x * blockDim.x) {
+    const int p = (int)(i / cpr);
+    const int k = (int)(i - (int64_t)p * cpr);
+    R v{};
+    if (valid[p]) {
+      const int x = min(max(coords[3 * (int64_t)p + 0], 0), X - 1);
+      const int y = min(max(coords[3 * (int64_t)p + 1], 0), Y - 1);
+      const int z = min(max(coords[3 * (int64_t)p + 2], 0), Z - 1);
+      const int64_t row = (int64_t)(p / P) * X * Y * Z + (x * Y + y) * Z + z;
+      v = __ldg(reinterpret_cast<const R*>(gout + row * rb) + k);
+    }
+    reinterpret_cast<R*>(d_feats + (int64_t)p * rb)[k] = v;
+  }
+}
+
+// S1-rows-bwd, plain C entry point, loaded with ctypes.  gout [B * X * Y *
+// Z, C] float32 (dtype 0) or bfloat16 (dtype 1), or with gout_t its
+// transpose and gbuf room for the rows; coords int32 [B * P, 3]; valid bool
+// [B * P]; d_feats [B * P, C] in gout's dtype, written in full.  The rows
+// and voxels below 2^31.  Launches on `stream` and returns the first CUDA
+// error, or cudaErrorInvalidValue for anything else.
+extern "C" int voxel_splat_rows_bwd(const void* gout, int gout_t, void* gbuf,
+                                    const void* coords, const void* valid, void* d_feats, int B,
+                                    int P, int X, int Y, int Z, int C, int dtype,
+                                    void* stream) {
+  const int64_t n_pts = (int64_t)B * P;
+  const int64_t n_rows = (int64_t)B * X * Y * Z;
+  if (dtype < 0 || dtype > 1 || n_pts >= ((int64_t)1 << 31) ||
+      n_rows >= ((int64_t)1 << 31) || X <= 0 || Y <= 0 || Z <= 0)
+    return (int)cudaErrorInvalidValue;
+  const int rb = C * (dtype ? 2 : 4);
+  if (n_pts == 0 || rb == 0) return 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const cudaError_t err = grad_rows(&gout, gout_t, gbuf, n_rows, C, dtype ? 2 : 4, true, st);
+  if (err != cudaSuccess) return (int)err;
+  int vb = 16;
+  while (vb > 2 && (rb % vb != 0 || (uintptr_t)gout % vb != 0 || (uintptr_t)d_feats % vb != 0))
+    vb /= 2;
+  const int cpr = rb / vb;
+  const int64_t n_vec = n_pts * cpr;
+  const int threads = 256;
+#define ROWS_BWD_ARGS                                                                     \
+  (const unsigned char*)gout, (const int*)coords, (const uint8_t*)valid,                  \
+      (unsigned char*)d_feats, n_vec, cpr, P, X, Y, Z
+  if (vb == 16)
+    rows_bwd_kernel<16><<<grid_blocks(n_vec, threads), threads, 0, st>>>(ROWS_BWD_ARGS);
+  else if (vb == 8)
+    rows_bwd_kernel<8><<<grid_blocks(n_vec, threads), threads, 0, st>>>(ROWS_BWD_ARGS);
+  else if (vb == 4)
+    rows_bwd_kernel<4><<<grid_blocks(n_vec, threads), threads, 0, st>>>(ROWS_BWD_ARGS);
+  else
+    rows_bwd_kernel<2><<<grid_blocks(n_vec, threads), threads, 0, st>>>(ROWS_BWD_ARGS);
+#undef ROWS_BWD_ARGS
+  return (int)cudaGetLastError();
 }

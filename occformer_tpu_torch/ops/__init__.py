@@ -2,7 +2,8 @@
 ``trilerp_fused`` (K1, K1-bwd, K4, K4-bwd), ``trilerp`` (K2, K2-bwd),
 ``loss_gather`` (K3) and ``probe`` (P1, P2), the ports of the JAX package's
 Pallas kernels, ``scatter`` (S1, the LSS splat, and S1-rows, the splat of
-given rows, which the JAX package leaves to XLA) and ``pointcloud`` (FPS,
+given rows, which the JAX package leaves to XLA, and their backwards S1-bwd
+and S1-rows-bwd) and ``pointcloud`` (FPS,
 furthest-point sampling, a ``fori_loop`` in the JAX package).
 
 Every kernel is a ``torch.library`` custom op in the ``occformer``
@@ -32,7 +33,9 @@ _COUNTERS = {"K1": ("trilerp_fused", "LAUNCHES"), "K1.row": ("trilerp_fused", "R
              "K4.row": ("trilerp_fused", "MULTI_ROW_LAUNCHES"),
              "K4-bwd": ("trilerp_fused", "MULTI_BWD_LAUNCHES"),
              "P1": ("probe", "ADD_ONE_LAUNCHES"), "P2": ("probe", "ROW_GATHER_LAUNCHES"),
-             "S1": ("scatter", "LAUNCHES"), "S1-rows": ("scatter", "ROWS_LAUNCHES"),
+             "S1": ("scatter", "LAUNCHES"), "S1-bwd": ("scatter", "BWD_LAUNCHES"),
+             "S1-rows": ("scatter", "ROWS_LAUNCHES"),
+             "S1-rows-bwd": ("scatter", "ROWS_BWD_LAUNCHES"),
              "FPS": ("pointcloud", "FPS_LAUNCHES")}
 
 _MODULES = {"trilerp_fused": trilerp_fused, "trilerp": trilerp, "loss_gather": loss_gather,

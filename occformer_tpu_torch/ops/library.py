@@ -7,7 +7,8 @@ kernel's plain version, and a fake implementation that gives the output's
 shape, dtype and strides, so that ``torch.export`` and ``opcheck`` see the
 op without running it.  The op a tensor takes follows its device: a CUDA
 tensor never reaches a plain version.  The forwards that train (K1, K2, K4,
-S1, S1-rows) link to their backward through ``register_autograd``.
+S1, S1-rows) link to their backward op (K1-bwd, K2-bwd, K4-bwd, S1-bwd,
+S1-rows-bwd) through ``register_autograd``.
 
 A backward op's CPU implementation differentiates the plain version with
 autograd (``plain_grads``).  An op's implementation runs below autograd,
@@ -29,8 +30,9 @@ NAMESPACE = "occformer"
 # kernel (the launch counts' name) -> its op; a backward op's kernel
 # differentiates the forward's
 OPS = {"K1": "k1_fwd", "K1-bwd": "k1_bwd", "K2": "k2_fwd", "K2-bwd": "k2_bwd",
-       "K3": "k3", "K4": "k4_fwd", "K4-bwd": "k4_bwd", "S1": "s1", "S1-rows": "s1_rows",
-       "FPS": "fps", "P1": "p1", "P2": "p2"}
+       "K3": "k3", "K4": "k4_fwd", "K4-bwd": "k4_bwd", "S1": "s1", "S1-bwd": "s1_bwd",
+       "S1-rows": "s1_rows", "S1-rows-bwd": "s1_rows_bwd", "FPS": "fps", "P1": "p1",
+       "P2": "p2"}
 
 
 def qualname(op: str) -> str:
@@ -87,7 +89,7 @@ def plain_grads(fn: Callable, inputs: Sequence[torch.Tensor], wanted: Sequence[b
 
 
 # the ops without a derivative: the backward ops, K3 (a GT read), P1, P2
-NO_DERIVATIVE = ("k1_bwd", "k2_bwd", "k4_bwd", "k3", "p1", "p2")
+NO_DERIVATIVE = ("k1_bwd", "k2_bwd", "k4_bwd", "s1_bwd", "s1_rows_bwd", "k3", "p1", "p2")
 
 
 def example_inputs(op: str, device="cpu", seed: int = 0) -> tuple:
@@ -124,11 +126,14 @@ def example_inputs(op: str, device="cpu", seed: int = 0) -> tuple:
         if op == "k4_fwd":
             return tables, coords, shapes, 4, False
         return tables, coords, [u(2, 4, 5), u(2, 4, 3)], shapes, 4, False, True
-    if op == "s1":
-        return (grad(u(1, 2, 3, 2, 2)), grad(u(1, 2, 2, 2, 4)), ints(2, 1, 2, 3, 2, 2, 3),
-                mask(1, 2, 3, 2, 2), [2, 2, 2])
+    if op in ("s1", "s1_bwd"):
+        args = (grad(u(1, 2, 3, 2, 2)), grad(u(1, 2, 2, 2, 4)), ints(2, 1, 2, 3, 2, 2, 3),
+                mask(1, 2, 3, 2, 2))
+        return args + ((u(8, 4),) if op == "s1_bwd" else ()) + ([2, 2, 2],)
     if op == "s1_rows":
         return grad(u(1, 6, 4)), ints(2, 1, 6, 3), mask(1, 6), [2, 2, 2]
+    if op == "s1_rows_bwd":
+        return u(8, 4), ints(2, 1, 6, 3), mask(1, 6), [2, 2, 2]
     if op == "fps":
         return u(2, 10, 3), 4, mask(2, 10, p=0.2)
     if op == "p1":

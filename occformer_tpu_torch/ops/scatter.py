@@ -16,9 +16,20 @@ no atomics, no library call and without storing the lift product, and
 writes the volume once in ``depth``'s dtype; for CPU tensors it is the
 CPU implementation the plain version, ``voxel_scatter_plain`` (one
 ``index_add_`` per camera over
-``voxel_rows``, sequential on the CPU, atomic on the card).  Its backward
-is gathers, deterministic too.  ``segments`` states the order S1's sort
-gives (a stable sort of ``voxel_rows``).  ``LAUNCHES`` counts S1's launches.
+``voxel_rows``, sequential on the CPU, atomic on the card).  ``segments``
+states the order S1's sort gives (a stable sort of ``voxel_rows``).
+``LAUNCHES`` counts S1's launches.
+
+Its backward is the op ``occformer::s1_bwd``: on the card S1-bwd
+(``csrc/voxel_splat.cu:voxel_splat_bwd``), a kernel with a block per
+pixel whose warps take contiguous chunks of its depth bins; each lane
+gathers its channels of the gradient rows of 16 bins at a time (an invalid
+point loads nothing), d_depth comes from a fixed shuffle tree over the
+lanes and d_ctx from each warp's sums in bin order added in warp order, so
+two calls give the same bits and no [B, N, D, fH, fW, C] product is
+formed.  On the CPU its plain version, ``voxel_scatter_backward_plain``
+(a float32 gather of every point's row and two products of that size).
+``BWD_LAUNCHES`` counts S1-bwd's launches.
 
 ``voxel_scatter`` (port of ``occformer_tpu/ops/scatter.py:voxel_scatter``,
 the view transformer's ``use_voxel_net`` splat) sums given feature rows
@@ -26,9 +37,25 @@ the view transformer's ``use_voxel_net`` splat) sums given feature rows
 by voxel and a splat that gathers each voxel's rows into shared memory and
 adds them in point order), ``voxel_scatter_plain_rows`` (one
 ``index_add_`` into float32 rows, in point order on the CPU, so the two
-agree bit for bit) for CPU tensors.  Its backward is a gather, d_feats[p] =
-g[row p], 0 for an invalid point.  ``ROWS_LAUNCHES`` counts S1-rows'
-launches.
+agree bit for bit) for CPU tensors.  ``ROWS_LAUNCHES`` counts S1-rows'
+launches.  Its backward, d_feats[p] = g[row p] (0 for an invalid point),
+is the op ``occformer::s1_rows_bwd``: S1-rows-bwd on the card
+(``voxel_splat_rows_bwd``: a thread per point and 16-byte vector of its
+row, no padded copy of the gradient), equal bit for bit to its plain version
+``voxel_scatter_rows_backward_plain`` (a padded copy of the gradient and
+one ``index_select``), which the CPU runs.  ``ROWS_BWD_LAUNCHES`` counts
+S1-rows-bwd's launches.
+
+At batch 1 the occupancy encoder's ``volume.permute(0, 4, 1, 2, 3)`` hands
+both backwards their gradient as a transposed view; ``_grad_rows`` passes it
+on as it is and the kernels transpose it into rows themselves (PyTorch's
+strided copy of it took 0.35 device ms, the kernels' transpose about 0.09).
+
+Measured by ``chip_smoke.py`` in one run (H100 80GB HBM3 at 700 W, on the
+transposed gradient the main path hands over): S1-bwd at the nuScenes rig
+0.164 device ms against 1.51 ms (events) for the plain backward; S1-rows-bwd
+at the use_voxel_net flagship (bf16) 0.153 device ms against 0.92 ms
+(events) for the plain gather.  PERF.md section 6 keeps each run's figures.
 """
 from __future__ import annotations
 
@@ -41,9 +68,12 @@ import torch.nn.functional as F
 from ..utils import flops
 from . import cuda_build, library
 
-# launches of the splat kernels (S1, S1-rows); a caller may reset them to 0
+# launches of the splat kernels (S1, S1-rows) and of their backwards (S1-bwd,
+# S1-rows-bwd); a caller may reset them to 0
 LAUNCHES = 0
 ROWS_LAUNCHES = 0
+BWD_LAUNCHES = 0
+ROWS_BWD_LAUNCHES = 0
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FNS = {}
@@ -85,6 +115,14 @@ def _kernel_fn(name: str = "voxel_splat"):
             fn.argtypes, fn.restype = [ctypes.c_longlong] * 2, ctypes.c_longlong
         elif name == "voxel_splat_rows":
             fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        elif name == "voxel_splat_bwd":
+            fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] + [ctypes.c_void_p] * 3
+                           + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        elif name == "voxel_splat_rows_bwd":
+            fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 4
+                           + [ctypes.c_int] * 7 + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
         else:
             fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
@@ -153,16 +191,86 @@ def _s1_setup(ctx, inputs, output):
     ctx.nx = nx
 
 
-def _s1_backward(ctx_, gout):
-    """Gathers each point's row of the output gradient: d_depth[p] =
+def voxel_scatter_backward_plain(depth: torch.Tensor, ctx: torch.Tensor,
+                                 coords: torch.Tensor, valid: torch.Tensor,
+                                 gout: torch.Tensor, nx: Sequence[int]) -> List[torch.Tensor]:
+    """Plain PyTorch version of S1-bwd: each point's row of the volume's
+    gradient ``gout`` [B * X * Y * Z, C] gathered in float32, d_depth[p] =
     <g[row p], ctx[pixel p]>, d_ctx[pixel] = sum over the pixel's depth
-    bins of depth[p] * g[row p] (an invalid point's g is 0)."""
-    depth, ctx, coords, valid = ctx_.saved_tensors
-    rows = voxel_rows(coords, valid, ctx_.nx)
+    bins of depth[p] * g[row p] (an invalid point's g is 0).  ->
+    [d_depth in depth's dtype, d_ctx in ctx's dtype]."""
+    rows = voxel_rows(coords, valid, nx)
     g = F.pad(gout.float(), (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
     g = g.view(*rows.shape, gout.shape[-1])                 # [B, N, D, fH, fW, C]
     d_depth = (g * ctx[:, :, None].float()).sum(-1).to(depth.dtype)
     d_ctx = (g * depth[..., None].float()).sum(2).to(ctx.dtype)
+    return [d_depth, d_ctx]
+
+
+def _grad_rows(gout):
+    """The volume's gradient [rows, C] as the backward kernels take it:
+    (rows or their transpose, 1 when transposed, room for the rows or None).
+    At batch 1 the encoder's ``permute`` hands it over as a transposed view
+    ([C, rows] in memory), which the kernels copy into rows themselves;
+    any other layout is made contiguous here."""
+    if gout.dim() == 2 and gout.shape[1] > 1 and gout.stride() == (1, gout.shape[0]):
+        return gout, 1, torch.empty(gout.shape, dtype=gout.dtype, device=gout.device)
+    return gout.contiguous(), 0, None
+
+
+def _launch_bwd(depth, ctx, coords, valid, gout, nx):
+    """S1-bwd: [d_depth like depth, d_ctx like ctx]."""
+    global BWD_LAUNCHES
+    B, N, D, fH, fW = depth.shape
+    C = ctx.shape[-1]
+    X, Y, Z = (int(n) for n in nx)
+    if not (depth.dtype in _DTYPE_CODE and ctx.dtype in _DTYPE_CODE
+            and gout.dtype == depth.dtype):
+        raise TypeError(f"S1-bwd takes float32 or bfloat16 depth and ctx and the gradient in "
+                        f"depth's dtype; got {depth.dtype}, {ctx.dtype}, {gout.dtype}")
+    if tuple(gout.shape) != (B * X * Y * Z, C):
+        raise ValueError(f"S1-bwd: gradient {tuple(gout.shape)}, want {(B * X * Y * Z, C)}")
+    depth, ctx = depth.contiguous(), ctx.contiguous()
+    gout, gout_t, gbuf = _grad_rows(gout)
+    coords = coords.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    d_depth = torch.empty_like(depth)
+    d_ctx = torch.empty_like(ctx)
+    with torch.cuda.device(depth.device):
+        stream = torch.cuda.current_stream(depth.device).cuda_stream
+        rc = _kernel_fn("voxel_splat_bwd")(
+            depth.data_ptr(), ctx.data_ptr(), coords.data_ptr(), valid.data_ptr(),
+            gout.data_ptr(), gout_t, 0 if gbuf is None else gbuf.data_ptr(), d_depth.data_ptr(),
+            d_ctx.data_ptr(), B, N, D, fH * fW, X, Y, Z, C, _DTYPE_CODE[depth.dtype],
+            _DTYPE_CODE[ctx.dtype], stream)
+    if rc != 0:
+        raise RuntimeError(f"voxel_splat_bwd launch failed: cudaError {rc}")
+    BWD_LAUNCHES += 1
+    return [d_depth, d_ctx]
+
+
+@torch.library.custom_op(library.qualname("s1_bwd"), mutates_args=(), device_types="cuda")
+def _s1_bwd(depth: torch.Tensor, ctx: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+            gout: torch.Tensor, nx: List[int]) -> List[torch.Tensor]:
+    """S1-bwd (the op's CUDA implementation): [d_depth, d_ctx]."""
+    return _launch_bwd(depth, ctx, coords, valid, gout, nx)
+
+
+@_s1_bwd.register_kernel("cpu")
+def _(depth, ctx, coords, valid, gout, nx):
+    return voxel_scatter_backward_plain(depth, ctx, coords, valid, gout, nx)
+
+
+@_s1_bwd.register_fake
+def _(depth, ctx, coords, valid, gout, nx):
+    return [torch.empty_like(depth, memory_format=torch.contiguous_format),
+            torch.empty_like(ctx, memory_format=torch.contiguous_format)]
+
+
+def _s1_backward(ctx_, gout):
+    """S1-bwd on the volume's gradient (its plain version for CPU tensors)."""
+    depth, ctx, coords, valid = ctx_.saved_tensors
+    d_depth, d_ctx = _s1_bwd(depth, ctx, coords, valid, gout, ctx_.nx)
     return d_depth, d_ctx, None, None, None
 
 
@@ -260,16 +368,70 @@ def _(feats, coords, valid, nx):
 def _s1_rows_setup(ctx, inputs, output):
     feats, coords, valid, nx = inputs
     ctx.save_for_backward(coords, valid)
-    ctx.nx, ctx.dtype = nx, feats.dtype
+    ctx.nx = nx
+
+
+def voxel_scatter_rows_backward_plain(gout: torch.Tensor, coords: torch.Tensor,
+                                      valid: torch.Tensor, nx: Sequence[int]) -> torch.Tensor:
+    """Plain PyTorch version of S1-rows-bwd: each point's row of the
+    volume's gradient ``gout`` [B * X * Y * Z, C], d_feats[p] = g[row p] (0
+    for an invalid point), by one ``index_select`` of a copy padded with a
+    zero row.  -> [B, P, C] in gout's dtype."""
+    rows = voxel_rows(coords, valid, nx)
+    g = F.pad(gout, (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
+    return g.view(*rows.shape, gout.shape[-1])
+
+
+def _launch_rows_bwd(gout, coords, valid, nx):
+    """S1-rows-bwd: d_feats [B, P, C] in gout's dtype."""
+    global ROWS_BWD_LAUNCHES
+    B, P = valid.shape
+    C = gout.shape[-1]
+    X, Y, Z = (int(n) for n in nx)
+    if gout.dtype not in _DTYPE_CODE:
+        raise TypeError(f"S1-rows-bwd takes a float32 or bfloat16 gradient; got {gout.dtype}")
+    if tuple(gout.shape) != (B * X * Y * Z, C):
+        raise ValueError(f"S1-rows-bwd: gradient {tuple(gout.shape)}, want "
+                         f"{(B * X * Y * Z, C)}")
+    gout, gout_t, gbuf = _grad_rows(gout)
+    coords = coords.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    d_feats = torch.empty((B, P, C), dtype=gout.dtype, device=gout.device)
+    with torch.cuda.device(gout.device):
+        stream = torch.cuda.current_stream(gout.device).cuda_stream
+        rc = _kernel_fn("voxel_splat_rows_bwd")(
+            gout.data_ptr(), gout_t, 0 if gbuf is None else gbuf.data_ptr(), coords.data_ptr(),
+            valid.data_ptr(), d_feats.data_ptr(), B, P, X, Y, Z, C, _DTYPE_CODE[gout.dtype],
+            stream)
+    if rc != 0:
+        raise RuntimeError(f"voxel_splat_rows_bwd launch failed: cudaError {rc}")
+    ROWS_BWD_LAUNCHES += 1
+    return d_feats
+
+
+@torch.library.custom_op(library.qualname("s1_rows_bwd"), mutates_args=(),
+                         device_types="cuda")
+def _s1_rows_bwd(gout: torch.Tensor, coords: torch.Tensor, valid: torch.Tensor,
+                 nx: List[int]) -> torch.Tensor:
+    """S1-rows-bwd (the op's CUDA implementation): d_feats [B, P, C]."""
+    return _launch_rows_bwd(gout, coords, valid, nx)
+
+
+@_s1_rows_bwd.register_kernel("cpu")
+def _(gout, coords, valid, nx):
+    return voxel_scatter_rows_backward_plain(gout, coords, valid, nx)
+
+
+@_s1_rows_bwd.register_fake
+def _(gout, coords, valid, nx):
+    return gout.new_empty((*valid.shape, gout.shape[-1]))
 
 
 def _s1_rows_backward(ctx_, gout):
-    """Gathers each point's row of the output gradient, d_feats[p] = g[row p]
-    (0 for an invalid point)."""
+    """S1-rows-bwd on the volume's gradient, which autograd hands over in
+    the volume's dtype, feats' (its plain version for CPU tensors)."""
     coords, valid = ctx_.saved_tensors
-    rows = voxel_rows(coords, valid, ctx_.nx)
-    g = F.pad(gout, (0, 0, 0, 1)).index_select(0, rows.reshape(-1))
-    return g.view(*rows.shape, gout.shape[-1]).to(ctx_.dtype), None, None, None
+    return _s1_rows_bwd(gout, coords, valid, ctx_.nx), None, None, None
 
 
 _s1_rows.register_autograd(_s1_rows_backward, setup_context=_s1_rows_setup)

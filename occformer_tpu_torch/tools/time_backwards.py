@@ -25,7 +25,10 @@ the flagship's LSS shapes (``s1_inputs``) seen from a forward-looking
 nuScenes rig (``NUSCENES_RIG``) and from ``make_train_batch``'s synthetic
 cameras, with a digest of its volume (two checkouts' volumes are bit-equal
 when their digests are), its peak memory beyond its inputs, and the valid
-points, filled voxels and the largest voxel's points; K3
+points, filled voxels and the largest voxel's points, and its backward
+(autograd through S1 on a seeded volume gradient: S1-bwd, or the plain
+gathers in a checkout without it; ``backward_record``) and, where the
+checkout has S1-bwd, the kernel and its plain version in turns; K3
 (``ops/loss_gather.py:sample_id_masks``) at the batched route's three GT
 reads (``k3_cases``), with a digest of its masks, and at the candidates
 with one slot and beside a plain write of its output (what holds it
@@ -48,7 +51,8 @@ S1-rows (``ops/scatter.py:voxel_scatter``, the use_voxel_net splat, sort
 included) at the use_voxel_net flagship's shapes, [1, 473,088, 128] rows in
 bf16 and float32 at ``NUSCENES_RIG`` (``rows_inputs``), with a digest of
 its volume, two calls compared bit for bit, its device time by kernel and
-its peak memory beyond its inputs; FPS (``ops/pointcloud.py:
+its peak memory beyond its inputs, and its backward as S1's (S1-rows-bwd
+against the plain gather); FPS (``ops/pointcloud.py:
 furthest_point_sample``) at VoteNet's SA1 size [8, 20000, 3] -> 2048
 (``fps_inputs``), with and without invalid points: a digest of its indices,
 its device ms, its microseconds a step and the cluster size it took.
@@ -62,8 +66,9 @@ flagship's K1 and K4 outputs also as digests (two checkouts give the same
 bits when their digests agree) and K4's by device time.
 
 ``--only`` names the groups to time (K1, K1.other, K1-bwd, K2-bwd,
-K2-bwd.narrow, S1, S1-rows, FPS, K2, K3, K4, K4.other, K4-bwd, step; all by
-default), and the sweeps of those groups.
+K2-bwd.narrow, S1, S1-rows, FPS, K2, K3, K4, K4.other, K4-bwd, step,
+step.r101 (the R101-DCN 896x1600's train step on the per-layer route, as
+``step_profile``); all by default), and the sweeps of those groups.
 
 ``--sweep`` also times both of K2-bwd's paths, and both of K2's forward
 paths, at the candidate readout's shape over row widths C = 8 ... 192, in
@@ -692,8 +697,42 @@ def segment_stats(coords, valid, nx):
             "largest_voxel_points": int(counts.max())}
 
 
-def step_profile(route, steps=3):
-    """Device time of the flagship's train step on a loss route
+def splat_backward_record(key, splat, leaves, kernel=None, plain=None, seed=17):
+    """A splat's backward in this checkout: autograd through ``splat()``'s
+    volume read channels-first, as the occupancy encoder reads it
+    (``volume.permute(0, 4, 1, 2, 3)``), on a seeded gradient
+    (``backward_record``: S1-bwd / S1-rows-bwd where the checkout has them,
+    else the plain gathers), with a digest of the gradients; and, given
+    ``kernel`` and ``plain`` (functions of that gradient as rows), the kernel
+    alone and its plain version in turns (kernel, plain, plain, kernel) by
+    events."""
+    import torch
+
+    from occformer_tpu_torch.utils.timing import device_ms, time_cuda
+
+    leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+    vol = splat(*leaves).permute(0, 4, 1, 2, 3)
+    g = torch.randn(vol.shape, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed)).to(vol.dtype)
+
+    def call():
+        return torch.autograd.grad(vol, leaves, g, retain_graph=True)
+
+    rec = {f"{key}_grads_sha256": digest(*call())}
+    rec.update(backward_record(f"{key}_backward", call, device_ms))
+    if kernel is not None:
+        gout = g.permute(0, 2, 3, 4, 1).reshape(-1, g.shape[1])
+        ms = {"kernel": [], "plain": []}
+        for name in ("kernel", "plain", "plain", "kernel"):
+            ms[name].append(time_cuda(lambda: (kernel if name == "kernel" else plain)(gout)))
+        rec[f"{key}_backward_in_turns_ms"] = ms
+    del leaves, vol, g
+    return rec
+
+
+def step_profile(route, steps=3, config="occformer_nusc_r50_256x704.py", prefix=""):
+    """Device time of ``config``'s train step (the flagship's by default;
+    its keys start with ``prefix``) on a loss route
     (``mxu_readout`` "off": the per-layer route, "on": the batched one;
     float32 parameters, bf16 autocast, ``make_train_batch(cfg, seed=0)``,
     random weights), ``steps`` steps after two warm ones under the profiler:
@@ -718,7 +757,7 @@ def step_profile(route, steps=3):
     from occformer_tpu_torch.models.detector import build_model
 
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    cfg = load_config(os.path.join(root, "configs", "occformer_nusc_r50_256x704.py"))
+    cfg = load_config(os.path.join(root, "configs", config))
     m = cfg["model"]
     model = build_model(m, device="cuda", dtype=torch.float32, seed=0).train()
     loss_cfg = build_loss_cfg(dict(m["pts_bbox_head"], mxu_readout=route),
@@ -756,7 +795,7 @@ def step_profile(route, steps=3):
               "dcn_sampler": ("multilevel_", "K4Keys", "K4Geo", "grid_sampler_2d")}
     del model, opt, step, batch
     torch.cuda.empty_cache()
-    key = "step_batched" if route == "on" else "step_per_layer"
+    key = prefix + ("step_batched" if route == "on" else "step_per_layer")
     rec = {f"{key}_device_ms": sum(kernels.values()), f"{key}_peak_bytes": peak,
            f"{key}_s": step_s}
     for name, marks in groups.items():
@@ -892,7 +931,7 @@ def main(argv=None) -> int:
     p.add_argument("--only", default=None,
                    help="comma-separated groups to time (K1, K1.other, K1-bwd, K2-bwd, K2, "
                         "K3, K4, K4.other, K4-bwd, S1, S1-rows, FPS, K2-bwd.narrow, step, "
-                        "serve); all by default")
+                        "step.r101, serve); all by default")
     args = p.parse_args(argv)
     only = None if args.only is None else set(args.only.split(","))
 
@@ -1013,6 +1052,16 @@ def main(argv=None) -> int:
             call()
             rec[f"{key}_peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
         rec[f"{key}_segments"] = segment_stats(coords, valid, nx)
+        kernel = plain = None
+        if hasattr(scatter, "_launch_bwd"):  # a checkout with S1-bwd
+            def kernel(g):
+                return scatter._launch_bwd(depth, ctx, coords, valid, g, nx)
+
+            def plain(g):
+                return scatter.voxel_scatter_backward_plain(depth, ctx, coords, valid, g, nx)
+        rec.update(splat_backward_record(
+            key, lambda d, c: scatter.voxel_scatter_lifted(d, c, coords, valid, nx), (depth, ctx),
+            kernel, plain))
         del depth, ctx, coords, valid, vol
     if want("S1-rows"):
         from occformer_tpu_torch.ops import scatter
@@ -1037,6 +1086,16 @@ def main(argv=None) -> int:
                 call()
                 rec[f"{key}_peak_bytes_over_inputs"] = torch.cuda.max_memory_allocated() - base
             rec["S1-rows_segments"] = segment_stats(coords, valid, nx)
+            kernel = plain = None
+            if hasattr(scatter, "_launch_rows_bwd"):  # a checkout with S1-rows-bwd
+                def kernel(g):
+                    return scatter._launch_rows_bwd(g, coords, valid, nx)
+
+                def plain(g):
+                    return scatter.voxel_scatter_rows_backward_plain(g, coords, valid, nx)
+            rec.update(splat_backward_record(
+                key, lambda f: scatter.voxel_scatter(f, coords, valid, nx), (feats,), kernel,
+                plain, seed=7))
             del feats, coords, valid, vol
     if want("FPS"):
         from occformer_tpu_torch.ops import pointcloud as pc
@@ -1066,6 +1125,9 @@ def main(argv=None) -> int:
     if want("step"):
         rec.update(step_profile("on"))
         rec.update(step_profile("off"))
+    if want("step.r101"):
+        rec.update(step_profile("off", config="occformer_nusc_r101_896x1600.py",
+                                prefix="r101_"))
     if want("serve"):
         rec.update(serve_profile())
     if want("K2"):

@@ -7,7 +7,9 @@ DepthNet's and the R101-DCN backbone's deformable convolutions run them,
 and those modules on the card against themselves on the CPU), the convolutions and the attention whose
 backward the port sums in a fixed order, the probe's P1
 (``add_one``) and P2 (``row_gather``), the LSS splat S1
-(``voxel_scatter_lifted``), the all-layer batched loss on the card (K2,
+(``voxel_scatter_lifted``) and its backward S1-bwd, S1-rows
+(``voxel_scatter``) and its backward S1-rows-bwd (bit for bit the plain
+gather), the all-layer batched loss on the card (K2,
 K2-bwd, K3) against the same loss on the CPU, the panoptic shapes (K3 at
 panoptic ids over 100 slots, K2 and K2-bwd at a random fill of many slots,
 the 100-slot GT table, the panoptic loss on both routes against the CPU),
@@ -963,7 +965,8 @@ def _splat_inputs(dev, depth_dtype, ctx_dtype, B=1, N=3, D=20, fH=6, fW=9, C=40,
 def test_splat_matches_plain_and_repeats_itself(cuda, depth_dtype, ctx_dtype):
     """S1 (the LSS splat) against the plain version (atomic index_add_ on the
     card) and its autograd: the volume and the depth and context gradients;
-    two calls, forward and backward, bit-equal."""
+    two calls, forward and backward, bit-equal; the backward one launch of
+    S1-bwd."""
     from occformer_tpu_torch.ops import scatter
 
     depth, ctx, coords, valid, nx = _splat_inputs(cuda, depth_dtype, ctx_dtype)
@@ -972,14 +975,21 @@ def test_splat_matches_plain_and_repeats_itself(cuda, depth_dtype, ctx_dtype):
     runs = []
     for _ in range(2):
         d, c = (t.detach().clone().requires_grad_(True) for t in (depth, ctx))
-        before = scatter.LAUNCHES
+        before, before_bwd = scatter.LAUNCHES, scatter.BWD_LAUNCHES
         out = scatter.voxel_scatter_lifted(d, c, coords, valid, nx)
         (out.float() * probe).sum().backward()
         torch.cuda.synchronize()
         assert scatter.LAUNCHES == before + 1 and out.dtype == depth.dtype
+        assert scatter.BWD_LAUNCHES == before_bwd + 1  # the backward is S1-bwd
         runs.append((out, d.grad, c.grad))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
+    # the encoder reads the volume channels-first: at batch 1 its gradient
+    # reaches S1-bwd as a transposed view, with the same bits
+    d, c = (t.detach().clone().requires_grad_(True) for t in (depth, ctx))
+    out = scatter.voxel_scatter_lifted(d, c, coords, valid, nx).permute(0, 4, 1, 2, 3)
+    (out.contiguous().float() * probe.permute(0, 4, 1, 2, 3)).sum().backward()
+    assert torch.equal(d.grad, runs[0][1]) and torch.equal(c.grad, runs[0][2])
     d, c = (t.detach().float().requires_grad_(True) for t in (depth, ctx))
     ref = scatter.voxel_scatter_plain(d, c, scatter.voxel_rows(coords, valid, nx),
                                       int(np.prod(nx))).reshape(probe.shape)
@@ -988,6 +998,88 @@ def test_splat_matches_plain_and_repeats_itself(cuda, depth_dtype, ctx_dtype):
     _close(runs[0][0], ref, tol, "S1 volume")
     _close(runs[0][1], d.grad, 1e-4 if tol == 1e-5 else tol, "S1 d_depth")
     _close(runs[0][2], c.grad, 1e-4 if tol == 1e-5 else tol, "S1 d_ctx")
+
+
+def _misaligned(t):
+    """``t``'s values in a view one element past its allocation's start."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view_as(t)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("depth_dtype,ctx_dtype", [("float32", "float32"), ("float32", "bfloat16"),
+                                                   ("bfloat16", "float32"),
+                                                   ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("C", [128, 7, 130])
+def test_splat_bwd_matches_plain_and_repeats_itself(cuda, depth_dtype, ctx_dtype, C):
+    """S1-bwd (``_launch_bwd``) against its plain version on the card
+    (``voxel_scatter_backward_plain``): d_depth and d_ctx within float32
+    1e-5 / bf16 1e-2 of max |plain| (float32 sums in another order), over
+    two batch items with hot voxels, at a whole vector of channels (128), a
+    width that is not (7) and more than one pass (130); with a misaligned
+    ctx (narrower loads), with every point invalid (zeros) and with the
+    gradient as a transposed view (the kernel's own transpose: the same
+    bits); two calls bit-equal, one launch each."""
+    from occformer_tpu_torch.ops import scatter
+
+    depth, ctx, coords, valid, nx = _splat_inputs(cuda, depth_dtype, ctx_dtype, B=2, C=C,
+                                                  seed=C)
+    n_rows = 2 * int(np.prod(nx))
+    gen = torch.Generator(device=cuda).manual_seed(C)
+    gout = torch.randn((n_rows, C), device=cuda, generator=gen).to(depth.dtype)
+    tol = 1e-5 if depth_dtype == ctx_dtype == "float32" else 1e-2
+    for name, c, v in (("", ctx, valid), (" misaligned ctx", _misaligned(ctx), valid),
+                       (" all invalid", ctx, torch.zeros_like(valid))):
+        before = scatter.BWD_LAUNCHES
+        a = scatter._launch_bwd(depth, c, coords, v, gout, nx)
+        b = scatter._launch_bwd(depth, c, coords, v, gout, nx)
+        torch.cuda.synchronize()
+        assert scatter.BWD_LAUNCHES == before + 2
+        assert all(torch.equal(x, y) for x, y in zip(a, b)), f"S1-bwd{name}: two calls differ"
+        assert a[0].dtype == depth.dtype and a[1].dtype == ctx.dtype
+        ref = scatter.voxel_scatter_backward_plain(depth, c, coords, v, gout, nx)
+        if not v.any():
+            assert not a[0].any() and not a[1].any()
+            continue
+        _close(a[0], ref[0], tol, f"S1-bwd d_depth{name}")
+        _close(a[1], ref[1], tol, f"S1-bwd d_ctx{name}")
+        assert not a[0][~v].any()
+    gout_t = gout.t().contiguous().t()
+    assert gout_t.stride() == (1, n_rows)
+    before = scatter.BWD_LAUNCHES
+    a = scatter._launch_bwd(depth, ctx, coords, valid, gout, nx)
+    b = scatter._launch_bwd(depth, ctx, coords, valid, gout_t, nx)
+    torch.cuda.synchronize()
+    assert scatter.BWD_LAUNCHES == before + 2
+    assert all(torch.equal(x, y) for x, y in zip(a, b)), "S1-bwd: transposed gradient"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("C", [128, 7, 130])
+def test_splat_rows_bwd_equals_the_plain_gather(cuda, dtype, C):
+    """S1-rows-bwd (``_launch_rows_bwd``) bit for bit its plain version
+    (the padded gather) at a hot voxel, with a misaligned gradient (narrower
+    vectors), with the gradient as a transposed view (the kernel's own
+    transpose) and with every point invalid (zeros); two calls bit-equal,
+    one launch each."""
+    from occformer_tpu_torch.ops import scatter
+
+    feats, coords, valid, nx = _rows_inputs(cuda, dtype, C, seed=C)
+    n_rows = feats.shape[0] * int(np.prod(nx))
+    g = torch.randn((n_rows, C), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(C)).to(feats.dtype)
+    for name, gg, v in (("", g, valid), (" misaligned", _misaligned(g), valid),
+                        (" transposed", g.t().contiguous().t(), valid),
+                        (" all invalid", g, torch.zeros_like(valid))):
+        before = scatter.ROWS_BWD_LAUNCHES
+        a = scatter._launch_rows_bwd(gg, coords, v, nx)
+        b = scatter._launch_rows_bwd(gg, coords, v, nx)
+        torch.cuda.synchronize()
+        assert scatter.ROWS_BWD_LAUNCHES == before + 2
+        assert torch.equal(a, b), f"S1-rows-bwd{name}: two calls differ"
+        want = scatter.voxel_scatter_rows_backward_plain(gg, coords, v, nx)
+        assert a.dtype == want.dtype and torch.equal(a, want), f"S1-rows-bwd{name}"
 
 
 def _splat_in_stable_order(depth, ctx, coords, valid, nx):
@@ -1553,7 +1645,8 @@ def test_splat_rows_matches_plain_and_repeats_itself(cuda, dtype, C):
     version run on the CPU bit for bit (one index_add_ into float32 rows in
     point order: the kernel's order), is within tolerance of the plain
     version on the card (atomic), repeats itself over two calls, and its
-    backward is the plain gather d_feats[p] = g[row p] bit for bit."""
+    backward (one launch of S1-rows-bwd) is the plain gather d_feats[p] =
+    g[row p] bit for bit."""
     import torch.nn.functional as F
 
     from occformer_tpu_torch.ops import scatter
@@ -1566,11 +1659,12 @@ def test_splat_rows_matches_plain_and_repeats_itself(cuda, dtype, C):
     runs = []
     for _ in range(2):
         f = feats.detach().clone().requires_grad_(True)
-        before = scatter.ROWS_LAUNCHES
+        before, before_bwd = scatter.ROWS_LAUNCHES, scatter.ROWS_BWD_LAUNCHES
         out = scatter.voxel_scatter(f, coords, valid, nx)
         (d,) = torch.autograd.grad(out, f, g)
         torch.cuda.synchronize()
         assert scatter.ROWS_LAUNCHES == before + 1 and out.dtype == feats.dtype
+        assert scatter.ROWS_BWD_LAUNCHES == before_bwd + 1  # the backward is S1-rows-bwd
         runs.append((out, d))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
